@@ -13,7 +13,8 @@ setup(
                  "split annotations over a GSPMD mesh with pipeline, "
                  "tensor, expert and sequence parallelism"),
     packages=find_packages(exclude=("tests",)),
-    package_data={"easyparallellibrary_tpu": ["lib/*.so"]},
+    package_data={"easyparallellibrary_tpu": ["lib/*.so"],
+                  "easyparallellibrary_tpu_torch": ["kernels/csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     entry_points={

@@ -34,6 +34,9 @@ def pytest_configure(config):
       "markers", "quick: one exactness test per composition "
       "(DP/TP/PP/SP/MoE/ZeRO/overlap) — `pytest -m quick` re-runs the "
       "whole matrix in <5 min on one core")
+  config.addinivalue_line(
+      "markers", "gpu: needs an NVIDIA GPU; the test skips itself where "
+      "torch.cuda.is_available() is false")
 
 
 @pytest.fixture(autouse=True)
