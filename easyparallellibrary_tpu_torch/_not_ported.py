@@ -8,7 +8,6 @@ ROADMAP.md Queue 1 item that will bring it, in the style of
 
 from __future__ import annotations
 
-TRAINING = "Training step (slice 2)"
 CONTIGUOUS_ENGINE = "Contiguous slot engine"
 SPECULATIVE = "Speculative decoding"
 PREFIX_CACHE = "Prefix cache"
@@ -18,6 +17,7 @@ TENSOR_PARALLEL = "Tensor-parallel mesh"
 TRACING = "Tracing and metric registry"
 AMP = "amp.level O1"
 PARALLEL_STRATEGIES = "Pipeline, MoE and sequence parallelism"
+RUNTIME = "Runtime around the step"
 
 
 def not_ported(feature: str, item: str) -> NotImplementedError:

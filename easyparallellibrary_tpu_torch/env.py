@@ -1,10 +1,8 @@
 """Process-global environment singleton (port of ``easyparallellibrary_tpu/env.py``).
 
-Owns the active :class:`Config` and the metric-merge collections.  The
-JAX package's Env also carries the device mesh and the strategy context
-of ``replicate``/``split`` scopes; neither is part of the ported serving
-slice, so both stay ``None`` here (ROADMAP.md Queue 1, "Runtime and
-parallel strategies").
+Owns the active :class:`Config`, the :class:`Cluster` (``epl.init``), the
+strategy context recorded by ``replicate``/``split`` scopes, and the
+metric-merge collections.
 """
 
 from __future__ import annotations
@@ -21,10 +19,17 @@ class Env:
 
   def __init__(self):
     self.config: Config = Config()
-    self.cluster = None
-    self.strategy_context = None
+    self.cluster = None            # set by epl.init()
+    self.strategy_context = None   # set by init/reset
     self.collections: Dict[str, List[Any]] = {}
     self.parallel_information: Dict[str, Any] = {}
+    self._reset_strategy_context()
+
+  def _reset_strategy_context(self):
+    # Imported lazily to avoid an import cycle (strategies import Env).
+    from easyparallellibrary_tpu_torch.strategies.context import (
+        StrategyContext)
+    self.strategy_context = StrategyContext()
 
   @classmethod
   def get(cls) -> "Env":
@@ -38,6 +43,7 @@ class Env:
     self.cluster = None
     self.collections = {}
     self.parallel_information = {}
+    self._reset_strategy_context()
 
   def init(self, config: Optional[Config] = None):
     self.reset(config)

@@ -22,7 +22,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
-KERNELS = ("paged_attention",)
+KERNELS = ("paged_attention", "flash_attention")
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -69,29 +69,33 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-  """Compile every named kernel that is not built yet.  Returns each
-  compiled kernel's compiler report (``-Xptxas -v``: registers, shared
-  memory, spills)."""
-  reports = {}
-  for name in names:
-    out = library_path(name)
-    if out.exists():
-      continue
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  """Compile every named kernel that is not built yet, one ``nvcc`` per
+  source, all started together.  Returns each compiled kernel's compiler
+  report (``-Xptxas -v``: registers, shared memory, spills)."""
+  todo = [name for name in dict.fromkeys(names)
+          if not library_path(name).exists()]
+  if not todo:
+    return {}
+  nvcc = find_nvcc()
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  procs = {}
+  for name in todo:
     # Compile to a private name and rename, so that another process
     # never loads a half-written library.
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-         str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        check=False)
+    tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+    procs[name] = (tmp, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+  reports, failed = {}, []
+  for name, (tmp, proc) in procs.items():
+    out, _ = proc.communicate()
     if proc.returncode != 0:
-      raise KernelBuildError(f"kernel build failed: {name} (nvcc exit "
-                             f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    reports[name] = proc.stdout
+      failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+      continue
+    os.replace(tmp, library_path(name))
+    reports[name] = out
+  if failed:
+    raise KernelBuildError("kernel build failed: " + "\n".join(failed))
   return reports
 
 

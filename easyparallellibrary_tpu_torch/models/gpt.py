@@ -1,4 +1,4 @@
-"""GPT — the serving subset of the flagship decoder (port of
+"""GPT — the flagship decoder, for serving and training (port of
 ``easyparallellibrary_tpu/models/gpt.py``).
 
 Like the flax module, :class:`GPT` is the model's structure and the
@@ -14,28 +14,44 @@ Three position modes, as ``GPT.__call__`` in the JAX package: plain
 flat-token step through :class:`PagedInfo`).  Caches are updated in
 place, where the JAX package returns new (donated) arrays.
 
-bf16 compute over fp32 parameters by default.  Training, pipeline, MoE,
-tensor-parallel and the other attention implementations raise
-(ROADMAP.md Queue 1).
+Training: :func:`gpt_loss` (next-token cross-entropy, optionally the
+chunked tied head of :func:`_chunked_tied_ce`) differentiates through
+the same forward, with ``attn_impl="pallas_flash"`` routed to the flash
+attention kernels (``kernels/flash_attention.py``) and ``remat=True``
+checkpointing every block under ``remat_policy`` (:func:`_remat_context`).
+Training takes the fp32 parameters as they are: the Dense and Embedding
+layers cast them to the compute dtype in the forward, so the gradients
+reach the fp32 parameters.
+
+bf16 compute over fp32 parameters by default.  Dropout in training mode,
+pipeline, MoE, tensor-parallel and the ring/Ulysses attention
+implementations raise (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from easyparallellibrary_tpu_torch import constants
 from easyparallellibrary_tpu_torch._not_ported import (
-    AMP, CONTIGUOUS_ENGINE, PARALLEL_STRATEGIES, TENSOR_PARALLEL, TRAINING,
+    AMP, CONTIGUOUS_ENGINE, PARALLEL_STRATEGIES, RUNTIME, TENSOR_PARALLEL,
     not_ported)
+from easyparallellibrary_tpu_torch.kernels.flash_attention import (
+    FLASH_FWD_OP, flash_attention)
 from easyparallellibrary_tpu_torch.kernels.paged_attention import (
     paged_attention)
 from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding, LayerNorm
+from easyparallellibrary_tpu_torch.ops.losses import (
+    distributed_sparse_softmax_cross_entropy_with_logits)
 from easyparallellibrary_tpu_torch.utils import prng
 
 
@@ -76,12 +92,9 @@ class GPTConfig:
   def __post_init__(self):
     if self.tensor_parallel:
       raise not_ported("GPTConfig(tensor_parallel=True)", TENSOR_PARALLEL)
-    if self.remat:
-      raise not_ported("GPTConfig(remat=True)", TRAINING)
-    if self.attn_impl != "xla":
+    if self.attn_impl in ("ring", "ulysses"):
       raise not_ported(f"GPTConfig(attn_impl={self.attn_impl!r})",
-                       TRAINING if self.attn_impl == "pallas_flash"
-                       else PARALLEL_STRATEGIES)
+                       PARALLEL_STRATEGIES)
     if self.pipeline_stages > 1:
       raise not_ported("GPTConfig(pipeline_stages > 1)", PARALLEL_STRATEGIES)
     if self.num_experts > 0:
@@ -228,8 +241,16 @@ class CausalSelfAttention(nn.Module):
       out = out[:, None]
     elif decode:
       out = self._decode_attend(q, k, v, cache)
-    else:
+    elif cfg.attn_impl == "pallas_flash":
+      out = flash_attention(q, k, v, causal=True)
+    elif cfg.attn_impl == "xla":
       out = _dense_causal_attention(q, k, v, cfg.dtype)
+    else:
+      # A typo'd impl silently falling back to dense attention would
+      # mislabel any benchmark run on top of it.
+      raise ValueError(
+          f"attn_impl must be 'xla', 'pallas_flash', 'ring' or "
+          f"'ulysses'; got {cfg.attn_impl!r}")
     return self.proj(out.reshape(B, S, D))
 
   def _decode_attend(self, q, k, v, cache):
@@ -286,6 +307,60 @@ class Block(nn.Module):
     return x + self.mlp(self.ln2(x))
 
 
+# Matrix products as the dispatcher sees them below autograd: F.linear,
+# matmul and einsum all reach these.  The counterpart of XLA's dots for
+# jax.checkpoint_policies.checkpoint_dots.
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+})
+
+
+def _save_ops_policy(saved):
+  def policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+  return policy
+
+
+def _remat_context(name: str):
+  """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat policy
+  name, or None to save nothing but the block input:
+
+  * ``"dots"`` saves every matrix-product output (recomputing only the
+    elementwise work); the flash forward then re-runs in the backward;
+  * ``"dots_flash"`` also saves the flash op's ``(out, lse)``, so the
+    backward never re-runs the flash forward kernel (the JAX policy saves
+    the ``flash_out`` / ``flash_lse`` names);
+  * ``"nothing"``, ``"everything"`` (and any other name, as in the JAX
+    ``_remat_policy``) recompute the whole block.
+  """
+  if name == "dots":
+    saved = _DOT_OPS
+  elif name == "dots_flash":
+    saved = _DOT_OPS | {FLASH_FWD_OP}
+  else:
+    return None
+  return functools.partial(create_selective_checkpoint_contexts,
+                           _save_ops_policy(saved))
+
+
+def _remat_block(block: nn.Module, x, policy: str):
+  """``block(x)`` under ``torch.utils.checkpoint``.  The block's
+  parameters are bound explicitly, since the recompute runs in the
+  backward, after the caller's ``functional_call`` has unbound them."""
+  params = dict(block.named_parameters())
+
+  def run(h):
+    return torch.func.functional_call(block, params, (h,))
+
+  context = _remat_context(policy)
+  if context is None:
+    return checkpoint(run, x, use_reentrant=False)
+  return checkpoint(run, x, use_reentrant=False, context_fn=context)
+
+
 class GPT(nn.Module):
   """Decoder-only LM.  ``forward(ids) -> logits``; parameter names follow
   the flax tree (``block_0.attn.qkv.weight``, ``wte.weight``, ``wpe``)."""
@@ -315,7 +390,7 @@ class GPT(nn.Module):
     if Env.get().config.amp.level == constants.AMP_O1:
       raise not_ported("amp.level='O1'", AMP)
     if not deterministic and cfg.dropout_rate > 0:
-      raise not_ported("dropout in training mode", TRAINING)
+      raise not_ported("dropout in training mode", RUNTIME)
     if (slot_cursors is not None or paged_info is not None) and not decode:
       raise ValueError("slot_cursors/paged_info are decode-mode arguments "
                        "(serving engine); pass decode=True")
@@ -342,18 +417,84 @@ class GPT(nn.Module):
     else:
       pos = self.wpe[:S][None]
     x = self.wte(ids).to(dtype) + pos.to(dtype)
+    remat = cfg.remat and not decode and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
+      block = getattr(self, f"block_{i}")
+      if remat:
+        x = _remat_block(block, x, cfg.remat_policy)
+        continue
       layer_cache = None
       if cache is not None:
         layer_cache = cache.setdefault(f"block_{i}", {}).setdefault(
             "attn", {})
-      x = getattr(self, f"block_{i}")(x, paged_info, layer_cache, decode)
+      x = block(x, paged_info, layer_cache, decode)
     x = self.ln_f(x)
     if return_hidden:
       return x
     if cfg.tie_embeddings:
       return self.wte.attend(x)
     return self.lm_head(x)
+
+
+def _chunked_tied_ce(model: GPT, params, hidden, targets):
+  """Tied-head cross-entropy over sequence chunks of ``cfg.loss_chunk``
+  tokens, each under a checkpoint that saves only its inputs: one
+  ``[B, chunk, vocab]`` logits block is live at a time, forward and
+  backward (the chunk's logit product is recomputed in the backward).
+  Returns the mean over ``B * S`` tokens."""
+  cfg = model.cfg
+  C = cfg.loss_chunk
+  B, S = targets.shape
+  if S % C != 0:
+    raise ValueError(f"loss_chunk={C} must divide sequence length {S}")
+  wte = params["wte.weight"]
+
+  def chunk_loss(h, t, table):
+    logits = torch.matmul(h, table.to(h.dtype).t())
+    return distributed_sparse_softmax_cross_entropy_with_logits(
+        t, logits, z_loss=cfg.z_loss).sum()
+
+  total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+  for i in range(S // C):
+    chunk = slice(i * C, (i + 1) * C)
+    total = total + checkpoint(chunk_loss, hidden[:, chunk],
+                               targets[:, chunk], wte, use_reentrant=False)
+  return total / (B * S)
+
+
+def gpt_loss(model: GPT, params, batch, rng=None):
+  """Next-token cross entropy; ``batch = {"ids": [B, S+1] int}``.
+  Returns ``(loss, metrics)``.  With ``cfg.loss_chunk > 0`` (tied
+  embeddings, no pipeline) the LM head and CE run chunked over the
+  sequence (:func:`_chunked_tied_ce`)."""
+  cfg = model.cfg
+  ids = batch["ids"].long()
+  inputs, targets = ids[:, :-1], ids[:, 1:]
+  train = cfg.dropout_rate > 0 and rng is not None
+  chunked = cfg.loss_chunk > 0
+  if chunked and (not cfg.tie_embeddings or cfg.pipeline_stages > 1):
+    raise ValueError(
+        "loss_chunk requires tie_embeddings=True and pipeline_stages<=1 "
+        f"(got tie_embeddings={cfg.tie_embeddings}, "
+        f"pipeline_stages={cfg.pipeline_stages})")
+  out = torch.func.functional_call(
+      model, params, (inputs,),
+      {"deterministic": not train, "return_hidden": chunked}, strict=True)
+  if chunked:
+    return _chunked_tied_ce(model, params, out, targets), {}
+  loss = distributed_sparse_softmax_cross_entropy_with_logits(
+      targets, out, z_loss=cfg.z_loss)
+  return loss.mean(), {}
+
+
+def gpt_flops_per_token(cfg: GPTConfig, seq_len: Optional[int] = None
+                        ) -> float:
+  """Training FLOPs/token (fwd+bwd ≈ 3x fwd): 6*N_dense + attention."""
+  S = seq_len or cfg.max_seq_len
+  D, F, L, V = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.vocab_size
+  n_matmul = L * (4 * D * D + 2 * D * F) + D * V   # qkv+proj, mlp, head
+  attn = L * 2 * D * S                              # qk^T and attn*v
+  return 6.0 * n_matmul + 6.0 * attn
 
 
 def sample_logits(logits, key, temperature: float = 1.0, top_k: int = 0,
