@@ -27,13 +27,14 @@ version:
    kernel);
 7. the three flash-attention kernels (forward, dK/dV, dQ) against their
    plain versions, fp32 and bf16, causal and not, at the training shape
-   (batch cut to 2) and the JAX tests' shapes (bf16 by normalized error);
-   the bf16 limits against plain versions with one fault each; and
-   ``flash_attention_lse`` with an lse cotangent through autograd against
-   plain autograd;
+   (batch cut to 2), the JAX tests' shapes, a ragged length across heads
+   and head dim 128 (bf16 by normalized error); the bf16 limits against
+   plain versions with one fault each; and ``flash_attention_lse`` with
+   an lse cotangent through autograd against plain autograd;
 8. flash kernel, plain version and library-yardstick times at the
-   training shape (B=16, H=16, S=1024, D=64, causal, bf16), and each
-   kernel's bound;
+   training shape (B=16, H=16, S=1024, D=64, causal, bf16; SDPA's
+   forward, and its backward alone for the backward kernels), each
+   kernel's bound, and each wrapper's host time per call;
 9. GPT-350M widths at 4 layers in fp32: 3 AdamW steps with the flash
    kernels against 3 with dense attention, losses and launch counts;
 10. GPT-350M bf16 training through ``easyparallellibrary_tpu_torch.bench``
@@ -87,9 +88,14 @@ FLASH_TOLERANCE = dict(fwd=(2e-5, 2e-6), grad=(5e-4, 1e-5))
 # flash_check_sensitivity shows the faults they catch.
 FLASH_BF16_LIMIT = {"fwd": dict(rel_l2=5e-3, max_rel=1e-2),
                     "grad": dict(rel_l2=5e-4, max_rel=1e-2)}
+# The training shape (batch cut to 2), the JAX tests' shapes, a ragged
+# length whose last tile of each head runs past S (B*H > 1), and the
+# wgmma kernels' second head dim.
 FLASH_SHAPES = [("training_b2", dict(B=2, H=16, S=1024, D=64)),
                 ("jax_qkv", dict(B=2, H=2, S=128, D=32)),
-                ("jax_multiblock", dict(B=2, H=2, S=256, D=32))]
+                ("jax_multiblock", dict(B=2, H=2, S=256, D=32)),
+                ("ragged_s200", dict(B=2, H=3, S=200, D=64)),
+                ("d128", dict(B=2, H=4, S=384, D=128))]
 FLASH_BENCH_SHAPE = dict(B=16, H=16, S=1024, D=64)
 TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH, TRAIN_FP32_STEPS = 4, 4, 3
 TRAIN_PROFILE_STEPS = 2
@@ -675,27 +681,46 @@ def flash_bounds(B, H, S, D, itemsize):
   return out
 
 
+def host_us(torch, fn, args, calls=200):
+  """Host time of one call, in microseconds: ``calls`` calls enqueued
+  back to back (the device runs behind, so the host never waits on
+  it), then one synchronize outside the window."""
+  fn(*args)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(calls):
+    fn(*args)
+  elapsed = time.perf_counter() - t0
+  torch.cuda.synchronize()
+  return elapsed / calls * 1e6
+
+
 def flash_timing(torch, fa):
   """Kernel, plain-version and library times at the training shape, bf16
-  causal.  The library yardstick (never called by the port) is
-  ``scaled_dot_product_attention(is_causal=True)``: its forward for the
-  forward kernel, its forward + backward for each backward kernel."""
+  causal.  The library yardsticks (never called by the port) are
+  ``scaled_dot_product_attention(is_causal=True)``'s forward for the
+  forward kernel and its backward alone for each backward kernel: one
+  ``autograd.grad`` with ``retain_graph=True`` on a graph built once, so
+  the forward stays outside the timed window.  Also each wrapper's host
+  time per call: the forward and dK/dV wrappers encode 3 and 4 TMA
+  tensor maps per call, dQ none."""
   sdpa = torch.nn.functional.scaled_dot_product_attention
   shape = FLASH_BENCH_SHAPE
-  sets = []
+  sets, graphs = [], []
   for i in range(2):                  # two copies: each call finds L2 cold
     q, k, v, dout = flash_case(torch, torch.bfloat16, 200 + i, **shape)
     out, lse = fa.flash_fwd_cuda(q, k, v, True)
     delta = (dout.float() * out.float()).sum(-1)
     sets.append((q, k, v, dout, lse, delta))
-
-  def sdpa_fwd_bwd(q, k, v, dout):
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    return torch.autograd.grad(sdpa(*leaves, is_causal=True), leaves, dout)
+    graphs.append((sdpa(*leaves, is_causal=True), leaves, dout))
+
+  def sdpa_bwd(out, leaves, dout):
+    return torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
   fwd_args = [(q, k, v, True) for q, k, v, *_ in sets]
   bwd_args = [(*a, True) for a in sets]
-  library_bwd = time_ms(torch, sdpa_fwd_bwd, [a[:4] for a in sets], reps=5)
+  library_bwd = time_ms(torch, sdpa_bwd, graphs, reps=5)
   bounds = flash_bounds(itemsize=2, **shape)
   rows = {
       "fwd": dict(kernel_ms=time_ms(torch, fa.flash_fwd_cuda, fwd_args),
@@ -713,11 +738,21 @@ def flash_timing(torch, fa):
                                   reps=3),
                  library_ms=library_bwd),
   }
+  wrappers = {"fwd": (fa.flash_fwd_cuda, fwd_args[0]),
+              "dkv": (fa.flash_bwd_dkv_cuda, bwd_args[0]),
+              "dq": (fa.flash_bwd_dq_cuda, bwd_args[0])}
   for name, row in rows.items():
     row["bound_ms"], row["bound_by"] = bounds[name]
+    row["host_us"] = host_us(torch, *wrappers[name])
     log(f"   {name:4s} B=16 H=16 S=1024 D=64 bf16 causal: "
         + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in row.items()))
+  pair = rows["dkv"]["kernel_ms"] + rows["dq"]["kernel_ms"]
+  log(f"   backward pair dK/dV + dQ {pair:.4f} ms against SDPA's backward "
+      f"alone {library_bwd:.4f} ms ({pair / library_bwd:.2f}x); forward "
+      f"{rows['fwd']['kernel_ms']:.4f} ms against SDPA's forward "
+      f"{rows['fwd']['library_ms']:.4f} ms "
+      f"({rows['fwd']['kernel_ms'] / rows['fwd']['library_ms']:.2f}x)")
   return rows
 
 
@@ -818,8 +853,8 @@ def train_step_breakdown(torch, bench, batch_size):
     kernels[e.name] = (calls + 1, us + end - start)
   busy_us = _busy_us(intervals)
   device_us = sum(us for _, us in kernels.values())
-  # Both builds of each kernel: the CUDA-core one (fp32, odd head dims)
-  # and the tensor-core one (bf16 at D = 32, 64, 128).
+  # Every build of each kernel: flash_fwd_wgmma / flash_bwd_dkv_wgmma
+  # and flash_bwd_dq_tc (bf16) as well as the CUDA-core flash_*_kernel.
   flash = {tag: sum(us for name, (_, us) in kernels.items() if tag in name)
            for tag in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
   assert all(us > 0 for us in flash.values()), flash
@@ -843,7 +878,7 @@ def kernel_record(torch_name, source, replaces, launches, err, row, rel,
           "replaces": replaces, "launches": launches, "max_abs_err": err,
           "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-          "library_ms": row["library_ms"],
+          "library_ms": row["library_ms"], "host_us": row["host_us"],
           "bf16_rel_l2_err": rel[0], "bf16_max_rel_err": rel[1],
           "bf16_rel_l2_limit": limit["rel_l2"],
           "bf16_max_rel_limit": limit["max_rel"]}

@@ -4,8 +4,12 @@ Each kernel source ``csrc/<name>.cu`` exposes a plain ``extern "C"``
 interface and is compiled by ``nvcc`` into its own shared library, which
 is loaded with ctypes.  Nothing is built at import time: a kernel is
 built at its first use (or by :func:`build`), into ``BUILD_DIR``, under
-a file name keyed by a hash of its source and the compiler flags, so an
-edited source never loads a stale library.
+a file name keyed by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header
+never loads a stale library.  The tensor-map encoder that TMA needs
+(``cuTensorMapEncodeTiled``, in libcuda) is looked up at run time
+through the CUDA runtime, so the libraries link nothing beyond what
+``nvcc -shared`` links.
 
 There is no fallback: a missing ``nvcc``, a failed compile or a failed
 load raises.
@@ -61,11 +65,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-  """Where kernel ``name``'s library is built (source + flags hash)."""
-  src = CSRC_DIR / f"{name}.cu"
-  digest = hashlib.sha256(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  return BUILD_DIR / f"lib{name}-{digest}.so"
+  """Where kernel ``name``'s library is built: keyed by a hash of its
+  source, every header under ``csrc/`` (a source may include any of
+  them) and the compiler flags."""
+  digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+  for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+    digest.update(path.name.encode() + b"\0" + path.read_bytes())
+  return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a), fp32 and bf16: forward, dK/dV and
-// dQ, three kernels.
+// dQ.
 //
 // Replaces the six Pallas TPU kernel bodies of
 // easyparallellibrary_tpu/kernels/flash_attention.py:
@@ -12,8 +12,13 @@
 //               `_bwd_dq_kernel_stream` (:404), launched by
 //               `_bwd_kernels`.
 // The resident/streaming pairs exist only for the TPU's ~16 MB VMEM
-// budget; here one tiled kernel covers every length.  Same functions as
-// the Pallas kernels, on [B*H, S, D] row-major tensors:
+// budget; here one tiled kernel covers every length.  Which build runs:
+//   bf16, D in {64, 128}: forward and dK/dV on wgmma with TMA-fed,
+//     double-buffered tiles (namespace wg below);
+//   bf16, D in {32, 64, 128}: dQ on warp-level mma.sync (namespace tc);
+//   everything else (fp32 at every D; bf16 forward and dK/dV at D = 32,
+//     and all three at other D): IEEE fp32 FMAs on the CUDA cores.
+// Same functions as the Pallas kernels, on [B*H, S, D] row-major tensors:
 //   scores s = (q . k) accumulated in fp32, times scale = 1/sqrt(D) as an
 //   fp32 constant; causal entries (k_pos > q_pos) are -1e30, as the
 //   Pallas kernels' NEG_INF; key rows past Skv do not exist.
@@ -28,30 +33,46 @@
 //   once.  dQ is its own kernel (no atomics), so gradients are
 //   deterministic from run to run.
 //
-// What bounds it on this card: operations.  At the training shape
-// (S = 1024, D = 64) a Q tile does 64 multiply-adds per byte it reads,
-// far above the H100's ~295 bf16 tensor-core operations per byte of
-// device memory, so the design spends its effort on the products:
-//   * bf16 at D in {32, 64, 128} (the training path) runs on the tensor
-//     cores: warp-level mma.sync m16n8k16, 4 warps a CTA, each warp 16
-//     rows of a 64-row tile; scores, probabilities and gradients stay in
-//     registers, re-packed as the next product's operand (namespace tc
-//     below);
-//   * fp32, and bf16 at other head dims, run on the CUDA cores as IEEE
-//     fp32 FMAs (no TF32): 256 threads a CTA, tiles converted to fp32 in
-//     shared memory at row stride D + 1 (odd: column walks are free of
-//     bank conflicts), each thread a 4 x 4 register micro-tile of the
-//     64 x 64 score tile, so each shared-memory value feeds 4 FMAs;
-//   * one CTA per (b * h, 64-row tile); causal tiles past the diagonal are
-//     skipped, and the forward and dQ grids run their Q tiles from the
-//     last (the longest) to the first so that the heaviest CTAs start
-//     first.
-// Not yet: wgmma, TMA, pipelined (double-buffered) loads, and a
-// persistent schedule; the mma.sync path reaches only part of the bf16
-// peak that the bound uses.
+// What bounds it on this card, at the training shape (B = 16, H = 16,
+// S = 1024, D = 64, causal, bf16; H100 SXM, 3.35 TB/s, 989 TFLOP/s):
+//   forward: bytes, 0.0404 ms (q, k, v, o and lse once: 135 MB) against
+//     0.0347 ms of operations (34.4 GFLOP);
+//   dK/dV: operations, 0.0695 ms (68.7 GFLOP) against 0.0202 ms of bytes;
+//   dQ: operations, 0.0521 ms.
+// So the design keeps every operand on chip once loaded and spends its
+// effort on feeding the tensor cores:
+//   * wg (forward, dK/dV): a CTA is two consumer warpgroups and one
+//     producer warp.  The producer's TMA loads stream the K/V (forward)
+//     or Q/dO (dK/dV) tiles through a two-stage ring of 128-byte-swizzled
+//     shared memory, with mbarriers for "full" (TMA bytes landed) and
+//     "empty" (both consumers done), so the next tile's copy overlaps the
+//     current tile's products.  Products are warpgroup wgmma: scores from
+//     two shared-memory operands, then P.V (forward) or P^T.dO and
+//     dS^T.Q (dK/dV) with P / dS packed to bf16 in registers as the A
+//     operand, which is where the Pallas kernels' roundings of p and dS
+//     happen.  The softmax runs on the accumulator fragments in
+//     registers, in base 2 with log2(e) folded into the score scale;
+//     only tiles that cross the causal diagonal or the key count are
+//     masked, and tiles past the diagonal are skipped.
+//   * tc (dQ): warp-level mma.sync m16n8k16, 4 warps a CTA, each warp 16
+//     rows of a 64-row tile, plain 16-byte loads into padded shared
+//     memory, no pipelining.
+//   * fp32, and bf16 at the head dims above not taken, run on the CUDA
+//     cores as IEEE fp32 FMAs (no TF32): 256 threads a CTA, tiles
+//     converted to fp32 in shared memory at row stride D + 1 (odd: column
+//     walks are free of bank conflicts), each thread a 4 x 4 register
+//     micro-tile of the 64 x 64 score tile.
+//   * The forward and dQ grids run their Q tiles from the last (the
+//     longest, under causal masking) to the first, and dK/dV its KV tiles
+//     from the first, so that the heaviest CTAs start first.  They do so
+//     within each head (the Q or KV block is the grid's fastest index):
+//     a head's CTAs then run side by side and share its K/V (forward) or
+//     Q/dO (dK/dV) in L2, which measured faster than ordering the blocks
+//     longest first across all heads.
 //
 // Interface: plain C, pointers and sizes, launched on the caller's
-// stream; each entry returns the cudaError_t of its launch.
+// stream; each entry returns the cudaError_t of its launch (or
+// kTensorMapError when cuTensorMapEncodeTiled refuses a TMA tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +80,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -557,18 +580,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------- tensor-core path (bf16) --
-// The same three functions for bf16 at D in {32, 64, 128}, with the
-// products on the tensor cores: warp-level mma.sync m16n8k16 (bf16
-// operands, fp32 accumulation, the Pallas kernels' contract).  A CTA is
-// 4 warps; each warp owns 16 rows of the CTA's 64-row tile, so no
-// reduction crosses warps.  Tiles stay bf16 in shared memory (row stride
-// D + 8, which makes the fragment loads free of bank conflicts); a
-// product's accumulator fragment is re-packed in registers as the next
-// product's A operand (the FlashAttention-2 layout trick), which is where
-// p and dS are rounded to bf16, as the Pallas kernels round them; B
-// operands that need the transpose of a row-major tile come from
-// `ldmatrix .trans`.
+// Two floats rounded to bf16 and packed as one 32-bit operand register
+// (lo in the low half): a tensor-core A fragment entry.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------ mma.sync dQ (bf16, tc::) --
+// dQ for bf16 at D in {32, 64, 128}, with the products on the tensor
+// cores: warp-level mma.sync m16n8k16 (bf16 operands, fp32 accumulation,
+// the Pallas kernels' contract).  A CTA is 4 warps; each warp owns 16
+// rows of the CTA's 64-row tile, so no reduction crosses warps.  Tiles
+// stay bf16 in shared memory (row stride D + 8, which makes the fragment
+// loads free of bank conflicts); the dS accumulator fragment is re-packed
+// in registers as the next product's A operand (the FlashAttention-2
+// layout trick), which is where dS is rounded to bf16, as the Pallas
+// kernel rounds it; the B operand that needs the transpose of a row-major
+// tile comes from `ldmatrix .trans`.
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -584,11 +613,6 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -656,258 +680,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*c)[4],
   a[1] = pack(c[2 * kk][2], c[2 * kk][3]);
   a[2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
   a[3] = pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Reductions over the 4 lanes that share a row of a fragment.
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFullMask, x, 1);
-  return x + __shfl_xor_sync(kFullMask, x, 2);
-}
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int S, int Skv, int causal,
-                    float scale) {
-  constexpr int ld = D + kPad;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sK = sQ + kTile * ld;
-  bf16* sV = sK + kTile * ld;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest first
-  const int r0 = 16 * w;  // this warp's rows of the tile
-  const bf16* kb = k + bh * Skv * D;
-  const bf16* vb = v + bh * Skv * D;
-  load_tile<D>(sQ, q + (bh * S + q0) * D, min(kTile, S - q0));
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-  }
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
-  const int n_tiles = live_kv_tiles(min(q0 + kTile, S), Skv, causal != 0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kTile;
-    __syncthreads();  // the previous tile's sK, sV are consumed
-    load_tile<D>(sK, kb + static_cast<size_t>(k0) * D, min(kTile, Skv - k0));
-    load_tile<D>(sV, vb + static_cast<size_t>(k0) * D, min(kTile, Skv - k0));
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, sQ, ld, r0, 16 * kk, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b[2];
-        load_b(b, sK, ld, 8 * n, 16 * kk, g, t);
-        mma(s[n], a, b);
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[n][j] = masked_score(s[n][j], rows[j >> 1], k0 + 8 * n + 2 * t +
-                               (j & 1), Skv, causal != 0, scale);
-        mx[j >> 1] = fmaxf(mx[j >> 1], s[n][j]);
-      }
-    }
-    float corr[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mx[h]));
-      corr[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[n][j] = expf(s[n][j] - m[j >> 1]);
-        psum[j >> 1] += s[n][j];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + quad_sum(psum[h]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[n][j] *= corr[j >> 1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);  // p rounded to V's type
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b[2];
-        load_b_trans(b, sV, ld, 16 * kk, 8 * n, lane);
-        mma(acc[n], a, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = rows[h];
-    if (row >= S) continue;
-    const float l_safe = fmaxf(l[h], 1e-30f);
-    bf16* orow = o + (bh * S + row) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
-          pack(acc[n][2 * h] / l_safe, acc[n][2 * h + 1] / l_safe);
-    }
-    if (t == 0) lse[bh * S + row] = m[h] + logf(l_safe);
-  }
-}
-
-// dK/dV: a CTA per 64 keys (warp w owns keys 16 w ..), looping over the
-// Q tiles from the diagonal on.  Per tile the warp forms S^T = K Q^T and
-// dP^T = V dO^T (16 keys x 64 queries), then dV += P^T dO and
-// dK += dS^T Q.
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                        int Skv, int causal, float scale) {
-  constexpr int ld = D + kPad;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* sK = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sV = sK + kTile * ld;
-  bf16* sQ = sV + kTile * ld;
-  bf16* sO = sQ + kTile * ld;  // dO
-  float* sL = reinterpret_cast<float*>(sO + kTile * ld);
-  float* sD = sL + kTile;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int r0 = 16 * w;
-  const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  const bf16* qb = q + bh * S * D;
-  const bf16* ob = dout + bh * S * D;
-  load_tile<D>(sK, k + (bh * Skv + k0) * D, min(kTile, Skv - k0));
-  load_tile<D>(sV, v + (bh * Skv + k0) * D, min(kTile, Skv - k0));
-
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc_k[n][j] = 0.f;
-      acc_v[n][j] = 0.f;
-    }
-  }
-
-  for (int q0 = causal ? k0 : 0; q0 < S; q0 += kTile) {
-    const int valid = min(kTile, S - q0);
-    __syncthreads();
-    load_tile<D>(sQ, qb + static_cast<size_t>(q0) * D, valid);
-    load_tile<D>(sO, ob + static_cast<size_t>(q0) * D, valid);
-    if (threadIdx.x < kTile) {
-      const int r = threadIdx.x;
-      sL[r] = r < valid ? lse[bh * S + q0 + r] : 0.f;
-      sD[r] = r < valid ? delta[bh * S + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    float st[8][4], dpt[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        st[n][j] = 0.f;
-        dpt[n][j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a(ak, sK, ld, r0, 16 * kk, g, t);
-      load_a(av, sV, ld, r0, 16 * kk, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b[2];
-        load_b(b, sQ, ld, 8 * n, 16 * kk, g, t);
-        mma(st[n], ak, b);
-        load_b(b, sO, ld, 8 * n, 16 * kk, g, t);
-        mma(dpt[n], av, b);
-      }
-    }
-    // st becomes P^T, dpt becomes dS^T (fp32).
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 8 * n + 2 * t + (j & 1);  // query within the tile
-        const float x = masked_score(st[n][j], q0 + c, keys[j >> 1], Skv,
-                                     causal != 0, scale);
-        const float p = c < valid ? expf(x - sL[c]) : 0.f;
-        st[n][j] = p;
-        dpt[n][j] = p * (dpt[n][j] - sD[c]);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t ap[4], as[4];
-      acc_to_a(ap, st, kk);   // p rounded to dO's type
-      acc_to_a(as, dpt, kk);  // dS rounded to Q's type
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b[2];
-        load_b_trans(b, sO, ld, 16 * kk, 8 * n, lane);
-        mma(acc_v[n], ap, b);
-        load_b_trans(b, sQ, ld, 16 * kk, 8 * n, lane);
-        mma(acc_k[n], as, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (keys[h] >= Skv) continue;
-    bf16* krow = dk + (bh * Skv + keys[h]) * D;
-    bf16* vrow = dv + (bh * Skv + keys[h]) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(krow + 8 * n + 2 * t) =
-          pack(acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vrow + 8 * n + 2 * t) =
-          pack(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
-    }
-  }
 }
 
 // dQ: a CTA per 64 queries (warp w owns rows 16 w ..), looping over the
@@ -1022,8 +794,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
   }
 }
 
-// Calls f(D) with D as a compile-time constant when the tensor-core
-// kernels take this head dim; returns false (f not called) otherwise.
+// Calls f(D) with D as a compile-time constant when the mma.sync dQ
+// kernel takes this head dim; returns false (f not called) otherwise.
 template <typename F>
 bool with_head_dim(int D, F f) {
   using std::integral_constant;
@@ -1038,6 +810,470 @@ bool with_head_dim(int D, F f) {
 constexpr size_t tile_bytes(int D) { return sizeof(bf16) * kTile * (D + kPad); }
 
 }  // namespace tc
+
+// --------------------------------- wgmma forward and dK/dV (bf16, wg::) --
+// The forward and dK/dV for bf16 at D in {64, 128}.  A CTA is two
+// consumer warpgroups (threads 0-255), each owning 64 rows of the CTA's
+// 128-row block (query rows in the forward, key rows in dK/dV), and one
+// producer warp (threads 256-287) whose lane 0 issues the TMA loads.
+// Shared-memory tiles are in the B128 layout of hopper.cuh.
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int kRows = 64;  // a consumer warpgroup's rows: wgmma's M
+constexpr int kConsumers = 2;
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
+constexpr int kStages = 2;                       // depth of the TMA ring
+constexpr int kFwdQ = kRows * kConsumers;        // query rows a forward CTA
+constexpr int kFwdK = 64;                        // keys a forward KV tile
+constexpr int kBwdK = kRows * kConsumers;        // keys a dK/dV CTA
+constexpr int kBwdQ = 64;                        // query rows a dK/dV Q tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Bytes of a [rows, D] bf16 tile.
+__host__ __device__ constexpr uint32_t tile_bytes(int rows, int D) {
+  return rows * D * 2;
+}
+
+// The dynamic shared memory from its first 1024-byte boundary, the
+// alignment of the swizzle pattern (launches allocate 1024 bytes extra).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// Reductions over the 4 lanes that share a row of a fragment.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFullMask, x, 1);
+  return x + __shfl_xor_sync(kFullMask, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+}
+
+// 2^x on the special-function unit, one instruction (exp2f adds a
+// denormal path).  Flushing a p below 2^-126 to 0 moves the row's sum,
+// which is at least 1, by less than 2^-126.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's step of the online softmax, on 64 rows x N keys of scores
+// in the wgmma fragment layout (masked entries already -1e30 or -inf).
+// m holds each row's running max of score * scale_log2, l this thread's
+// part of the row's denominator.  sc becomes p = 2^(s * scale_log2 - m),
+// one FFMA and one exp2 each; corr is the factor for what was summed
+// before.
+template <int K>
+__device__ __forceinline__ void online_softmax(float (&sc)[K], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < K; ++i) mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], sc[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], quad_max(mx[h]) * scale_log2);
+    corr[h] = exp2_ftz(m[h] - m_new);
+    m[h] = m_new;
+  }
+  // Four partial sums per row: shorter dependency chains.
+  float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    sc[i] = exp2_ftz(fmaf(sc[i], scale_log2, -m[(i / 2) & 1]));
+    part[(i / 2) & 1][(i / 4) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + (part[h][0] + part[h][1]);
+}
+
+// The A operand of k-step kk of a product whose reduction runs over the
+// columns of accumulator d (columns 16 kk .. 16 kk + 15), rounded to bf16.
+template <int K>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&d)[K], int kk) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) a[x] = pack(d[8 * kk + 2 * x], d[8 * kk + 2 * x + 1]);
+}
+
+// Descriptors of the k-th 16-wide reduction slice of a B128 tile of
+// `rows` rows at shared address `base`: K-major (the reduction runs over
+// the columns) and MN-major (over the rows).
+__device__ __forceinline__ uint64_t k_major(uint32_t base, int rows, int k) {
+  return desc_b128(base + (k / 4) * rows * 128 + (k % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mn_major(uint32_t base, int rows, int k) {
+  return desc_b128(base + k * 16 * 128, rows * 128, 1024);
+}
+
+// -------------------------------------------------------------- forward --
+// CTA: kFwdQ query rows of one (b, h).  The producer loads the Q block
+// once and the K/V tiles of kFwdK keys, up to the causal diagonal,
+// through the ring.  Per tile a consumer warpgroup forms S = Q K^T (64 x
+// 64, SS wgmma), updates the online softmax on the fragments, and adds
+// P V (RS wgmma, V MN-major).  64-key tiles keep the D = 64 build at
+// about 95 registers a thread, so two CTAs (four consumer warpgroups)
+// share an SM, which measured faster than one CTA with 128-key tiles
+// (about 157 registers); D = 128 holds twice the output accumulators and
+// runs one CTA an SM.
+template <int D>
+struct FwdLayout {
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + tile_bytes(kFwdQ, D);
+  static constexpr uint32_t kV = kK + kStages * tile_bytes(kFwdK, D);
+  static constexpr uint32_t kBar = kV + kStages * tile_bytes(kFwdK, D);
+  // Barriers: Q landed, then full[kStages], empty[kStages].
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
+                       __grid_constant__ const CUtensorMap k_map,
+                       __grid_constant__ const CUtensorMap v_map,
+                       bf16* __restrict__ o, float* __restrict__ lse, int S,
+                       int Skv, int causal, float scale_log2) {
+  using L = FwdLayout<D>;
+  constexpr int kTile = tile_bytes(kFwdK, D);
+  extern __shared__ __align__(16) uint8_t wg_smem[];
+  uint8_t* smem = align_1024(wg_smem);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdQ;  // longest first
+  const int all_tiles = (Skv + kFwdK - 1) / kFwdK;
+  const int n_tiles =
+      causal ? min(all_tiles, (min(q0 + kFwdQ, S) - 1) / kFwdK + 1)
+             : all_tiles;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warp
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_arrive_expect_tx(bar_q, tile_bytes(kFwdQ, D));
+      tma_load_tile<D>(smem + L::kQ, &q_map, bar_q, q0, bh, kFwdQ);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + s, 2 * kTile);
+        tma_load_tile<D>(smem + L::kK + s * kTile, &k_map, full + s,
+                         t * kFwdK, bh, kFwdK);
+        tma_load_tile<D>(smem + L::kV + s * kTile, &v_map, full + s,
+                         t * kFwdK, bh, kFwdK);
+      }
+    }
+    return;
+  }
+
+  const int w = threadIdx.x / 128;           // consumer warpgroup
+  const int warp = (threadIdx.x / 32) & 3;   // warp within it
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+  const int wg_row0 = q0 + kRows * w;        // the warpgroup's first row
+  const int row = wg_row0 + 16 * warp + g;   // this thread's rows: +0, +8
+  const uint32_t q_base = smem_addr(smem + L::kQ) + kRows * 128 * w;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // Running max (of scores times log2 e) and denominator, per row.
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kFwdK;
+    const uint32_t k_base = smem_addr(smem + L::kK + s * kTile);
+    const uint32_t v_base = smem_addr(smem + L::kV + s * kTile);
+    mbar_wait(full + s, (t / kStages) & 1);
+    if (causal && k0 > wg_row0 + kRows - 1) {  // every key is in the future
+      mbar_arrive(empty + s);
+      continue;
+    }
+
+    float sc[kFwdK / 2];  // S = Q K^T, 64 rows x kFwdK keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kFwdK>(sc, k_major(q_base, kFwdQ, kk),
+                      k_major(k_base, kFwdK, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+
+    // Masked only where the tile crosses the key count or (causal) the
+    // diagonal of this warpgroup's rows.
+    if (k0 + kFwdK > Skv || (causal && k0 + kFwdK - 1 > wg_row0)) {
+#pragma unroll
+      for (int i = 0; i < kFwdK / 2; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+        if (col >= Skv) {
+          sc[i] = -INFINITY;  // no such key: weight exactly 0
+        } else if (causal && col > row + 8 * ((i / 2) & 1)) {
+          sc[i] = kNegInf;
+        }
+      }
+    }
+    float corr[2];
+    online_softmax(sc, m, l, corr, scale_log2);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) & 1];
+
+    // O += P V, p rounded to V's type in the A operand.
+    uint32_t pa[kFwdK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kFwdK / 16; ++kk) acc_to_a(pa[kk], sc, kk);
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFwdK / 16; ++kk) {
+      wgmma_rs_mn<D>(acc, pa[kk], mn_major(v_base, kFwdK, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(empty + s);
+  }
+
+  float l_safe[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_safe[h] = fmaxf(quad_sum(l[h]), 1e-30f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= S) continue;
+    bf16* orow = o + (static_cast<size_t>(bh) * S + r) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+          pack(acc[4 * j + 2 * h] / l_safe[h],
+               acc[4 * j + 2 * h + 1] / l_safe[h]);
+    }
+    if (t4 == 0) {
+      lse[static_cast<size_t>(bh) * S + r] = (m[h] + log2f(l_safe[h])) * kLn2;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- dK/dV --
+// CTA: kBwdK keys of one (b, h); K and V are loaded once.  The producer
+// streams the Q and dO tiles of kBwdQ rows from the causal diagonal on,
+// with their lse (times log2 e) and delta, through the ring.  Per tile a
+// consumer warpgroup forms S^T = K Q^T and dP^T = V dO^T (64 keys x 64
+// queries, SS wgmma), then P^T and dS^T on the fragments, then dV += P^T
+// dO and dK += dS^T Q (RS wgmma, dO and Q MN-major).
+template <int D>
+struct DkvLayout {
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kK + tile_bytes(kBwdK, D);
+  static constexpr uint32_t kQ = kV + tile_bytes(kBwdK, D);
+  static constexpr uint32_t kO = kQ + kStages * tile_bytes(kBwdQ, D);  // dO
+  // Per stage: lse * log2 e, then delta, kBwdQ floats each.
+  static constexpr uint32_t kRowStats = kO + kStages * tile_bytes(kBwdQ, D);
+  static constexpr uint32_t kBar = kRowStats + kStages * 2 * kBwdQ * 4;
+  // Barriers: K/V landed, then full[kStages], empty[kStages].
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
+                           __grid_constant__ const CUtensorMap k_map,
+                           __grid_constant__ const CUtensorMap v_map,
+                           __grid_constant__ const CUtensorMap do_map,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int S, int Skv, int causal, float scale,
+                           float scale_log2) {
+  using L = DkvLayout<D>;
+  constexpr int kTile = tile_bytes(kBwdQ, D);
+  extern __shared__ __align__(16) uint8_t wg_smem[];
+  uint8_t* smem = align_1024(wg_smem);
+  float* stats = reinterpret_cast<float*>(smem + L::kRowStats);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kBwdK;  // causal: the heaviest CTAs first
+  // Causal: query rows below k0 see none of these keys.
+  const int first = causal ? (k0 / kBwdQ) * kBwdQ : 0;
+  const int n_q = first < S ? (S - first + kBwdQ - 1) / kBwdQ : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 32);  // every producer lane: it writes the stats
+      mbar_init(empty + s, kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (n_q > 0 && lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * tile_bytes(kBwdK, D));
+      tma_load_tile<D>(smem + L::kK, &k_map, bar_kv, k0, bh, kBwdK);
+      tma_load_tile<D>(smem + L::kV, &v_map, bar_kv, k0, bh, kBwdK);
+    }
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % kStages;
+      const int q0 = first + i * kBwdQ;
+      mbar_wait(empty + s, ((i / kStages) & 1) ^ 1);
+      float* st = stats + s * 2 * kBwdQ;
+      for (int r = lane; r < kBwdQ; r += 32) {
+        const bool live = q0 + r < S;
+        const size_t idx = static_cast<size_t>(bh) * S + q0 + r;
+        // A row past S gets lse = +inf: its probabilities are exactly 0.
+        st[r] = live ? lse[idx] * kLog2e : INFINITY;
+        st[kBwdQ + r] = live ? delta[idx] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full + s, 2 * kTile);
+        tma_load_tile<D>(smem + L::kQ + s * kTile, &q_map, full + s, q0, bh,
+                         kBwdQ);
+        tma_load_tile<D>(smem + L::kO + s * kTile, &do_map, full + s, q0, bh,
+                         kBwdQ);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  const int w = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+  const int key0 = k0 + kRows * w;          // the warpgroup's first key
+  const int key = key0 + 16 * warp + g;     // this thread's keys: +0, +8
+  const uint32_t k_base = smem_addr(smem + L::kK) + kRows * 128 * w;
+  const uint32_t v_base = smem_addr(smem + L::kV) + kRows * 128 * w;
+
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    acc_k[i] = 0.f;
+    acc_v[i] = 0.f;
+  }
+
+  if (n_q > 0) mbar_wait(bar_kv, 0);
+  for (int i = 0; i < n_q; ++i) {
+    const int s = i % kStages;
+    const int q0 = first + i * kBwdQ;
+    mbar_wait(full + s, (i / kStages) & 1);
+    if (causal && q0 + kBwdQ - 1 < key0) {  // every query precedes every key
+      mbar_arrive(empty + s);
+      continue;
+    }
+    const uint32_t q_base = smem_addr(smem + L::kQ + s * kTile);
+    const uint32_t o_base = smem_addr(smem + L::kO + s * kTile);
+    const float* lse2 = stats + s * 2 * kBwdQ;
+    const float* dlt = lse2 + kBwdQ;
+
+    float st[kBwdQ / 2], dpt[kBwdQ / 2];  // S^T and dP^T: keys x queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kBwdQ>(st, k_major(k_base, kBwdK, kk),
+                      k_major(q_base, kBwdQ, kk), kk > 0);
+      wgmma_ss<kBwdQ>(dpt, k_major(v_base, kBwdK, kk),
+                      k_major(o_base, kBwdQ, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
+
+    // st becomes P^T = exp(S^T - lse), dpt dS^T = P^T (dP^T - delta); a
+    // column is a query.  Only the diagonal tile is masked.
+    const bool masked = causal && key0 + kRows - 1 > q0;
+#pragma unroll
+    for (int j = 0; j < kBwdQ / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const float2 lj = *reinterpret_cast<const float2*>(lse2 + c);
+      const float2 dj = *reinterpret_cast<const float2*>(dlt + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i_ = 4 * j + e;
+        float p = exp2_ftz(fmaf(st[i_], scale_log2, -((e & 1) ? lj.y : lj.x)));
+        if (masked && key + 8 * (e >> 1) > q0 + c + (e & 1)) p = 0.f;
+        st[i_] = p;
+        dpt[i_] = p * (dpt[i_] - ((e & 1) ? dj.y : dj.x));
+      }
+    }
+
+    // dV += P^T dO (p rounded to dO's type), dK += dS^T Q (dS rounded to
+    // Q's type), both roundings in the A operands.
+    uint32_t pa[kBwdQ / 16][4], da[kBwdQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBwdQ / 16; ++kk) {
+      acc_to_a(pa[kk], st, kk);
+      acc_to_a(da[kk], dpt, kk);
+    }
+    fence_operands(acc_v);
+    fence_operands(acc_k);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdQ / 16; ++kk) {
+      wgmma_rs_mn<D>(acc_v, pa[kk], mn_major(o_base, kBwdQ, kk), 1);
+      wgmma_rs_mn<D>(acc_k, da[kk], mn_major(q_base, kBwdQ, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc_v);
+    fence_operands(acc_k);
+    mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kr = key + 8 * h;
+    if (kr >= Skv) continue;
+    bf16* krow = dk + (static_cast<size_t>(bh) * Skv + kr) * D;
+    bf16* vrow = dv + (static_cast<size_t>(bh) * Skv + kr) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(krow + 8 * j + 2 * t4) =
+          pack(acc_k[4 * j + 2 * h] * scale, acc_k[4 * j + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vrow + 8 * j + 2 * t4) =
+          pack(acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// Calls f(D) with D as a compile-time constant when these kernels take
+// this head dim; returns false (f not called) otherwise.
+template <typename F>
+bool with_head_dim(int D, F f) {
+  using std::integral_constant;
+  switch (D) {
+    case 64: f(integral_constant<int, 64>{}); return true;
+    case 128: f(integral_constant<int, 128>{}); return true;
+    default: return false;
+  }
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------- launchers --
 
@@ -1054,6 +1290,10 @@ cudaError_t with_tiles(int D, F f) {
   return f(integral_constant<int, 16>{}, integral_constant<int, 2>{});
 }
 
+// Returned when cuTensorMapEncodeTiled refuses a TMA tensor map (not a
+// cudaError_t value the runtime uses).
+constexpr cudaError_t kTensorMapError = static_cast<cudaError_t>(9001);
+
 // Above 48 KB a kernel's dynamic shared memory must be allowed first.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -1062,23 +1302,33 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// Which build takes a call: the forward and dK/dV run the wgmma kernels
+// for bf16 at D in {64, 128}, dQ the mma.sync kernel for bf16 at D in
+// {32, 64, 128}; everything else runs the CUDA-core kernels.  A refused
+// tensor map or launch is returned, never retried on another build.
 template <typename T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v,
                          void* o, float* lse, int BH, int S, int Skv, int D,
                          int causal, float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     cudaError_t err = cudaSuccess;
-    if (tc::with_head_dim(D, [&](auto d) {
+    if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
-          auto kernel = tc::flash_fwd_tc_kernel<kD>;
-          const size_t smem = 3 * tc::tile_bytes(kD);
+          CUtensorMap q_map, k_map, v_map;
+          if (!hopper::encode_bf16_rows(&q_map, q, BH, S, kD, wg::kFwdQ) ||
+              !hopper::encode_bf16_rows(&k_map, k, BH, Skv, kD, wg::kFwdK) ||
+              !hopper::encode_bf16_rows(&v_map, v, BH, Skv, kD, wg::kFwdK)) {
+            err = kTensorMapError;
+            return;
+          }
+          auto kernel = wg::flash_fwd_wgmma_kernel<kD>;
+          const size_t smem = wg::FwdLayout<kD>::kBytes + 1024;
           err = allow_smem(kernel, smem);
           if (err != cudaSuccess) return;
-          const dim3 grid((S + tc::kTile - 1) / tc::kTile, BH);
-          kernel<<<grid, tc::kTcThreads, smem, stream>>>(
-              static_cast<const T*>(q), static_cast<const T*>(k),
-              static_cast<const T*>(v), static_cast<T*>(o), lse, S, Skv,
-              causal, scale);
+          const dim3 grid((S + wg::kFwdQ - 1) / wg::kFwdQ, BH);
+          kernel<<<grid, wg::kThreads, smem, stream>>>(
+              q_map, k_map, v_map, static_cast<T*>(o), lse, S, Skv, causal,
+              scale * wg::kLog2e);
           err = cudaGetLastError();
         })) {
       return err;
@@ -1108,19 +1358,26 @@ cudaError_t dkv_dispatch(const void* q, const void* k, const void* v,
                          cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     cudaError_t err = cudaSuccess;
-    if (tc::with_head_dim(D, [&](auto d) {
+    if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
-          auto kernel = tc::flash_bwd_dkv_tc_kernel<kD>;
-          const size_t smem =
-              4 * tc::tile_bytes(kD) + 2 * tc::kTile * sizeof(float);
+          CUtensorMap q_map, k_map, v_map, do_map;
+          if (!hopper::encode_bf16_rows(&q_map, q, BH, S, kD, wg::kBwdQ) ||
+              !hopper::encode_bf16_rows(&k_map, k, BH, Skv, kD, wg::kBwdK) ||
+              !hopper::encode_bf16_rows(&v_map, v, BH, Skv, kD, wg::kBwdK) ||
+              !hopper::encode_bf16_rows(&do_map, dout, BH, S, kD,
+                                        wg::kBwdQ)) {
+            err = kTensorMapError;
+            return;
+          }
+          auto kernel = wg::flash_bwd_dkv_wgmma_kernel<kD>;
+          const size_t smem = wg::DkvLayout<kD>::kBytes + 1024;
           err = allow_smem(kernel, smem);
           if (err != cudaSuccess) return;
-          const dim3 grid((Skv + tc::kTile - 1) / tc::kTile, BH);
-          kernel<<<grid, tc::kTcThreads, smem, stream>>>(
-              static_cast<const T*>(q), static_cast<const T*>(k),
-              static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-              delta, static_cast<T*>(dk), static_cast<T*>(dv), S, Skv,
-              causal, scale);
+          const dim3 grid((Skv + wg::kBwdK - 1) / wg::kBwdK, BH);
+          kernel<<<grid, wg::kThreads, smem, stream>>>(
+              q_map, k_map, v_map, do_map, lse, delta, static_cast<T*>(dk),
+              static_cast<T*>(dv), S, Skv, causal, scale,
+              scale * wg::kLog2e);
           err = cudaGetLastError();
         })) {
       return err;
@@ -1253,6 +1510,9 @@ int epl_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 const char* epl_cuda_error_string(int err) {
+  if (err == kTensorMapError) {
+    return "cuTensorMapEncodeTiled refused a TMA tensor map";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -6,7 +6,10 @@ from ``(q, k, lse)``, one kernel producing dK/dV (a CTA per KV tile) and
 another dQ (a CTA per Q tile).  The kernels live in
 ``csrc/flash_attention.cu`` and replace the six Pallas bodies; the
 resident/streaming split of the TPU version answered its VMEM budget and
-has no counterpart here.
+has no counterpart here.  In bf16 at head dims 64 and 128 the forward
+and dK/dV kernels read their tiles through TMA tensor maps, which the
+library encodes on every call from the pointers and sizes given (3 maps
+for the forward, 4 for dK/dV).
 
 Each of the three functions comes in three forms, kernel layout
 ``[B, H, S, D]`` (``lse`` and ``delta`` ``[B, H, S]`` fp32):
@@ -185,7 +188,8 @@ def _check(name, q, k, v, dout=None, lse=None, delta=None):
     raise ValueError(f"{name} needs contiguous tensors")
   if any(x.data_ptr() % 16 for x in floats):
     raise ValueError(f"{name} needs 16-byte aligned q/k/v/dout (the "
-                     "kernels load 16 bytes per thread)")
+                     "kernels load 16 bytes per thread, and a TMA tensor "
+                     "map needs a 16-byte aligned base)")
 
 
 def _launch(fn_name, lib, args, dtype, scale, device):

@@ -14,7 +14,8 @@ setup(
                  "tensor, expert and sequence parallelism"),
     packages=find_packages(exclude=("tests",)),
     package_data={"easyparallellibrary_tpu": ["lib/*.so"],
-                  "easyparallellibrary_tpu_torch": ["kernels/csrc/*.cu"]},
+                  "easyparallellibrary_tpu_torch": ["kernels/csrc/*.cu",
+                                                   "kernels/csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     entry_points={

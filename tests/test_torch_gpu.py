@@ -145,6 +145,36 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, B, H, S,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_ragged_tail_reads_nothing_of_the_next_head(cuda, causal, D):
+  """bf16 at S = 200, where the last tile of each head runs past S.  The
+  wgmma kernels read their tiles through 3-D TMA maps, so the rows past
+  S arrive as zeros and never as the next head's rows.  Here the next
+  head's q, k, v and dO are 1e3 times larger: a leak into head 0's tail
+  would show in head 0's outputs, which must still match the plain
+  versions."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  q, k, v, dout = _flash_case(cuda, torch.bfloat16, 11, 2, 2, 200, 200, D)
+  for x in (q, k, v, dout):
+    x[:, 1] *= 1e3
+  out, lse = fa.flash_fwd(q, k, v, causal)
+  want_out, want_lse = fa.flash_fwd_reference(q, k, v, causal)
+  delta = (dout.float() * want_out.float()).sum(-1)
+  dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, causal)
+  want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, dout, want_lse,
+                                                delta, causal)
+  torch.cuda.synchronize()
+  for got in (out, lse, dk, dv):
+    assert bool(torch.isfinite(got).all())
+  _assert_flash_close(out[:, 0], want_out[:, 0], "fwd", "out, head 0")
+  torch.testing.assert_close(lse[:, 0], want_lse[:, 0], rtol=2e-5,
+                             atol=2e-6)
+  _assert_flash_close(dk[:, 0], want_dk[:, 0], "grad", "dk, head 0")
+  _assert_flash_close(dv[:, 0], want_dv[:, 0], "grad", "dv, head 0")
+
+
+@pytest.mark.gpu
 def test_training_step_on_the_card_matches_the_cpu(cuda):
   """A tiny GPT with the flash kernels under ``dots_flash`` remat, fp32:
   two AdamW steps on the card launch each kernel once per layer per step

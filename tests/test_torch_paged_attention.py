@@ -99,3 +99,25 @@ def test_build_raises_compiler_report_when_nvcc_fails(monkeypatch, tmp_path):
     _build.load("paged_attention")
   assert not _build.library_path("paged_attention").exists()
   assert "paged_attention" not in _build._LIBS
+
+
+def test_library_name_follows_source_headers_and_flags(monkeypatch,
+                                                       tmp_path):
+  """A kernel source may include any header under csrc/, so an edited
+  header, like an edited source or another flag, names another library:
+  a build never loads a stale one."""
+  csrc = tmp_path / "csrc"
+  csrc.mkdir()
+  (csrc / "k.cu").write_text('#include "h.cuh"\n')
+  (csrc / "h.cuh").write_text("// v1\n")
+  monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+  names = [_build.library_path("k")]
+  assert _build.library_path("k") == names[0]
+  (csrc / "h.cuh").write_text("// v2\n")
+  names.append(_build.library_path("k"))
+  (csrc / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+  names.append(_build.library_path("k"))
+  monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+  names.append(_build.library_path("k"))
+  assert len(set(names)) == 4, names
+  assert all(p.name.startswith("libk-") for p in names)
