@@ -12,12 +12,19 @@ version:
 
 1. build the kernels from the checkout's sources (one ``nvcc`` per
    source, started together) and print the card's name and power limit;
-2. each kernel against its plain version on the card, at the engine's
-   full-width shapes and at the JAX package's test shapes, fp32 and bf16;
-3. kernel, plain version and library-yardstick times (CUDA events), and
-   the least time the card could take for the same work;
+2. paged attention against its plain version on the card, fp32 and
+   bf16, at an engine step (``engine_step``: decode tokens, two prefill
+   chunks and padding, as the scheduler lays them out; at head dim 64
+   and 128), at the earlier random-table engine shape and at the JAX
+   package's test shapes; bf16 at head dim 64 and 128 runs the
+   slot-tiled build, with the planner's tiles and with derived tiles;
+3. kernel, plain version and library-yardstick times (CUDA events) at
+   ``engine_step`` and at the random-table shape, the warp build
+   beside the tiled one in bf16, and the least time the card could take
+   for the same work;
 4. GPT-350M at full width in fp32: the paged engine's greedy streams
-   against the port's ``generate(use_cache=False)``;
+   against the port's ``generate(use_cache=False)``, with the warp
+   build's launch count over the run (counts set to 0 just before it);
 5. GPT-350M in bf16, serving staggered requests as users run it: tokens/s,
    TTFT and ITL from ``ServingStats``, and each kernel's launch count
    over this run (every launch counter set to 0 just before it); then
@@ -48,6 +55,9 @@ Every phase raises on failure.  The second-to-last line of the output is
 the ``{"kernels": [...]}`` record, the last one
 ``{"ok": true, "device": {...}}``.  Without a GPU, or outside a checkout
 of the repository, it exits with code 2 and prints no result.
+``python3 chip_smoke.py --phases 2,3`` runs the build and the listed
+phases only (5 and 6, 10 and 11 run together) and prints no result
+lines.
 """
 
 from __future__ import annotations
@@ -153,6 +163,44 @@ def paged_case(torch, dtype, seed, T, H, hd, NB, bs, MB, engine_like):
   return (*floats, *ints)
 
 
+def engine_step_case(torch, dtype, seed, H=16, hd=64):
+  """One engine step as ``FCFSScheduler._plan_flat`` lays it out, at the
+  engine's geometry (T = 264, bs = 16, MB = 64, 8 slots): 6 decoding
+  slots at positions drawn from 64-543, 2 prefilling slots each with a
+  128-token chunk at [p, p + 128), p in {0, 128, 256, 384}, the rest
+  padding (slot 0, position 0); every slot its own distinct blocks.
+  Returns the kernel's inputs on the card and the plan's tile runs."""
+  from easyparallellibrary_tpu_torch.kernels import paged_attention as pa
+  T, bs, MB = NUM_SLOTS + 2 * PREFILL_CHUNK, BLOCK_SIZE, 64
+  NB = NUM_SLOTS * MB + 1
+  r = np.random.RandomState(seed)
+  q = r.randn(T, H, hd).astype(np.float32)
+  kp = r.randn(NB, bs, H, hd).astype(np.float32)
+  vp = r.randn(NB, bs, H, hd).astype(np.float32)
+  blocks = 1 + r.permutation(NB - 1)
+  tables = np.zeros((NUM_SLOTS, MB), np.int32)
+  slot_ids = np.zeros((T,), np.int32)
+  positions = np.zeros((T,), np.int32)
+  base_idx = np.zeros((NUM_SLOTS,), np.int32)
+  num_valid = np.zeros((NUM_SLOTS,), np.int32)
+  pos = 0
+  for slot in range(NUM_SLOTS):
+    if slot < 6:
+      first, n = r.randint(64, 544), 1
+    else:
+      first, n = 128 * r.randint(0, 4), PREFILL_CHUNK
+    base_idx[slot], num_valid[slot] = pos, n
+    slot_ids[pos:pos + n] = slot
+    positions[pos:pos + n] = np.arange(first, first + n)
+    live = (first + n - 1) // bs + 1
+    tables[slot, :live] = blocks[slot * MB:slot * MB + live]
+    pos += n
+  floats = [torch.from_numpy(a).to("cuda", dtype) for a in (q, kp, vp)]
+  ints = [torch.from_numpy(a).to("cuda") for a in (tables[slot_ids],
+                                                   positions)]
+  return (*floats, *ints), pa.tile_runs_from_plan(base_idx, num_valid, T)
+
+
 def paged_bound(torch, q, kp, tables, positions):
   """(least ms, "bytes" | "operations") for one paged-attention call on
   these inputs: the K/V rows it must read (each distinct pool row once),
@@ -238,61 +286,110 @@ def build_kernels():
   return smi
 
 
+def paged_tiles(pa, args, runs=None):
+  """The tile plan of one paged-attention batch: the given runs, or
+  those derived from the batch itself."""
+  q, kp, _, tables, positions = args
+  pos = positions.cpu().numpy()
+  if runs is None:
+    runs = pa.tile_runs_from_tokens(tables.cpu().numpy(), pos)
+  return pa.plan_tiles(runs, pos, tables.shape[1], kp.shape[1], q.shape[1],
+                       q.device)
+
+
 def kernel_parity(torch, pa):
-  """Kernel vs plain version; returns max abs error per dtype."""
+  """Kernel vs plain version; returns max abs error per dtype.  Where
+  the tiled build takes a case, it runs with derived tiles (the
+  dispatcher's own plan) and, at ``engine_step``, also with the
+  scheduler plan's tiles."""
   shapes = [
-      ("engine", dict(T=NUM_SLOTS + 2 * PREFILL_CHUNK, H=16, hd=64,
-                      NB=NUM_SLOTS * 64 + 1, bs=BLOCK_SIZE, MB=64,
-                      engine_like=True)),
+      ("engine_step", None, dict()),
+      ("engine_step_hd128", None, dict(H=8, hd=128)),
+      ("random_tables", dict(T=NUM_SLOTS + 2 * PREFILL_CHUNK, H=16, hd=64,
+                             NB=NUM_SLOTS * 64 + 1, bs=BLOCK_SIZE, MB=64,
+                             engine_like=True), None),
       ("jax_parity_case", dict(T=6, H=4, hd=16, NB=9, bs=8, MB=4,
-                               engine_like=False)),
+                               engine_like=False), None),
       ("jax_tpu_case", dict(T=16, H=8, hd=64, NB=17, bs=16, MB=8,
-                            engine_like=False)),
+                            engine_like=False), None),
   ]
   errs = {}
   for dtype_name, tol in TOLERANCE.items():
     dtype = getattr(torch, dtype_name)
     worst = 0.0
-    for seed, (label, shape) in enumerate(shapes):
-      args = paged_case(torch, dtype, seed, **shape)
-      got = pa.paged_attention(*args)   # the dispatcher: CUDA -> kernel
+    for seed, (label, shape, step) in enumerate(shapes):
+      if step is None:
+        args, runs = paged_case(torch, dtype, seed, **shape), None
+      else:
+        args, runs = engine_step_case(torch, dtype, seed, **step)
+      tiled = pa.takes_tiles(dtype, args[0].shape[2])
+      before = pa.paged_attention_tiled_cuda.launches
+      outs = [pa.paged_attention(*args)]  # the dispatcher: CUDA -> kernel
+      if tiled and runs is not None:
+        outs.append(pa.paged_attention(*args, paged_tiles(pa, args, runs)))
       want = pa.paged_attention_reference(*args)
       torch.cuda.synchronize()
-      assert got.shape == want.shape and got.dtype == dtype
-      assert bool(torch.isfinite(got).all()), f"{label}: non-finite"
-      err = (got.float() - want.float()).abs().max().item()
-      torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                 atol=tol, msg=lambda m: f"{label} "
-                                 f"{dtype_name}: {m}")
-      log(f"   {label:16s} {dtype_name:8s} max|kernel - plain| = {err:.3e} "
-          f"(rtol = atol = {tol:g})")
+      assert (pa.paged_attention_tiled_cuda.launches - before
+              == (len(outs) if tiled else 0)), label
+      err = 0.0
+      for got in outs:
+        assert got.shape == want.shape and got.dtype == dtype
+        assert bool(torch.isfinite(got).all()), f"{label}: non-finite"
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{label} "
+                                   f"{dtype_name}: {m}")
+      build = "tiled" if tiled else "warp"
+      log(f"   {label:17s} {dtype_name:8s} {build:5s} max|kernel - plain| = "
+          f"{err:.3e} (rtol = atol = {tol:g})"
+          + (", planner and derived tiles" if len(outs) > 1 else ""))
       worst = max(worst, err)
     errs[dtype_name] = worst
   return errs
 
 
 def kernel_timing(torch, pa):
-  """Times at the engine's full-width shapes, per dtype."""
-  T = NUM_SLOTS + 2 * PREFILL_CHUNK
-  shape = dict(T=T, H=16, hd=64, NB=NUM_SLOTS * 64 + 1, bs=BLOCK_SIZE,
-               MB=64, engine_like=True)
+  """Times per dtype at ``engine_step`` and at the random-table shape of
+  earlier PRs: the kernel the dispatcher takes (in bf16 the tiled build,
+  over tiles planned before the timed window, as the engine plans them
+  once per step), in bf16 also the warp build, the plain version, the
+  gather + SDPA yardstick and the bound."""
+  random_shape = dict(T=NUM_SLOTS + 2 * PREFILL_CHUNK, H=16, hd=64,
+                      NB=NUM_SLOTS * 64 + 1, bs=BLOCK_SIZE, MB=64,
+                      engine_like=True)
   out = {}
   for dtype_name in TOLERANCE:
     dtype = getattr(torch, dtype_name)
-    sets = [paged_case(torch, dtype, 100 + i, **shape) for i in range(4)]
-    bound, bound_by = paged_bound(torch, *[sets[0][i] for i in (0, 1, 3, 4)])
-    lib = lambda *a: library_paged_attention(torch, *a)  # noqa: E731
-    row = {
-        "kernel_ms": time_ms(torch, pa.paged_attention_cuda, sets),
-        "plain_ms": time_ms(torch, pa.paged_attention_reference, sets,
-                            reps=3),
-        "library_ms": time_ms(torch, lib, sets, reps=3),
-        "bound_ms": bound, "bound_by": bound_by,
-    }
-    log(f"   {dtype_name:8s} T={T} H=16 hd=64 bs={BLOCK_SIZE} MB=64: "
-        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                    for k, v in row.items()))
-    out[dtype_name] = row
+    for label in ("engine_step", "random_tables"):
+      if label == "engine_step":
+        cases = [engine_step_case(torch, dtype, 100 + i) for i in range(4)]
+      else:
+        cases = [(paged_case(torch, dtype, 100 + i, **random_shape), None)
+                 for i in range(4)]
+      sets = [args for args, _ in cases]
+      kernel_sets = sets
+      if pa.takes_tiles(dtype, sets[0][0].shape[2]):
+        kernel_sets = [(*args, paged_tiles(pa, args, runs))
+                       for args, runs in cases]
+      bound, bound_by = paged_bound(torch, *[sets[0][i] for i in (0, 1, 3,
+                                                                  4)])
+      lib = lambda *a: library_paged_attention(torch, *a)  # noqa: E731
+      row = {"kernel_ms": time_ms(torch, pa.paged_attention_cuda,
+                                  kernel_sets)}
+      if kernel_sets is not sets:
+        row["warp_build_ms"] = time_ms(torch, pa.paged_attention_warp_cuda,
+                                       sets)
+        row["kernel_ms_again"] = time_ms(torch, pa.paged_attention_cuda,
+                                         kernel_sets)
+      row.update(plain_ms=time_ms(torch, pa.paged_attention_reference, sets,
+                                  reps=3),
+                 library_ms=time_ms(torch, lib, sets, reps=3),
+                 bound_ms=bound, bound_by=bound_by)
+      log(f"   {dtype_name:8s} {label:13s} T={sets[0][0].shape[0]} H=16 hd=64 "
+          f"bs={BLOCK_SIZE} MB=64: "
+          + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in row.items()))
+      out[(dtype_name, label)] = row
   return out
 
 
@@ -335,9 +432,10 @@ def greedy_vs_generate(torch, model, params, prompts, out, max_gap, label):
   return equal
 
 
-def engine_fp32_vs_generate(torch, params):
+def engine_fp32_vs_generate(torch, params, pa):
   """Full width, fp32: engine greedy streams vs ``generate(use_cache=
-  False)``, diverging only at a top-2 gap below 1e-3."""
+  False)``, diverging only at a top-2 gap below 1e-3.  fp32 runs the
+  paged kernel's warp build: returns its launch count over the run."""
   from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
   from easyparallellibrary_tpu_torch.serving import (
       ContinuousBatchingEngine, Request)
@@ -350,13 +448,21 @@ def engine_fp32_vs_generate(torch, params):
                                  num_slots=NUM_SLOTS,
                                  prefill_chunk=PREFILL_CHUNK,
                                  block_size=BLOCK_SIZE)
+  pa.reset_counts()
   for i, p in enumerate(prompts):
     eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
   out = eng.run()
+  torch.cuda.synchronize()
+  launches = pa.paged_attention_warp_cuda.launches
+  assert launches == cfg.num_layers * eng.steps > 0, (launches, eng.steps)
+  assert pa.paged_attention_tiled_cuda.launches == 0
+  assert pa.paged_attention_reference.calls == 0
   assert eng.scheduler.kv_blocks_used == 0
-  log(f"   engine steps {eng.steps}")
+  log(f"   engine steps {eng.steps}; warp-build launches {launches} = "
+      f"{cfg.num_layers} layers x {eng.steps} steps")
   greedy_vs_generate(torch, model, params, prompts, out,
                      lambda top1: 1e-3, "fp32")
+  return launches
 
 
 def bf16_gap_limit(top1):
@@ -386,8 +492,7 @@ def engine_bf16_serving(torch, params, pa):
                                  block_size=BLOCK_SIZE, stats=stats)
   prompts = make_prompts(2, 16, cfg.vocab_size)
   waves = [(0, 8), (8, 12), (12, 16)]
-  pa.paged_attention_cuda.launches = 0
-  pa.paged_attention_reference.calls = 0
+  pa.reset_counts()
   t0 = time.monotonic()
   out = {}
   for w, (a, b) in enumerate(waves):
@@ -399,10 +504,12 @@ def engine_bf16_serving(torch, params, pa):
   out.update(eng.run())
   torch.cuda.synchronize()
   wall = time.monotonic() - t0
-  launches = pa.paged_attention_cuda.launches
+  launches = pa.paged_attention_tiled_cuda.launches
   plain_calls = pa.paged_attention_reference.calls
   assert launches == cfg.num_layers * eng.steps, (launches, eng.steps)
   assert launches > 0
+  assert pa.paged_attention_cuda.launches == launches
+  assert pa.paged_attention_warp_cuda.launches == 0
   assert plain_calls == 0, plain_calls
   assert sorted(out) == list(range(16))
   for i, p in enumerate(prompts):
@@ -417,8 +524,9 @@ def engine_bf16_serving(torch, params, pa):
       f"{s['ttft_p50_s'] * 1e3:.1f} ms p99 {s['ttft_p99_s'] * 1e3:.1f} ms, "
       f"ITL p50 {s['itl_p50_s'] * 1e3:.2f} ms, prefill tokens/s "
       f"{s['prefill_tokens_per_s']:.1f}")
-  log(f"   paged_attention kernel launches {launches} = {cfg.num_layers} "
-      f"layers x {eng.steps} steps; plain-version calls {plain_calls}")
+  log(f"   paged_attention tiled-build launches {launches} = "
+      f"{cfg.num_layers} layers x {eng.steps} steps; warp-build launches "
+      f"0; plain-version calls {plain_calls}")
   greedy_vs_generate(torch, model, eng.params, prompts, out,
                      bf16_gap_limit, "bf16")
   return launches, eng
@@ -479,8 +587,9 @@ def step_breakdown(torch, eng):
     kernels[e.name] = (calls + 1, us + end - start)
   busy_us = _busy_us(intervals)
   device_us = sum(us for _, us in kernels.values())
+  # Both builds: paged_attention_tiled_kernel and paged_attention_kernel.
   paged_us = sum(us for name, (_, us) in kernels.items()
-                 if "paged_attention_kernel" in name)
+                 if "paged_attention" in name)
   assert paged_us > 0, "the profile holds no paged-attention kernel"
   log(f"   {n} steps, profiler on: host wall {wall_us / n / 1e3:.3f} "
       f"ms/step, device busy {busy_us / n / 1e3:.3f} ms/step, idle share "
@@ -702,8 +811,8 @@ def flash_timing(torch, fa):
   forward kernel and its backward alone for each backward kernel: one
   ``autograd.grad`` with ``retain_graph=True`` on a graph built once, so
   the forward stays outside the timed window.  Also each wrapper's host
-  time per call: the forward and dK/dV wrappers encode 3 and 4 TMA
-  tensor maps per call, dQ none."""
+  time per call: the forward wrapper encodes 3 TMA tensor maps per call,
+  dK/dV and dQ 4 each."""
   sdpa = torch.nn.functional.scaled_dot_product_attention
   shape = FLASH_BENCH_SHAPE
   sets, graphs = [], []
@@ -853,8 +962,8 @@ def train_step_breakdown(torch, bench, batch_size):
     kernels[e.name] = (calls + 1, us + end - start)
   busy_us = _busy_us(intervals)
   device_us = sum(us for _, us in kernels.values())
-  # Every build of each kernel: flash_fwd_wgmma / flash_bwd_dkv_wgmma
-  # and flash_bwd_dq_tc (bf16) as well as the CUDA-core flash_*_kernel.
+  # Every build of each kernel: flash_*_wgmma_kernel (bf16) as well as
+  # the CUDA-core flash_*_kernel.
   flash = {tag: sum(us for name, (_, us) in kernels.items() if tag in name)
            for tag in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
   assert all(us > 0 for us in flash.values()), flash
@@ -872,9 +981,10 @@ def train_step_breakdown(torch, bench, batch_size):
         f"{name[:100]}")
 
 
-def kernel_record(torch_name, source, replaces, launches, err, row, rel,
-                  limit):
-  return {"name": torch_name, "route": "cuda", "source": source,
+def kernel_record(torch_name, build, source, replaces, launches, err, row,
+                  rel, limit):
+  return {"name": torch_name, "route": "cuda", "build": build,
+          "source": source,
           "replaces": replaces, "launches": launches, "max_abs_err": err,
           "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -905,74 +1015,99 @@ def main() -> int:
   from easyparallellibrary_tpu_torch.models.gpt import GPTConfig
   from easyparallellibrary_tpu_torch.weights import init_params
 
+  # ``--phases 1,2,7`` runs only those phases (a quicker check of one
+  # path) and prints no result lines; with no arguments every phase runs.
+  only = None
+  if len(sys.argv) == 3 and sys.argv[1] == "--phases":
+    only = {int(x) for x in sys.argv[2].split(",")}
+  want = lambda n: only is None or n in only  # noqa: E731
+
   t_start = time.monotonic()
   log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
       f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
   with Phase("1. build kernels"):
     build_kernels()
-  with Phase("2. kernel vs plain version"):
-    errs = kernel_parity(torch, pa)
-  with Phase("3. kernel timing"):
-    times = kernel_timing(torch, pa)
-  with Phase("init GPT-350M weights (numpy, seed 0)"):
-    params = init_params(GPTConfig(**GPT_350M), seed=0, device="cuda")
-  with Phase("4. GPT-350M fp32: engine vs generate(use_cache=False)"):
-    engine_fp32_vs_generate(torch, params)
-  with Phase("5. GPT-350M bf16: serving staggered requests"):
-    launches, eng = engine_bf16_serving(torch, params, pa)
-  with Phase("6. GPT-350M bf16: where the engine step's time goes"):
-    step_breakdown(torch, eng)
-  del eng, params
-  with Phase("7. flash kernels vs plain versions"):
-    flash_errs, flash_rel = flash_parity(torch, fa)
-    flash_check_sensitivity(torch, fa)
-    flash_lse_autograd(torch, fa)
-  with Phase("8. flash kernel timing"):
-    flash_times = flash_timing(torch, fa)
-  with Phase("9. GPT-350M widths, 4 layers, fp32: flash vs dense training"):
-    train_fp32_flash_vs_dense(torch, fa, bench)
-  with Phase("10. GPT-350M bf16 training (easyparallellibrary_tpu_torch."
-             "bench)"):
-    record, flash_launches = train_bf16_bench(torch, fa, bench)
-  with Phase("11. GPT-350M bf16: where the training step's time goes"):
-    train_step_breakdown(torch, bench, record["detail"]["batch_size"])
+  if want(2):
+    with Phase("2. kernel vs plain version"):
+      errs = kernel_parity(torch, pa)
+  if want(3):
+    with Phase("3. kernel timing"):
+      times = kernel_timing(torch, pa)
+  if want(4) or want(5) or want(6):
+    with Phase("init GPT-350M weights (numpy, seed 0)"):
+      params = init_params(GPTConfig(**GPT_350M), seed=0, device="cuda")
+  if want(4):
+    with Phase("4. GPT-350M fp32: engine vs generate(use_cache=False)"):
+      warp_launches = engine_fp32_vs_generate(torch, params, pa)
+  if want(5) or want(6):
+    with Phase("5. GPT-350M bf16: serving staggered requests"):
+      launches, eng = engine_bf16_serving(torch, params, pa)
+    with Phase("6. GPT-350M bf16: where the engine step's time goes"):
+      step_breakdown(torch, eng)
+    del eng
+  if want(4) or want(5) or want(6):
+    del params
+  if want(7):
+    with Phase("7. flash kernels vs plain versions"):
+      flash_errs, flash_rel = flash_parity(torch, fa)
+      flash_check_sensitivity(torch, fa)
+      flash_lse_autograd(torch, fa)
+  if want(8):
+    with Phase("8. flash kernel timing"):
+      flash_times = flash_timing(torch, fa)
+  if want(9):
+    with Phase("9. GPT-350M widths, 4 layers, fp32: flash vs dense "
+               "training"):
+      train_fp32_flash_vs_dense(torch, fa, bench)
+  if want(10) or want(11):
+    with Phase("10. GPT-350M bf16 training (easyparallellibrary_tpu_torch."
+               "bench)"):
+      record, flash_launches = train_bf16_bench(torch, fa, bench)
+    with Phase("11. GPT-350M bf16: where the training step's time goes"):
+      train_step_breakdown(torch, bench, record["detail"]["batch_size"])
   log(f"total {time.monotonic() - t_start:.1f} s")
+  if only is not None:
+    return 0
 
   flash_src = "easyparallellibrary_tpu_torch/kernels/csrc/flash_attention.cu"
   flash_py = "easyparallellibrary_tpu/kernels/flash_attention.py"
   flash_records = [
-      kernel_record("flash_attention_fwd", flash_src,
-                    f"{flash_py}:89 and :241", flash_launches["fwd"],
-                    flash_errs["fwd"], flash_times["fwd"],
-                    flash_rel["fwd"], FLASH_BF16_LIMIT["fwd"]),
-      kernel_record("flash_attention_bwd_dkv", flash_src,
+      kernel_record("flash_attention_fwd", "flash_fwd_wgmma_kernel<64>",
+                    flash_src, f"{flash_py}:89 and :241",
+                    flash_launches["fwd"], flash_errs["fwd"],
+                    flash_times["fwd"], flash_rel["fwd"],
+                    FLASH_BF16_LIMIT["fwd"]),
+      kernel_record("flash_attention_bwd_dkv",
+                    "flash_bwd_dkv_wgmma_kernel<64>", flash_src,
                     f"{flash_py}:133 and :363", flash_launches["dkv"],
                     flash_errs["dkv"], flash_times["dkv"],
                     flash_rel["dkv"], FLASH_BF16_LIMIT["grad"]),
-      kernel_record("flash_attention_bwd_dq", flash_src,
-                    f"{flash_py}:172 and :404", flash_launches["dq"],
-                    flash_errs["dq"], flash_times["dq"],
-                    flash_rel["dq"], FLASH_BF16_LIMIT["grad"]),
+      kernel_record("flash_attention_bwd_dq", "flash_bwd_dq_wgmma_kernel<64>",
+                    flash_src, f"{flash_py}:172 and :404",
+                    flash_launches["dq"], flash_errs["dq"],
+                    flash_times["dq"], flash_rel["dq"],
+                    FLASH_BF16_LIMIT["grad"]),
   ]
-  bf16 = times["bfloat16"]
-  print(json.dumps({"kernels": [{
-      "name": "paged_attention",
-      "route": "cuda",
-      "source": "easyparallellibrary_tpu_torch/kernels/csrc/"
-                "paged_attention.cu",
-      "replaces": "easyparallellibrary_tpu/kernels/paged_attention.py:119",
-      "launches": launches,
-      "max_abs_err": max(errs.values()),
-      "ms": bf16["kernel_ms"],
-      "plain_ms": bf16["plain_ms"],
-      "bound_ms": bf16["bound_ms"],
-      "bound_by": bf16["bound_by"],
-      "library_ms": bf16["library_ms"],
-      "parity_fp32": errs["float32"],
-      "parity_bf16": errs["bfloat16"],
-      "kernel_ms": bf16["kernel_ms"],
-      "fp32": times["float32"],
-  }] + flash_records}), flush=True)
+  paged_src = "easyparallellibrary_tpu_torch/kernels/csrc/paged_attention.cu"
+  paged_replaces = "easyparallellibrary_tpu/kernels/paged_attention.py:119"
+
+  def paged_record(name, build, launches, dtype_name):
+    row = times[(dtype_name, "engine_step")]
+    return {"name": name, "route": "cuda", "build": build,
+            "source": paged_src, "replaces": paged_replaces,
+            "launches": launches, "max_abs_err": errs[dtype_name],
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "dtype": dtype_name,
+            "shape": "engine_step",
+            "random_tables": times[(dtype_name, "random_tables")]}
+
+  print(json.dumps({"kernels": [
+      paged_record("paged_attention_tiled", "paged_attention_tiled_kernel<64>",
+                   launches, "bfloat16"),
+      paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
+                   warp_launches, "float32"),
+  ] + flash_records}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

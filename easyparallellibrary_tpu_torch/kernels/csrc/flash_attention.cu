@@ -13,11 +13,10 @@
 //               `_bwd_kernels`.
 // The resident/streaming pairs exist only for the TPU's ~16 MB VMEM
 // budget; here one tiled kernel covers every length.  Which build runs:
-//   bf16, D in {64, 128}: forward and dK/dV on wgmma with TMA-fed,
+//   bf16, D in {64, 128}: forward, dK/dV and dQ on wgmma with TMA-fed,
 //     double-buffered tiles (namespace wg below);
-//   bf16, D in {32, 64, 128}: dQ on warp-level mma.sync (namespace tc);
-//   everything else (fp32 at every D; bf16 forward and dK/dV at D = 32,
-//     and all three at other D): IEEE fp32 FMAs on the CUDA cores.
+//   everything else (fp32 at every D; bf16 at any other D, 32 included):
+//     IEEE fp32 FMAs on the CUDA cores.
 // Same functions as the Pallas kernels, on [B*H, S, D] row-major tensors:
 //   scores s = (q . k) accumulated in fp32, times scale = 1/sqrt(D) as an
 //   fp32 constant; causal entries (k_pos > q_pos) are -1e30, as the
@@ -38,25 +37,23 @@
 //   forward: bytes, 0.0404 ms (q, k, v, o and lse once: 135 MB) against
 //     0.0347 ms of operations (34.4 GFLOP);
 //   dK/dV: operations, 0.0695 ms (68.7 GFLOP) against 0.0202 ms of bytes;
-//   dQ: operations, 0.0521 ms.
+//   dQ: operations, 0.0521 ms (51.5 GFLOP).
 // So the design keeps every operand on chip once loaded and spends its
 // effort on feeding the tensor cores:
-//   * wg (forward, dK/dV): a CTA is two consumer warpgroups and one
-//     producer warp.  The producer's TMA loads stream the K/V (forward)
-//     or Q/dO (dK/dV) tiles through a two-stage ring of 128-byte-swizzled
-//     shared memory, with mbarriers for "full" (TMA bytes landed) and
-//     "empty" (both consumers done), so the next tile's copy overlaps the
-//     current tile's products.  Products are warpgroup wgmma: scores from
-//     two shared-memory operands, then P.V (forward) or P^T.dO and
-//     dS^T.Q (dK/dV) with P / dS packed to bf16 in registers as the A
-//     operand, which is where the Pallas kernels' roundings of p and dS
-//     happen.  The softmax runs on the accumulator fragments in
-//     registers, in base 2 with log2(e) folded into the score scale;
-//     only tiles that cross the causal diagonal or the key count are
-//     masked, and tiles past the diagonal are skipped.
-//   * tc (dQ): warp-level mma.sync m16n8k16, 4 warps a CTA, each warp 16
-//     rows of a 64-row tile, plain 16-byte loads into padded shared
-//     memory, no pipelining.
+//   * wg (forward, dK/dV, dQ): a CTA is two consumer warpgroups and one
+//     producer warp.  The producer's TMA loads stream the K/V (forward,
+//     dQ) or Q/dO (dK/dV) tiles through a two-stage ring of
+//     128-byte-swizzled shared memory, with mbarriers for "full" (TMA
+//     bytes landed) and "empty" (both consumers done), so the next tile's
+//     copy overlaps the current tile's products.  Products are warpgroup
+//     wgmma: scores (and dP) from two shared-memory operands, then P.V
+//     (forward), P^T.dO and dS^T.Q (dK/dV) or dS.K (dQ) with P / dS
+//     packed to bf16 in registers as the A operand, which is where the
+//     Pallas kernels' roundings of p and dS happen.  The softmax runs on
+//     the accumulator fragments in registers, in base 2 with log2(e)
+//     folded into the score scale; only tiles that cross the causal
+//     diagonal or the key count are masked, and tiles past the diagonal
+//     are skipped.
 //   * fp32, and bf16 at the head dims above not taken, run on the CUDA
 //     cores as IEEE fp32 FMAs (no TF32): 256 threads a CTA, tiles
 //     converted to fp32 in shared memory at row stride D + 1 (odd: column
@@ -587,230 +584,6 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ------------------------------------------ mma.sync dQ (bf16, tc::) --
-// dQ for bf16 at D in {32, 64, 128}, with the products on the tensor
-// cores: warp-level mma.sync m16n8k16 (bf16 operands, fp32 accumulation,
-// the Pallas kernels' contract).  A CTA is 4 warps; each warp owns 16
-// rows of the CTA's 64-row tile, so no reduction crosses warps.  Tiles
-// stay bf16 in shared memory (row stride D + 8, which makes the fragment
-// loads free of bank conflicts); the dS accumulator fragment is re-packed
-// in registers as the next product's A operand (the FlashAttention-2
-// layout trick), which is where dS is rounded to bf16, as the Pallas
-// kernel rounds it; the B operand that needs the transpose of a row-major
-// tile comes from `ldmatrix .trans`.
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-constexpr int kWarps = 4;
-constexpr int kTcThreads = 32 * kWarps;
-constexpr int kTile = 64;  // CTA rows, and the inner tile
-constexpr int kPad = 8;    // bf16 of padding per shared-memory row
-
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16, row-major) at x[r0.., k0..] of a tile with row
-// stride ld: lane (g, t) holds rows g and g + 8, columns 2t, 2t + 1 and
-// 2t + 8, 2t + 9.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* x, int ld,
-                                       int r0, int k0, int g, int t) {
-  const bf16* p = x + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8, column-major) whose column n is row n0 + n of the
-// row-major tile x (so the product is against x^T): lane (g, t) holds
-// column g, rows 2t, 2t + 1 and 2t + 8, 2t + 9.
-__device__ __forceinline__ void load_b(uint32_t* b, const bf16* x, int ld,
-                                       int n0, int k0, int g, int t) {
-  const bf16* p = x + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B fragment (16 x 8) taken straight from the row-major tile x: rows
-// k0..k0+15 are the product's K dimension, columns n0..n0+7 its N.
-__device__ __forceinline__ void load_b_trans(uint32_t* b, const bf16* x,
-                                             int ld, int k0, int n0,
-                                             int lane) {
-  const uint32_t addr = static_cast<uint32_t>(
-      __cvta_generic_to_shared(x + (k0 + (lane & 15)) * ld + n0));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b[0]), "=r"(b[1])
-      : "r"(addr));
-}
-
-// A [64, D] tile of src rows (row-major, D per row) into shared memory
-// at stride D + kPad; rows past `valid` are zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int valid) {
-  constexpr int per_row = D / 8;
-  for (int idx = threadIdx.x; idx < kTile * per_row; idx += kTcThreads) {
-    const int r = idx / per_row;
-    const int c = (idx - r * per_row) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < valid) {
-      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D +
-                                          c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = v;
-  }
-}
-
-// The A operand of the next product from the accumulators of 16 rows x
-// 64 columns (8 n-tiles): columns 16 kk .. 16 kk + 15, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*c)[4],
-                                         int kk) {
-  a[0] = pack(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// dQ: a CTA per 64 queries (warp w owns rows 16 w ..), looping over the
-// live KV tiles: S = Q K^T, dP = dO V^T, dQ += dS K.
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
-                       const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       bf16* __restrict__ dq, int S, int Skv, int causal,
-                       float scale) {
-  constexpr int ld = D + kPad;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sO = sQ + kTile * ld;  // dO
-  bf16* sK = sO + kTile * ld;
-  bf16* sV = sK + kTile * ld;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest first
-  const int r0 = 16 * w;
-  const int valid = min(kTile, S - q0);
-  const bf16* kb = k + bh * Skv * D;
-  const bf16* vb = v + bh * Skv * D;
-  load_tile<D>(sQ, q + (bh * S + q0) * D, valid);
-  load_tile<D>(sO, dout + (bh * S + q0) * D, valid);
-  const int rows[2] = {r0 + g, r0 + g + 8};  // within the tile
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row_lse[h] = rows[h] < valid ? lse[bh * S + q0 + rows[h]] : 0.f;
-    row_delta[h] = rows[h] < valid ? delta[bh * S + q0 + rows[h]] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-  }
-
-  const int n_tiles = live_kv_tiles(q0 + valid, Skv, causal != 0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kTile;
-    __syncthreads();
-    load_tile<D>(sK, kb + static_cast<size_t>(k0) * D, min(kTile, Skv - k0));
-    load_tile<D>(sV, vb + static_cast<size_t>(k0) * D, min(kTile, Skv - k0));
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[n][j] = 0.f;
-        dp[n][j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, sQ, ld, r0, 16 * kk, g, t);
-      load_a(ao, sO, ld, r0, 16 * kk, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b[2];
-        load_b(b, sK, ld, 8 * n, 16 * kk, g, t);
-        mma(s[n], aq, b);
-        load_b(b, sV, ld, 8 * n, 16 * kk, g, t);
-        mma(dp[n], ao, b);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int h = j >> 1;
-        const float x = masked_score(s[n][j], q0 + rows[h],
-                                     k0 + 8 * n + 2 * t + (j & 1), Skv,
-                                     causal != 0, scale);
-        const float p = rows[h] < valid ? expf(x - row_lse[h]) : 0.f;
-        dp[n][j] = p * (dp[n][j] - row_delta[h]);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, dp, kk);  // dS rounded to K's type
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b[2];
-        load_b_trans(b, sK, ld, 16 * kk, 8 * n, lane);
-        mma(acc[n], a, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= valid) continue;
-    bf16* qrow = dq + (bh * S + q0 + rows[h]) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(qrow + 8 * n + 2 * t) =
-          pack(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
-    }
-  }
-}
-
-// Calls f(D) with D as a compile-time constant when the mma.sync dQ
-// kernel takes this head dim; returns false (f not called) otherwise.
-template <typename F>
-bool with_head_dim(int D, F f) {
-  using std::integral_constant;
-  switch (D) {
-    case 32: f(integral_constant<int, 32>{}); return true;
-    case 64: f(integral_constant<int, 64>{}); return true;
-    case 128: f(integral_constant<int, 128>{}); return true;
-    default: return false;
-  }
-}
-
-constexpr size_t tile_bytes(int D) { return sizeof(bf16) * kTile * (D + kPad); }
-
-}  // namespace tc
-
 // --------------------------------- wgmma forward and dK/dV (bf16, wg::) --
 // The forward and dK/dV for bf16 at D in {64, 128}.  A CTA is two
 // consumer warpgroups (threads 0-255), each owning 64 rows of the CTA's
@@ -831,6 +604,8 @@ constexpr int kFwdQ = kRows * kConsumers;        // query rows a forward CTA
 constexpr int kFwdK = 64;                        // keys a forward KV tile
 constexpr int kBwdK = kRows * kConsumers;        // keys a dK/dV CTA
 constexpr int kBwdQ = 64;                        // query rows a dK/dV Q tile
+constexpr int kDqQ = kRows * kConsumers;         // query rows a dQ CTA
+constexpr int kDqK = 64;                         // keys a dQ KV tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -1261,6 +1036,171 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
   }
 }
 
+// ------------------------------------------------------------------- dQ --
+// dK/dV's design with queries and keys swapped.  CTA: kDqQ query rows of
+// one (b, h); the producer loads the Q and dO blocks once and streams the
+// K/V tiles of kDqK keys, up to the causal diagonal, through the ring.
+// Each query row's lse (times log2 e) and delta are fixed for the CTA, so
+// a thread keeps its two rows' values in registers.  Per tile a consumer
+// warpgroup forms S = Q K^T and dP = dO V^T (64 queries x 64 keys, SS
+// wgmma), then P and dS = P (dP - delta) on the fragments, then dQ += dS K
+// (RS wgmma, dS rounded to K's type in the A operand, K MN-major).  dQ is
+// scaled once at the end.
+template <int D>
+struct DqLayout {
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kO = kQ + tile_bytes(kDqQ, D);  // dO
+  static constexpr uint32_t kK = kO + tile_bytes(kDqQ, D);
+  static constexpr uint32_t kV = kK + kStages * tile_bytes(kDqK, D);
+  static constexpr uint32_t kBar = kV + kStages * tile_bytes(kDqK, D);
+  // Barriers: Q and dO landed, then full[kStages], empty[kStages].
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
+                          __grid_constant__ const CUtensorMap k_map,
+                          __grid_constant__ const CUtensorMap v_map,
+                          __grid_constant__ const CUtensorMap do_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int S, int Skv, int causal,
+                          float scale, float scale_log2) {
+  using L = DqLayout<D>;
+  constexpr int kTile = tile_bytes(kDqK, D);
+  extern __shared__ __align__(16) uint8_t wg_smem[];
+  uint8_t* smem = align_1024(wg_smem);
+  uint64_t* bar_qo = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_qo + 1;
+  uint64_t* empty = full + kStages;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqQ;  // longest first
+  const int all_tiles = (Skv + kDqK - 1) / kDqK;
+  const int n_tiles =
+      causal ? min(all_tiles, (min(q0 + kDqQ, S) - 1) / kDqK + 1)
+             : all_tiles;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_qo, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warp
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_arrive_expect_tx(bar_qo, 2 * tile_bytes(kDqQ, D));
+      tma_load_tile<D>(smem + L::kQ, &q_map, bar_qo, q0, bh, kDqQ);
+      tma_load_tile<D>(smem + L::kO, &do_map, bar_qo, q0, bh, kDqQ);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + s, 2 * kTile);
+        tma_load_tile<D>(smem + L::kK + s * kTile, &k_map, full + s,
+                         t * kDqK, bh, kDqK);
+        tma_load_tile<D>(smem + L::kV + s * kTile, &v_map, full + s,
+                         t * kDqK, bh, kDqK);
+      }
+    }
+    return;
+  }
+
+  const int w = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+  const int wg_row0 = q0 + kRows * w;        // the warpgroup's first row
+  const int row = wg_row0 + 16 * warp + g;   // this thread's rows: +0, +8
+  const uint32_t q_base = smem_addr(smem + L::kQ) + kRows * 128 * w;
+  const uint32_t o_base = smem_addr(smem + L::kO) + kRows * 128 * w;
+
+  // A row past S gets lse = +inf: its probabilities are exactly 0.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    const size_t idx = static_cast<size_t>(bh) * S + r;
+    lse2[h] = r < S ? lse[idx] * kLog2e : INFINITY;
+    dlt[h] = r < S ? delta[idx] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_qo, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kDqK;
+    mbar_wait(full + s, (t / kStages) & 1);
+    if (causal && k0 > wg_row0 + kRows - 1) {  // every key is in the future
+      mbar_arrive(empty + s);
+      continue;
+    }
+    const uint32_t k_base = smem_addr(smem + L::kK + s * kTile);
+    const uint32_t v_base = smem_addr(smem + L::kV + s * kTile);
+
+    float sc[kDqK / 2], dp[kDqK / 2];  // S and dP: queries x keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kDqK>(sc, k_major(q_base, kDqQ, kk),
+                     k_major(k_base, kDqK, kk), kk > 0);
+      wgmma_ss<kDqK>(dp, k_major(o_base, kDqQ, kk),
+                     k_major(v_base, kDqK, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+    fence_operands(dp);
+
+    // dp becomes dS = P (dP - delta), P = 2^(S scale log2 e - lse log2 e);
+    // masked only where the tile crosses the key count or the diagonal.
+    const bool masked =
+        k0 + kDqK > Skv || (causal && k0 + kDqK - 1 > wg_row0);
+#pragma unroll
+    for (int i = 0; i < kDqK / 2; ++i) {
+      const int h = (i / 2) & 1;
+      float p = exp2_ftz(fmaf(sc[i], scale_log2, -lse2[h]));
+      if (masked) {
+        const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+        if (col >= Skv || (causal && col > row + 8 * h)) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - dlt[h]);
+    }
+
+    // dQ += dS K, dS rounded to K's type in the A operand.
+    uint32_t da[kDqK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kDqK / 16; ++kk) acc_to_a(da[kk], dp, kk);
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqK / 16; ++kk) {
+      wgmma_rs_mn<D>(acc, da[kk], mn_major(k_base, kDqK, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= S) continue;
+    bf16* qrow = dq + (static_cast<size_t>(bh) * S + r) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(qrow + 8 * j + 2 * t4) =
+          pack(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+    }
+  }
+}
+
 // Calls f(D) with D as a compile-time constant when these kernels take
 // this head dim; returns false (f not called) otherwise.
 template <typename F>
@@ -1302,10 +1242,10 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Which build takes a call: the forward and dK/dV run the wgmma kernels
-// for bf16 at D in {64, 128}, dQ the mma.sync kernel for bf16 at D in
-// {32, 64, 128}; everything else runs the CUDA-core kernels.  A refused
-// tensor map or launch is returned, never retried on another build.
+// Which build takes a call: the three kernels run their wgmma builds for
+// bf16 at D in {64, 128}; everything else runs the CUDA-core kernels.  A
+// refused tensor map or launch is returned, never retried on another
+// build.
 template <typename T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v,
                          void* o, float* lse, int BH, int S, int Skv, int D,
@@ -1408,17 +1348,25 @@ cudaError_t dq_dispatch(const void* q, const void* k, const void* v,
                         int D, int causal, float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     cudaError_t err = cudaSuccess;
-    if (tc::with_head_dim(D, [&](auto d) {
+    if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
-          auto kernel = tc::flash_bwd_dq_tc_kernel<kD>;
-          const size_t smem = 4 * tc::tile_bytes(kD);
+          CUtensorMap q_map, k_map, v_map, do_map;
+          if (!hopper::encode_bf16_rows(&q_map, q, BH, S, kD, wg::kDqQ) ||
+              !hopper::encode_bf16_rows(&k_map, k, BH, Skv, kD, wg::kDqK) ||
+              !hopper::encode_bf16_rows(&v_map, v, BH, Skv, kD, wg::kDqK) ||
+              !hopper::encode_bf16_rows(&do_map, dout, BH, S, kD,
+                                        wg::kDqQ)) {
+            err = kTensorMapError;
+            return;
+          }
+          auto kernel = wg::flash_bwd_dq_wgmma_kernel<kD>;
+          const size_t smem = wg::DqLayout<kD>::kBytes + 1024;
           err = allow_smem(kernel, smem);
           if (err != cudaSuccess) return;
-          const dim3 grid((S + tc::kTile - 1) / tc::kTile, BH);
-          kernel<<<grid, tc::kTcThreads, smem, stream>>>(
-              static_cast<const T*>(q), static_cast<const T*>(k),
-              static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-              delta, static_cast<T*>(dq), S, Skv, causal, scale);
+          const dim3 grid((S + wg::kDqQ - 1) / wg::kDqQ, BH);
+          kernel<<<grid, wg::kThreads, smem, stream>>>(
+              q_map, k_map, v_map, do_map, lse, delta, static_cast<T*>(dq),
+              S, Skv, causal, scale, scale * wg::kLog2e);
           err = cudaGetLastError();
         })) {
       return err;

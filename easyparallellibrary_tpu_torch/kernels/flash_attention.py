@@ -6,10 +6,10 @@ from ``(q, k, lse)``, one kernel producing dK/dV (a CTA per KV tile) and
 another dQ (a CTA per Q tile).  The kernels live in
 ``csrc/flash_attention.cu`` and replace the six Pallas bodies; the
 resident/streaming split of the TPU version answered its VMEM budget and
-has no counterpart here.  In bf16 at head dims 64 and 128 the forward
-and dK/dV kernels read their tiles through TMA tensor maps, which the
-library encodes on every call from the pointers and sizes given (3 maps
-for the forward, 4 for dK/dV).
+has no counterpart here.  In bf16 at head dims 64 and 128 the three
+kernels read their tiles through TMA tensor maps, which the library
+encodes on every call from the pointers and sizes given (3 maps for the
+forward, 4 each for dK/dV and dQ).
 
 Each of the three functions comes in three forms, kernel layout
 ``[B, H, S, D]`` (``lse`` and ``delta`` ``[B, H, S]`` fp32):

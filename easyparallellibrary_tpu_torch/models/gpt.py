@@ -48,7 +48,7 @@ from easyparallellibrary_tpu_torch._not_ported import (
 from easyparallellibrary_tpu_torch.kernels.flash_attention import (
     FLASH_FWD_OP, flash_attention)
 from easyparallellibrary_tpu_torch.kernels.paged_attention import (
-    paged_attention)
+    PagedTiles, paged_attention)
 from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding, LayerNorm
 from easyparallellibrary_tpu_torch.ops.losses import (
     distributed_sparse_softmax_cross_entropy_with_logits)
@@ -158,10 +158,14 @@ class PagedInfo:
   written to (padding tokens go to rows of the null block).
   ``tables_tok`` int32 ``[T, MB]``: each token's slot block-table row.
   ``positions`` int32 ``[T]``: absolute positions (the causal bound).
+  ``tiles``: the step's query-tile plan (``kernels.paged_attention.
+  PagedTiles``), planned once per step for the kernel's tiled build, or
+  None where no kernel needs one.
   """
   write_idx: torch.Tensor
   tables_tok: torch.Tensor
   positions: torch.Tensor
+  tiles: Optional[PagedTiles] = None
 
 
 def paged_cache_attend(q, k, v, k_pages, v_pages, paged_info, dtype):
@@ -182,12 +186,13 @@ def paged_cache_attend(q, k, v, k_pages, v_pages, paged_info, dtype):
   v_pages.view(flat).index_copy_(0, paged_info.write_idx,
                                  v.to(v_pages.dtype))
   out = paged_attention(q.contiguous(), k_pages, v_pages,
-                        paged_info.tables_tok, paged_info.positions)
+                        paged_info.tables_tok, paged_info.positions,
+                        paged_info.tiles)
   return out.to(dtype), k_pages, v_pages
 
 
 def paged_step_logits(model, params, kv, tokens, slot_ids, positions,
-                      valid, block_tables):
+                      valid, block_tables, tiles=None):
   """Flat-token scoring against the paged KV cache — the device entry of
   the serving engine's step.
 
@@ -196,8 +201,11 @@ def paged_step_logits(model, params, kv, tokens, slot_ids, positions,
   ``block_tables`` int32 ``[N, MB]``; ``kv`` the pool dict of
   ``serving.kv_cache.allocate_paged_kv_cache``, written in place.
   Invalid (padding) tokens write to the null block and their logits are
-  garbage the scheduler never reads.  Returns ``(logits [T, vocab],
-  kv)``.
+  garbage the scheduler never reads.  ``tiles`` is the step's query-tile
+  plan (``kernels.paged_attention.plan_tiles``) for the attention
+  kernel's tiled build, which the engine makes once per step; without
+  one, each attention call that needs a plan derives its own.  Returns
+  ``(logits [T, vocab], kv)``.
   """
   T = tokens.shape[0]
   MB = block_tables.shape[1]
@@ -210,7 +218,7 @@ def paged_step_logits(model, params, kv, tokens, slot_ids, positions,
   trash_idx = torch.arange(T, device=tokens.device) % bs
   write_idx = torch.where(valid & (positions < L), real_idx, trash_idx)
   info = PagedInfo(write_idx=write_idx, tables_tok=tables_tok,
-                   positions=positions)
+                   positions=positions, tiles=tiles)
   logits = torch.func.functional_call(
       model, params, (tokens[:, None].long(),),
       {"decode": True, "paged_info": info, "cache": kv}, strict=True)

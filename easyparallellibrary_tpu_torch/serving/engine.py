@@ -7,8 +7,10 @@ single ``[token_budget]`` flat batch against the paged KV pool
 (``models.gpt.paged_step_logits``); each token is tagged with its slot
 and absolute position, and attends through its slot's block table — on
 the GPU with the hand-written CUDA kernel
-(``kernels/csrc/paged_attention.cu``).  The step's input shapes never
-change: joins, leaves and block-table reshuffles are data.
+(``kernels/csrc/paged_attention.cu``), whose bf16 build takes the step's
+query tiles, planned here once per step from the scheduler's plan.  The
+step's input shapes never change: joins, leaves and block-table
+reshuffles are data.
 
 :class:`FCFSScheduler` owns all host-side variability (admission,
 budgets, preemption, retirement); this module owns the device step.
@@ -40,6 +42,7 @@ from easyparallellibrary_tpu_torch._not_ported import (
     CONTIGUOUS_ENGINE, FLEET, PREFIX_CACHE, RESILIENCE, SPECULATIVE,
     TENSOR_PARALLEL, TRACING, not_ported)
 from easyparallellibrary_tpu_torch.env import Env
+from easyparallellibrary_tpu_torch.kernels import paged_attention as pa_lib
 from easyparallellibrary_tpu_torch.serving import kv_cache as kv_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_servable)
@@ -218,10 +221,20 @@ class ContinuousBatchingEngine:
     from easyparallellibrary_tpu_torch.models.gpt import paged_step_logits
     T = self.token_budget
     last_idx = (plan.base_idx + plan.num_valid - 1).astype(np.int32)
+    # The attention kernel's tiled build takes the step's query tiles,
+    # which the plan already knows: planned here once for every layer.
+    pool = self._kv["block_0"]["attn"]["cached_key"]
+    _, bs, H, hd = pool.shape
+    tiles = {}
+    if self.device.type == "cuda" and pa_lib.takes_tiles(pool.dtype, hd):
+      runs = pa_lib.tile_runs_from_plan(plan.base_idx, plan.num_valid, T)
+      tiles["tiles"] = pa_lib.plan_tiles(
+          runs, plan.positions, plan.block_tables.shape[1], bs, H,
+          self.device)
     logits, self._kv = paged_step_logits(
         self.model, self.params, self._kv, self._tensor(plan.tokens),
         self._tensor(plan.slot_ids), self._tensor(plan.positions),
-        self._tensor(plan.valid), self._tensor(plan.block_tables))
+        self._tensor(plan.valid), self._tensor(plan.block_tables), **tiles)
     # Each slot's next-token logits sit at its last scheduled flat
     # position; idle slots read row 0, which the scheduler never reads.
     last = logits.index_select(

@@ -164,14 +164,137 @@ def test_flash_ragged_tail_reads_nothing_of_the_next_head(cuda, causal, D):
   dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, causal)
   want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, dout, want_lse,
                                                 delta, causal)
+  dq = fa.flash_bwd_dq(q, k, v, dout, want_lse, delta, causal)
+  want_dq = fa.flash_bwd_dq_reference(q, k, v, dout, want_lse, delta,
+                                      causal)
   torch.cuda.synchronize()
-  for got in (out, lse, dk, dv):
+  for got in (out, lse, dk, dv, dq):
     assert bool(torch.isfinite(got).all())
   _assert_flash_close(out[:, 0], want_out[:, 0], "fwd", "out, head 0")
   torch.testing.assert_close(lse[:, 0], want_lse[:, 0], rtol=2e-5,
                              atol=2e-6)
   _assert_flash_close(dk[:, 0], want_dk[:, 0], "grad", "dk, head 0")
   _assert_flash_close(dv[:, 0], want_dv[:, 0], "grad", "dv, head 0")
+  _assert_flash_close(dq[:, 0], want_dq[:, 0], "grad", "dq, head 0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dq_launches_are_bit_identical(cuda, causal, D):
+  """dQ is its own kernel with no atomics: two launches on the same
+  inputs give the same bits."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  q, k, v, dout = _flash_case(cuda, torch.bfloat16, 13, 2, 4, 320, 320, D)
+  out, lse = fa.flash_fwd(q, k, v, causal)
+  delta = (dout.float() * out.float()).sum(-1)
+  first = fa.flash_bwd_dq(q, k, v, dout, lse, delta, causal)
+  second = fa.flash_bwd_dq(q, k, v, dout, lse, delta, causal)
+  torch.cuda.synchronize()
+  assert torch.equal(first, second)
+
+
+def _paged_step(device, dtype, seed, slots, T, H, hd, bs, MB, NB=None):
+  """A paged-attention batch laid out as the engine's scheduler lays out
+  a step: ``slots`` lists each slot's (first position, tokens), in flat
+  order, each slot with its own distinct blocks; the rest of the T flat
+  tokens are padding (slot 0, position 0).  Returns the kernel inputs
+  and the plan's tile runs."""
+  r = np.random.RandomState(seed)
+  NB = NB or len(slots) * MB + 1
+  blocks = 1 + r.permutation(NB - 1)
+  tables = np.zeros((len(slots), MB), np.int32)
+  slot_ids = np.zeros((T,), np.int32)
+  positions = np.zeros((T,), np.int32)
+  base_idx = np.zeros((len(slots),), np.int32)
+  num_valid = np.zeros((len(slots),), np.int32)
+  pos = 0
+  for s, (first, n) in enumerate(slots):
+    base_idx[s], num_valid[s] = pos, n
+    slot_ids[pos:pos + n] = s
+    positions[pos:pos + n] = np.arange(first, first + n)
+    live = (first + n - 1) // bs + 1
+    tables[s, :live] = blocks[s * MB:s * MB + live]
+    pos += n
+  floats = [torch.from_numpy(r.randn(*shape).astype(np.float32)).to(device,
+                                                                     dtype)
+            for shape in ((T, H, hd), (NB, bs, H, hd), (NB, bs, H, hd))]
+  tables_tok = torch.from_numpy(tables[slot_ids]).to(device)
+  args = (*floats, tables_tok, torch.from_numpy(positions).to(device))
+  return args, pa.tile_runs_from_plan(base_idx, num_valid, T)
+
+
+PAGED_STEPS = {
+    # chip_smoke.py's engine_step: 6 decode slots, two 128-token chunks.
+    "engine_step": dict(slots=[(70, 1), (543, 1), (300, 1), (64, 1),
+                               (129, 1), (401, 1), (384, 128), (0, 128)],
+                        T=264, H=16, bs=16, MB=64),
+    # A chunk of 40 tokens from position 10 crosses block boundaries.
+    "chunk_across_blocks": dict(slots=[(10, 40), (33, 1)], T=48, H=4,
+                                bs=16, MB=8),
+    # A decode token at the last position the table holds.
+    "decode_at_last_row": dict(slots=[(8 * 16 - 1, 1), (5, 1)], T=4, H=4,
+                               bs=16, MB=8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("step", sorted(PAGED_STEPS))
+def test_paged_tiled_kernel_matches_plain_version(cuda, step, hd):
+  """bf16 at head dims 64 and 128 runs the slot-tiled build, over the
+  scheduler plan's tiles and over tiles derived from the batch."""
+  args, runs = _paged_step(cuda, torch.bfloat16, 3, hd=hd,
+                           **PAGED_STEPS[step])
+  q, kp = args[0], args[1]
+  pos = args[4].cpu().numpy()
+  tiles = pa.plan_tiles(runs, pos, args[3].shape[1], kp.shape[1],
+                        q.shape[1], cuda)
+  launches = pa.paged_attention_tiled_cuda.launches
+  outs = [pa.paged_attention(*args, tiles), pa.paged_attention(*args)]
+  torch.cuda.synchronize()
+  assert pa.paged_attention_tiled_cuda.launches == launches + 2
+  assert not tiles.counters.any()          # each launch leaves them at 0
+  want = pa.paged_attention_reference(*args)
+  for got in outs:
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_paged_tiled_kernel_reads_null_block_for_bad_table_entries(cuda):
+  """Table entries at or past NB, and negative ones, read the null
+  block 0, as the plain version's gather of a clamped index would not:
+  the plain version gets the corrected table."""
+  args, runs = _paged_step(cuda, torch.bfloat16, 4, slots=[(0, 50),
+                                                           (90, 1)],
+                           T=52, H=4, hd=64, bs=16, MB=8)
+  q, kp, vp, tables, positions = args
+  bad = tables.clone()
+  NB = kp.shape[0]
+  bad[:50, 1] = NB
+  bad[50, 2] = NB + 7
+  bad[50, 3] = -3
+  fixed = torch.where((bad < 0) | (bad >= NB), 0, bad)
+  got = pa.paged_attention(q, kp, vp, bad, positions)
+  want = pa.paged_attention_reference(q, kp, vp, fixed, positions)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                             atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_paged_tiled_refused_launch_raises(cuda):
+  """65536 heads exceed the tiled grid's y dimension: the launch is
+  refused, the wrapper raises, and nothing is counted."""
+  H = 65536
+  args, runs = _paged_step(cuda, torch.bfloat16, 5, slots=[(0, 1)], T=1,
+                           H=H, hd=64, bs=1, MB=4, NB=2)
+  launches = pa.paged_attention_tiled_cuda.launches
+  with pytest.raises(RuntimeError, match="launch failed"):
+    pa.paged_attention(*args)
+  assert pa.paged_attention_tiled_cuda.launches == launches
 
 
 @pytest.mark.gpu

@@ -121,3 +121,164 @@ def test_library_name_follows_source_headers_and_flags(monkeypatch,
   names.append(_build.library_path("k"))
   assert len(set(names)) == 4, names
   assert all(p.name.startswith("libk-") for p in names)
+
+
+# ------------------------------------------------------ query-tile plan --
+
+
+def _step_plan(seed, T=96, slots=6, MB=32, bs=8):
+  """A random engine step as ``FCFSScheduler._plan_flat`` lays it out:
+  decode slots first (one token each), then prefill chunks of
+  consecutive positions (some longer than a tile), the rest padding
+  (slot 0, position 0); every slot its own distinct blocks.  Returns
+  ``(base_idx, num_valid, tables_tok, positions)`` as numpy arrays."""
+  r = np.random.RandomState(seed)
+  L = MB * bs
+  blocks = 1 + r.permutation(slots * MB)
+  tables = np.zeros((slots, MB), np.int32)
+  base_idx = np.zeros((slots,), np.int32)
+  num_valid = np.zeros((slots,), np.int32)
+  slot_ids = np.zeros((T,), np.int32)
+  positions = np.zeros((T,), np.int32)
+  order = r.permutation(slots)
+  decoding = order[:r.randint(0, slots + 1)]
+  pos = 0
+  for s in list(decoding) + [s for s in order if s not in decoding]:
+    if s in decoding:
+      first, n = r.randint(1, L), 1
+    else:
+      n = min(r.randint(1, 100), T - pos, L)
+      first = r.randint(0, L - n + 1) if n > 0 else 0
+    if n <= 0:
+      continue
+    base_idx[s], num_valid[s] = pos, n
+    slot_ids[pos:pos + n] = s
+    positions[pos:pos + n] = np.arange(first, first + n)
+    live = (first + n - 1) // bs + 1
+    tables[s, :live] = blocks[s * MB:s * MB + live]
+    pos += n
+  return base_idx, num_valid, tables[slot_ids], positions
+
+
+def _check_runs(runs, tables_tok, positions):
+  """Brute force: every flat token lies in exactly one run; a run has
+  one table row, 1..TILE_ROWS rows and consecutive positions, or, if it
+  is padding, position 0 throughout."""
+  T = positions.shape[0]
+  hits = np.zeros((T,), int)
+  for t0, n in runs:
+    assert 1 <= n <= pa.TILE_ROWS and 0 <= t0 and t0 + n <= T
+    padding = n > 1 and positions[t0] == positions[t0 + 1] == 0
+    for t in range(t0, t0 + n):
+      hits[t] += 1
+      np.testing.assert_array_equal(tables_tok[t], tables_tok[t0])
+      assert positions[t] == (0 if padding else positions[t0] + (t - t0))
+  np.testing.assert_array_equal(hits, np.ones((T,), int))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_tile_planner_covers_every_token_once(seed):
+  base_idx, num_valid, tables_tok, positions = _step_plan(seed)
+  from_plan = pa.tile_runs_from_plan(base_idx, num_valid, len(positions))
+  from_tokens = pa.tile_runs_from_tokens(tables_tok, positions)
+  _check_runs(from_plan, tables_tok, positions)
+  _check_runs(from_tokens, tables_tok, positions)
+  # Slots own distinct blocks, so the batch shows the plan's runs.
+  assert sorted(map(tuple, from_plan)) == sorted(map(tuple, from_tokens))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_work_items_split_each_context_once(seed):
+  """Each tile's splits cover keys 0 .. context - 1 once, start on a
+  64-key stage, and own disjoint scratch slots."""
+  MB, bs = 32, 8
+  base_idx, num_valid, tables_tok, positions = _step_plan(seed, MB=MB,
+                                                          bs=bs)
+  runs = pa.tile_runs_from_plan(base_idx, num_valid, len(positions))
+  items, partial_rows = pa.work_items(runs, positions, MB, bs)
+  slots, i = [], 0
+  for t0, n in runs:
+    ctx = min(positions[t0:t0 + n].max(), MB * bs - 1) + 1
+    splits = items[i, 5]
+    group = items[i:i + splits]
+    assert (group[:, 0] == t0).all() and (group[:, 1] == n).all()
+    np.testing.assert_array_equal(group[:, 4], np.arange(splits))
+    ends = [e if e >= 0 else ctx for e in group[:, 3]]
+    np.testing.assert_array_equal(group[1:, 2], ends[:-1])
+    assert group[0, 2] == 0 and ends[-1] == ctx and group[-1, 3] == -1
+    assert (group[:, 2] % 64 == 0).all()
+    if splits > 1:
+      slots.extend(range(group[0, 6], group[0, 6] + n * splits))
+    i += splits
+  assert i == len(items)
+  assert sorted(slots) == list(range(partial_rows))
+
+
+def _emulate_tiled(q, kp, vp, tables, positions, items):
+  """What the tiled kernel computes for each work item, in fp32 on the
+  CPU: a split's (m, l, acc) over its keys, then every tile's splits
+  combined.  Holds the planner's splits to the plain version."""
+  T, H, hd = q.shape
+  bs, MB = kp.shape[1], tables.shape[1]
+  scale = 1.0 / np.sqrt(hd)
+  out = torch.zeros_like(q)
+  parts = {}
+  for t0, n, k0, k1, split, splits, _, _ in items.tolist():
+    pos = torch.clamp(positions[t0:t0 + n].long(), max=MB * bs - 1)
+    ctx = int(pos.max()) + 1
+    k1 = ctx if k1 < 0 else min(k1, ctx)
+    j = torch.arange(k0, max(k1, k0))
+    blk = tables[t0].long()[j // bs]
+    blk = torch.where((blk < 0) | (blk >= kp.shape[0]), 0, blk)
+    k, v = kp[blk, j % bs], vp[blk, j % bs]                  # [keys, H, hd]
+    s = torch.einsum("rhd,khd->rhk", q[t0:t0 + n], k) * scale
+    s = torch.where(j[None, None, :] <= pos[:, None, None], s,
+                    torch.tensor(-np.inf))
+    m = s.amax(-1, keepdim=True) if len(j) else torch.full((n, H, 1),
+                                                           -np.inf)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m))
+    parts.setdefault(t0, []).append(
+        (m, p.sum(-1, keepdim=True), torch.einsum("rhk,khd->rhd", p, v)))
+    if split == splits - 1:
+      ms = torch.stack([a for a, _, _ in parts[t0]])
+      big = ms.amax(0)
+      w = torch.exp(ms - big)
+      l = (w * torch.stack([b for _, b, _ in parts[t0]])).sum(0)
+      acc = (w * torch.stack([c for _, _, c in parts[t0]])).sum(0)
+      out[t0:t0 + n] = acc / torch.clamp_min(l, 1e-30)
+  return out
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_split_tiles_with_plan_or_derived_tiles_match_plain_version(seed):
+  """The tiled kernel's arithmetic (per-split partials, combined) over
+  the engine's planned tiles and over tiles derived from the batch: both
+  equal the plain version, fp32; the dispatcher on the CPU takes a plan
+  and gives the plain version's answer."""
+  T, H, hd, MB, bs = 96, 2, 16, 64, 8
+  base_idx, num_valid, tables_tok, positions = _step_plan(seed, T=T,
+                                                          MB=MB, bs=bs)
+  r = np.random.RandomState(seed + 10)
+  NB = 6 * MB + 1
+  q, kp, vp = [torch.from_numpy(r.randn(*s).astype(np.float32))
+               for s in ((T, H, hd), (NB, bs, H, hd), (NB, bs, H, hd))]
+  tables, pos = torch.from_numpy(tables_tok), torch.from_numpy(positions)
+  want = pa.paged_attention_reference(q, kp, vp, tables, pos)
+  for runs in (pa.tile_runs_from_plan(base_idx, num_valid, T),
+               pa.tile_runs_from_tokens(tables_tok, positions)):
+    items, _ = pa.work_items(runs, positions, MB, bs)
+    assert (items[:, 5] > 1).any()        # some context is split
+    got = _emulate_tiled(q, kp, vp, tables, pos, items)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    tiles = pa.plan_tiles(runs, positions, MB, bs, H, "cpu")
+    assert tiles.counters.shape == (len(items) * H,)
+    assert not tiles.counters.any()
+    torch.testing.assert_close(
+        pa.paged_attention(q, kp, vp, tables, pos, tiles), want)
+
+
+def test_tiled_build_takes_bf16_at_head_dims_64_and_128_only():
+  assert pa.takes_tiles(torch.bfloat16, 64)
+  assert pa.takes_tiles(torch.bfloat16, 128)
+  assert not pa.takes_tiles(torch.float32, 64)
+  assert not pa.takes_tiles(torch.bfloat16, 32)
