@@ -6,22 +6,27 @@
 Run from the root of a checkout, on a machine with a CUDA GPU and
 ``nvcc``.  It drives the port's two main paths at the full width of
 GPT-350M (``easyparallellibrary_tpu_torch``) — the paged
-continuous-batching engine, and the training step of ``bench.py`` — and
-holds every CUDA kernel of those paths against its plain PyTorch
-version:
+continuous-batching engine (plain, speculative, with the prefix cache),
+and the training step of ``bench.py`` — and holds every CUDA kernel of
+those paths against its plain PyTorch version:
 
 1. build the kernels from the checkout's sources (one ``nvcc`` per
    source, started together) and print the card's name and power limit;
 2. paged attention against its plain version on the card, fp32 and
    bf16, at an engine step (``engine_step``: decode tokens, two prefill
    chunks and padding, as the scheduler lays them out; at head dim 64
-   and 128), at the earlier random-table engine shape and at the JAX
-   package's test shapes; bf16 at head dim 64 and 128 runs the
-   slot-tiled build, with the planner's tiles and with derived tiles;
+   and 128), at three steps of the real scheduler (``spec_step``:
+   decode tokens with their k = 4 draft runs, a prefill chunk, padding;
+   ``rollout_step``: a draft model's four one-token-per-slot calls on
+   one tile plan, crossing a split boundary; ``warm_prefix_step``: a
+   chunk from position 256 over blocks another slot shares), at the
+   earlier random-table engine shape and at the JAX package's test
+   shapes; bf16 at head dim 64 and 128 runs the slot-tiled build, with
+   the planner's tiles and with derived tiles;
 3. kernel, plain version and library-yardstick times (CUDA events) at
-   ``engine_step`` and at the random-table shape, the warp build
-   beside the tiled one in bf16, and the least time the card could take
-   for the same work;
+   ``engine_step``, at ``spec_step`` and at the random-table shape, the
+   warp build beside the tiled one in bf16, and the least time the card
+   could take for the same work;
 4. GPT-350M at full width in fp32: the paged engine's greedy streams
    against the port's ``generate(use_cache=False)``, with the warp
    build's launch count over the run (counts set to 0 just before it);
@@ -49,7 +54,19 @@ version:
     run (counts set to 0 just before it);
 11. where a bf16 training step's time goes: a ``torch.profiler`` window
     of training steps at phase 10's batch (device time by kernel, the
-    flash kernels' share).
+    flash kernels' share);
+12. GPT-350M bf16, speculative serving: phase 5's staggered load over
+    prompts whose spans repeat, with the n-gram drafter and then with the
+    target's own weights as the draft model: tokens/s, TTFT, ITL,
+    drafted / accepted tokens, the target's and the draft model's
+    launches against layers x calls, streams against ``generate(
+    use_cache=False)``, an acceptance floor for the self-draft run, and
+    a ``torch.profiler`` window of the n-gram engine's steps;
+13. GPT-350M bf16, prefix caching: 16 requests sharing a 256-token
+    system prompt, then 8 second turns, with the cache off and on: hits,
+    blocks reused, prefill tokens saved, TTFT of the same requests in
+    both runs, the shared blocks' pool rows unchanged, streams against
+    ``generate(use_cache=False)``, launch counts.
 
 Every phase raises on failure.  The second-to-last line of the output is
 the ``{"kernels": [...]}`` record, the last one
@@ -110,6 +127,13 @@ FLASH_BENCH_SHAPE = dict(B=16, H=16, S=1024, D=64)
 TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH, TRAIN_FP32_STEPS = 4, 4, 3
 TRAIN_PROFILE_STEPS = 2
 BF16_GAP_STEPS = 8
+SPEC_K = 4                  # serving.speculative.k's default
+# Phase 12's self-draft acceptance floor.  The first run on an H100 read
+# 0.9486 (351 of 370 drafts): the draft model is the target, and only
+# bf16 near-ties between its 8-row rollout products and the 264-row
+# verify step's flip a draft.  A draft attending the wrong slot's K/V
+# would be rejected nearly always, driving acceptance towards 0.
+SELF_DRAFT_ACCEPTANCE_FLOOR = 0.8
 PROFILE_STEPS = 20
 
 
@@ -201,6 +225,46 @@ def engine_step_case(torch, dtype, seed, H=16, hd=64):
   return (*floats, *ints), pa.tile_runs_from_plan(base_idx, num_valid, T)
 
 
+def scheduled_step_case(torch, dtype, seed, kind, H=16, hd=64):
+  """Paged-attention calls at a step of the port's real scheduler, at
+  the engine's geometry (``testing.step_plans``: 8 slots, chunk 128, bs
+  16, token budget 264, k = 4).  ``kind``: "spec_step" (7 decode tokens
+  with their k = 4 draft runs, partly filled, a 128-token prefill chunk
+  and padding), "warm_prefix_step" (the same with the prefix cache on:
+  the chunk starts at position 256 over blocks that another slot's
+  table holds) or "rollout_step" (a draft model's 4 one-token-per-slot
+  calls, slot 0's crossing position 256, a split boundary).  Returns
+  ``[(args, plan_positions, runs)]``, one per call: the kernel's inputs
+  on the card, and the positions and runs the planner plans the call's
+  tiles from (the rollout's last call's, for all four)."""
+  from easyparallellibrary_tpu_torch.kernels import paged_attention as pa
+  from easyparallellibrary_tpu_torch.testing import step_plans
+  plan = step_plans.scheduled_step(seed, num_slots=NUM_SLOTS,
+                                   chunk=PREFILL_CHUNK,
+                                   block_size=BLOCK_SIZE,
+                                   warm=kind == "warm_prefix_step")
+  MB = plan.block_tables.shape[1]
+  NB = NUM_SLOTS * MB + 1
+  if kind == "rollout_step":
+    calls = step_plans.rollout_positions(plan, 4, cross=256)
+    tables = plan.block_tables
+    runs = pa.one_row_runs(NUM_SLOTS)
+  else:
+    calls = [plan.positions]
+    tables = plan.block_tables[plan.slot_ids]
+    runs = pa.tile_runs_from_plan(plan.base_idx, plan.num_valid,
+                                  len(plan.positions), plan.draft_base,
+                                  plan.draft_cap)
+  r = np.random.RandomState(seed)
+  floats = [torch.from_numpy(r.randn(*s).astype(np.float32)).to("cuda",
+                                                                 dtype)
+            for s in ((len(tables), H, hd), (NB, BLOCK_SIZE, H, hd),
+                      (NB, BLOCK_SIZE, H, hd))]
+  tables = torch.from_numpy(np.ascontiguousarray(tables)).to("cuda")
+  return [((*floats, tables, torch.from_numpy(p).to("cuda")), calls[-1],
+           runs) for p in calls]
+
+
 def paged_bound(torch, q, kp, tables, positions):
   """(least ms, "bytes" | "operations") for one paged-attention call on
   these inputs: the K/V rows it must read (each distinct pool row once),
@@ -286,22 +350,25 @@ def build_kernels():
   return smi
 
 
-def paged_tiles(pa, args, runs=None):
-  """The tile plan of one paged-attention batch: the given runs, or
-  those derived from the batch itself."""
+def paged_tiles(pa, args, runs=None, plan_positions=None):
+  """The tile plan of one paged-attention batch: the given runs (planned
+  from ``plan_positions``, by default the batch's own), or those
+  derived from the batch itself."""
   q, kp, _, tables, positions = args
   pos = positions.cpu().numpy()
   if runs is None:
     runs = pa.tile_runs_from_tokens(tables.cpu().numpy(), pos)
-  return pa.plan_tiles(runs, pos, tables.shape[1], kp.shape[1], q.shape[1],
-                       q.device)
+  return pa.plan_tiles(runs, pos if plan_positions is None
+                       else plan_positions, tables.shape[1], kp.shape[1],
+                       q.shape[1], q.device)
 
 
 def kernel_parity(torch, pa):
   """Kernel vs plain version; returns max abs error per dtype.  Where
   the tiled build takes a case, it runs with derived tiles (the
-  dispatcher's own plan) and, at ``engine_step``, also with the
-  scheduler plan's tiles."""
+  dispatcher's own plan) and, at ``engine_step`` and at the scheduler's
+  speculative, rollout and warm-prefix steps, also with the planner's
+  tiles."""
   shapes = [
       ("engine_step", None, dict()),
       ("engine_step_hd128", None, dict(H=8, hd=128)),
@@ -312,45 +379,54 @@ def kernel_parity(torch, pa):
                                engine_like=False), None),
       ("jax_tpu_case", dict(T=16, H=8, hd=64, NB=17, bs=16, MB=8,
                             engine_like=False), None),
-  ]
+  ] + [(f"{kind}{sfx}", None, dict(kind=kind, **geo))
+       for kind in ("spec_step", "rollout_step", "warm_prefix_step")
+       for sfx, geo in (("", {}), ("_hd128", dict(H=8, hd=128)))]
   errs = {}
   for dtype_name, tol in TOLERANCE.items():
     dtype = getattr(torch, dtype_name)
     worst = 0.0
     for seed, (label, shape, step) in enumerate(shapes):
-      if step is None:
-        args, runs = paged_case(torch, dtype, seed, **shape), None
+      if shape is not None:
+        calls = [(paged_case(torch, dtype, seed, **shape), None, None)]
+      elif "kind" in step:
+        calls = scheduled_step_case(torch, dtype, seed, **step)
       else:
         args, runs = engine_step_case(torch, dtype, seed, **step)
-      tiled = pa.takes_tiles(dtype, args[0].shape[2])
-      before = pa.paged_attention_tiled_cuda.launches
-      outs = [pa.paged_attention(*args)]  # the dispatcher: CUDA -> kernel
-      if tiled and runs is not None:
-        outs.append(pa.paged_attention(*args, paged_tiles(pa, args, runs)))
-      want = pa.paged_attention_reference(*args)
-      torch.cuda.synchronize()
-      assert (pa.paged_attention_tiled_cuda.launches - before
-              == (len(outs) if tiled else 0)), label
+        calls = [(args, None, runs)]
       err = 0.0
-      for got in outs:
-        assert got.shape == want.shape and got.dtype == dtype
-        assert bool(torch.isfinite(got).all()), f"{label}: non-finite"
-        err = max(err, (got.float() - want.float()).abs().max().item())
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol, msg=lambda m: f"{label} "
-                                   f"{dtype_name}: {m}")
+      for args, plan_pos, runs in calls:
+        tiled = pa.takes_tiles(dtype, args[0].shape[2])
+        before = pa.paged_attention_tiled_cuda.launches
+        outs = [pa.paged_attention(*args)]  # the dispatcher -> the kernel
+        if tiled and runs is not None:
+          outs.append(pa.paged_attention(
+              *args, paged_tiles(pa, args, runs, plan_pos)))
+        want = pa.paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        assert (pa.paged_attention_tiled_cuda.launches - before
+                == (len(outs) if tiled else 0)), label
+        for got in outs:
+          assert got.shape == want.shape and got.dtype == dtype
+          assert bool(torch.isfinite(got).all()), f"{label}: non-finite"
+          err = max(err, (got.float() - want.float()).abs().max().item())
+          torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                     atol=tol, msg=lambda m: f"{label} "
+                                     f"{dtype_name}: {m}")
       build = "tiled" if tiled else "warp"
-      log(f"   {label:17s} {dtype_name:8s} {build:5s} max|kernel - plain| = "
-          f"{err:.3e} (rtol = atol = {tol:g})"
-          + (", planner and derived tiles" if len(outs) > 1 else ""))
+      log(f"   {label:22s} {dtype_name:8s} {build:5s} max|kernel - plain| "
+          f"= {err:.3e} (rtol = atol = {tol:g})"
+          + (", planner and derived tiles" if len(outs) > 1 else "")
+          + (f", {len(calls)} calls on one plan" if len(calls) > 1 else ""))
       worst = max(worst, err)
     errs[dtype_name] = worst
   return errs
 
 
 def kernel_timing(torch, pa):
-  """Times per dtype at ``engine_step`` and at the random-table shape of
-  earlier PRs: the kernel the dispatcher takes (in bf16 the tiled build,
+  """Times per dtype at ``engine_step``, at the scheduler's speculative
+  step (``spec_step``) and at the random-table shape of earlier PRs: the
+  kernel the dispatcher takes (in bf16 the tiled build,
   over tiles planned before the timed window, as the engine plans them
   once per step), in bf16 also the warp build, the plain version, the
   gather + SDPA yardstick and the bound."""
@@ -360,9 +436,12 @@ def kernel_timing(torch, pa):
   out = {}
   for dtype_name in TOLERANCE:
     dtype = getattr(torch, dtype_name)
-    for label in ("engine_step", "random_tables"):
+    for label in ("engine_step", "spec_step", "random_tables"):
       if label == "engine_step":
         cases = [engine_step_case(torch, dtype, 100 + i) for i in range(4)]
+      elif label == "spec_step":
+        cases = [(args, runs) for i in range(4) for args, _, runs in
+                 scheduled_step_case(torch, dtype, 100 + i, label)]
       else:
         cases = [(paged_case(torch, dtype, 100 + i, **random_shape), None)
                  for i in range(4)]
@@ -399,19 +478,25 @@ def make_prompts(seed, n, vocab):
   return [r.randint(0, vocab, (int(k),)).astype(np.int32) for k in lengths]
 
 
-def greedy_vs_generate(torch, model, params, prompts, out, max_gap, label):
+def greedy_vs_generate(torch, model, params, prompts, out, max_gap, label,
+                       refs=None):
   """Each request's engine stream ``out[i]`` against the port's
-  ``generate(use_cache=False)``.  Where a stream first differs, the
-  reference's top-2 logit gap there must be below ``max_gap(top1)``: a
-  near-tie that rounding in another order may flip.  Returns the number
-  of equal streams."""
+  ``generate(use_cache=False)`` (kept in ``refs`` by prompt index, when
+  given, for a later run over the same prompts).  Where a stream first
+  differs, the reference's top-2 logit gap there must be below
+  ``max_gap(top1)``: a near-tie that rounding in another order may
+  flip.  Returns the number of equal streams."""
   from easyparallellibrary_tpu_torch.models.gpt import generate
+  refs = {} if refs is None else refs
   equal = 0
   for i, p in enumerate(prompts):
     got = out[i]
     new = len(got) - len(p)
-    want = generate(model, params, torch.from_numpy(p[None]).long().cuda(),
-                    new, use_cache=False)[0].cpu().numpy()
+    if i not in refs:
+      refs[i] = generate(model, params,
+                         torch.from_numpy(p[None]).long().cuda(), new,
+                         use_cache=False)[0].cpu().numpy()
+    want = refs[i]
     assert got.shape == want.shape == (len(p) + new,)
     diff = np.nonzero(got != want)[0]
     if diff.size == 0:
@@ -475,6 +560,22 @@ def bf16_gap_limit(top1):
                                                             1e-30)))
 
 
+def drive_waves(eng, request_cls, prompts, max_new=32):
+  """Phase 5's staggered load: 8 requests, 3 steps, 4 more, 3 steps, the
+  last 4, then until the queue drains.  Returns ``{index: tokens}``."""
+  out = {}
+  waves = [(0, 8), (8, 12), (12, 16)]
+  for w, (a, b) in enumerate(waves):
+    for i in range(a, b):
+      eng.submit(request_cls(uid=i, prompt=prompts[i],
+                             max_new_tokens=max_new))
+    for _ in range(3 if w < len(waves) - 1 else 0):
+      for fin in eng.step():
+        out[fin.uid] = fin.tokens
+  out.update(eng.run())
+  return out
+
+
 def engine_bf16_serving(torch, params, pa):
   """Full width, bf16, staggered submits; the main path's launch counts,
   then the greedy streams against ``generate(use_cache=False)`` in
@@ -491,17 +592,9 @@ def engine_bf16_serving(torch, params, pa):
                                  prefill_chunk=PREFILL_CHUNK,
                                  block_size=BLOCK_SIZE, stats=stats)
   prompts = make_prompts(2, 16, cfg.vocab_size)
-  waves = [(0, 8), (8, 12), (12, 16)]
   pa.reset_counts()
   t0 = time.monotonic()
-  out = {}
-  for w, (a, b) in enumerate(waves):
-    for i in range(a, b):
-      eng.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=32))
-    for _ in range(3 if w < len(waves) - 1 else 0):
-      for fin in eng.step():
-        out[fin.uid] = fin.tokens
-  out.update(eng.run())
+  out = drive_waves(eng, Request, prompts)
   torch.cuda.synchronize()
   wall = time.monotonic() - t0
   launches = pa.paged_attention_tiled_cuda.launches
@@ -532,6 +625,236 @@ def engine_bf16_serving(torch, params, pa):
   return launches, eng
 
 
+def repeating_prompts(seed, n, vocab):
+  """Prompts of 64-512 tokens, each one random span of 8-48 tokens
+  repeated, 2% of its tokens redrawn: text whose spans recur, where a
+  prompt-lookup drafter finds continuations to propose."""
+  r = np.random.RandomState(seed)
+  out = []
+  for length in r.randint(64, 513, n):
+    p = np.resize(r.randint(0, vocab, (r.randint(8, 49),)), int(length))
+    flip = r.rand(len(p)) < 0.02
+    p[flip] = r.randint(0, vocab, int(flip.sum()))
+    out.append(p.astype(np.int32))
+  return out
+
+
+def speculative_serving(torch, params, pa):
+  """Phase 12: GPT-350M bf16, phase 5's staggered load over prompts whose
+  spans repeat, on the speculative engine: first the n-gram drafter,
+  then ``DraftModelDrafter`` with the target's own weights (greedy
+  drafts of the target itself: acceptance near 1 shows the verify and
+  rollout tiles right).  Each run counts the paged-attention launches of
+  the target's steps and of the draft model's calls (counts set to 0
+  just before it) against layers x calls: the target calls the model
+  once a step; the draft model mirrors every step once and, in steps
+  with a draft reservation, adds k calls (k - 1 rollouts and the
+  write-only feed of the last draft).  Streams are held to
+  ``generate(use_cache=False)`` by the bf16 gap rule.  After the n-gram
+  run, a ``torch.profiler`` window of its steps as phase 6 takes one
+  (prompts whose spans repeat).  Returns the launch counts and
+  acceptance per run."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, DraftModelDrafter, NgramDrafter, Request)
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  L = cfg.num_layers
+  prompts = repeating_prompts(4, 16, cfg.vocab_size)
+  refs, result = {}, {}
+  for label in ("ngram", "self_draft"):
+    drafter = (NgramDrafter(k=SPEC_K) if label == "ngram"
+               else DraftModelDrafter(model, params, k=SPEC_K))
+    stats = ServingStats()
+    eng = ContinuousBatchingEngine(model, params, paged=True,
+                                   num_slots=NUM_SLOTS,
+                                   prefill_chunk=PREFILL_CHUNK,
+                                   block_size=BLOCK_SIZE, drafter=drafter,
+                                   stats=stats)
+    draft_launches, draft_s = [0], [0.0]
+
+    def counted(plan, histories, _propose=drafter.propose):
+      before, t = pa.paged_attention_cuda.launches, time.monotonic()
+      made = _propose(plan, histories)
+      draft_s[0] += time.monotonic() - t
+      draft_launches[0] += pa.paged_attention_cuda.launches - before
+      return made
+
+    drafter.propose = counted
+    pa.reset_counts()
+    t0 = time.monotonic()
+    out = drive_waves(eng, Request, prompts)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    total = pa.paged_attention_cuda.launches
+    target = total - draft_launches[0]
+    rollouts = getattr(drafter, "rollout_steps", 0)
+    want_draft = (L * (eng.steps + SPEC_K * rollouts)
+                  if label == "self_draft" else 0)
+    assert target == L * eng.steps > 0, (label, target, eng.steps)
+    assert draft_launches[0] == want_draft, (label, draft_launches,
+                                             want_draft)
+    assert pa.paged_attention_tiled_cuda.launches == total
+    assert pa.paged_attention_warp_cuda.launches == 0
+    assert pa.paged_attention_reference.calls == 0
+    assert eng.drafter_failures == 0
+    assert sorted(out) == list(range(16))
+    for i, p in enumerate(prompts):
+      assert eng.finished[i].finish_reason == "length"
+      assert out[i].shape == (len(p) + 32,)
+      np.testing.assert_array_equal(out[i][:len(p)], p)
+    assert eng.scheduler.kv_blocks_used == 0
+    s = stats.summary()
+    log(f"   {label}: {len(prompts)} requests, {eng.steps} engine steps, "
+        f"{wall:.2f} s wall; tokens/s {s['tokens_per_s']:.1f}, TTFT p50 "
+        f"{s['ttft_p50_s'] * 1e3:.1f} ms p99 {s['ttft_p99_s'] * 1e3:.1f} "
+        f"ms, ITL p50 {s['itl_p50_s'] * 1e3:.2f} ms; step "
+        f"{stats.busy_time_s / eng.steps * 1e3:.2f} ms, "
+        f"of it the drafter {draft_s[0] / eng.steps * 1e3:.2f} ms (host "
+        f"clock)")
+    log(f"   {label}: drafted {s['drafted_tokens']:.0f}, accepted "
+        f"{s['accepted_tokens']:.0f}, acceptance rate "
+        f"{s['acceptance_rate']:.4f}, accepted per drafting step p50 "
+        f"{s['accepted_per_step_p50']:.1f} (mean "
+        f"{s['accepted_per_step_mean']:.2f})")
+    drafts = (f"{draft_launches[0]} = {L} x ({eng.steps} mirrors + "
+              f"{SPEC_K} x {rollouts} rollout steps)"
+              if label == "self_draft" else "0 (no draft model)")
+    log(f"   {label}: paged_attention launches: target {target} = {L} "
+        f"layers x {eng.steps} steps; draft model {drafts}; all tiled "
+        f"build; plain-version calls 0")
+    greedy_vs_generate(torch, model, eng.params, prompts, out,
+                       bf16_gap_limit, f"spec {label}", refs)
+    result[label] = dict(target=target, draft=draft_launches[0],
+                         acceptance=s["acceptance_rate"], steps=eng.steps)
+    if label == "ngram":
+      step_breakdown(torch, eng, repeating_prompts)
+    del eng, drafter
+  assert result["self_draft"]["acceptance"] >= SELF_DRAFT_ACCEPTANCE_FLOOR, (
+      result["self_draft"])
+  return result
+
+
+def prefix_cache_serving(torch, params, pa):
+  """Phase 13: GPT-350M bf16, 16 requests that share a 256-token system
+  prompt (16 blocks) with distinct 32-256-token suffixes: request 0
+  alone for two steps (its head's blocks register), then the other 15;
+  then 8 of them return with prompt + reply + a new turn of 16-64
+  tokens.  The same load runs with the prefix cache off, then on; TTFT
+  (submit to first token, host clock) of the same requests in both.
+  With the cache on: the system prompt's shared blocks keep their pool
+  rows bit for bit through the run, every block still held at the end
+  is the cache's, the streams pass the bf16 gap rule against
+  ``generate(use_cache=False)``; in both runs the tiled build's
+  launches are layers x steps and the plain version is never called.
+  Returns the launch counts and the prefix counters."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  L, V = cfg.num_layers, cfg.vocab_size
+  r = np.random.RandomState(5)
+  system = r.randint(0, V, (256,)).astype(np.int32)
+  prompts = [np.concatenate([system, r.randint(0, V, (n,))]).astype(np.int32)
+             for n in r.randint(32, 257, 16)]
+  turns = [r.randint(0, V, (n,)).astype(np.int32)
+           for n in r.randint(16, 65, 8)]
+  result = {}
+  for cached in (False, True):
+    stats = ServingStats()
+    eng = ContinuousBatchingEngine(model, params, paged=True,
+                                   num_slots=NUM_SLOTS,
+                                   prefill_chunk=PREFILL_CHUNK,
+                                   block_size=BLOCK_SIZE,
+                                   prefix_cache=cached, stats=stats)
+    sched = eng.scheduler
+    submitted, first, warm = {}, {}, set()
+    hits = [0]
+
+    def on_admit(uid):
+      if sched.prefix_hits > hits[0]:
+        warm.add(uid)
+      hits[0] = sched.prefix_hits
+
+    sched.on_admit.append(on_admit)
+    sched.on_first_token.append(
+        lambda uid: first.setdefault(uid, time.monotonic()))
+
+    def submit(uid, prompt):
+      submitted[uid] = time.monotonic()
+      eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=32))
+
+    pa.reset_counts()
+    submit(0, prompts[0])
+    out = {}
+    for _ in range(2):
+      for fin in eng.step():
+        out[fin.uid] = fin.tokens
+    if cached:
+      # Request 0's first 16 blocks: registered by now, shared by 1-15.
+      head = sched.slot_blocks(next(iter(sched.active)))[:16]
+      rows = lambda: [torch.cat([  # noqa: E731
+          eng._kv[f"block_{i}"]["attn"][n][head].flatten()
+          for n in ("cached_key", "cached_value")]).clone()
+          for i in range(L)]
+      before = rows()
+    for i in range(1, 16):
+      submit(i, prompts[i])
+    out.update(eng.run())
+    second = [np.concatenate([out[i], turns[i]]) for i in range(8)]
+    for i in range(8):
+      submit(16 + i, second[i])
+    out.update(eng.run())
+    torch.cuda.synchronize()
+    launches = pa.paged_attention_tiled_cuda.launches
+    assert launches == L * eng.steps > 0, (launches, eng.steps)
+    assert pa.paged_attention_cuda.launches == launches
+    assert pa.paged_attention_reference.calls == 0
+    assert sorted(out) == list(range(24))
+    ttft = {uid: first[uid] - submitted[uid] for uid in submitted}
+    p50 = lambda uids: statistics.median(ttft[u] for u in uids)  # noqa
+    row = dict(launches=launches, steps=eng.steps,
+               ttft_turn1_p50=p50(range(1, 16)),
+               ttft_turn2_p50=p50(range(16, 24)))
+    if cached:
+      row.update(hits=sched.prefix_hits, misses=sched.prefix_misses,
+                 blocks_reused=sched.prefix_blocks_reused,
+                 saved_tokens=sched.prefix_blocks_reused * BLOCK_SIZE,
+                 cached_blocks=sched.prefix_cached_blocks,
+                 evictions=sched.prefix_evictions)
+      assert set(range(1, 24)) <= warm and 0 not in warm, sorted(warm)
+      assert sched.kv_blocks_used == sched.prefix_cached_blocks > 0
+      again = sched.prefix_cache.match(prompts[0])[:16]   # a probe
+      for blk in again:
+        sched.block_allocator.decref(blk)
+      assert again == head, "the system prompt's blocks left the cache"
+      for a, b in zip(before, rows()):
+        assert torch.equal(a, b), "a shared block's pool rows changed"
+      log(f"   prefix hits {row['hits']}, misses {row['misses']}, blocks "
+          f"reused {row['blocks_reused']}, prefill tokens saved "
+          f"{row['saved_tokens']}, cached blocks at the end "
+          f"{row['cached_blocks']} = kv_blocks_used, evictions "
+          f"{row['evictions']}; the 16 system-prompt blocks' pool rows "
+          f"unchanged")
+      greedy_vs_generate(torch, model, eng.params, prompts + second,
+                         [out[i] for i in range(24)], bf16_gap_limit,
+                         "prefix cache")
+    else:
+      assert sched.kv_blocks_used == 0
+    s = stats.summary()
+    log(f"   prefix cache {'on ' if cached else 'off'}: {eng.steps} steps, "
+        f"tokens/s {s['tokens_per_s']:.1f}, TTFT p50 of requests 1-15 "
+        f"{row['ttft_turn1_p50'] * 1e3:.1f} ms, of the 8 second turns "
+        f"{row['ttft_turn2_p50'] * 1e3:.1f} ms; tiled-build launches "
+        f"{launches} = {L} x {eng.steps}; plain-version calls 0")
+    result["on" if cached else "off"] = row
+    del eng
+  return result
+
+
 def _busy_us(intervals):
   """Length of the union of ``(start, end)`` intervals."""
   total, cur_start, cur_end = 0.0, None, None
@@ -547,17 +870,18 @@ def _busy_us(intervals):
   return total
 
 
-def step_breakdown(torch, eng):
+def step_breakdown(torch, eng, prompt_fn=None):
   """Where a bf16 engine step's time goes: ``PROFILE_STEPS`` public
   ``step()`` calls under a full load of 16 requests (96 new tokens
   each, 8 of them admitted mid-flight), profiled with ``torch.profiler``
   (CPU and CUDA activities).  Prints host wall and device busy time per
   step, the device's idle share, the host time outside the device step
   (scheduler planning, from ``ServingStats`` step times) and device time
-  by kernel."""
+  by kernel.  ``prompt_fn(seed, n, vocab)`` draws the prompts
+  (default :func:`make_prompts`)."""
   from torch.profiler import ProfilerActivity, profile
   from easyparallellibrary_tpu_torch.serving import Request
-  prompts = make_prompts(3, 16, eng.model.cfg.vocab_size)
+  prompts = (prompt_fn or make_prompts)(3, 16, eng.model.cfg.vocab_size)
   for i in range(16):
     eng.submit(Request(uid=f"profile-{i}", prompt=prompts[i],
                        max_new_tokens=96))
@@ -1033,7 +1357,8 @@ def main() -> int:
   if want(3):
     with Phase("3. kernel timing"):
       times = kernel_timing(torch, pa)
-  if want(4) or want(5) or want(6):
+  serving = (4, 5, 6, 12, 13)
+  if any(map(want, serving)):
     with Phase("init GPT-350M weights (numpy, seed 0)"):
       params = init_params(GPTConfig(**GPT_350M), seed=0, device="cuda")
   if want(4):
@@ -1045,7 +1370,15 @@ def main() -> int:
     with Phase("6. GPT-350M bf16: where the engine step's time goes"):
       step_breakdown(torch, eng)
     del eng
-  if want(4) or want(5) or want(6):
+  if want(12):
+    with Phase("12. GPT-350M bf16: speculative serving (n-gram, then "
+               "self-draft)"):
+      spec = speculative_serving(torch, params, pa)
+  if want(13):
+    with Phase("13. GPT-350M bf16: prefix caching (shared system prompt, "
+               "second turns)"):
+      prefix = prefix_cache_serving(torch, params, pa)
+  if any(map(want, serving)):
     del params
   if want(7):
     with Phase("7. flash kernels vs plain versions"):
@@ -1100,11 +1433,15 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "dtype": dtype_name,
             "shape": "engine_step",
+            "spec_step": times[(dtype_name, "spec_step")],
             "random_tables": times[(dtype_name, "random_tables")]}
 
   print(json.dumps({"kernels": [
-      paged_record("paged_attention_tiled", "paged_attention_tiled_kernel<64>",
-                   launches, "bfloat16"),
+      dict(paged_record("paged_attention_tiled",
+                        "paged_attention_tiled_kernel<64>", launches,
+                        "bfloat16"),
+           launches_speculative=spec, launches_prefix_cache={
+               k: v["launches"] for k, v in prefix.items()}),
       paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
                    warp_launches, "float32"),
   ] + flash_records}), flush=True)

@@ -9,8 +9,6 @@ ROADMAP.md Queue 1 item that will bring it, in the style of
 from __future__ import annotations
 
 CONTIGUOUS_ENGINE = "Contiguous slot engine"
-SPECULATIVE = "Speculative decoding"
-PREFIX_CACHE = "Prefix cache"
 RESILIENCE = "Serving resilience"
 FLEET = "Router, fleet and request migration"
 TENSOR_PARALLEL = "Tensor-parallel mesh"

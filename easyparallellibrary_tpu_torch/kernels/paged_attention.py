@@ -42,15 +42,20 @@ resolved through ``tables_tok[t, j // bs]`` to pool row
 
 Query tiles.  A tile is a run of at most :data:`TILE_ROWS` flat tokens
 that share one block-table row, with positions that rise by one from
-token to token (a slot's prefill chunk cut into tiles, or one decode
-token) or stay equal (padding: slot 0, position 0, which an engine step
-holds up to ``token_budget`` of).  The kernel masks each row by its own
-position, so any such run is a tile.  The engine knows the runs from
-its step plan
-(:func:`tile_runs_from_plan`) and plans them once per step; a direct call
-without a plan derives them from the tables and positions
-(:func:`tile_runs_from_tokens`).  Every tiling of the batch gives the
-same output.
+token to token (a slot's prefill chunk cut into tiles, one decode token,
+or a slot's speculative draft run) or stay equal (padding: slot 0,
+position 0, which an engine step holds up to ``token_budget`` of).  The
+kernel reads the table row of a tile's first token for all its rows and
+masks each row by its own position, so a run is a tile only if every
+token in it belongs to that slot.  The engine knows the runs from its
+step plan (:func:`tile_runs_from_plan`, decode tokens, prefill chunks
+and draft runs) and plans them once per step; a draft model's one-token-
+per-slot rollouts are one-row tiles (:func:`one_row_runs`); a direct
+call without a plan derives them from the tables and positions
+(:func:`tile_runs_from_tokens`).  Every tiling of the batch into such
+runs gives the same output, and so does every split plan whose last
+split ends at the tile's context end: a split whose keys all lie past a
+row's position adds nothing to that row.
 """
 
 from __future__ import annotations
@@ -123,13 +128,22 @@ def _cut(runs, start: int, end: int) -> None:
     runs.append((off, min(TILE_ROWS, end - off)))
 
 
-def tile_runs_from_plan(base_idx, num_valid, T: int) -> np.ndarray:
+def tile_runs_from_plan(base_idx, num_valid, T: int, draft_base=None,
+                        draft_cap=None) -> np.ndarray:
   """Tiles from a step plan: slot ``s`` holds flat tokens ``base_idx[s]
-  ..`` of consecutive positions, ``num_valid[s]`` of them; every other
-  flat token is padding (slot 0, position 0).  Each slot's run and each
-  run of padding is cut into tiles of at most :data:`TILE_ROWS`."""
+  ..`` of consecutive positions, ``num_valid[s]`` of them, and its draft
+  run, ``draft_cap[s]`` tokens from ``draft_base[s]`` at the positions
+  after its decode token (whether or not the drafter filled them);
+  every other flat token is padding (slot 0, position 0).  Each slot's
+  runs and each run of padding are cut into tiles of at most
+  :data:`TILE_ROWS`."""
   runs, covered = [], np.zeros((T,), bool)
-  for start, n in zip(np.asarray(base_idx), np.asarray(num_valid)):
+  starts = [np.asarray(base_idx)]
+  counts = [np.asarray(num_valid)]
+  if draft_cap is not None:
+    starts.append(np.asarray(draft_base))
+    counts.append(np.asarray(draft_cap))
+  for start, n in zip(np.concatenate(starts), np.concatenate(counts)):
     start, n = int(start), int(n)
     _cut(runs, start, start + n)
     covered[start:start + n] = True
@@ -141,6 +155,12 @@ def tile_runs_from_plan(base_idx, num_valid, T: int) -> np.ndarray:
     _cut(runs, t, end)
     t = end + 1
   return np.asarray(runs, np.int64).reshape(-1, 2)
+
+
+def one_row_runs(n: int) -> np.ndarray:
+  """``n`` one-row tiles: a batch of one token per slot (a draft
+  model's rollout), token ``s`` in slot ``s``."""
+  return np.stack([np.arange(n), np.ones((n,), np.int64)], axis=1)
 
 
 def tile_runs_from_tokens(tables_tok, positions) -> np.ndarray:
@@ -209,6 +229,12 @@ def plan_tiles(runs, positions, MB: int, bs: int, H: int,
 def takes_tiles(dtype, hd: int) -> bool:
   """Whether the tiled build (which needs a tile plan) takes this call."""
   return dtype == torch.bfloat16 and hd in TILED_HEAD_DIMS
+
+
+def needs_tiles(k_pages) -> bool:
+  """Whether a call over this pool launches the tiled build: a CUDA pool
+  of a dtype and head dim it takes."""
+  return k_pages.is_cuda and takes_tiles(k_pages.dtype, k_pages.shape[-1])
 
 
 # ------------------------------------------------------------- wrappers --

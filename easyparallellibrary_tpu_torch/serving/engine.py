@@ -21,13 +21,23 @@ the step is written out directly (the JAX package jits it) and the pool
 is written in place (the JAX package donates it).  The step makes one
 designated device-to-host fetch: the sampled tokens.
 
+Speculative decoding (``speculative=True``, ``drafter=``, or
+``serving.speculative.*``; serving/speculative/) rides the same step:
+the scheduler reserves each decode slot's draft run on leftover flat
+positions, the drafter fills it, the one model call scores it, and
+``verify_tokens`` commits each slot's accepted drafts plus one
+correction or bonus token.  Prefix caching (``prefix_cache=True``;
+serving/prefix_cache.py) is the scheduler's: warm admissions map shared
+blocks and prefill only the tail.
+
 Exactness contract: greedy engine output equals ``generate()`` per
 request, including requests admitted mid-flight, slots and blocks reused
-after retirement, and requests preempted on pool exhaustion.
+after retirement, requests preempted on pool exhaustion, speculative
+steps and warm admissions.
 
 Not ported (each raises, ROADMAP.md Queue 1): the contiguous slot engine
-(``paged=False``), a device mesh, speculative decoding, serving
-resilience, the prefix cache, and the metric registry.
+(``paged=False``), a device mesh, serving resilience, and the metric
+registry.
 """
 
 from __future__ import annotations
@@ -39,13 +49,13 @@ import numpy as np
 import torch
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    CONTIGUOUS_ENGINE, FLEET, PREFIX_CACHE, RESILIENCE, SPECULATIVE,
-    TENSOR_PARALLEL, TRACING, not_ported)
+    CONTIGUOUS_ENGINE, FLEET, RESILIENCE, TENSOR_PARALLEL, TRACING,
+    not_ported)
 from easyparallellibrary_tpu_torch.env import Env
 from easyparallellibrary_tpu_torch.kernels import paged_attention as pa_lib
 from easyparallellibrary_tpu_torch.serving import kv_cache as kv_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
-    check_servable)
+    check_draft_fits_chunk, check_servable)
 from easyparallellibrary_tpu_torch.serving.scheduler import (
     FCFSScheduler, FinishedRequest, Request)
 from easyparallellibrary_tpu_torch.utils import prng
@@ -108,6 +118,9 @@ class ContinuousBatchingEngine:
       eng.submit(Request(uid="a", prompt=ids, max_new_tokens=32))
       outputs = eng.run()          # {uid: prompt+generated np.int32}
       eng.finished["a"].finish_reason
+
+  ``drafter_failures`` counts the steps whose drafter raised (each ran
+  without drafts).
   """
 
   def __init__(self, model, params, *, device=None, mesh=None,
@@ -117,6 +130,7 @@ class ContinuousBatchingEngine:
                max_batch: Optional[int] = None,
                stop_token: Optional[int] = None,
                drafter=None, speculative: Optional[bool] = None,
+               draft_model=None, draft_params=None,
                resilience: Optional[bool] = None,
                paged: Optional[bool] = None,
                block_size: Optional[int] = None,
@@ -133,14 +147,8 @@ class ContinuousBatchingEngine:
     if not (paged if paged is not None else conf.paged.enabled):
       raise not_ported("the contiguous slot engine (paged=False)",
                        CONTIGUOUS_ENGINE)
-    if drafter is not None or speculative or (
-        speculative is None and conf.speculative.enabled):
-      raise not_ported("speculative decoding", SPECULATIVE)
     if resilience or (resilience is None and conf.resilience.enabled):
       raise not_ported("serving resilience", RESILIENCE)
-    if prefix_cache or (prefix_cache is None and
-                        conf.prefix_cache.enabled):
-      raise not_ported("prefix caching", PREFIX_CACHE)
     if registry is not None:
       raise not_ported("the metric registry", TRACING)
     if conf.autotune.enabled:
@@ -178,14 +186,23 @@ class ContinuousBatchingEngine:
       # Auto: every decode slot's guaranteed token plus two prefill
       # chunks of admission headroom per step.
       self.token_budget = self.num_slots + 2 * self.chunk
+    pc_conf = conf.prefix_cache
+    self.prefix_caching = (prefix_cache if prefix_cache is not None
+                           else pc_conf.enabled)
+    self.drafter = self._resolve_drafter(conf, drafter, speculative,
+                                         draft_model, draft_params)
+    self.drafter_failures = 0
     self.scheduler = FCFSScheduler(
         num_slots=self.num_slots, prefill_chunk=self.chunk,
         max_seq_len=cfg.max_seq_len, prefill_token_budget=budget,
         max_batch=max_batch if max_batch is not None else conf.max_batch,
         stop_token=stop_token if stop_token is not None
         else conf.stop_token,
+        spec_k=self.drafter.k if self.drafter is not None else 0,
         block_size=self.block_size, num_blocks=self.num_blocks,
-        token_budget=self.token_budget)
+        token_budget=self.token_budget, prefix_cache=self.prefix_caching,
+        prefix_session_ttl_s=pc_conf.session_ttl_s,
+        prefix_max_cached_blocks=pc_conf.max_cached_blocks)
     self.stats = stats
     self.finished: Dict[Any, FinishedRequest] = {}
     self._finished_limit = conf.finished_limit
@@ -199,6 +216,8 @@ class ContinuousBatchingEngine:
                                               fin.finish_reason))
     self._kv = kv_lib.allocate_paged_kv_cache(
         cfg, self.num_blocks, self.block_size, self.device)
+    if self.drafter is not None:
+      self.drafter.bind(self)
     self._steps = 0
     get_logger().info(
         "serving engine: %d slots x chunk %d (paged: %d x %d-token blocks, "
@@ -208,43 +227,139 @@ class ContinuousBatchingEngine:
         kv_lib.paged_cache_bytes(cfg, self.num_blocks, self.block_size)
         / 1e6, self.device, budget or "uncapped", self.scheduler.max_batch)
 
+  def _resolve_drafter(self, conf, drafter, speculative, draft_model,
+                       draft_params):
+    """``speculative=False`` wins over everything; otherwise an explicit
+    ``drafter`` wins, and ``serving.speculative.*`` decides the rest
+    (``speculative=True`` overrides its ``enabled``).  A drafter must
+    fit the chunk (k + 1 <= prefill_chunk)."""
+    from easyparallellibrary_tpu_torch.serving.speculative import (
+        DraftModelDrafter, NgramDrafter)
+    if speculative is False:
+      return None
+    spec = conf.speculative
+    if drafter is None and (spec.enabled or speculative):
+      if spec.kind == "ngram":
+        drafter = NgramDrafter(k=spec.k, ngram_max=spec.ngram_max,
+                               ngram_min=spec.ngram_min)
+      else:  # "draft_model" (config validation rejects anything else)
+        if draft_model is None or draft_params is None:
+          raise ValueError(
+              "serving.speculative.kind='draft_model' needs the drafter's "
+              "weights: pass draft_model=/draft_params= or a drafter= "
+              "instance")
+        drafter = DraftModelDrafter(draft_model, draft_params, k=spec.k)
+    if drafter is not None:
+      check_draft_fits_chunk(drafter.k, self.chunk)
+    return drafter
+
   # ----------------------------------------------------------- device step
 
   def _tensor(self, array: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+  def _score(self, plan) -> torch.Tensor:
+    """Run the plan's flat batch through the model (writing its K/V into
+    the pool); returns the logits ``[T, V]``."""
+    from easyparallellibrary_tpu_torch.models.gpt import paged_step_logits
+    # The attention kernel's tiled build takes the step's query tiles,
+    # which the plan already knows: planned here once for every layer.
+    pool = self._kv["block_0"]["attn"]["cached_key"]
+    tiles = {}
+    if pa_lib.needs_tiles(pool):
+      runs = pa_lib.tile_runs_from_plan(
+          plan.base_idx, plan.num_valid, self.token_budget,
+          plan.draft_base, plan.draft_cap)
+      tiles["tiles"] = pa_lib.plan_tiles(
+          runs, plan.positions, plan.block_tables.shape[1], pool.shape[1],
+          pool.shape[2], self.device)
+    logits, self._kv = paged_step_logits(
+        self.model, self.params, self._kv, self._tensor(plan.tokens),
+        self._tensor(plan.slot_ids), self._tensor(plan.positions),
+        self._tensor(plan.valid), self._tensor(plan.block_tables), **tiles)
+    return logits
 
   @torch.inference_mode()
   def _device_step(self, plan) -> np.ndarray:
     """The fused step: score the flat batch, gather each slot's last
     scheduled row, sample.  Returns the sampled tokens ``[N]`` on the
     host — the step's one designated device-to-host fetch."""
-    from easyparallellibrary_tpu_torch.models.gpt import paged_step_logits
     T = self.token_budget
-    last_idx = (plan.base_idx + plan.num_valid - 1).astype(np.int32)
-    # The attention kernel's tiled build takes the step's query tiles,
-    # which the plan already knows: planned here once for every layer.
-    pool = self._kv["block_0"]["attn"]["cached_key"]
-    _, bs, H, hd = pool.shape
-    tiles = {}
-    if self.device.type == "cuda" and pa_lib.takes_tiles(pool.dtype, hd):
-      runs = pa_lib.tile_runs_from_plan(plan.base_idx, plan.num_valid, T)
-      tiles["tiles"] = pa_lib.plan_tiles(
-          runs, plan.positions, plan.block_tables.shape[1], bs, H,
-          self.device)
-    logits, self._kv = paged_step_logits(
-        self.model, self.params, self._kv, self._tensor(plan.tokens),
-        self._tensor(plan.slot_ids), self._tensor(plan.positions),
-        self._tensor(plan.valid), self._tensor(plan.block_tables), **tiles)
+    logits = self._score(plan)
     # Each slot's next-token logits sit at its last scheduled flat
     # position; idle slots read row 0, which the scheduler never reads.
-    last = logits.index_select(
-        0, torch.clamp(self._tensor(last_idx).long(), 0, T - 1))
+    last_idx = np.clip(plan.base_idx + plan.num_valid - 1, 0, T - 1)
+    last = logits.index_select(0, self._tensor(last_idx).long())
     step_keys = prng.fold_in(self._tensor(plan.keys.astype(np.int64)),
                              self._tensor(plan.tok_index))
     nxt = sample_token_slots(
         last.float(), step_keys, self._tensor(plan.temperature),
         self._tensor(plan.top_k), self._tensor(plan.top_p))
     return nxt.cpu().numpy()
+
+  @torch.inference_mode()
+  def _spec_device_step(self, plan, num_draft: np.ndarray):
+    """The speculative step: score the flat batch (drafts included),
+    gather each slot's K+1 target rows by flat index (row 0 at its last
+    real token, rows 1..K at its draft positions), verify.  Returns
+    ``(committed [N, K+1], n_committed [N])`` from one device-to-host
+    fetch.  Rejected drafts' K/V lie past the committed count; the next
+    feed overwrites them."""
+    from easyparallellibrary_tpu_torch.serving.speculative.verify import (
+        verify_tokens)
+    T, K = self.token_budget, self.drafter.k
+    logits = self._score(plan)
+    base_last = np.clip(plan.base_idx + plan.num_valid - 1, 0, T - 1)
+    j = np.arange(K + 1)[None]
+    idx = np.concatenate(
+        [base_last[:, None], plan.draft_base[:, None] + j[:, :K]], axis=1)
+    # Rows past a slot's draft count read its own last row; the verifier
+    # masks them.
+    idx = np.clip(np.where(j <= num_draft[:, None], idx,
+                           base_last[:, None]), 0, T - 1)
+    dpos = np.clip(plan.draft_base[:, None] + j[:, :K], 0, T - 1)
+    N = idx.shape[0]
+    tgt = logits.index_select(0, self._tensor(idx.reshape(-1)).long())
+    committed, n_committed, _ = verify_tokens(
+        tgt.reshape(N, K + 1, -1).float(), self._tensor(plan.tokens[dpos]),
+        self._tensor(num_draft), self._tensor(plan.keys.astype(np.int64)),
+        self._tensor(plan.tok_index), self._tensor(plan.temperature),
+        self._tensor(plan.top_k), self._tensor(plan.top_p))
+    out = torch.cat([committed, n_committed[:, None]], dim=1).cpu().numpy()
+    return out[:, :K + 1], out[:, K + 1]
+
+  def _propose_drafts(self, plan) -> np.ndarray:
+    """Run the drafter for one step and write its drafts into the plan's
+    reserved positions (flipping exactly those live).  A drafter that
+    raises degrades to zero drafts for the step (verification would
+    reject garbage anyway) and is counted in ``drafter_failures``.
+    Returns ``num_draft [N]``."""
+    N = plan.draft_cap.shape[0]
+    if not self.scheduler.spec_enabled:
+      self.drafter.observe_skip(plan)
+      return np.zeros((N,), np.int32)
+    try:
+      histories = self.scheduler.slot_histories(plan)
+      draft_tokens, num_draft = self.drafter.propose(plan, histories)
+      num_draft = np.clip(np.asarray(num_draft, np.int32), 0,
+                          plan.draft_cap)
+      for slot in np.nonzero(num_draft)[0]:
+        nd, b = int(num_draft[slot]), int(plan.draft_base[slot])
+        plan.tokens[b:b + nd] = draft_tokens[slot, :nd]
+        plan.valid[b:b + nd] = True
+    except Exception as e:  # noqa: BLE001 — any drafter fault degrades
+      self.drafter_failures += 1
+      if self.drafter_failures == 1:
+        get_logger().warning(
+            "drafter %s failed (%s: %s); serving continues without drafts "
+            "this step (logged once; counted in drafter_failures)",
+            type(self.drafter).__name__, type(e).__name__, e)
+      # Drafts written before the failure stay out of the step.
+      for slot in np.nonzero(plan.draft_cap)[0]:
+        b = int(plan.draft_base[slot])
+        plan.valid[b:b + int(plan.draft_cap[slot])] = False
+      return np.zeros((N,), np.int32)
+    return num_draft
 
   # ------------------------------------------------------------ host loop
 
@@ -281,27 +396,44 @@ class ContinuousBatchingEngine:
     return self._steps
 
   def step(self) -> List[FinishedRequest]:
-    """One engine iteration: plan -> device step -> commit.  Returns the
-    requests that retired this iteration (empty when idle), expiries and
-    cancellations included."""
+    """One engine iteration: plan -> [draft ->] device step -> commit.
+    Returns the requests that retired this iteration (empty when idle),
+    expiries and cancellations included."""
     plan = self.scheduler.plan_step()
     if plan is None:
       return self.scheduler.take_finished()
     t0 = time.monotonic()
-    nxt = self._device_step(plan)
-    finished = self.scheduler.commit(nxt)
+    drafted = accepted = 0
+    if self.drafter is not None:
+      # Propose before the plan's draft positions fill: the draft
+      # model's mirror needs the plan the target sees.
+      num_draft = self._propose_drafts(plan)
+      committed, n_committed = self._spec_device_step(plan, num_draft)
+      finished = self.scheduler.commit(committed, n_committed)
+      self.drafter.observe_commit(None)
+      drafted = int(num_draft.sum())
+      accepted = int((n_committed[num_draft > 0] - 1).sum())
+    else:
+      finished = self.scheduler.commit(self._device_step(plan))
     self._steps += 1
     dt = time.monotonic() - t0
     if self.stats is not None:
       self.stats.note_step(
           active_slots=plan.active_slots, num_slots=self.num_slots,
           prefill_tokens=plan.prefill_tokens,
-          decode_tokens=plan.decode_tokens, step_time_s=dt)
+          decode_tokens=plan.decode_tokens, step_time_s=dt,
+          drafted_tokens=drafted, accepted_tokens=accepted)
       self.stats.note_blocks(self.scheduler.kv_blocks_free,
                              self.scheduler.kv_blocks_used,
                              self.scheduler.kv_fragmentation,
                              self.scheduler.preemptions,
                              self.scheduler.proactive_preemptions)
+      if self.prefix_caching:
+        self.stats.note_prefix(self.scheduler.prefix_hits,
+                               self.scheduler.prefix_misses,
+                               self.scheduler.prefix_blocks_reused,
+                               self.scheduler.prefix_evictions,
+                               self.scheduler.prefix_cached_blocks)
     return finished
 
   def run(self, max_steps: Optional[int] = None) -> Dict[Any, np.ndarray]:

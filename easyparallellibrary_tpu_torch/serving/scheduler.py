@@ -16,14 +16,21 @@ variability lives here; the device step only ever sees fixed shapes.
   blocks; a dry pool preempts the youngest lowest-priority slot, which
   returns to the front of the queue and replays its committed prefix on
   readmission (bit-exact: same K/V, same token-index RNG fold).
+* Speculative drafts: leftover flat budget is reserved for each decode
+  slot's draft run (pass 3); a dry pool shrinks the reservation and
+  never preempts.  ``commit`` takes ``[N, K+1]`` tokens with a per-slot
+  count and checks the stop token and ``max_new_tokens`` per token.
+* Prefix cache (``prefix_cache=True``, serving/prefix_cache.py): warm
+  admission maps matched blocks by reference and starts prefill past
+  them; completed blocks register at commit watermarks and at
+  retirement; cached blocks are evicted before any preemption.
 * Retirement: ``max_new_tokens``, stop token, deadlines / TTFT budgets,
   cancellation.  Each request samples from its own counter stream (a key
   from ``seed``/``uid`` folded with the token index), so its samples do
   not depend on the slot or iteration that serves it.
 
 Not ported (each raises, ROADMAP.md Queue 1): the contiguous slot
-layout, speculative draft planning, the prefix cache, request
-snapshot/restore/evacuate, and tracing spans.
+layout, request snapshot/restore/evacuate, and tracing spans.
 """
 
 from __future__ import annotations
@@ -37,11 +44,12 @@ from typing import Any, Callable, Deque, Dict, List, Optional
 import numpy as np
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    CONTIGUOUS_ENGINE, FLEET, PREFIX_CACHE, SPECULATIVE, not_ported)
+    CONTIGUOUS_ENGINE, FLEET, not_ported)
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_request_fields)
 from easyparallellibrary_tpu_torch.serving.kv_cache import (
     BlockAllocator, SlotAllocator)
+from easyparallellibrary_tpu_torch.serving.prefix_cache import PrefixCache
 from easyparallellibrary_tpu_torch.utils.logging import get_logger
 from easyparallellibrary_tpu_torch.utils.prng import prng_key
 
@@ -66,8 +74,10 @@ class Request:
   hash of ``uid``).  ``deadline_s`` / ``ttft_budget_s`` (0 = off) retire
   the request with reason ``"deadline"``; ``priority`` is
   ``"throughput"`` (FCFS) or ``"latency"`` (admitted first).
-  ``speculative``, ``flow_id`` and ``checkpoint_version`` belong to
-  features the port has not reached and are carried unread.
+  ``speculative=False`` opts the request out of drafting (it keeps the
+  non-speculative sample stream bit for bit).  ``flow_id`` and
+  ``checkpoint_version`` belong to features the port has not reached
+  and are carried unread.
   """
   uid: Any
   prompt: np.ndarray
@@ -99,14 +109,19 @@ class PagedStepPlan:
   arrays are ``[T]`` (``T = token_budget``), one entry per scheduled
   position tagged with its slot and absolute position; per-slot arrays
   are ``[N]``.  ``num_valid`` counts a slot's real tokens this step (its
-  prefill grant, or 1 for decode)."""
+  prefill grant, or 1 for decode), never its draft reservation: slot
+  ``s``'s ``draft_cap[s]`` draft positions start at flat index
+  ``draft_base[s]``, carry slot ``s`` and positions after its decode
+  token, and stay invalid until the drafter fills them."""
   tokens: np.ndarray          # int32 [T]  flat token batch
   slot_ids: np.ndarray        # int32 [T]  owning slot per position
   positions: np.ndarray       # int32 [T]  absolute position per token
   valid: np.ndarray           # bool  [T]  live entry
   block_tables: np.ndarray    # int32 [N, MB] per-slot block tables
   base_idx: np.ndarray        # int32 [N]  slot's first flat index
+  draft_base: np.ndarray      # int32 [N]  slot's first draft flat index
   num_valid: np.ndarray       # int32 [N]  real tokens scheduled
+  draft_cap: np.ndarray       # int32 [N]  reserved draft positions
   prefilling: np.ndarray      # bool  [N]
   keys: np.ndarray            # uint32 [N, 2]
   tok_index: np.ndarray       # int32 [N]
@@ -126,7 +141,8 @@ class _SlotState:
 
   __slots__ = ("req", "slot", "prompt_pos", "generated", "key", "prefix",
                "submitted_at", "admitted_at", "first_token_at",
-               "first_token_emitted", "requeues", "admit_seq")
+               "first_token_emitted", "requeues", "admit_seq",
+               "reg_blocks")
 
   def __init__(self, req: Request, slot: int, submitted_at: float,
                now: float, carried: Optional["_SlotState"] = None,
@@ -140,6 +156,9 @@ class _SlotState:
     # younger same-priority slots, so two starving slots never preempt
     # each other in a cycle.
     self.admit_seq = admit_seq
+    # Leading blocks already registered in (or mapped from) the prefix
+    # cache: the registration watermark.
+    self.reg_blocks = 0
     if carried is not None:
       self.generated: List[int] = carried.generated
       self.key = carried.key
@@ -196,8 +215,11 @@ class FCFSScheduler:
   paged cache.
 
   ``plan_step()`` expires dead requests, admits new ones and builds the
-  next :class:`PagedStepPlan`; ``commit(next_tokens)`` folds the step's
-  sampled tokens back and returns the requests that retired.  The
+  next :class:`PagedStepPlan`; ``commit(next_tokens[, num_committed])``
+  folds the step's committed tokens back and returns the requests that
+  retired.  ``spec_k`` (0 = no drafter) caps each decode slot's draft
+  reservation; ``prefix_cache`` turns on the radix tree of
+  serving/prefix_cache.py with its TTL and block budget.  The
   ``on_admit`` / ``on_first_token`` / ``on_finish`` / ``on_tokens`` hooks
   are lists of subscribers.  ``clock`` is injectable for deterministic
   deadline tests.
@@ -208,15 +230,14 @@ class FCFSScheduler:
                max_batch: int = 0, stop_token: int = -1,
                spec_k: int = 0, clock: Callable[[], float] = time.monotonic,
                block_size: int = 0, num_blocks: int = 0,
-               token_budget: int = 0, prefix_cache: bool = False):
+               token_budget: int = 0, prefix_cache: bool = False,
+               prefix_session_ttl_s: float = 0.0,
+               prefix_max_cached_blocks: int = 0):
     if block_size <= 0:
       raise not_ported("the contiguous slot scheduler (block_size=0)",
                        CONTIGUOUS_ENGINE)
-    if spec_k:
-      raise not_ported("speculative draft planning (spec_k > 0)",
-                       SPECULATIVE)
-    if prefix_cache:
-      raise not_ported("prefix caching", PREFIX_CACHE)
+    if spec_k < 0:
+      raise ValueError(f"spec_k must be >= 0: {spec_k}")
     if prefill_chunk < 1:
       raise ValueError(f"prefill_chunk must be >= 1: {prefill_chunk}")
     if prefill_token_budget < 0 or max_batch < 0:
@@ -244,7 +265,17 @@ class FCFSScheduler:
     self._tables = np.zeros((num_slots, self._mb), np.int32)
     self.preemptions = 0
     self.proactive_preemptions = 0
+    self.prefix_cache = (
+        PrefixCache(self.block_allocator, block_size,
+                    session_ttl_s=prefix_session_ttl_s,
+                    max_cached_blocks=prefix_max_cached_blocks,
+                    clock=clock) if prefix_cache else None)
     self._admit_seq = 0
+    # Max drafts per decode slot per step (0 = no drafter); switching
+    # ``spec_enabled`` off plans no drafts, Request.speculative=False
+    # opts one request out.
+    self.spec_k = spec_k
+    self.spec_enabled = True
     self.prefill_token_budget = prefill_token_budget
     self.max_batch = max_batch if max_batch > 0 else num_slots
     self.default_stop_token = stop_token
@@ -264,6 +295,12 @@ class FCFSScheduler:
     self.on_first_token: List[Callable[[Any], None]] = []
     self.on_finish: List[Callable[[FinishedRequest], None]] = []
     self.on_tokens: List[Callable[[Any, List[int]], None]] = []
+
+  @property
+  def effective_spec_k(self) -> int:
+    """Per-slot draft cap of the next plan: ``spec_k``, or 0 while
+    speculation is switched off."""
+    return self.spec_k if self.spec_enabled else 0
 
   # ---------------------------------------------------------------- queue
 
@@ -465,6 +502,19 @@ class FCFSScheduler:
       self.active[slot] = state
       self._deadline_active += self._has_deadline(req)
       self._admit_order.append(slot)
+      # Warm admission: matched blocks map into the table by reference
+      # (each already carries one fresh reference from match()) and the
+      # prompt cursor jumps past them.  The match stops before the last
+      # prefix token, so the slot still runs at least one prefill step.
+      if self.prefix_cache is not None:
+        matched = self.prefix_cache.match(state.prefix)
+        if matched:
+          blocks = self._slot_blocks.setdefault(slot, [])
+          for blk in matched:
+            self._tables[slot, len(blocks)] = blk
+            blocks.append(blk)
+          state.prompt_pos = len(matched) * self.block_size
+          state.reg_blocks = len(matched)
       if state.requeues == 0:
         for fn in self.on_admit:
           fn(req.uid)
@@ -499,6 +549,55 @@ class FCFSScheduler:
     for blk in self._slot_blocks.pop(slot, ()):
       self.block_allocator.decref(blk)
     self._tables[slot] = 0
+
+  # --------------------------------------------------- prefix-cache interop
+
+  @property
+  def prefix_hits(self) -> int:
+    return self.prefix_cache.hits if self.prefix_cache is not None else 0
+
+  @property
+  def prefix_misses(self) -> int:
+    return self.prefix_cache.misses if self.prefix_cache is not None else 0
+
+  @property
+  def prefix_blocks_reused(self) -> int:
+    return (self.prefix_cache.blocks_reused
+            if self.prefix_cache is not None else 0)
+
+  @property
+  def prefix_evictions(self) -> int:
+    return (self.prefix_cache.evictions
+            if self.prefix_cache is not None else 0)
+
+  @property
+  def prefix_cached_blocks(self) -> int:
+    return (self.prefix_cache.num_cached_blocks
+            if self.prefix_cache is not None else 0)
+
+  def invalidate_cached_blocks(self, blocks) -> int:
+    """Purge ``blocks`` from the prefix cache; no-op without one."""
+    if self.prefix_cache is None:
+      return 0
+    return self.prefix_cache.invalidate_blocks(blocks)
+
+  def _register_cached(self, state: _SlotState) -> None:
+    """Register ``state``'s newly completed full blocks in the prefix
+    tree, at commit watermarks and at retirement.  Only blocks below
+    the resident-K/V watermark register, so a tree entry always holds
+    committed K/V; the partial tail block stays private to the slot."""
+    blocks = self._slot_blocks.get(state.slot)
+    n = 0 if blocks is None else min(
+        self._resident_tokens(state) // self.block_size, len(blocks))
+    if n <= state.reg_blocks:
+      return
+    if state.prefilling:
+      tokens = state.prefix  # covers [0, prompt_pos): exactly what fed
+    else:
+      tokens = np.concatenate(
+          [state.req.prompt, np.asarray(state.generated, np.int32)])
+    self.prefix_cache.register(tokens, n, blocks)
+    state.reg_blocks = n
 
   def _preemption_victim(self, req_rank, excluded: set) -> Optional[int]:
     """Lowest priority class first, then the youngest admission; a
@@ -549,18 +648,23 @@ class FCFSScheduler:
     self.requeue_slot(best)
     return best
 
-  def _ensure_blocks(self, slot: int, num_tokens: int,
-                     scheduled: set) -> int:
-    """Grow ``slot``'s block list to cover ``num_tokens`` positions,
-    preempting victims when the pool runs dry.  Returns the positions
-    actually covered (a short allocation starves the slot for a step)."""
+  def _ensure_blocks(self, slot: int, num_tokens: int, scheduled: set,
+                     preempt: bool = True) -> int:
+    """Grow ``slot``'s block list to cover ``num_tokens`` positions.  A
+    dry pool first gives up cached-but-unmapped prefix blocks, then
+    preempts a victim (unless ``preempt=False``: draft headroom never
+    evicts a request's committed K/V).  Returns the positions actually
+    covered (a short allocation starves the slot for a step)."""
     blocks = self._slot_blocks.setdefault(slot, [])
     need = min((num_tokens + self.block_size - 1) // self.block_size,
                self._mb)
     while len(blocks) < need:
       blk = self.block_allocator.alloc()
       if blk is None:
-        if self._preempt_for_blocks(slot, scheduled) is None:
+        if (self.prefix_cache is not None
+            and self.prefix_cache.evict_for_space(need - len(blocks)) > 0):
+          continue
+        if not preempt or self._preempt_for_blocks(slot, scheduled) is None:
           break
         continue
       self._tables[slot, len(blocks)] = blk
@@ -570,8 +674,9 @@ class FCFSScheduler:
   def _plan_flat(self) -> Optional[PagedStepPlan]:
     """Token-budget planning: (1) every decoding slot gets its one
     guaranteed token, (2) prefill chunks stream in while the flat budget
-    and the prefill-token budget allow.  Block coverage is ensured per
-    grant; a still-short allocation shrinks the grant."""
+    and the prefill-token budget allow, (3) leftover budget is reserved
+    for speculative drafts.  Block coverage is ensured per grant; a
+    still-short allocation shrinks the grant."""
     if not self.active:
       self._plan = None
       return None
@@ -583,7 +688,9 @@ class FCFSScheduler:
         valid=np.zeros((T,), bool),
         block_tables=np.zeros((N, MB), np.int32),
         base_idx=np.zeros((N,), np.int32),
+        draft_base=np.zeros((N,), np.int32),
         num_valid=np.zeros((N,), np.int32),
+        draft_cap=np.zeros((N,), np.int32),
         prefilling=np.zeros((N,), bool),
         keys=np.zeros((N, 2), np.uint32),
         tok_index=np.zeros((N,), np.int32),
@@ -644,6 +751,32 @@ class FCFSScheduler:
       plan.prefill_tokens += grant
       pos += grant
       scheduled.add(slot)
+    # Pass 3: speculative draft reservations ride the leftover budget.
+    spec_k = self.effective_spec_k
+    for slot in list(self._admit_order) if spec_k > 0 else ():
+      state = self.active.get(slot)
+      if (state is None or state.prefilling or plan.num_valid[slot] != 1
+          or pos >= T or state.req.speculative is False):
+        continue
+      remaining = state.req.max_new_tokens - len(state.generated)
+      cap = max(0, min(spec_k, remaining - 1, T - pos))
+      if cap <= 0:
+        continue
+      dec_pos = int(plan.positions[plan.base_idx[slot]])
+      # Optional work: a dry pool shrinks the cap, never preempts.
+      covered = self._ensure_blocks(slot, dec_pos + 1 + cap, scheduled,
+                                    preempt=False)
+      cap = max(0, min(cap, covered - 1 - dec_pos))
+      if cap <= 0 or self.active.get(slot) is None:
+        continue
+      plan.draft_base[slot] = pos
+      plan.slot_ids[pos:pos + cap] = slot
+      plan.positions[pos:pos + cap] = np.arange(dec_pos + 1,
+                                                dec_pos + 1 + cap)
+      # valid stays False: the engine flips the positions the drafter
+      # fills.
+      plan.draft_cap[slot] = cap
+      pos += cap
     # Per-slot sampling state for every slot with scheduled work.
     for slot in self._admit_order:
       state = self.active.get(slot)
@@ -667,8 +800,22 @@ class FCFSScheduler:
     """Expire dead requests, admit, then build the next flat plan (or
     None when there is no device work)."""
     self.expire()
+    if self.prefix_cache is not None:
+      # Session TTL sweep before admission, so an expired session never
+      # satisfies this iteration's matches.
+      self.prefix_cache.expire()
     self._admit()
     return self._plan_flat()
+
+  def slot_histories(self, plan: PagedStepPlan) -> Dict[int, np.ndarray]:
+    """Committed tokens (prompt + generated) of every slot with a draft
+    reservation in ``plan``: the context drafters propose from."""
+    out: Dict[int, np.ndarray] = {}
+    for slot, state in self.active.items():
+      if plan.draft_cap[slot] > 0:
+        out[slot] = np.concatenate(
+            [state.req.prompt, np.asarray(state.generated, np.int32)])
+    return out
 
   # --------------------------------------------------------------- commit
 
@@ -681,6 +828,10 @@ class FCFSScheduler:
     del self.active[slot]
     self._admit_order.remove(slot)
     self.allocator.free(slot)
+    # Session persistence: register the completed blocks before the slot
+    # lets go of them, so a follow-up turn admits warm.
+    if self.prefix_cache is not None:
+      self._register_cached(state)
     self._release_blocks(slot)
     self._deadline_active -= self._has_deadline(state.req)
     fin = FinishedRequest(
@@ -694,15 +845,26 @@ class FCFSScheduler:
       fn(fin)
     return fin
 
-  def commit(self, next_tokens: np.ndarray) -> List[FinishedRequest]:
-    """Fold one step's sampled tokens (``[N]``, one per slot) back into
-    request state; returns this iteration's retirements (plus any
-    plan-time expiries and cancellations).  A slot's sample counts only
-    once its prompt is fully fed."""
+  def commit(self, next_tokens: np.ndarray,
+             num_committed: Optional[np.ndarray] = None
+             ) -> List[FinishedRequest]:
+    """Fold one step's committed tokens back into request state; returns
+    this iteration's retirements (plus any plan-time expiries and
+    cancellations).  ``next_tokens`` is ``[N]`` (one sampled token per
+    slot) or ``[N, K+1]`` with ``num_committed [N]`` (speculative
+    verification: accepted drafts plus the correction or bonus token).
+    A slot's tokens count only once its prompt is fully fed.  The stop
+    token and ``max_new_tokens`` are checked per token in commit order,
+    so a stop token inside an accepted draft retires the request there
+    and drops the rest."""
     if self._plan is None:
       raise RuntimeError("commit() without a preceding plan_step()")
     plan, self._plan = self._plan, None
-    tokens = np.asarray(next_tokens).reshape(-1)
+    tokens = np.asarray(next_tokens)
+    if tokens.ndim == 1:
+      tokens = tokens[:, None]
+    if num_committed is None:
+      num_committed = np.ones((tokens.shape[0],), np.int32)
     now = self.clock()
     for slot in list(self._admit_order):
       state = self.active.get(slot)
@@ -712,7 +874,12 @@ class FCFSScheduler:
       if state.prefilling:
         state.prompt_pos += int(plan.num_valid[slot])
         if state.prefilling:
-          continue  # more prompt to feed; this sample is discarded
+          # More prompt to feed; the sample is discarded, but the chunk
+          # may have completed full blocks a concurrent admission can
+          # already share.
+          if self.prefix_cache is not None:
+            self._register_cached(state)
+          continue
         if not state.first_token_emitted:
           state.first_token_emitted = True
           state.first_token_at = now
@@ -721,12 +888,23 @@ class FCFSScheduler:
         # A replaying request commits this sample too: the last prefix
         # position's logits are the distribution for new token number
         # len(generated), with the same token-index fold.
-      tok = int(tokens[slot])
-      state.generated.append(tok)
-      if self.on_tokens:
-        self._emit_tokens(req.uid, [tok])
-      if req.stop_token >= 0 and tok == req.stop_token:
-        self._retire(state, "stop_token")
-      elif len(state.generated) >= req.max_new_tokens:
-        self._retire(state, "length")
+      fresh: List[int] = []
+      reason = None
+      for j in range(int(num_committed[slot])):
+        tok = int(tokens[slot, j])
+        state.generated.append(tok)
+        fresh.append(tok)
+        if req.stop_token >= 0 and tok == req.stop_token:
+          reason = "stop_token"
+        elif len(state.generated) >= req.max_new_tokens:
+          reason = "length"
+        if reason is not None:
+          break
+      if fresh and self.on_tokens:
+        self._emit_tokens(req.uid, fresh)
+      if reason is not None:
+        self._retire(state, reason)
+      elif self.prefix_cache is not None:
+        # Decode watermark: committed tokens may have completed a block.
+        self._register_cached(state)
     return self.take_finished()

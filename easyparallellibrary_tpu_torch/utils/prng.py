@@ -61,3 +61,10 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
   (Gumbel-max), one draw per key."""
   g = gumbel(key, logits.shape[-1])
   return torch.argmax(logits.float() + g, dim=-1)
+
+
+def uniform(key: torch.Tensor) -> torch.Tensor:
+  """One uniform fp32 value in ``[0, 1)`` per key ``[..., 2]``."""
+  key = key.to(torch.int64) & _M32
+  h = _hash32(key[..., 0] ^ _hash32(key[..., 1]))
+  return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -262,6 +262,96 @@ def test_paged_tiled_kernel_matches_plain_version(cuda, step, hd):
                                atol=2e-2)
 
 
+def _plan_case(device, seed, kind, hd, H=4):
+  """The tiled kernel's inputs at a step of the real scheduler
+  (``testing.step_plans``, 8 slots, chunk 128, bs 16, k = 4): q and the
+  pools random in bf16, and a list of ``(tables, positions, tiles)``
+  calls: one for a speculative or a warm-prefix step (tiles from the
+  planner with the plan's draft runs), four for a draft model's rollout
+  (one-row tiles planned once from the last call, slot 0 crossing
+  position 256)."""
+  from easyparallellibrary_tpu_torch.testing import step_plans
+  plan = step_plans.scheduled_step(seed, warm=kind == "warm_prefix")
+  MB = plan.block_tables.shape[1]
+  NB = 8 * MB + 1
+  if kind == "rollout":
+    calls = step_plans.rollout_positions(plan, 4, cross=256)
+    tables = plan.block_tables
+    runs = pa.one_row_runs(len(tables))
+    plan_pos = calls[-1]
+  else:
+    calls = [plan.positions]
+    tables = plan.block_tables[plan.slot_ids]
+    runs = pa.tile_runs_from_plan(plan.base_idx, plan.num_valid,
+                                  len(plan.positions), plan.draft_base,
+                                  plan.draft_cap)
+    plan_pos = plan.positions
+  tiles = pa.plan_tiles(runs, plan_pos, MB, 16, H, device)
+  r = np.random.RandomState(seed)
+  floats = [torch.from_numpy(r.randn(*shape).astype(np.float32)).to(
+      device, torch.bfloat16) for shape in ((len(tables), H, hd),
+                                            (NB, 16, H, hd), (NB, 16, H, hd))]
+  tables = torch.from_numpy(tables).to(device)
+  return floats, [(tables, torch.from_numpy(p).to(device), tiles)
+                  for p in calls]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kind", ["speculative", "warm_prefix", "rollout"])
+def test_paged_tiled_kernel_on_speculative_and_warm_prefix_plans(cuda, kind,
+                                                                 hd):
+  """The tiled build over the planner's tiles of a speculative step
+  (decode tokens, draft runs, a prefill chunk, padding), of a
+  warm-prefix step (a chunk from position 256 over shared blocks) and of
+  a draft model's rollout calls (one plan for all four) equals the
+  plain version (bf16, rtol = atol = 2e-2)."""
+  (q, kp, vp), calls = _plan_case(cuda, 7, kind, hd)
+  for tables, positions, tiles in calls:
+    launches = pa.paged_attention_tiled_cuda.launches
+    got = pa.paged_attention(q, kp, vp, tables, positions, tiles)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_tiled_cuda.launches == launches + 1
+    assert not tiles.counters.any()
+    want = pa.paged_attention_reference(q, kp, vp, tables, positions)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_speculative_engine_streams_match_the_plain_engine_on_the_card(
+    cuda):
+  """Small width, fp32: the n-gram drafter and a self-draft model, with
+  the prefix cache on, give the non-speculative engine's greedy
+  streams."""
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, DraftModelDrafter, NgramDrafter, Request)
+  from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
+  torch.backends.cuda.matmul.allow_tf32 = False
+  model, params = tiny_gpt(seed=3, max_seq_len=64, device=cuda)
+  r = np.random.RandomState(0)
+  head = r.randint(0, 64, (8,)).astype(np.int32)
+  prompts = [np.concatenate([head, np.tile(r.randint(0, 64, (n,)), 2)])
+             .astype(np.int32) for n in (5, 3, 9, 1, 6)]
+
+  def run(**kw):
+    eng = ContinuousBatchingEngine(model, params, num_slots=3,
+                                   prefill_chunk=8, paged=True,
+                                   block_size=4, **kw)
+    for i, p in enumerate(prompts):
+      eng.submit(Request(uid=i, prompt=p, max_new_tokens=12))
+    return eng, eng.run()
+
+  _, want = run()
+  for kw in (dict(drafter=NgramDrafter(k=4), prefix_cache=True),
+             dict(drafter=DraftModelDrafter(model, params, k=4))):
+    eng, got = run(**kw)
+    assert eng.steps < sum(12 for _ in prompts)
+    for i in range(len(prompts)):
+      np.testing.assert_array_equal(got[i], want[i], err_msg=f"req {i}")
+
+
 @pytest.mark.gpu
 def test_paged_tiled_kernel_reads_null_block_for_bad_table_entries(cuda):
   """Table entries at or past NB, and negative ones, read the null

@@ -16,6 +16,7 @@ from easyparallellibrary_tpu.kernels.paged_attention import (
     paged_attention_pallas, paged_attention_reference as jax_reference)
 from easyparallellibrary_tpu_torch.kernels import _build
 from easyparallellibrary_tpu_torch.kernels import paged_attention as pa
+from easyparallellibrary_tpu_torch.testing import step_plans
 
 # Tiny shapes: one intra-op thread is enough, and it leaves the cores
 # to the test suite's other worker processes.
@@ -282,3 +283,119 @@ def test_tiled_build_takes_bf16_at_head_dims_64_and_128_only():
   assert pa.takes_tiles(torch.bfloat16, 128)
   assert not pa.takes_tiles(torch.float32, 64)
   assert not pa.takes_tiles(torch.bfloat16, 32)
+
+
+# ------------------------------- plans of speculative and warm-prefix steps
+
+
+def _scheduler_plan(seed, warm=False):
+  """A real speculative (or warm-prefix) step of the port's scheduler at
+  6 slots, chunk 64, bs 16, max_seq_len 1024, k = 4
+  (``testing.step_plans``); returns the plan and its flat batch's
+  ``(tables_tok, positions)``."""
+  plan = step_plans.scheduled_step(seed, num_slots=6, chunk=64, warm=warm)
+  return plan, plan.block_tables[plan.slot_ids], plan.positions
+
+
+def _pool(seed, NB, bs=16, H=2, hd=16, T=134):
+  r = np.random.RandomState(seed + 10)
+  return [torch.from_numpy(r.randn(*s).astype(np.float32))
+          for s in ((T, H, hd), (NB, bs, H, hd), (NB, bs, H, hd))]
+
+
+def _tiled_equals_plain(runs, tables_tok, positions, q, kp, vp):
+  """``_check_runs`` and the emulated tiled kernel against the plain
+  version (fp32, rtol = atol = 1e-5)."""
+  _check_runs(runs, tables_tok, positions)
+  MB = tables_tok.shape[1]
+  items, _ = pa.work_items(runs, positions, MB, kp.shape[1])
+  tables, pos = torch.from_numpy(tables_tok), torch.from_numpy(positions)
+  got = _emulate_tiled(q, kp, vp, tables, pos, items)
+  want = pa.paged_attention_reference(q, kp, vp, tables, pos)
+  torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+  return items
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_planner_tiles_a_speculative_step(seed):
+  """Decode tokens, draft runs of k = 4 (some partly filled), a prefill
+  chunk and padding, planned by ``tile_runs_from_plan`` with the plan's
+  draft runs: every run is one slot's, and the tiled arithmetic equals
+  the plain version."""
+  plan, tables_tok, positions = _scheduler_plan(seed)
+  assert (plan.draft_cap == 4).sum() >= 2 and plan.prefilling.any()
+  assert plan.scheduled_tokens < len(positions)      # padding too
+  runs = pa.tile_runs_from_plan(plan.base_idx, plan.num_valid,
+                                len(positions), plan.draft_base,
+                                plan.draft_cap)
+  items = _tiled_equals_plain(runs, tables_tok, positions,
+                              *_pool(seed, 6 * 64 + 1))
+  assert (items[:, 5] > 1).any()
+
+
+def test_old_planner_mistiles_draft_runs():
+  """The fault on record: the planner that knows only ``base_idx`` /
+  ``num_valid`` folds the draft runs into padding tiles, which read the
+  first token's table row, so drafts attend another slot's K/V: the
+  tiled arithmetic then disagrees with the plain version at the filled
+  draft rows."""
+  plan, tables_tok, positions = _scheduler_plan(0)
+  T = len(positions)
+  old = pa.tile_runs_from_plan(plan.base_idx, plan.num_valid, T)
+  with pytest.raises(AssertionError):
+    _check_runs(old, tables_tok, positions)
+  q, kp, vp = _pool(0, 6 * 64 + 1)
+  tables, pos = torch.from_numpy(tables_tok), torch.from_numpy(positions)
+  items, _ = pa.work_items(old, positions, tables_tok.shape[1], 16)
+  got = _emulate_tiled(q, kp, vp, tables, pos, items)
+  want = pa.paged_attention_reference(q, kp, vp, tables, pos)
+  drafts = [t for s in np.nonzero(plan.draft_cap)[0]
+            for t in range(plan.draft_base[s],
+                           plan.draft_base[s] + plan.draft_cap[s])
+            if plan.valid[t]]
+  assert drafts
+  assert (got[drafts] - want[drafts]).abs().max() > 0.1
+
+
+def test_planner_tiles_a_warm_prefix_step():
+  """A warm admission's chunk starts at position 256 over blocks shared
+  with another slot's table; its tiles and the rest of the step's equal
+  the plain version."""
+  plan, tables_tok, positions = _scheduler_plan(0, warm=True)
+  slot = next(s for s in range(6) if plan.prefilling[s])
+  assert positions[plan.base_idx[slot]] == 256
+  shared = set(plan.block_tables[slot, :16])
+  assert 0 not in shared and any(
+      shared <= set(plan.block_tables[s]) for s in range(6) if s != slot)
+  runs = pa.tile_runs_from_plan(plan.base_idx, plan.num_valid,
+                                len(positions), plan.draft_base,
+                                plan.draft_cap)
+  _tiled_equals_plain(runs, tables_tok, positions, *_pool(1, 6 * 64 + 1))
+
+
+@pytest.mark.parametrize("case", ["from_plan", "crossing_256"])
+def test_rollout_tiles_planned_once_cover_every_call(case):
+  """A draft model's rollout: token ``s`` in slot ``s`` at ``pos0[s] +
+  j`` for j = 0..k-1, one-row tiles planned once from the last call's
+  positions.  At the earlier calls a split whose keys all lie past the
+  row's position must add nothing: every call equals the plain
+  version."""
+  plan, _, _ = _scheduler_plan(0)
+  N, K = 6, 4
+  calls = step_plans.rollout_positions(
+      plan, K, cross=256 if case == "crossing_256" else 0)
+  tables_tok = plan.block_tables
+  runs = pa.one_row_runs(N)
+  items, _ = pa.work_items(runs, calls[-1], tables_tok.shape[1], 16)
+  q, kp, vp = _pool(3, 6 * 64 + 1, T=N)
+  tables = torch.from_numpy(tables_tok)
+  crossed = False
+  for positions in calls:
+    _check_runs(runs, tables_tok, positions)
+    pos = torch.from_numpy(positions)
+    got = _emulate_tiled(q, kp, vp, tables, pos, items)
+    want = pa.paged_attention_reference(q, kp, vp, tables, pos)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    crossed |= bool(((items[:, 2] > positions[items[:, 0]])).any())
+  if case == "crossing_256":
+    assert crossed

@@ -160,8 +160,8 @@ def test_sampled_stream_independent_of_batch_and_slot():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(paged=False), dict(speculative=True), dict(resilience=True),
-    dict(prefix_cache=True), dict(mesh=object()), dict(registry=object()),
+    dict(paged=False), dict(resilience=True), dict(mesh=object()),
+    dict(registry=object()),
 ])
 def test_features_outside_the_slice_raise(kwargs):
   tmodel, tparams = tiny_gpt(device="cpu")
