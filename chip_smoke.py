@@ -66,7 +66,28 @@ those paths against its plain PyTorch version:
     system prompt, then 8 second turns, with the cache off and on: hits,
     blocks reused, prefill tokens saved, TTFT of the same requests in
     both runs, the shared blocks' pool rows unchanged, streams against
-    ``generate(use_cache=False)``, launch counts.
+    ``generate(use_cache=False)``, launch counts;
+14. the contiguous-slot engine, the default serving layout (8 slots,
+    chunk 128): fp32 streams against ``generate(use_cache=False)``;
+    bf16 under phase 5's staggered load (tokens/s, TTFT, ITL, the bf16
+    gap rule, no paged-attention launch); n-gram and a short self-draft
+    run on the slot layout (the acceptance floor); a ``torch.profiler``
+    window of its steps;
+15. serving resilience, bf16, on the paged engine (prefix cache on) and
+    the contiguous one: a fault-free resilient run token-equal to the
+    same engine without resilience (both runs' host ms per step), a
+    transient and a persistent ``NaNLogitsInjector`` fault (streams
+    against the fault-free run, the counters), and the poisoned rows read
+    back as zero right after the bad step (shared prefix blocks
+    bit-identical);
+16. amp O1 and the fp16 builds: the fp16 flash kernels against their
+    plain versions at phase 7's shapes and the fp16 warp paged kernel at
+    ``engine_step`` and ``spec_step`` (normalized-error limits, their
+    sensitivity to faults), each timed beside its plain version, its
+    bound and SDPA in fp16; the bench's training step with an fp32
+    GPTConfig under ``amp.level=O1`` against the explicit-bf16 config
+    (equal losses); O1-fp16 training at 4 layers (fp16 flash launches);
+    a short O1-fp16 paged serving run through the fp16 warp build.
 
 Every phase raises on failure.  The second-to-last line of the output is
 the ``{"kernels": [...]}`` record, the last one
@@ -74,11 +95,13 @@ the ``{"kernels": [...]}`` record, the last one
 of the repository, it exits with code 2 and prints no result.
 ``python3 chip_smoke.py --phases 2,3`` runs the build and the listed
 phases only (5 and 6, 10 and 11 run together) and prints no result
-lines.
+lines.  ``--phases 14,15,16`` runs this slice's: the contiguous engine,
+serving resilience, amp O1 and the fp16 builds.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -94,7 +117,7 @@ ROOT = Path(__file__).resolve().parent
 # bound uses for each input type (fp32 without tensor cores, bf16 dense
 # tensor cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 
 GPT_350M = dict(vocab_size=32768, num_layers=24, num_heads=16, d_model=1024,
                 d_ff=4096, max_seq_len=1024)
@@ -115,6 +138,22 @@ FLASH_TOLERANCE = dict(fwd=(2e-5, 2e-6), grad=(5e-4, 1e-5))
 # flash_check_sensitivity shows the faults they catch.
 FLASH_BF16_LIMIT = {"fwd": dict(rel_l2=5e-3, max_rel=1e-2),
                     "grad": dict(rel_l2=5e-4, max_rel=1e-2)}
+# fp16 (the CUDA-core builds instantiated for __half): the same rule.
+# The largest readings over phase 7's shapes on an NVIDIA H100 80GB HBM3
+# at 700 W: out 2.8e-4 /
+# 7.0e-4; the gradients 0 (the CUDA-core backward sums in the order of
+# the plain version's fp32 products, and fp16 output hides the rest).
+# The forward limits are 3.5 / 2.9 times its readings; the gradient
+# limits catch every fault flash_check_sensitivity must catch, at 0.6 /
+# 0.4 of the smallest such reading (tests/test_torch_gpu.py holds its
+# shapes to them).
+FLASH_FP16_LIMIT = {"fwd": dict(rel_l2=1e-3, max_rel=2e-3),
+                    "grad": dict(rel_l2=2e-4, max_rel=2e-3)}
+# The fp16 warp paged build against its plain version (p rounded after
+# a running max there, after the full softmax in the plain version):
+# 1.8 / 2.1 times the largest readings (5.6e-4 / 9.4e-4, at rollout_step;
+# NVIDIA H100 80GB HBM3, 700 W), and below p rounded to bf16 (1.26e-3).
+PAGED_FP16_LIMIT = dict(rel_l2=1e-3, max_rel=2e-3)
 # The training shape (batch cut to 2), the JAX tests' shapes, a ragged
 # length whose last tile of each head runs past S (B*H > 1), and the
 # wgmma kernels' second head dim.
@@ -135,6 +174,10 @@ SPEC_K = 4                  # serving.speculative.k's default
 # would be rejected nearly always, driving acceptance towards 0.
 SELF_DRAFT_ACCEPTANCE_FLOOR = 0.8
 PROFILE_STEPS = 20
+# Phase 15: the injected faults (step-call indices after the load's
+# prefill has started), and phase 16's O1-fp16 training cut.
+TRANSIENT_FAULT, PERSISTENT_FAULT = (6,), (6, 7)
+O1_FP16_LAYERS, O1_FP16_BATCH, O1_STEPS = 4, 4, 3
 
 
 def log(msg: str) -> None:
@@ -479,7 +522,7 @@ def make_prompts(seed, n, vocab):
 
 
 def greedy_vs_generate(torch, model, params, prompts, out, max_gap, label,
-                       refs=None):
+                       refs=None, ref_name="generate(use_cache=False)"):
   """Each request's engine stream ``out[i]`` against the port's
   ``generate(use_cache=False)`` (kept in ``refs`` by prompt index, when
   given, for a later run over the same prompts).  Where a stream first
@@ -512,15 +555,16 @@ def greedy_vs_generate(torch, model, params, prompts, out, max_gap, label,
         f"(prompt {len(p)}); reference top-2 logit gap {gap:.3e} "
         f"(limit {limit:.3e})")
     assert gap < limit, f"{label} request {i} diverged at a gap of {gap}"
-  log(f"   {label}: {equal}/{len(prompts)} greedy streams equal generate("
-      f"use_cache=False)")
+  log(f"   {label}: {equal}/{len(prompts)} greedy streams equal "
+      f"{ref_name}")
   return equal
 
 
-def engine_fp32_vs_generate(torch, params, pa):
+def engine_fp32_vs_generate(torch, params, pa, refs):
   """Full width, fp32: engine greedy streams vs ``generate(use_cache=
-  False)``, diverging only at a top-2 gap below 1e-3.  fp32 runs the
-  paged kernel's warp build: returns its launch count over the run."""
+  False)`` (kept in ``refs`` for phase 14), diverging only at a top-2 gap
+  below 1e-3.  fp32 runs the paged kernel's warp build: returns its
+  launch count over the run."""
   from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
   from easyparallellibrary_tpu_torch.serving import (
       ContinuousBatchingEngine, Request)
@@ -546,16 +590,16 @@ def engine_fp32_vs_generate(torch, params, pa):
   log(f"   engine steps {eng.steps}; warp-build launches {launches} = "
       f"{cfg.num_layers} layers x {eng.steps} steps")
   greedy_vs_generate(torch, model, params, prompts, out,
-                     lambda top1: 1e-3, "fp32")
+                     lambda top1: 1e-3, "fp32", refs)
   return launches
 
 
-def bf16_gap_limit(top1):
+def bf16_gap_limit(top1, eps=2.0 ** -7):
   """``BF16_GAP_STEPS`` bf16 spacings at the top logit's magnitude: the
   engine and the reference round in other places in each layer, so
   their bf16 logits may differ by a few spacings; a fault in the bf16
-  path shows as a divergence at a clear winner."""
-  eps = 2.0 ** -7                       # torch.finfo(torch.bfloat16).eps
+  path shows as a divergence at a clear winner.  ``eps`` is the type's
+  (``torch.finfo(torch.bfloat16).eps``; fp16's is 2^-10)."""
   return BF16_GAP_STEPS * eps * 2.0 ** np.floor(np.log2(max(abs(top1),
                                                             1e-30)))
 
@@ -576,10 +620,11 @@ def drive_waves(eng, request_cls, prompts, max_new=32):
   return out
 
 
-def engine_bf16_serving(torch, params, pa):
+def engine_bf16_serving(torch, params, pa, refs):
   """Full width, bf16, staggered submits; the main path's launch counts,
-  then the greedy streams against ``generate(use_cache=False)`` in
-  bf16.  Returns the launch count and the engine."""
+  then the greedy streams against ``generate(use_cache=False)`` in bf16
+  (kept in ``refs`` for phase 14).  Returns the launch count and the
+  engine."""
   from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
   from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
   from easyparallellibrary_tpu_torch.serving import (
@@ -621,7 +666,7 @@ def engine_bf16_serving(torch, params, pa):
       f"{cfg.num_layers} layers x {eng.steps} steps; warp-build launches "
       f"0; plain-version calls {plain_calls}")
   greedy_vs_generate(torch, model, eng.params, prompts, out,
-                     bf16_gap_limit, "bf16")
+                     bf16_gap_limit, "bf16", refs)
   return launches, eng
 
 
@@ -639,7 +684,7 @@ def repeating_prompts(seed, n, vocab):
   return out
 
 
-def speculative_serving(torch, params, pa):
+def speculative_serving(torch, params, pa, refs):
   """Phase 12: GPT-350M bf16, phase 5's staggered load over prompts whose
   spans repeat, on the speculative engine: first the n-gram drafter,
   then ``DraftModelDrafter`` with the target's own weights (greedy
@@ -652,8 +697,9 @@ def speculative_serving(torch, params, pa):
   write-only feed of the last draft).  Streams are held to
   ``generate(use_cache=False)`` by the bf16 gap rule.  After the n-gram
   run, a ``torch.profiler`` window of its steps as phase 6 takes one
-  (prompts whose spans repeat).  Returns the launch counts and
-  acceptance per run."""
+  (prompts whose spans repeat).  Streams' references are kept in
+  ``refs`` for phase 14.  Returns the launch counts and acceptance per
+  run."""
   from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
   from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
   from easyparallellibrary_tpu_torch.serving import (
@@ -662,7 +708,7 @@ def speculative_serving(torch, params, pa):
   model = GPT(cfg)
   L = cfg.num_layers
   prompts = repeating_prompts(4, 16, cfg.vocab_size)
-  refs, result = {}, {}
+  result = {}
   for label in ("ngram", "self_draft"):
     drafter = (NgramDrafter(k=SPEC_K) if label == "ngram"
                else DraftModelDrafter(model, params, k=SPEC_K))
@@ -870,7 +916,7 @@ def _busy_us(intervals):
   return total
 
 
-def step_breakdown(torch, eng, prompt_fn=None):
+def step_breakdown(torch, eng, prompt_fn=None, paged=True):
   """Where a bf16 engine step's time goes: ``PROFILE_STEPS`` public
   ``step()`` calls under a full load of 16 requests (96 new tokens
   each, 8 of them admitted mid-flight), profiled with ``torch.profiler``
@@ -878,7 +924,9 @@ def step_breakdown(torch, eng, prompt_fn=None):
   step, the device's idle share, the host time outside the device step
   (scheduler planning, from ``ServingStats`` step times) and device time
   by kernel.  ``prompt_fn(seed, n, vocab)`` draws the prompts
-  (default :func:`make_prompts`)."""
+  (default :func:`make_prompts`).  ``paged=False`` (the contiguous
+  engine, whose attention is dense) requires the profile to hold no
+  paged-attention kernel."""
   from torch.profiler import ProfilerActivity, profile
   from easyparallellibrary_tpu_torch.serving import Request
   prompts = (prompt_fn or make_prompts)(3, 16, eng.model.cfg.vocab_size)
@@ -914,7 +962,10 @@ def step_breakdown(torch, eng, prompt_fn=None):
   # Both builds: paged_attention_tiled_kernel and paged_attention_kernel.
   paged_us = sum(us for name, (_, us) in kernels.items()
                  if "paged_attention" in name)
-  assert paged_us > 0, "the profile holds no paged-attention kernel"
+  if paged:
+    assert paged_us > 0, "the profile holds no paged-attention kernel"
+  else:
+    assert paged_us == 0, "the contiguous engine launched paged attention"
   log(f"   {n} steps, profiler on: host wall {wall_us / n / 1e3:.3f} "
       f"ms/step, device busy {busy_us / n / 1e3:.3f} ms/step, idle share "
       f"{1 - busy_us / wall_us:.3f}; host outside the device step "
@@ -998,9 +1049,9 @@ def flash_parity(torch, fa):
   return errs, rel
 
 
-def flash_check_sensitivity(torch, fa):
-  """The bf16 limits against faults a kernel could have: plain versions
-  with one fault each, at the training shape (batch cut to 2, causal),
+def flash_check_sensitivity(torch, fa, dtype_name="bfloat16"):
+  """The bf16 (or fp16) limits against faults a kernel could have: plain
+  versions with one fault each, at the training shape (batch cut to 2, causal),
   held against the faultless plain version.  A fault is caught when
   either normalized error exceeds its limit; every fault here must be,
   but one: a forward that skips the rounding of p moves the output by
@@ -1008,7 +1059,9 @@ def flash_check_sensitivity(torch, fa):
   max does, so no comparison with the plain version can see it.  Its
   reading is printed beside the others."""
   B, H, S, D = FLASH_SHAPES[0][1].values()
-  q, k, v, dout = flash_case(torch, torch.bfloat16, 0, B=B, H=H, S=S, D=D)
+  dtype = getattr(torch, dtype_name)
+  limits = FLASH_BF16_LIMIT if dtype_name == "bfloat16" else FLASH_FP16_LIMIT
+  q, k, v, dout = flash_case(torch, dtype, 0, B=B, H=H, S=S, D=D)
   want_out, lse = fa.flash_fwd_reference(q, k, v, True)
   delta = (dout.float() * want_out.float()).sum(-1)
   want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
@@ -1021,13 +1074,13 @@ def flash_check_sensitivity(torch, fa):
   p = torch.exp(s - lse[..., None])
   dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
   ds = p * (dp - delta[..., None])
-  bf16 = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+  rnd = lambda x: x.to(dtype).float()  # noqa: E731  (the working type)
 
   def forward(scores, round_p):
     e = torch.exp(scores - scores.amax(-1, keepdim=True))
-    pv = bf16(e) if round_p else e
+    pv = rnd(e) if round_p else e
     return (torch.einsum("bhqk,bhkd->bhqd", pv, v.float())
-            / e.sum(-1, keepdim=True)).to(torch.bfloat16)
+            / e.sum(-1, keepdim=True)).to(dtype)
 
   def grad_kv(weights, x):
     return torch.einsum("bhqk,bhqd->bhkd", weights, x.float())
@@ -1037,31 +1090,31 @@ def flash_check_sensitivity(torch, fa):
       "out, KV tile lost": (forward(s.masked_fill(lost, fa.NEG_INF), True),
                             want_out, True),
       "out, p not rounded": (forward(s, False), want_out, False),
-      "dv, p not rounded": (grad_kv(p, dout).to(torch.bfloat16), want_dv,
+      "dv, p not rounded": (grad_kv(p, dout).to(dtype), want_dv,
                             True),
-      "dv, Q tile lost": (grad_kv(bf16(p.masked_fill(rows_lost, 0)), dout)
-                          .to(torch.bfloat16), want_dv, True),
-      "dk, dS not rounded": ((grad_kv(ds, q) * scale).to(torch.bfloat16),
+      "dv, Q tile lost": (grad_kv(rnd(p.masked_fill(rows_lost, 0)), dout)
+                          .to(dtype), want_dv, True),
+      "dk, dS not rounded": ((grad_kv(ds, q) * scale).to(dtype),
                              want_dk, True),
-      "dk, Q tile lost": ((grad_kv(bf16(ds.masked_fill(rows_lost, 0)), q)
-                           * scale).to(torch.bfloat16), want_dk, True),
+      "dk, Q tile lost": ((grad_kv(rnd(ds.masked_fill(rows_lost, 0)), q)
+                           * scale).to(dtype), want_dk, True),
       "dq, dS not rounded": ((torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
-                              * scale).to(torch.bfloat16), want_dq, True),
+                              * scale).to(dtype), want_dq, True),
       "dq, KV tile lost": ((torch.einsum("bhqk,bhkd->bhqd",
-                                         bf16(ds.masked_fill(lost, 0)),
+                                         rnd(ds.masked_fill(lost, 0)),
                                          k.float()) * scale)
-                           .to(torch.bfloat16), want_dq, True),
+                           .to(dtype), want_dq, True),
   }
   missed = []
   for name, (got, want, must_catch) in faults.items():
-    limit = FLASH_BF16_LIMIT["fwd" if name.startswith("out") else "grad"]
+    limit = limits["fwd" if name.startswith("out") else "grad"]
     rel_l2, max_rel = normalized_errors(got, want)
     caught = rel_l2 > limit["rel_l2"] or max_rel > limit["max_rel"]
-    log(f"   fault {name:20s}: rel_l2 {rel_l2:.2e}, max_rel {max_rel:.2e} "
-        f"-> {'caught' if caught else 'not caught'}")
+    log(f"   {dtype_name} fault {name:20s}: rel_l2 {rel_l2:.2e}, max_rel "
+        f"{max_rel:.2e} -> {'caught' if caught else 'not caught'}")
     if must_catch and not caught:
       missed.append(name)
-  assert not missed, f"the bf16 limits miss {missed}"
+  assert not missed, f"the {dtype_name} limits miss {missed}"
 
 
 def flash_lse_autograd(torch, fa):
@@ -1305,17 +1358,557 @@ def train_step_breakdown(torch, bench, batch_size):
         f"{name[:100]}")
 
 
+# ------------------------------------------- phase 14: contiguous engine
+
+
+def slot_engine(torch, model, params, **kw):
+  """The contiguous-slot engine with the default serving config: only
+  the geometry of the other phases is passed (8 slots, chunk 128), not
+  the layout."""
+  from easyparallellibrary_tpu_torch.serving import ContinuousBatchingEngine
+  eng = ContinuousBatchingEngine(model, params, num_slots=NUM_SLOTS,
+                                 prefill_chunk=PREFILL_CHUNK, **kw)
+  assert not eng.paged and eng._cursors is not None
+  return eng
+
+
+def contiguous_serving(torch, params, pa, refs):
+  """Phase 14: the contiguous-slot engine at GPT-350M width.  Its cache
+  is 2 x 24 x 8 x 1152 x 16 x 64 elements (0.91 GB in bf16, 1.81 GB in
+  fp32).  An fp32 run against ``generate(use_cache=False)`` (phase 4's
+  prompts and references); a bf16 run under phase 5's staggered load
+  (tokens/s, TTFT, ITL, the bf16 gap rule against phase 5's references);
+  an n-gram run (phase 12's prompts and references) and a short
+  self-draft run (its first 8 prompts at once; the acceptance floor).
+  No run may launch the paged-attention kernel: the slot layout's
+  attention is dense, as in the JAX package.  Then a ``torch.profiler``
+  window of the bf16 engine's steps."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
+  from easyparallellibrary_tpu_torch.serving import (
+      DraftModelDrafter, NgramDrafter, Request, kv_cache)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  for dtype_name in ("float32", "bfloat16"):
+    cfg = GPTConfig(**GPT_350M, dtype=getattr(torch, dtype_name))
+    model = GPT(cfg)
+    gb = kv_cache.cache_bytes(cfg, NUM_SLOTS, PREFILL_CHUNK) / 1e9
+    stats = ServingStats()
+    eng = slot_engine(torch, model, params, stats=stats)
+    pa.reset_counts()
+    t0 = time.monotonic()
+    if dtype_name == "float32":
+      prompts = make_prompts(1, NUM_SLOTS, cfg.vocab_size)
+      for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+      out = eng.run()
+    else:
+      prompts = make_prompts(2, 16, cfg.vocab_size)
+      out = drive_waves(eng, Request, prompts)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    assert pa.paged_attention_cuda.launches == 0
+    assert pa.paged_attention_reference.calls == 0
+    assert sorted(out) == list(range(len(prompts)))
+    s = stats.summary()
+    log(f"   contiguous {dtype_name}: cache {gb:.2f} GB, "
+        f"{len(prompts)} requests, {eng.steps} steps, {wall:.2f} s wall; "
+        f"tokens/s {s['tokens_per_s']:.1f}, TTFT p50 "
+        f"{s['ttft_p50_s'] * 1e3:.1f} ms p99 {s['ttft_p99_s'] * 1e3:.1f} ms, "
+        f"ITL p50 {s['itl_p50_s'] * 1e3:.2f} ms; paged-attention launches 0")
+    if dtype_name == "float32":
+      greedy_vs_generate(torch, model, eng.params, prompts, out,
+                         lambda top1: 1e-3, "contiguous fp32",
+                         refs["float32"])
+    else:
+      greedy_vs_generate(torch, model, eng.params, prompts, out,
+                         bf16_gap_limit, "contiguous bf16", refs["bfloat16"])
+      bf16_eng = eng
+    del eng
+  cfg = bf16_eng.model.cfg
+  model = bf16_eng.model
+  prompts = repeating_prompts(4, 16, cfg.vocab_size)
+  for label in ("ngram", "self_draft"):
+    stats = ServingStats()
+    if label == "ngram":
+      eng = slot_engine(torch, model, params, stats=stats,
+                        drafter=NgramDrafter(k=SPEC_K))
+      pa.reset_counts()
+      out = drive_waves(eng, Request, prompts)
+      subset = prompts
+    else:
+      eng = slot_engine(torch, model, params, stats=stats,
+                        drafter=DraftModelDrafter(model, params, k=SPEC_K))
+      pa.reset_counts()
+      subset = prompts[:NUM_SLOTS]
+      for i, p in enumerate(subset):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+      out = eng.run()
+    torch.cuda.synchronize()
+    assert pa.paged_attention_cuda.launches == 0
+    assert eng.drafter_failures == 0
+    s = stats.summary()
+    log(f"   contiguous {label}: {len(subset)} requests, {eng.steps} steps; "
+        f"tokens/s {s['tokens_per_s']:.1f}, drafted "
+        f"{s['drafted_tokens']:.0f}, accepted {s['accepted_tokens']:.0f}, "
+        f"acceptance {s['acceptance_rate']:.4f}")
+    greedy_vs_generate(torch, model, eng.params, subset, out,
+                       bf16_gap_limit, f"contiguous {label}",
+                       refs["spec"])
+    assert s["drafted_tokens"] > 0
+    if label == "self_draft":
+      assert eng.drafter.rollout_steps > 0
+      assert s["acceptance_rate"] >= SELF_DRAFT_ACCEPTANCE_FLOOR, s
+    del eng
+  step_breakdown(torch, bf16_eng, paged=False)
+
+
+# ------------------------------------------- phase 15: serving resilience
+
+
+def resilience_prompts(seed, vocab):
+  """8 requests of a 128-token shared head (8 blocks) and a 32-256-token
+  suffix: with the prefix cache on, requests 1-7 map the head's blocks
+  from request 0."""
+  r = np.random.RandomState(seed)
+  head = r.randint(0, vocab, (128,))
+  return [np.concatenate([head, r.randint(0, vocab, (n,))]).astype(np.int32)
+          for n in r.randint(32, 257, NUM_SLOTS)]
+
+
+def resilience_run(torch, model, params, layout, prompts, resilient,
+                   fault=()):
+  """One bf16 run of ``prompts`` (request 0 two steps ahead, then the
+  rest), with a ``NaNLogitsInjector`` over the step calls in ``fault``.
+  Returns the engine, the streams, host ms per step, and a snapshot
+  taken right after the poisoned step: the caches and what the check of
+  the zeroed rows needs."""
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  from easyparallellibrary_tpu_torch.testing.chaos import NaNLogitsInjector
+  kw = (dict(paged=True, block_size=BLOCK_SIZE, prefix_cache=True)
+        if layout == "paged" else dict(paged=False))
+  eng = ContinuousBatchingEngine(model, params, num_slots=NUM_SLOTS,
+                                 prefill_chunk=PREFILL_CHUNK,
+                                 resilience=resilient, **kw)
+  inj = NaNLogitsInjector(eng, bad_calls=fault) if fault else None
+  eng.submit(Request(uid=0, prompt=prompts[0], max_new_tokens=32))
+  out = {}
+  for _ in range(2):
+    for fin in eng.step():
+      out[fin.uid] = fin.tokens
+  for i in range(1, len(prompts)):
+    eng.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=32))
+  snap = None
+  t0 = time.monotonic()
+  steps0 = eng.steps
+  while eng.has_work:
+    before = None
+    if inj is not None and snap is None and inj.calls == fault[0]:
+      before = {"active": dict(eng.scheduler.active),
+                "blocks": ({s: eng.scheduler.slot_blocks(s)
+                            for s in eng.scheduler.active}
+                           if layout == "paged" else None),
+                "kv": {n: {leaf: t.clone() for leaf, t in l["attn"].items()}
+                       for n, l in eng._kv.items()} if layout == "paged"
+                else None}
+    for fin in eng.step():
+      out[fin.uid] = fin.tokens
+    if before is not None and inj.poisoned:
+      snap = dict(before, cursors=(None if eng._cursors is None
+                                   else eng._cursors.cpu().numpy()))
+      check_sanitized(torch, eng, layout, snap)
+  torch.cuda.synchronize()
+  ms = (time.monotonic() - t0) / max(eng.steps - steps0, 1) * 1e3
+  assert inj is None or (inj.poisoned == list(fault)
+                         and snap is not None), inj.poisoned
+  return eng, out, ms
+
+
+def check_sanitized(torch, eng, layout, snap):
+  """Right after the poisoned step, read back on the card: every cache
+  row is finite; contiguous: each retried slot's rows from its cursor
+  up are exactly zero; paged: the null block is zero, each bad slot's
+  blocks are zero from the committed watermark up, and blocks wholly
+  below it (the shared head) are bit-identical to before the step."""
+  bad = [s for s in snap["active"]]
+  for name, layer in eng._kv.items():
+    for leaf, t in layer["attn"].items():
+      assert bool(torch.isfinite(t).all()), f"{name}/{leaf} not finite"
+      if layout == "contiguous":
+        for slot in bad:
+          assert not t[slot, int(snap["cursors"][slot]):].any(), slot
+        continue
+      assert not t[0].any(), "the null block was not zeroed"
+      old = snap["kv"][name][leaf]
+      for slot in bad:
+        state = snap["active"][slot]
+        mark = (state.prompt_pos if state.prefilling else
+                len(state.req.prompt) + len(state.generated) - 1)
+        for j, blk in enumerate(snap["blocks"][slot]):
+          lo = max(0, mark - j * BLOCK_SIZE)
+          if lo >= BLOCK_SIZE:
+            assert torch.equal(t[blk], old[blk]), (slot, j)
+          else:
+            assert not t[blk, lo:].any(), (slot, j)
+
+
+def serving_resilience(torch, params, pa):
+  """Phase 15: serving resilience at GPT-350M width in bf16, on the paged
+  engine with the prefix cache on and on the contiguous engine.  Per
+  layout: fault-free runs in turns (plain, resilient, resilient, plain),
+  the resilient streams token-equal to the plain ones, the two sides'
+  median host ms per step giving the guard's cost; a transient fault
+  (``TRANSIENT_FAULT``: retried in place, streams equal to the
+  fault-free run's) and a persistent one
+  (``PERSISTENT_FAULT``: requeued, the committed prefix replayed; the
+  replay's prefill rounds where decode did, so its streams are held to
+  the fault-free run by the bf16 gap rule), with the counters; the
+  poisoned rows read back as zero right after the bad step."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  prompts = resilience_prompts(6, cfg.vocab_size)
+  for layout in ("paged", "contiguous"):
+    ms = {False: [], True: []}
+    for resilient in (False, True, True, False):
+      eng, out, step_ms = resilience_run(torch, model, params, layout,
+                                         prompts, resilient)
+      ms[resilient].append(step_ms)
+      if resilient:
+        guard_eng, guarded = eng, out
+      else:
+        base_eng, base = eng, out
+    assert sorted(base) == sorted(guarded) == list(range(len(prompts)))
+    for i in base:
+      np.testing.assert_array_equal(guarded[i], base[i], f"{layout} {i}")
+    assert guard_eng._bad_policy.bad_steps == 0
+    if layout == "paged":
+      assert guard_eng.scheduler.prefix_hits > 0
+    log(f"   {layout}: fault-free resilient runs token-equal to the plain "
+        f"ones ({len(prompts)} streams, {guard_eng.steps} steps); host "
+        f"ms/step in turns: plain {ms[False][0]:.2f}, guarded "
+        f"{ms[True][0]:.2f}, {ms[True][1]:.2f}, plain {ms[False][1]:.2f} "
+        f"(medians {statistics.median(ms[False]):.2f} plain, "
+        f"{statistics.median(ms[True]):.2f} guarded)")
+    refs = {i: base[i] for i in base}
+    for label, fault in (("transient", TRANSIENT_FAULT),
+                         ("persistent", PERSISTENT_FAULT)):
+      eng, out, _ = resilience_run(torch, model, params, layout, prompts,
+                                   True, fault)
+      counters = eng._bad_policy.counters()
+      assert counters["bad_steps"] == len(fault), counters
+      assert counters["failed_requests"] == 0, counters
+      if label == "transient":
+        assert counters["requeues"] == 0, counters
+        for i in base:
+          np.testing.assert_array_equal(out[i], base[i],
+                                        f"{layout} {label} {i}")
+        equal = len(base)
+      else:
+        assert counters["requeues"] > 0, counters
+        equal = greedy_vs_generate(torch, model, eng.params, prompts,
+                                   [out[i] for i in range(len(prompts))],
+                                   bf16_gap_limit, f"{layout} {label}",
+                                   refs, "the fault-free run's")
+      assert all(eng.finished[i].finish_reason == "length" for i in base)
+      log(f"   {layout} {label} fault at calls {list(fault)}: counters "
+          f"{counters}; {equal}/{len(base)} streams equal the fault-free "
+          f"run; poisoned rows zero on the card right after the bad step")
+    del base_eng, guard_eng, eng
+
+
+# ------------------------------------------ phase 16: amp O1 and fp16
+
+
+def fp16_flash_parity(torch, fa):
+  """The fp16 flash builds against their plain versions at phase 7's
+  shapes, causal and not, by normalized error against
+  ``FLASH_FP16_LIMIT``; then the limits' sensitivity.  Returns the max
+  abs error and the largest normalized errors per kernel."""
+  errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+  rel = {kernel: (0.0, 0.0) for kernel in errs}
+  for seed, (label, shape) in enumerate(FLASH_SHAPES):
+    for causal in (True, False):
+      q, k, v, dout = flash_case(torch, torch.float16, seed, **shape)
+      out, lse = fa.flash_fwd(q, k, v, causal)
+      want_out, want_lse = fa.flash_fwd_reference(q, k, v, causal)
+      delta = (dout.float() * want_out.float()).sum(-1)
+      dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, causal)
+      dq = fa.flash_bwd_dq(q, k, v, dout, want_lse, delta, causal)
+      want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, dout, want_lse,
+                                                    delta, causal)
+      want_dq = fa.flash_bwd_dq_reference(q, k, v, dout, want_lse, delta,
+                                          causal)
+      torch.cuda.synchronize()
+      case = f"{label} fp16 causal={causal}"
+      torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-6,
+                                 msg=lambda m: f"{case} lse: {m}")
+      readings = []
+      for kernel, name, got, want in (("fwd", "out", out, want_out),
+                                      ("dkv", "dk", dk, want_dk),
+                                      ("dkv", "dv", dv, want_dv),
+                                      ("dq", "dq", dq, want_dq)):
+        assert got.dtype == torch.float16, case
+        assert bool(torch.isfinite(got).all()), f"{case} {name}"
+        err = (got.float() - want.float()).abs().max().item()
+        rel_l2, max_rel = normalized_errors(got, want)
+        limit = FLASH_FP16_LIMIT["fwd" if kernel == "fwd" else "grad"]
+        assert rel_l2 <= limit["rel_l2"] and max_rel <= limit["max_rel"], (
+            f"{case} {name}: normalized errors {rel_l2:.3e}, {max_rel:.3e} "
+            f"over {limit}")
+        errs[kernel] = max(errs[kernel], err)
+        rel[kernel] = (max(rel[kernel][0], rel_l2),
+                       max(rel[kernel][1], max_rel))
+        readings.append(f"{name} {err:.2e} ({rel_l2:.2e}, {max_rel:.2e})")
+      log(f"   {label:14s} float16  causal={causal!s:5s} max|kernel - plain|"
+          f" (rel_l2, max_rel): " + ", ".join(readings))
+  log(f"   fp16 limits (rel_l2, max_rel): {FLASH_FP16_LIMIT}")
+  flash_check_sensitivity(torch, fa, "float16")
+  return errs, rel
+
+
+def fp16_paged_parity(torch, pa):
+  """The fp16 warp build against its plain version at ``engine_step``
+  (head dims 64 and 128: fp16 never takes the tiled build) and at the
+  scheduler's ``spec_step`` and ``rollout_step``, by normalized error
+  against ``PAGED_FP16_LIMIT``; then faults the limit must catch (a lost
+  block of K/V rows, p rounded to bf16 instead of fp16).  Returns the max
+  abs error and the largest normalized errors."""
+  cases = [("engine_step", engine_step_case(torch, torch.float16, 31)[0]),
+           ("engine_step_hd128", engine_step_case(torch, torch.float16, 32,
+                                                  H=8, hd=128)[0])]
+  for kind in ("spec_step", "rollout_step"):
+    for args, _, _ in scheduled_step_case(torch, torch.float16, 33, kind):
+      cases.append((kind, args))
+  err, rel = 0.0, (0.0, 0.0)
+  for label, args in cases:
+    before = (pa.paged_attention_warp_cuda.launches,
+              pa.paged_attention_tiled_cuda.launches)
+    got = pa.paged_attention(*args)
+    want = pa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention_warp_cuda.launches,
+            pa.paged_attention_tiled_cuda.launches) == (before[0] + 1,
+                                                        before[1]), label
+    assert got.dtype == torch.float16 and bool(torch.isfinite(got).all())
+    e = (got.float() - want.float()).abs().max().item()
+    r = normalized_errors(got, want)
+    assert r[0] <= PAGED_FP16_LIMIT["rel_l2"] and (
+        r[1] <= PAGED_FP16_LIMIT["max_rel"]), (label, r)
+    err, rel = max(err, e), (max(rel[0], r[0]), max(rel[1], r[1]))
+    log(f"   {label:18s} float16 warp max|kernel - plain| {e:.3e}, "
+        f"rel_l2 {r[0]:.2e}, max_rel {r[1]:.2e}")
+  q, kp, vp, tables, positions = cases[0][1]
+  want = pa.paged_attention_reference(q, kp, vp, tables, positions)
+  lost = kp.clone()
+  lost[tables[0, 0].long()] = 0                   # slot 0's first block
+  faults = {"a K block lost": pa.paged_attention_reference(
+                q, lost, vp, tables, positions),
+            "p rounded to bf16": paged_bf16_rounded_p(torch, q, kp, vp,
+                                                      tables, positions)}
+  for name, faulty in faults.items():
+    r = normalized_errors(faulty, want)
+    caught = (r[0] > PAGED_FP16_LIMIT["rel_l2"]
+              or r[1] > PAGED_FP16_LIMIT["max_rel"])
+    log(f"   fp16 paged fault {name:18s}: rel_l2 {r[0]:.2e}, max_rel "
+        f"{r[1]:.2e} -> {'caught' if caught else 'not caught'}")
+    assert caught, f"PAGED_FP16_LIMIT misses '{name}'"
+  log(f"   fp16 paged limit (rel_l2, max_rel): {PAGED_FP16_LIMIT}")
+  return err, rel
+
+
+def paged_bf16_rounded_p(torch, q, kp, vp, tables, positions):
+  """The plain version with p rounded to bf16 (a wrong build's
+  rounding) instead of fp16."""
+  T, H, hd = q.shape
+  L = tables.shape[1] * kp.shape[1]
+  kk = kp[tables.long()].reshape(T, L, H, hd).float()
+  vv = vp[tables.long()].reshape(T, L, H, hd).float()
+  logits = torch.einsum("thd,tlhd->thl", q.float(), kk) / np.sqrt(hd)
+  valid = (torch.arange(L, device=q.device)[None, None, :]
+           <= positions.long()[:, None, None])
+  logits = torch.where(valid, logits, torch.tensor(-1e9, device=q.device))
+  probs = torch.softmax(logits, -1).to(torch.bfloat16).float()
+  return torch.einsum("thl,tlhd->thd", probs, vv).to(q.dtype)
+
+
+def fp16_timing(torch, fa, pa):
+  """Each fp16 kernel beside its plain version, its bound and the
+  library yardstick: the flash kernels at the training shape (B=16 H=16
+  S=1024 D=64, causal; SDPA's fp16 forward, and its backward alone),
+  the warp paged build at ``engine_step`` and ``spec_step`` (gather +
+  SDPA in fp16).  The bound counts fp16 bytes and the fp16 peak rate."""
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  shape = FLASH_BENCH_SHAPE
+  sets, graphs = [], []
+  for i in range(2):
+    q, k, v, dout = flash_case(torch, torch.float16, 300 + i, **shape)
+    out, lse = fa.flash_fwd_cuda(q, k, v, True)
+    delta = (dout.float() * out.float()).sum(-1)
+    sets.append((q, k, v, dout, lse, delta))
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    graphs.append((sdpa(*leaves, is_causal=True), leaves, dout))
+
+  def sdpa_bwd(out, leaves, dout):
+    return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+  fwd_args = [(q, k, v, True) for q, k, v, *_ in sets]
+  bwd_args = [(*a, True) for a in sets]
+  library_bwd = time_ms(torch, sdpa_bwd, graphs, reps=5)
+  bounds = flash_bounds(itemsize=2, **shape)
+  rows = {
+      "fwd": dict(kernel_ms=time_ms(torch, fa.flash_fwd_cuda, fwd_args),
+                  plain_ms=time_ms(torch, fa.flash_fwd_reference, fwd_args,
+                                   reps=3),
+                  library_ms=time_ms(
+                      torch, lambda q, k, v, c: sdpa(q, k, v, is_causal=c),
+                      fwd_args, reps=5)),
+      "dkv": dict(kernel_ms=time_ms(torch, fa.flash_bwd_dkv_cuda, bwd_args),
+                  plain_ms=time_ms(torch, fa.flash_bwd_dkv_reference,
+                                   bwd_args, reps=3),
+                  library_ms=library_bwd),
+      "dq": dict(kernel_ms=time_ms(torch, fa.flash_bwd_dq_cuda, bwd_args),
+                 plain_ms=time_ms(torch, fa.flash_bwd_dq_reference, bwd_args,
+                                  reps=3),
+                 library_ms=library_bwd),
+  }
+  for name, row in rows.items():
+    row["bound_ms"], row["bound_by"] = bounds[name]
+    log(f"   fp16 {name:4s} B=16 H=16 S=1024 D=64 causal: "
+        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in row.items()))
+  paged = {}
+  for label in ("engine_step", "spec_step"):
+    if label == "engine_step":
+      sets_p = [engine_step_case(torch, torch.float16, 400 + i)[0]
+                for i in range(4)]
+    else:
+      sets_p = [args for i in range(4) for args, _, _ in
+                scheduled_step_case(torch, torch.float16, 400 + i, label)]
+    bound, bound_by = paged_bound(torch, *[sets_p[0][i] for i in (0, 1, 3,
+                                                                    4)])
+    lib = lambda *a: library_paged_attention(torch, *a)  # noqa: E731
+    row = dict(kernel_ms=time_ms(torch, pa.paged_attention_cuda, sets_p),
+               plain_ms=time_ms(torch, pa.paged_attention_reference, sets_p,
+                                reps=3),
+               library_ms=time_ms(torch, lib, sets_p, reps=3),
+               bound_ms=bound, bound_by=bound_by)
+    log(f"   fp16 paged warp {label:12s}: "
+        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in row.items()))
+    paged[label] = row
+  return rows, paged
+
+
+def amp_training(torch, fa, bench):
+  """The bench's training step with an fp32 GPTConfig under
+  ``amp.level=O1`` (bf16) against the explicit-bf16 config, full width,
+  ``O1_STEPS`` steps at batch 8 from the same weights and batch: equal
+  losses (O1 is that compute dtype and nothing else).  Then O1 with
+  ``compute_dtype=fp16`` at ``O1_FP16_LAYERS`` layers: finite losses,
+  and each fp16 flash kernel launched layers x steps times (counts set
+  to 0 just before).  Returns the fp16 run's launch counts."""
+  from easyparallellibrary_tpu_torch.config import Config
+  from easyparallellibrary_tpu_torch.env import Env
+  o1 = {"amp.level": "O1", "amp.compute_dtype": "bf16"}
+  losses = {}
+  for label, dtype, config in (("O1 over fp32", torch.float32, o1),
+                               ("explicit bf16", torch.bfloat16, {})):
+    cfg = bench.bench_config(torch.device("cuda"), dtype=dtype)[0]
+    state, step, batch, rng, _ = bench.build_training(
+        cfg, 8, "cuda", config=Config(config))
+    losses[label] = []
+    for _ in range(O1_STEPS):
+      state, metrics = step(state, batch, rng)
+      losses[label].append(metrics["loss"].item())
+    log(f"   {label:14s} losses {losses[label]}")
+    del state, step
+    torch.cuda.empty_cache()
+  assert losses["O1 over fp32"] == losses["explicit bf16"], losses
+  assert all(np.isfinite(losses["O1 over fp32"]))
+  cfg = bench.bench_config(torch.device("cuda"), num_layers=O1_FP16_LAYERS,
+                           dtype=torch.float32)[0]
+  state, step, batch, rng, _ = bench.build_training(
+      cfg, O1_FP16_BATCH, "cuda",
+      config=Config({"amp.level": "O1", "amp.compute_dtype": "fp16"}))
+  fa.reset_counts()
+  fp16_losses = []
+  for _ in range(O1_STEPS):
+    state, metrics = step(state, batch, rng)
+    fp16_losses.append(metrics["loss"].item())
+  torch.cuda.synchronize()
+  launches = {"fwd": fa.flash_fwd_cuda.launches,
+              "dkv": fa.flash_bwd_dkv_cuda.launches,
+              "dq": fa.flash_bwd_dq_cuda.launches}
+  plain = (fa.flash_fwd_reference.calls, fa.flash_bwd_dkv_reference.calls,
+           fa.flash_bwd_dq_reference.calls)
+  assert all(np.isfinite(fp16_losses)), fp16_losses
+  assert all(n == O1_FP16_LAYERS * O1_STEPS for n in launches.values()), (
+      launches)
+  assert plain == (0, 0, 0), plain
+  log(f"   O1 fp16, {O1_FP16_LAYERS} layers, batch {O1_FP16_BATCH}: losses "
+      f"{fp16_losses}; fp16 flash launches {launches} = {O1_FP16_LAYERS} "
+      f"layers x {O1_STEPS} steps")
+  del state, step
+  torch.cuda.empty_cache()
+  Env.get().reset()               # build_training installed the O1 config
+  return launches
+
+
+def fp16_serving(torch, params, pa):
+  """A short O1-fp16 paged serving run at GPT-350M width: the model
+  config in fp16 (the pools follow the model config's dtype, as in the
+  JAX package) under ``amp.level=O1`` fp16, 8 requests; the fp16 warp
+  build launched layers x steps times (the tiled build and the plain
+  version never), streams against ``generate(use_cache=False)`` by the
+  gap rule at fp16's spacing.  Returns the warp build's launches."""
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.config import Config
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  Env.get().reset(Config({"amp.level": "O1", "amp.compute_dtype": "fp16"}))
+  try:
+    cfg = GPTConfig(**GPT_350M, dtype=torch.float16)
+    model = GPT(cfg)
+    eng = ContinuousBatchingEngine(model, params, paged=True,
+                                   num_slots=NUM_SLOTS,
+                                   prefill_chunk=PREFILL_CHUNK,
+                                   block_size=BLOCK_SIZE)
+    assert eng.compute_dtype == torch.float16
+    prompts = make_prompts(7, NUM_SLOTS, cfg.vocab_size)
+    pa.reset_counts()
+    for i, p in enumerate(prompts):
+      eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+    out = eng.run()
+    torch.cuda.synchronize()
+    launches = pa.paged_attention_warp_cuda.launches
+    assert launches == cfg.num_layers * eng.steps > 0, (launches, eng.steps)
+    assert pa.paged_attention_tiled_cuda.launches == 0
+    assert pa.paged_attention_reference.calls == 0
+    log(f"   O1 fp16 paged serving: {len(prompts)} requests, {eng.steps} "
+        f"steps; fp16 warp-build launches {launches} = {cfg.num_layers} x "
+        f"{eng.steps}")
+    greedy_vs_generate(torch, model, eng.params, prompts, out,
+                       lambda top1: bf16_gap_limit(top1, 2.0 ** -10),
+                       "O1 fp16 paged")
+  finally:
+    Env.get().reset()
+  return launches
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
-                  rel, limit):
+                  rel, limit, dtype="bf16"):
   return {"name": torch_name, "route": "cuda", "build": build,
           "source": source,
           "replaces": replaces, "launches": launches, "max_abs_err": err,
           "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-          "library_ms": row["library_ms"], "host_us": row["host_us"],
-          "bf16_rel_l2_err": rel[0], "bf16_max_rel_err": rel[1],
-          "bf16_rel_l2_limit": limit["rel_l2"],
-          "bf16_max_rel_limit": limit["max_rel"]}
+          "library_ms": row["library_ms"], "host_us": row.get("host_us"),
+          f"{dtype}_rel_l2_err": rel[0], f"{dtype}_max_rel_err": rel[1],
+          f"{dtype}_rel_l2_limit": limit["rel_l2"],
+          f"{dtype}_max_rel_limit": limit["max_rel"]}
 
 
 def main() -> int:
@@ -1357,29 +1950,56 @@ def main() -> int:
   if want(3):
     with Phase("3. kernel timing"):
       times = kernel_timing(torch, pa)
-  serving = (4, 5, 6, 12, 13)
+  serving = (4, 5, 6, 12, 13, 14, 15, 16)
+  # Reference streams of generate(use_cache=False), by prompt set, shared
+  # between the paged phases and phase 14, which serves the same prompts.
+  refs = {"float32": {}, "bfloat16": {}, "spec": {}}
   if any(map(want, serving)):
     with Phase("init GPT-350M weights (numpy, seed 0)"):
       params = init_params(GPTConfig(**GPT_350M), seed=0, device="cuda")
   if want(4):
     with Phase("4. GPT-350M fp32: engine vs generate(use_cache=False)"):
-      warp_launches = engine_fp32_vs_generate(torch, params, pa)
+      warp_launches = engine_fp32_vs_generate(torch, params, pa,
+                                              refs["float32"])
   if want(5) or want(6):
     with Phase("5. GPT-350M bf16: serving staggered requests"):
-      launches, eng = engine_bf16_serving(torch, params, pa)
+      launches, eng = engine_bf16_serving(torch, params, pa,
+                                          refs["bfloat16"])
     with Phase("6. GPT-350M bf16: where the engine step's time goes"):
       step_breakdown(torch, eng)
     del eng
   if want(12):
     with Phase("12. GPT-350M bf16: speculative serving (n-gram, then "
                "self-draft)"):
-      spec = speculative_serving(torch, params, pa)
+      spec = speculative_serving(torch, params, pa, refs["spec"])
   if want(13):
     with Phase("13. GPT-350M bf16: prefix caching (shared system prompt, "
                "second turns)"):
       prefix = prefix_cache_serving(torch, params, pa)
+  if want(14):
+    with Phase("14. GPT-350M: the contiguous-slot engine (default config)"):
+      contiguous_serving(torch, params, pa, refs)
+  if want(15):
+    with Phase("15. GPT-350M bf16: serving resilience (paged with the "
+               "prefix cache, contiguous)"):
+      serving_resilience(torch, params, pa)
+  if want(16):
+    with Phase("16a. fp16 builds vs plain versions"):
+      fp16_flash_errs, fp16_flash_rel = fp16_flash_parity(torch, fa)
+      fp16_paged_err, fp16_paged_rel = fp16_paged_parity(torch, pa)
+    with Phase("16b. fp16 kernel timing"):
+      fp16_flash_times, fp16_paged_times = fp16_timing(torch, fa, pa)
+    with Phase("16c. amp O1 training (bench's step) and O1-fp16 serving"):
+      fp16_flash_launches = amp_training(torch, fa, bench)
+      fp16_warp_launches = fp16_serving(torch, params, pa)
+  del refs
   if any(map(want, serving)):
     del params
+  # An engine is freed by the cycle collector (its scheduler holds bound
+  # methods of it): collect before the training phases, so that phase
+  # 10's peak memory counts training alone.
+  gc.collect()
+  torch.cuda.empty_cache()
   if want(7):
     with Phase("7. flash kernels vs plain versions"):
       flash_errs, flash_rel = flash_parity(torch, fa)
@@ -1436,6 +2056,33 @@ def main() -> int:
             "spec_step": times[(dtype_name, "spec_step")],
             "random_tables": times[(dtype_name, "random_tables")]}
 
+  fp16_flash = [
+      kernel_record(name, build, flash_src, replaces,
+                    fp16_flash_launches[k], fp16_flash_errs[k],
+                    fp16_flash_times[k], fp16_flash_rel[k],
+                    FLASH_FP16_LIMIT["fwd" if k == "fwd" else "grad"],
+                    dtype="fp16")
+      for name, k, build, replaces in (
+          ("flash_attention_fwd_fp16", "fwd", "flash_fwd_kernel<__half, 4>",
+           f"{flash_py}:89 and :241"),
+          ("flash_attention_bwd_dkv_fp16", "dkv",
+           "flash_bwd_dkv_kernel<__half, 4, 4>", f"{flash_py}:133 and :363"),
+          ("flash_attention_bwd_dq_fp16", "dq",
+           "flash_bwd_dq_kernel<__half, 4, 4>", f"{flash_py}:172 and :404"))]
+  row = fp16_paged_times["engine_step"]
+  fp16_paged = {
+      "name": "paged_attention_warp_fp16", "route": "cuda",
+      "build": "paged_attention_kernel<__half, 1>", "source": paged_src,
+      "replaces": paged_replaces, "launches": fp16_warp_launches,
+      "max_abs_err": fp16_paged_err, "ms": row["kernel_ms"],
+      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+      "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+      "dtype": "float16", "shape": "engine_step",
+      "spec_step": fp16_paged_times["spec_step"],
+      "fp16_rel_l2_err": fp16_paged_rel[0],
+      "fp16_max_rel_err": fp16_paged_rel[1],
+      "fp16_rel_l2_limit": PAGED_FP16_LIMIT["rel_l2"],
+      "fp16_max_rel_limit": PAGED_FP16_LIMIT["max_rel"]}
   print(json.dumps({"kernels": [
       dict(paged_record("paged_attention_tiled",
                         "paged_attention_tiled_kernel<64>", launches,
@@ -1444,7 +2091,7 @@ def main() -> int:
                k: v["launches"] for k, v in prefix.items()}),
       paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
                    warp_launches, "float32"),
-  ] + flash_records}), flush=True)
+  ] + flash_records + fp16_flash + [fp16_paged]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

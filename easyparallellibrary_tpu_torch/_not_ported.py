@@ -8,12 +8,9 @@ ROADMAP.md Queue 1 item that will bring it, in the style of
 
 from __future__ import annotations
 
-CONTIGUOUS_ENGINE = "Contiguous slot engine"
-RESILIENCE = "Serving resilience"
 FLEET = "Router, fleet and request migration"
 TENSOR_PARALLEL = "Tensor-parallel mesh"
 TRACING = "Tracing and metric registry"
-AMP = "amp.level O1"
 PARALLEL_STRATEGIES = "Pipeline, MoE and sequence parallelism"
 RUNTIME = "Runtime around the step"
 

@@ -58,13 +58,15 @@ def bench_config(device: torch.device, **overrides):
   return (GPTConfig(**fields),) + plan
 
 
-def build_training(cfg, batch_size: int, device=None, seed: int = 0):
-  """``bench.py``'s setup for one batch size: ``epl.init`` ->
+def build_training(cfg, batch_size: int, device=None, seed: int = 0,
+                   config=None):
+  """``bench.py``'s setup for one batch size: ``epl.init(config)`` ->
   ``replicate(1)`` -> ``build_mesh`` -> ``create_sharded_train_state`` ->
   ``parallelize(make_train_step(gpt_loss))`` with AdamW(3e-4,
   weight_decay=0.01), weights from ``weights.init_params(seed)`` and a
-  numpy batch of ``batch_size`` sequences.  Returns ``(state, step,
-  batch, rng, mesh)``."""
+  numpy batch of ``batch_size`` sequences.  ``config`` is the port's
+  ``Config`` (default: the defaults; ``amp.level="O1"`` there sets the
+  compute dtype).  Returns ``(state, step, batch, rng, mesh)``."""
   import easyparallellibrary_tpu_torch as epl
   from easyparallellibrary_tpu_torch.models.gpt import GPT, gpt_loss
   from easyparallellibrary_tpu_torch.ops.adamw import adamw
@@ -73,7 +75,7 @@ def build_training(cfg, batch_size: int, device=None, seed: int = 0):
   from easyparallellibrary_tpu_torch.utils import prng
   from easyparallellibrary_tpu_torch.weights import init_params
 
-  epl.init(device=device)
+  epl.init(config, device=device)
   with epl.replicate(1):
     model = GPT(cfg)
   mesh = epl.current_plan().build_mesh()

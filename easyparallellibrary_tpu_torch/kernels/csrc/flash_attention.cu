@@ -1,5 +1,5 @@
-// Flash attention for Hopper (sm_90a), fp32 and bf16: forward, dK/dV and
-// dQ.
+// Flash attention for Hopper (sm_90a), fp32, bf16 and fp16: forward, dK/dV
+// and dQ.
 //
 // Replaces the six Pallas TPU kernel bodies of
 // easyparallellibrary_tpu/kernels/flash_attention.py:
@@ -15,8 +15,11 @@
 // budget; here one tiled kernel covers every length.  Which build runs:
 //   bf16, D in {64, 128}: forward, dK/dV and dQ on wgmma with TMA-fed,
 //     double-buffered tiles (namespace wg below);
-//   everything else (fp32 at every D; bf16 at any other D, 32 included):
-//     IEEE fp32 FMAs on the CUDA cores.
+//   everything else (fp32 at every D; bf16 at any other D, 32 included;
+//     fp16 at every D): IEEE fp32 FMAs on the CUDA cores.  fp16 tiles are
+//     converted to fp32 as they are loaded, so scores, the running max
+//     and the accumulators stay in fp32 (fp16's range ends at 65504); p
+//     and dS are rounded to fp16 only where the products read them.
 // Same functions as the Pallas kernels, on [B*H, S, D] row-major tensors:
 //   scores s = (q . k) accumulated in fp32, times scale = 1/sqrt(D) as an
 //   fp32 constant; causal entries (k_pos > q_pos) are -1e30, as the
@@ -72,6 +75,7 @@
 // kTensorMapError when cuTensorMapEncodeTiled refuses a TMA tensor map).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -109,6 +113,17 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
   }
 }
 
+__device__ __forceinline__ void load_vec(const __half* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int rows,
                                           int valid, int D) {
@@ -134,6 +149,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -144,6 +160,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T and back (the Pallas kernels' `.astype(dtype)` before a
@@ -1398,7 +1418,7 @@ bool bad_sizes(int BH, int S, int Skv, int D) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q/o [BH, S, D], k/v [BH, Skv, D],
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/o [BH, S, D], k/v [BH, Skv, D],
 // lse [BH, S] fp32; all contiguous and 16-byte aligned; D a multiple of 8,
 // at most 256.
 int epl_flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1413,6 +1433,10 @@ int epl_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1) {
     return fwd_dispatch<__nv_bfloat16>(q, k, v, o, l, BH, S, Skv, D, causal,
                                        scale, s);
+  }
+  if (dtype == 2) {
+    return fwd_dispatch<__half>(q, k, v, o, l, BH, S, Skv, D, causal, scale,
+                                s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1434,6 +1458,10 @@ int epl_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return dkv_dispatch<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, BH, S,
                                        Skv, D, causal, scale, s);
   }
+  if (dtype == 2) {
+    return dkv_dispatch<__half>(q, k, v, dout, l, dl, dk, dv, BH, S, Skv, D,
+                                causal, scale, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1453,6 +1481,10 @@ int epl_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 1) {
     return dq_dispatch<__nv_bfloat16>(q, k, v, dout, l, dl, dq, BH, S, Skv, D,
                                       causal, scale, s);
+  }
+  if (dtype == 2) {
+    return dq_dispatch<__half>(q, k, v, dout, l, dl, dq, BH, S, Skv, D,
+                               causal, scale, s);
   }
   return cudaErrorInvalidValue;
 }

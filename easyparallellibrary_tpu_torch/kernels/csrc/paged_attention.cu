@@ -1,4 +1,4 @@
-// Paged attention for Hopper (sm_90a), fp32 and bf16: two builds.
+// Paged attention for Hopper (sm_90a), fp32, bf16 and fp16: two builds.
 //
 // Replaces the Pallas TPU kernel `_paged_kernel`
 // (easyparallellibrary_tpu/kernels/paged_attention.py, launched by
@@ -12,8 +12,10 @@
 // 1e-30).
 //
 // Which build runs: bf16 at hd in {64, 128} takes the slot-tiled build
-// (namespace tiled, below); fp32, and bf16 at other head dims, take the
-// warp build that follows here.
+// (namespace tiled, below); fp32, fp16, and bf16 at other head dims,
+// take the warp build that follows here.  The warp build converts fp16
+// K/V and q to fp32 as it loads them, keeps scores, the running max and
+// the accumulator in fp32, and rounds p to fp16 before the V product.
 //
 // What bounds it on this card: bytes.  A token reads (pos + 1) * H * hd
 // * 2 * itemsize bytes of K/V and does about 4 operations per element
@@ -73,6 +75,7 @@
 // stream; each entry returns the cudaError_t of its launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,6 +98,10 @@ template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
 };
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+};
 
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -115,6 +122,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+__device__ __forceinline__ void load16(const __half* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store16(float* p, const float* in) {
   *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
 }
@@ -129,10 +147,21 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* in) {
   *reinterpret_cast<uint4*>(p) = v;
 }
 
+__device__ __forceinline__ void store16(__half* p, const float* in) {
+  uint4 v;
+  __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(in[2 * i], in[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
 // p rounded to the value type (the Pallas kernel's p.astype(v.dtype)).
 __device__ __forceinline__ float round_to(float p, const float*) { return p; }
 __device__ __forceinline__ float round_to(float p, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(p));
+}
+__device__ __forceinline__ float round_to(float p, const __half*) {
+  return __half2float(__float2half_rn(p));
 }
 
 // One warp per (token, head).  The head dim is cut into nvec = hd / VEC
@@ -718,8 +747,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  All tensors contiguous; q, the
-// pools and out 16-byte aligned; hd a multiple of 8, at most 256.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  All tensors contiguous;
+// q, the pools and out 16-byte aligned; hd a multiple of 8, at most 256.
 int epl_paged_attention(const void* q, const void* k_pages,
                         const void* v_pages, const void* tables_tok,
                         const void* positions, void* out, int num_tokens,
@@ -740,6 +769,10 @@ int epl_paged_attention(const void* q, const void* k_pages,
   if (dtype == 1) {
     return dispatch<__nv_bfloat16>(q, k_pages, v_pages, tab, pos, out,
                                    num_tokens, H, hd, NB, bs, MB, scale, s);
+  }
+  if (dtype == 2) {
+    return dispatch<__half>(q, k_pages, v_pages, tab, pos, out, num_tokens, H,
+                            hd, NB, bs, MB, scale, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -9,7 +9,8 @@ resident/streaming split of the TPU version answered its VMEM budget and
 has no counterpart here.  In bf16 at head dims 64 and 128 the three
 kernels read their tiles through TMA tensor maps, which the library
 encodes on every call from the pointers and sizes given (3 maps for the
-forward, 4 each for dK/dV and dQ).
+forward, 4 each for dK/dV and dQ).  fp32, fp16, and bf16 at other head
+dims run the CUDA-core build, which accumulates in fp32.
 
 Each of the three functions comes in three forms, kernel layout
 ``[B, H, S, D]`` (``lse`` and ``delta`` ``[B, H, S]`` fp32):
@@ -54,7 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 256
 _MAX_BATCH_HEADS = 65535  # the kernels' grid y dimension
 
@@ -161,8 +162,8 @@ def _check(name, q, k, v, dout=None, lse=None, delta=None):
   if any(x.device != q.device for x in floats + rows):
     raise ValueError(f"{name}: all tensors must be on one device")
   if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in floats):
-    raise ValueError(f"{name} takes float32 or bfloat16 q/k/v/dout of one "
-                     f"dtype; got {[x.dtype for x in floats]}")
+    raise ValueError(f"{name} takes float32, bfloat16 or float16 q/k/v/dout "
+                     f"of one dtype; got {[x.dtype for x in floats]}")
   if any(x.dtype != torch.float32 for x in rows):
     raise ValueError(f"{name}: lse and delta must be float32")
   if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:

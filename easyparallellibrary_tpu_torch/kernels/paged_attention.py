@@ -15,10 +15,12 @@ its slot's block table (shapes below).  The functions:
   contexts combined in the same launch.  It takes a :class:`PagedTiles`
   plan (:func:`plan_tiles`).
 * :func:`paged_attention_warp_cuda` — the warp kernel of the same source
-  (one warp per token and head), for fp32 and for the other head dims.
+  (one warp per token and head), for fp32, for fp16, and for bf16 at the
+  other head dims.
 * :func:`paged_attention_cuda` — the CUDA entry: it checks the
   arguments and launches the build that takes them (the tiled build for
-  bf16 at head dims 64 and 128, the warp build otherwise).
+  bf16 at head dims 64 and 128, the warp build otherwise).  An fp16 call
+  runs the warp build's fp16 instantiation.
 * :func:`paged_attention` — the dispatcher: a CPU tensor goes to the
   plain version, a CUDA tensor to :func:`paged_attention_cuda`.  A CUDA
   tensor never reaches the plain version through it.
@@ -68,7 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 256
 TILE_ROWS = 64             # rows of a query tile, at most (the kernel's)
 TILED_HEAD_DIMS = (64, 128)
@@ -77,7 +79,10 @@ _ITEM_FIELDS = 8           # int32 per work item (csrc: tiled::Item)
 
 def paged_attention_reference(q, k_pages, v_pages, tables_tok, positions):
   """Dense-gather plain version: gather every table row, mask rows past
-  each token's position with ``-1e9``, softmax in fp32."""
+  each token's position with ``-1e9``, softmax in fp32.  A ``q`` of
+  another float type than the pools (amp O1 computes in a narrower type
+  than the model config's caches) is multiplied in the promoted type, as
+  ``jnp.einsum`` promotes."""
   paged_attention_reference.calls += 1
   T, H, hd = q.shape
   bs = k_pages.shape[1]
@@ -89,14 +94,18 @@ def paged_attention_reference(q, k_pages, v_pages, tables_tok, positions):
   tables = tables_tok.long()
   kk = k_pages[tables].reshape(T, L, H, hd)
   vv = v_pages[tables].reshape(T, L, H, hd)
-  logits = torch.einsum("thd,tlhd->thl", q, kk) * scale
+  qk_type = torch.promote_types(dtype, kk.dtype)
+  logits = torch.einsum("thd,tlhd->thl", q.to(qk_type),
+                        kk.to(qk_type)) * scale
   valid = (torch.arange(L, device=q.device)[None, None, :]
            <= positions.long()[:, None, None])
   logits = torch.where(valid, logits,
                        torch.tensor(-1e9, dtype=logits.dtype,
                                     device=q.device))
   probs = torch.softmax(logits.float(), dim=-1)
-  return torch.einsum("thl,tlhd->thd", probs.to(dtype), vv)
+  pv_type = torch.promote_types(dtype, vv.dtype)
+  return torch.einsum("thl,tlhd->thd", probs.to(dtype).to(pv_type),
+                      vv.to(pv_type))
 
 
 paged_attention_reference.calls = 0
@@ -264,8 +273,8 @@ def _check_args(q, k_pages, v_pages, tables_tok, positions):
     raise ValueError("paged_attention_cuda: all tensors must be on one "
                      "device")
   if q.dtype not in _DTYPE_CODES:
-    raise ValueError(f"paged_attention_cuda supports float32 and bfloat16; "
-                     f"got {q.dtype}")
+    raise ValueError(f"paged_attention_cuda supports float32, bfloat16 and "
+                     f"float16; got {q.dtype}")
   if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
     raise ValueError("paged_attention_cuda: q and the pools must share "
                      f"one dtype; got {q.dtype}, {k_pages.dtype}, "
@@ -365,8 +374,14 @@ def paged_attention_cuda(q, k_pages, v_pages, tables_tok, positions,
   """The CUDA entry: the tiled build for bf16 at head dims 64 and 128
   (planning the tiles from the batch when ``tiles`` is None, which reads
   the tables and positions back to the host), the warp build otherwise.
-  Raises on arguments the kernels do not take and on a refused
-  launch."""
+  A narrower ``q`` over fp32 pools (amp O1 over an fp32 model config)
+  is read in fp32, an exact cast: the fp32 build then keeps p in fp32,
+  as the Pallas kernel's ``p.astype(v.dtype)`` does, and the output is
+  fp32, the promoted type the plain version returns too.  Raises on any
+  other mix of dtypes, on arguments the kernels do not take and on a
+  refused launch."""
+  if k_pages.dtype == torch.float32 and q.dtype != torch.float32:
+    q = q.float()
   _check_args(q, k_pages, v_pages, tables_tok, positions)
   T, H, hd = q.shape
   if takes_tiles(q.dtype, hd):

@@ -8,9 +8,11 @@ device, and the entry points (:func:`paged_step_logits`,
 ``torch.func.functional_call`` with a ``params`` state dict
 (``weights.init_params`` / ``weights.from_jax_params``).
 
-Three position modes, as ``GPT.__call__`` in the JAX package: plain
+Four position modes, as ``GPT.__call__`` in the JAX package: plain
 (a whole sequence), legacy decode (``generate``'s KV cache, grown in the
-``cache`` dict the caller passes), and paged (the serving engine's
+``cache`` dict the caller passes), slot mode (the contiguous serving
+engine's ``[num_slots, C]`` step against its slot cache, each slot at
+its own cursor: :func:`slot_step_logits`), and paged (the paged engine's
 flat-token step through :class:`PagedInfo`).  Caches are updated in
 place, where the JAX package returns new (donated) arrays.
 
@@ -23,9 +25,13 @@ Training takes the fp32 parameters as they are: the Dense and Embedding
 layers cast them to the compute dtype in the forward, so the gradients
 reach the fp32 parameters.
 
-bf16 compute over fp32 parameters by default.  Dropout in training mode,
-pipeline, MoE, tensor-parallel and the ring/Ulysses attention
-implementations raise (ROADMAP.md Queue 1).
+bf16 compute over fp32 parameters by default.  ``amp.level = "O1"``
+resolves the compute dtype at every forward
+(``runtime.amp.resolve_model_dtypes``, as ``GPT.__call__`` does), and
+the resolved dtype is threaded to every layer; the serving caches stay
+in the model config's own dtype, as the JAX package allocates them.
+Dropout in training mode, pipeline, MoE, tensor-parallel and the
+ring/Ulysses attention implementations raise (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -41,10 +47,8 @@ from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
-from easyparallellibrary_tpu_torch import constants
 from easyparallellibrary_tpu_torch._not_ported import (
-    AMP, CONTIGUOUS_ENGINE, PARALLEL_STRATEGIES, RUNTIME, TENSOR_PARALLEL,
-    not_ported)
+    PARALLEL_STRATEGIES, RUNTIME, TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.kernels.flash_attention import (
     FLASH_FWD_OP, flash_attention)
 from easyparallellibrary_tpu_torch.kernels.paged_attention import (
@@ -52,6 +56,7 @@ from easyparallellibrary_tpu_torch.kernels.paged_attention import (
 from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding, LayerNorm
 from easyparallellibrary_tpu_torch.ops.losses import (
     distributed_sparse_softmax_cross_entropy_with_logits)
+from easyparallellibrary_tpu_torch.runtime.amp import resolve_model_dtypes
 from easyparallellibrary_tpu_torch.utils import prng
 
 
@@ -111,14 +116,20 @@ def _attention_scale(hd: int, dtype, device) -> torch.Tensor:
 
 def _masked_softmax_attend(q, k, v, valid, dtype):
   """``softmax(q k^T * scale)`` with ``-1e9`` outside ``valid``, fp32
-  softmax, probabilities cast to ``dtype`` before the V product."""
+  softmax, probabilities cast to ``dtype`` before the V product.  A cache
+  of another float type than the queries (amp O1 over a model config in
+  a wider type) is multiplied in the promoted type, as ``jnp.einsum``
+  promotes."""
   scale = _attention_scale(q.shape[-1], dtype, q.device)
-  logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+  qk_type = torch.promote_types(q.dtype, k.dtype)
+  logits = torch.einsum("bqhd,bkhd->bhqk", q.to(qk_type),
+                        k.to(qk_type)) * scale
   logits = torch.where(valid, logits,
                        torch.tensor(-1e9, dtype=logits.dtype,
                                     device=q.device))
-  probs = torch.softmax(logits.float(), dim=-1)
-  return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype), v)
+  probs = torch.softmax(logits.float(), dim=-1).to(dtype)
+  pv_type = torch.promote_types(dtype, v.dtype)
+  return torch.einsum("bhqk,bkhd->bqhd", probs.to(pv_type), v.to(pv_type))
 
 
 def _dense_causal_attention(q, k, v, dtype):
@@ -130,12 +141,22 @@ def _dense_causal_attention(q, k, v, dtype):
 
 
 def slot_cache_attend(q, k, v, cached_k, cached_v, cursors, dtype):
-  """Slot-indexed KV-cache attention (``generate``'s decode step).
+  """Slot-indexed KV-cache attention: ``generate``'s decode step and the
+  contiguous serving engine's fused step.
 
   ``q``/``k``/``v`` are ``[B, C, H, hd]``; ``cached_k``/``cached_v``
   ``[B, Lc, H, hd]``; token ``i`` of row ``b`` is written at
-  ``cursors[b] + i`` and attends positions ``<= cursors[b] + i``.  The
-  caches are written in place.  Returns ``(out, cached_k, cached_v)``.
+  ``cursors[b] + i`` and attends positions ``<= cursors[b] + i``, so
+  each slot writes a window at its own cursor (one advanced-index write
+  over the ``[B, C]`` rows; ``Lc >= max(cursors) + C``, which the serving
+  cache's one chunk of slack guarantees).  The caches are written in
+  place.  Returns ``(out, cached_k, cached_v)``.
+
+  Finiteness invariant (as in the JAX package): the masked rows still
+  enter the V contraction with probability 0, and ``0 * NaN = NaN``, so
+  no cache row that a later step reads unwritten may hold a non-finite
+  value.  The resilient engine zeroes a poisoned step's writes
+  (``serving.engine``'s sanitize) instead of masking here.
   """
   B, C = q.shape[:2]
   Lc = cached_k.shape[1]
@@ -225,6 +246,25 @@ def paged_step_logits(model, params, kv, tokens, slot_ids, positions,
   return logits[:, 0], kv
 
 
+def slot_step_logits(model, params, kv, tokens, cursors):
+  """Multi-token scoring against the slot KV cache — the device entry of
+  the contiguous engine's step and of the draft model's slot rollouts.
+
+  ``tokens`` int ``[num_slots, C]`` (any C >= 1): token ``i`` of slot
+  ``b`` lands at position ``cursors[b] + i``, attends its own causal
+  prefix (:func:`slot_cache_attend`), and position ``i``'s logits are the
+  distribution of the token at ``cursors[b] + i + 1`` — chunked prefill,
+  one-token decode and speculative verification in one call.  ``kv`` is
+  the cache dict of ``serving.kv_cache.allocate_kv_cache``, written in
+  place; the caller owns the cursors.  Returns ``(logits [num_slots, C,
+  vocab], kv)``.
+  """
+  logits = torch.func.functional_call(
+      model, params, (tokens.long(),),
+      {"decode": True, "slot_cursors": cursors, "cache": kv}, strict=True)
+  return logits, kv
+
+
 class CausalSelfAttention(nn.Module):
 
   def __init__(self, cfg: GPTConfig, device=None):
@@ -236,53 +276,64 @@ class CausalSelfAttention(nn.Module):
     self.proj = Dense(D, D, use_bias=False, dtype=cfg.dtype,
                       param_dtype=cfg.param_dtype, device=device)
 
-  def forward(self, x, paged_info=None, cache=None, decode=False):
+  def forward(self, x, paged_info=None, cache=None, decode=False,
+              slot_cursors=None, dtype=None):
     cfg = self.cfg
+    dtype = dtype or cfg.dtype
     B, S, D = x.shape
     H = cfg.num_heads
-    qkv = self.qkv(x).reshape(B, S, 3, H, D // H)
+    qkv = self.qkv(x, dtype).reshape(B, S, 3, H, D // H)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if paged_info is not None:
       out, _, _ = paged_cache_attend(
           q[:, 0], k[:, 0], v[:, 0], cache["cached_key"],
-          cache["cached_value"], paged_info, cfg.dtype)
+          cache["cached_value"], paged_info, dtype)
       out = out[:, None]
+    elif slot_cursors is not None:
+      if "cached_key" not in cache:
+        raise ValueError(
+            "slot-mode decode (slot_cursors=...) needs an externally "
+            "allocated slot KV cache; build one with serving.kv_cache."
+            "allocate_kv_cache(cfg, num_slots, chunk)")
+      out, _, _ = slot_cache_attend(q, k, v, cache["cached_key"],
+                                    cache["cached_value"], slot_cursors,
+                                    dtype)
     elif decode:
-      out = self._decode_attend(q, k, v, cache)
+      out = self._decode_attend(q, k, v, cache, dtype)
     elif cfg.attn_impl == "pallas_flash":
       out = flash_attention(q, k, v, causal=True)
     elif cfg.attn_impl == "xla":
-      out = _dense_causal_attention(q, k, v, cfg.dtype)
+      out = _dense_causal_attention(q, k, v, dtype)
     else:
       # A typo'd impl silently falling back to dense attention would
       # mislabel any benchmark run on top of it.
       raise ValueError(
           f"attn_impl must be 'xla', 'pallas_flash', 'ring' or "
           f"'ulysses'; got {cfg.attn_impl!r}")
-    return self.proj(out.reshape(B, S, D))
+    return self.proj(out.reshape(B, S, D), dtype)
 
-  def _decode_attend(self, q, k, v, cache):
+  def _decode_attend(self, q, k, v, cache, dtype):
     """``generate``'s KV cache: ``[B, max_seq_len, H, hd]`` grown in the
-    caller's ``cache`` dict.  Prefill (S > 1) is plain causal attention
-    with the prompt's K/V stored; a one-token step appends at the cursor
-    and attends the valid prefix."""
+    caller's ``cache`` dict, in the compute dtype (the JAX module
+    allocates it from its resolved config).  Prefill (S > 1) is plain
+    causal attention with the prompt's K/V stored; a one-token step
+    appends at the cursor and attends the valid prefix."""
     cfg = self.cfg
     B, S, H, hd = q.shape
     if "cached_key" not in cache:
       shape = (B, cfg.max_seq_len, H, hd)
-      cache["cached_key"] = torch.zeros(shape, dtype=cfg.dtype,
-                                        device=q.device)
-      cache["cached_value"] = torch.zeros(shape, dtype=cfg.dtype,
+      cache["cached_key"] = torch.zeros(shape, dtype=dtype, device=q.device)
+      cache["cached_value"] = torch.zeros(shape, dtype=dtype,
                                           device=q.device)
       cache["cache_index"] = 0
     if S > 1:
-      cache["cached_key"][:, :S] = k.to(cfg.dtype)
-      cache["cached_value"][:, :S] = v.to(cfg.dtype)
+      cache["cached_key"][:, :S] = k.to(dtype)
+      cache["cached_value"][:, :S] = v.to(dtype)
       cache["cache_index"] = S
-      return _dense_causal_attention(q, k, v, cfg.dtype)
+      return _dense_causal_attention(q, k, v, dtype)
     cursors = torch.full((B,), cache["cache_index"], device=q.device)
     out, _, _ = slot_cache_attend(q, k, v, cache["cached_key"],
-                                  cache["cached_value"], cursors, cfg.dtype)
+                                  cache["cached_value"], cursors, dtype)
     cache["cache_index"] += 1
     return out
 
@@ -296,9 +347,9 @@ class MLP(nn.Module):
     self.wo = Dense(cfg.d_ff, cfg.d_model, dtype=cfg.dtype,
                     param_dtype=cfg.param_dtype, device=device)
 
-  def forward(self, x):
+  def forward(self, x, dtype=None):
     # flax nn.gelu is the tanh approximation.
-    return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+    return self.wo(F.gelu(self.wi(x, dtype), approximate="tanh"), dtype)
 
 
 class Block(nn.Module):
@@ -310,9 +361,11 @@ class Block(nn.Module):
     self.ln2 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
     self.mlp = MLP(cfg, device=device)
 
-  def forward(self, x, paged_info=None, cache=None, decode=False):
-    x = x + self.attn(self.ln1(x), paged_info, cache, decode)
-    return x + self.mlp(self.ln2(x))
+  def forward(self, x, paged_info=None, cache=None, decode=False,
+              slot_cursors=None, dtype=None):
+    x = x + self.attn(self.ln1(x, dtype), paged_info, cache, decode,
+                      slot_cursors, dtype)
+    return x + self.mlp(self.ln2(x, dtype), dtype)
 
 
 # Matrix products as the dispatcher sees them below autograd: F.linear,
@@ -354,14 +407,14 @@ def _remat_context(name: str):
                            _save_ops_policy(saved))
 
 
-def _remat_block(block: nn.Module, x, policy: str):
+def _remat_block(block: nn.Module, x, policy: str, dtype):
   """``block(x)`` under ``torch.utils.checkpoint``.  The block's
   parameters are bound explicitly, since the recompute runs in the
   backward, after the caller's ``functional_call`` has unbound them."""
   params = dict(block.named_parameters())
 
   def run(h):
-    return torch.func.functional_call(block, params, (h,))
+    return torch.func.functional_call(block, params, (h,), {"dtype": dtype})
 
   context = _remat_context(policy)
   if context is None:
@@ -393,21 +446,15 @@ class GPT(nn.Module):
               return_hidden: bool = False, slot_cursors=None,
               paged_info: Optional[PagedInfo] = None,
               cache: Optional[Dict[str, Any]] = None):
-    from easyparallellibrary_tpu_torch.env import Env
-    cfg = self.cfg
-    if Env.get().config.amp.level == constants.AMP_O1:
-      raise not_ported("amp.level='O1'", AMP)
+    cfg = resolve_model_dtypes(self.cfg)
     if not deterministic and cfg.dropout_rate > 0:
       raise not_ported("dropout in training mode", RUNTIME)
     if (slot_cursors is not None or paged_info is not None) and not decode:
       raise ValueError("slot_cursors/paged_info are decode-mode arguments "
                        "(serving engine); pass decode=True")
-    if slot_cursors is not None:
-      raise not_ported("slot-mode decode (slot_cursors=...)",
-                       CONTIGUOUS_ENGINE)
     if decode and cache is None:
       raise ValueError("decode=True needs a cache dict (generate() passes "
-                       "one; the paged engine passes its pools)")
+                       "one; the serving engines pass their caches)")
     B, S = ids.shape
     dtype = cfg.dtype
     if paged_info is not None:
@@ -416,6 +463,14 @@ class GPT(nn.Module):
       pos_ids = torch.clamp(paged_info.positions, 0,
                             cfg.max_seq_len - 1).long()[:, None]
       pos = self.wpe[pos_ids]                                  # [T, 1, D]
+    elif slot_cursors is not None:
+      # Slot mode: each slot's positions start at its cursor; past-
+      # capacity positions of idle slots clip (never read).
+      pos_ids = torch.clamp(
+          slot_cursors.long()[:, None]
+          + torch.arange(S, device=ids.device)[None], 0,
+          cfg.max_seq_len - 1)
+      pos = self.wpe[pos_ids]                                  # [B, S, D]
     elif decode:
       if S > 1 or "pos_index" not in cache:
         cache["pos_index"] = 0
@@ -429,19 +484,19 @@ class GPT(nn.Module):
     for i in range(cfg.num_layers):
       block = getattr(self, f"block_{i}")
       if remat:
-        x = _remat_block(block, x, cfg.remat_policy)
+        x = _remat_block(block, x, cfg.remat_policy, dtype)
         continue
       layer_cache = None
       if cache is not None:
         layer_cache = cache.setdefault(f"block_{i}", {}).setdefault(
             "attn", {})
-      x = block(x, paged_info, layer_cache, decode)
-    x = self.ln_f(x)
+      x = block(x, paged_info, layer_cache, decode, slot_cursors, dtype)
+    x = self.ln_f(x, dtype)
     if return_hidden:
       return x
     if cfg.tie_embeddings:
       return self.wte.attend(x)
-    return self.lm_head(x)
+    return self.lm_head(x, dtype)
 
 
 def _chunked_tied_ce(model: GPT, params, hidden, targets):

@@ -49,8 +49,10 @@ class Dense(nn.Module):
                                           device=device))
                  if use_bias else None)
 
-  def forward(self, x):
-    dtype = self.dtype or x.dtype
+  def forward(self, x, dtype: Optional[torch.dtype] = None):
+    """``dtype`` overrides the constructor's compute dtype for this call
+    (amp O1: the GPT resolves its compute dtype at every forward)."""
+    dtype = dtype or self.dtype or x.dtype
     y = F.linear(x.to(dtype), self.weight.to(dtype))
     if self.bias is not None:
       y = y + self.bias.to(dtype)
@@ -73,7 +75,7 @@ class LayerNorm(nn.Module):
     self.bias = nn.Parameter(torch.empty(features, dtype=param_dtype,
                                          device=device))
 
-  def forward(self, x):
+  def forward(self, x, dtype: Optional[torch.dtype] = None):
     stat_dtype = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(stat_dtype)
     mean = xf.mean(-1, keepdim=True)
@@ -81,7 +83,7 @@ class LayerNorm(nn.Module):
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     mul = torch.rsqrt(var + self.epsilon) * self.weight
     y = (xf - mean) * mul + self.bias
-    return y.to(self.dtype or x.dtype)
+    return y.to(dtype or self.dtype or x.dtype)
 
 
 class Embedding(nn.Module):

@@ -1,61 +1,87 @@
-"""Paged continuous-batching inference engine (port of
-``easyparallellibrary_tpu/serving/engine.py``, paged mode).
+"""Continuous-batching inference engine (port of
+``easyparallellibrary_tpu/serving/engine.py``), on two cache layouts.
 
 One device step per iteration fuses the prefill chunks of newly admitted
-requests and the one-token decodes of every other active slot into a
-single ``[token_budget]`` flat batch against the paged KV pool
-(``models.gpt.paged_step_logits``); each token is tagged with its slot
-and absolute position, and attends through its slot's block table — on
-the GPU with the hand-written CUDA kernel
-(``kernels/csrc/paged_attention.cu``), whose bf16 build takes the step's
-query tiles, planned here once per step from the scheduler's plan.  The
-step's input shapes never change: joins, leaves and block-table
-reshuffles are data.
+requests and the one-token decodes of every other active slot:
+
+* contiguous slots (the default, ``serving.paged.enabled = False``): one
+  ``[num_slots, prefill_chunk]`` model call against the slot cache
+  (``models.gpt.slot_step_logits``), each slot at its own cursor, which
+  the step advances on the device; attention is plain PyTorch, as the
+  JAX package's slot path is dense XLA;
+* paged (``paged=True``): a single ``[token_budget]`` flat batch against
+  the paged KV pool (``models.gpt.paged_step_logits``); each token is
+  tagged with its slot and absolute position, and attends through its
+  slot's block table — on the GPU with the hand-written CUDA kernel
+  (``kernels/csrc/paged_attention.cu``), whose bf16 build takes the
+  step's query tiles, planned here once per step from the scheduler's
+  plan.
+
+The step's input shapes never change: joins, leaves and block-table
+reshuffles are data.  Every step goes through one replaceable callable,
+``self._step_fn(params, plan[, num_draft])``, which the chaos injectors
+of ``testing/chaos.py`` wrap.
 
 :class:`FCFSScheduler` owns all host-side variability (admission,
 budgets, preemption, retirement); this module owns the device step.
 Sampling runs per slot (:func:`sample_token_slots`) with each request's
 counter key folded by its token index, so a request's samples do not
 depend on which slot or iteration serves it.  PyTorch runs eagerly, so
-the step is written out directly (the JAX package jits it) and the pool
-is written in place (the JAX package donates it).  The step makes one
-designated device-to-host fetch: the sampled tokens.
+the step is written out directly (the JAX package jits it) and the
+caches are written in place (the JAX package donates them).  The step
+makes one designated device-to-host fetch: the sampled tokens (and,
+with resilience on, each slot's verdict beside them).
 
 Speculative decoding (``speculative=True``, ``drafter=``, or
 ``serving.speculative.*``; serving/speculative/) rides the same step:
-the scheduler reserves each decode slot's draft run on leftover flat
-positions, the drafter fills it, the one model call scores it, and
-``verify_tokens`` commits each slot's accepted drafts plus one
-correction or bonus token.  Prefix caching (``prefix_cache=True``;
-serving/prefix_cache.py) is the scheduler's: warm admissions map shared
-blocks and prefill only the tail.
+drafts take a decode slot's unused chunk columns (contiguous) or the
+leftover flat positions the scheduler reserved (paged), the one model
+call scores them, and ``verify_tokens`` commits each slot's accepted
+drafts plus one correction or bonus token.  Prefix caching
+(``prefix_cache=True``, paged only; serving/prefix_cache.py) is the
+scheduler's: warm admissions map shared blocks and prefill only the
+tail.
+
+Resilience (``resilience=True`` or ``serving.resilience.*``;
+serving/resilience.py): the step also returns a per-slot finiteness
+verdict on exactly the logit rows the commit consumes, computed on the
+device and fetched with the tokens, and a bad slot's cursor does not
+advance.  The host then replans: the retry re-feeds identical tokens,
+a persistent offender is requeued with its committed prefix, a hopeless
+one is failed, and the poisoned step's cache writes are zeroed
+(:meth:`ContinuousBatchingEngine._handle_bad_slots`).  Overload is met
+at submit (bounded queue, shedding) and by the degradation ladder
+(speculation off, then the prefill budget clamped), and an optional
+watchdog thread logs a step that overruns its deadline.
 
 Exactness contract: greedy engine output equals ``generate()`` per
 request, including requests admitted mid-flight, slots and blocks reused
-after retirement, requests preempted on pool exhaustion, speculative
-steps and warm admissions.
+after retirement, requests preempted on pool exhaustion or requeued
+after bad steps, speculative steps and warm admissions.
 
-Not ported (each raises, ROADMAP.md Queue 1): the contiguous slot engine
-(``paged=False``), a device mesh, serving resilience, and the metric
-registry.
+Not ported (each raises, ROADMAP.md Queue 1): a device mesh, the metric
+registry, serving observability and the autotuner.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    CONTIGUOUS_ENGINE, FLEET, RESILIENCE, TENSOR_PARALLEL, TRACING,
-    not_ported)
+    FLEET, TENSOR_PARALLEL, TRACING, not_ported)
 from easyparallellibrary_tpu_torch.env import Env
 from easyparallellibrary_tpu_torch.kernels import paged_attention as pa_lib
+from easyparallellibrary_tpu_torch.runtime.amp import resolve_model_dtypes
 from easyparallellibrary_tpu_torch.serving import kv_cache as kv_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_draft_fits_chunk, check_servable)
+from easyparallellibrary_tpu_torch.serving.resilience import (
+    DEGRADE_LEVELS, AdmissionController, BadStepPolicy)
 from easyparallellibrary_tpu_torch.serving.scheduler import (
     FCFSScheduler, FinishedRequest, Request)
 from easyparallellibrary_tpu_torch.utils import prng
@@ -106,21 +132,25 @@ def sample_token_slots(logits, keys, temperature, top_k, top_p):
 
 
 class ContinuousBatchingEngine:
-  """Paged continuous-batching decode engine for a (non-pipelined) GPT.
+  """Continuous-batching decode engine for a (non-pipelined) GPT.
 
   ``model`` is a ``models.gpt.GPT`` and ``params`` its state dict
   (``weights.init_params`` / ``weights.from_jax_params``); the engine
-  keeps a copy cast to the compute dtype, and the KV pool, on
-  ``device`` (default ``"cuda"``; ``"cpu"`` must be asked for).  Knobs
-  default from the port's ``Config`` ``serving.*`` group.
+  keeps a copy cast to the compute dtype (the model config's, or amp
+  O1's), and the KV cache, on ``device`` (default ``"cuda"``; ``"cpu"``
+  must be asked for).  Knobs default from the port's ``Config``
+  ``serving.*`` group; the default layout is the contiguous slot cache.
 
-      eng = ContinuousBatchingEngine(model, params, paged=True)
+      eng = ContinuousBatchingEngine(model, params)
       eng.submit(Request(uid="a", prompt=ids, max_new_tokens=32))
       outputs = eng.run()          # {uid: prompt+generated np.int32}
       eng.finished["a"].finish_reason
 
-  ``drafter_failures`` counts the steps whose drafter raised (each ran
-  without drafts).
+  ``submit`` returns False when admission control sheds the request
+  (``serving.resilience.queue_limit``); the record lands in
+  ``finished`` with reason ``"shed"``.  ``drafter_failures`` counts the
+  steps whose drafter raised (each ran without drafts).  ``close()`` (or
+  ``with``, or garbage collection) stops the watchdog thread.
   """
 
   def __init__(self, model, params, *, device=None, mesh=None,
@@ -144,11 +174,6 @@ class ContinuousBatchingEngine:
     check_servable(cfg)
     if mesh is not None:
       raise not_ported("a device mesh", TENSOR_PARALLEL)
-    if not (paged if paged is not None else conf.paged.enabled):
-      raise not_ported("the contiguous slot engine (paged=False)",
-                       CONTIGUOUS_ENGINE)
-    if resilience or (resilience is None and conf.resilience.enabled):
-      raise not_ported("serving resilience", RESILIENCE)
     if registry is not None:
       raise not_ported("the metric registry", TRACING)
     if conf.autotune.enabled:
@@ -157,8 +182,13 @@ class ContinuousBatchingEngine:
       raise not_ported("serving observability", TRACING)
     self.device = resolve_device(device)
     self.model = model
+    # The dtype the model computes in (amp O1 resolves it at every
+    # forward from the ambient config, as the JAX GPT does); the caches
+    # stay in cfg.dtype.
+    self.compute_dtype = resolve_model_dtypes(cfg).dtype
     self.params = cast_for_compute(
-        {k: v.to(self.device) for k, v in params.items()}, cfg.dtype)
+        {k: v.to(self.device) for k, v in params.items()},
+        self.compute_dtype)
     self.num_slots = num_slots if num_slots is not None else conf.num_slots
     self.chunk = (prefill_chunk if prefill_chunk is not None
                   else conf.prefill_chunk)
@@ -172,20 +202,24 @@ class ContinuousBatchingEngine:
           f"prefill_token_budget {budget} below prefill_chunk "
           f"{self.chunk}: no admission could ever afford its first chunk")
     pconf = conf.paged
-    self.block_size = (block_size if block_size is not None
-                       else pconf.block_size)
-    kv_lib.blocks_per_slot(cfg, self.block_size)
-    self.num_blocks = (num_blocks if num_blocks is not None
-                       else pconf.num_blocks)
-    if self.num_blocks <= 0:
-      self.num_blocks = kv_lib.default_num_blocks(cfg, self.num_slots,
-                                                  self.block_size)
-    self.token_budget = (token_budget if token_budget is not None
-                         else pconf.token_budget)
-    if self.token_budget <= 0:
-      # Auto: every decode slot's guaranteed token plus two prefill
-      # chunks of admission headroom per step.
-      self.token_budget = self.num_slots + 2 * self.chunk
+    self.paged = paged if paged is not None else pconf.enabled
+    if self.paged:
+      self.block_size = (block_size if block_size is not None
+                         else pconf.block_size)
+      kv_lib.blocks_per_slot(cfg, self.block_size)
+      self.num_blocks = (num_blocks if num_blocks is not None
+                         else pconf.num_blocks)
+      if self.num_blocks <= 0:
+        self.num_blocks = kv_lib.default_num_blocks(cfg, self.num_slots,
+                                                    self.block_size)
+      self.token_budget = (token_budget if token_budget is not None
+                           else pconf.token_budget)
+      if self.token_budget <= 0:
+        # Auto: every decode slot's guaranteed token plus two prefill
+        # chunks of admission headroom per step.
+        self.token_budget = self.num_slots + 2 * self.chunk
+    else:
+      self.block_size = self.num_blocks = self.token_budget = 0
     pc_conf = conf.prefix_cache
     self.prefix_caching = (prefix_cache if prefix_cache is not None
                            else pc_conf.enabled)
@@ -203,7 +237,15 @@ class ContinuousBatchingEngine:
         token_budget=self.token_budget, prefix_cache=self.prefix_caching,
         prefix_session_ttl_s=pc_conf.session_ttl_s,
         prefix_max_cached_blocks=pc_conf.max_cached_blocks)
+    res_conf = conf.resilience
+    self._resilient = bool(resilience if resilience is not None
+                           else res_conf.enabled)
     self.stats = stats
+    if self._resilient and self.stats is None:
+      # The degradation ladder reads the measured ITL from ServingStats.
+      from easyparallellibrary_tpu_torch.profiler.serving import (
+          ServingStats)
+      self.stats = ServingStats(finished_limit=conf.finished_limit)
     self.finished: Dict[Any, FinishedRequest] = {}
     self._finished_limit = conf.finished_limit
     self.scheduler.on_finish.append(self._record_finished)
@@ -214,18 +256,70 @@ class ContinuousBatchingEngine:
       self.scheduler.on_finish.append(
           lambda fin: stats_obj.note_finished(fin.uid, fin.new_tokens,
                                               fin.finish_reason))
-    self._kv = kv_lib.allocate_paged_kv_cache(
-        cfg, self.num_blocks, self.block_size, self.device)
+    self._admission: Optional[AdmissionController] = None
+    self._bad_policy: Optional[BadStepPolicy] = None
+    self._watchdog = None
+    if self._resilient:
+      self._admission = AdmissionController(
+          queue_limit=res_conf.queue_limit, itl_slo_s=res_conf.itl_slo_s,
+          degrade_queue_frac=res_conf.degrade_queue_frac,
+          on_transition=self._on_degrade_transition)
+      self._bad_policy = BadStepPolicy(
+          max_step_retries=res_conf.max_step_retries,
+          max_requeues=res_conf.max_requeues)
+      if res_conf.step_timeout_s > 0:
+        from easyparallellibrary_tpu_torch.runtime.resilience import (
+            StepWatchdog)
+        # on_timeout binds the stats object, not the engine: the
+        # finalizer below holds the watchdog, and a watchdog -> engine
+        # reference would keep the engine alive.
+        stats_obj = self.stats
+
+        def _on_timeout(step, _stats=stats_obj):
+          del step
+          _stats.note_watchdog_timeout()
+
+        self._watchdog = StepWatchdog(
+            res_conf.step_timeout_s, on_timeout=_on_timeout,
+            knob="serving.resilience.step_timeout_s")
+        # The monitor thread pins the watchdog, never the engine: a
+        # discarded engine closes it when collected, so no
+        # epl-step-watchdog thread outlives its engine.
+        self._watchdog_finalizer = weakref.finalize(
+            self, self._watchdog.close)
+    if self.paged:
+      self._kv = kv_lib.allocate_paged_kv_cache(
+          cfg, self.num_blocks, self.block_size, self.device)
+      self._cursors = None
+    else:
+      self._kv, self._cursors = kv_lib.allocate_kv_cache(
+          cfg, self.num_slots, self.chunk, self.device)
     if self.drafter is not None:
       self.drafter.bind(self)
+      self._step_fn = (self._paged_spec_step if self.paged
+                       else self._slot_spec_step)
+    else:
+      self._step_fn = self._paged_step if self.paged else self._slot_step
     self._steps = 0
+    if self.paged:
+      mb = kv_lib.paged_cache_bytes(cfg, self.num_blocks,
+                                    self.block_size) / 1e6
+      layout = (f"paged: {self.num_blocks} x {self.block_size}-token "
+                f"blocks, token budget {self.token_budget}, {mb:.1f} MB")
+    else:
+      mb = kv_lib.cache_bytes(cfg, self.num_slots, self.chunk) / 1e6
+      layout = f"contiguous slots, {mb:.1f} MB"
     get_logger().info(
-        "serving engine: %d slots x chunk %d (paged: %d x %d-token blocks, "
-        "token budget %d, %.1f MB, %s), prefill budget %s, max batch %d",
-        self.num_slots, self.chunk, self.num_blocks, self.block_size,
-        self.token_budget,
-        kv_lib.paged_cache_bytes(cfg, self.num_blocks, self.block_size)
-        / 1e6, self.device, budget or "uncapped", self.scheduler.max_batch)
+        "serving engine: %d slots x chunk %d (%s, %s), prefill budget %s, "
+        "max batch %d, speculation %s, resilience %s", self.num_slots,
+        self.chunk, layout, self.device, budget or "uncapped",
+        self.scheduler.max_batch,
+        f"{type(self.drafter).__name__}(k={self.drafter.k})"
+        if self.drafter is not None else "off",
+        f"on (queue_limit {res_conf.queue_limit or 'unbounded'}, itl_slo "
+        f"{res_conf.itl_slo_s or 'off'}, watchdog "
+        f"{res_conf.step_timeout_s or 'off'})" if self._resilient
+        else "off")
 
   def _resolve_drafter(self, conf, drafter, speculative, draft_model,
                        draft_params):
@@ -253,14 +347,26 @@ class ContinuousBatchingEngine:
       check_draft_fits_chunk(drafter.k, self.chunk)
     return drafter
 
+  # ---------------------------------------------------- resilience hooks
+
+  def _on_degrade_transition(self, old: int, new: int, signals):
+    del old, signals
+    if self.stats is not None:
+      self.stats.note_degraded(new)
+
   # ----------------------------------------------------------- device step
 
   def _tensor(self, array: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
-  def _score(self, plan) -> torch.Tensor:
-    """Run the plan's flat batch through the model (writing its K/V into
-    the pool); returns the logits ``[T, V]``."""
+  def _sampling_args(self, plan):
+    return (self._tensor(plan.keys.astype(np.int64)),
+            self._tensor(plan.tok_index), self._tensor(plan.temperature),
+            self._tensor(plan.top_k), self._tensor(plan.top_p))
+
+  def _score(self, params, plan) -> torch.Tensor:
+    """Run the paged plan's flat batch through the model (writing its
+    K/V into the pool); returns the logits ``[T, V]``."""
     from easyparallellibrary_tpu_torch.models.gpt import paged_step_logits
     # The attention kernel's tiled build takes the step's query tiles,
     # which the plan already knows: planned here once for every layer.
@@ -274,66 +380,152 @@ class ContinuousBatchingEngine:
           runs, plan.positions, plan.block_tables.shape[1], pool.shape[1],
           pool.shape[2], self.device)
     logits, self._kv = paged_step_logits(
-        self.model, self.params, self._kv, self._tensor(plan.tokens),
+        self.model, params, self._kv, self._tensor(plan.tokens),
         self._tensor(plan.slot_ids), self._tensor(plan.positions),
         self._tensor(plan.valid), self._tensor(plan.block_tables), **tiles)
     return logits
 
+  def _fetch(self, *columns):
+    """The step's one device-to-host fetch: ``[N]`` / ``[N, k]`` columns
+    stacked into one int64 array."""
+    cols = [c.long().reshape(c.shape[0], -1) for c in columns]
+    return torch.cat(cols, dim=1).cpu().numpy()
+
+  def _slot_verdict(self, rows, live):
+    """The finiteness verdict on exactly the logit rows the commit reads
+    (``rows [N, ..., V]``): a slot with no work this step is never
+    convicted."""
+    return torch.isfinite(rows).flatten(1).all(dim=1) | ~live
+
   @torch.inference_mode()
-  def _device_step(self, plan) -> np.ndarray:
-    """The fused step: score the flat batch, gather each slot's last
-    scheduled row, sample.  Returns the sampled tokens ``[N]`` on the
-    host — the step's one designated device-to-host fetch."""
+  def _slot_step(self, params, plan):
+    """The contiguous step: one model call over ``[num_slots, C]`` at the
+    slots' cursors (reset slots from 0), each slot's last live row
+    gathered and sampled, the cursors advanced on the device (a bad
+    slot's not, with resilience on).  Returns ``(tokens [N], slot_ok
+    [N] or None)`` from one fetch."""
+    from easyparallellibrary_tpu_torch.models.gpt import slot_step_logits
+    N, C = self.num_slots, self.chunk
+    num_valid = self._tensor(plan.num_valid)
+    cursors = torch.where(self._tensor(plan.reset),
+                          torch.zeros_like(self._cursors), self._cursors)
+    logits, self._kv = slot_step_logits(
+        self.model, params, self._kv, self._tensor(plan.tokens), cursors)
+    # Idle slots (num_valid = 0) read row 0, which nothing commits.
+    rows = torch.arange(N, device=self.device)
+    last = logits[rows, torch.clamp(num_valid.long() - 1, 0, C - 1)]
+    keys, tok_index, temperature, top_k, top_p = self._sampling_args(plan)
+    nxt = sample_token_slots(last.float(), prng.fold_in(keys, tok_index),
+                             temperature, top_k, top_p)
+    advanced = cursors + num_valid
+    if not self._resilient:
+      self._cursors = advanced
+      return self._fetch(nxt)[:, 0], None
+    slot_ok = self._slot_verdict(last, num_valid > 0)
+    self._cursors = torch.where(slot_ok, advanced, cursors)
+    out = self._fetch(nxt, slot_ok)
+    return out[:, 0], out[:, 1].astype(bool)
+
+  @torch.inference_mode()
+  def _slot_spec_step(self, params, plan, num_draft: np.ndarray):
+    """The speculative contiguous step: the same one model call, with
+    each decode slot's drafts in chunk columns 1..num_draft; target rows
+    ``base - 1 + j`` (``base`` = non-draft tokens fed) verify draft j,
+    and the cursor advances past the fed tokens and the accepted drafts.
+    Returns ``(committed [N, K+1], n_committed [N], slot_ok or None)``
+    from one fetch."""
+    from easyparallellibrary_tpu_torch.models.gpt import slot_step_logits
+    from easyparallellibrary_tpu_torch.serving.speculative.verify import (
+        verify_tokens)
+    N, C, K = self.num_slots, self.chunk, self.drafter.k
+    nd = self._tensor(num_draft)
+    num_valid = self._tensor(plan.num_valid) + nd
+    cursors = torch.where(self._tensor(plan.reset),
+                          torch.zeros_like(self._cursors), self._cursors)
+    tokens = self._tensor(plan.tokens)
+    logits, self._kv = slot_step_logits(self.model, params, self._kv,
+                                        tokens, cursors)
+    base = (num_valid - nd).long()
+    j = torch.arange(K + 1, device=self.device)[None]
+    pos = torch.clamp(base[:, None] - 1 + j, 0, C - 1)
+    rows = torch.arange(N, device=self.device)[:, None]
+    tgt = logits[rows, pos].float()                       # [N, K+1, V]
+    drafts = tokens.long()[rows, torch.clamp(base[:, None] + j[:, :K], 0,
+                                             C - 1)]
+    committed, n_committed, accepted = verify_tokens(
+        tgt, drafts, nd, *self._sampling_args(plan))
+    advanced = cursors + base.int() + accepted.int()
+    if not self._resilient:
+      self._cursors = advanced
+      out = self._fetch(committed, n_committed)
+      return out[:, :K + 1], out[:, K + 1], None
+    slot_ok = self._slot_verdict(tgt, num_valid > 0)
+    self._cursors = torch.where(slot_ok, advanced, cursors)
+    out = self._fetch(committed, n_committed, slot_ok)
+    return out[:, :K + 1], out[:, K + 1], out[:, K + 2].astype(bool)
+
+  @torch.inference_mode()
+  def _paged_step(self, params, plan):
+    """The paged step: score the flat batch, gather each slot's last
+    scheduled row, sample.  Returns ``(tokens [N], slot_ok [N] or
+    None)`` from one fetch."""
     T = self.token_budget
-    logits = self._score(plan)
+    logits = self._score(params, plan)
     # Each slot's next-token logits sit at its last scheduled flat
     # position; idle slots read row 0, which the scheduler never reads.
     last_idx = np.clip(plan.base_idx + plan.num_valid - 1, 0, T - 1)
     last = logits.index_select(0, self._tensor(last_idx).long())
-    step_keys = prng.fold_in(self._tensor(plan.keys.astype(np.int64)),
-                             self._tensor(plan.tok_index))
-    nxt = sample_token_slots(
-        last.float(), step_keys, self._tensor(plan.temperature),
-        self._tensor(plan.top_k), self._tensor(plan.top_p))
-    return nxt.cpu().numpy()
+    keys, tok_index, temperature, top_k, top_p = self._sampling_args(plan)
+    nxt = sample_token_slots(last.float(), prng.fold_in(keys, tok_index),
+                             temperature, top_k, top_p)
+    if not self._resilient:
+      return self._fetch(nxt)[:, 0], None
+    slot_ok = self._slot_verdict(last, self._tensor(plan.num_valid > 0))
+    out = self._fetch(nxt, slot_ok)
+    return out[:, 0], out[:, 1].astype(bool)
 
   @torch.inference_mode()
-  def _spec_device_step(self, plan, num_draft: np.ndarray):
-    """The speculative step: score the flat batch (drafts included),
-    gather each slot's K+1 target rows by flat index (row 0 at its last
-    real token, rows 1..K at its draft positions), verify.  Returns
-    ``(committed [N, K+1], n_committed [N])`` from one device-to-host
-    fetch.  Rejected drafts' K/V lie past the committed count; the next
-    feed overwrites them."""
+  def _paged_spec_step(self, params, plan, num_draft: np.ndarray):
+    """The speculative paged step: score the flat batch (drafts
+    included), gather each slot's K+1 target rows by flat index (row 0
+    at its last real token, rows 1..K at its draft positions), verify.
+    Returns ``(committed [N, K+1], n_committed [N], slot_ok or None)``
+    from one fetch.  Rejected drafts' K/V lie past the committed count;
+    the next feed overwrites them."""
     from easyparallellibrary_tpu_torch.serving.speculative.verify import (
         verify_tokens)
     T, K = self.token_budget, self.drafter.k
-    logits = self._score(plan)
+    logits = self._score(params, plan)
     base_last = np.clip(plan.base_idx + plan.num_valid - 1, 0, T - 1)
     j = np.arange(K + 1)[None]
     idx = np.concatenate(
         [base_last[:, None], plan.draft_base[:, None] + j[:, :K]], axis=1)
     # Rows past a slot's draft count read its own last row; the verifier
-    # masks them.
+    # masks them, and the verdict never convicts a slot on another's.
     idx = np.clip(np.where(j <= num_draft[:, None], idx,
                            base_last[:, None]), 0, T - 1)
     dpos = np.clip(plan.draft_base[:, None] + j[:, :K], 0, T - 1)
     N = idx.shape[0]
     tgt = logits.index_select(0, self._tensor(idx.reshape(-1)).long())
+    tgt = tgt.reshape(N, K + 1, -1).float()
     committed, n_committed, _ = verify_tokens(
-        tgt.reshape(N, K + 1, -1).float(), self._tensor(plan.tokens[dpos]),
-        self._tensor(num_draft), self._tensor(plan.keys.astype(np.int64)),
-        self._tensor(plan.tok_index), self._tensor(plan.temperature),
-        self._tensor(plan.top_k), self._tensor(plan.top_p))
-    out = torch.cat([committed, n_committed[:, None]], dim=1).cpu().numpy()
-    return out[:, :K + 1], out[:, K + 1]
+        tgt, self._tensor(plan.tokens[dpos]), self._tensor(num_draft),
+        *self._sampling_args(plan))
+    if not self._resilient:
+      out = self._fetch(committed, n_committed)
+      return out[:, :K + 1], out[:, K + 1], None
+    slot_ok = self._slot_verdict(tgt, self._tensor(plan.num_valid > 0))
+    out = self._fetch(committed, n_committed, slot_ok)
+    return out[:, :K + 1], out[:, K + 1], out[:, K + 2].astype(bool)
 
   def _propose_drafts(self, plan) -> np.ndarray:
-    """Run the drafter for one step and write its drafts into the plan's
-    reserved positions (flipping exactly those live).  A drafter that
-    raises degrades to zero drafts for the step (verification would
-    reject garbage anyway) and is counted in ``drafter_failures``.
-    Returns ``num_draft [N]``."""
+    """Run the drafter for one step and write its drafts into the plan:
+    chunk columns 1.. of each decode slot (contiguous) or the slot's
+    reserved flat positions, flipped valid (paged).  A drafter that
+    raises, or returns what cannot be written, degrades to zero drafts
+    for the step (verification would reject garbage anyway) and is
+    counted in ``drafter_failures``; a ladder at ``spec_off`` or above
+    skips the drafter.  Returns ``num_draft [N]``."""
     N = plan.draft_cap.shape[0]
     if not self.scheduler.spec_enabled:
       self.drafter.observe_skip(plan)
@@ -344,9 +536,13 @@ class ContinuousBatchingEngine:
       num_draft = np.clip(np.asarray(num_draft, np.int32), 0,
                           plan.draft_cap)
       for slot in np.nonzero(num_draft)[0]:
-        nd, b = int(num_draft[slot]), int(plan.draft_base[slot])
-        plan.tokens[b:b + nd] = draft_tokens[slot, :nd]
-        plan.valid[b:b + nd] = True
+        nd = int(num_draft[slot])
+        if self.paged:
+          b = int(plan.draft_base[slot])
+          plan.tokens[b:b + nd] = draft_tokens[slot, :nd]
+          plan.valid[b:b + nd] = True
+        else:
+          plan.tokens[slot, 1:1 + nd] = draft_tokens[slot, :nd]
     except Exception as e:  # noqa: BLE001 — any drafter fault degrades
       self.drafter_failures += 1
       if self.drafter_failures == 1:
@@ -354,12 +550,120 @@ class ContinuousBatchingEngine:
             "drafter %s failed (%s: %s); serving continues without drafts "
             "this step (logged once; counted in drafter_failures)",
             type(self.drafter).__name__, type(e).__name__, e)
-      # Drafts written before the failure stay out of the step.
-      for slot in np.nonzero(plan.draft_cap)[0]:
-        b = int(plan.draft_base[slot])
-        plan.valid[b:b + int(plan.draft_cap[slot])] = False
+      if self.paged:
+        # Drafts written before the failure stay out of the step.
+        for slot in np.nonzero(plan.draft_cap)[0]:
+          b = int(plan.draft_base[slot])
+          plan.valid[b:b + int(plan.draft_cap[slot])] = False
+      # Contiguous: with zero drafts every decode slot feeds one token,
+      # so columns already written are masked garbage nothing reads.
       return np.zeros((N,), np.int32)
     return num_draft
+
+  # ------------------------------------------------------ bad-step policy
+
+  def _apply_degradation(self):
+    """Feed the ladder this iteration's post-admission load signals and
+    apply its level to the scheduler (speculation gate, budget clamp)."""
+    itl = self.stats.itl_ewma_s if self.stats is not None else 0.0
+    cap = min(self.num_slots, self.scheduler.max_batch)
+    self._admission.observe(self.scheduler.queue_depth,
+                            self.scheduler.num_active / cap, itl)
+    self.scheduler.spec_enabled = self._admission.speculation_enabled
+    self.scheduler.budget_override = (
+        self.chunk if self._admission.budget_tightened else 0)
+
+  def _handle_bad_slots(self, plan, slot_ok: np.ndarray) -> List[int]:
+    """After the commit: update the streaks, requeue or fail the slots
+    the policy quarantines, and zero the bad step's cache writes.
+    Returns the bad slots."""
+    bad = [int(s) for s in np.nonzero(~slot_ok & (plan.num_valid > 0))[0]]
+    exercised = {int(s) for s in np.nonzero(plan.num_valid)[0]}
+    actions = self._bad_policy.judge(self.scheduler.active, bad,
+                                     exercised=exercised)
+    if not bad:
+      return bad
+    get_logger().warning(
+        "bad device step (non-finite logits) on slot(s) %s: %s", bad,
+        actions)
+    # Paged: the block lists before a requeue or failure returns them to
+    # the pool; their rows are zeroed either way.
+    blocks_by_slot = ({s: self.scheduler.slot_blocks(s) for s in bad}
+                      if self.paged else None)
+    slot_starts: Dict[int, int] = {}
+    cursors = None
+    for slot, action in actions.items():
+      freed = action in (BadStepPolicy.REQUEUE, BadStepPolicy.FAIL)
+      if action == BadStepPolicy.REQUEUE:
+        self.scheduler.requeue_slot(slot, reason="bad_step")
+      elif action == BadStepPolicy.FAIL:
+        self.scheduler.retire_slot(slot, "failed")
+      if self.paged:
+        # From the committed watermark up, freed or not: the plan's first
+        # position for the slot is it (no fetch), and every write of the
+        # bad step landed at or above it.  Rows below hold committed K/V
+        # that a prefix-sharing sibling may still map.
+        slot_starts[slot] = int(plan.positions[plan.base_idx[slot]])
+      elif freed:
+        slot_starts[slot] = 0
+      else:  # retry: zero the bad step's uncommitted writes only
+        if cursors is None:  # the one fetch of this rare path
+          cursors = self._cursors.cpu().numpy()
+        slot_starts[slot] = int(cursors[slot])
+    if self.paged:
+      self._sanitize_paged(slot_starts, blocks_by_slot)
+    else:
+      self._sanitize_slots(slot_starts)
+    if self.stats is not None:
+      self.stats.sync_bad_step_counters(self._bad_policy.counters())
+    return bad
+
+  @torch.inference_mode()
+  def _sanitize(self, mask: np.ndarray, start: np.ndarray) -> None:
+    """Zero rows ``>= start[i]`` of every cache leaf's entry ``i`` where
+    ``mask[i]``, in place.  Dim 0 is slots (contiguous) or pool blocks
+    (paged), dim 1 the rows within."""
+    m = self._tensor(mask)
+    st = self._tensor(start.astype(np.int64))
+    for layer in self._kv.values():
+      for leaf in layer["attn"].values():
+        rows = torch.arange(leaf.shape[1], device=self.device)
+        zero = m[:, None] & (rows[None, :] >= st[:, None])
+        leaf.masked_fill_(zero[:, :, None, None], 0)
+
+  def _sanitize_slots(self, slot_starts: Dict[int, int]) -> None:
+    """Zero poisoned slots' K/V from each slot's start row up: masking
+    zeroes a stale row's probability, but the V contraction still
+    touches every row and ``0 * NaN = NaN``.  A freed slot passes 0 (its
+    next occupant starts clean); a retried slot its committed cursor
+    (the retry's grant may not rewrite every row the bad step wrote)."""
+    mask = np.zeros((self.num_slots,), bool)
+    start = np.zeros((self.num_slots,), np.int64)
+    for slot, row in slot_starts.items():
+      mask[slot], start[slot] = True, row
+    self._sanitize(mask, start)
+
+  def _sanitize_paged(self, slot_starts: Dict[int, int],
+                      blocks_by_slot: Dict[int, list]) -> None:
+    """The paged twin of :meth:`_sanitize_slots`: each poisoned slot's
+    block list maps to per-block start rows, blocks wholly below the
+    watermark are skipped, and the null block is always zeroed (a
+    NaN-params step poisons it through the padding writes)."""
+    bs = self.block_size
+    mask = np.zeros((self.num_blocks,), bool)
+    start = np.zeros((self.num_blocks,), np.int64)
+    mask[kv_lib.NULL_BLOCK] = True
+    for slot, pos in slot_starts.items():
+      for j, blk in enumerate(blocks_by_slot.get(slot, ())):
+        if (j + 1) * bs <= pos:
+          continue  # wholly below the committed watermark: rows are real
+        row = max(0, pos - j * bs)
+        start[blk] = row if not mask[blk] else min(start[blk], row)
+        mask[blk] = True
+    # Zeroed content must never satisfy a later prefix match.
+    self.scheduler.invalidate_cached_blocks(
+        int(b) for b in np.nonzero(mask)[0] if b != kv_lib.NULL_BLOCK)
+    self._sanitize(mask, start)
 
   # ------------------------------------------------------------ host loop
 
@@ -373,9 +677,29 @@ class ContinuousBatchingEngine:
         self.finished.pop(next(iter(self.finished)))
 
   def submit(self, request: Request) -> bool:
-    """Validate and enqueue ``request``.  Always True: admission control
-    (shedding) belongs to serving resilience, which is not ported."""
+    """Validate and enqueue ``request``; False when admission control
+    sheds it (the bounded queue is full, or the ladder is at its shed
+    level), with a ``"shed"`` record in ``finished``.  A malformed
+    request raises whatever the load."""
     prompt = self.scheduler.validate(request)
+    if self._admission is not None and not self.scheduler.has_work:
+      # An idle engine never steps, so a stale shed level would reject
+      # every later submit: re-observe with the idle signals first.
+      self._apply_degradation()
+    if (self._admission is not None
+        and self._admission.should_shed(self.scheduler.queue_depth)):
+      self._admission.note_shed()
+      self._record_finished(FinishedRequest(
+          uid=request.uid, tokens=prompt, new_tokens=0,
+          finish_reason="shed"))
+      if self.stats is not None:
+        self.stats.note_shed(request.uid)
+      get_logger().warning(
+          "shedding request %r at submit (queue %d/%d, level %s)",
+          request.uid, self.scheduler.queue_depth,
+          self._admission.queue_limit,
+          DEGRADE_LEVELS[self._admission.level])
+      return False
     if self.stats is not None:
       self.stats.note_submitted(request.uid)
     self.scheduler.submit(request, _prompt=prompt)
@@ -395,45 +719,90 @@ class ContinuousBatchingEngine:
     """Device steps run so far (iterations whose plan was not None)."""
     return self._steps
 
+  def close(self):
+    """Stop the watchdog thread.  Idempotent; the engine still steps
+    afterwards.  Also runs when the engine is collected and on ``with``
+    exit."""
+    if self._watchdog is not None:
+      self._watchdog.close()
+      self._watchdog = None
+      self._watchdog_finalizer.detach()
+
+  def __enter__(self):
+    return self
+
+  def __exit__(self, *exc):
+    self.close()
+    return False
+
   def step(self) -> List[FinishedRequest]:
-    """One engine iteration: plan -> [draft ->] device step -> commit.
-    Returns the requests that retired this iteration (empty when idle),
-    expiries and cancellations included."""
+    """One engine iteration: plan [-> degrade] [-> draft] -> device step
+    -> commit [-> bad-step policy].  Returns the requests that retired
+    this iteration (empty when idle), expiries and cancellations
+    included."""
     plan = self.scheduler.plan_step()
+    if self._admission is not None:
+      # Observed after admission: the queue signal is the backlog this
+      # step could not absorb.  The gates steer the next plan.
+      self._apply_degradation()
     if plan is None:
       return self.scheduler.take_finished()
     t0 = time.monotonic()
+    if self._watchdog is not None:
+      self._watchdog.arm(self._steps)
     drafted = accepted = 0
-    if self.drafter is not None:
-      # Propose before the plan's draft positions fill: the draft
-      # model's mirror needs the plan the target sees.
-      num_draft = self._propose_drafts(plan)
-      committed, n_committed = self._spec_device_step(plan, num_draft)
-      finished = self.scheduler.commit(committed, n_committed)
-      self.drafter.observe_commit(None)
-      drafted = int(num_draft.sum())
-      accepted = int((n_committed[num_draft > 0] - 1).sum())
-    else:
-      finished = self.scheduler.commit(self._device_step(plan))
+    try:
+      if self.drafter is not None:
+        # Propose before the plan's draft positions fill: the draft
+        # model's mirror needs the plan the target sees.
+        num_draft = self._propose_drafts(plan)
+        committed, n_committed, slot_ok = self._step_fn(self.params, plan,
+                                                        num_draft)
+        finished = self.scheduler.commit(committed, n_committed,
+                                         slot_ok=slot_ok)
+        self.drafter.observe_commit(self._cursors)
+        # A bad slot's drafts are spent again on its retry: count only
+        # the slots whose verdict committed.
+        ok = (np.ones(num_draft.shape, bool) if slot_ok is None
+              else slot_ok)
+        drafted = int(num_draft[ok].sum())
+        accepted = int((n_committed[(num_draft > 0) & ok] - 1).sum())
+      else:
+        nxt, slot_ok = self._step_fn(self.params, plan)
+        finished = self.scheduler.commit(nxt, slot_ok=slot_ok)
+    finally:
+      if self._watchdog is not None:
+        self._watchdog.disarm()
+    if slot_ok is not None:
+      self._handle_bad_slots(plan, slot_ok)
+      finished.extend(self.scheduler.take_finished())
     self._steps += 1
     dt = time.monotonic() - t0
     if self.stats is not None:
+      # Throughput counts committed tokens only: a bad slot's work is
+      # fed again next step.
+      if slot_ok is None or bool(slot_ok.all()):
+        pf_tokens, dc_tokens = plan.prefill_tokens, plan.decode_tokens
+      else:
+        ok = (plan.num_valid > 0) & slot_ok
+        pf_tokens = int(plan.num_valid[ok & plan.prefilling].sum())
+        dc_tokens = int((ok & ~plan.prefilling).sum())
       self.stats.note_step(
           active_slots=plan.active_slots, num_slots=self.num_slots,
-          prefill_tokens=plan.prefill_tokens,
-          decode_tokens=plan.decode_tokens, step_time_s=dt,
-          drafted_tokens=drafted, accepted_tokens=accepted)
-      self.stats.note_blocks(self.scheduler.kv_blocks_free,
-                             self.scheduler.kv_blocks_used,
-                             self.scheduler.kv_fragmentation,
-                             self.scheduler.preemptions,
-                             self.scheduler.proactive_preemptions)
-      if self.prefix_caching:
-        self.stats.note_prefix(self.scheduler.prefix_hits,
-                               self.scheduler.prefix_misses,
-                               self.scheduler.prefix_blocks_reused,
-                               self.scheduler.prefix_evictions,
-                               self.scheduler.prefix_cached_blocks)
+          prefill_tokens=pf_tokens, decode_tokens=dc_tokens,
+          step_time_s=dt, drafted_tokens=drafted, accepted_tokens=accepted)
+      if self.paged:
+        self.stats.note_blocks(self.scheduler.kv_blocks_free,
+                               self.scheduler.kv_blocks_used,
+                               self.scheduler.kv_fragmentation,
+                               self.scheduler.preemptions,
+                               self.scheduler.proactive_preemptions)
+        if self.prefix_caching:
+          self.stats.note_prefix(self.scheduler.prefix_hits,
+                                 self.scheduler.prefix_misses,
+                                 self.scheduler.prefix_blocks_reused,
+                                 self.scheduler.prefix_evictions,
+                                 self.scheduler.prefix_cached_blocks)
     return finished
 
   def run(self, max_steps: Optional[int] = None) -> Dict[Any, np.ndarray]:

@@ -1,26 +1,35 @@
-"""The paged KV block pool (port of the paged half of
-``easyparallellibrary_tpu/serving/kv_cache.py``).
+"""KV cache layouts of the serving engine (port of
+``easyparallellibrary_tpu/serving/kv_cache.py``): contiguous slots and
+the paged block pool.
 
-K/V lives in a pool of fixed-size blocks (:func:`allocate_paged_kv_cache`);
-each request slot owns a grown-on-demand block list behind a block
-table, and a host-side :class:`BlockAllocator` (free list + refcounts)
-hands blocks out.  Block ``NULL_BLOCK`` is reserved: unallocated table
-entries resolve to it and padding tokens write their K/V there, so its
-rows are finite garbage that the attention mask never exposes.
+Contiguous slots (the default engine): one cache of ``num_slots``
+request slots, ``[num_slots, cache_length, H, hd]`` per layer, allocated
+once and reused for the life of the engine, with an int32 cursor per
+slot (:func:`allocate_kv_cache`).  The engine's fixed-width step writes
+a ``chunk``-wide window at every slot's cursor, so each slot is one
+chunk longer than any request can grow (:func:`cache_length`) and the
+window never runs off the end.
 
-The contiguous slot cache of the JAX package is not ported
-(ROADMAP.md Queue 1, "Contiguous slot engine").
+Paged: K/V lives in a pool of fixed-size blocks
+(:func:`allocate_paged_kv_cache`); each request slot owns a
+grown-on-demand block list behind a block table, and a host-side
+:class:`BlockAllocator` (free list + refcounts) hands blocks out.  Block
+``NULL_BLOCK`` is reserved: unallocated table entries resolve to it and
+padding tokens write their K/V there, so its rows are finite garbage
+that the attention mask never exposes.
+
+Both layouts are allocated in the model config's own ``dtype``, as the
+JAX package allocates them (under amp O1 the compute dtype may be
+narrower; the attention reads the cache in the promoted type).
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from easyparallellibrary_tpu_torch._not_ported import (
-    CONTIGUOUS_ENGINE, not_ported)
 from easyparallellibrary_tpu_torch.utils.device import resolve_device
 
 NULL_BLOCK = 0
@@ -74,8 +83,45 @@ def allocate_paged_kv_cache(cfg, num_blocks: int, block_size: int,
           for i in range(cfg.num_layers)}
 
 
-def allocate_kv_cache(*args, **kwargs):
-  raise not_ported("the contiguous slot KV cache", CONTIGUOUS_ENGINE)
+def cache_length(cfg, chunk: int) -> int:
+  """Per-slot cache length: ``max_seq_len`` plus one chunk of slack, so
+  the step's fixed-width write window never runs off the end."""
+  return cfg.max_seq_len + int(chunk)
+
+
+def allocate_kv_cache(cfg, num_slots: int, chunk: int, device=None
+                      ) -> Tuple[Dict[str, Dict], torch.Tensor]:
+  """The slot cache on ``device`` (default ``"cuda"``): ``(kv,
+  cursors)``, ``kv`` shaped like the GPT's slot-mode cache dict
+  (``{"block_i": {"attn": {"cached_key"/"cached_value": [num_slots,
+  cache_length, H, hd]}}}``, zeros in ``cfg.dtype``) and ``cursors`` the
+  int32 ``[num_slots]`` write offsets (zeros)."""
+  if num_slots < 1:
+    raise ValueError(f"num_slots must be >= 1: {num_slots}")
+  if chunk < 1:
+    raise ValueError(f"prefill chunk must be >= 1: {chunk}")
+  if cfg.d_model % cfg.num_heads:
+    raise ValueError(f"d_model {cfg.d_model} must divide into "
+                     f"{cfg.num_heads} heads")
+  dev = resolve_device(device)
+  shape = (num_slots, cache_length(cfg, chunk), cfg.num_heads,
+           cfg.d_model // cfg.num_heads)
+
+  def leaf():
+    return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+
+  kv = {f"block_{i}": {"attn": {"cached_key": leaf(),
+                                "cached_value": leaf()}}
+        for i in range(cfg.num_layers)}
+  return kv, torch.zeros((num_slots,), dtype=torch.int32, device=dev)
+
+
+def cache_bytes(cfg, num_slots: int, chunk: int) -> int:
+  """Slot-cache footprint in bytes (K and V, all layers)."""
+  H, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+  itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+  per_leaf = num_slots * cache_length(cfg, chunk) * H * hd
+  return 2 * cfg.num_layers * per_leaf * itemsize
 
 
 def paged_cache_bytes(cfg, num_blocks: int, block_size: int) -> int:

@@ -1,5 +1,6 @@
-"""Host-side request scheduling for the paged continuous-batching engine
-(port of ``easyparallellibrary_tpu/serving/scheduler.py``).
+"""Host-side request scheduling for the continuous-batching engine on
+both cache layouts (port of
+``easyparallellibrary_tpu/serving/scheduler.py``).
 
 Iteration-level (continuous) batching as in Orca (OSDI'22): the
 scheduler re-forms the working set every engine step, so requests join
@@ -10,13 +11,19 @@ variability lives here; the device step only ever sees fixed shapes.
   slots, the concurrent-batch cap (``max_batch``) and the per-step
   prefill-token budget; a latency-class arrival that finds no capacity
   evicts the youngest throughput-class slot.
-* Token-flat planning (:meth:`FCFSScheduler._plan_flat`): every decoding
-  slot gets one guaranteed token, then prefill chunks fill the rest of
+* Slot planning (``block_size=0``, the contiguous engine): one
+  :class:`StepPlan` of ``[num_slots, chunk]`` tokens per step; a
+  decoding slot feeds its last token, a prefilling slot its next prompt
+  chunk under the prefill-token budget, and a fresh or replaying slot
+  zeroes its cursor (``reset``).  Its drafts ride the decode slot's
+  unused chunk columns (``draft_cap``).
+* Token-flat planning (paged, :meth:`FCFSScheduler._plan_flat`): every
+  decoding slot gets one guaranteed token, then prefill chunks fill the rest of
   the ``token_budget`` flat batch.  Each grant first ensures its K/V
   blocks; a dry pool preempts the youngest lowest-priority slot, which
   returns to the front of the queue and replays its committed prefix on
   readmission (bit-exact: same K/V, same token-index RNG fold).
-* Speculative drafts: leftover flat budget is reserved for each decode
+* Speculative drafts (paged): leftover flat budget is reserved for each decode
   slot's draft run (pass 3); a dry pool shrinks the reservation and
   never preempts.  ``commit`` takes ``[N, K+1]`` tokens with a per-slot
   count and checks the stop token and ``max_new_tokens`` per token.
@@ -24,13 +31,19 @@ variability lives here; the device step only ever sees fixed shapes.
   admission maps matched blocks by reference and starts prefill past
   them; completed blocks register at commit watermarks and at
   retirement; cached blocks are evicted before any preemption.
+* Resilience: ``commit(slot_ok=...)`` skips a slot whose step was judged
+  bad, so the next plan re-feeds the same work (the retry);
+  ``requeue_slot`` sends a request back to the front of the queue with
+  its committed prefix, ``retire_slot`` fails it, and
+  ``budget_override`` clamps the prefill budget while the degradation
+  ladder says so.
 * Retirement: ``max_new_tokens``, stop token, deadlines / TTFT budgets,
   cancellation.  Each request samples from its own counter stream (a key
   from ``seed``/``uid`` folded with the token index), so its samples do
   not depend on the slot or iteration that serves it.
 
-Not ported (each raises, ROADMAP.md Queue 1): the contiguous slot
-layout, request snapshot/restore/evacuate, and tracing spans.
+Not ported (ROADMAP.md Queue 1): request snapshot/restore/evacuate
+(each raises), the autotuner's clamps and tracing spans.
 """
 
 from __future__ import annotations
@@ -43,8 +56,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
-from easyparallellibrary_tpu_torch._not_ported import (
-    CONTIGUOUS_ENGINE, FLEET, not_ported)
+from easyparallellibrary_tpu_torch._not_ported import FLEET, not_ported
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_request_fields)
 from easyparallellibrary_tpu_torch.serving.kv_cache import (
@@ -104,6 +116,25 @@ class FinishedRequest:
 
 
 @dataclasses.dataclass
+class StepPlan:
+  """Host arrays for one fused step over the slot cache (all ``[N]`` or
+  ``[N, C]``, ``N = num_slots``, ``C = prefill_chunk``)."""
+  tokens: np.ndarray          # int32 [N, C] token chunk per slot
+  num_valid: np.ndarray       # int32 [N]   live tokens in the chunk
+  reset: np.ndarray           # bool  [N]   zero the cursor (fresh slot)
+  keys: np.ndarray            # uint32 [N, 2]
+  tok_index: np.ndarray       # int32 [N]   tokens generated so far
+  temperature: np.ndarray     # f32   [N]
+  top_k: np.ndarray           # int32 [N]
+  top_p: np.ndarray           # f32   [N]
+  draft_cap: np.ndarray       # int32 [N]   max speculative drafts
+  prefilling: np.ndarray      # bool  [N]   this step's grant is prompt
+  prefill_tokens: int
+  decode_tokens: int
+  active_slots: int
+
+
+@dataclasses.dataclass
 class PagedStepPlan:
   """Host arrays for one token-flat step over the paged cache.  Flat
   arrays are ``[T]`` (``T = token_budget``), one entry per scheduled
@@ -141,8 +172,8 @@ class _SlotState:
 
   __slots__ = ("req", "slot", "prompt_pos", "generated", "key", "prefix",
                "submitted_at", "admitted_at", "first_token_at",
-               "first_token_emitted", "requeues", "admit_seq",
-               "reg_blocks")
+               "first_token_emitted", "requeues", "bad_streak",
+               "admit_seq", "reg_blocks")
 
   def __init__(self, req: Request, slot: int, submitted_at: float,
                now: float, carried: Optional["_SlotState"] = None,
@@ -152,6 +183,7 @@ class _SlotState:
     self.prompt_pos = 0
     self.submitted_at = submitted_at
     self.admitted_at = now
+    self.bad_streak = 0          # consecutive bad-step hits
     # Monotonic admission sequence: a slot may only preempt strictly
     # younger same-priority slots, so two starving slots never preempt
     # each other in a cycle.
@@ -211,13 +243,15 @@ class _Pending:
 
 
 class FCFSScheduler:
-  """First-come-first-served continuous-batching scheduler over the
-  paged cache.
+  """First-come-first-served continuous-batching scheduler over either
+  cache layout: the contiguous slots (``block_size=0``) or the paged
+  pool (``block_size > 0``).
 
   ``plan_step()`` expires dead requests, admits new ones and builds the
-  next :class:`PagedStepPlan`; ``commit(next_tokens[, num_committed])``
-  folds the step's committed tokens back and returns the requests that
-  retired.  ``spec_k`` (0 = no drafter) caps each decode slot's draft
+  next :class:`StepPlan` or :class:`PagedStepPlan`;
+  ``commit(next_tokens[, num_committed][, slot_ok])`` folds the step's
+  committed tokens back and returns the requests that retired.
+  ``spec_k`` (0 = no drafter) caps each decode slot's draft
   reservation; ``prefix_cache`` turns on the radix tree of
   serving/prefix_cache.py with its TTL and block budget.  The
   ``on_admit`` / ``on_first_token`` / ``on_finish`` / ``on_tokens`` hooks
@@ -233,43 +267,54 @@ class FCFSScheduler:
                token_budget: int = 0, prefix_cache: bool = False,
                prefix_session_ttl_s: float = 0.0,
                prefix_max_cached_blocks: int = 0):
-    if block_size <= 0:
-      raise not_ported("the contiguous slot scheduler (block_size=0)",
-                       CONTIGUOUS_ENGINE)
     if spec_k < 0:
       raise ValueError(f"spec_k must be >= 0: {spec_k}")
     if prefill_chunk < 1:
       raise ValueError(f"prefill_chunk must be >= 1: {prefill_chunk}")
     if prefill_token_budget < 0 or max_batch < 0:
       raise ValueError("prefill_token_budget and max_batch must be >= 0")
-    if max_seq_len % block_size:
-      raise ValueError(f"block_size {block_size} must divide "
-                       f"max_seq_len {max_seq_len}")
-    if token_budget < 1:
-      raise ValueError(f"token_budget must be >= 1 in paged mode: "
-                       f"{token_budget}")
-    eff_batch = min(num_slots, max_batch if max_batch > 0 else num_slots)
-    if token_budget < eff_batch:
-      raise ValueError(
-          f"token_budget {token_budget} below the concurrent-batch cap "
-          f"{eff_batch}: a step could not hand every decoding slot its "
-          f"one guaranteed token")
     self.num_slots = num_slots
     self.chunk = prefill_chunk
     self.max_seq_len = max_seq_len
-    self.block_size = block_size
-    self.token_budget = token_budget
-    self._mb = max_seq_len // block_size
-    self.block_allocator = BlockAllocator(num_blocks, block_size)
-    self._slot_blocks: Dict[int, List[int]] = {}
-    self._tables = np.zeros((num_slots, self._mb), np.int32)
     self.preemptions = 0
     self.proactive_preemptions = 0
-    self.prefix_cache = (
-        PrefixCache(self.block_allocator, block_size,
-                    session_ttl_s=prefix_session_ttl_s,
-                    max_cached_blocks=prefix_max_cached_blocks,
-                    clock=clock) if prefix_cache else None)
+    self._slot_blocks: Dict[int, List[int]] = {}
+    # Paged mode (block_size > 0): token-flat plans over a block-table
+    # cache; pool exhaustion preempts.
+    self.paged = block_size > 0
+    if self.paged:
+      if max_seq_len % block_size:
+        raise ValueError(f"block_size {block_size} must divide "
+                         f"max_seq_len {max_seq_len}")
+      if token_budget < 1:
+        raise ValueError(f"token_budget must be >= 1 in paged mode: "
+                         f"{token_budget}")
+      eff_batch = min(num_slots, max_batch if max_batch > 0 else num_slots)
+      if token_budget < eff_batch:
+        raise ValueError(
+            f"token_budget {token_budget} below the concurrent-batch cap "
+            f"{eff_batch}: a step could not hand every decoding slot its "
+            f"one guaranteed token")
+      self.block_size = block_size
+      self.token_budget = token_budget
+      self._mb = max_seq_len // block_size
+      self.block_allocator = BlockAllocator(num_blocks, block_size)
+      self._tables = np.zeros((num_slots, self._mb), np.int32)
+      self.prefix_cache = (
+          PrefixCache(self.block_allocator, block_size,
+                      session_ttl_s=prefix_session_ttl_s,
+                      max_cached_blocks=prefix_max_cached_blocks,
+                      clock=clock) if prefix_cache else None)
+    else:
+      if prefix_cache:
+        raise ValueError(
+            "prefix caching shares KV at block granularity and therefore "
+            "requires the paged cache: enable serving.paged (block_size "
+            "> 0) alongside serving.prefix_cache")
+      self.block_size = 0
+      self.token_budget = 0
+      self.block_allocator = None
+      self.prefix_cache = None
     self._admit_seq = 0
     # Max drafts per decode slot per step (0 = no drafter); switching
     # ``spec_enabled`` off plans no drafts, Request.speculative=False
@@ -277,6 +322,9 @@ class FCFSScheduler:
     self.spec_k = spec_k
     self.spec_enabled = True
     self.prefill_token_budget = prefill_token_budget
+    # The degradation ladder's clamp (engine resilience): when > 0 the
+    # per-step budget is min(budget or inf, override).
+    self.budget_override = 0
     self.max_batch = max_batch if max_batch > 0 else num_slots
     self.default_stop_token = stop_token
     self.clock = clock
@@ -289,12 +337,21 @@ class FCFSScheduler:
     self._deadline_active = 0
     self.active: Dict[int, _SlotState] = {}   # slot -> state
     self._admit_order: List[int] = []         # slots, admission order
-    self._plan: Optional[PagedStepPlan] = None
+    self._plan = None
     self._finished_buffer: List[FinishedRequest] = []
     self.on_admit: List[Callable[[Any], None]] = []
     self.on_first_token: List[Callable[[Any], None]] = []
     self.on_finish: List[Callable[[FinishedRequest], None]] = []
     self.on_tokens: List[Callable[[Any, List[int]], None]] = []
+
+  def _effective_budget(self) -> int:
+    """The prefill-token budget in force: ``prefill_token_budget``
+    clamped by ``budget_override`` (0 = uncapped in both)."""
+    budget = self.prefill_token_budget
+    if self.budget_override > 0 and (
+        budget == 0 or self.budget_override < budget):
+      budget = self.budget_override
+    return budget
 
   @property
   def effective_spec_k(self) -> int:
@@ -425,10 +482,12 @@ class FCFSScheduler:
         return True
     return False
 
-  def requeue_slot(self, slot: int) -> Optional[Any]:
+  def requeue_slot(self, slot: int, reason: str = "bad_step"
+                   ) -> Optional[Any]:
     """Evict ``slot``'s request back to the front of the queue with its
-    committed prefix intact (the preemption path).  Returns the uid, or
-    None for an empty slot."""
+    committed prefix intact: the bad-step quarantine and the preemption
+    path (``reason`` ``"bad_step"`` or ``"preempted"``, for the log).
+    Returns the uid, or None for an empty slot."""
     state = self.active.get(slot)
     if state is None:
       return None
@@ -438,11 +497,24 @@ class FCFSScheduler:
     self._release_blocks(slot)
     self._deadline_active -= self._has_deadline(state.req)
     state.requeues += 1
+    state.bad_streak = 0
+    get_logger().debug("requeued uid %r from slot %d (%s) with %d "
+                       "committed tokens", state.req.uid, slot, reason,
+                       len(state.req.prompt) + len(state.generated))
     self.pending.appendleft(
         _Pending(state.req, state.submitted_at, carried=state))
     self._latency_pending += state.req.priority == "latency"
     self._deadline_pending += self._has_deadline(state.req)
     return state.req.uid
+
+  def retire_slot(self, slot: int, reason: str
+                  ) -> Optional[FinishedRequest]:
+    """Force-retire an active slot with an explicit finish reason (the
+    engine's quarantine-overflow path: reason ``"failed"``)."""
+    state = self.active.get(slot)
+    if state is None:
+      return None
+    return self._retire(state, reason)
 
   def snapshot_requests(self):
     raise not_ported("request snapshots", FLEET)
@@ -469,7 +541,7 @@ class FCFSScheduler:
     budget allow — latency class first, then FCFS.  Each admission is
     charged its first chunk, so a step never admits more prefill than it
     can schedule."""
-    budget_cap = self.prefill_token_budget
+    budget_cap = self._effective_budget()
     budget_left = budget_cap
     if budget_left > 0:
       budget_left -= sum(
@@ -484,7 +556,8 @@ class FCFSScheduler:
       if self.allocator.num_free == 0 or len(self.active) >= self.max_batch:
         # Capacity-blocked: a latency-class arrival evicts the youngest
         # throughput slot holding blocks now, instead of queueing.
-        if not (self._latency_pending and entry.req.priority == "latency"):
+        if not (self.paged and self._latency_pending
+                and entry.req.priority == "latency"):
           break
         if self._preempt_for_latency_admission() is None:
           break
@@ -533,19 +606,23 @@ class FCFSScheduler:
 
   @property
   def kv_blocks_free(self) -> int:
-    return self.block_allocator.num_free
+    return self.block_allocator.num_free if self.paged else 0
 
   @property
   def kv_blocks_used(self) -> int:
-    return self.block_allocator.num_used
+    return self.block_allocator.num_used if self.paged else 0
 
   @property
   def kv_fragmentation(self) -> float:
+    if not self.paged:
+      return 0.0
     used_tokens = sum(self._resident_tokens(s)
                       for s in self.active.values())
     return self.block_allocator.fragmentation(used_tokens)
 
   def _release_blocks(self, slot: int) -> None:
+    if not self.paged:
+      return
     for blk in self._slot_blocks.pop(slot, ()):
       self.block_allocator.decref(blk)
     self._tables[slot] = 0
@@ -631,7 +708,7 @@ class FCFSScheduler:
         "KV block pool exhausted: preempting slot %d (uid %r) to refill "
         "it; the request replays its committed prefix on readmission",
         best, self.active[best].req.uid)
-    self.requeue_slot(best)
+    self.requeue_slot(best, reason="preempted")
     return best
 
   def _preempt_for_latency_admission(self) -> Optional[int]:
@@ -645,7 +722,7 @@ class FCFSScheduler:
     get_logger().info(
         "proactive preemption: evicting throughput slot %d (uid %r) to "
         "admit a latency-class request", best, self.active[best].req.uid)
-    self.requeue_slot(best)
+    self.requeue_slot(best, reason="preempted")
     return best
 
   def _ensure_blocks(self, slot: int, num_tokens: int, scheduled: set,
@@ -699,7 +776,7 @@ class FCFSScheduler:
         top_p=np.ones((N,), np.float32),
         prefill_tokens=0, decode_tokens=0, scheduled_tokens=0,
         active_slots=len(self.active))
-    budget = self.prefill_token_budget
+    budget = self._effective_budget()
     pos = 0
     scheduled: set = set()
     # Pass 1: decode slots — one guaranteed token each.
@@ -796,18 +873,78 @@ class FCFSScheduler:
     self._plan = plan
     return plan
 
-  def plan_step(self) -> Optional[PagedStepPlan]:
-    """Expire dead requests, admit, then build the next flat plan (or
-    None when there is no device work)."""
+  def plan_step(self):
+    """Expire dead requests, admit, then build the next plan (a
+    :class:`StepPlan` or, paged, a :class:`PagedStepPlan`), or None when
+    there is no device work.  Decode slots always get their one token;
+    prefill chunks are granted in admission order until the per-step
+    budget runs out, and a starved prefill slot carries ``num_valid=0``
+    and resumes next step."""
     self.expire()
     if self.prefix_cache is not None:
       # Session TTL sweep before admission, so an expired session never
       # satisfies this iteration's matches.
       self.prefix_cache.expire()
     self._admit()
-    return self._plan_flat()
+    if self.paged:
+      return self._plan_flat()
+    if not self.active:
+      self._plan = None
+      return None
+    N, C = self.num_slots, self.chunk
+    plan = StepPlan(
+        tokens=np.zeros((N, C), np.int32),
+        num_valid=np.zeros((N,), np.int32),
+        reset=np.zeros((N,), bool),
+        keys=np.zeros((N, 2), np.uint32),
+        tok_index=np.zeros((N,), np.int32),
+        temperature=np.zeros((N,), np.float32),
+        top_k=np.zeros((N,), np.int32),
+        top_p=np.ones((N,), np.float32),
+        draft_cap=np.zeros((N,), np.int32),
+        prefilling=np.zeros((N,), bool),
+        prefill_tokens=0, decode_tokens=0,
+        active_slots=len(self.active))
+    budget = self._effective_budget()
+    spec_k = self.effective_spec_k
+    for slot in self._admit_order:
+      state = self.active.get(slot)
+      if state is None:
+        continue
+      req = state.req
+      plan.keys[slot] = state.key
+      plan.tok_index[slot] = len(state.generated)
+      plan.temperature[slot] = req.temperature
+      plan.top_k[slot] = req.top_k
+      plan.top_p[slot] = req.top_p
+      # Nothing fed yet (a fresh slot, or a requeued request starting its
+      # replay): the step zeroes the cursor before its writes.
+      plan.reset[slot] = state.prompt_pos == 0
+      if state.prefilling:
+        remaining = len(state.prefix) - state.prompt_pos
+        grant = min(C, remaining)
+        if budget > 0:
+          grant = min(grant, max(budget - plan.prefill_tokens, 0))
+        if grant == 0:
+          continue  # budget-starved this step; resumes next step
+        plan.tokens[slot, :grant] = state.prefix[
+            state.prompt_pos:state.prompt_pos + grant]
+        plan.num_valid[slot] = grant
+        plan.prefilling[slot] = True
+        plan.prefill_tokens += grant
+      else:
+        plan.tokens[slot, 0] = state.generated[-1]
+        plan.num_valid[slot] = 1
+        plan.decode_tokens += 1
+        if spec_k > 0 and req.speculative is not False:
+          # At most remaining - 1 drafts can commit beside the step's
+          # guaranteed token.
+          remaining = req.max_new_tokens - len(state.generated)
+          plan.draft_cap[slot] = max(0, min(spec_k, remaining - 1))
+    self._plan = plan
+    return plan
 
-  def slot_histories(self, plan: PagedStepPlan) -> Dict[int, np.ndarray]:
+  def slot_histories(self, plan) -> Dict[int, np.ndarray]:
     """Committed tokens (prompt + generated) of every slot with a draft
     reservation in ``plan``: the context drafters propose from."""
     out: Dict[int, np.ndarray] = {}
@@ -829,8 +966,9 @@ class FCFSScheduler:
     self._admit_order.remove(slot)
     self.allocator.free(slot)
     # Session persistence: register the completed blocks before the slot
-    # lets go of them, so a follow-up turn admits warm.
-    if self.prefix_cache is not None:
+    # lets go of them, so a follow-up turn admits warm.  A quarantined
+    # ("failed") request's device state is untrusted and never shared.
+    if self.prefix_cache is not None and reason != "failed":
       self._register_cached(state)
     self._release_blocks(slot)
     self._deadline_active -= self._has_deadline(state.req)
@@ -846,7 +984,8 @@ class FCFSScheduler:
     return fin
 
   def commit(self, next_tokens: np.ndarray,
-             num_committed: Optional[np.ndarray] = None
+             num_committed: Optional[np.ndarray] = None,
+             slot_ok: Optional[np.ndarray] = None
              ) -> List[FinishedRequest]:
     """Fold one step's committed tokens back into request state; returns
     this iteration's retirements (plus any plan-time expiries and
@@ -856,7 +995,10 @@ class FCFSScheduler:
     A slot's tokens count only once its prompt is fully fed.  The stop
     token and ``max_new_tokens`` are checked per token in commit order,
     so a stop token inside an accepted draft retires the request there
-    and drops the rest."""
+    and drops the rest.  ``slot_ok`` (bool ``[N]``, engine resilience)
+    marks the slots whose step was judged bad: those are skipped whole
+    (no prefix advance, no token), so the next plan re-feeds the same
+    work."""
     if self._plan is None:
       raise RuntimeError("commit() without a preceding plan_step()")
     plan, self._plan = self._plan, None
@@ -870,6 +1012,8 @@ class FCFSScheduler:
       state = self.active.get(slot)
       if state is None or plan.num_valid[slot] == 0:
         continue
+      if slot_ok is not None and not slot_ok[slot]:
+        continue  # bad step: state untouched, the next plan retries it
       req = state.req
       if state.prefilling:
         state.prompt_pos += int(plan.num_valid[slot])

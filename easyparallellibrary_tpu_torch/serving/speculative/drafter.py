@@ -5,8 +5,10 @@
   continuation of the most recent earlier occurrence of the request's
   own trailing n-gram.  Host work only, no weights.
 * :class:`DraftModelDrafter`: a small GPT (the target's vocabulary, any
-  depth or width) rolled greedily ``k`` tokens ahead per slot, against
-  paged pools of its own that the engine's block tables address.
+  depth or width) rolled greedily ``k`` tokens ahead per slot, against a
+  cache of its own in the engine's layout: a slot cache whose cursors
+  follow the engine's, or paged pools that the engine's block tables
+  address.
 
 Both propose deterministically (a point-mass proposal), for which the
 verifier's rejection sampling keeps the target distribution exactly.
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    CONTIGUOUS_ENGINE, RUNTIME, TENSOR_PARALLEL, not_ported)
+    RUNTIME, TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_draft_compatible)
 
@@ -51,9 +53,9 @@ class Drafter:
 
   ``k`` is the most drafts per slot per step.  Each engine iteration
   calls ``propose(plan, histories)`` before the device step (the plan's
-  draft positions are still empty), then ``observe_commit(None)`` after
-  it: the paged engine keeps no cursors, next step's positions are the
-  rollback.
+  draft positions are still empty), then ``observe_commit(cursors)``
+  after it, with the contiguous engine's rolled-back cursors (None on
+  the paged engine, whose next positions are the rollback).
   """
 
   k: int = 0
@@ -112,10 +114,20 @@ class NgramDrafter(Drafter):
 
 
 class DraftModelDrafter(Drafter):
-  """Greedy draft-model drafter with paged pools of its own.
+  """Greedy draft-model drafter with a cache of its own.
 
   ``model`` / ``params`` are a GPT sharing the target's vocabulary
-  (checked at bind).  The pools are allocated at the target's
+  (checked at bind).
+
+  On the contiguous engine the draft model keeps a slot cache of the
+  engine's geometry.  Each step mirrors the step plan's ``[num_slots,
+  C]`` block through it (prefill chunks keep the cache in lockstep, each
+  decode slot's last token seeds its rollout), then, when any slot
+  drafts, rolls ``k - 1`` one-token steps and a write-only feed of the
+  last draft.  Its cursors are the engine's: ``observe_commit`` adopts
+  the engine's rolled-back vector, which is the draft side's rollback.
+
+  On the paged engine the pools are allocated at the target's
   ``max_seq_len`` and the engine's pool size, and addressed through the
   engine's block tables: block indices depend only on positions, which
   are the same on both sides, so one host allocation serves both
@@ -135,6 +147,8 @@ class DraftModelDrafter(Drafter):
     self.model = model
     self.params = params
     self._kv = None
+    self._cursors = None
+    self._paged = False
     self.rollout_steps = 0
 
   @classmethod
@@ -144,17 +158,24 @@ class DraftModelDrafter(Drafter):
                      "saver)", RUNTIME)
 
   def bind(self, engine):
+    from easyparallellibrary_tpu_torch.runtime.amp import (
+        resolve_model_dtypes)
     from easyparallellibrary_tpu_torch.serving import kv_cache as kv_lib
     from easyparallellibrary_tpu_torch.weights import cast_for_compute
     check_draft_compatible(engine.model.cfg, self.model.cfg)
-    if getattr(engine, "block_size", 0) <= 0:
-      self._build_draft_fn(engine.chunk)
     self.device = engine.device
     self.num_slots = engine.num_slots
+    self.chunk = engine.chunk
     self.token_budget = engine.token_budget
+    self._paged = bool(engine.paged)
     cfg = self.model.cfg
     self.params = cast_for_compute(
-        {n: p.to(self.device) for n, p in self.params.items()}, cfg.dtype)
+        {n: p.to(self.device) for n, p in self.params.items()},
+        resolve_model_dtypes(cfg).dtype)
+    if not self._paged:
+      self._kv, self._cursors = kv_lib.allocate_kv_cache(
+          cfg, engine.num_slots, engine.chunk, self.device)
+      return
     # The engine's tables are target max_seq_len / block_size wide; only
     # the draft's head geometry shapes the pools.
     mirror_cfg = dataclasses.replace(
@@ -162,20 +183,53 @@ class DraftModelDrafter(Drafter):
     self._kv = kv_lib.allocate_paged_kv_cache(
         mirror_cfg, engine.num_blocks, engine.block_size, self.device)
 
-  def _build_draft_fn(self, chunk: int):
-    raise not_ported("the draft model on the contiguous slot layout",
-                     CONTIGUOUS_ENGINE)
-
   def _tensor(self, array) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
   @torch.inference_mode()
   def propose(self, plan, histories):
-    from easyparallellibrary_tpu_torch.kernels import paged_attention as pa
-    from easyparallellibrary_tpu_torch.models.gpt import paged_step_logits
     if self._kv is None:
       raise RuntimeError("DraftModelDrafter.propose before bind(): the "
                          "engine binds drafters in its constructor")
+    if not self._paged:
+      return self._propose_slots(plan)
+    return self._propose_paged(plan)
+
+  def _propose_slots(self, plan):
+    """The contiguous layout: mirror the step's ``[N, C]`` block at the
+    engine's cursors (reset slots from 0), then roll out one token per
+    slot at each slot's own next position."""
+    from easyparallellibrary_tpu_torch.models.gpt import slot_step_logits
+    N, C, K = self.num_slots, self.chunk, self.k
+    model, params = self.model, self.params
+    num_valid = self._tensor(plan.num_valid)
+    cursors = torch.where(self._tensor(plan.reset),
+                          torch.zeros_like(self._cursors), self._cursors)
+    logits, self._kv = slot_step_logits(
+        model, params, self._kv, self._tensor(plan.tokens), cursors)
+    counts = np.minimum(plan.draft_cap, K).astype(np.int32)
+    if not counts.any():
+      return np.zeros((N, K), np.int32), counts
+    self.rollout_steps += 1
+    rows = torch.arange(N, device=self.device)
+    toks = [torch.argmax(
+        logits[rows, torch.clamp(num_valid.long() - 1, 0, C - 1)], dim=-1)]
+    cur = cursors + num_valid
+    for j in range(1, K + 1):
+      # The K-th call only writes the last draft's K/V: with every draft
+      # accepted, the next step attends it.
+      lg, self._kv = slot_step_logits(model, params, self._kv,
+                                      toks[-1][:, None], cur)
+      if j < K:
+        toks.append(torch.argmax(lg[:, 0], dim=-1))
+      cur = cur + 1
+    # The drafter's one device-to-host fetch.
+    return (torch.stack(toks, dim=1).to(torch.int32).cpu().numpy(),
+            counts)
+
+  def _propose_paged(self, plan):
+    from easyparallellibrary_tpu_torch.kernels import paged_attention as pa
+    from easyparallellibrary_tpu_torch.models.gpt import paged_step_logits
     N, T, K = self.num_slots, self.token_budget, self.k
     model, params = self.model, self.params
     pool = self._kv["block_0"]["attn"]["cached_key"]
@@ -223,3 +277,10 @@ class DraftModelDrafter(Drafter):
     # The drafter's one device-to-host fetch.
     return (torch.stack(toks, dim=1).to(torch.int32).cpu().numpy(),
             counts)
+
+  def observe_commit(self, new_cursors) -> None:
+    # The cursors count committed tokens resident in either cache, so
+    # adopting the engine's rolled-back vector is the draft side's
+    # rollback (None on the paged engine).
+    if not self._paged:
+      self._cursors = new_cursors

@@ -441,3 +441,196 @@ def test_bf16_training_step_flash_matches_dense_on_the_card(cuda):
   assert np.isfinite(losses["pallas_flash"]).all()
   np.testing.assert_allclose(losses["pallas_flash"], losses["xla"],
                              rtol=2e-4)
+
+
+# fp16: the kernels and the plain versions round p (and dS) at the same
+# points from scores summed in another order, as in bf16, so the outputs
+# are held by normalized error too.  chip_smoke.py's FLASH_FP16_LIMIT and
+# PAGED_FP16_LIMIT say how the limits were set.
+FLASH_FP16_LIMIT = dict(fwd=(1e-3, 2e-3), grad=(2e-4, 2e-3))
+PAGED_FP16_LIMIT = (1e-3, 2e-3)
+
+
+def _assert_normalized_close(got, want, limit, name):
+  diff, ref = got.float() - want.float(), want.float()
+  rel_l2 = (diff.norm() / ref.norm()).item()
+  max_rel = (diff.abs().max() / ref.abs().max()).item()
+  assert rel_l2 <= limit[0] and max_rel <= limit[1], (name, rel_l2, max_rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B,H,S,Skv,D", [
+    (2, 3, 200, 200, 8),
+    (2, 2, 128, 128, 32),
+    (2, 3, 200, 200, 64),
+    (1, 2, 128, 192, 128),
+    (1, 2, 96, 96, 256),
+    (1, 1, 1, 1, 64),
+])
+def test_flash_fp16_kernels_match_plain_versions(cuda, causal, B, H, S, Skv,
+                                                 D):
+  """The fp16 builds (the CUDA-core kernels instantiated for __half) at
+  ragged lengths, a key length past the query length, a one-token
+  sequence and head dims 8 to 256."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  q, k, v, dout = _flash_case(cuda, torch.float16, 17, B, H, S, Skv, D)
+  launches = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dkv_cuda.launches,
+              fa.flash_bwd_dq_cuda.launches)
+  out, lse = fa.flash_fwd(q, k, v, causal)
+  want_out, want_lse = fa.flash_fwd_reference(q, k, v, causal)
+  delta = (dout.float() * want_out.float()).sum(-1)
+  dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, causal)
+  dq = fa.flash_bwd_dq(q, k, v, dout, want_lse, delta, causal)
+  torch.cuda.synchronize()
+  assert (fa.flash_fwd_cuda.launches, fa.flash_bwd_dkv_cuda.launches,
+          fa.flash_bwd_dq_cuda.launches) == tuple(n + 1 for n in launches)
+  want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, dout, want_lse,
+                                                delta, causal)
+  want_dq = fa.flash_bwd_dq_reference(q, k, v, dout, want_lse, delta,
+                                      causal)
+  assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.float16
+  _assert_normalized_close(out, want_out, FLASH_FP16_LIMIT["fwd"], "out")
+  torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-6)
+  for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                          ("dv", dv, want_dv)):
+    _assert_normalized_close(got, want, FLASH_FP16_LIMIT["grad"], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(seed=1, T=16, H=8, hd=64, NB=17, bs=16, MB=8),
+    dict(seed=2, T=5, H=3, hd=24, NB=9, bs=8, MB=4),
+    dict(seed=3, T=9, H=4, hd=128, NB=13, bs=16, MB=6),
+    dict(seed=4, T=7, H=2, hd=256, NB=9, bs=8, MB=4),
+    dict(seed=5, T=3, H=1, hd=8, NB=5, bs=2, MB=3),
+])
+def test_paged_fp16_warp_build_matches_plain_version(cuda, shape):
+  """fp16 runs the warp build at every head dim, 64 and 128 included
+  (the tiled build stays bf16-only)."""
+  args = _case(cuda, torch.float16, **shape)
+  launches = (pa.paged_attention_warp_cuda.launches,
+              pa.paged_attention_tiled_cuda.launches)
+  got = pa.paged_attention(*args)
+  torch.cuda.synchronize()
+  assert (pa.paged_attention_warp_cuda.launches,
+          pa.paged_attention_tiled_cuda.launches) == (launches[0] + 1,
+                                                      launches[1])
+  assert got.dtype == torch.float16
+  want = pa.paged_attention_reference(*args)
+  _assert_normalized_close(got, want, PAGED_FP16_LIMIT, "paged fp16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16],
+                         ids=["fp32", "fp16"])
+def test_nan_inputs_give_nan_outputs(cuda, dtype):
+  """``fmaxf`` drops a NaN operand, so a running max alone would hide
+  one; the NaN must still reach the output through p, in the flash
+  forward and in the paged warp build, for the serving engine's
+  finiteness verdict to see a poisoned step on the card."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  q, k, v, _ = _flash_case(cuda, dtype, 19, 1, 2, 64, 64, 64)
+  q[0, 0, 5] = float("nan")          # one query row of head 0
+  k[0, 1, 3] = float("nan")          # one key row of head 1
+  out, _ = fa.flash_fwd(q, k, v, True)
+  torch.cuda.synchronize()
+  assert bool(torch.isnan(out[0, 0, 5]).all())
+  assert bool(torch.isnan(out[0, 1, 3:]).all())    # every row that sees k 3
+  assert bool(torch.isfinite(out[0, 1, :3]).all())
+  args = list(_case(cuda, dtype, seed=6, T=4, H=2, hd=64, NB=5, bs=8, MB=4))
+  args[0][2, 1] = float("nan")
+  got = pa.paged_attention(*args)
+  torch.cuda.synchronize()
+  assert bool(torch.isnan(got[2, 1]).all())
+  assert bool(torch.isfinite(got[:2]).all())
+
+
+@pytest.mark.gpu
+def test_paged_fp16_query_over_fp32_pools_runs_the_fp32_build(cuda):
+  """amp O1 over an fp32 model config: an fp16 query over fp32 pools is
+  read in fp32 (an exact cast) by the fp32 warp build, and the output
+  is fp32, as the plain version's promoted result is.  The plain version
+  rounds p to the query's fp16 before the V product, the kernel keeps it
+  in fp32 (the Pallas kernel's ``p.astype(v.dtype)``): held to fp16's
+  resolution, rtol = atol = 2e-3."""
+  q, kp, vp, tables, positions = _case(cuda, torch.float32, seed=7, T=9,
+                                       H=4, hd=64, NB=13, bs=16, MB=6)
+  q = q.half()
+  launches = pa.paged_attention_warp_cuda.launches
+  got = pa.paged_attention(q, kp, vp, tables, positions)
+  torch.cuda.synchronize()
+  assert pa.paged_attention_warp_cuda.launches == launches + 1
+  want = pa.paged_attention_reference(q, kp, vp, tables, positions)
+  assert got.dtype == want.dtype == torch.float32
+  torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+  with pytest.raises(ValueError, match="one dtype"):
+    pa.paged_attention(q, kp.bfloat16(), vp.bfloat16(), tables, positions)
+
+
+@pytest.mark.gpu
+def test_contiguous_engine_greedy_streams_match_generate_on_the_card(cuda):
+  """The default serving layout on the card: staggered greedy streams
+  equal ``generate`` (fp32, no TF32), with no paged-attention launch
+  (the slot layout's attention is dense) and the cursors advanced on the
+  card."""
+  from easyparallellibrary_tpu_torch.models.gpt import generate
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
+  torch.backends.cuda.matmul.allow_tf32 = False
+  model, params = tiny_gpt(seed=3, device=cuda)
+  r = np.random.RandomState(0)
+  prompts = [r.randint(0, 64, (n,)).astype(np.int32) for n in (5, 3, 9, 1)]
+  eng = ContinuousBatchingEngine(model, params, num_slots=2,
+                                 prefill_chunk=4)
+  assert not eng.paged and eng._cursors.is_cuda
+  launches = pa.paged_attention_cuda.launches
+  for i, p in enumerate(prompts):
+    eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+  out = eng.run()
+  assert pa.paged_attention_cuda.launches == launches
+  for i, p in enumerate(prompts):
+    want = generate(model, params, torch.from_numpy(p[None]).long().to(cuda),
+                    6)[0].cpu().numpy()
+    np.testing.assert_array_equal(out[i], want, err_msg=f"req {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_nan_step_is_retried_exactly_on_the_card(cuda, paged):
+  """A NaN step on the card: the verdict computed there sees the NaN
+  logits (the kernels propagate NaN), the step is retried in place, and
+  the streams equal ``generate``; right after the bad step the poisoned
+  rows read back as zero."""
+  from easyparallellibrary_tpu_torch.models.gpt import generate
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  from easyparallellibrary_tpu_torch.testing.chaos import NaNLogitsInjector
+  from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
+  torch.backends.cuda.matmul.allow_tf32 = False
+  model, params = tiny_gpt(seed=5, device=cuda)
+  r = np.random.RandomState(1)
+  prompts = [r.randint(0, 64, (n,)).astype(np.int32) for n in (5, 7)]
+  kw = dict(paged=True, block_size=4) if paged else dict(paged=False)
+  eng = ContinuousBatchingEngine(model, params, num_slots=2,
+                                 prefill_chunk=4, resilience=True, **kw)
+  inj = NaNLogitsInjector(eng, bad_calls=(3,))
+  for i, p in enumerate(prompts):
+    eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+  while not inj.poisoned:
+    eng.step()
+  for layer in eng._kv.values():
+    for leaf in layer["attn"].values():
+      assert bool(torch.isfinite(leaf).all())
+      if paged:
+        assert not leaf[0].any()                  # the null block
+      else:
+        for slot, cur in enumerate(eng._cursors.cpu().numpy()):
+          assert not leaf[slot, int(cur):].any()
+  out = eng.run()
+  assert eng.stats.bad_steps == 1 and eng.stats.step_retries == 2
+  for i, p in enumerate(prompts):
+    want = generate(model, params, torch.from_numpy(p[None]).long().to(cuda),
+                    6)[0].cpu().numpy()
+    np.testing.assert_array_equal(out[i], want, err_msg=f"req {i}")

@@ -19,6 +19,7 @@ from easyparallellibrary_tpu.models import GPTConfig as JaxGPTConfig
 from easyparallellibrary_tpu.models.gpt import generate as jax_generate
 from easyparallellibrary_tpu.serving import (
     ContinuousBatchingEngine as JaxEngine, Request as JaxRequest)
+from easyparallellibrary_tpu_torch.config import Config as TorchConfig
 from easyparallellibrary_tpu_torch.models import gpt as tgpt
 from easyparallellibrary_tpu_torch.serving import (
     ContinuousBatchingEngine, Request)
@@ -160,11 +161,15 @@ def test_sampled_stream_independent_of_batch_and_slot():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(paged=False), dict(resilience=True), dict(mesh=object()),
-    dict(registry=object()),
+    dict(config=TorchConfig({"serving.autotune.enabled": True})),
+    dict(config=TorchConfig({"observability.enabled": True})),
+    dict(mesh=object()), dict(registry=object()),
 ])
 def test_features_outside_the_slice_raise(kwargs):
+  """What the port has not reached raises on both layouts (the
+  contiguous engine and serving resilience have been ported since)."""
   tmodel, tparams = tiny_gpt(device="cpu")
-  with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-    ContinuousBatchingEngine(tmodel, tparams, device="cpu",
-                             **{"paged": True, **kwargs})
+  for paged in (True, False):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+      ContinuousBatchingEngine(tmodel, tparams, device="cpu",
+                               **{"paged": paged, **kwargs})

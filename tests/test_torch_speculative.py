@@ -468,10 +468,13 @@ def test_entry_points_resolve_drafters_and_name_what_is_not_ported():
   with pytest.raises(NotImplementedError,
                      match="ROADMAP.md Queue 1, 'Runtime around the step'"):
     DraftModelDrafter.from_checkpoint("ckpt", tmodel)
-  with pytest.raises(NotImplementedError,
-                     match="ROADMAP.md Queue 1, 'Contiguous slot engine'"):
-    DraftModelDrafter(tmodel, tparams).bind(
-        type("SlotEngine", (), {"model": tmodel, "chunk": 8})())
+  # The contiguous engine (ported since) gives the draft model a slot
+  # cache of its geometry, one chunk of slack past max_seq_len.
+  eng = ContinuousBatchingEngine(tmodel, tparams, device="cpu", paged=False,
+                                 num_slots=3, prefill_chunk=8, config=cfg,
+                                 draft_model=tmodel, draft_params=tparams)
+  draft_cache = eng.drafter._kv["block_0"]["attn"]["cached_key"]
+  assert tuple(draft_cache.shape[:2]) == (3, 32 + 8)
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match="device='cpu'"):
       ContinuousBatchingEngine(tmodel, tparams, paged=True,
