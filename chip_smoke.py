@@ -87,7 +87,22 @@ those paths against its plain PyTorch version:
     bound and SDPA in fp16; the bench's training step with an fp32
     GPTConfig under ``amp.level=O1`` against the explicit-bf16 config
     (equal losses); O1-fp16 training at 4 layers (fp16 flash launches);
-    a short O1-fp16 paged serving run through the fp16 warp build.
+    a short O1-fp16 paged serving run through the fp16 warp build; the
+    mixed build (fp16 q over bf16 pools, amp O1 in fp16 over a bf16
+    model config) against its plain version at ``engine_step`` and
+    ``spec_step`` (``PAGED_MIXED_LIMIT`` and its sensitivity), timed
+    beside its plain version, its bound and gather + SDPA in fp32, and a
+    short O1-fp16 paged serving run over a bf16 config through it;
+17. serving observability, GPT-350M bf16: phase 5's load through the
+    paged engine (n-gram drafter, prefix cache) with the tracer, the SLO
+    monitor, the device introspector and a JSONL registry sink on,
+    against off, in ABBA turns: streams token-equal, host ms per step
+    and synchronising calls per run (held equal); the trace validated
+    with 16 complete request lifecycles and rendered by the report CLI;
+    a ``serving/*`` record per step; the HBM gauges, the cost card and
+    the compile sentinel; an ITL rule breach's diagnostic bundle, and a
+    watchdog breach arming a ``torch.profiler`` trace of the next step
+    that names the paged kernel; a short traced contiguous run.
 
 Every phase raises on failure.  The second-to-last line of the output is
 the ``{"kernels": [...]}`` record, the last one
@@ -95,14 +110,15 @@ the ``{"kernels": [...]}`` record, the last one
 of the repository, it exits with code 2 and prints no result.
 ``python3 chip_smoke.py --phases 2,3`` runs the build and the listed
 phases only (5 and 6, 10 and 11 run together) and prints no result
-lines.  ``--phases 14,15,16`` runs this slice's: the contiguous engine,
-serving resilience, amp O1 and the fp16 builds.
+lines.  ``--phases 16,17`` runs the latest slice's: the fp16 and mixed
+builds with amp O1, and serving observability.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -154,6 +170,11 @@ FLASH_FP16_LIMIT = {"fwd": dict(rel_l2=1e-3, max_rel=2e-3),
 # 1.8 / 2.1 times the largest readings (5.6e-4 / 9.4e-4, at rollout_step;
 # NVIDIA H100 80GB HBM3, 700 W), and below p rounded to bf16 (1.26e-3).
 PAGED_FP16_LIMIT = dict(rel_l2=1e-3, max_rel=2e-3)
+# The mixed build (fp16 q over bf16 pools, fp32 out) against its plain
+# version: the same rounding of p to fp16 as the fp16 build, so the same
+# limit; mixed_paged_parity checks that it catches a lost K block and p
+# rounded to bf16.
+PAGED_MIXED_LIMIT = dict(rel_l2=1e-3, max_rel=2e-3)
 # The training shape (batch cut to 2), the JAX tests' shapes, a ragged
 # length whose last tile of each head runs past S (B*H > 1), and the
 # wgmma kernels' second head dim.
@@ -308,10 +329,11 @@ def scheduled_step_case(torch, dtype, seed, kind, H=16, hd=64):
            runs) for p in calls]
 
 
-def paged_bound(torch, q, kp, tables, positions):
+def paged_bound(torch, q, kp, tables, positions, out_itemsize=None):
   """(least ms, "bytes" | "operations") for one paged-attention call on
-  these inputs: the K/V rows it must read (each distinct pool row once),
-  q, the live table entries, positions and the output, over the HBM
+  these inputs: the K/V rows it must read (each distinct pool row once,
+  in the pools' type), q, the live table entries, positions and the
+  output (``out_itemsize`` bytes a value, by default q's), over the HBM
   rate; ~4 operations per attended K/V element over the input type's
   peak rate."""
   T, H, hd = q.shape
@@ -325,7 +347,9 @@ def paged_bound(torch, q, kp, tables, positions):
     rows.append(tab[t, j // bs] * bs + j % bs)
   distinct = np.unique(np.concatenate(rows)).size
   itemsize = q.element_size()
-  nbytes = (2 * distinct * H * hd * itemsize + 2 * q.numel() * itemsize
+  out_itemsize = itemsize if out_itemsize is None else out_itemsize
+  nbytes = (2 * distinct * H * hd * kp.element_size()
+            + q.numel() * (itemsize + out_itemsize)
             + 4 * int((last // bs + 1).sum()) + 4 * T)
   ops = 4 * int((last + 1).sum()) * H * hd
   dtype = str(q.dtype).replace("torch.", "")
@@ -1898,6 +1922,435 @@ def fp16_serving(torch, params, pa):
   return launches
 
 
+def mixed_case(torch, args):
+  """A paged-attention case as the mixed build takes it: q in fp16 over
+  bf16 pools (amp O1 in fp16 over a bf16 model config)."""
+  q, kp, vp, tables, positions = args
+  return (q.half(), kp.bfloat16(), vp.bfloat16(), tables, positions)
+
+
+def mixed_cases(torch):
+  """The mixed build's parity cases: ``engine_step`` at head dims 64 and
+  128 (fp16 q never takes the tiled build) and the scheduler's
+  ``spec_step``, each drawn in fp32 and rounded to the two types."""
+  cases = [("engine_step", engine_step_case(torch, torch.float32, 41)[0]),
+           ("engine_step_hd128", engine_step_case(torch, torch.float32, 42,
+                                                  H=8, hd=128)[0])]
+  cases += [("spec_step", args) for args, _, _ in
+            scheduled_step_case(torch, torch.float32, 43, "spec_step")]
+  return [(label, mixed_case(torch, args)) for label, args in cases]
+
+
+def mixed_paged_parity(torch, pa):
+  """The mixed build against its plain version at ``engine_step`` and
+  ``spec_step``, by normalized error against ``PAGED_MIXED_LIMIT``, each
+  call counted on the mixed build alone and returning fp32; then faults
+  the limit must catch (a lost block of K rows, p rounded to bf16
+  instead of the query's fp16).  Returns the max abs error and the
+  largest normalized errors."""
+  err, rel = 0.0, (0.0, 0.0)
+  cases = mixed_cases(torch)
+  for label, args in cases:
+    before = (pa.paged_attention_mixed_cuda.launches,
+              pa.paged_attention_warp_cuda.launches,
+              pa.paged_attention_tiled_cuda.launches)
+    got = pa.paged_attention(*args)
+    want = pa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert (pa.paged_attention_mixed_cuda.launches,
+            pa.paged_attention_warp_cuda.launches,
+            pa.paged_attention_tiled_cuda.launches) == (
+                before[0] + 1, before[1], before[2]), label
+    assert got.dtype == want.dtype == torch.float32, label
+    assert bool(torch.isfinite(got).all()), label
+    e = (got - want).abs().max().item()
+    r = normalized_errors(got, want)
+    assert r[0] <= PAGED_MIXED_LIMIT["rel_l2"] and (
+        r[1] <= PAGED_MIXED_LIMIT["max_rel"]), (label, r)
+    err, rel = max(err, e), (max(rel[0], r[0]), max(rel[1], r[1]))
+    log(f"   {label:18s} fp16 q / bf16 pools, mixed build: max|kernel - "
+        f"plain| {e:.3e}, rel_l2 {r[0]:.2e}, max_rel {r[1]:.2e}")
+  q, kp, vp, tables, positions = cases[0][1]
+  want = pa.paged_attention_reference(q, kp, vp, tables, positions)
+  lost = kp.clone()
+  lost[tables[0, 0].long()] = 0                   # slot 0's first block
+  faults = {"a K block lost": pa.paged_attention_reference(
+                q, lost, vp, tables, positions),
+            "p rounded to bf16": paged_bf16_rounded_p(
+                torch, q, kp, vp, tables, positions).float()}
+  for name, faulty in faults.items():
+    r = normalized_errors(faulty, want)
+    caught = (r[0] > PAGED_MIXED_LIMIT["rel_l2"]
+              or r[1] > PAGED_MIXED_LIMIT["max_rel"])
+    log(f"   mixed paged fault {name:18s}: rel_l2 {r[0]:.2e}, max_rel "
+        f"{r[1]:.2e} -> {'caught' if caught else 'not caught'}")
+    assert caught, f"PAGED_MIXED_LIMIT misses '{name}'"
+  log(f"   mixed paged limit (rel_l2, max_rel): {PAGED_MIXED_LIMIT}")
+  return err, rel
+
+
+def mixed_timing(torch, pa):
+  """The mixed build beside its plain version, its bound (fp16 q and
+  bf16 K/V read, fp32 written) and gather + SDPA in fp32, the promoted
+  type, at ``engine_step`` and ``spec_step``."""
+  rows = {}
+  for label in ("engine_step", "spec_step"):
+    if label == "engine_step":
+      sets = [engine_step_case(torch, torch.float32, 500 + i)[0]
+              for i in range(4)]
+    else:
+      sets = [args for i in range(4) for args, _, _ in
+              scheduled_step_case(torch, torch.float32, 500 + i, label)]
+    sets = [mixed_case(torch, args) for args in sets]
+    fp32_sets = [(q.float(), kp.float(), vp.float(), t, p)
+                 for q, kp, vp, t, p in sets]
+    bound, bound_by = paged_bound(torch, *[sets[0][i] for i in (0, 1, 3, 4)],
+                                  out_itemsize=4)
+    lib = lambda *a: library_paged_attention(torch, *a)  # noqa: E731
+    row = dict(kernel_ms=time_ms(torch, pa.paged_attention_cuda, sets),
+               plain_ms=time_ms(torch, pa.paged_attention_reference, sets,
+                                reps=3),
+               library_ms=time_ms(torch, lib, fp32_sets, reps=3),
+               bound_ms=bound, bound_by=bound_by)
+    log(f"   mixed paged {label:12s}: "
+        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in row.items()))
+    rows[label] = row
+  return rows
+
+
+def mixed_serving(torch, params, pa):
+  """A short O1-fp16 paged serving run over a bf16 model config at
+  GPT-350M width, 8 requests: the pools stay bf16 (the model config's),
+  the queries are fp16, so every attention call is the mixed build
+  (counts set to 0 just before: layers x steps launches; the tiled and
+  warp builds and the plain version never); streams against
+  ``generate(use_cache=False)`` under the same config, by the gap rule
+  at bf16's spacing (the pools round K/V to bf16, the reference keeps
+  them in fp16).  Returns the mixed build's launches."""
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.config import Config
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  Env.get().reset(Config({"amp.level": "O1", "amp.compute_dtype": "fp16"}))
+  try:
+    cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+    model = GPT(cfg)
+    eng = ContinuousBatchingEngine(model, params, paged=True,
+                                   num_slots=NUM_SLOTS,
+                                   prefill_chunk=PREFILL_CHUNK,
+                                   block_size=BLOCK_SIZE)
+    assert eng.compute_dtype == torch.float16
+    assert eng._kv["block_0"]["attn"]["cached_key"].dtype == torch.bfloat16
+    prompts = make_prompts(8, NUM_SLOTS, cfg.vocab_size)
+    pa.reset_counts()
+    for i, p in enumerate(prompts):
+      eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+    out = eng.run()
+    torch.cuda.synchronize()
+    launches = pa.paged_attention_mixed_cuda.launches
+    assert launches == cfg.num_layers * eng.steps > 0, (launches, eng.steps)
+    assert pa.paged_attention_cuda.launches == launches
+    assert pa.paged_attention_tiled_cuda.launches == 0
+    assert pa.paged_attention_warp_cuda.launches == 0
+    assert pa.paged_attention_reference.calls == 0
+    log(f"   O1 fp16 over bf16 pools, paged serving: {len(prompts)} "
+        f"requests, {eng.steps} steps; mixed-build launches {launches} = "
+        f"{cfg.num_layers} x {eng.steps}")
+    greedy_vs_generate(torch, model, eng.params, prompts, out,
+                       bf16_gap_limit, "O1 fp16 over bf16 paged")
+  finally:
+    Env.get().reset()
+  return launches
+
+
+# --------------------------------------- phase 17: serving observability
+
+
+OBS_DIR = ROOT / "chiprun_out" / "chip_smoke_observability"
+OBS_RING = 1 << 20          # events: no wrap over phase 5's load
+SYNC_WARNING = "synchroniz"  # torch.cuda.set_sync_debug_mode's warnings
+
+
+def obs_config(tmp, serving=None, **slo):
+  """Observability fully on: the tracer, the SLO monitor (events and
+  diagnostic bundles under ``tmp``) and the device introspector;
+  ``serving`` adds ``serving.*`` knobs."""
+  from easyparallellibrary_tpu_torch.config import Config
+  return Config({"serving": serving or {}, "observability": {
+      "enabled": True, "ring_capacity": OBS_RING,
+      "slo": dict({"enabled": True,
+                   "events_path": str(tmp / "slo_events.jsonl"),
+                   "capture_dir": str(tmp / "bundles"),
+                   "capture_min_interval_s": 0.0}, **slo),
+      "device": {"enabled": True}}})
+
+
+def reset_observability():
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.observability import device, slo, trace
+  for mod in (trace, slo, device):
+    mod.reset()
+  Env.get().reset()
+
+
+def obs_run(torch, model, params, prompts, traced, tmp, tag):
+  """Phase 5's staggered load through a paged engine with the n-gram
+  drafter and the prefix cache, observability fully on (a registry with
+  a JSONL sink) or off, under ``torch.cuda.set_sync_debug_mode("warn")``
+  with its synchronising calls counted.  Returns the engine, its
+  streams, host ms per step, the sync count and the JSONL path."""
+  import warnings
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.observability.registry import (
+      MetricRegistry)
+  from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, NgramDrafter, Request)
+  from easyparallellibrary_tpu_torch.utils.metrics_writer import (
+      MetricsWriter)
+  reset_observability()
+  registry = metrics = None
+  if traced:
+    Env.get().reset(obs_config(tmp))
+    metrics = tmp / f"metrics_{tag}.jsonl"
+    registry = MetricRegistry(MetricsWriter(str(metrics)))
+  eng = ContinuousBatchingEngine(
+      model, params, paged=True, num_slots=NUM_SLOTS,
+      prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE,
+      prefix_cache=True, drafter=NgramDrafter(k=SPEC_K),
+      stats=ServingStats(), registry=registry)
+  torch.cuda.synchronize()
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      t0 = time.monotonic()
+      out = drive_waves(eng, Request, prompts)
+      torch.cuda.synchronize()
+      ms = (time.monotonic() - t0) / eng.steps * 1e3
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+  syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+  if registry is not None:
+    registry.close()
+  # The step's own time (draft, device step and fetch, commit: the
+  # ``step_time_s`` samples), beside the whole host ms per step.
+  step_ms = eng.stats.busy_time_s / eng.steps * 1e3
+  return eng, out, (ms, step_ms), syncs, metrics
+
+
+def check_lifecycles(events, uids):
+  """Every uid has a submit and a first-token instant and exactly one
+  request span, holding at least one prefill span and one decode or
+  speculate span on its slot's track."""
+  from easyparallellibrary_tpu_torch.observability import report
+  spans, unmatched = report.pair_spans(events)
+  assert unmatched == 0, unmatched
+  for uid in map(str, uids):
+    kinds = [e["name"] for e in events if e["ph"] == "i"
+             and (e.get("args") or {}).get("uid") == uid]
+    assert kinds.count("serving/submit") == 1, (uid, kinds)
+    assert kinds.count("serving/first_token") == 1, (uid, kinds)
+    (req,) = [sp for sp in spans if sp["cat"] == "serving.request"
+              and sp["args"].get("uid") == uid]
+    inner = {sp["name"] for sp in spans
+             if (sp["pid"], sp["tid"]) == (req["pid"], req["tid"])
+             and req["ts"] <= sp["ts"]
+             and sp["ts"] + sp["dur"] <= req["ts"] + req["dur"]}
+    assert "prefill" in inner and inner & {"decode", "speculate"}, (
+        uid, inner)
+
+
+def observability_serving(torch, params, pa):
+  """Phase 17: the paged engine (n-gram drafter, prefix cache) at
+  GPT-350M width in bf16 under phase 5's staggered load, observability
+  fully on against off.  Returns the readings for the log."""
+  import shutil
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.observability import (
+      device as device_lib, trace as trace_lib)
+  shutil.rmtree(OBS_DIR, ignore_errors=True)
+  OBS_DIR.mkdir(parents=True)
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  prompts = make_prompts(2, 16, cfg.vocab_size)
+  # Host ms per step and synchronising calls in two rounds of ABBA
+  # turns (untraced, traced, traced, untraced; then the other way
+  # round) after an untraced warm-up run (the process's first run of
+  # this load makes one more synchronising call and runs slower); the
+  # first traced run is the one checked.
+  runs = {False: [], True: []}
+  for turn, traced in enumerate((None, False, True, True, False,
+                                 True, False, False, True)):
+    tmp = OBS_DIR / f"turn{turn}"
+    tmp.mkdir()
+    if traced is None:
+      obs_run(torch, model, params, prompts, False, tmp, "warm-up")
+      continue
+    if traced and not runs[True]:
+      pa.reset_counts()
+    eng, out, ms, syncs, metrics = obs_run(torch, model, params, prompts,
+                                           traced, tmp, f"turn{turn}")
+    if traced and not runs[True]:
+      launches = pa.paged_attention_tiled_cuda.launches
+      assert launches == cfg.num_layers * eng.steps, (launches, eng.steps)
+      assert pa.paged_attention_reference.calls == 0
+      main = dict(eng=eng, out=out, tmp=tmp, metrics=metrics,
+                  tracer=trace_lib.get_tracer(),
+                  intro=device_lib.get_introspector(),
+                  latest=eng.registry.latest())
+    runs[traced].append(dict(out=out, ms=ms[0], step_ms=ms[1], syncs=syncs,
+                             steps=eng.steps))
+  base = runs[False][0]
+  for run in runs[True] + runs[False][1:]:
+    assert run["steps"] == base["steps"], (run["steps"], base["steps"])
+    for i in range(len(prompts)):
+      np.testing.assert_array_equal(run["out"][i], base["out"][i],
+                                    f"stream {i}")
+  ms = {k: [r["ms"] for r in v] for k, v in runs.items()}
+  step_ms = {k: [r["step_ms"] for r in v] for k, v in runs.items()}
+  syncs = {k: [r["syncs"] for r in v] for k, v in runs.items()}
+  log(f"   streams of all eight runs token-equal ({len(prompts)} requests, "
+      f"{base['steps']} steps each)")
+  for label, vals in (("host ms/step", ms), ("step_time_s ms", step_ms)):
+    log(f"   {label} in turns (U T T U T U U T): untraced "
+        + ", ".join(f"{v:.2f}" for v in vals[False]) + "; traced "
+        + ", ".join(f"{v:.2f}" for v in vals[True])
+        + f" (medians {statistics.median(vals[False]):.2f} untraced, "
+        f"{statistics.median(vals[True]):.2f} traced)")
+  log(f"   synchronising calls per run: untraced {syncs[False]}, traced "
+      f"{syncs[True]} ({syncs[False][0] / base['steps']:.2f} a step)")
+  assert len(set(syncs[False] + syncs[True])) == 1, syncs
+  eng, tmp = main["eng"], main["tmp"]
+  tracer = main["tracer"]
+  path = tracer.export(str(tmp / "trace.json"))
+  events = trace_lib.validate_trace(path)
+  check_lifecycles(events, range(len(prompts)))
+  log(f"   trace: {os.path.getsize(path)} bytes, {len(events)} events, "
+      f"ring dropped {tracer.dropped}; validate_trace passes; 16 complete "
+      f"request lifecycles")
+  assert tracer.dropped == 0
+  report = subprocess.run(
+      [sys.executable, "-m", "easyparallellibrary_tpu_torch.observability."
+       "report", path], capture_output=True, text=True, timeout=300,
+      check=True, cwd=str(ROOT)).stdout
+  assert "serving/device_step" in report and "speculate" in report, report
+  log("   report CLI:\n" + "\n".join(
+      "     " + line for line in report.splitlines()[:14]))
+  with open(main["metrics"]) as f:
+    records = [json.loads(line) for line in f]
+  per_step = [r["step"] for r in records if "serving/step_time_s" in r]
+  assert per_step == list(range(1, eng.steps + 1)), per_step[:5]
+  gauges = {k.rsplit("/", 1)[-1]: v for k, v in main["latest"].items()
+            if k.startswith("observability/device/")}
+  card = main["intro"].card("serving/fused_step")
+  param_bytes = sum(p.numel() * p.element_size()
+                    for p in eng.params.values())
+  pool_bytes = sum(x.numel() * x.element_size() for x in eng._kv_leaves())
+  log(f"   HBM gauges: {gauges}")
+  log(f"   cost card: {card.summary()}")
+  assert 0 < gauges["hbm_frac"] < 1, gauges
+  assert gauges["hbm_bytes_in_use"] >= param_bytes + pool_bytes, gauges
+  assert card.donation_requested and card.donation_verified
+  assert card.argument_bytes == param_bytes + pool_bytes
+  assert eng._compile_sentinel.recompiles == 0
+  itl_p50 = eng.stats.summary()["itl_p50_s"]
+  slo_checks(torch, model, params, prompts, itl_p50)
+  contiguous_traced(torch, params)
+  reset_observability()
+  return dict(ms=ms, step_ms=step_ms, syncs=syncs,
+              trace_bytes=os.path.getsize(path),
+              events=len(events), gauges=gauges, card=card.summary())
+
+
+def slo_checks(torch, model, params, prompts, itl_p50):
+  """An ITL rule set at half the measured ITL p50 breaches at the run's
+  rollup, and its diagnostic bundle holds the engine's context and the
+  device gauges.  A hanging step (``HangingStepInjector``, 1.0 s against
+  a 0.5 s watchdog deadline) is a breach attributed to this engine's
+  twin: with ``slo.capture_xla`` its bundle holds a ``torch.profiler``
+  trace of the next step, whose CUDA kernels include the paged kernel."""
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.observability import slo as slo_lib
+  from easyparallellibrary_tpu_torch.observability.registry import (
+      MetricRegistry)
+  from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  from easyparallellibrary_tpu_torch.testing.chaos import HangingStepInjector
+  tmp = OBS_DIR / "slo"
+  tmp.mkdir()
+  reset_observability()
+  Env.get().reset(obs_config(tmp, serving={"resilience": {
+      "enabled": True, "step_timeout_s": 0.5}}, capture_xla=True))
+  monitor = slo_lib.install(slo_lib.SLOMonitor(
+      [slo_lib.SLORule("itl_p50", "itl_p50_s", "<=", itl_p50 / 2)],
+      events_path=str(tmp / "slo_events.jsonl"),
+      capture=slo_lib.DiagnosticCapture(str(tmp / "bundles"),
+                                        min_interval_s=0.0)))
+  eng = ContinuousBatchingEngine(
+      model, params, paged=True, num_slots=NUM_SLOTS,
+      prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE,
+      stats=ServingStats(), registry=MetricRegistry())
+  inj = HangingStepInjector(eng, hang_calls=(4,), hang_s=1.0)
+  for i, p in enumerate(prompts[:NUM_SLOTS]):
+    eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+  eng.run()
+  eng.close()
+  assert inj.hangs == 1
+  by_rule = {e["rule"]: e for e in monitor.events if e["event"] == "breach"}
+  assert {"itl_p50", "watchdog_timeout"} <= set(by_rule), monitor.events
+  with open(os.path.join(by_rule["itl_p50"]["bundle"], "state.json")) as f:
+    state = json.load(f)
+  assert state["serving"]["engine_steps"] == eng.steps, state["serving"]
+  assert state["device"]["hbm"]["hbm_source"] == "memory_stats", state
+  hang = by_rule["watchdog_timeout"]
+  assert hang["twin"] == eng._twin_label
+  prof_path = os.path.join(hang["bundle"], "device", "device_trace.json")
+  with open(prof_path) as f:
+    kernels = {e["name"] for e in json.load(f)["traceEvents"]
+               if e.get("cat") == "kernel"}
+  paged = sorted(k for k in kernels if "paged_attention" in k)
+  assert paged, sorted(kernels)[:20]
+  log(f"   SLO: itl_p50 rule at {itl_p50 / 2 * 1e3:.2f} ms breached "
+      f"(value {by_rule['itl_p50']['value'] * 1e3:.2f} ms); its bundle "
+      f"holds the engine's context and HBM gauges; the watchdog breach "
+      f"(twin {hang['twin']}) armed a torch.profiler trace of the next "
+      f"step ({os.path.getsize(prof_path)} bytes, {len(kernels)} CUDA "
+      f"kernel names, paged: {paged[0][:60]})")
+  os.remove(prof_path)          # bulky; the check above is its record
+
+
+def contiguous_traced(torch, params):
+  """A short traced run of the contiguous engine (8 requests): the trace
+  validates and every slot's request lifecycle is complete."""
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.observability import trace as trace_lib
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  tmp = OBS_DIR / "contiguous"
+  tmp.mkdir()
+  reset_observability()
+  Env.get().reset(obs_config(tmp))
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  eng = ContinuousBatchingEngine(GPT(cfg), params, paged=False,
+                                 num_slots=NUM_SLOTS,
+                                 prefill_chunk=PREFILL_CHUNK)
+  prompts = make_prompts(9, NUM_SLOTS, cfg.vocab_size)
+  for i, p in enumerate(prompts):
+    eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+  eng.run()
+  events = trace_lib.validate_trace(
+      trace_lib.get_tracer().export(str(tmp / "trace.json")))
+  check_lifecycles(events, range(len(prompts)))
+  log(f"   contiguous engine traced: {eng.steps} steps, {len(events)} "
+      f"events, validate_trace passes, {len(prompts)} complete request "
+      f"lifecycles")
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16"):
   return {"name": torch_name, "route": "cuda", "build": build,
@@ -1950,7 +2403,7 @@ def main() -> int:
   if want(3):
     with Phase("3. kernel timing"):
       times = kernel_timing(torch, pa)
-  serving = (4, 5, 6, 12, 13, 14, 15, 16)
+  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17)
   # Reference streams of generate(use_cache=False), by prompt set, shared
   # between the paged phases and phase 14, which serves the same prompts.
   refs = {"float32": {}, "bfloat16": {}, "spec": {}}
@@ -1992,6 +2445,15 @@ def main() -> int:
     with Phase("16c. amp O1 training (bench's step) and O1-fp16 serving"):
       fp16_flash_launches = amp_training(torch, fa, bench)
       fp16_warp_launches = fp16_serving(torch, params, pa)
+    with Phase("16d. the mixed build (fp16 q over bf16 pools): parity, "
+               "timing, O1-fp16 serving over a bf16 config"):
+      mixed_err, mixed_rel = mixed_paged_parity(torch, pa)
+      mixed_times = mixed_timing(torch, pa)
+      mixed_launches = mixed_serving(torch, params, pa)
+  if want(17):
+    with Phase("17. GPT-350M bf16: serving observability (traced against "
+               "untraced, device truth, SLO, contiguous)"):
+      observability_serving(torch, params, pa)
   del refs
   if any(map(want, serving)):
     del params
@@ -2083,6 +2545,19 @@ def main() -> int:
       "fp16_max_rel_err": fp16_paged_rel[1],
       "fp16_rel_l2_limit": PAGED_FP16_LIMIT["rel_l2"],
       "fp16_max_rel_limit": PAGED_FP16_LIMIT["max_rel"]}
+  row = mixed_times["engine_step"]
+  mixed_paged = {
+      "name": "paged_attention_mixed_fp16_bf16", "route": "cuda",
+      "build": "paged_attention_kernel<__half, __nv_bfloat16, float, 1>",
+      "source": paged_src, "replaces": paged_replaces,
+      "launches": mixed_launches, "max_abs_err": mixed_err,
+      "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+      "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+      "library_ms": row["library_ms"], "dtype": "float16 q, bfloat16 pools",
+      "shape": "engine_step", "spec_step": mixed_times["spec_step"],
+      "mixed_rel_l2_err": mixed_rel[0], "mixed_max_rel_err": mixed_rel[1],
+      "mixed_rel_l2_limit": PAGED_MIXED_LIMIT["rel_l2"],
+      "mixed_max_rel_limit": PAGED_MIXED_LIMIT["max_rel"]}
   print(json.dumps({"kernels": [
       dict(paged_record("paged_attention_tiled",
                         "paged_attention_tiled_kernel<64>", launches,
@@ -2091,7 +2566,7 @@ def main() -> int:
                k: v["launches"] for k, v in prefix.items()}),
       paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
                    warp_launches, "float32"),
-  ] + flash_records + fp16_flash + [fp16_paged]}), flush=True)
+  ] + flash_records + fp16_flash + [fp16_paged, mixed_paged]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

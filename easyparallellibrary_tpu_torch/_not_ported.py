@@ -10,7 +10,6 @@ from __future__ import annotations
 
 FLEET = "Router, fleet and request migration"
 TENSOR_PARALLEL = "Tensor-parallel mesh"
-TRACING = "Tracing and metric registry"
 PARALLEL_STRATEGIES = "Pipeline, MoE and sequence parallelism"
 RUNTIME = "Runtime around the step"
 

@@ -105,6 +105,15 @@ def build(names: Iterable[str]) -> Dict[str, str]:
   return reports
 
 
+def loaded_count() -> int:
+  """How many kernel libraries this process has loaded.  A library is
+  built (tens of seconds of ``nvcc``) or loaded at its first use, so a
+  count that grows in the middle of serving is a stall: the serving
+  engine's compile sentinel watches it (observability/slo.py)."""
+  with _LOCK:
+    return len(_LIBS)
+
+
 def load(name: str) -> ctypes.CDLL:
   """The loaded library of kernel ``name``, built first if needed."""
   with _LOCK:

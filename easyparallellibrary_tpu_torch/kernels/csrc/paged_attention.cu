@@ -17,6 +17,14 @@
 // K/V and q to fp32 as it loads them, keeps scores, the running max and
 // the accumulator in fp32, and rounds p to fp16 before the V product.
 //
+// Mixed build (amp O1 computing in fp16 over a bf16 model config's
+// pools): the warp kernel with an fp16 query over bf16 K/V, computing
+// what the JAX reference (`paged_attention_reference`) computes at
+// these types, where jnp.einsum promotes fp16 x bf16 to fp32: scores
+// from q and K both read into fp32, an fp32 softmax, p rounded to fp16
+// (the reference's probs.astype(q.dtype)) and multiplied by V read
+// into fp32, and an fp32 output, the promoted type.
+//
 // What bounds it on this card: bytes.  A token reads (pos + 1) * H * hd
 // * 2 * itemsize bytes of K/V and does about 4 operations per element
 // read, far below the H100's ~20 (fp32) or ~295 (bf16 tensor-core)
@@ -167,16 +175,21 @@ __device__ __forceinline__ float round_to(float p, const __half*) {
 // One warp per (token, head).  The head dim is cut into nvec = hd / VEC
 // 16-byte chunks; LPR = 1 << lpr_log2 lanes share one row (each owns CPL
 // consecutive chunks, LPR * CPL = nvec), and the warp's 32 / LPR lane
-// groups take 32 / LPR consecutive rows per step.
-template <typename T, int CPL>
+// groups take 32 / LPR consecutive rows per step.  TQ is the query's
+// type (p is rounded to it), TKV the pools', TO the output's: all one
+// type, or fp16 / bf16 / fp32 in the mixed build.
+template <typename TQ, typename TKV, typename TO, int CPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages,
+paged_attention_kernel(const TQ* __restrict__ q,
+                       const TKV* __restrict__ k_pages,
+                       const TKV* __restrict__ v_pages,
                        const int* __restrict__ tables,
-                       const int* __restrict__ positions, T* __restrict__ out,
+                       const int* __restrict__ positions, TO* __restrict__ out,
                        int num_tokens, int H, int hd, int NB, int bs, int MB,
                        int lpr_log2, float scale) {
-  constexpr int VEC = Vec<T>::N;
+  constexpr int VEC = Vec<TKV>::N;
+  static_assert(Vec<TQ>::N == VEC, "q and the pools load VEC values a lane");
+  constexpr int VO = Vec<TO>::N;  // output values per 16-byte store
   constexpr int D = CPL * VEC;  // head-dim values owned by one lane
   const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (warp >= num_tokens * H) return;  // uniform across the warp
@@ -190,7 +203,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int d0 = sub * D;
 
   float qv[D];
-  const T* qrow = q + (static_cast<size_t>(t) * H + h) * hd + d0;
+  const TQ* qrow = q + (static_cast<size_t>(t) * H + h) * hd + d0;
 #pragma unroll
   for (int c = 0; c < CPL; ++c) load16(qrow + c * VEC, qv + c * VEC);
 
@@ -263,13 +276,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const float l_safe = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < D; ++i) acc[i] = acc[i] / l_safe;
-    T* orow = out + (static_cast<size_t>(t) * H + h) * hd + d0;
+    TO* orow = out + (static_cast<size_t>(t) * H + h) * hd + d0;
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) store16(orow + c * VEC, acc + c * VEC);
+    for (int c = 0; c < D / VO; ++c) store16(orow + c * VO, acc + c * VO);
   }
 }
 
-template <typename T, int CPL>
+template <typename TQ, typename TKV, typename TO, int CPL>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* tables, const int* positions, void* out,
                    int num_tokens, int H, int hd, int NB, int bs, int MB,
@@ -277,10 +290,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const long long warps = static_cast<long long>(num_tokens) * H;
   const unsigned blocks =
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  paged_attention_kernel<T, CPL><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, positions, static_cast<T*>(out),
-      num_tokens, H, hd, NB, bs, MB, lpr_log2, scale);
+  paged_attention_kernel<TQ, TKV, TO, CPL>
+      <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+          static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+          static_cast<const TKV*>(v), tables, positions,
+          static_cast<TO*>(out), num_tokens, H, hd, NB, bs, MB, lpr_log2,
+          scale);
   return cudaGetLastError();
 }
 
@@ -291,12 +306,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   X(1) X(2) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) X(19) X(21) X(23) \
   X(25) X(27) X(29) X(31)
 
-template <typename T>
+template <typename TQ, typename TKV = TQ, typename TO = TQ>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* tables, const int* positions, void* out,
                      int num_tokens, int H, int hd, int NB, int bs, int MB,
                      float scale, cudaStream_t stream) {
-  constexpr int VEC = Vec<T>::N;
+  constexpr int VEC = Vec<TKV>::N;
   if (hd <= 0 || hd % VEC != 0) return cudaErrorInvalidValue;
   const int nvec = hd / VEC;
   int lpr_log2 = 0;
@@ -305,8 +320,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   switch (cpl) {
 #define EPL_CASE(C)                                                         \
   case C:                                                                   \
-    return launch<T, C>(q, k, v, tables, positions, out, num_tokens, H, hd, \
-                        NB, bs, MB, lpr_log2, scale, stream);
+    return launch<TQ, TKV, TO, C>(q, k, v, tables, positions, out,         \
+                                  num_tokens, H, hd, NB, bs, MB, lpr_log2, \
+                                  scale, stream);
     EPL_CPL_CASES(EPL_CASE)
 #undef EPL_CASE
     default:
@@ -775,6 +791,24 @@ int epl_paged_attention(const void* q, const void* k_pages,
                             hd, NB, bs, MB, scale, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The mixed build: fp16 q over bf16 pools, fp32 out; otherwise as
+// epl_paged_attention.
+int epl_paged_attention_mixed(const void* q, const void* k_pages,
+                              const void* v_pages, const void* tables_tok,
+                              const void* positions, void* out,
+                              int num_tokens, int H, int hd, int NB, int bs,
+                              int MB, float scale, void* stream) {
+  if (num_tokens == 0 || H == 0) return cudaSuccess;
+  if (num_tokens < 0 || H < 0 || NB <= 0 || bs <= 0 || MB <= 0 ||
+      hd > 256) {
+    return cudaErrorInvalidValue;
+  }
+  return dispatch<__half, __nv_bfloat16, float>(
+      q, k_pages, v_pages, static_cast<const int*>(tables_tok),
+      static_cast<const int*>(positions), out, num_tokens, H, hd, NB, bs, MB,
+      scale, static_cast<cudaStream_t>(stream));
 }
 
 // The slot-tiled build: bf16 only, hd in {64, 128}.  items int32

@@ -17,17 +17,22 @@ its slot's block table (shapes below).  The functions:
 * :func:`paged_attention_warp_cuda` — the warp kernel of the same source
   (one warp per token and head), for fp32, for fp16, and for bf16 at the
   other head dims.
+* :func:`paged_attention_mixed_cuda` — the warp kernel built for an fp16
+  query over bf16 pools (amp O1 computing in fp16 over a bf16 model
+  config), with an fp32 output: the promoted type the JAX reference's
+  einsums compute in.
 * :func:`paged_attention_cuda` — the CUDA entry: it checks the
   arguments and launches the build that takes them (the tiled build for
-  bf16 at head dims 64 and 128, the warp build otherwise).  An fp16 call
-  runs the warp build's fp16 instantiation.
+  bf16 at head dims 64 and 128, the mixed build for fp16 q over bf16
+  pools, the warp build otherwise).  An fp16 call runs the warp build's
+  fp16 instantiation.
 * :func:`paged_attention` — the dispatcher: a CPU tensor goes to the
   plain version, a CUDA tensor to :func:`paged_attention_cuda`.  A CUDA
   tensor never reaches the plain version through it.
 
 Each wrapper keeps a plain integer count of its launches (``.launches``
-on the three CUDA functions; ``paged_attention_cuda`` counts every
-launch, the two builds their own) and the plain version of its calls
+on the four CUDA functions; ``paged_attention_cuda`` counts every
+launch, the three builds their own) and the plain version of its calls
 (``paged_attention_reference.calls``), so a run can show which one its
 main path went through.
 
@@ -71,6 +76,8 @@ import numpy as np
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The one mix of query and pool types the kernels take (q, pools).
+MIXED_DTYPES = (torch.float16, torch.bfloat16)
 _MAX_HEAD_DIM = 256
 TILE_ROWS = 64             # rows of a query tile, at most (the kernel's)
 TILED_HEAD_DIMS = (64, 128)
@@ -240,10 +247,13 @@ def takes_tiles(dtype, hd: int) -> bool:
   return dtype == torch.bfloat16 and hd in TILED_HEAD_DIMS
 
 
-def needs_tiles(k_pages) -> bool:
+def needs_tiles(k_pages, q_dtype=None) -> bool:
   """Whether a call over this pool launches the tiled build: a CUDA pool
-  of a dtype and head dim it takes."""
-  return k_pages.is_cuda and takes_tiles(k_pages.dtype, k_pages.shape[-1])
+  of a dtype and head dim it takes, read by a query of the same dtype
+  (``q_dtype``, when the caller knows it; an fp16 query over bf16 pools
+  runs the mixed build)."""
+  return (k_pages.is_cuda and takes_tiles(k_pages.dtype, k_pages.shape[-1])
+          and (q_dtype is None or q_dtype == k_pages.dtype))
 
 
 # ------------------------------------------------------------- wrappers --
@@ -256,6 +266,8 @@ def _library():
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     lib.epl_paged_attention.argtypes = [p] * 6 + [i] * 7 + [f, p]
     lib.epl_paged_attention.restype = i
+    lib.epl_paged_attention_mixed.argtypes = [p] * 6 + [i] * 6 + [f, p]
+    lib.epl_paged_attention_mixed.restype = i
     lib.epl_paged_attention_tiled.argtypes = ([p] * 6 + [i, p, i, p, p]
                                               + [i] * 6 + [f, p])
     lib.epl_paged_attention_tiled.restype = i
@@ -275,10 +287,11 @@ def _check_args(q, k_pages, v_pages, tables_tok, positions):
   if q.dtype not in _DTYPE_CODES:
     raise ValueError(f"paged_attention_cuda supports float32, bfloat16 and "
                      f"float16; got {q.dtype}")
-  if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+  if k_pages.dtype != v_pages.dtype or (
+      k_pages.dtype != q.dtype and (q.dtype, k_pages.dtype) != MIXED_DTYPES):
     raise ValueError("paged_attention_cuda: q and the pools must share "
-                     f"one dtype; got {q.dtype}, {k_pages.dtype}, "
-                     f"{v_pages.dtype}")
+                     "one dtype, or be an fp16 q over bf16 pools; got "
+                     f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
   if tables_tok.dtype != torch.int32 or positions.dtype != torch.int32:
     raise ValueError("paged_attention_cuda: tables_tok and positions must "
                      "be int32")
@@ -314,10 +327,18 @@ def _raise_on(lib, err, name):
         f"({lib.epl_cuda_error_string(err).decode()})")
 
 
+def _one_dtype(name, q, k_pages):
+  if k_pages.dtype != q.dtype:
+    raise ValueError(f"{name} takes q and pools of one dtype; got "
+                     f"{q.dtype} over {k_pages.dtype}")
+
+
 def paged_attention_warp_cuda(q, k_pages, v_pages, tables_tok, positions):
   """The warp build on the current stream (any supported dtype and head
-  dim); returns ``[T, H, hd]`` in ``q``'s dtype."""
+  dim, q and the pools of one dtype); returns ``[T, H, hd]`` in ``q``'s
+  dtype."""
   _check_args(q, k_pages, v_pages, tables_tok, positions)
+  _one_dtype("paged_attention_warp_cuda", q, k_pages)
   lib = _library()
   T, H, hd = q.shape
   NB, bs = k_pages.shape[:2]
@@ -334,11 +355,37 @@ def paged_attention_warp_cuda(q, k_pages, v_pages, tables_tok, positions):
   return out
 
 
+def paged_attention_mixed_cuda(q, k_pages, v_pages, tables_tok, positions):
+  """The mixed build on the current stream: an fp16 ``q`` over bf16
+  pools (any supported head dim); returns ``[T, H, hd]`` in fp32, the
+  type the JAX reference promotes these einsums to.  p is rounded to
+  fp16 before the V product, as the reference's ``probs.astype(q.dtype)``
+  does."""
+  _check_args(q, k_pages, v_pages, tables_tok, positions)
+  if (q.dtype, k_pages.dtype) != MIXED_DTYPES:
+    raise ValueError(f"paged_attention_mixed_cuda takes an fp16 q over "
+                     f"bf16 pools; got {q.dtype} over {k_pages.dtype}")
+  lib = _library()
+  T, H, hd = q.shape
+  NB, bs = k_pages.shape[:2]
+  out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+  with torch.cuda.device(q.device):
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.epl_paged_attention_mixed(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        tables_tok.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        T, H, hd, NB, bs, tables_tok.shape[1], 1.0 / math.sqrt(hd), stream)
+  _raise_on(lib, err, "paged_attention (mixed build)")
+  paged_attention_mixed_cuda.launches += 1
+  return out
+
+
 def paged_attention_tiled_cuda(q, k_pages, v_pages, tables_tok, positions,
                                tiles: PagedTiles):
   """The slot-tiled build on the current stream (bf16, head dim 64 or
   128) over the work items of ``tiles``; returns ``[T, H, hd]``."""
   _check_args(q, k_pages, v_pages, tables_tok, positions)
+  _one_dtype("paged_attention_tiled_cuda", q, k_pages)
   T, H, hd = q.shape
   if not takes_tiles(q.dtype, hd):
     raise ValueError(f"paged_attention_tiled_cuda takes bfloat16 at head "
@@ -377,14 +424,19 @@ def paged_attention_cuda(q, k_pages, v_pages, tables_tok, positions,
   A narrower ``q`` over fp32 pools (amp O1 over an fp32 model config)
   is read in fp32, an exact cast: the fp32 build then keeps p in fp32,
   as the Pallas kernel's ``p.astype(v.dtype)`` does, and the output is
-  fp32, the promoted type the plain version returns too.  Raises on any
-  other mix of dtypes, on arguments the kernels do not take and on a
-  refused launch."""
+  fp32, the promoted type the plain version returns too.  An fp16 ``q``
+  over bf16 pools (amp O1 in fp16 over a bf16 model config) runs the
+  mixed build (``tiles`` unused), whose output is fp32, the promoted
+  type.  Raises on any other mix of dtypes, on arguments the kernels do
+  not take and on a refused launch."""
   if k_pages.dtype == torch.float32 and q.dtype != torch.float32:
     q = q.float()
   _check_args(q, k_pages, v_pages, tables_tok, positions)
   T, H, hd = q.shape
-  if takes_tiles(q.dtype, hd):
+  if q.dtype != k_pages.dtype:
+    out = paged_attention_mixed_cuda(q, k_pages, v_pages, tables_tok,
+                                     positions)
+  elif takes_tiles(q.dtype, hd):
     if tiles is None:
       pos = positions.cpu().numpy()
       runs = tile_runs_from_tokens(tables_tok.cpu().numpy(), pos)
@@ -401,13 +453,14 @@ def paged_attention_cuda(q, k_pages, v_pages, tables_tok, positions,
 
 paged_attention_cuda.launches = 0
 paged_attention_warp_cuda.launches = 0
+paged_attention_mixed_cuda.launches = 0
 paged_attention_tiled_cuda.launches = 0
 
 
 def reset_counts():
   """Set every launch and call count of this module to 0."""
   for fn in (paged_attention_cuda, paged_attention_warp_cuda,
-             paged_attention_tiled_cuda):
+             paged_attention_mixed_cuda, paged_attention_tiled_cuda):
     fn.launches = 0
   paged_attention_reference.calls = 0
 

@@ -1,14 +1,15 @@
 """MFU accounting (port of ``easyparallellibrary_tpu/profiler/flops.py``).
 
-Only the peak table: the dense bf16 tensor-core rate of the card, the
-one denominator of every MFU number of the port.  The XLA cost analysis
-and the collective parsers of the JAX version wait for later work
-(ROADMAP.md Queue 1).
+The peak table (the dense bf16 tensor-core rate of the card, the one
+denominator of every MFU number of the port) and the GPT forward's FLOP
+count that the serving engine's cost card reports
+(observability/device.py).  The XLA cost analysis and the collective
+parsers of the JAX version wait for later work (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -41,3 +42,14 @@ def peak_flops_info(device=None) -> Tuple[float, bool]:
 
 def peak_flops_per_chip(device=None) -> float:
   return peak_flops_info(device)[0]
+
+
+def gpt_forward_flops(cfg: Any, tokens: int, context: int) -> float:
+  """Forward FLOPs of ``tokens`` query tokens through a GPT of config
+  ``cfg`` (``d_model``, ``d_ff``, ``num_layers``, ``vocab_size``), each
+  attending ``context`` keys: two per multiply-add of every weight
+  matrix (qkv and output projections, the MLP, the tied head) plus
+  QK^T and PV."""
+  D, F, L, V = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.vocab_size
+  n_matmul = L * (4 * D * D + 2 * D * F) + D * V
+  return float(tokens) * (2.0 * n_matmul + 4.0 * L * D * context)

@@ -86,6 +86,15 @@ class StepWatchdog:
     # condition's lock.
     with self._cond:
       self.timeouts_fired += 1
+    # An instant from the monitor thread (its own trace track): the
+    # wedged window shows in the timeline next to the span that never
+    # closed.
+    from easyparallellibrary_tpu_torch.observability import (
+        trace as trace_lib)
+    trace_lib.get_tracer().instant(
+        "resilience/watchdog_timeout", cat="resilience",
+        track="resilience/watchdog",
+        args={"step": step, "timeout_s": self.timeout_s})
     devices = torch.cuda.device_count() if torch.cuda.is_available() else 0
     get_logger().warning(
         "watchdog: step %d exceeded the %.1fs deadline (%s); %d CUDA "

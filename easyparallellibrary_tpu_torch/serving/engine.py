@@ -54,17 +54,32 @@ at submit (bounded queue, shedding) and by the degradation ladder
 (speculation off, then the prefill budget clamped), and an optional
 watchdog thread logs a step that overruns its deadline.
 
+Observability (``observability.*``; observability/): the ambient tracer
+records the step's phases (``serving/plan``, ``serving/draft``,
+``serving/device_step`` around the dispatch and the one fetch,
+``serving/commit``), each slot's ``prefill`` / ``decode`` /
+``speculate`` span inside its request's lifecycle span, the lifecycle
+instants and the counter tracks; every step publishes a ``serving/*``
+record to ``metrics_writer`` / ``registry`` (the SLO monitor rides the
+registry as a sink); the compile sentinel watches the loaded kernel
+libraries; the device introspector captures the twin's cost card after
+the first step and publishes HBM gauges on the stats cadence.  All of
+it is host code on values the step already holds: a traced step makes
+the same synchronising calls as an untraced one, and the same plans and
+tokens.
+
 Exactness contract: greedy engine output equals ``generate()`` per
 request, including requests admitted mid-flight, slots and blocks reused
 after retirement, requests preempted on pool exhaustion or requeued
 after bad steps, speculative steps and warm admissions.
 
-Not ported (each raises, ROADMAP.md Queue 1): a device mesh, the metric
-registry, serving observability and the autotuner.
+Not ported (each raises, ROADMAP.md Queue 1): a device mesh and the
+autotuner.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import weakref
 from typing import Any, Dict, List, Optional
@@ -73,9 +88,16 @@ import numpy as np
 import torch
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    FLEET, TENSOR_PARALLEL, TRACING, not_ported)
+    FLEET, TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.env import Env
+from easyparallellibrary_tpu_torch.kernels import _build
 from easyparallellibrary_tpu_torch.kernels import paged_attention as pa_lib
+from easyparallellibrary_tpu_torch.observability import device as device_lib
+from easyparallellibrary_tpu_torch.observability import slo as slo_lib
+from easyparallellibrary_tpu_torch.observability import trace as trace_lib
+from easyparallellibrary_tpu_torch.observability.registry import (
+    SERVING_NAMESPACE, MetricRegistry)
+from easyparallellibrary_tpu_torch.profiler.flops import gpt_forward_flops
 from easyparallellibrary_tpu_torch.runtime.amp import resolve_model_dtypes
 from easyparallellibrary_tpu_torch.serving import kv_cache as kv_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
@@ -83,11 +105,17 @@ from easyparallellibrary_tpu_torch.serving._capabilities import (
 from easyparallellibrary_tpu_torch.serving.resilience import (
     DEGRADE_LEVELS, AdmissionController, BadStepPolicy)
 from easyparallellibrary_tpu_torch.serving.scheduler import (
-    FCFSScheduler, FinishedRequest, Request)
+    FCFSScheduler, FinishedRequest, Request, _slot_track)
 from easyparallellibrary_tpu_torch.utils import prng
 from easyparallellibrary_tpu_torch.utils.device import resolve_device
 from easyparallellibrary_tpu_torch.utils.logging import get_logger
 from easyparallellibrary_tpu_torch.weights import cast_for_compute
+
+# Periodic ServingStats rollup cadence (engine steps), as in the JAX
+# engine: per-step records carry only step-local gauges, so the TTFT /
+# ITL percentile SLO rules would otherwise see a rollup only at the end
+# of a run() drive.  The HBM gauges ride the same cadence.
+_STATS_PUBLISH_EVERY = 50
 
 
 def filtered_logits(logits, temperature, top_k, top_p):
@@ -151,6 +179,10 @@ class ContinuousBatchingEngine:
   ``finished`` with reason ``"shed"``.  ``drafter_failures`` counts the
   steps whose drafter raised (each ran without drafts).  ``close()`` (or
   ``with``, or garbage collection) stops the watchdog thread.
+  ``metrics_writer`` (any ``write(step, record)`` sink) and ``registry``
+  (``observability.registry.MetricRegistry``) receive the per-step
+  ``serving/*`` records; ``track_prefix`` names this engine's Perfetto
+  tracks (default ``"serving"``).
   """
 
   def __init__(self, model, params, *, device=None, mesh=None,
@@ -167,20 +199,31 @@ class ContinuousBatchingEngine:
                num_blocks: Optional[int] = None,
                token_budget: Optional[int] = None,
                prefix_cache: Optional[bool] = None,
-               stats=None, registry=None, config=None):
+               stats=None, metrics_writer=None, registry=None,
+               config=None, track_prefix: Optional[str] = None):
     cfg = model.cfg
     root_config = config if config is not None else Env.get().config
     conf = root_config.serving
     check_servable(cfg)
     if mesh is not None:
       raise not_ported("a device mesh", TENSOR_PARALLEL)
-    if registry is not None:
-      raise not_ported("the metric registry", TRACING)
     if conf.autotune.enabled:
       raise not_ported("the serving autotuner", FLEET)
-    if root_config.observability.enabled:
-      raise not_ported("serving observability", TRACING)
     self.device = resolve_device(device)
+    # Reconcile the ambient tracer, SLO monitor and device introspector
+    # with observability.*, so a config-enabled run traces and monitors
+    # serving without any wiring at the call site (None = off; every
+    # hook below is then an attribute test).
+    trace_lib.ensure_configured(root_config)
+    self._slo = slo_lib.ensure_configured(root_config)
+    self._introspector = device_lib.ensure_configured(root_config)
+    self._capture_device = root_config.observability.slo.capture_xla
+    self._pending_device_dir: Optional[str] = None
+    # This engine's Perfetto track namespace, and its twin label in
+    # breach payloads: the exact-match key that routes engine-attributed
+    # anomalies (recompile, watchdog) back to this engine alone.
+    self._track_prefix = track_prefix or "serving"
+    self._twin_label = f"{self._track_prefix}/fused_step"
     self.model = model
     # The dtype the model computes in (amp O1 resolves it at every
     # forward from the ambient config, as the JAX GPT does); the caches
@@ -234,7 +277,8 @@ class ContinuousBatchingEngine:
         else conf.stop_token,
         spec_k=self.drafter.k if self.drafter is not None else 0,
         block_size=self.block_size, num_blocks=self.num_blocks,
-        token_budget=self.token_budget, prefix_cache=self.prefix_caching,
+        token_budget=self.token_budget, track_prefix=self._track_prefix,
+        prefix_cache=self.prefix_caching,
         prefix_session_ttl_s=pc_conf.session_ttl_s,
         prefix_max_cached_blocks=pc_conf.max_cached_blocks)
     res_conf = conf.resilience
@@ -246,6 +290,8 @@ class ContinuousBatchingEngine:
       from easyparallellibrary_tpu_torch.profiler.serving import (
           ServingStats)
       self.stats = ServingStats(finished_limit=conf.finished_limit)
+    self.metrics_writer = metrics_writer
+    self.registry = registry
     self.finished: Dict[Any, FinishedRequest] = {}
     self._finished_limit = conf.finished_limit
     self.scheduler.on_finish.append(self._record_finished)
@@ -270,14 +316,20 @@ class ContinuousBatchingEngine:
       if res_conf.step_timeout_s > 0:
         from easyparallellibrary_tpu_torch.runtime.resilience import (
             StepWatchdog)
-        # on_timeout binds the stats object, not the engine: the
-        # finalizer below holds the watchdog, and a watchdog -> engine
-        # reference would keep the engine alive.
+        # on_timeout binds the stats and monitor objects, not the
+        # engine: the finalizer below holds the watchdog, and a
+        # watchdog -> engine reference would keep the engine alive.  The
+        # monitor raises the hang as a first-class SLO breach (and deep
+        # captures) from the watchdog's thread; both are thread-safe.
         stats_obj = self.stats
 
-        def _on_timeout(step, _stats=stats_obj):
-          del step
+        def _on_timeout(step, _stats=stats_obj, _slo=self._slo,
+                        _twin=self._twin_label):
           _stats.note_watchdog_timeout()
+          if _slo is not None:
+            _slo.note_event("watchdog_timeout",
+                            {"engine_step": int(step), "twin": _twin},
+                            step=int(step))
 
         self._watchdog = StepWatchdog(
             res_conf.step_timeout_s, on_timeout=_on_timeout,
@@ -294,6 +346,10 @@ class ContinuousBatchingEngine:
     else:
       self._kv, self._cursors = kv_lib.allocate_kv_cache(
           cfg, self.num_slots, self.chunk, self.device)
+    # Perfetto track per slot (the scheduler's lifecycle spans and the
+    # per-step spans share it), precomputed for the per-step loop.
+    self._slot_tracks = [_slot_track(i, self._track_prefix)
+                         for i in range(self.num_slots)]
     if self.drafter is not None:
       self.drafter.bind(self)
       self._step_fn = (self._paged_spec_step if self.paged
@@ -301,6 +357,25 @@ class ContinuousBatchingEngine:
     else:
       self._step_fn = self._paged_step if self.paged else self._slot_step
     self._steps = 0
+    # Always-on compile sentinel: the GPU counterpart of a mid-serving
+    # recompile is a kernel library built or loaded for the first time
+    # mid-run (tens of seconds of nvcc).  The warmup count is taken at
+    # the end of the first step (earlier work may have loaded libraries
+    # already); any later growth is a first-class SLO breach.
+    self._compile_sentinel = slo_lib.CompileSentinel(
+        self._twin_label, _build.loaded_count,
+        on_recompile=[self._note_recompile])
+    self._card_ptrs: Optional[List[int]] = None
+    if self._slo is not None:
+      # The monitor consumes this engine's registry records (it is a
+      # registry sink) and merges this engine's state summary into
+      # diagnostic bundles; both hold the engine weakly or idempotently,
+      # since the ambient monitor outlives engines.
+      if self.registry is not None:
+        self._slo.attach(self.registry)
+      self._slo.add_context_provider(self._capture_context)
+      if self._capture_device:
+        self._slo.add_listener(self._arm_device_capture, weak=True)
     if self.paged:
       mb = kv_lib.paged_cache_bytes(cfg, self.num_blocks,
                                     self.block_size) / 1e6
@@ -350,9 +425,147 @@ class ContinuousBatchingEngine:
   # ---------------------------------------------------- resilience hooks
 
   def _on_degrade_transition(self, old: int, new: int, signals):
-    del old, signals
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:
+      tracer.instant(
+          "serving/degraded", cat="serving", track="serving",
+          args={"from": DEGRADE_LEVELS[old], "to": DEGRADE_LEVELS[new],
+                **signals})
+      tracer.counter("serving/degraded_level", new)
     if self.stats is not None:
       self.stats.note_degraded(new)
+
+  # -------------------------------------------------- observability hooks
+
+  def _describe_signature(self, plan) -> Dict[str, Any]:
+    """Shape/dtype signature of the step's host-side inputs, built only
+    on the (rare) recompile path to attribute it."""
+    sig: Dict[str, Any] = {"twin": type(plan).__name__,
+                           "resilient": self._resilient,
+                           "paged": self.paged,
+                           "kernel_libraries": _build.loaded_count()}
+    for name, v in vars(plan).items():
+      if hasattr(v, "shape"):
+        sig[name] = f"{v.dtype}{list(v.shape)}"
+    return sig
+
+  def _note_recompile(self, label: str, cache_size: int,
+                      new_compiles: int, signature) -> None:
+    """CompileSentinel subscriber: a kernel library loaded mid-run
+    becomes a trace instant, a stats counter and a first-class SLO
+    breach (which also deep-captures when configured)."""
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:
+      tracer.instant(
+          "serving/recompile", cat="serving", track="serving",
+          args={"twin": label, "cache_size": int(cache_size),
+                "new_compiles": int(new_compiles),
+                "signature": str(signature)[:512]})
+    if self.stats is not None:
+      self.stats.note_recompile(new_compiles)
+    if self._slo is not None:
+      self._slo.note_event(
+          "unexpected_recompile",
+          {"twin": label, "cache_size": int(cache_size),
+           "signature": str(signature)[:512]},
+          step=self._steps)
+
+  def _capture_context(self) -> Dict[str, Any]:
+    """Scheduler/allocator state summary merged into diagnostic bundles
+    (observability/slo.py DiagnosticCapture), keyed by this engine's
+    track prefix."""
+    sched = self.scheduler
+    ctx: Dict[str, Any] = {
+        "engine_steps": self._steps,
+        "queue_depth": sched.queue_depth,
+        "num_active": sched.num_active,
+        "num_slots": self.num_slots,
+        "paged": self.paged,
+        "recompiles": self._compile_sentinel.recompiles,
+        "active_uids": [str(st.req.uid)
+                        for st in sched.active.values()][:32],
+    }
+    if self._admission is not None:
+      ctx["degraded_level"] = self._admission.level
+      ctx["shed_total"] = self._admission.shed_total
+    if self._bad_policy is not None:
+      ctx.update(self._bad_policy.counters())
+    if self.paged:
+      ctx.update(kv_blocks_free=sched.kv_blocks_free,
+                 kv_blocks_used=sched.kv_blocks_used,
+                 kv_fragmentation=sched.kv_fragmentation,
+                 preemptions=sched.preemptions,
+                 proactive_preemptions=sched.proactive_preemptions)
+      if self.prefix_caching:
+        ctx.update(prefix_hits=sched.prefix_hits,
+                   prefix_misses=sched.prefix_misses,
+                   prefix_blocks_reused=sched.prefix_blocks_reused,
+                   prefix_evictions=sched.prefix_evictions,
+                   prefix_cached_blocks=sched.prefix_cached_blocks)
+    out = {self._track_prefix: ctx}
+    if self._introspector is not None:
+      # Device truth rides every bundle: cost cards and live HBM gauges.
+      out["device"] = self._introspector.context()
+    return out
+
+  def _twin_meta(self) -> Dict[str, Any]:
+    """Geometry the cost card is normalised by: the step's token
+    capacity and the KV footprint per request."""
+    cfg = self.model.cfg
+    if self.paged:
+      kv_bytes = kv_lib.paged_cache_bytes(cfg, self.num_blocks,
+                                          self.block_size)
+      tokens = self.token_budget
+    else:
+      kv_bytes = kv_lib.cache_bytes(cfg, self.num_slots, self.chunk)
+      tokens = self.num_slots * self.chunk
+    return {"tokens_per_step": tokens, "kv_cache_bytes": kv_bytes,
+            "kv_bytes_per_request": kv_bytes / max(self.num_slots, 1),
+            "num_slots": self.num_slots, "paged": self.paged}
+
+  def _kv_leaves(self) -> List[torch.Tensor]:
+    return [leaf for layer in self._kv.values()
+            for leaf in layer["attn"].values()]
+
+  def _cost_card(self, ptrs_before: List[int]) -> Dict[str, Any]:
+    """The twin's cost card after its first step: the GPT forward's
+    FLOPs at the step's token capacity, each attending the full context
+    (``profiler.flops.gpt_forward_flops``); the bytes the step must move
+    at that capacity — the parameters and the KV caches read once (what
+    the attention kernel reads at most); the parameter and cache bytes
+    as its arguments; the allocator's measured peak over the step (on
+    the CPU, the arguments plus the logits: a static bound); and
+    whether the step wrote the caches in place (their ``data_ptr()``
+    unchanged)."""
+    cfg = self.model.cfg
+    tokens = self._twin_meta()["tokens_per_step"]
+    param_bytes = float(sum(p.numel() * p.element_size()
+                            for p in self.params.values()))
+    leaves = self._kv_leaves()
+    kv_bytes = float(sum(x.numel() * x.element_size() for x in leaves))
+    if self.device.type == "cuda":
+      peak = float(torch.cuda.max_memory_allocated(self.device))
+    else:
+      itemsize = torch.finfo(self.compute_dtype).bits // 8
+      peak = param_bytes + kv_bytes + tokens * cfg.vocab_size * itemsize
+    return dict(
+        flops=gpt_forward_flops(cfg, tokens, cfg.max_seq_len),
+        bytes_accessed=param_bytes + kv_bytes,
+        argument_bytes=param_bytes + kv_bytes,
+        peak_hbm_bytes=peak, donation_requested=True,
+        donation_verified=[x.data_ptr() for x in leaves] == ptrs_before)
+
+  def _arm_device_capture(self, rule: str, payload: Dict[str, Any]) -> None:
+    """Breach listener (``observability.slo.capture_xla``): arm a
+    ``torch.profiler`` capture around the NEXT step, written under the
+    breach's diagnostic bundle.  Only for breaches the payload
+    attributes to THIS engine's twin: the ambient monitor is shared, and
+    a fleet-level breach arming a heavy capture on every engine at once
+    would be the anomaly."""
+    del rule
+    bundle = payload.get("bundle")
+    if bundle and payload.get("twin") == self._twin_label:
+      self._pending_device_dir = os.path.join(bundle, "device")
 
   # ----------------------------------------------------------- device step
 
@@ -372,7 +585,7 @@ class ContinuousBatchingEngine:
     # which the plan already knows: planned here once for every layer.
     pool = self._kv["block_0"]["attn"]["cached_key"]
     tiles = {}
-    if pa_lib.needs_tiles(pool):
+    if pa_lib.needs_tiles(pool, self.compute_dtype):
       runs = pa_lib.tile_runs_from_plan(
           plan.base_idx, plan.num_valid, self.token_budget,
           plan.draft_base, plan.draft_cap)
@@ -518,7 +731,7 @@ class ContinuousBatchingEngine:
     out = self._fetch(committed, n_committed, slot_ok)
     return out[:, :K + 1], out[:, K + 1], out[:, K + 2].astype(bool)
 
-  def _propose_drafts(self, plan) -> np.ndarray:
+  def _propose_drafts(self, tracer, plan) -> np.ndarray:
     """Run the drafter for one step and write its drafts into the plan:
     chunk columns 1.. of each decode slot (contiguous) or the slot's
     reserved flat positions, flipped valid (paged).  A drafter that
@@ -530,34 +743,40 @@ class ContinuousBatchingEngine:
     if not self.scheduler.spec_enabled:
       self.drafter.observe_skip(plan)
       return np.zeros((N,), np.int32)
-    try:
-      histories = self.scheduler.slot_histories(plan)
-      draft_tokens, num_draft = self.drafter.propose(plan, histories)
-      num_draft = np.clip(np.asarray(num_draft, np.int32), 0,
-                          plan.draft_cap)
-      for slot in np.nonzero(num_draft)[0]:
-        nd = int(num_draft[slot])
+    with tracer.span("serving/draft", cat="serving", track="serving"):
+      try:
+        histories = self.scheduler.slot_histories(plan)
+        draft_tokens, num_draft = self.drafter.propose(plan, histories)
+        num_draft = np.clip(np.asarray(num_draft, np.int32), 0,
+                            plan.draft_cap)
+        for slot in np.nonzero(num_draft)[0]:
+          nd = int(num_draft[slot])
+          if self.paged:
+            b = int(plan.draft_base[slot])
+            plan.tokens[b:b + nd] = draft_tokens[slot, :nd]
+            plan.valid[b:b + nd] = True
+          else:
+            plan.tokens[slot, 1:1 + nd] = draft_tokens[slot, :nd]
+      except Exception as e:  # noqa: BLE001 — any drafter fault degrades
+        self.drafter_failures += 1
+        if self.drafter_failures == 1:
+          get_logger().warning(
+              "drafter %s failed (%s: %s); serving continues without "
+              "drafts this step (logged once; counted in "
+              "drafter_failures)", type(self.drafter).__name__,
+              type(e).__name__, e)
+        if tracer.enabled:
+          tracer.instant("serving/drafter_failure", cat="serving",
+                         track="serving",
+                         args={"error": type(e).__name__})
         if self.paged:
-          b = int(plan.draft_base[slot])
-          plan.tokens[b:b + nd] = draft_tokens[slot, :nd]
-          plan.valid[b:b + nd] = True
-        else:
-          plan.tokens[slot, 1:1 + nd] = draft_tokens[slot, :nd]
-    except Exception as e:  # noqa: BLE001 — any drafter fault degrades
-      self.drafter_failures += 1
-      if self.drafter_failures == 1:
-        get_logger().warning(
-            "drafter %s failed (%s: %s); serving continues without drafts "
-            "this step (logged once; counted in drafter_failures)",
-            type(self.drafter).__name__, type(e).__name__, e)
-      if self.paged:
-        # Drafts written before the failure stay out of the step.
-        for slot in np.nonzero(plan.draft_cap)[0]:
-          b = int(plan.draft_base[slot])
-          plan.valid[b:b + int(plan.draft_cap[slot])] = False
-      # Contiguous: with zero drafts every decode slot feeds one token,
-      # so columns already written are masked garbage nothing reads.
-      return np.zeros((N,), np.int32)
+          # Drafts written before the failure stay out of the step.
+          for slot in np.nonzero(plan.draft_cap)[0]:
+            b = int(plan.draft_base[slot])
+            plan.valid[b:b + int(plan.draft_cap[slot])] = False
+        # Contiguous: with zero drafts every decode slot feeds one token,
+        # so columns already written are masked garbage nothing reads.
+        return np.zeros((N,), np.int32)
     return num_draft
 
   # ------------------------------------------------------ bad-step policy
@@ -583,6 +802,11 @@ class ContinuousBatchingEngine:
                                      exercised=exercised)
     if not bad:
       return bad
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:
+      retries = sum(1 for a in actions.values() if a == BadStepPolicy.RETRY)
+      tracer.instant("serving/bad_step", cat="serving", track="serving",
+                     args={"slots": bad, "retries": retries})
     get_logger().warning(
         "bad device step (non-finite logits) on slot(s) %s: %s", bad,
         actions)
@@ -694,6 +918,18 @@ class ContinuousBatchingEngine:
           finish_reason="shed"))
       if self.stats is not None:
         self.stats.note_shed(request.uid)
+      tracer = trace_lib.get_tracer()
+      if tracer.enabled:
+        tracer.instant(
+            "serving/shed", cat="serving", track="serving/requests",
+            args={"uid": str(request.uid),
+                  "queue_depth": int(self.scheduler.queue_depth),
+                  "level": DEGRADE_LEVELS[self._admission.level]})
+        if request.flow_id is not None:
+          # An upstream-minted flow must terminate even on a shed: the
+          # rejection is this request's resolution.
+          tracer.flow("f", request.flow_id, track="serving/requests",
+                      args={"uid": str(request.uid), "reason": "shed"})
       get_logger().warning(
           "shedding request %r at submit (queue %d/%d, level %s)",
           request.uid, self.scheduler.queue_depth,
@@ -735,32 +971,86 @@ class ContinuousBatchingEngine:
     self.close()
     return False
 
+  def _trace_slot_spans(self, tracer, plan, t0_us: float, t1_us: float,
+                        num_draft=None, n_committed=None):
+    """Per-slot timeline spans for one device step: the one step covers
+    every active slot, so each slot's prefill / decode / speculate span
+    shares its bounds and nests inside the request's lifecycle span
+    (opened at admission by the scheduler).  Speculating slots carry
+    drafted / accepted counts, paged slots their block count.  Host
+    values only."""
+    if not tracer.enabled:
+      return
+    for slot in np.nonzero(plan.num_valid)[0]:
+      slot = int(slot)
+      track = self._slot_tracks[slot]
+      extra = {}
+      if self.paged:
+        extra["kv_blocks"] = len(self.scheduler.slot_blocks(slot))
+      if plan.prefilling[slot]:
+        tracer.span_at("prefill", t0_us, t1_us, cat="serving",
+                       track=track,
+                       args={"tokens": int(plan.num_valid[slot]), **extra})
+      elif num_draft is not None and int(num_draft[slot]) > 0:
+        tracer.span_at(
+            "speculate", t0_us, t1_us, cat="serving", track=track,
+            args={"drafted": int(num_draft[slot]),
+                  "accepted": int(n_committed[slot]) - 1, **extra})
+      else:
+        tracer.span_at("decode", t0_us, t1_us, cat="serving",
+                       track=track,
+                       args={"tok_index": int(plan.tok_index[slot]),
+                             **extra})
+
   def step(self) -> List[FinishedRequest]:
     """One engine iteration: plan [-> degrade] [-> draft] -> device step
-    -> commit [-> bad-step policy].  Returns the requests that retired
-    this iteration (empty when idle), expiries and cancellations
-    included."""
-    plan = self.scheduler.plan_step()
+    -> commit [-> bad-step policy] [-> observability].  Returns the
+    requests that retired this iteration (empty when idle), expiries and
+    cancellations included."""
+    tracer = trace_lib.get_tracer()
+    with tracer.span("serving/plan", cat="serving", track="serving"):
+      plan = self.scheduler.plan_step()
     if self._admission is not None:
       # Observed after admission: the queue signal is the backlog this
       # step could not absorb.  The gates steer the next plan.
       self._apply_degradation()
     if plan is None:
       return self.scheduler.take_finished()
+    if (self._introspector is not None and self._steps == 0
+        and not self._introspector.has_card(self._twin_label)):
+      # The cost card's peak is measured over the first step, and its
+      # in-place check reads the caches' addresses before it.
+      if self.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(self.device)
+      self._card_ptrs = [x.data_ptr() for x in self._kv_leaves()]
     t0 = time.monotonic()
     if self._watchdog is not None:
       self._watchdog.arm(self._steps)
+    device_ctx = None
+    if self._pending_device_dir is not None:
+      # Deep capture armed a device profile of the step after an
+      # engine-attributed breach (observability.slo.capture_xla).
+      device_dir, self._pending_device_dir = self._pending_device_dir, None
+      device_ctx = tracer.device_trace(device_dir)
+      device_ctx.__enter__()
     drafted = accepted = 0
     try:
       if self.drafter is not None:
         # Propose before the plan's draft positions fill: the draft
         # model's mirror needs the plan the target sees.
-        num_draft = self._propose_drafts(plan)
+        num_draft = self._propose_drafts(tracer, plan)
+        t0_us = tracer.now_us()
         committed, n_committed, slot_ok = self._step_fn(self.params, plan,
                                                         num_draft)
-        finished = self.scheduler.commit(committed, n_committed,
-                                         slot_ok=slot_ok)
-        self.drafter.observe_commit(self._cursors)
+        t1_us = tracer.now_us()
+        tracer.span_at("serving/device_step", t0_us, t1_us,
+                       cat="serving", track="serving")
+        self._trace_slot_spans(tracer, plan, t0_us, t1_us, num_draft,
+                               n_committed)
+        with tracer.span("serving/commit", cat="serving", track="serving"):
+          finished = self.scheduler.commit(committed, n_committed,
+                                           slot_ok=slot_ok)
+          self.drafter.observe_commit(self._cursors)
         # A bad slot's drafts are spent again on its retry: count only
         # the slots whose verdict committed.
         ok = (np.ones(num_draft.shape, bool) if slot_ok is None
@@ -768,51 +1058,162 @@ class ContinuousBatchingEngine:
         drafted = int(num_draft[ok].sum())
         accepted = int((n_committed[(num_draft > 0) & ok] - 1).sum())
       else:
+        t0_us = tracer.now_us()
         nxt, slot_ok = self._step_fn(self.params, plan)
-        finished = self.scheduler.commit(nxt, slot_ok=slot_ok)
+        t1_us = tracer.now_us()
+        tracer.span_at("serving/device_step", t0_us, t1_us,
+                       cat="serving", track="serving")
+        self._trace_slot_spans(tracer, plan, t0_us, t1_us)
+        with tracer.span("serving/commit", cat="serving", track="serving"):
+          finished = self.scheduler.commit(nxt, slot_ok=slot_ok)
     finally:
       if self._watchdog is not None:
         self._watchdog.disarm()
+      if device_ctx is not None:
+        device_ctx.__exit__(None, None, None)
     if slot_ok is not None:
       self._handle_bad_slots(plan, slot_ok)
       finished.extend(self.scheduler.take_finished())
     self._steps += 1
+    if self._steps == 1:
+      # The warmup count: whatever this process had loaded by the end of
+      # the first step (kernel libraries load at first use).
+      self._compile_sentinel.expected = _build.loaded_count()
+    self._compile_sentinel.check(
+        signature_fn=lambda: self._describe_signature(plan))
     dt = time.monotonic() - t0
+    # Device introspection runs below the dt cut, like every publish
+    # path: the card's capture and the gauges' driver call must never
+    # inflate the step_time_s sample the ITL EWMA and SLO rules act on.
+    if self._card_ptrs is not None:
+      ptrs, self._card_ptrs = self._card_ptrs, None
+      self._introspector.capture_twin(
+          self._twin_label, lambda: self._cost_card(ptrs),
+          compile_count=self._compile_sentinel.cache_size() or 0,
+          meta=self._twin_meta())
+    if (self._introspector is not None
+        and (self._steps == 1
+             or self._steps % _STATS_PUBLISH_EVERY == 0)):
+      # HBM gauges on the stats cadence (plus once right after warmup,
+      # so short episodes still carry a sample).
+      self._introspector.publish_hbm(self._steps, registry=self.registry,
+                                     monitor=self._slo)
+    # Throughput counts committed tokens only: a bad slot's work is fed
+    # again next step.
+    if slot_ok is None or bool(slot_ok.all()):
+      pf_tokens, dc_tokens = plan.prefill_tokens, plan.decode_tokens
+    else:
+      ok = (plan.num_valid > 0) & slot_ok
+      pf_tokens = int(plan.num_valid[ok & plan.prefilling].sum())
+      dc_tokens = int((ok & ~plan.prefilling).sum())
+    sched = self.scheduler
+    if tracer.enabled:
+      tracer.counter("serving/active_slots", plan.active_slots)
+      if self.paged:
+        tracer.counter("serving/kv_blocks_used", sched.kv_blocks_used)
+        tracer.counter("serving/kv_blocks_free", sched.kv_blocks_free)
+        if self.prefix_caching:
+          tracer.counter("serving/prefix_hits", sched.prefix_hits)
+          tracer.counter("serving/prefix_misses", sched.prefix_misses)
+          tracer.counter("serving/prefix_blocks_reused",
+                         sched.prefix_blocks_reused)
+          tracer.counter("serving/prefix_evictions", sched.prefix_evictions)
+          tracer.counter("serving/prefix_cached_blocks",
+                         sched.prefix_cached_blocks)
+      if drafted:
+        tracer.counter("serving/drafted_tokens", drafted)
+        tracer.counter("serving/accepted_tokens", accepted)
     if self.stats is not None:
-      # Throughput counts committed tokens only: a bad slot's work is
-      # fed again next step.
-      if slot_ok is None or bool(slot_ok.all()):
-        pf_tokens, dc_tokens = plan.prefill_tokens, plan.decode_tokens
-      else:
-        ok = (plan.num_valid > 0) & slot_ok
-        pf_tokens = int(plan.num_valid[ok & plan.prefilling].sum())
-        dc_tokens = int((ok & ~plan.prefilling).sum())
       self.stats.note_step(
           active_slots=plan.active_slots, num_slots=self.num_slots,
           prefill_tokens=pf_tokens, decode_tokens=dc_tokens,
           step_time_s=dt, drafted_tokens=drafted, accepted_tokens=accepted)
       if self.paged:
-        self.stats.note_blocks(self.scheduler.kv_blocks_free,
-                               self.scheduler.kv_blocks_used,
-                               self.scheduler.kv_fragmentation,
-                               self.scheduler.preemptions,
-                               self.scheduler.proactive_preemptions)
+        self.stats.note_blocks(sched.kv_blocks_free, sched.kv_blocks_used,
+                               sched.kv_fragmentation, sched.preemptions,
+                               sched.proactive_preemptions)
         if self.prefix_caching:
-          self.stats.note_prefix(self.scheduler.prefix_hits,
-                                 self.scheduler.prefix_misses,
-                                 self.scheduler.prefix_blocks_reused,
-                                 self.scheduler.prefix_evictions,
-                                 self.scheduler.prefix_cached_blocks)
+          self.stats.note_prefix(sched.prefix_hits, sched.prefix_misses,
+                                 sched.prefix_blocks_reused,
+                                 sched.prefix_evictions,
+                                 sched.prefix_cached_blocks)
+    if (self.metrics_writer is not None or self.registry is not None
+        or self._slo is not None):
+      self._publish_record(plan, pf_tokens, dc_tokens, dt, drafted,
+                           accepted)
+    if (self.stats is not None
+        and self._steps % _STATS_PUBLISH_EVERY == 0
+        and (self.registry is not None or self._slo is not None)):
+      # Periodic percentile rollup, so latency SLO rules stay live on a
+      # long-serving engine.
+      if self.registry is not None:
+        self.stats.publish(self.registry, self._steps)
+      else:
+        self._slo.observe(
+            self._steps,
+            MetricRegistry.namespaced(SERVING_NAMESPACE,
+                                      self.stats.summary()))
     return finished
+
+  def _publish_record(self, plan, pf_tokens: int, dc_tokens: int,
+                      dt: float, drafted: int, accepted: int) -> None:
+    """The per-step ``serving/*`` record (the JAX engine's keys): to the
+    flat ``metrics_writer``, to the registry (whose sinks include the
+    SLO monitor), or straight to the monitor on a registry-less engine.
+    Every value is a host number the scheduler already holds."""
+    sched = self.scheduler
+    record = {
+        "active_slots": plan.active_slots,
+        "slot_occupancy": plan.active_slots / self.num_slots,
+        "prefill_tokens": pf_tokens,
+        "decode_tokens": dc_tokens,
+        "step_time_s": dt,
+    }
+    if self.paged:
+      record["kv_blocks_free"] = sched.kv_blocks_free
+      record["kv_blocks_used"] = sched.kv_blocks_used
+      record["kv_fragmentation"] = sched.kv_fragmentation
+      record["preemptions"] = sched.preemptions
+      record["proactive_preemptions"] = sched.proactive_preemptions
+      if self.prefix_caching:
+        record["prefix_hits"] = sched.prefix_hits
+        record["prefix_misses"] = sched.prefix_misses
+        record["prefix_blocks_reused"] = sched.prefix_blocks_reused
+        record["prefix_evictions"] = sched.prefix_evictions
+        record["prefix_cached_blocks"] = sched.prefix_cached_blocks
+    if self.drafter is not None:
+      record["drafted_tokens"] = drafted
+      record["accepted_tokens"] = accepted
+      record["drafter_failures"] = self.drafter_failures
+    if self._resilient:
+      record["queue_depth"] = sched.queue_depth
+      record["degraded_level"] = self._admission.level
+      record["shed"] = self._admission.shed_total
+      record.update(self._bad_policy.counters())
+      if self.stats is not None:
+        # The cumulative good-counter partner of "shed", so burn-rate
+        # rules evaluate on every per-step record.
+        record["finished_requests"] = float(self.stats.finished_requests)
+    if self.metrics_writer is not None:
+      # Legacy flat keys, as the JAX engine writes them.
+      self.metrics_writer.write(self._steps, record)
+    if self.registry is not None:
+      self.registry.publish(self._steps, record, SERVING_NAMESPACE)
+    elif self._slo is not None:
+      self._slo.observe(self._steps,
+                        MetricRegistry.namespaced(SERVING_NAMESPACE, record))
 
   def run(self, max_steps: Optional[int] = None) -> Dict[Any, np.ndarray]:
     """Drive until the queue drains (or ``max_steps``); returns
     ``{uid: prompt+generated}`` for every request finished during the
-    call."""
+    call.  With a registry and stats, ends with the ``serving/*``
+    rollup (tokens/s, TTFT / ITL percentiles, occupancy, counters)."""
     out: Dict[Any, np.ndarray] = {}
     steps = 0
     while self.has_work and (max_steps is None or steps < max_steps):
       for fin in self.step():
         out[fin.uid] = fin.tokens
       steps += 1
+    if self.registry is not None and self.stats is not None:
+      self.stats.publish(self.registry, self._steps)
     return out

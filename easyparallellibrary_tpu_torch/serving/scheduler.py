@@ -41,14 +41,21 @@ variability lives here; the device step only ever sees fixed shapes.
   cancellation.  Each request samples from its own counter stream (a key
   from ``seed``/``uid`` folded with the token index), so its samples do
   not depend on the slot or iteration that serves it.
+* Tracing (observability/trace.py): each request's lifecycle is one span
+  on its slot's track (``<track_prefix>/slot <i>``), opened at admission
+  and closed at retirement, requeue or preemption; instants mark submit,
+  first token, requeue and queue-side retirement; one Perfetto flow per
+  request (``Request.flow_id``, minted at submit) runs from submit
+  through every admission to its end.
 
 Not ported (ROADMAP.md Queue 1): request snapshot/restore/evacuate
-(each raises), the autotuner's clamps and tracing spans.
+(each raises) and the autotuner's clamps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 import zlib
 from collections import deque
@@ -57,6 +64,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional
 import numpy as np
 
 from easyparallellibrary_tpu_torch._not_ported import FLEET, not_ported
+from easyparallellibrary_tpu_torch.observability import trace as trace_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_request_fields)
 from easyparallellibrary_tpu_torch.serving.kv_cache import (
@@ -64,6 +72,23 @@ from easyparallellibrary_tpu_torch.serving.kv_cache import (
 from easyparallellibrary_tpu_torch.serving.prefix_cache import PrefixCache
 from easyparallellibrary_tpu_torch.utils.logging import get_logger
 from easyparallellibrary_tpu_torch.utils.prng import prng_key
+
+
+def _slot_track(slot: int, prefix: str = "serving") -> str:
+  """Perfetto track name for one KV-cache slot: every request this slot
+  serves renders its lifecycle span here."""
+  return f"{prefix}/slot {slot}"
+
+
+# Flow-context ids (Perfetto flow events): one id per request lifetime,
+# minted at the first submit the request reaches.  Process-unique is all
+# a trace needs; minting is unconditional (a plain int), so enabling the
+# tracer mid-run never sees id-less requests.
+_FLOW_IDS = itertools.count(1)
+
+
+def next_flow_id() -> int:
+  return next(_FLOW_IDS)
 
 
 def _request_key(req: "Request") -> np.ndarray:
@@ -87,9 +112,10 @@ class Request:
   the request with reason ``"deadline"``; ``priority`` is
   ``"throughput"`` (FCFS) or ``"latency"`` (admitted first).
   ``speculative=False`` opts the request out of drafting (it keeps the
-  non-speculative sample stream bit for bit).  ``flow_id`` and
-  ``checkpoint_version`` belong to features the port has not reached
-  and are carried unread.
+  non-speculative sample stream bit for bit).  ``flow_id`` is the
+  request's trace-context id (minted at submit when None);
+  ``checkpoint_version`` belongs to a feature the port has not reached
+  and is carried unread.
   """
   uid: Any
   prompt: np.ndarray
@@ -256,7 +282,7 @@ class FCFSScheduler:
   serving/prefix_cache.py with its TTL and block budget.  The
   ``on_admit`` / ``on_first_token`` / ``on_finish`` / ``on_tokens`` hooks
   are lists of subscribers.  ``clock`` is injectable for deterministic
-  deadline tests.
+  deadline tests.  ``track_prefix`` names the slots' Perfetto tracks.
   """
 
   def __init__(self, num_slots: int, prefill_chunk: int,
@@ -264,7 +290,8 @@ class FCFSScheduler:
                max_batch: int = 0, stop_token: int = -1,
                spec_k: int = 0, clock: Callable[[], float] = time.monotonic,
                block_size: int = 0, num_blocks: int = 0,
-               token_budget: int = 0, prefix_cache: bool = False,
+               token_budget: int = 0, track_prefix: str = "serving",
+               prefix_cache: bool = False,
                prefix_session_ttl_s: float = 0.0,
                prefix_max_cached_blocks: int = 0):
     if spec_k < 0:
@@ -276,6 +303,7 @@ class FCFSScheduler:
     self.num_slots = num_slots
     self.chunk = prefill_chunk
     self.max_seq_len = max_seq_len
+    self.track_prefix = track_prefix
     self.preemptions = 0
     self.proactive_preemptions = 0
     self._slot_blocks: Dict[int, List[int]] = {}
@@ -387,9 +415,24 @@ class FCFSScheduler:
     req = dataclasses.replace(req, prompt=prompt)
     if req.stop_token < 0 and self.default_stop_token >= 0:
       req = dataclasses.replace(req, stop_token=self.default_stop_token)
+    # Flow-context id: minted here unless an upstream caller already did
+    # (its id wins: the flow must span the whole dispatch arc).
+    minted = req.flow_id is None
+    if minted:
+      req = dataclasses.replace(req, flow_id=next_flow_id())
     self.pending.append(_Pending(req, self.clock()))
     self._latency_pending += req.priority == "latency"
     self._deadline_pending += self._has_deadline(req)
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:  # args dicts are not free; skip them when off
+      tracer.instant(
+          "serving/submit", cat="serving", track="serving/requests",
+          args={"uid": str(req.uid), "prompt_tokens": int(prompt.size),
+                "max_new_tokens": int(req.max_new_tokens)})
+      # The minter starts the flow; an upstream-minted flow already has
+      # its "s", and this submit is one step of its arc.
+      tracer.flow("s" if minted else "t", req.flow_id,
+                  track="serving/requests", args={"uid": str(req.uid)})
 
   @property
   def has_work(self) -> bool:
@@ -419,6 +462,16 @@ class FCFSScheduler:
             [entry.req.prompt, np.asarray(generated, np.int32)]),
         new_tokens=len(generated),
         finish_reason=reason)
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:
+      tracer.instant(
+          f"serving/{reason}", cat="serving", track="serving/requests",
+          args={"uid": str(entry.req.uid), "where": "queue"})
+      if entry.req.flow_id is not None:
+        # Queue-side retirement terminates the flow too: every started
+        # flow must reach an "f" (validate_trace).
+        tracer.flow("f", entry.req.flow_id, track="serving/requests",
+                    args={"uid": str(entry.req.uid), "reason": reason})
     self._finished_buffer.append(fin)
     for fn in self.on_finish:
       fn(fin)
@@ -498,6 +551,24 @@ class FCFSScheduler:
     self._deadline_active -= self._has_deadline(state.req)
     state.requeues += 1
     state.bad_streak = 0
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:
+      track = _slot_track(slot, self.track_prefix)
+      if state.req.flow_id is not None:
+        # Flow step inside the closing span, so the arc anchors on this
+        # occupancy before it jumps to the request's next slot.
+        tracer.flow("t", state.req.flow_id, track=track,
+                    args={"uid": str(state.req.uid), "reason": reason})
+      tracer.end(
+          f"request {state.req.uid}", cat="serving.request", track=track,
+          args={"finish_reason": "requeued",
+                "new_tokens": int(len(state.generated))})
+      tracer.instant(
+          "serving/requeue", cat="serving", track="serving/requests",
+          args={"uid": str(state.req.uid), "slot": int(slot),
+                "reason": reason,
+                "committed_prefix": int(len(state.req.prompt)
+                                        + len(state.generated))})
     get_logger().debug("requeued uid %r from slot %d (%s) with %d "
                        "committed tokens", state.req.uid, slot, reason,
                        len(state.req.prompt) + len(state.generated))
@@ -579,6 +650,7 @@ class FCFSScheduler:
       # (each already carries one fresh reference from match()) and the
       # prompt cursor jumps past them.  The match stops before the last
       # prefix token, so the slot still runs at least one prefill step.
+      reused = 0
       if self.prefix_cache is not None:
         matched = self.prefix_cache.match(state.prefix)
         if matched:
@@ -586,8 +658,29 @@ class FCFSScheduler:
           for blk in matched:
             self._tables[slot, len(blocks)] = blk
             blocks.append(blk)
-          state.prompt_pos = len(matched) * self.block_size
-          state.reg_blocks = len(matched)
+          reused = len(matched)
+          state.prompt_pos = reused * self.block_size
+          state.reg_blocks = reused
+      # The request's lifecycle span opens on its slot's track and stays
+      # open until retirement: every per-step span the engine records
+      # for this slot nests inside it.
+      tracer = trace_lib.get_tracer()
+      if tracer.enabled:
+        track = _slot_track(slot, self.track_prefix)
+        args = {"uid": str(req.uid),
+                "prompt_tokens": int(len(req.prompt)),
+                "max_new_tokens": int(req.max_new_tokens)}
+        if reused:
+          args["prefix_blocks_reused"] = int(reused)
+        if state.requeues:
+          args["requeues"] = int(state.requeues)
+        tracer.begin(f"request {req.uid}", cat="serving.request",
+                     track=track, args=args)
+        if req.flow_id is not None:
+          # Flow step just inside the fresh span: the arc lands on this
+          # slot's track for this occupancy.
+          tracer.flow("t", req.flow_id, track=track,
+                      args={"uid": str(req.uid)})
       if state.requeues == 0:
         for fn in self.on_admit:
           fn(req.uid)
@@ -972,6 +1065,16 @@ class FCFSScheduler:
       self._register_cached(state)
     self._release_blocks(slot)
     self._deadline_active -= self._has_deadline(state.req)
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:
+      track = _slot_track(slot, self.track_prefix)
+      if state.req.flow_id is not None:
+        tracer.flow("f", state.req.flow_id, track=track,
+                    args={"uid": str(state.req.uid), "reason": reason})
+      tracer.end(
+          f"request {state.req.uid}", cat="serving.request", track=track,
+          args={"finish_reason": reason,
+                "new_tokens": int(len(state.generated))})
     fin = FinishedRequest(
         uid=state.req.uid,
         tokens=np.concatenate(
@@ -1027,6 +1130,12 @@ class FCFSScheduler:
         if not state.first_token_emitted:
           state.first_token_emitted = True
           state.first_token_at = now
+          tracer = trace_lib.get_tracer()
+          if tracer.enabled:
+            tracer.instant(
+                "serving/first_token", cat="serving",
+                track=_slot_track(slot, self.track_prefix),
+                args={"uid": str(req.uid)})
           for fn in self.on_first_token:
             fn(req.uid)
         # A replaying request commits this sample too: the last prefix

@@ -24,6 +24,7 @@ import torch
 
 from easyparallellibrary_tpu_torch._not_ported import (
     RUNTIME, TENSOR_PARALLEL, not_ported)
+from easyparallellibrary_tpu_torch.observability import trace as trace_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_draft_compatible)
 
@@ -100,16 +101,18 @@ class NgramDrafter(Drafter):
     N = plan.draft_cap.shape[0]
     toks = np.zeros((N, self.k), np.int32)
     counts = np.zeros((N,), np.int32)
-    for slot, hist in histories.items():
-      cap = int(plan.draft_cap[slot])
-      if cap <= 0:
-        continue
-      if self.lookback:
-        hist = hist[-self.lookback:]
-      cont = ngram_propose(hist, min(cap, self.k), self.ngram_max,
-                           self.ngram_min)
-      counts[slot] = len(cont)
-      toks[slot, :len(cont)] = cont
+    with trace_lib.get_tracer().span("ngram_propose", cat="serving",
+                                     track="serving"):
+      for slot, hist in histories.items():
+        cap = int(plan.draft_cap[slot])
+        if cap <= 0:
+          continue
+        if self.lookback:
+          hist = hist[-self.lookback:]
+        cont = ngram_propose(hist, min(cap, self.k), self.ngram_max,
+                             self.ngram_min)
+        counts[slot] = len(cont)
+        toks[slot, :len(cont)] = cont
     return toks, counts
 
 
@@ -191,9 +194,11 @@ class DraftModelDrafter(Drafter):
     if self._kv is None:
       raise RuntimeError("DraftModelDrafter.propose before bind(): the "
                          "engine binds drafters in its constructor")
-    if not self._paged:
-      return self._propose_slots(plan)
-    return self._propose_paged(plan)
+    with trace_lib.get_tracer().span("draft_model_forward", cat="serving",
+                                     track="serving"):
+      if not self._paged:
+        return self._propose_slots(plan)
+      return self._propose_paged(plan)
 
   def _propose_slots(self, plan):
     """The contiguous layout: mirror the step's ``[N, C]`` block at the

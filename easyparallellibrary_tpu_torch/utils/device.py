@@ -18,3 +18,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         "no CUDA device is available; pass device='cpu' to run the port "
         "on the CPU")
   return dev
+
+
+def process_index() -> int:
+  """This process's index among a run's processes: the
+  ``torch.distributed`` rank when a process group is initialised, else
+  0.  Leader-only writers (trace export, the metric sinks) write on 0."""
+  import torch.distributed as dist
+  if dist.is_available() and dist.is_initialized():
+    return dist.get_rank()
+  return 0

@@ -313,6 +313,37 @@ def test_serving_caches_stay_in_the_model_config_dtype_under_o1():
   assert out.shape == (9,) and (out >= 0).all() and (out < 64).all()
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_o1_fp16_paged_engine_over_bf16_config_equals_jax(seed):
+  """amp O1 in fp16 over a bf16 GPTConfig on the paged engine: fp16
+  queries over the bf16 pools, which on the card is the mixed CUDA build
+  and here the plain version, promoting to fp32 as JAX's reference does.
+  Greedy streams are token-equal to the JAX paged engine
+  under the same config."""
+  from easyparallellibrary_tpu.serving import (
+      ContinuousBatchingEngine as JaxEngine, Request as JaxRequest)
+  _set_amp("O1-fp16")
+  jmodel = jgpt.GPT(jgpt.GPTConfig(**TINY, dtype=jnp.bfloat16))
+  jparams = jmodel.init(jax.random.PRNGKey(seed),
+                        jnp.zeros((1, 4), jnp.int32))["params"]
+  tmodel = tgpt.GPT(tgpt.GPTConfig(**TINY, dtype=torch.bfloat16))
+  tparams = from_jax_params(_numpy_tree(jparams), device="cpu")
+  r = np.random.RandomState(seed)
+  prompts = [r.randint(0, 64, (n,)).astype(np.int32)
+             for n in (5, 3, 9, 1, 6, 2)]
+  knobs = dict(num_slots=3, prefill_chunk=8, paged=True, block_size=4)
+  eng = ContinuousBatchingEngine(tmodel, tparams, device="cpu", **knobs)
+  jeng = JaxEngine(jmodel, jparams, **knobs)
+  assert eng.compute_dtype == torch.float16
+  assert eng._kv["block_0"]["attn"]["cached_key"].dtype == torch.bfloat16
+  for i, p in enumerate(prompts):
+    eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+    jeng.submit(JaxRequest(uid=i, prompt=p, max_new_tokens=8))
+  got, want = eng.run(), jeng.run()
+  for i in range(len(prompts)):
+    np.testing.assert_array_equal(got[i], want[i], err_msg=f"req {i}")
+
+
 # ------------------------------------------------ fp16 plain versions --
 
 

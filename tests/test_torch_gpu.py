@@ -449,6 +449,7 @@ def test_bf16_training_step_flash_matches_dense_on_the_card(cuda):
 # PAGED_FP16_LIMIT say how the limits were set.
 FLASH_FP16_LIMIT = dict(fwd=(1e-3, 2e-3), grad=(2e-4, 2e-3))
 PAGED_FP16_LIMIT = (1e-3, 2e-3)
+PAGED_MIXED_LIMIT = (1e-3, 2e-3)
 
 
 def _assert_normalized_close(got, want, limit, name):
@@ -553,7 +554,10 @@ def test_paged_fp16_query_over_fp32_pools_runs_the_fp32_build(cuda):
   is fp32, as the plain version's promoted result is.  The plain version
   rounds p to the query's fp16 before the V product, the kernel keeps it
   in fp32 (the Pallas kernel's ``p.astype(v.dtype)``): held to fp16's
-  resolution, rtol = atol = 2e-3."""
+  resolution, rtol = atol = 2e-3.  amp O1 in fp16 over a bf16 config
+  (fp16 q over bf16 pools, which once raised here) runs the mixed build
+  at an engine step of the real scheduler, held to its plain version by
+  ``PAGED_MIXED_LIMIT``; any other mix of types still raises."""
   q, kp, vp, tables, positions = _case(cuda, torch.float32, seed=7, T=9,
                                        H=4, hd=64, NB=13, bs=16, MB=6)
   q = q.half()
@@ -564,8 +568,69 @@ def test_paged_fp16_query_over_fp32_pools_runs_the_fp32_build(cuda):
   want = pa.paged_attention_reference(q, kp, vp, tables, positions)
   assert got.dtype == want.dtype == torch.float32
   torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+  args = _engine_step_mixed(cuda, seed=7)
+  launches = (pa.paged_attention_mixed_cuda.launches,
+              pa.paged_attention_tiled_cuda.launches)
+  got = pa.paged_attention(*args)
+  torch.cuda.synchronize()
+  assert (pa.paged_attention_mixed_cuda.launches,
+          pa.paged_attention_tiled_cuda.launches) == (launches[0] + 1,
+                                                      launches[1])
+  want = pa.paged_attention_reference(*args)
+  assert got.dtype == want.dtype == torch.float32
+  _assert_normalized_close(got, want, PAGED_MIXED_LIMIT, "engine_step")
   with pytest.raises(ValueError, match="one dtype"):
-    pa.paged_attention(q, kp.bfloat16(), vp.bfloat16(), tables, positions)
+    pa.paged_attention(q.bfloat16(), kp.half(), vp.half(), tables,
+                       positions)
+  with pytest.raises(ValueError, match="fp16 q over"):
+    pa.paged_attention_mixed_cuda(q, kp.half(), vp.half(), tables,
+                                  positions)
+
+
+def _engine_step_mixed(device, seed, H=16, hd=64):
+  """An engine step of the real scheduler (``testing.step_plans``, no
+  drafts: decode tokens, a prefill chunk, padding) with an fp16 query
+  over bf16 pools."""
+  from easyparallellibrary_tpu_torch.testing import step_plans
+  plan = step_plans.scheduled_step(seed, spec_k=0)
+  NB = 8 * plan.block_tables.shape[1] + 1
+  r = np.random.RandomState(seed)
+  q = torch.from_numpy(r.randn(len(plan.positions), H, hd).astype(
+      np.float32)).to(device, torch.float16)
+  kp, vp = [torch.from_numpy(r.randn(NB, 16, H, hd).astype(np.float32)).to(
+      device, torch.bfloat16) for _ in range(2)]
+  tables = torch.from_numpy(plan.block_tables[plan.slot_ids]).to(device)
+  return q, kp, vp, tables, torch.from_numpy(plan.positions).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    dict(seed=1, T=16, H=8, hd=64, NB=17, bs=16, MB=8),
+    dict(seed=2, T=5, H=3, hd=24, NB=9, bs=8, MB=4),
+    dict(seed=3, T=9, H=4, hd=128, NB=13, bs=16, MB=6),
+    dict(seed=4, T=7, H=2, hd=256, NB=9, bs=8, MB=4),
+    dict(seed=5, T=3, H=1, hd=8, NB=5, bs=2, MB=3),
+    dict(seed=6, T=1, H=1, hd=64, NB=2, bs=16, MB=1),
+])
+def test_paged_mixed_build_matches_plain_version(cuda, shape):
+  """The mixed build (fp16 q over bf16 pools, fp32 out) at ragged head
+  dims 8 to 256, one token, a one-block table; a NaN in q gives NaN in
+  that token's output row and nowhere else."""
+  q, kp, vp, tables, positions = _case(cuda, torch.float32, **shape)
+  args = (q.half(), kp.bfloat16(), vp.bfloat16(), tables, positions)
+  launches = pa.paged_attention_mixed_cuda.launches
+  got = pa.paged_attention(*args)
+  torch.cuda.synchronize()
+  assert pa.paged_attention_mixed_cuda.launches == launches + 1
+  want = pa.paged_attention_reference(*args)
+  assert got.dtype == torch.float32
+  _assert_normalized_close(got, want, PAGED_MIXED_LIMIT, "paged mixed")
+  args[0][0, 0] = float("nan")
+  got = pa.paged_attention(*args)
+  torch.cuda.synchronize()
+  assert bool(torch.isnan(got[0, 0]).all())
+  assert bool(torch.isfinite(got[1:]).all()) and bool(
+      torch.isfinite(got[0, 1:]).all())
 
 
 @pytest.mark.gpu
@@ -634,3 +699,93 @@ def test_nan_step_is_retried_exactly_on_the_card(cuda, paged):
     want = generate(model, params, torch.from_numpy(p[None]).long().to(cuda),
                     6)[0].cpu().numpy()
     np.testing.assert_array_equal(out[i], want, err_msg=f"req {i}")
+
+
+# --------------------------------------------------- serving observability
+
+
+def _traced_paged_run(device, traced, tmp_path):
+  """Staggered greedy requests through the paged engine (n-gram drafter,
+  prefix cache) with observability fully on or off, under
+  ``torch.cuda.set_sync_debug_mode("warn")``; returns the streams, the
+  engine and the count of synchronising calls."""
+  import warnings
+  from easyparallellibrary_tpu_torch.config import Config
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.observability import (
+      device as device_lib, slo, trace)
+  from easyparallellibrary_tpu_torch.observability.registry import (
+      MetricRegistry)
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, NgramDrafter, Request)
+  from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
+  for mod in (trace, slo, device_lib):
+    mod.reset()
+  Env.get().reset(Config({"observability": {
+      "enabled": True, "slo": {"enabled": True},
+      "device": {"enabled": True}}}) if traced else None)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  model, params = tiny_gpt(seed=3, device=device)
+  r = np.random.RandomState(4)
+  shared = np.arange(1, 9, dtype=np.int32)
+  prompts = [np.concatenate([shared, np.tile(r.randint(0, 64, (n,)), 2)])
+             .astype(np.int32) for n in (3, 1, 6, 2)]
+  eng = ContinuousBatchingEngine(
+      model, params, device=device, num_slots=2, prefill_chunk=8,
+      paged=True, block_size=4,
+      prefix_cache=True, drafter=NgramDrafter(k=4),
+      registry=MetricRegistry() if traced else None)
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+      out = eng.run()
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+  syncs = sum("synchroniz" in str(w.message) for w in caught)
+  path = trace.get_tracer().export(str(tmp_path / "t.json")) if traced \
+      else None
+  for mod in (trace, slo, device_lib):
+    mod.reset()
+  Env.get().reset()
+  return out, eng, syncs, path
+
+
+@pytest.mark.gpu
+def test_traced_engine_on_the_card_validates_and_equals_untraced(
+    cuda, tmp_path):
+  """Observability fully on, on the card: the trace validates with every
+  request's lifecycle, the streams equal the untraced run's, the HBM
+  gauges read the card, and the cost card shows the pools written in
+  place."""
+  from easyparallellibrary_tpu_torch.observability import report, trace
+  want, _, _, _ = _traced_paged_run(cuda, False, tmp_path)
+  got, eng, _, path = _traced_paged_run(cuda, True, tmp_path)
+  for i in want:
+    np.testing.assert_array_equal(got[i], want[i])
+  events = trace.validate_trace(path)
+  spans, unmatched = report.pair_spans(events)
+  assert unmatched == 0
+  assert sorted(sp["args"]["uid"] for sp in spans
+                if sp["cat"] == "serving.request") == ["0", "1", "2", "3"]
+  latest = eng.registry.latest()
+  assert 0 < latest["observability/device/hbm_frac"] < 1
+  assert latest["observability/device/hbm_bytes_limit"] > 0
+  card = eng._introspector.card("serving/fused_step")
+  assert card.donation_verified and card.peak_hbm_bytes > 0
+  assert eng._compile_sentinel.recompiles == 0
+
+
+@pytest.mark.gpu
+def test_tracing_adds_no_synchronising_call(cuda, tmp_path):
+  """The step keeps its one device-to-host fetch: the same load makes
+  as many synchronising calls traced as untraced
+  (``torch.cuda.set_sync_debug_mode("warn")``)."""
+  _traced_paged_run(cuda, False, tmp_path)        # warm: kernels loaded
+  want, _, off, _ = _traced_paged_run(cuda, False, tmp_path)
+  got, eng, on, _ = _traced_paged_run(cuda, True, tmp_path)
+  for i in want:
+    np.testing.assert_array_equal(got[i], want[i])
+  assert on == off > 0, (on, off, eng.steps)

@@ -50,6 +50,28 @@ def test_plain_version_matches_jax_reference_fp32(shape):
   np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [
+    dict(seed=0),
+    dict(seed=3, T=11, H=2, hd=64, NB=17, bs=4, MB=8),
+])
+def test_plain_version_fp16_query_over_bf16_pools_matches_jax(shape):
+  """amp O1 in fp16 over a bf16 model config sends an fp16 query over
+  bf16 pools.  JAX's reference promotes the mixed einsums to fp32 (and
+  rounds p to the query's fp16); the port's plain version, the mixed
+  CUDA build's oracle, does the same and returns fp32.  Both compute in
+  fp32 from the same rounded inputs and differ only in summation order:
+  within 1e-5 (the largest reading here is 4.8e-7)."""
+  q, kp, vp, tables, pos = _case(**shape)
+  want = np.asarray(jax_reference(
+      jnp.asarray(q).astype(jnp.float16), jnp.asarray(kp).astype(jnp.bfloat16),
+      jnp.asarray(vp).astype(jnp.bfloat16), jnp.asarray(tables),
+      jnp.asarray(pos)))
+  tq, tk, tv, tt, tpos = _torch((q, kp, vp, tables, pos))
+  got = pa.paged_attention(tq.half(), tk.bfloat16(), tv.bfloat16(), tt, tpos)
+  assert want.dtype == np.float32 and got.dtype == torch.float32
+  np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_plain_version_matches_pallas_interpret():
   args = _case()
   want = np.asarray(paged_attention_pallas(

@@ -162,12 +162,14 @@ def test_sampled_stream_independent_of_batch_and_slot():
 
 @pytest.mark.parametrize("kwargs", [
     dict(config=TorchConfig({"serving.autotune.enabled": True})),
-    dict(config=TorchConfig({"observability.enabled": True})),
-    dict(mesh=object()), dict(registry=object()),
+    dict(config=TorchConfig({"serving.autotune.enabled": True,
+                             "observability.enabled": True})),
+    dict(mesh=object()), dict(mesh=object(), registry=object()),
 ])
 def test_features_outside_the_slice_raise(kwargs):
   """What the port has not reached raises on both layouts (the
-  contiguous engine and serving resilience have been ported since)."""
+  contiguous engine, serving resilience and observability have been
+  ported since: the autotuner and a mesh still raise beside them)."""
   tmodel, tparams = tiny_gpt(device="cpu")
   for paged in (True, False):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
