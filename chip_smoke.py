@@ -102,7 +102,22 @@ those paths against its plain PyTorch version:
     a ``serving/*`` record per step; the HBM gauges, the cost card and
     the compile sentinel; an ITL rule breach's diagnostic bundle, and a
     watchdog breach arming a ``torch.profiler`` trace of the next step
-    that names the paged kernel; a short traced contiguous run.
+    that names the paged kernel; a short traced contiguous run;
+18. the training runtime around the step, GPT-350M bf16 at ``bench.py``'s
+    configuration: token records written and read back by the native
+    ``RecordReader`` through ``DevicePrefetcher`` into ``fit(
+    build_train_step(...))`` with the anomaly sentinel on — (a) 20 steps
+    with a ~4 GB checkpoint every 10 (tokens/s, MFU, save seconds, the
+    flash launches against 24 x steps); (b) a fresh state resuming at
+    step 20 (restore seconds, restored state bit-equal to the live one,
+    steps 21-30 against the uninterrupted run); (c) a two-step NaN
+    window under ``set_sync_debug_mode("error")`` left bit-identical,
+    then a persistent fault rolled back with the learning rate halved;
+    (d) one step with ``pipeline.num_micro_batch=2`` and with
+    ``optimizer.num_apply_group=4`` (params bit-equal to one group);
+    (e) dropout 0.1 (finite losses, the masks' drop rate within 3
+    sigma); (f) ``DraftModelDrafter.from_checkpoint`` serving 8 requests
+    self-draft on the paged engine, its paged launches counted.
 
 Every phase raises on failure.  The second-to-last line of the output is
 the ``{"kernels": [...]}`` record, the last one
@@ -110,8 +125,7 @@ the ``{"kernels": [...]}`` record, the last one
 of the repository, it exits with code 2 and prints no result.
 ``python3 chip_smoke.py --phases 2,3`` runs the build and the listed
 phases only (5 and 6, 10 and 11 run together) and prints no result
-lines.  ``--phases 16,17`` runs the latest slice's: the fp16 and mixed
-builds with amp O1, and serving observability.
+lines.  ``--phases 18`` runs the latest slice's: the training runtime.
 """
 
 from __future__ import annotations
@@ -199,6 +213,11 @@ PROFILE_STEPS = 20
 # prefill has started), and phase 16's O1-fp16 training cut.
 TRANSIENT_FAULT, PERSISTENT_FAULT = (6,), (6, 7)
 O1_FP16_LAYERS, O1_FP16_BATCH, O1_STEPS = 4, 4, 3
+# Phase 18: batch, records, fit's steps before and after the resume, the
+# sentinel's window, dropout, and the resumed losses' tolerance (kept
+# only where the card's products are not deterministic run to run).
+RT_BATCH, RT_RECORDS, RT_STEPS, RT_RESUME_STEPS = 16, 1024, 20, 30
+RT_MAX_BAD, RT_DROPOUT, RT_RESUME_RTOL = 4, 0.1, 1e-3
 
 
 def log(msg: str) -> None:
@@ -2351,9 +2370,458 @@ def contiguous_traced(torch, params):
       f"lifecycles")
 
 
+# --------------------------------------- phase 18: the training runtime
+
+
+def _record_batches(reader, batch_size):
+  """Token records (int32, seq + 1 each) -> ``{"ids", "weight"}``
+  batches; ``weight`` is a per-sequence loss weight (ones; the phase's
+  loss multiplies by its mean), the float leaf a NaN fault poisons."""
+  rows = []
+  for rec in reader:
+    rows.append(np.frombuffer(rec, np.int32))
+    if len(rows) == batch_size:
+      yield {"ids": np.stack(rows),
+             "weight": np.ones(batch_size, np.float32)}
+      rows = []
+
+
+def _poison(torch, batch):
+  """A device batch with its loss weight NaN (``chaos.nan_batch`` on the
+  float leaf; the token ids stay)."""
+  return dict(batch, weight=torch.full_like(batch["weight"], float("nan")))
+
+
+def _snapshot(torch, state):
+  """Parameters, both moments and every per-parameter step, cloned."""
+  out = {}
+  for name, p in state.params.items():
+    st = state.opt_state.state.get(p, {})
+    out[name] = [p.detach().clone()] + [
+        st[k].detach().clone() for k in ("exp_avg", "exp_avg_sq", "step")
+        if k in st]
+  return out
+
+
+def _same(torch, a, b):
+  """Whether two snapshots are bit-identical, leaf by leaf."""
+  return a.keys() == b.keys() and all(
+      len(a[n]) == len(b[n]) and all(torch.equal(x, y)
+                                     for x, y in zip(a[n], b[n]))
+      for n in a)
+
+
+class _Timed:
+  """Wrap a module function: count its calls and their seconds."""
+
+  def __init__(self, module, name):
+    self.module, self.name = module, name
+    self.fn = getattr(module, name)
+    self.seconds, self.args = [], []
+    setattr(module, name, self)
+
+  def __call__(self, *args, **kw):
+    t0 = time.monotonic()
+    out = self.fn(*args, **kw)
+    self.seconds.append(time.monotonic() - t0)
+    self.args.append(kw.get("step", kw.get("after_step")))
+    return out
+
+  def undo(self):
+    setattr(self.module, self.name, self.fn)
+
+
+class _NoSync:
+  """``torch.cuda.set_sync_debug_mode("error")`` over the body: any host
+  sync in it raises (nothing on the CPU)."""
+
+  def __init__(self, torch, device):
+    self.torch, self.on = torch, torch.device(device).type == "cuda"
+
+  def __enter__(self):
+    if self.on:
+      self.torch.cuda.set_sync_debug_mode("error")
+
+  def __exit__(self, *exc):
+    if self.on:
+      self.torch.cuda.set_sync_debug_mode(0)
+    return False
+
+
+def training_runtime(torch, fa, pa, bench, device="cuda", widths=None,
+                     batch_size=None, records=None):
+  """Phase 18: ``fit()`` around ``bench.py``'s configuration (bf16 over
+  fp32, flash, ``dots_flash``, ``loss_chunk`` 256, batch 16 x 1024) at
+  full width, fed from token records by ``RecordReader(use_native=True)``
+  and ``DevicePrefetcher``, with the anomaly sentinel on
+  (``resilience.max_bad_steps``): (a) 20 steps with a checkpoint every
+  10; (b) a fresh state resuming at step 20 over the same dir, held to
+  the uninterrupted run; (c) a two-step NaN window skipped bit for bit
+  with no host sync, then a persistent fault rolled back; (d) gradient
+  accumulation and the grouped apply; (e) dropout; (f) serving from the
+  checkpoint.  The loss is ``gpt_loss`` times the batch's ``weight``
+  leaf (1.0; NaN where a fault is injected).  Returns the flash launch
+  counts of (a)."""
+  import shutil
+  import tempfile
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.io import (
+      DevicePrefetcher, RecordReader, write_records)
+  from easyparallellibrary_tpu_torch.models.gpt import (
+      GPT, GPTConfig, gpt_flops_per_token, gpt_loss)
+  from easyparallellibrary_tpu_torch.ops.adamw import (
+      adam_weight_decay_optimizer)
+  from easyparallellibrary_tpu_torch.parallel import (
+      create_sharded_train_state, parallelize)
+  from easyparallellibrary_tpu_torch.profiler.profiler import StepProfiler
+  from easyparallellibrary_tpu_torch.runtime import saver
+  from easyparallellibrary_tpu_torch.runtime.loop import fit
+  from easyparallellibrary_tpu_torch.runtime.trainer import (
+      build_train_step, create_train_state)
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, DraftModelDrafter, Request)
+  from easyparallellibrary_tpu_torch.testing.chaos import NaNInjector
+  from easyparallellibrary_tpu_torch.utils import prng
+  from easyparallellibrary_tpu_torch.weights import init_params
+
+  widths = widths or GPT_350M
+  B, S, L = batch_size or RT_BATCH, widths["max_seq_len"], \
+      widths["num_layers"]
+  n_records = records or RT_RECORDS
+  cfg = bench.bench_config(torch.device(device), **widths)[0]
+  on_gpu = torch.device(device).type == "cuda"
+
+  def sync():
+    if on_gpu:
+      torch.cuda.synchronize()
+
+  tmp = tempfile.mkdtemp(prefix="epl_phase18_")
+  ckpt = os.path.join(tmp, "ckpt")
+  config = epl.Config({"resilience": {"max_bad_steps": RT_MAX_BAD,
+                                      "keep_last": 1,
+                                      "rollback_lr_backoff": 0.5}})
+  epl.init(config, device=device)
+  with epl.replicate(1):
+    model = GPT(cfg)
+  mesh = epl.current_plan().build_mesh()
+  tx = adam_weight_decay_optimizer(3e-4)
+  params0 = init_params(cfg, seed=0, device=device)
+
+  def loss_fn(p, batch, rng):
+    loss, aux = gpt_loss(model, p, batch, rng)
+    return loss * batch["weight"].mean(), aux
+
+  def new_state():
+    state, sh = create_sharded_train_state(
+        lambda: create_train_state(model, params0, tx), mesh)
+    return state, sh
+
+  # Records: int32 token ids of S + 1 per record, n_records of them in
+  # two files.
+  r = np.random.RandomState(18)
+  files = []
+  for i in range(2):
+    path = os.path.join(tmp, f"tokens_{i}.rec")
+    write_records(path, [r.randint(0, cfg.vocab_size, S + 1)
+                         .astype(np.int32).tobytes()
+                         for _ in range(n_records // 2)], use_native=True)
+    files.append(path)
+  starts = []
+
+  def data(start_step=0):
+    starts.append(start_step)
+    reader = RecordReader(files, use_native=True,
+                          skip_records=(start_step * B) % n_records)
+    assert reader._native
+    return DevicePrefetcher(_record_batches(reader, B), mesh)
+
+  losses = {}
+
+  def recorded(step_fn, key):
+    def run(state, batch, rng):
+      state, metrics = step_fn(state, batch, rng)
+      losses.setdefault(key, []).append(metrics["loss"].detach())
+      return state, metrics
+    return run
+
+  saves = _Timed(saver, "save_checkpoint")
+  restores = _Timed(saver, "restore_train_state")
+  try:
+    # (a) fit from records, checkpoints every 10 steps.
+    state, sh = new_state()
+    step = parallelize(build_train_step(loss_fn), mesh, sh)
+    prof = StepProfiler(flops_per_step=gpt_flops_per_token(cfg, S) * B * S,
+                        tokens_per_step=B * S, warmup=2)
+    fa.reset_counts()
+    t0 = time.monotonic()
+    state, metrics = fit(recorded(step, "a"), state, data,
+                         num_steps=RT_STEPS, checkpoint_dir=ckpt,
+                         checkpoint_every=10, log_every=0, profiler=prof,
+                         device=device)
+    sync()
+    wall = time.monotonic() - t0
+    launches = {"fwd": fa.flash_fwd_cuda.launches,
+                "dkv": fa.flash_bwd_dkv_cuda.launches,
+                "dq": fa.flash_bwd_dq_cuda.launches}
+    plain = (fa.flash_fwd_reference.calls, fa.flash_bwd_dkv_reference.calls,
+             fa.flash_bwd_dq_reference.calls)
+    assert int(state.step) == RT_STEPS
+    if on_gpu:
+      assert all(n == L * RT_STEPS for n in launches.values()), launches
+      assert plain == (0, 0, 0), plain
+    la = torch.stack(losses["a"]).float().cpu().numpy()
+    assert np.isfinite(la).all(), la
+    summary = prof.summary()
+    med = statistics.median(prof.times)
+    flops = gpt_flops_per_token(cfg, S) * B * S
+    from easyparallellibrary_tpu_torch.profiler.flops import estimate_mfu
+    mfu = (f"{summary['mfu']:.4f}", f"{estimate_mfu(flops, med):.4f}") \
+        if on_gpu else ("not measured",) * 2
+    log(f"   (a) {RT_STEPS} steps in {wall:.2f} s wall; StepProfiler mean "
+        f"(the checkpointing steps included): step "
+        f"{summary['step_time_s'] * 1e3:.1f} ms, tokens/s "
+        f"{summary['tokens_per_sec']:.1f}, MFU {mfu[0]}; median step "
+        f"{med * 1e3:.1f} ms, tokens/s {B * S / med:.1f}, MFU {mfu[1]}")
+    log(f"   (a) loss {la[0]:.4f} -> {la[-1]:.4f}; flash launches "
+        f"{launches} = {L} layers x {RT_STEPS} steps; plain-version calls "
+        f"{plain}; records read natively from {len(files)} files, "
+        f"prefetcher depth {epl.Env.get().config.io.prefetch}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(ckpt) for f in fs
+                     if f.endswith(".npz"))
+    log(f"   (a) saves at steps {saves.args}: "
+        + ", ".join(f"{s:.2f} s" for s in saves.seconds)
+        + f" for {ckpt_bytes / 1e9:.3f} GB (params + mu + nu, fp32; "
+        f"{ckpt_bytes / 1e9 / saves.seconds[-1]:.2f} GB/s; "
+        f"{saver._IO_WORKERS} IO threads, {os.cpu_count()} host cores)")
+    assert saves.args == [10, 20], saves.args
+    assert saver.latest_step(ckpt) == RT_STEPS
+    assert sorted(os.listdir(ckpt)) == ["metrics.jsonl", "step_00000020"]
+
+    # (b) resume: a fresh state over the same dir restores step 20, the
+    # data factory is told start_step=20; steps 21..30 against the live
+    # state continuing uninterrupted.
+    live = _snapshot(torch, state)
+    fresh, sh_b = new_state()
+    checked = []
+
+    def first_call_check(step_fn):
+      def run(st, batch, rng):
+        if not checked:
+          checked.append(_same(torch, _snapshot(torch, st), live))
+        return step_fn(st, batch, rng)
+      return run
+
+    del starts[:]
+    step_b = parallelize(build_train_step(loss_fn), mesh, sh_b)
+    fresh, _ = fit(recorded(first_call_check(step_b), "b"), fresh, data,
+                   num_steps=RT_RESUME_STEPS, checkpoint_dir=ckpt,
+                   checkpoint_every=10, log_every=0, device=device)
+    assert checked == [True], checked
+    assert starts[0] == RT_STEPS, starts
+    assert int(fresh.step) == RT_RESUME_STEPS
+    restore_s = restores.seconds[-1]
+    state, _ = fit(recorded(step, "uninterrupted"), state, data,
+                   num_steps=RT_RESUME_STEPS, log_every=0, device=device)
+    lb = torch.stack(losses["b"]).float().cpu().numpy()
+    lu = torch.stack(losses["uninterrupted"]).float().cpu().numpy()
+    equal = np.array_equal(lb, lu)
+    diff = float(np.max(np.abs(lb - lu)))
+    log(f"   (b) restore of step {RT_STEPS}: {restore_s:.2f} s "
+        f"({ckpt_bytes / 1e9 / restore_s:.2f} GB/s, checksums included); "
+        f"restored params, moments and steps bit-equal to the live state: "
+        f"{checked[0]}; data factory start_step {starts[0]}")
+    log(f"   (b) steps {RT_STEPS + 1}-{RT_RESUME_STEPS} resumed against "
+        f"uninterrupted: equal loss for loss {equal}, max |diff| "
+        f"{diff:.3e} (limit {RT_RESUME_RTOL} relative)")
+    np.testing.assert_allclose(lb, lu, rtol=RT_RESUME_RTOL)
+    assert _same(torch, _snapshot(torch, fresh), _snapshot(torch, state)) \
+        or not equal
+    del fresh, live
+    gc.collect()
+
+    # (c) the sentinel: a two-step NaN window through the guarded step
+    # under sync-debug "error" (a host sync raises), then a clean step,
+    # then a persistent fault inside fit, rolled back.
+    it = data(0)
+    batches = [next(it) for _ in range(3)]
+    del it
+    poisoned = [_poison(torch, b) for b in batches[:2]]
+    keys = [prng.host_fold_in(prng.prng_key(0), i) for i in range(3)]
+    sync()
+    before = _snapshot(torch, state)
+    step_before = torch.as_tensor(state.step).clone()
+    bad_before = int(state.sentinel.bad_total)
+    with _NoSync(torch, device):
+      for b, k in zip(poisoned, keys):
+        state, skipped = step(state, b, k)
+    window_noop = _same(torch, _snapshot(torch, state), before) and \
+        torch.equal(torch.as_tensor(state.step), step_before)
+    counts = (int(skipped["bad_steps"]), int(skipped["bad_steps_total"]),
+              float(skipped["update_skipped"]))
+    with _NoSync(torch, device):
+      state, clean = step(state, batches[2], keys[2])
+    moved = not _same(torch, _snapshot(torch, state), before)
+    log(f"   (c) 2 NaN steps then 1 clean step "
+        + ("under set_sync_debug_mode('error'): no host sync"
+           if on_gpu else "(the sync check needs the card)")
+        + f"; the NaN window left "
+        f"params, both moments, every parameter's step and "
+        f"TrainState.step bit-identical: {window_noop}; bad_steps "
+        f"{counts[0]} then {int(clean['bad_steps'])}, bad_steps_total "
+        f"{bad_before} -> {int(clean['bad_steps_total'])}, TrainState.step "
+        f"{int(step_before)} -> {int(state.step)}, the clean step moved "
+        f"the state: {moved}")
+    assert window_noop and moved
+    assert counts == (2, bad_before + 2, 1.0), counts
+    assert int(clean["bad_steps"]) == 0
+    assert int(state.step) == int(step_before) + 1
+    del before
+
+    # Persistent fault: the max_bad_steps steps ending at a window
+    # boundary are poisoned on their first draw; fit rolls back to the
+    # newest checkpoint with the learning rate halved and replays clean.
+    n_restores = len(restores.seconds)
+    base = int(state.step)
+    total0 = int(state.sentinel.bad_total)
+    assert saver.latest_step(ckpt) == RT_RESUME_STEPS
+    end = next(e for e in range(base + RT_MAX_BAD, base + 3 * RT_MAX_BAD)
+               if (e + 1) % RT_MAX_BAD == 0)
+    bad = tuple(range(end - RT_MAX_BAD + 1, end + 1))
+    inj = NaNInjector(lambda s: next(iter(data(s))), bad_steps=bad,
+                      num_steps=base + 10,
+                      poison=lambda b: _poison(torch, b))
+    prof_c = StepProfiler(warmup=0)
+    lr0 = [g["lr"] for g in state.opt_state.param_groups]
+    state, metrics = fit(step, state, inj, num_steps=base + 10,
+                         checkpoint_dir=ckpt, log_every=0, profiler=prof_c,
+                         device=device)
+    rolled = restores.args[n_restores:]
+    lr1 = [g["lr"] for g in state.opt_state.param_groups]
+    log(f"   (c) persistent fault at steps {list(bad)}: poisoned "
+        f"{inj.poisoned}; restore calls {rolled} (start of fit, then the "
+        f"rollback to step {RT_RESUME_STEPS}: "
+        f"{restores.seconds[-1]:.2f} s); bad steps counted "
+        f"{prof_c.bad_steps - total0}; lr {lr0[0]:g} -> {lr1[0]:g}; "
+        f"TrainState.step {int(state.step)}, last loss "
+        f"{float(metrics['loss']):.4f}")
+    assert inj.poisoned == list(bad), inj.poisoned
+    assert rolled == [base, None], rolled
+    assert prof_c.bad_steps == total0 + RT_MAX_BAD, prof_c.bad_steps
+    assert all(b == a * 0.5 for a, b in zip(lr0, lr1)), (lr0, lr1)
+    assert int(state.step) == base + 10
+    assert np.isfinite(float(metrics["loss"]))
+
+    # (d) accumulation and the grouped apply, one step each from the
+    # same start on the same batch.
+    batch = batches[0]
+    key = keys[0]
+    result = {}
+    for label, overrides in (("plain", {}),
+                             ("micro_batch_2", {"pipeline.num_micro_batch":
+                                                2}),
+                             ("apply_group_4", {"optimizer.num_apply_group":
+                                                4})):
+      c = epl.Config({"resilience.max_bad_steps": RT_MAX_BAD, **overrides})
+      st, shd = create_sharded_train_state(
+          lambda: create_train_state(model, params0, tx, config=c), mesh)
+      stp = parallelize(build_train_step(loss_fn, config=c), mesh, shd)
+      st, m = stp(st, batch, key)
+      result[label] = (float(m["loss"]),
+                       {n: p.detach().clone() for n, p in st.params.items()}
+                       if label != "micro_batch_2" else None)
+      del st, stp
+    grouped_equal = all(torch.equal(result["plain"][1][n],
+                                    result["apply_group_4"][1][n])
+                        for n in result["plain"][1])
+    lp, lg = result["plain"][0], result["micro_batch_2"][0]
+    log(f"   (d) one step: loss {lp:.6f} plain, {lg:.6f} with "
+        f"pipeline.num_micro_batch=2 (rel diff {abs(lg - lp) / lp:.2e}); "
+        f"optimizer.num_apply_group=4 params bit-equal to one group: "
+        f"{grouped_equal}")
+    assert grouped_equal
+    assert abs(lg - lp) / lp < 1e-2
+    del result
+    gc.collect()
+
+    # (e) dropout 0.1: two steps, and the masks' drop rate.
+    import dataclasses
+    dcfg = dataclasses.replace(cfg, dropout_rate=RT_DROPOUT)
+    dmodel = GPT(dcfg)
+    st, shd = create_sharded_train_state(
+        lambda: create_train_state(dmodel, params0, tx), mesh)
+
+    def dloss(p, b, rng):
+      loss, aux = gpt_loss(dmodel, p, b, rng)
+      return loss * b["weight"].mean(), aux
+
+    stp = parallelize(build_train_step(dloss), mesh, shd)
+    dl = []
+    for i in range(2):
+      st, m = stp(st, batches[i], keys[i])
+      dl.append(float(m["loss"]))
+    keep = prng.keep_mask(keys[0], (B, S, cfg.d_model), RT_DROPOUT, device)
+    n = keep.numel()
+    rate = 1.0 - float(keep.float().mean())
+    sigma = (RT_DROPOUT * (1 - RT_DROPOUT) / n) ** 0.5
+    log(f"   (e) dropout {RT_DROPOUT}: losses {dl[0]:.4f}, {dl[1]:.4f} "
+        f"(plain step {lp:.4f}); drop rate of one [{B}, {S}, "
+        f"{cfg.d_model}] mask {rate:.6f}, |rate - {RT_DROPOUT}| = "
+        f"{abs(rate - RT_DROPOUT) / sigma:.2f} sigma (limit 3)")
+    assert all(np.isfinite(dl)) and dl[0] != lp
+    assert abs(rate - RT_DROPOUT) < 3 * sigma
+    del st, stp, keep, state, step, batches, poisoned
+    gc.collect()
+    if on_gpu:
+      torch.cuda.empty_cache()
+
+    # (f) serve from the checkpoint: a self-draft paged run of 8
+    # requests through DraftModelDrafter.from_checkpoint.
+    scfg = GPTConfig(**widths, dtype=torch.bfloat16)
+    smodel = GPT(scfg)
+    t0 = time.monotonic()
+    drafter = DraftModelDrafter.from_checkpoint(ckpt, smodel, k=SPEC_K,
+                                                device=device)
+    load_s = time.monotonic() - t0
+    target, rstep = saver.restore_params(ckpt, device=device)
+    assert rstep == RT_RESUME_STEPS
+    assert all(torch.equal(target[n].float(), drafter.params[n].float())
+               for n in target)
+    eng = ContinuousBatchingEngine(smodel, target, paged=True,
+                                   device=device, num_slots=NUM_SLOTS,
+                                   prefill_chunk=PREFILL_CHUNK,
+                                   block_size=BLOCK_SIZE, drafter=drafter)
+    prompts = [p[:S // 4] for p in make_prompts(18, 8, scfg.vocab_size)]
+    pa.reset_counts()
+    for i, p in enumerate(prompts):
+      eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+    out = eng.run()
+    sync()
+    paged = pa.paged_attention_cuda.launches
+    assert sorted(out) == list(range(8))
+    for i, p in enumerate(prompts):
+      assert out[i].shape == (len(p) + 16,)
+      assert eng.finished[i].finish_reason == "length"
+    assert (paged > 0 and pa.paged_attention_reference.calls == 0) \
+        or not on_gpu
+    assert eng.drafter_failures == 0
+    log(f"   (f) from_checkpoint (step {rstep}) {load_s:.2f} s; 8 requests "
+        f"served self-draft in {eng.steps} steps, drafter rollout steps "
+        f"{drafter.rollout_steps}; paged_attention launches {paged} "
+        f"(tiled {pa.paged_attention_tiled_cuda.launches}), plain-version "
+        f"calls 0")
+    del eng, drafter, target
+  finally:
+    saves.undo()
+    restores.undo()
+    shutil.rmtree(tmp, ignore_errors=True)
+  log(f"   removed {tmp}")
+  return launches, paged
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
-                  rel, limit, dtype="bf16"):
-  return {"name": torch_name, "route": "cuda", "build": build,
+                  rel, limit, dtype="bf16", **extra):
+  return {**extra, "name": torch_name, "route": "cuda", "build": build,
           "source": source,
           "replaces": replaces, "launches": launches, "max_abs_err": err,
           "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -2480,6 +2948,12 @@ def main() -> int:
       record, flash_launches = train_bf16_bench(torch, fa, bench)
     with Phase("11. GPT-350M bf16: where the training step's time goes"):
       train_step_breakdown(torch, bench, record["detail"]["batch_size"])
+  if want(18):
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("18. GPT-350M bf16: fit() with checkpoints, resume, sentinel "
+               "and rollback"):
+      fit_launches, ckpt_paged = training_runtime(torch, fa, pa, bench)
   log(f"total {time.monotonic() - t_start:.1f} s")
   if only is not None:
     return 0
@@ -2491,17 +2965,20 @@ def main() -> int:
                     flash_src, f"{flash_py}:89 and :241",
                     flash_launches["fwd"], flash_errs["fwd"],
                     flash_times["fwd"], flash_rel["fwd"],
-                    FLASH_BF16_LIMIT["fwd"]),
+                    FLASH_BF16_LIMIT["fwd"],
+                    launches_fit=fit_launches["fwd"]),
       kernel_record("flash_attention_bwd_dkv",
                     "flash_bwd_dkv_wgmma_kernel<64>", flash_src,
                     f"{flash_py}:133 and :363", flash_launches["dkv"],
                     flash_errs["dkv"], flash_times["dkv"],
-                    flash_rel["dkv"], FLASH_BF16_LIMIT["grad"]),
+                    flash_rel["dkv"], FLASH_BF16_LIMIT["grad"],
+                    launches_fit=fit_launches["dkv"]),
       kernel_record("flash_attention_bwd_dq", "flash_bwd_dq_wgmma_kernel<64>",
                     flash_src, f"{flash_py}:172 and :404",
                     flash_launches["dq"], flash_errs["dq"],
                     flash_times["dq"], flash_rel["dq"],
-                    FLASH_BF16_LIMIT["grad"]),
+                    FLASH_BF16_LIMIT["grad"],
+                    launches_fit=fit_launches["dq"]),
   ]
   paged_src = "easyparallellibrary_tpu_torch/kernels/csrc/paged_attention.cu"
   paged_replaces = "easyparallellibrary_tpu/kernels/paged_attention.py:119"
@@ -2563,7 +3040,8 @@ def main() -> int:
                         "paged_attention_tiled_kernel<64>", launches,
                         "bfloat16"),
            launches_speculative=spec, launches_prefix_cache={
-               k: v["launches"] for k, v in prefix.items()}),
+               k: v["launches"] for k, v in prefix.items()},
+           launches_from_checkpoint=ckpt_paged),
       paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
                    warp_launches, "float32"),
   ] + flash_records + fp16_flash + [fp16_paged, mixed_paged]}), flush=True)

@@ -12,6 +12,7 @@ FLEET = "Router, fleet and request migration"
 TENSOR_PARALLEL = "Tensor-parallel mesh"
 PARALLEL_STRATEGIES = "Pipeline, MoE and sequence parallelism"
 RUNTIME = "Runtime around the step"
+OTHER_MODELS = "Other models and the tooling"
 
 
 def not_ported(feature: str, item: str) -> NotImplementedError:

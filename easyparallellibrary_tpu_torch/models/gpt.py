@@ -30,8 +30,13 @@ resolves the compute dtype at every forward
 (``runtime.amp.resolve_model_dtypes``, as ``GPT.__call__`` does), and
 the resolved dtype is threaded to every layer; the serving caches stay
 in the model config's own dtype, as the JAX package allocates them.
-Dropout in training mode, pipeline, MoE, tensor-parallel and the
-ring/Ulysses attention implementations raise (ROADMAP.md Queue 1).
+Dropout in training mode (``dropout_rate > 0`` with an rng in
+:func:`gpt_loss`) masks the attention and MLP residual branches, as the
+JAX blocks do, with counter-based masks (``utils.prng.keep_mask``)
+keyed by the step's rng folded with the layer and the branch; the two
+frameworks' masks differ, their statistics agree.  Pipeline, MoE,
+tensor-parallel and the ring/Ulysses attention implementations raise
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    PARALLEL_STRATEGIES, RUNTIME, TENSOR_PARALLEL, not_ported)
+    PARALLEL_STRATEGIES, TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.kernels.flash_attention import (
     FLASH_FWD_OP, flash_attention)
 from easyparallellibrary_tpu_torch.kernels.paged_attention import (
@@ -352,20 +357,36 @@ class MLP(nn.Module):
     return self.wo(F.gelu(self.wi(x, dtype), approximate="tanh"), dtype)
 
 
+def _dropout(y, key, rate: float):
+  """flax ``nn.Dropout`` in training mode: ``y / keep_prob`` where the
+  mask keeps, else 0; ``key`` (a host ``uint32 [2]``) None is the
+  deterministic identity."""
+  if key is None or rate <= 0.0:
+    return y
+  keep = prng.keep_mask(key, tuple(y.shape), rate, y.device)
+  return torch.where(keep, y / (1.0 - rate), torch.zeros_like(y))
+
+
 class Block(nn.Module):
 
   def __init__(self, cfg: GPTConfig, device=None):
     super().__init__()
+    self.cfg = cfg
     self.ln1 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
     self.attn = CausalSelfAttention(cfg, device=device)
     self.ln2 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
     self.mlp = MLP(cfg, device=device)
 
   def forward(self, x, paged_info=None, cache=None, decode=False,
-              slot_cursors=None, dtype=None):
-    x = x + self.attn(self.ln1(x, dtype), paged_info, cache, decode,
-                      slot_cursors, dtype)
-    return x + self.mlp(self.ln2(x, dtype), dtype)
+              slot_cursors=None, dtype=None, drop_key=None):
+    rate = self.cfg.dropout_rate
+    attn_key = mlp_key = None
+    if drop_key is not None:
+      attn_key = prng.host_fold_in(drop_key, 0)
+      mlp_key = prng.host_fold_in(drop_key, 1)
+    x = x + _dropout(self.attn(self.ln1(x, dtype), paged_info, cache,
+                               decode, slot_cursors, dtype), attn_key, rate)
+    return x + _dropout(self.mlp(self.ln2(x, dtype), dtype), mlp_key, rate)
 
 
 # Matrix products as the dispatcher sees them below autograd: F.linear,
@@ -407,14 +428,16 @@ def _remat_context(name: str):
                            _save_ops_policy(saved))
 
 
-def _remat_block(block: nn.Module, x, policy: str, dtype):
+def _remat_block(block: nn.Module, x, policy: str, dtype, drop_key=None):
   """``block(x)`` under ``torch.utils.checkpoint``.  The block's
   parameters are bound explicitly, since the recompute runs in the
-  backward, after the caller's ``functional_call`` has unbound them."""
+  backward, after the caller's ``functional_call`` has unbound them; a
+  dropout key redraws the same masks in the recompute."""
   params = dict(block.named_parameters())
 
   def run(h):
-    return torch.func.functional_call(block, params, (h,), {"dtype": dtype})
+    return torch.func.functional_call(block, params, (h,),
+                                      {"dtype": dtype, "drop_key": drop_key})
 
   context = _remat_context(policy)
   if context is None:
@@ -445,10 +468,12 @@ class GPT(nn.Module):
   def forward(self, ids, deterministic: bool = True, decode: bool = False,
               return_hidden: bool = False, slot_cursors=None,
               paged_info: Optional[PagedInfo] = None,
-              cache: Optional[Dict[str, Any]] = None):
+              cache: Optional[Dict[str, Any]] = None, dropout_rng=None):
     cfg = resolve_model_dtypes(self.cfg)
-    if not deterministic and cfg.dropout_rate > 0:
-      raise not_ported("dropout in training mode", RUNTIME)
+    train = not deterministic and cfg.dropout_rate > 0
+    if train and dropout_rng is None:
+      raise ValueError("dropout in training mode (deterministic=False) "
+                       "needs a dropout_rng key")
     if (slot_cursors is not None or paged_info is not None) and not decode:
       raise ValueError("slot_cursors/paged_info are decode-mode arguments "
                        "(serving engine); pass decode=True")
@@ -483,14 +508,16 @@ class GPT(nn.Module):
     remat = cfg.remat and not decode and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
       block = getattr(self, f"block_{i}")
+      drop_key = prng.host_fold_in(dropout_rng, i) if train else None
       if remat:
-        x = _remat_block(block, x, cfg.remat_policy, dtype)
+        x = _remat_block(block, x, cfg.remat_policy, dtype, drop_key)
         continue
       layer_cache = None
       if cache is not None:
         layer_cache = cache.setdefault(f"block_{i}", {}).setdefault(
             "attn", {})
-      x = block(x, paged_info, layer_cache, decode, slot_cursors, dtype)
+      x = block(x, paged_info, layer_cache, decode, slot_cursors, dtype,
+                drop_key)
     x = self.ln_f(x, dtype)
     if return_hidden:
       return x
@@ -542,7 +569,8 @@ def gpt_loss(model: GPT, params, batch, rng=None):
         f"pipeline_stages={cfg.pipeline_stages})")
   out = torch.func.functional_call(
       model, params, (inputs,),
-      {"deterministic": not train, "return_hidden": chunked}, strict=True)
+      {"deterministic": not train, "return_hidden": chunked,
+       "dropout_rng": rng if train else None}, strict=True)
   if chunked:
     return _chunked_tied_ce(model, params, out, targets), {}
   loss = distributed_sparse_softmax_cross_entropy_with_logits(

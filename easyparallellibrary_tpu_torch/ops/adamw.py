@@ -36,8 +36,10 @@ def jax_path(name: str) -> str:
 
 class Recipe(NamedTuple):
   """What :func:`adamw` returns, as optax's ``GradientTransformation``:
-  ``init(params)`` builds the optimizer over a named parameter dict."""
-  init: Callable[[Dict[str, torch.Tensor]], torch.optim.Optimizer]
+  ``init(params, fused=None)`` builds the optimizer over a named
+  parameter dict (``fused=True``: torch's fused AdamW, whose
+  ``found_inf`` input skips a step on the device)."""
+  init: Callable[..., torch.optim.Optimizer]
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -46,7 +48,8 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
   """``optax.adamw``'s signature and defaults.  ``mask(name) -> bool``
   selects the parameters that decay (all when None)."""
 
-  def init(params: Dict[str, torch.Tensor]) -> torch.optim.AdamW:
+  def init(params: Dict[str, torch.Tensor],
+           fused: Optional[bool] = None) -> torch.optim.AdamW:
     decays = {n: mask is None or mask(n) for n in params}
     groups = [{"params": [p for n, p in params.items() if decays[n]],
                "weight_decay": weight_decay}]
@@ -54,7 +57,7 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     if keep:
       groups.append({"params": keep, "weight_decay": 0.0})
     return torch.optim.AdamW(groups, lr=learning_rate, betas=(b1, b2),
-                             eps=eps)
+                             eps=eps, fused=fused)
 
   return Recipe(init)
 

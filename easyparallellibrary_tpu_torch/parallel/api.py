@@ -15,6 +15,7 @@ parameters and moments over the old ones.
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -28,30 +29,53 @@ from easyparallellibrary_tpu_torch.env import Env
 class TrainState:
   """The model (``apply_fn``, run with ``torch.func.functional_call``),
   its fp32 parameters as a dict of leaf tensors, the optimizer over them
-  (``opt_state``) and the step count, as flax's ``TrainState``."""
+  (``opt_state``) and the step count, as flax's ``TrainState``.
 
-  def __init__(self, *, step: int, apply_fn, params: Dict[str, torch.Tensor],
-               tx, opt_state: torch.optim.Optimizer):
+  ``step`` is a host ``int``, or a 0-d device tensor once a guarded step
+  (the anomaly sentinel, a loss scale: ``runtime/trainer.py``) advanced
+  it only on finite steps without reading the verdict back.  ``sentinel``
+  (``runtime.resilience.SentinelState``) and ``loss_scale``
+  (``runtime.amp.DynamicLossScale``) are None unless the state carries
+  them."""
+
+  def __init__(self, *, step, apply_fn, params: Dict[str, torch.Tensor],
+               tx, opt_state: torch.optim.Optimizer, sentinel=None,
+               loss_scale=None):
     self.step = step
     self.apply_fn = apply_fn
     self.params = params
     self.tx = tx
     self.opt_state = opt_state
+    self.sentinel = sentinel
+    self.loss_scale = loss_scale
 
   @classmethod
-  def create(cls, *, apply_fn, params: Dict[str, torch.Tensor], tx
-             ) -> "TrainState":
+  def create(cls, *, apply_fn, params: Dict[str, torch.Tensor], tx,
+             fused: Optional[bool] = None, **extra) -> "TrainState":
     """Own copies of ``params`` as leaves that take gradients (the
-    caller's tensors are never updated), and ``tx.init`` over them."""
+    caller's tensors are never updated), and ``tx.init`` over them
+    (``fused=True`` builds torch's fused AdamW, which a guarded step
+    needs).  ``extra`` sets ``sentinel`` / ``loss_scale``."""
     own = {name: p.detach().clone().requires_grad_(True)
            for name, p in params.items()}
-    return cls(step=0, apply_fn=apply_fn, params=own, tx=tx,
-               opt_state=tx.init(own))
+    opt = tx.init(own) if fused is None else tx.init(own, fused=fused)
+    return cls(step=0, apply_fn=apply_fn, params=own, tx=tx, opt_state=opt,
+               **extra)
+
+  def replace(self, **fields) -> "TrainState":
+    """A shallow copy with ``fields`` replaced (flax's ``replace``); the
+    tensors are shared, not copied."""
+    new = copy.copy(self)
+    for key, value in fields.items():
+      if not hasattr(new, key):
+        raise AttributeError(f"TrainState has no field {key!r}")
+      setattr(new, key, value)
+    return new
 
   def apply_gradients(self) -> "TrainState":
     """One optimizer step from the parameters' ``.grad``, in place."""
     self.opt_state.step()
-    self.step += 1
+    self.step = self.step + 1   # a new value: never an in-place tensor add
     return self
 
 

@@ -1,0 +1,69 @@
+"""Weighted contiguous bucketing (the ``partition_balance`` part of
+``easyparallellibrary_tpu/parallel/partitioner.py``), shared by the
+grouped optimizer apply and the auto gradient-checkpoint segmentation.
+The stage partitioning and repeated-block detection of that module wait
+for the pipeline (ROADMAP.md Queue 1, "Pipeline, MoE and sequence
+parallelism").
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+
+def partition_balance(weights: Sequence[float], num_parts: int
+                      ) -> List[Tuple[int, int]]:
+  """Split ``weights`` into ``num_parts`` contiguous ranges minimizing
+  the max range sum.  Returns ``[(start, end), ...)`` half-open ranges:
+  binary search on the capacity with a greedy fill, then the heaviest
+  splittable range split until there are exactly ``num_parts``."""
+  n = len(weights)
+  if num_parts <= 0:
+    raise ValueError("num_parts must be positive")
+  if num_parts > n:
+    raise ValueError(f"cannot split {n} items into {num_parts} parts")
+
+  def parts_needed(cap: float) -> int:
+    count, acc = 1, 0.0
+    for w in weights:
+      if w > cap:
+        return num_parts + 1  # infeasible capacity
+      if acc + w > cap:
+        count += 1
+        acc = w
+      else:
+        acc += w
+    return count
+
+  lo, hi = max(weights), sum(weights)
+  for _ in range(64):
+    mid = (lo + hi) / 2
+    if parts_needed(mid) <= num_parts:
+      hi = mid
+    else:
+      lo = mid
+  cap = hi
+  ranges: List[Tuple[int, int]] = []
+  start, acc = 0, 0.0
+  for i, w in enumerate(weights):
+    if acc + w > cap and i > start:
+      ranges.append((start, i))
+      start, acc = i, w
+    else:
+      acc += w
+  ranges.append((start, n))
+  while len(ranges) < num_parts:
+    idx = max((j for j in range(len(ranges))
+               if ranges[j][1] - ranges[j][0] > 1),
+              key=lambda j: sum(weights[ranges[j][0]:ranges[j][1]]),
+              default=None)
+    if idx is None:
+      break
+    s, e = ranges[idx]
+    best_k, best_cost = s + 1, float("inf")
+    for k in range(s + 1, e):
+      cost = max(sum(weights[s:k]), sum(weights[k:e]))
+      if cost < best_cost:
+        best_k, best_cost = k, cost
+    ranges[idx:idx + 1] = [(s, best_k), (best_k, e)]
+  return ranges

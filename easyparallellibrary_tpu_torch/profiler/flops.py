@@ -1,9 +1,9 @@
 """MFU accounting (port of ``easyparallellibrary_tpu/profiler/flops.py``).
 
 The peak table (the dense bf16 tensor-core rate of the card, the one
-denominator of every MFU number of the port) and the GPT forward's FLOP
-count that the serving engine's cost card reports
-(observability/device.py).  The XLA cost analysis and the collective
+denominator of every MFU number of the port), :func:`estimate_mfu`, and
+the GPT forward's FLOP count that the serving engine's cost card
+reports (observability/device.py).  The XLA cost analysis and the collective
 parsers of the JAX version wait for later work (ROADMAP.md Queue 1).
 """
 
@@ -42,6 +42,17 @@ def peak_flops_info(device=None) -> Tuple[float, bool]:
 
 def peak_flops_per_chip(device=None) -> float:
   return peak_flops_info(device)[0]
+
+
+def estimate_mfu(flops_per_step: float, step_time_s: float,
+                 n_chips: Optional[int] = None, device=None) -> float:
+  """Model FLOPs utilisation: ``flops_per_step`` over ``step_time_s``
+  against the card's dense bf16 peak times ``n_chips`` (default: the
+  visible CUDA devices)."""
+  if n_chips is None:
+    n_chips = max(1, torch.cuda.device_count())
+  achieved = flops_per_step / max(step_time_s, 1e-12)
+  return achieved / (peak_flops_per_chip(device) * n_chips)
 
 
 def gpt_forward_flops(cfg: Any, tokens: int, context: int) -> float:

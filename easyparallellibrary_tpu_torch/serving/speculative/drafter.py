@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    RUNTIME, TENSOR_PARALLEL, not_ported)
+    TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.observability import trace as trace_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_draft_compatible)
@@ -156,9 +156,35 @@ class DraftModelDrafter(Drafter):
 
   @classmethod
   def from_checkpoint(cls, directory: str, model, *, k: int = 4,
-                      target=None, shardings=None, mesh=None):
-    raise not_ported("DraftModelDrafter.from_checkpoint (the checkpoint "
-                     "saver)", RUNTIME)
+                      target=None, shardings=None, mesh=None, device=None):
+    """Restore draft params from the newest valid checkpoint under
+    ``directory`` (``runtime.saver.restore_params``: a ``fit``
+    checkpoint or a bare params tree, written by either package) and
+    wrap them as a drafter.  The embedding's vocabulary is checked
+    against ``model.cfg`` from the index alone, before any shard is
+    read.  ``target`` (default: ``model``'s own parameters, shapes and
+    dtypes) selects and shapes the leaves; they land on ``device``
+    (default the GPU)."""
+    from easyparallellibrary_tpu_torch.runtime import saver
+    del shardings
+    if mesh is not None:
+      raise not_ported("a device mesh for the draft model", TENSOR_PARALLEL)
+    leaves, _ = saver.peek_leaf_shapes(directory)
+    for path, shape in leaves.items():
+      name = path[len("params/"):] if path.startswith("params/") else path
+      if name == "wte/embedding" and shape and \
+          shape[0] != model.cfg.vocab_size:
+        raise ValueError(
+            f"draft checkpoint {directory!r} holds a vocab-{shape[0]} "
+            f"embedding but the draft config says vocab_size="
+            f"{model.cfg.vocab_size}; speculative verification needs the "
+            f"target's vocabulary — restore a checkpoint trained on the "
+            f"same tokenizer")
+    if target is None:
+      target = dict(model.named_parameters())
+    params, _ = saver.restore_params(directory, target=target,
+                                     device=device)
+    return cls(model, params, k=k)
 
   def bind(self, engine):
     from easyparallellibrary_tpu_torch.runtime.amp import (

@@ -1,6 +1,16 @@
-"""Serving fault injectors (port of the serving part of
+"""Fault injectors (port of the training and serving parts of
 ``easyparallellibrary_tpu/testing/chaos.py``): the adversaries the
-engine's resilience (serving/resilience.py) is tested against.
+resilience layers are tested against.
+
+Training (``runtime/resilience.py``, ``runtime/loop.py``):
+
+* :func:`corrupt_shard` / :func:`corrupt_index` damage a committed
+  checkpoint (bit rot, truncation, deletion);
+* :func:`nan_batch` and :class:`NaNInjector` poison batches;
+* :class:`FlakyIterator` and :func:`flaky` raise transient errors;
+* :class:`SigtermInjector` delivers a real SIGTERM mid-stream.
+
+Serving (``serving/resilience.py``):
 
 * :class:`NaNLogitsInjector` wraps the engine's step callable and hands
   chosen device calls fully-NaN parameters, so the model really computes
@@ -16,10 +26,196 @@ Queue 1, "Router, fleet and request migration").
 
 from __future__ import annotations
 
+import os
+import signal as _signal
 import time
-from typing import Optional, Sequence
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
+
+
+# -------------------------------------------------- checkpoint corruption --
+
+
+def _shard_files(ckpt_dir: str) -> list:
+  names = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".npz"))
+  if not names:
+    raise FileNotFoundError(f"no shard files under {ckpt_dir}")
+  return names
+
+
+def corrupt_shard(ckpt_dir: str, shard: int = 0, mode: str = "flip",
+                  offset: int = -64) -> str:
+  """Damage one committed shard file: ``"flip"`` XORs a byte at
+  ``offset`` (bit rot; only the checksum can catch it), ``"truncate"``
+  drops the trailing half, ``"delete"`` removes it.  Returns its path."""
+  path = os.path.join(ckpt_dir, _shard_files(ckpt_dir)[shard])
+  if mode == "delete":
+    os.remove(path)
+    return path
+  size = os.path.getsize(path)
+  if mode == "truncate":
+    with open(path, "r+b") as f:
+      f.truncate(max(1, size // 2))
+    return path
+  if mode == "flip":
+    pos = offset % size
+    with open(path, "r+b") as f:
+      f.seek(pos)
+      byte = f.read(1)
+      f.seek(pos)
+      f.write(bytes([byte[0] ^ 0xFF]))
+    return path
+  raise ValueError(f"unknown corruption mode {mode!r}")
+
+
+def corrupt_index(ckpt_dir: str, mode: str = "truncate") -> str:
+  """Damage a checkpoint's ``index.json``: ``"truncate"``, ``"garbage"``
+  (unparsable bytes) or ``"delete"``."""
+  path = os.path.join(ckpt_dir, "index.json")
+  if mode == "delete":
+    os.remove(path)
+  elif mode == "truncate":
+    with open(path, "r+b") as f:
+      f.truncate(max(1, os.path.getsize(path) // 3))
+  elif mode == "garbage":
+    with open(path, "wb") as f:
+      f.write(b"\x00not json\xff")
+  else:
+    raise ValueError(f"unknown corruption mode {mode!r}")
+  return path
+
+
+# ------------------------------------------------------- numeric poison --
+
+
+def nan_batch(batch):
+  """A copy of ``batch`` (a dict / list / tuple tree) with every floating
+  leaf fully NaN; tensors stay on their device."""
+  if isinstance(batch, dict):
+    return {k: nan_batch(v) for k, v in batch.items()}
+  if isinstance(batch, (list, tuple)):
+    return type(batch)(nan_batch(v) for v in batch)
+  if isinstance(batch, torch.Tensor):
+    return torch.full_like(batch, float("nan")) \
+        if batch.is_floating_point() else batch
+  arr = np.asarray(batch)
+  if np.issubdtype(arr.dtype, np.floating):
+    return np.full_like(arr, np.nan)
+  return batch
+
+
+class NaNInjector:
+  """A per-step batch source poisoning chosen steps with NaNs.
+
+  ``batch_fn(step) -> batch`` is the clean stream; steps in
+  ``bad_steps`` come out poisoned — with ``once=True`` only the first
+  time they are drawn (a replay after a rollback sees clean data).  A
+  ``fit`` data factory: it takes ``start_step``.  ``poison(batch)``
+  (default :func:`nan_batch`) makes the bad batch: a token batch has no
+  floating leaf, so a caller poisons it its own way."""
+
+  def __init__(self, batch_fn: Callable[[int], Any],
+               bad_steps: Sequence[int], num_steps: int,
+               once: bool = True, poison: Callable[[Any], Any] = None):
+    self.batch_fn = batch_fn
+    self.bad_steps = set(bad_steps)
+    self.num_steps = num_steps
+    self.once = once
+    self.poison = poison or nan_batch
+    self.poisoned: list = []
+
+  def __call__(self, start_step: int = 0) -> Iterator[Any]:
+    def gen():
+      for step in range(start_step, self.num_steps):
+        batch = self.batch_fn(step)
+        if step in self.bad_steps:
+          if self.once:
+            self.bad_steps.discard(step)
+          self.poisoned.append(step)
+          batch = self.poison(batch)
+        yield batch
+    return gen()
+
+
+# -------------------------------------------------------- transient IO --
+
+
+class FlakyIterator:
+  """Iterator raising a transient exception ``failures`` times at
+  position ``fail_at`` before yielding that element."""
+
+  def __init__(self, items: Iterable[Any], fail_at: int = 0,
+               failures: int = 1,
+               exc_factory: Callable[[], BaseException] = lambda:
+               IOError("chaos: transient read failure")):
+    self._items = list(items)
+    self.fail_at = fail_at
+    self.failures_left = failures
+    self.exc_factory = exc_factory
+    self._pos = 0
+
+  def __iter__(self):
+    return self
+
+  def __next__(self):
+    if self._pos >= len(self._items):
+      raise StopIteration
+    if self._pos == self.fail_at and self.failures_left > 0:
+      self.failures_left -= 1
+      raise self.exc_factory()
+    item = self._items[self._pos]
+    self._pos += 1
+    return item
+
+
+def flaky(fn: Callable, failures: int = 1,
+          exc_factory: Callable[[], BaseException] = lambda:
+          IOError("chaos: transient failure")) -> Callable:
+  """``fn`` raising a transient exception on its first ``failures``
+  calls."""
+  state = {"left": failures}
+
+  def wrapped(*args, **kwargs):
+    if state["left"] > 0:
+      state["left"] -= 1
+      raise exc_factory()
+    return fn(*args, **kwargs)
+
+  wrapped.chaos_state = state
+  return wrapped
+
+
+# ---------------------------------------------------------- preemption --
+
+
+class SigtermInjector:
+  """Iterable delivering SIGTERM to this process when batch ``at_batch``
+  (0-based) is drawn, then continuing to yield — ``fit`` finishes the
+  step in flight, checkpoints and exits, as under a scheduler's
+  preemption."""
+
+  def __init__(self, batch: Any, at_batch: int = 3,
+               max_batches: int = 10_000):
+    self.batch = batch
+    self.at_batch = at_batch
+    self.max_batches = max_batches
+    self._drawn = 0
+
+  def __iter__(self):
+    return self
+
+  def __next__(self):
+    if self._drawn >= self.max_batches:
+      raise StopIteration
+    if self._drawn == self.at_batch:
+      os.kill(os.getpid(), _signal.SIGTERM)
+    self._drawn += 1
+    return self.batch
+
+
+# ------------------------------------------------------- serving faults --
 
 
 class _StepFnWrapper:

@@ -28,3 +28,12 @@ def process_index() -> int:
   if dist.is_available() and dist.is_initialized():
     return dist.get_rank()
   return 0
+
+
+def process_count() -> int:
+  """The run's process count: the ``torch.distributed`` world size when a
+  process group is initialised, else 1."""
+  import torch.distributed as dist
+  if dist.is_available() and dist.is_initialized():
+    return dist.get_world_size()
+  return 1

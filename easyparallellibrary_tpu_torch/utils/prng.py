@@ -68,3 +68,25 @@ def uniform(key: torch.Tensor) -> torch.Tensor:
   key = key.to(torch.int64) & _M32
   h = _hash32(key[..., 0] ^ _hash32(key[..., 1]))
   return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def host_fold_in(key, data: int) -> np.ndarray:
+  """:func:`fold_in` of one host key (``uint32 [2]``, any array-like)
+  with the integer ``data``, computed on the CPU; returns ``uint32
+  [2]``.  Keys derived on the host reach the device as plain integers,
+  with no copy."""
+  k = torch.as_tensor(np.asarray(key).astype(np.int64))
+  return fold_in(k, torch.tensor(int(data))).numpy().astype(np.uint32)
+
+
+def keep_mask(key, shape, rate: float, device) -> torch.Tensor:
+  """Bool ``shape`` mask keeping each element with probability ``1 -
+  rate`` (a dropout mask), drawn from the hash of ``(host key, flat
+  element index)``: the same key gives the same mask on any device, so
+  a recomputed forward (remat) and a resumed run draw the masks of the
+  original."""
+  k0, k1 = (int(v) for v in np.asarray(key).astype(np.int64))
+  n = int(np.prod(shape))
+  idx = torch.arange(n, device=device, dtype=torch.int64)
+  h = _hash32(_hash32(idx ^ k0) ^ k1)
+  return ((h >> 8) >= int(round(rate * (1 << 24)))).reshape(shape)

@@ -52,7 +52,13 @@ def from_jax_params(tree: Dict[str, Any], device=None,
     arr = np.asarray(value)
     if path.split("/")[-1] == "kernel":
       arr = arr.T
-    t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+    if arr.dtype.name == "bfloat16":
+      # ml_dtypes' bf16 (the JAX package's) as its bits: torch reads no
+      # ml_dtypes array.
+      t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()
+                           ).view(torch.bfloat16)
+    else:
+      t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
     out[_torch_name(path)] = t.to(device=dev, dtype=dtype or t.dtype)
   return out
 

@@ -789,3 +789,150 @@ def test_tracing_adds_no_synchronising_call(cuda, tmp_path):
   for i in want:
     np.testing.assert_array_equal(got[i], want[i])
   assert on == off > 0, (on, off, eng.steps)
+
+
+# -------------------------------------------- the training runtime (slice 8)
+
+
+def _tiny_training(device, config=None):
+  """A tiny GPT under the trainer with the sentinel on, on ``device``."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.models.gpt import (
+      GPT, GPTConfig, gpt_loss)
+  from easyparallellibrary_tpu_torch.ops.adamw import adamw
+  from easyparallellibrary_tpu_torch.parallel import (
+      create_sharded_train_state, parallelize)
+  from easyparallellibrary_tpu_torch.runtime.trainer import (
+      build_train_step, create_train_state)
+  from easyparallellibrary_tpu_torch.weights import init_params
+  epl.init(config or epl.Config({"resilience.max_bad_steps": 2}),
+           device=device)
+  cfg = GPTConfig(vocab_size=64, num_layers=2, num_heads=2, d_model=32,
+                  d_ff=64, max_seq_len=16, dtype=torch.bfloat16,
+                  attn_impl="pallas_flash")
+  with epl.replicate(1):
+    model = GPT(cfg)
+  mesh = epl.current_plan().build_mesh()
+  state, sh = create_sharded_train_state(
+      lambda: create_train_state(model, init_params(cfg, 0, device=device),
+                                 adamw(1e-3, weight_decay=0.01)), mesh)
+
+  def loss_fn(p, b, rng):
+    loss, aux = gpt_loss(model, p, b, rng)
+    return loss * b["weight"].mean(), aux
+
+  return model, state, parallelize(build_train_step(loss_fn), mesh, sh), mesh
+
+
+def _token_batches(n, seed=0):
+  r = np.random.RandomState(seed)
+  return [{"ids": r.randint(0, 64, (4, 17)).astype(np.int32),
+           "weight": np.ones(4, np.float32)} for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_fit_saves_and_resumes_on_the_card(cuda, tmp_path):
+  """A tiny fit on the card checkpoints at step 3; a fresh state resumes
+  there and ends bit-equal to the uninterrupted run."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  from easyparallellibrary_tpu_torch.runtime import saver
+  from easyparallellibrary_tpu_torch.runtime.loop import fit
+  batches = _token_batches(6)
+
+  def data(start_step=0):
+    return batches[start_step:]
+
+  _, state, step, _ = _tiny_training(cuda)
+  fa.reset_counts()
+  state, _ = fit(step, state, data, num_steps=6, log_every=0)
+  assert fa.flash_fwd_cuda.launches == 2 * 6
+  ckpt = str(tmp_path / "ck")
+  _, a, step_a, _ = _tiny_training(cuda)
+  fit(step_a, a, data, num_steps=3, checkpoint_dir=ckpt, checkpoint_every=3,
+      log_every=0)
+  _, b, step_b, _ = _tiny_training(cuda)
+  b, _ = fit(step_b, b, data, num_steps=6, checkpoint_dir=ckpt, log_every=0)
+  assert saver.latest_step(ckpt) == 3 and int(b.step) == 6
+  for name, p in state.params.items():
+    assert torch.equal(p, b.params[name]), name
+    for key in ("exp_avg", "exp_avg_sq", "step"):
+      assert torch.equal(state.opt_state.state[p][key],
+                         b.opt_state.state[b.params[name]][key]), name
+
+
+@pytest.mark.gpu
+def test_guarded_step_makes_no_host_sync_on_the_card(cuda):
+  """The sentinel's skip (fused AdamW's found_inf) and the clean step
+  after it run under ``set_sync_debug_mode("error")``: a host sync
+  would raise.  The skipped step leaves every leaf bit-identical."""
+  _, state, step, mesh = _tiny_training(cuda)
+  batches = [{k: torch.as_tensor(v).to(cuda) for k, v in b.items()}
+             for b in _token_batches(3)]
+  bad = dict(batches[1], weight=torch.full_like(batches[1]["weight"],
+                                                float("nan")))
+  key = np.zeros(2, np.uint32)
+  state, _ = step(state, batches[0], key)          # creates the moments
+  torch.cuda.synchronize()
+  before = {n: [p.clone()] + [v.clone() for v in
+                              state.opt_state.state[p].values()]
+            for n, p in state.params.items()}
+  step_before = state.step.clone()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    state, m = step(state, bad, key)
+    skipped = {n: [p.clone()] + [v.clone() for v in
+                                 state.opt_state.state[p].values()]
+               for n, p in state.params.items()}
+    state, m2 = step(state, batches[2], key)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  for n in before:
+    assert all(torch.equal(x, y) for x, y in zip(before[n], skipped[n])), n
+  assert int(m["bad_steps"]) == 1 and int(m2["bad_steps"]) == 0
+  assert int(state.step) == int(step_before) + 1
+
+
+@pytest.mark.gpu
+def test_prefetcher_keeps_order_with_pinned_buffers(cuda):
+  from easyparallellibrary_tpu_torch.io import DevicePrefetcher
+  src = [{"x": np.full((1024, 256), i, np.float32),
+          "i": np.arange(4, dtype=np.int64) + i} for i in range(8)]
+  pre = DevicePrefetcher(iter(src), device=cuda, depth=3)
+  out = []
+  for b in pre:
+    assert b["x"].device.type == "cuda"
+    out.append((float(b["x"].float().mean()), b["i"].cpu().tolist()))
+  assert pre.copies == 8
+  assert out == [(float(i), [i, i + 1, i + 2, i + 3]) for i in range(8)]
+
+
+@pytest.mark.gpu
+def test_serving_from_a_fit_checkpoint_on_the_card(cuda, tmp_path):
+  """``DraftModelDrafter.from_checkpoint`` over the checkpoint ``fit``
+  wrote: a self-draft paged run launches the paged kernel and serves
+  every request."""
+  from easyparallellibrary_tpu_torch.runtime import saver
+  from easyparallellibrary_tpu_torch.runtime.loop import fit
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, DraftModelDrafter, Request)
+  model, state, step, _ = _tiny_training(cuda)
+  ckpt = str(tmp_path / "ck")
+  fit(step, state, _token_batches(2), num_steps=2, checkpoint_dir=ckpt,
+      checkpoint_every=2, log_every=0)
+  drafter = DraftModelDrafter.from_checkpoint(ckpt, model, k=2)
+  params, rstep = saver.restore_params(ckpt)
+  assert rstep == 2
+  for name, p in state.params.items():
+    assert torch.equal(params[name], p.detach()), name
+  eng = ContinuousBatchingEngine(model, params, paged=True, num_slots=2,
+                                 prefill_chunk=4, block_size=4,
+                                 drafter=drafter)
+  launches = pa.paged_attention_cuda.launches
+  r = np.random.RandomState(1)
+  for i in range(3):
+    eng.submit(Request(uid=i, prompt=r.randint(0, 64, (5,)).astype(
+        np.int32), max_new_tokens=4))
+  out = eng.run()
+  assert sorted(out) == [0, 1, 2]
+  assert pa.paged_attention_cuda.launches > launches
+  assert eng.drafter_failures == 0

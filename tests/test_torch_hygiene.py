@@ -47,16 +47,20 @@ def test_no_jax_imports(path):
   assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def _entry_points():
+def _entry_points(tmp):
   from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
   from easyparallellibrary_tpu_torch.serving import (
       ContinuousBatchingEngine, allocate_paged_kv_cache)
   from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
+  from easyparallellibrary_tpu_torch.io import DevicePrefetcher
+  from easyparallellibrary_tpu_torch.runtime.saver import restore_params
+  from easyparallellibrary_tpu_torch.serving import DraftModelDrafter
   from easyparallellibrary_tpu_torch.weights import (
       from_jax_params, init_params)
   cfg = GPTConfig(vocab_size=64, num_layers=1, num_heads=2, d_model=16,
                   d_ff=32, max_seq_len=16, dtype=torch.float32)
   cpu_params = init_params(cfg, device="cpu")
+  ckpt = _checkpoint(str(tmp / "ckpt"), cpu_params)
   return {
       "init_params": lambda **kw: init_params(cfg, **kw),
       "from_jax_params": lambda **kw: from_jax_params(
@@ -67,16 +71,44 @@ def _entry_points():
       "ContinuousBatchingEngine": lambda **kw: ContinuousBatchingEngine(
           GPT(cfg), cpu_params, paged=True, num_slots=2, prefill_chunk=4,
           block_size=4, **kw),
+      "fit": lambda **kw: _fit(cfg, cpu_params, **kw),
+      "DevicePrefetcher": lambda **kw: next(DevicePrefetcher(
+          iter([{"x": np.zeros(2, np.float32)}]), **kw)),
+      "restore_params": lambda **kw: restore_params(ckpt, **kw),
+      "DraftModelDrafter.from_checkpoint":
+          lambda **kw: DraftModelDrafter.from_checkpoint(ckpt, GPT(cfg),
+                                                         **kw),
   }
+
+
+def _checkpoint(root, params):
+  from easyparallellibrary_tpu_torch.runtime import saver
+  saver.save_checkpoint(root, {"params": saver.params_tree(params)}, step=1)
+  return root
+
+
+def _fit(cfg, params, **kw):
+  from easyparallellibrary_tpu_torch.models.gpt import GPT
+  from easyparallellibrary_tpu_torch.ops.adamw import adamw
+  from easyparallellibrary_tpu_torch.parallel.api import (
+      TrainState, make_train_step)
+  from easyparallellibrary_tpu_torch.runtime.loop import fit
+  state = TrainState.create(apply_fn=GPT(cfg), params=params,
+                            tx=adamw(1e-3))
+  step = make_train_step(lambda p, b, r: (sum(v.sum() for v in p.values())
+                                          * 0.0, {}))
+  return fit(step, state, [{}], num_steps=1, log_every=0, **kw)
 
 
 @pytest.mark.parametrize("name", ["init_params", "from_jax_params",
                                   "allocate_paged_kv_cache", "tiny_gpt",
-                                  "ContinuousBatchingEngine"])
+                                  "ContinuousBatchingEngine", "fit",
+                                  "DevicePrefetcher", "restore_params",
+                                  "DraftModelDrafter.from_checkpoint"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(
-    name, monkeypatch):
+    name, monkeypatch, tmp_path):
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-  entry = _entry_points()[name]
+  entry = _entry_points(tmp_path)[name]
   with pytest.raises(RuntimeError, match="device='cpu'"):
     entry()
   entry(device="cpu")

@@ -465,9 +465,10 @@ def test_entry_points_resolve_drafters_and_name_what_is_not_ported():
   with pytest.raises(ValueError, match="prefill_chunk"):
     ContinuousBatchingEngine(tmodel, tparams, device="cpu", paged=True,
                              prefill_chunk=4, speculative=True)
-  with pytest.raises(NotImplementedError,
-                     match="ROADMAP.md Queue 1, 'Runtime around the step'"):
-    DraftModelDrafter.from_checkpoint("ckpt", tmodel)
+  # The checkpoint saver is ported: a missing directory is a missing
+  # checkpoint, no longer a feature that is not ported.
+  with pytest.raises(FileNotFoundError, match="no checkpoint"):
+    DraftModelDrafter.from_checkpoint("ckpt", tmodel, device="cpu")
   # The contiguous engine (ported since) gives the draft model a slot
   # cache of its geometry, one chunk of slack past max_seq_len.
   eng = ContinuousBatchingEngine(tmodel, tparams, device="cpu", paged=False,
