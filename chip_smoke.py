@@ -106,18 +106,42 @@ those paths against its plain PyTorch version:
 18. the training runtime around the step, GPT-350M bf16 at ``bench.py``'s
     configuration: token records written and read back by the native
     ``RecordReader`` through ``DevicePrefetcher`` into ``fit(
-    build_train_step(...))`` with the anomaly sentinel on — (a) 20 steps
+    build_train_step(...))`` with the anomaly sentinel on — (a) 10 steps
     with a ~4 GB checkpoint every 10 (tokens/s, MFU, save seconds, the
     flash launches against 24 x steps); (b) a fresh state resuming at
-    step 20 (restore seconds, restored state bit-equal to the live one,
-    steps 21-30 against the uninterrupted run); (c) a two-step NaN
+    step 10 (restore seconds, restored state bit-equal to the live one,
+    steps 11-20 against the uninterrupted run); (c) a two-step NaN
     window under ``set_sync_debug_mode("error")`` left bit-identical,
     then a persistent fault rolled back with the learning rate halved;
     (d) one step with ``pipeline.num_micro_batch=2`` and with
     ``optimizer.num_apply_group=4`` (params bit-equal to one group);
     (e) dropout 0.1 (finite losses, the masks' drop rate within 3
     sigma); (f) ``DraftModelDrafter.from_checkpoint`` serving 8 requests
-    self-draft on the paged engine, its paged launches counted.
+    self-draft on the paged engine, its paged launches counted; (g) host
+    offload (``offload.level = "v0"``) at the same configuration against
+    no offload: the moments pinned on the host, the losses loss for
+    loss and the final params and moments bit-equal, peak HBM and step
+    ms both ways, the flash launches, a native
+    save/restore of the offloaded state bit-equal; (h) that 4.04 GB
+    state through ``torch.distributed.checkpoint``
+    (``save_checkpoint_orbax``), restored bit-equal, its seconds beside
+    the native saver's;
+19. the replicated fleet, GPT-350M bf16, paged (8 slots, chunk 128,
+    block 16) under phase 5's staggered load: (a) a ``Router`` with one
+    in-process replica token-equal to the bare engine (the kernel
+    libraries unchanged, tiled launches 24 x engine steps); (b) two
+    in-process replicas with a ``ReplicaKiller`` mid-decode, in bf16
+    (streams held to the gap rule) and fp32; (c) two process replicas
+    spawned from ``testing.factories.gpt_350m`` on the card: a SIGKILL
+    of one mid-decode (nothing lost, the pid reaped, its card memory
+    back), ``rejoin(0, force=True)`` respawning it, ``drain(1,
+    timeout_s=0)`` through the evacuate RPC, no child left after
+    ``close()``; (d) tokens/s, TTFT, ITL and host ms a sweep for 1 and 2
+    process replicas (two ABBA rounds of windows, medians and the spread
+    between rounds) and 2 in-process ones on the one card, with the
+    children's launches summed from their beats; (e) traced children
+    (4 layers): their spans harvested, a failed-over request one flow
+    across the parent and both children, the trace validated.
 
 Every phase raises on failure.  The second-to-last line of the output is
 the ``{"kernels": [...]}`` record, the last one
@@ -125,7 +149,7 @@ the ``{"kernels": [...]}`` record, the last one
 of the repository, it exits with code 2 and prints no result.
 ``python3 chip_smoke.py --phases 2,3`` runs the build and the listed
 phases only (5 and 6, 10 and 11 run together) and prints no result
-lines.  ``--phases 18`` runs the latest slice's: the training runtime.
+lines.  ``--phases 19`` runs the latest slice's: 18g, 18h and 19.
 """
 
 from __future__ import annotations
@@ -216,7 +240,7 @@ O1_FP16_LAYERS, O1_FP16_BATCH, O1_STEPS = 4, 4, 3
 # Phase 18: batch, records, fit's steps before and after the resume, the
 # sentinel's window, dropout, and the resumed losses' tolerance (kept
 # only where the card's products are not deterministic run to run).
-RT_BATCH, RT_RECORDS, RT_STEPS, RT_RESUME_STEPS = 16, 1024, 20, 30
+RT_BATCH, RT_RECORDS, RT_STEPS, RT_RESUME_STEPS = 16, 1024, 10, 20
 RT_MAX_BAD, RT_DROPOUT, RT_RESUME_RTOL = 4, 0.1, 1e-3
 
 
@@ -2454,8 +2478,8 @@ def training_runtime(torch, fa, pa, bench, device="cuda", widths=None,
   fp32, flash, ``dots_flash``, ``loss_chunk`` 256, batch 16 x 1024) at
   full width, fed from token records by ``RecordReader(use_native=True)``
   and ``DevicePrefetcher``, with the anomaly sentinel on
-  (``resilience.max_bad_steps``): (a) 20 steps with a checkpoint every
-  10; (b) a fresh state resuming at step 20 over the same dir, held to
+  (``resilience.max_bad_steps``): (a) 10 steps with a checkpoint every
+  10; (b) a fresh state resuming at step 10 over the same dir, held to
   the uninterrupted run; (c) a two-step NaN window skipped bit for bit
   with no host sync, then a persistent fault rolled back; (d) gradient
   accumulation and the grouped apply; (e) dropout; (f) serving from the
@@ -2594,13 +2618,15 @@ def training_runtime(torch, fa, pa, bench, device="cuda", widths=None,
         + f" for {ckpt_bytes / 1e9:.3f} GB (params + mu + nu, fp32; "
         f"{ckpt_bytes / 1e9 / saves.seconds[-1]:.2f} GB/s; "
         f"{saver._IO_WORKERS} IO threads, {os.cpu_count()} host cores)")
-    assert saves.args == [10, 20], saves.args
+    assert saves.args == list(range(10, RT_STEPS + 1, 10)), saves.args
     assert saver.latest_step(ckpt) == RT_STEPS
-    assert sorted(os.listdir(ckpt)) == ["metrics.jsonl", "step_00000020"]
+    assert sorted(os.listdir(ckpt)) == ["metrics.jsonl",
+                                        f"step_{RT_STEPS:08d}"]
 
-    # (b) resume: a fresh state over the same dir restores step 20, the
-    # data factory is told start_step=20; steps 21..30 against the live
-    # state continuing uninterrupted.
+    # (b) resume: a fresh state over the same dir restores step
+    # RT_STEPS, the data factory is told start_step=RT_STEPS; the steps
+    # up to RT_RESUME_STEPS against the live state continuing
+    # uninterrupted.
     live = _snapshot(torch, state)
     fresh, sh_b = new_state()
     checked = []
@@ -2819,6 +2845,583 @@ def training_runtime(torch, fa, pa, bench, device="cuda", widths=None,
   return launches, paged
 
 
+# ----------------------------- phases 18g-18h: host offload and DCP
+
+
+OFFLOAD_WARMUP, OFFLOAD_STEPS = 2, 6
+
+
+def _state_fingerprint(torch, state):
+  """``{(name, leaf): (sum, position-weighted sum)}`` of the bits of
+  every parameter and both AdamW moments, summed as int64 on the card
+  (wrapping, so independent of the order of the sum): equal
+  fingerprints of two runs mean their states agree bit for bit, up to a
+  collision no stray moment stream would hit."""
+  opt = state.opt_state
+  out = {}
+  for name, p in state.params.items():
+    for leaf, t in (("param", p), ("exp_avg", opt.state[p]["exp_avg"]),
+                    ("exp_avg_sq", opt.state[p]["exp_avg_sq"])):
+      bits = t.detach().to("cuda").contiguous().view(
+          {2: torch.int16, 4: torch.int32}[t.element_size()])
+      bits = bits.reshape(-1).to(torch.int64)
+      w = torch.arange(bits.numel(), device="cuda") % 65521 + 1
+      out[(name, leaf)] = (int(bits.sum()), int((bits * w).sum()))
+      del bits, w
+  return out
+
+
+def offload_training(torch, fa, bench):
+  """Phase 18g: ``bench.py``'s configuration (GPT-350M bf16 over fp32
+  params, batch 16 x 1024) through ``bench.build_training`` without and
+  with ``offload.level = "v0"``: the moments pinned on the host, the
+  losses loss for loss and the final params and moments bit-equal
+  (fingerprints of their bits), the peak HBM (``max_memory_allocated`` from
+  before the state is built) and the median step ms both ways, the
+  flash launches of the offloaded run (24 x steps), and a native
+  save/restore of the offloaded state bit-equal.  Returns the offloaded
+  state, its flash launches and the native save and restore seconds."""
+  import tempfile
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.runtime import saver
+  from easyparallellibrary_tpu_torch.runtime.offload import (
+      HostOffloadOptimizer)
+  cfg = bench.bench_config(torch.device("cuda"))[0]
+  B, L = RT_BATCH, cfg.num_layers
+  runs = {}
+  for level in ("", "v0"):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, batch, rng, _ = bench.build_training(
+        cfg, B, "cuda", config=epl.Config({"offload.level": level}))
+    assert isinstance(state.opt_state, HostOffloadOptimizer) == bool(level)
+    fa.reset_counts()
+    losses, times = [], []
+    for i in range(OFFLOAD_WARMUP + OFFLOAD_STEPS):
+      torch.cuda.synchronize()
+      t0 = time.monotonic()
+      state, m = step(state, batch, rng)
+      torch.cuda.synchronize()
+      times.append(time.monotonic() - t0)
+      losses.append(m["loss"].detach())
+    launches = {"fwd": fa.flash_fwd_cuda.launches,
+                "dkv": fa.flash_bwd_dkv_cuda.launches,
+                "dq": fa.flash_bwd_dq_cuda.launches}
+    n = OFFLOAD_WARMUP + OFFLOAD_STEPS
+    assert all(v == L * n for v in launches.values()), launches
+    assert (fa.flash_fwd_reference.calls, fa.flash_bwd_dkv_reference.calls,
+            fa.flash_bwd_dq_reference.calls) == (0, 0, 0)
+    runs[level] = dict(
+        losses=torch.stack(losses).float().cpu().numpy(),
+        ms=statistics.median(times[OFFLOAD_WARMUP:]) * 1e3,
+        peak=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+        fingerprint=_state_fingerprint(torch, state))
+    if level:
+      break
+    del state, step, batch
+  plain, off = runs[""], runs["v0"]
+  opt = state.opt_state
+  moments = [opt.state[p][k] for p in state.params.values()
+             for k in ("exp_avg", "exp_avg_sq")]
+  pinned = all(t.device.type == "cpu" and t.is_pinned() for t in moments)
+  mbytes = sum(t.numel() * t.element_size() for t in moments) / 1e9
+  equal = np.array_equal(plain["losses"], off["losses"])
+  differ = [k for k, v in plain["fingerprint"].items()
+            if off["fingerprint"][k] != v]
+  log(f"   (18g) moments {mbytes:.3f} GB in pinned host memory: {pinned}; "
+      f"{opt.num_buckets} buckets through two device buffers of "
+      f"{opt.bucket_bytes / 1e6:.1f} MB")
+  log(f"   (18g) {OFFLOAD_WARMUP + OFFLOAD_STEPS} steps: losses equal loss "
+      f"for loss {equal} (max |diff| "
+      f"{float(np.max(np.abs(plain['losses'] - off['losses']))):.3e}); "
+      f"median step {plain['ms']:.1f} ms without offload, "
+      f"{off['ms']:.1f} ms with ({off['ms'] - plain['ms']:+.1f} ms); peak "
+      f"HBM {plain['peak']:.3f} GB without, {off['peak']:.3f} GB with "
+      f"({off['peak'] - plain['peak']:+.3f} GB); flash launches "
+      f"{off['launches']} = {L} layers x {OFFLOAD_WARMUP + OFFLOAD_STEPS} "
+      f"steps")
+  log(f"   (18g) after {OFFLOAD_WARMUP + OFFLOAD_STEPS} steps, params and "
+      f"both moments bit-equal to the run without offload: "
+      f"{len(plain['fingerprint']) - len(differ)}/"
+      f"{len(plain['fingerprint'])} leaves"
+      + (f" (differ: {differ[:6]})" if differ else ""))
+  assert pinned
+  assert equal, (plain["losses"], off["losses"])
+  assert not differ, differ
+  assert off["peak"] < plain["peak"]
+  # Native save and restore of the offloaded state, bit-equal.
+  tmp = tempfile.mkdtemp(prefix="epl_phase18g_")
+  try:
+    want = {n: [p.detach().cpu().clone()] + [
+        opt.state[p][k].clone() for k in ("exp_avg", "exp_avg_sq")]
+        for n, p in state.params.items()}
+    t0 = time.monotonic()
+    saver.save_checkpoint(tmp, saver.state_tree(state), step=8)
+    save_s = time.monotonic() - t0
+    with torch.no_grad():
+      for p in state.params.values():
+        p.zero_()
+        opt.state[p]["exp_avg"].zero_()
+        opt.state[p]["exp_avg_sq"].zero_()
+    t0 = time.monotonic()
+    state, rstep = saver.restore_train_state(tmp, state)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    same = rstep == 8 and all(
+        torch.equal(p.detach().cpu(), want[n][0])
+        and torch.equal(opt.state[p]["exp_avg"], want[n][1])
+        and torch.equal(opt.state[p]["exp_avg_sq"], want[n][2])
+        and opt.state[p]["exp_avg"].is_pinned()
+        for n, p in state.params.items())
+    gbytes = sum(os.path.getsize(os.path.join(dp, f))
+                 for dp, _, fs in os.walk(tmp) for f in fs) / 1e9
+    log(f"   (18g) native save of the offloaded state {save_s:.2f} s, "
+        f"restore {restore_s:.2f} s ({gbytes:.3f} GB); restored params "
+        f"and moments bit-equal, moments still pinned: {same}")
+    assert same
+  finally:
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+  return state, off["launches"], save_s, restore_s
+
+
+def dcp_checkpoint(torch, state, native_s):
+  """Phase 18h: the offloaded GPT-350M state's whole tree (params, both
+  moments, the count: 4.04 GB) through ``save_checkpoint_orbax`` /
+  ``restore_checkpoint_orbax`` (``torch.distributed.checkpoint``, one
+  process, no process group), restored bit-equal, its seconds beside the
+  native saver's."""
+  import shutil
+  import tempfile
+  from easyparallellibrary_tpu_torch.runtime import saver
+  tmp = tempfile.mkdtemp(prefix="epl_phase18h_")
+  try:
+    tree = saver.state_tree(state)
+    t0 = time.monotonic()
+    saver.save_checkpoint_orbax(tmp, tree, step=8)
+    save_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    got = saver.restore_checkpoint_orbax(tmp, 8, target=tree)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    want = dict(saver._sorted_leaves(tree))
+    back = dict(saver._sorted_leaves(got))
+    same = want.keys() == back.keys() and all(
+        back[k].dtype == v.dtype and torch.equal(back[k], v)
+        for k, v in want.items())
+    gbytes = sum(os.path.getsize(os.path.join(dp, f))
+                 for dp, _, fs in os.walk(tmp) for f in fs) / 1e9
+    log(f"   (18h) DCP save {save_s:.2f} s, restore {restore_s:.2f} s of "
+        f"{gbytes:.3f} GB ({len(want)} leaves; native saver: save "
+        f"{native_s[0]:.2f} s, restore {native_s[1]:.2f} s); every leaf "
+        f"bit-equal: {same}")
+    assert same and gbytes > 4.0
+    return save_s, restore_s
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------- phase 19: the fleet
+
+
+FLEET_FACTORY = "easyparallellibrary_tpu_torch.testing.factories:gpt_350m"
+FLEET_KILL_CALL = 6          # ReplicaKiller: step calls after prefill began
+FLEET_FP32_REQUESTS, FLEET_FP32_NEW = 8, 16
+FLEET_TRACE_LAYERS = 4       # 19e: depth cut for the traced children
+FLEET_ROUNDS = 2             # 19d: ABBA rounds of 1 and 2 process replicas
+
+
+class FleetMeter:
+  """User-facing numbers of one router run, read at the router: tokens/s
+  over the run's wall time, TTFT (submit to the first streamed token)
+  and ITL (gaps between a request's streamed tokens), host ms per sweep
+  (``Router.step``), from the router's ``on_tokens`` fanout."""
+
+  def __init__(self, router):
+    self.router = router
+    self.submitted, self.first, self.last = {}, {}, {}
+    self.itl, self.tokens, self.sweeps = [], 0, []
+    router.on_tokens.append(self._on_tokens)
+
+  def _on_tokens(self, uid, toks):
+    now = time.monotonic()
+    if uid not in self.first:
+      self.first[uid] = now
+    elif uid in self.last and toks:
+      self.itl.append((now - self.last[uid]) / len(toks))
+    self.last[uid] = now
+    self.tokens += len(toks)
+
+  def drive(self, request_cls, prompts, max_new=32):
+    """Phase 5's staggered waves through the router, each sweep timed."""
+    router = self.router
+    step = router.step
+
+    def timed_step():
+      t0 = time.monotonic()
+      out = step()
+      self.sweeps.append(time.monotonic() - t0)
+      return out
+
+    router.step = timed_step
+    orig_submit = router.submit
+
+    def submit(req):
+      self.submitted[req.uid] = time.monotonic()
+      return orig_submit(req)
+
+    router.submit = submit
+    t0 = time.monotonic()
+    try:
+      out = drive_waves(router, request_cls, prompts, max_new=max_new)
+    finally:
+      router.step, router.submit = step, orig_submit
+    self.wall = time.monotonic() - t0
+    return out
+
+  def summary(self):
+    ttft = sorted(self.first[u] - self.submitted[u] for u in self.first
+                  if u in self.submitted)
+    pct = lambda xs, q: xs[min(len(xs) - 1, int(q * len(xs)))]  # noqa: E731
+    return {"tokens_per_s": self.tokens / self.wall,
+            "ttft_p50_ms": pct(ttft, 0.5) * 1e3,
+            "ttft_p99_ms": pct(ttft, 0.99) * 1e3,
+            "itl_p50_ms": pct(sorted(self.itl), 0.5) * 1e3,
+            "sweep_ms": statistics.median(self.sweeps) * 1e3,
+            "sweeps": len(self.sweeps), "wall_s": self.wall}
+
+
+def _fmt_fleet(s):
+  return (f"tokens/s {s['tokens_per_s']:.1f}, TTFT p50 "
+          f"{s['ttft_p50_ms']:.1f} ms p99 {s['ttft_p99_ms']:.1f} ms, ITL "
+          f"p50 {s['itl_p50_ms']:.2f} ms, {s['sweeps']:g} sweeps, host "
+          f"{s['sweep_ms']:.2f} ms a sweep (median)")
+
+
+def _count_syncs(torch, fn):
+  import warnings
+  torch.cuda.synchronize()
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      out = fn()
+      torch.cuda.synchronize()
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+  return out, sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def _finished_once(router, n):
+  assert sorted(router.finished) == list(range(n)), sorted(router.finished)
+  for i in range(n):
+    assert router.finished[i].finish_reason == "length", i
+
+
+def _gone(pid):
+  try:
+    os.kill(pid, 0)
+  except ProcessLookupError:
+    return True
+  return False
+
+
+def fleet_serving(torch, params, pa):
+  """Phase 19: the replicated fleet at GPT-350M width (paged, 8 slots,
+  chunk 128, block 16) under phase 5's staggered load.  Returns the
+  tiled build's launches over the process fleet's main-path run (summed
+  from the children's beats) and over the in-process kill run."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.kernels import _build
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.observability import trace as trace_lib
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request, Router)
+  from easyparallellibrary_tpu_torch.testing import chaos
+  geometry = dict(paged=True, num_slots=NUM_SLOTS,
+                  prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE)
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  prompts = make_prompts(2, 16, cfg.vocab_size)
+  n = len(prompts)
+  epl.init()
+  launches = {}
+
+  # (a) N=1 in process against the bare engine.
+  bare = ContinuousBatchingEngine(model, params, **geometry)
+  ref = drive_waves(bare, Request, prompts)
+  bare_params = bare.params
+  del bare
+  libs = _build.loaded_count()
+  router = Router(model, params, num_replicas=1, **geometry)
+  pa.reset_counts()
+  out = drive_waves(router, Request, prompts)
+  torch.cuda.synchronize()
+  steps = router.replicas[0].engine.steps
+  a_launches = pa.paged_attention_tiled_cuda.launches
+  equal = sum(np.array_equal(out[i], ref[i]) for i in range(n))
+  log(f"   (19a) Router(N=1, inproc) against the bare engine: {equal}/{n} "
+      f"streams token-equal; tiled launches {a_launches} = "
+      f"{cfg.num_layers} layers x {steps} engine steps; kernel libraries "
+      f"{libs} -> {_build.loaded_count()}")
+  assert equal == n and a_launches == cfg.num_layers * steps > 0
+  assert pa.paged_attention_reference.calls == 0
+  assert _build.loaded_count() == libs
+  _finished_once(router, n)
+  del router
+
+  # (b) two in-process replicas, one killed mid-decode: bf16 (held to the
+  # gap rule where a replayed prefill rounds otherwise), then fp32.
+  router = Router(model, params, num_replicas=2, **geometry)
+  killer = chaos.ReplicaKiller(router.replicas[0].engine,
+                               kill_calls=(FLEET_KILL_CALL,))
+  pa.reset_counts()
+  out = drive_waves(router, Request, prompts)
+  torch.cuda.synchronize()
+  launches["inproc"] = pa.paged_attention_tiled_cuda.launches
+  assert killer.kills == 1 and router.failovers == 1
+  _finished_once(router, n)
+  log(f"   (19b) bf16, 2 inproc replicas, replica 0 killed at step call "
+      f"{FLEET_KILL_CALL}: failovers {router.failovers}, migrated "
+      f"{router.migrated_requests}, lost 0; tiled launches "
+      f"{launches['inproc']}")
+  greedy_vs_generate(torch, model, bare_params, prompts, out,
+                     bf16_gap_limit, "19b bf16 failover",
+                     refs=dict(ref), ref_name="the bare engine")
+  del router, killer
+  cfg32 = GPTConfig(**GPT_350M, dtype=torch.float32)
+  model32 = GPT(cfg32)
+  p32 = prompts[:FLEET_FP32_REQUESTS]
+  runs32 = []
+  for kill in (False, True):
+    router = Router(model32, params, num_replicas=2, **geometry)
+    if kill:
+      chaos.ReplicaKiller(router.replicas[0].engine,
+                          kill_calls=(FLEET_KILL_CALL,))
+    for i, p in enumerate(p32):
+      router.submit(Request(uid=i, prompt=p, max_new_tokens=FLEET_FP32_NEW))
+    runs32.append(router.run())
+    assert router.failovers == int(kill)
+    _finished_once(router, len(p32))
+    del router
+  equal32 = greedy_vs_generate(torch, model32, params, p32, runs32[1],
+                               lambda top1: 1e-3, "19b fp32 failover",
+                               refs=dict(runs32[0]),
+                               ref_name="the fault-free fleet")
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  # (c) two process replicas from the GPT-350M factory on the card.
+  # Breaker hold-outs longer than the phase: a dead child is respawned
+  # by the explicit rejoin below, never by a probe mid-run.
+  router_conf = {"transport": "process", "spawn_timeout_s": 600.0,
+                 "rpc_timeout_s": 300.0, "suspect_after": 1800.0,
+                 "down_after": 3600.0}
+  conf = epl.Config({"serving": {"router": router_conf}})
+  epl.init(conf)
+  factory = {"fn": FLEET_FACTORY, "kwargs": {}}
+  t0 = time.monotonic()
+  fleet = Router(num_replicas=2, config=conf, factory=factory,
+                 device="cuda", **geometry)
+  spawn_s = [rep.last_spawn_s for rep in fleet.replicas]
+  names = {rep.device_name for rep in fleet.replicas}
+  log(f"   (19c) 2 process replicas up in {time.monotonic() - t0:.1f} s "
+      f"(cold spawns {', '.join(f'{s:.1f}' for s in spawn_s)} s; pids "
+      f"{[r.child_pid for r in fleet.replicas]}; children on {names})")
+  assert names == {torch.cuda.get_device_name(0)}
+  results = {}
+  try:
+    # Warm-up (each child's first steps), then the numbers of (d).
+    warm = [p[:64] for p in make_prompts(19, 4, cfg.vocab_size)]
+    for i, p in enumerate(warm):
+      fleet.submit(Request(uid=f"warm{i}", prompt=p, max_new_tokens=4))
+    fleet.run()
+    inj = {rep.index: rep for rep in fleet.replicas}
+
+    def measured(rt):
+      meter = FleetMeter(rt)
+      out = meter.drive(Request, prompts)
+      return out, meter.summary()
+
+    one = Router(replicas=[inj[0]], config=conf)
+    # 1 and 2 process replicas in ABBA turns, FLEET_ROUNDS rounds: the
+    # spread between windows of one configuration inside this call sits
+    # beside the ratio.  The first window of each counts the syncs; the
+    # first 2-process window counts the children's launches.
+    windows = {"process_1": [], "process_2": []}
+    for turn in range(4 * FLEET_ROUNDS):
+      key = "process_1" if turn % 4 in (0, 3) else "process_2"
+      rt = one if key == "process_1" else fleet
+      if turn == 0:
+        (out1, s), syncs1 = _count_syncs(torch, lambda: measured(rt))
+      elif turn == 1:
+        for r in (0, 1):
+          inj[r].reset_launch_counts()
+        pa.reset_counts()
+        (out2, s), syncs2 = _count_syncs(torch, lambda: measured(rt))
+        launches["process"] = sum(rep.kernel_launches.get(
+            "paged_attention_tiled", 0) for rep in fleet.replicas)
+        plain_children = sum(rep.kernel_launches.get(
+            "paged_attention_plain", 0) for rep in fleet.replicas)
+        assert launches["process"] > 0 and plain_children == 0
+        # The parent launched none.
+        assert pa.paged_attention_cuda.launches == 0
+      else:
+        _, s = measured(rt)
+      windows[key].append(s)
+    del one
+    for key, ws in windows.items():
+      results[key] = {k: statistics.median(w[k] for w in ws)
+                      for k in ws[0]}
+    round_ratios = [
+        sum(w["tokens_per_s"] for w in windows["process_2"][2 * r:2 * r + 2])
+        / sum(w["tokens_per_s"] for w in windows["process_1"][2 * r:2 * r + 2])
+        for r in range(FLEET_ROUNDS)]
+    for label, o in (("1 process replica", out1),
+                     ("2 process replicas", out2)):
+      greedy_vs_generate(torch, model, bare_params, prompts, o,
+                         bf16_gap_limit, f"19d {label}",
+                         refs=dict(ref), ref_name="the bare engine")
+    # 2 in-process replicas on the same card, warmed the same way.
+    inproc = Router(model, params, num_replicas=2, transport="inproc",
+                    **geometry)
+    for i, p in enumerate(warm):
+      inproc.submit(Request(uid=f"warm{i}", prompt=p, max_new_tokens=4))
+    inproc.run()
+    (outi, results["inproc_2"]), syncs_i = _count_syncs(
+        torch, lambda: measured(inproc))
+    del inproc
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    for key, label, syncs in (
+        ("process_1", "1 process replica", syncs1),
+        ("process_2", "2 process replicas", syncs2),
+        ("inproc_2", "2 in-process replicas", syncs_i)):
+      tps = [f"{w['tokens_per_s']:.1f}" for w in windows.get(key, ())]
+      spread = (f" (median of {len(tps)} windows; tokens/s "
+                f"{', '.join(tps)})" if tps else "")
+      log(f"   (19d) {label} ({smi}): {_fmt_fleet(results[key])}{spread}; "
+          f"synchronising calls in this process {syncs}"
+          + (" (the first counted run)" if key == "process_1" else ""))
+    log(f"   (19d) 2 process replicas against 1: tokens/s x "
+        f"{results['process_2']['tokens_per_s'] / results['process_1']['tokens_per_s']:.3f}"
+        f" (medians; per ABBA round "
+        f"{', '.join(f'{r:.3f}' for r in round_ratios)}, spread "
+        f"{min(round_ratios):.3f}-{max(round_ratios):.3f})"
+        f"; 2 process against 2 in-process: x "
+        f"{results['process_2']['tokens_per_s'] / results['inproc_2']['tokens_per_s']:.3f}"
+        f"; children's tiled launches over the 2-process run "
+        f"{launches['process']} (summed from their beats)")
+    # The parent of process replicas touches no CUDA: none after the
+    # first counted run (whose count includes the mode's own first use).
+    assert syncs2 == 0, syncs2
+
+    # The SIGKILL mid-decode.
+    for i, p in enumerate(prompts):
+      fleet.submit(Request(uid=100 + i, prompt=p, max_new_tokens=32))
+    for _ in range(FLEET_KILL_CALL):
+      fleet.step()
+    victim = fleet.replicas[0]
+    assert victim.has_work
+    survivor_libs = fleet.replicas[1].compile_count
+    free_before = torch.cuda.mem_get_info()[0]
+    vpid = chaos.ProcessKiller(victim).kill()
+    out = {}
+    for fin in fleet.step():
+      out[fin.uid] = fin.tokens
+    signal_seen = victim.exit_signal
+    out.update(fleet.run())
+    free_after = torch.cuda.mem_get_info()[0]
+    lost = [100 + i for i in range(n) if 100 + i not in fleet.finished]
+    log(f"   (19c) SIGKILL of pid {vpid} mid-decode: failovers "
+        f"{fleet.failovers}, migrated {fleet.migrated_requests}, lost "
+        f"{len(lost)}; exit signal {signal_seen}; pid gone "
+        f"{_gone(vpid)}; card memory free {free_before / 1e9:.2f} -> "
+        f"{free_after / 1e9:.2f} GB; survivor's kernel libraries "
+        f"{survivor_libs} -> {fleet.replicas[1].compile_count}")
+    assert not lost and fleet.failovers == 1
+    assert signal_seen == 9 and _gone(vpid)
+    assert free_after - free_before > 0.5e9
+    assert fleet.replicas[1].compile_count == survivor_libs
+    greedy_vs_generate(torch, model, bare_params, prompts,
+                       {i: out[100 + i] for i in range(n)}, bf16_gap_limit,
+                       "19c SIGKILL failover", refs=dict(ref),
+                       ref_name="the bare engine")
+    assert fleet.rejoin(0, force=True)
+    log(f"   (19c) rejoin(0, force=True): respawned pid "
+        f"{fleet.replicas[0].child_pid} (was {vpid}) in "
+        f"{fleet.replicas[0].last_spawn_s:.1f} s; restarts "
+        f"{fleet.replicas[0].child_restarts}")
+    assert fleet.replicas[0].child_pid != vpid and fleet.replicas[0].alive
+    for i, p in enumerate(prompts):
+      fleet.submit(Request(uid=200 + i, prompt=p, max_new_tokens=32))
+    for _ in range(3):
+      fleet.step()
+    on_one = [u for u, r in fleet.placement.items() if r == 1]
+    migrated0 = fleet.migrated_requests
+    fleet.drain(1, timeout_s=0.0)
+    fleet.step()
+    moved = fleet.migrated_requests - migrated0
+    fleet.run()
+    log(f"   (19c) drain(1, timeout_s=0): {moved} request(s) migrated "
+        f"through the evacuate RPC, replica 1 alive "
+        f"{fleet.replicas[1].alive} and {fleet.state(1)}")
+    assert moved == len(on_one) > 0 and fleet.replicas[1].alive
+    assert all(200 + i in fleet.finished for i in range(n))
+    pids = [rep.child_pid for rep in fleet.replicas] + [vpid]
+  finally:
+    fleet.close()
+  assert all(_gone(pid) for pid in pids), pids
+  log(f"   (19c) close(): child pids {pids} all gone")
+
+  # (e) observability on, traced children (depth cut).
+  conf = epl.Config({"serving": {"router": router_conf},
+                     "observability": {"enabled": True}})
+  reset_observability()
+  epl.init(conf)
+  tracer = trace_lib.ensure_configured(conf)
+  traced = Router(num_replicas=2, config=conf, factory={
+      "fn": FLEET_FACTORY, "kwargs": {"num_layers": FLEET_TRACE_LAYERS}},
+      device="cuda", **geometry)
+  tpids = [rep.child_pid for rep in traced.replicas]
+  try:
+    for i, p in enumerate(prompts[:8]):
+      traced.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+    for _ in range(4):
+      traced.step()
+    chaos.ProcessKiller(traced.replicas[0]).kill()
+    traced.run()
+    traced.harvest_traces()
+    harvested = traced.router_counters()["trace_events_harvested"]
+  finally:
+    traced.close()
+  OBS_DIR.mkdir(parents=True, exist_ok=True)
+  path = str(OBS_DIR / "fleet_trace.json")
+  tracer.export(path)
+  events = trace_lib.validate_trace(path)
+  flows = {}
+  for ev in events:
+    if ev.get("ph") in ("s", "t", "f"):
+      flows.setdefault(ev["id"], []).append(ev)
+  parent = {e["pid"] for e in events if e.get("ph") != "M"} - set(tpids)
+  spanning = [f for f, evs in flows.items()
+              if parent | set(tpids) <= {e["pid"] for e in evs}]
+  log(f"   (19e) traced fleet ({FLEET_TRACE_LAYERS} layers): "
+      f"{int(harvested)} child events harvested, {len(events)} events "
+      f"validated, {len(spanning)} failed-over flow(s) crossing the parent "
+      f"and both children; trace {path}")
+  assert harvested > 0 and spanning
+  for f in spanning:
+    assert flows[f][0]["ph"] == "s" and flows[f][-1]["ph"] == "f"
+  reset_observability()
+  return launches
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -2871,7 +3474,7 @@ def main() -> int:
   if want(3):
     with Phase("3. kernel timing"):
       times = kernel_timing(torch, pa)
-  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17)
+  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19)
   # Reference streams of generate(use_cache=False), by prompt set, shared
   # between the paged phases and phase 14, which serves the same prompts.
   refs = {"float32": {}, "bfloat16": {}, "spec": {}}
@@ -2922,6 +3525,10 @@ def main() -> int:
     with Phase("17. GPT-350M bf16: serving observability (traced against "
                "untraced, device truth, SLO, contiguous)"):
       observability_serving(torch, params, pa)
+  if want(19):
+    with Phase("19. GPT-350M bf16: the replicated fleet (router, in-process "
+               "and process replicas, SIGKILL failover, drain, traces)"):
+      fleet_launches = fleet_serving(torch, params, pa)
   del refs
   if any(map(want, serving)):
     del params
@@ -2954,6 +3561,17 @@ def main() -> int:
     with Phase("18. GPT-350M bf16: fit() with checkpoints, resume, sentinel "
                "and rollback"):
       fit_launches, ckpt_paged = training_runtime(torch, fa, pa, bench)
+  if want(18) or want(19):
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("18g. GPT-350M bf16: host offload at bench.py's "
+               "configuration"):
+      off_state, offload_launches, *native_s = offload_training(
+          torch, fa, bench)
+    with Phase("18h. the DCP checkpoint path (torch.distributed."
+               "checkpoint)"):
+      dcp_checkpoint(torch, off_state, native_s)
+    del off_state
   log(f"total {time.monotonic() - t_start:.1f} s")
   if only is not None:
     return 0
@@ -2966,19 +3584,22 @@ def main() -> int:
                     flash_launches["fwd"], flash_errs["fwd"],
                     flash_times["fwd"], flash_rel["fwd"],
                     FLASH_BF16_LIMIT["fwd"],
-                    launches_fit=fit_launches["fwd"]),
+                    launches_fit=fit_launches["fwd"],
+                    launches_offload=offload_launches["fwd"]),
       kernel_record("flash_attention_bwd_dkv",
                     "flash_bwd_dkv_wgmma_kernel<64>", flash_src,
                     f"{flash_py}:133 and :363", flash_launches["dkv"],
                     flash_errs["dkv"], flash_times["dkv"],
                     flash_rel["dkv"], FLASH_BF16_LIMIT["grad"],
-                    launches_fit=fit_launches["dkv"]),
+                    launches_fit=fit_launches["dkv"],
+                    launches_offload=offload_launches["dkv"]),
       kernel_record("flash_attention_bwd_dq", "flash_bwd_dq_wgmma_kernel<64>",
                     flash_src, f"{flash_py}:172 and :404",
                     flash_launches["dq"], flash_errs["dq"],
                     flash_times["dq"], flash_rel["dq"],
                     FLASH_BF16_LIMIT["grad"],
-                    launches_fit=fit_launches["dq"]),
+                    launches_fit=fit_launches["dq"],
+                    launches_offload=offload_launches["dq"]),
   ]
   paged_src = "easyparallellibrary_tpu_torch/kernels/csrc/paged_attention.cu"
   paged_replaces = "easyparallellibrary_tpu/kernels/paged_attention.py:119"
@@ -3041,7 +3662,8 @@ def main() -> int:
                         "bfloat16"),
            launches_speculative=spec, launches_prefix_cache={
                k: v["launches"] for k, v in prefix.items()},
-           launches_from_checkpoint=ckpt_paged),
+           launches_from_checkpoint=ckpt_paged,
+           launches_fleet=fleet_launches),
       paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
                    warp_launches, "float32"),
   ] + flash_records + fp16_flash + [fp16_paged, mixed_paged]}), flush=True)

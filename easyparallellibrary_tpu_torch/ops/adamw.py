@@ -9,10 +9,17 @@ torch's apply the same decoupled update — ``p -= lr * (m_hat /
 (sqrt(v_hat) + eps) + weight_decay * p)``, eps outside the square root,
 the same bias corrections — which ``tests/test_torch_train.py`` pins
 against optax over a training trajectory.
+
+:func:`inject_hyperparams` is ``optax.inject_hyperparams``'s
+counterpart: the optimizer it builds is the same, marked so the saver
+writes its hyperparameters (the learning rate a rollback backed off
+among them) at the JAX ``InjectHyperparamsState`` leaf paths and reads
+them back on restore.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
@@ -60,6 +67,32 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                              eps=eps, fused=fused)
 
   return Recipe(init)
+
+
+def inject_hyperparams(make: Callable[..., Recipe]) -> Callable[..., Recipe]:
+  """``inject_hyperparams(adamw)(learning_rate=..., ...)``: the recipe
+  ``make`` builds, its optimizer marked ``inject_hyperparams = True``.
+  ``runtime.saver.state_tree`` then lays the state out as optax's
+  ``inject_hyperparams(optax.adamw)`` does — ``opt_state/count``,
+  ``opt_state/hyperparams/{b1, b2, eps, eps_root, learning_rate,
+  weight_decay}``, the moments under ``opt_state/inner_state/0`` — and
+  a restore sets every group's rate from the checkpoint, so a run
+  restarted after a rollback resumes at the backed-off rate.  Without
+  it the layout is optax's plain ``adamw`` state."""
+
+  @functools.wraps(make)
+  def build(*args, **kwargs) -> Recipe:
+    inner = make(*args, **kwargs)
+
+    def init(params: Dict[str, torch.Tensor],
+             fused: Optional[bool] = None) -> torch.optim.Optimizer:
+      opt = inner.init(params, fused=fused)
+      opt.inject_hyperparams = True
+      return opt
+
+    return Recipe(init)
+
+  return build
 
 
 def adam_weight_decay_optimizer(

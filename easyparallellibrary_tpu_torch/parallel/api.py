@@ -22,7 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    RUNTIME, TENSOR_PARALLEL, not_ported)
+    TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.env import Env
 
 
@@ -86,21 +86,24 @@ def create_sharded_train_state(init_fn: Callable[..., TrainState],
                                ) -> Tuple[TrainState, Dict[str, Any]]:
   """``state = init_fn(*init_args)`` with every parameter on the mesh's
   device.  Returns ``(state, shardings)``; on one device each parameter
-  is replicated (``()``).  ZeRO and host offload (``zero.level``,
-  ``offload.level``, or the arguments) raise."""
+  is replicated (``()``).  Host offload (``offload.level``, or
+  ``offload=True``) puts the optimizer's moments in pinned host memory
+  (``runtime.offload.offload_to_host``; a CPU state is left as it is).
+  ZeRO (``zero.level``) raises."""
   cfg = Env.get().config
   zero_level = cfg.zero.level if zero_level is None else zero_level
   offload = bool(cfg.offload.level) if offload is None else offload
   if zero_level:
     raise not_ported(f"ZeRO (zero.level={zero_level!r})", TENSOR_PARALLEL)
-  if offload:
-    raise not_ported("host offload (offload.level)", RUNTIME)
   state = init_fn(*init_args)
   wrong = sorted(n for n, p in state.params.items()
                  if p.device != mesh.device)
   if wrong:
     raise ValueError(f"init_fn placed {wrong[:3]} (and {len(wrong)} in all) "
                      f"off the mesh's device {mesh.device}")
+  if offload:
+    from easyparallellibrary_tpu_torch.runtime.offload import offload_to_host
+    state = offload_to_host(state)
   return state, {name: () for name in state.params}
 
 

@@ -18,7 +18,9 @@ checkpoint written by either package restores in the other:
   optax's Adam state ``opt_state/0/count`` (one int32), ``opt_state/0/
   mu/<path>`` and ``opt_state/0/nu/<path>``.  torch's AdamW keeps one
   ``step`` per parameter: one count is written, and on restore it goes
-  into every parameter's ``step``.
+  into every parameter's ``step``.  An optimizer built through
+  ``ops.adamw.inject_hyperparams`` is written as optax's
+  ``inject_hyperparams`` state (the learning rate included).
 
 bf16 leaves: the JAX package stores them through ``ml_dtypes`` as the
 2-byte void type ``V2`` with ``"dtype": "bfloat16"`` in the index.  The
@@ -31,7 +33,10 @@ threads (``_IO_WORKERS``; numpy's zip writes, ``hashlib`` and file IO
 release the GIL), at most two shards per thread in flight, so host
 memory stays bounded while a multi-GB checkpoint moves at the host's
 rate rather than one core's.  Only process 0 (the ``torch.distributed``
-rank) writes; every process can restore.  The orbax path raises.
+rank) writes; every process can restore.  The JAX package's orbax path
+is ``torch.distributed.checkpoint`` here (:func:`save_checkpoint_orbax`,
+:func:`restore_checkpoint_orbax`): a format of its own, read only by
+itself.
 """
 
 from __future__ import annotations
@@ -50,7 +55,6 @@ import numpy as np
 import torch
 
 from easyparallellibrary_tpu_torch import constants
-from easyparallellibrary_tpu_torch._not_ported import RUNTIME, not_ported
 from easyparallellibrary_tpu_torch.observability import trace as trace_lib
 from easyparallellibrary_tpu_torch.utils.device import (
     process_count, process_index, resolve_device)
@@ -690,8 +694,10 @@ def _adam_state(opt: torch.optim.Optimizer, p: torch.Tensor):
 def state_tree(state) -> Dict[str, Any]:
   """What ``fit`` checkpoints, laid out as the JAX package's ``fit``
   writes it: ``{"params": ..., "opt_state": ({"count", "mu", "nu"},)}``
-  — optax's Adam state.  Before the first step the moments are zeros and
-  the count 0, as ``tx.init`` makes them."""
+  — optax's Adam state; for an optimizer built through
+  ``ops.adamw.inject_hyperparams``, ``inject_hyperparams``' state around
+  it, the learning rate included.  Before the first step the moments
+  are zeros and the count 0, as ``tx.init`` makes them."""
   from easyparallellibrary_tpu_torch.ops.adamw import jax_path
   opt = state.opt_state
   mu, nu, count = {}, {}, None
@@ -709,8 +715,21 @@ def state_tree(state) -> Dict[str, Any]:
   if count is None:
     count = torch.zeros((), dtype=torch.int32)
   count = torch.as_tensor(count).detach().reshape(()).to(torch.int32)
+  adam = {"count": count, "mu": mu, "nu": nu}
+  if not getattr(opt, "inject_hyperparams", False):
+    return {"params": params_tree(state.params), "opt_state": (adam,)}
+  # optax.inject_hyperparams(optax.adamw)'s state: the hyperparameters
+  # beside the inner chain's Adam state (its EmptyStates hold no leaf).
+  group = opt.param_groups[0]
+  hyper = {"b1": group["betas"][0], "b2": group["betas"][1],
+           "eps": group["eps"], "eps_root": 0.0,
+           "learning_rate": group["lr"],
+           "weight_decay": group["weight_decay"]}
+  hyper = {k: torch.as_tensor(float(v), dtype=torch.float32)
+           for k, v in hyper.items()}
   return {"params": params_tree(state.params),
-          "opt_state": ({"count": count, "mu": mu, "nu": nu},)}
+          "opt_state": {"count": count, "hyperparams": hyper,
+                        "inner_state": (adam,)}}
 
 
 def _fill_adam_state(opt: torch.optim.Optimizer, p: torch.Tensor,
@@ -738,8 +757,9 @@ def restore_train_state(directory: str, state, after_step: int = -1,
                         assign_map: Optional[Dict[str, str]] = None):
   """Restore the newest VALID checkpoint under ``directory`` INTO the
   live ``state`` (parameters, both moments and every parameter's
-  ``step``, written in place on the parameters' device) when its step
-  is above ``after_step``; sets ``state.step``.  Returns ``(state,
+  ``step``, written in place on the parameters' device; every group's
+  learning rate too, from a checkpoint of an ``inject_hyperparams``
+  state) when its step is above ``after_step``; sets ``state.step``.  Returns ``(state,
   step)``, ``step`` None when the chain is empty (FileNotFoundError and
   :class:`NoValidCheckpointError` propagate as from
   :func:`restore_checkpoint`).  A checkpoint at or below
@@ -752,9 +772,13 @@ def restore_train_state(directory: str, state, after_step: int = -1,
       rstep = int(reader.step) if reader.step is not None else 0
       if rstep <= after_step:
         return state, rstep
-      has_opt = reader.has("opt_state/0/count")
-      count = int(reader.raw("opt_state/0/count")) if has_opt else 0
-      prefixes = ("params/",) + (("opt_state/0/mu/", "opt_state/0/nu/")
+      # optax's plain adamw state, or inject_hyperparams' (the Adam
+      # state one level down, the learning rate beside it).
+      adam = next((a for a in ("opt_state/0/", "opt_state/inner_state/0/")
+                   if reader.has(a + "count")), None)
+      has_opt = adam is not None
+      count = int(reader.raw(adam + "count")) if has_opt else 0
+      prefixes = ("params/",) + ((adam + "mu/", adam + "nu/")
                                  if has_opt else ())
       reader.load(_apply_assign_map(f"{prefix}{jax_path(name)}", assign_map)
                   for prefix in prefixes for name in state.params)
@@ -773,10 +797,14 @@ def restore_train_state(directory: str, state, after_step: int = -1,
         with torch.no_grad():
           p.copy_(load("params/", name, p))
         if has_opt:
-          _fill_adam_state(opt, p, load("opt_state/0/mu/", name, p),
-                           load("opt_state/0/nu/", name, p), count)
+          _fill_adam_state(opt, p, load(adam + "mu/", name, p),
+                           load(adam + "nu/", name, p), count)
         else:
           opt.state.pop(p, None)
+      if reader.has("opt_state/hyperparams/learning_rate"):
+        lr = float(reader.raw("opt_state/hyperparams/learning_rate"))
+        for group in opt.param_groups:
+          group["lr"] = lr
       state.step = rstep
       return state, rstep
 
@@ -830,11 +858,80 @@ def restore_params(directory: str, target=None, device=None,
 
 
 # ----------------------------------------------------------------- orbax --
+#
+# The JAX package's second, optional path writes orbax checkpoints; the
+# port's counterpart is torch.distributed.checkpoint (DCP), in one process
+# with no process group.  The two formats are not each other's: the
+# native step_N format above is the one both packages read.
 
 
-def save_checkpoint_orbax(directory: str, tree, step: int = 0):
-  raise not_ported("orbax checkpoints (save_checkpoint_orbax)", RUNTIME)
+def _dcp_path(directory: str, step: int) -> str:
+  return os.path.join(os.path.abspath(directory), f"step_{int(step)}")
 
 
-def restore_checkpoint_orbax(directory: str, step: int, target=None):
-  raise not_ported("orbax checkpoints (restore_checkpoint_orbax)", RUNTIME)
+def save_checkpoint_orbax(directory: str, tree, step: int = 0) -> str:
+  """Save ``tree`` (nested dicts / lists / tuples of tensors or arrays)
+  with DCP's file-system writer under ``directory/step_<step>``, one
+  entry per leaf path (``"opt_state/0/mu/wte/embedding"``), and return
+  the path."""
+  import warnings
+
+  import torch.distributed.checkpoint as dcp
+  path = _dcp_path(directory, step)
+  flat = {name: (leaf.detach() if isinstance(leaf, torch.Tensor)
+                 else torch.as_tensor(np.asarray(leaf)))
+          for name, leaf in _sorted_leaves(tree)}
+  with trace_lib.get_tracer().span("checkpoint/save_dcp", cat="checkpoint",
+                                   track="checkpoint"):
+    with warnings.catch_warnings():
+      # One process without a process group is this path's design.
+      warnings.filterwarnings("ignore", message=".*single process.*")
+      dcp.save(flat, checkpoint_id=path)
+  get_logger().info("saved DCP checkpoint: %s (%d leaves)", path, len(flat))
+  return path
+
+
+def restore_checkpoint_orbax(directory: str, step: int, target=None,
+                             device=None):
+  """Read a :func:`save_checkpoint_orbax` checkpoint.  With ``target``
+  (a tree of tensors) the result has its structure, each leaf in the
+  target leaf's dtype on its device; without, ``{path: tensor}`` on
+  ``device`` (default the GPU)."""
+  import warnings
+
+  import torch.distributed.checkpoint as dcp
+  path = _dcp_path(directory, step)
+  if not os.path.isfile(os.path.join(path, ".metadata")):
+    raise FileNotFoundError(
+        f"{path!r} is no DCP checkpoint: this path reads what "
+        f"save_checkpoint_orbax wrote, not orbax's format; the native "
+        f"step_N format is the one both packages read")
+  meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+  flat = {name: torch.empty(m.size, dtype=m.properties.dtype)
+          for name, m in meta.items()}
+  with trace_lib.get_tracer().span("checkpoint/restore_dcp",
+                                   cat="checkpoint", track="checkpoint"):
+    with warnings.catch_warnings():
+      warnings.filterwarnings("ignore", message=".*single process.*")
+      dcp.load(flat, checkpoint_id=path)
+  if target is None:
+    dev = resolve_device(device)
+    return {name: t.to(dev) for name, t in flat.items()}
+
+  def walk(node, prefix):
+    if isinstance(node, dict):
+      return {k: walk(v, prefix + (k,)) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+      return type(node)(walk(v, prefix + (i,)) for i, v in enumerate(node))
+    if node is None:
+      return None
+    name = "/".join(str(p) for p in prefix)
+    if name not in flat:
+      raise KeyError(f"DCP checkpoint {path!r} has no leaf {name!r}")
+    value = flat[name]
+    if tuple(value.shape) != tuple(node.shape):
+      raise ValueError(f"leaf {name!r}: checkpoint shape "
+                       f"{tuple(value.shape)}, target {tuple(node.shape)}")
+    return value.to(device=getattr(node, "device", "cpu"), dtype=node.dtype)
+
+  return walk(target, ())

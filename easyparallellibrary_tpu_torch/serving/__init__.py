@@ -1,6 +1,9 @@
 """Continuous-batching serving (PyTorch port): the contiguous-slot engine
 (the default) and the paged one, with speculative decoding, copy-on-write
-prefix caching (paged) and serving resilience."""
+prefix caching (paged) and serving resilience; and the replicated fleet:
+engine replicas (:mod:`replica`) in process or in child processes
+(:mod:`transport`) behind a health-checked router with failover by
+prefix replay (:mod:`router`)."""
 
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     FINISH_REASONS, PRIORITIES, check_draft_compatible, check_servable)
@@ -14,17 +17,25 @@ from easyparallellibrary_tpu_torch.serving.prefix_cache import (
     PrefixCache, block_prefix_keys)
 from easyparallellibrary_tpu_torch.serving.resilience import (
     DEGRADE_LEVELS, AdmissionController, BadStepPolicy, ReplicaHealth)
+from easyparallellibrary_tpu_torch.serving.replica import EngineReplica
+from easyparallellibrary_tpu_torch.serving.router import Router
 from easyparallellibrary_tpu_torch.serving.scheduler import (
     FCFSScheduler, FinishedRequest, PagedStepPlan, Request, StepPlan)
 from easyparallellibrary_tpu_torch.serving.speculative import (
     Drafter, DraftModelDrafter, NgramDrafter, ngram_propose, verify_tokens)
+from easyparallellibrary_tpu_torch.serving.transport import (
+    InprocTransport, ProcessTransport, RemoteError, ReplicaDeadError,
+    ReplicaTransport, TransportError, TransportTimeout)
 
 __all__ = [
     "DEGRADE_LEVELS", "NULL_BLOCK", "AdmissionController", "BadStepPolicy",
     "BlockAllocator", "ContinuousBatchingEngine", "Drafter",
-    "DraftModelDrafter", "FCFSScheduler", "FINISH_REASONS",
-    "FinishedRequest", "NgramDrafter", "PagedStepPlan", "PrefixCache",
-    "PRIORITIES", "ReplicaHealth", "Request", "SlotAllocator", "StepPlan",
+    "DraftModelDrafter", "EngineReplica", "FCFSScheduler",
+    "FINISH_REASONS", "FinishedRequest", "InprocTransport", "NgramDrafter",
+    "PagedStepPlan", "PrefixCache", "PRIORITIES", "ProcessTransport",
+    "RemoteError", "ReplicaDeadError", "ReplicaHealth", "ReplicaTransport",
+    "Request", "Router", "SlotAllocator", "StepPlan", "TransportError",
+    "TransportTimeout",
     "allocate_kv_cache", "allocate_paged_kv_cache", "block_prefix_keys",
     "blocks_per_slot", "cache_bytes", "cache_length",
     "check_draft_compatible", "check_servable", "default_num_blocks",

@@ -73,6 +73,12 @@ request, including requests admitted mid-flight, slots and blocks reused
 after retirement, requests preempted on pool exhaustion or requeued
 after bad steps, speculative steps and warm admissions.
 
+Migration (the router's failover and drain currency):
+``snapshot_requests`` / ``restore_request`` / ``evacuate`` delegate to
+the scheduler's prefix-replay snapshots; ``checkpoint_version`` names
+the weights served, scoping the prefix tree and refusing a snapshot
+pinned to other weights.
+
 Not ported (each raises, ROADMAP.md Queue 1): a device mesh and the
 autotuner.
 """
@@ -182,7 +188,8 @@ class ContinuousBatchingEngine:
   ``metrics_writer`` (any ``write(step, record)`` sink) and ``registry``
   (``observability.registry.MetricRegistry``) receive the per-step
   ``serving/*`` records; ``track_prefix`` names this engine's Perfetto
-  tracks (default ``"serving"``).
+  tracks (default ``"serving"``); ``checkpoint_version`` is the version
+  of the weights served (0 before any rollout).
   """
 
   def __init__(self, model, params, *, device=None, mesh=None,
@@ -200,7 +207,8 @@ class ContinuousBatchingEngine:
                token_budget: Optional[int] = None,
                prefix_cache: Optional[bool] = None,
                stats=None, metrics_writer=None, registry=None,
-               config=None, track_prefix: Optional[str] = None):
+               config=None, track_prefix: Optional[str] = None,
+               checkpoint_version: int = 0):
     cfg = model.cfg
     root_config = config if config is not None else Env.get().config
     conf = root_config.serving
@@ -269,6 +277,7 @@ class ContinuousBatchingEngine:
     self.drafter = self._resolve_drafter(conf, drafter, speculative,
                                          draft_model, draft_params)
     self.drafter_failures = 0
+    self.checkpoint_version = int(checkpoint_version)
     self.scheduler = FCFSScheduler(
         num_slots=self.num_slots, prefill_chunk=self.chunk,
         max_seq_len=cfg.max_seq_len, prefill_token_budget=budget,
@@ -280,7 +289,8 @@ class ContinuousBatchingEngine:
         token_budget=self.token_budget, track_prefix=self._track_prefix,
         prefix_cache=self.prefix_caching,
         prefix_session_ttl_s=pc_conf.session_ttl_s,
-        prefix_max_cached_blocks=pc_conf.max_cached_blocks)
+        prefix_max_cached_blocks=pc_conf.max_cached_blocks,
+        checkpoint_version=self.checkpoint_version)
     res_conf = conf.resilience
     self._resilient = bool(resilience if resilience is not None
                            else res_conf.enabled)
@@ -945,6 +955,30 @@ class ContinuousBatchingEngine:
     """Retire ``uid`` wherever it is; the record lands in
     ``self.finished`` at once and in the next ``step()``'s return."""
     return self.scheduler.cancel(uid)
+
+  # ------------------------------------------------------- migration
+
+  def snapshot_requests(self) -> List[Dict[str, Any]]:
+    """Snapshots of every queued and in-flight request
+    (``scheduler.snapshot_requests``): restored on another engine over
+    the same weights, each stream resumes by prefix replay."""
+    return self.scheduler.snapshot_requests()
+
+  def restore_request(self, snap: Dict[str, Any],
+                      front: bool = False) -> Any:
+    """Queue a snapshotted request.  Admission control is bypassed: the
+    fleet admitted it once already.  The stats keep its original submit
+    time, so its TTFT includes the wait before the migration."""
+    uid = self.scheduler.restore_request(snap, front=front)
+    if self.stats is not None:
+      self.stats.note_submitted(uid, at=snap.get("submitted_at"))
+    return uid
+
+  def evacuate(self) -> List[Dict[str, Any]]:
+    """Snapshot and remove every queued and in-flight request (no finish
+    records: they finish elsewhere).  The engine stays warm and can
+    serve again at once."""
+    return self.scheduler.evacuate()
 
   @property
   def has_work(self) -> bool:

@@ -47,9 +47,15 @@ variability lives here; the device step only ever sees fixed shapes.
   first token, requeue and queue-side retirement; one Perfetto flow per
   request (``Request.flow_id``, minted at submit) runs from submit
   through every admission to its end.
+* Migration: :meth:`FCFSScheduler.snapshot_requests` /
+  :meth:`restore_request` / :meth:`evacuate` move queued and in-flight
+  requests between replicas as JSON-serializable snapshots (the JAX
+  package's wire shape, ``Request.snapshot`` v2); a restored request
+  replays prompt + committed prefix through chunked prefill, so its
+  stream resumes where it stopped.  ``checkpoint_version`` scopes the
+  prefix tree and refuses a snapshot pinned to other weights.
 
-Not ported (ROADMAP.md Queue 1): request snapshot/restore/evacuate
-(each raises) and the autotuner's clamps.
+Not ported (ROADMAP.md Queue 1): the autotuner's clamps.
 """
 
 from __future__ import annotations
@@ -63,7 +69,6 @@ from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
-from easyparallellibrary_tpu_torch._not_ported import FLEET, not_ported
 from easyparallellibrary_tpu_torch.observability import trace as trace_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_request_fields)
@@ -91,6 +96,13 @@ def next_flow_id() -> int:
   return next(_FLOW_IDS)
 
 
+# Request.snapshot() wire-format version, the JAX package's: v2 added
+# ``checkpoint_version``; a v1 snapshot (or one without "v") reads with
+# it None ("any version").  Snapshots cross process boundaries (the
+# process transport, its crash journal), so an unknown version raises.
+SNAPSHOT_VERSION = 2
+
+
 def _request_key(req: "Request") -> np.ndarray:
   """The request's private sampling key: deterministic in ``seed`` (or
   crc32 of ``uid``, stable across processes), laid out like the JAX
@@ -114,8 +126,9 @@ class Request:
   ``speculative=False`` opts the request out of drafting (it keeps the
   non-speculative sample stream bit for bit).  ``flow_id`` is the
   request's trace-context id (minted at submit when None);
-  ``checkpoint_version`` belongs to a feature the port has not reached
-  and is carried unread.
+  ``checkpoint_version`` pins the request to the weights it started
+  decoding under (stamped by the router at dispatch, carried through
+  snapshots): a scheduler serving other weights refuses to restore it.
   """
   uid: Any
   prompt: np.ndarray
@@ -131,6 +144,44 @@ class Request:
   priority: str = "throughput"
   flow_id: Optional[int] = None
   checkpoint_version: Optional[int] = None
+
+  def snapshot(self) -> Dict[str, Any]:
+    """The request spec as a JSON-serializable dict, key for key and
+    type for type the JAX package's v2 wire shape.  The sampler needs no
+    field of its own: its key derives from ``seed``/``uid`` and folds by
+    committed token index."""
+    return {
+        "v": SNAPSHOT_VERSION,
+        "uid": self.uid,
+        "prompt": [int(t) for t in np.asarray(self.prompt).reshape(-1)],
+        "max_new_tokens": int(self.max_new_tokens),
+        "temperature": float(self.temperature),
+        "top_k": int(self.top_k),
+        "top_p": float(self.top_p),
+        "stop_token": int(self.stop_token),
+        "seed": None if self.seed is None else int(self.seed),
+        "speculative": self.speculative,
+        "deadline_s": float(self.deadline_s),
+        "ttft_budget_s": float(self.ttft_budget_s),
+        "priority": self.priority,
+        "flow_id": None if self.flow_id is None else int(self.flow_id),
+        "checkpoint_version": (None if self.checkpoint_version is None
+                               else int(self.checkpoint_version)),
+    }
+
+  @classmethod
+  def restore(cls, snap: Dict[str, Any]) -> "Request":
+    """Inverse of :meth:`snapshot` (survives a JSON round trip); reads
+    v1 and v2, raises on any other version."""
+    snap = dict(snap)
+    version = snap.pop("v", 1)
+    if not 1 <= version <= SNAPSHOT_VERSION:
+      raise ValueError(
+          f"unsupported request snapshot version {version!r}: this build "
+          f"reads v1..v{SNAPSHOT_VERSION}")
+    snap.setdefault("checkpoint_version", None)
+    snap["prompt"] = np.asarray(snap["prompt"], np.int32)
+    return cls(**snap)
 
 
 @dataclasses.dataclass
@@ -283,6 +334,9 @@ class FCFSScheduler:
   ``on_admit`` / ``on_first_token`` / ``on_finish`` / ``on_tokens`` hooks
   are lists of subscribers.  ``clock`` is injectable for deterministic
   deadline tests.  ``track_prefix`` names the slots' Perfetto tracks.
+  ``checkpoint_version`` is the version of the weights served (0 before
+  any rollout): it salts the prefix tree's keys and gates
+  :meth:`restore_request`.
   """
 
   def __init__(self, num_slots: int, prefill_chunk: int,
@@ -293,7 +347,8 @@ class FCFSScheduler:
                token_budget: int = 0, track_prefix: str = "serving",
                prefix_cache: bool = False,
                prefix_session_ttl_s: float = 0.0,
-               prefix_max_cached_blocks: int = 0):
+               prefix_max_cached_blocks: int = 0,
+               checkpoint_version: int = 0):
     if spec_k < 0:
       raise ValueError(f"spec_k must be >= 0: {spec_k}")
     if prefill_chunk < 1:
@@ -304,6 +359,7 @@ class FCFSScheduler:
     self.chunk = prefill_chunk
     self.max_seq_len = max_seq_len
     self.track_prefix = track_prefix
+    self.checkpoint_version = int(checkpoint_version)
     self.preemptions = 0
     self.proactive_preemptions = 0
     self._slot_blocks: Dict[int, List[int]] = {}
@@ -332,7 +388,8 @@ class FCFSScheduler:
           PrefixCache(self.block_allocator, block_size,
                       session_ttl_s=prefix_session_ttl_s,
                       max_cached_blocks=prefix_max_cached_blocks,
-                      clock=clock) if prefix_cache else None)
+                      clock=clock, version=self.checkpoint_version)
+          if prefix_cache else None)
     else:
       if prefix_cache:
         raise ValueError(
@@ -587,14 +644,126 @@ class FCFSScheduler:
       return None
     return self._retire(state, reason)
 
-  def snapshot_requests(self):
-    raise not_ported("request snapshots", FLEET)
+  # ---------------------------------------------------- migration
 
-  def restore_request(self, snap, front: bool = False):
-    raise not_ported("request restore", FLEET)
+  @staticmethod
+  def _snapshot_state(req: Request, generated: List[int], requeues: int,
+                      first_token_emitted: bool,
+                      submitted_at: float) -> Dict[str, Any]:
+    return {
+        "request": req.snapshot(),
+        "generated": [int(t) for t in generated],
+        "requeues": int(requeues),
+        "first_token_emitted": bool(first_token_emitted),
+        "submitted_at": float(submitted_at),
+    }
 
-  def evacuate(self):
-    raise not_ported("request evacuation", FLEET)
+  def _live(self):
+    """``(request, carried-or-active state, submitted_at)`` of every live
+    request in service order: active slots by admission, then the
+    queue."""
+    for slot in self._admit_order:
+      s = self.active[slot]
+      yield s.req, s, s.submitted_at
+    for entry in self.pending:
+      yield entry.req, entry.carried, entry.submitted_at
+
+  def snapshot_requests(self) -> List[Dict[str, Any]]:
+    """Snapshots of every in-flight and queued request, in service
+    order: the request spec plus its committed tokens, requeue count,
+    first-token flag and submit time — all a replay on another
+    scheduler over the same weights needs.  Read-only."""
+    return [self._snapshot_state(
+        req, st.generated if st is not None else [],
+        st.requeues if st is not None else 0,
+        st.first_token_emitted if st is not None else False, at)
+            for req, st, at in self._live()]
+
+  def progress(self) -> List[Any]:
+    """``[(uid, generated_token_list)]`` of every live request in service
+    order: the committed-token watermarks a transport worker reports to
+    the parent's crash journal."""
+    return [(req.uid, st.generated if st is not None else [])
+            for req, st, _ in self._live()]
+
+  def restore_request(self, snap: Dict[str, Any],
+                      front: bool = False) -> Any:
+    """Queue a snapshotted request; on admission it replays prompt +
+    committed prefix through chunked prefill and resumes its stream.
+    ``front=True`` keeps a migrated request's place in line (failover
+    restores in reverse snapshot order).  A snapshot pinned to another
+    checkpoint version is refused.  Returns the uid."""
+    pinned = snap["request"].get("checkpoint_version")
+    if pinned is not None and int(pinned) != self.checkpoint_version:
+      raise ValueError(
+          f"cross-version restore refused: request "
+          f"{snap['request'].get('uid')!r} is pinned to checkpoint "
+          f"version {int(pinned)} but this replica serves version "
+          f"{self.checkpoint_version}: a prefix replay under other "
+          f"weights would fork its stream")
+    req = Request.restore(snap["request"])
+    req = dataclasses.replace(req, prompt=self.validate(req))
+    restored_flow = req.flow_id is not None
+    if not restored_flow:  # a snapshot without a flow starts one here
+      req = dataclasses.replace(req, flow_id=next_flow_id())
+    submitted_at = float(snap["submitted_at"])
+    generated = [int(t) for t in snap.get("generated", ())]
+    carried = None
+    if generated or snap.get("requeues") or snap.get("first_token_emitted"):
+      # The state a requeue would have carried; the slot is a
+      # placeholder and the key re-derives from seed/uid.
+      carried = _SlotState(req, -1, submitted_at, self.clock())
+      carried.generated = generated
+      carried.requeues = int(snap.get("requeues", 0))
+      carried.first_token_emitted = bool(snap.get("first_token_emitted"))
+      carried.prefix = np.concatenate(
+          [req.prompt, np.asarray(generated, np.int32)])
+    entry = _Pending(req, submitted_at, carried=carried)
+    if front:
+      self.pending.appendleft(entry)
+    else:
+      self.pending.append(entry)
+    self._latency_pending += req.priority == "latency"
+    self._deadline_pending += self._has_deadline(req)
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:
+      tracer.instant(
+          "serving/restore", cat="serving", track="serving/requests",
+          args={"uid": str(req.uid),
+                "committed_prefix": int(len(req.prompt) + len(generated))})
+      tracer.flow("t" if restored_flow else "s", req.flow_id,
+                  track="serving/requests",
+                  args={"uid": str(req.uid), "reason": "restored"})
+    return req.uid
+
+  def evacuate(self) -> List[Dict[str, Any]]:
+    """Snapshot every queued and in-flight request, then remove them
+    without finish records (they finish elsewhere).  Slots and blocks
+    are released as a requeue releases them; each active request's span
+    ends with reason ``"migrated"``.  Call between steps only."""
+    snaps = self.snapshot_requests()
+    tracer = trace_lib.get_tracer()
+    for slot in list(self._admit_order):
+      state = self.active.pop(slot)
+      self._admit_order.remove(slot)
+      self.allocator.free(slot)
+      self._release_blocks(slot)
+      self._deadline_active -= self._has_deadline(state.req)
+      if tracer.enabled:
+        track = _slot_track(slot, self.track_prefix)
+        if state.req.flow_id is not None:
+          tracer.flow("t", state.req.flow_id, track=track,
+                      args={"uid": str(state.req.uid),
+                            "reason": "migrated"})
+        tracer.end(
+            f"request {state.req.uid}", cat="serving.request", track=track,
+            args={"finish_reason": "migrated",
+                  "new_tokens": int(len(state.generated))})
+    self.pending.clear()
+    self._latency_pending = 0
+    self._deadline_pending = 0
+    self._plan = None
+    return snaps
 
   # ---------------------------------------------------------------- admit
 

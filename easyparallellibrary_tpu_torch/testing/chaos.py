@@ -20,8 +20,16 @@ Serving (``serving/resilience.py``):
   step watchdog;
 * :class:`FlakyDrafter` raises or proposes garbage on chosen calls.
 
-The replica and process injectors wait with the router (ROADMAP.md
-Queue 1, "Router, fleet and request migration").
+Fleet (``serving/router.py``, ``serving/transport.py``):
+
+* in process: :class:`ReplicaKiller` (chosen step calls raise: a
+  replica dying mid-step), :class:`ReplicaHang` (a host sleep the
+  watchdog must surface) and :class:`FlappingHealth` (a replica that
+  keeps dying and recovering, against the circuit breaker);
+* process replicas, for real: :class:`ProcessKiller` (SIGKILL of the
+  child), :class:`ProcessStaller` (SIGSTOP: the wire deadline must
+  condemn and fence it) and :class:`ReplyDropper` (reply frames read
+  and discarded at the parent: the exactly-once machinery under test).
 """
 
 from __future__ import annotations
@@ -332,4 +340,143 @@ class FlakyDrafter:
     self.inner.observe_skip(plan)
 
 
-__all__ = ["FlakyDrafter", "HangingStepInjector", "NaNLogitsInjector"]
+# ------------------------------------------------------------ fleet faults --
+
+
+class ReplicaKiller(_StepFnWrapper):
+  """Kill an in-process replica mid-decode: the step calls in
+  ``kill_calls`` (0-based) raise once each, so the router sees a replica
+  die with requests in flight and must fail them over.  The replica's
+  host state survives for evacuation; :class:`ProcessKiller` is the real
+  thing."""
+
+  def __init__(self, engine, kill_calls: Sequence[int]):
+    super().__init__(engine)
+    self.kill_calls = set(kill_calls)
+    self.kills = 0
+
+  def __call__(self, params, *args):
+    call, self.calls = self.calls, self.calls + 1
+    if call in self.kill_calls:
+      self.kill_calls.discard(call)
+      self.kills += 1
+      raise RuntimeError(f"chaos: replica killed mid-step "
+                         f"(device call {call})")
+    return self.inner(params, *args)
+
+
+class ReplicaHang(HangingStepInjector):
+  """Stall a replica's step calls by a host sleep (the router suite's
+  name for :class:`HangingStepInjector`).  The replica's watchdog fires
+  during the stall, the count rides the next beat and the health machine
+  marks it suspect; nothing migrates and no stream changes.
+  :class:`ProcessStaller` is the real thing."""
+
+
+class FlappingHealth(_StepFnWrapper):
+  """A replica that keeps dying and recovering: every ``fail_every``-th
+  step call from ``start_at`` raises.  Each breaker trip must double the
+  hold-out before the next probe, while every migrated request still
+  finishes exactly on the survivors."""
+
+  def __init__(self, engine, fail_every: int = 4, start_at: int = 0):
+    if fail_every < 2:
+      raise ValueError(f"fail_every must be >= 2: {fail_every}")
+    super().__init__(engine)
+    self.fail_every = fail_every
+    self.start_at = start_at
+    self.faults = 0
+
+  def __call__(self, params, *args):
+    call, self.calls = self.calls, self.calls + 1
+    if call >= self.start_at and (call - self.start_at) \
+        % self.fail_every == self.fail_every - 1:
+      self.faults += 1
+      raise RuntimeError(f"chaos: flapping replica failed again "
+                         f"(device call {call})")
+    return self.inner(params, *args)
+
+
+class ProcessKiller:
+  """SIGKILL a process replica's child: its memory (engine, KV cache,
+  scheduler) is gone at once.  The router must see the death at the wire
+  and recover the requests from the parent-side journal."""
+
+  def __init__(self, transport):
+    self.transport = transport
+    self.kills = 0
+    self.killed_pids: list = []
+
+  def kill(self) -> int:
+    """Deliver SIGKILL now; returns the victim's pid."""
+    pid = self.transport.child_pid
+    if pid is None:
+      raise RuntimeError("ProcessKiller: transport has no live child")
+    self.transport.kill(_signal.SIGKILL)
+    self.kills += 1
+    self.killed_pids.append(pid)
+    return pid
+
+
+class ProcessStaller:
+  """Freeze a process replica's child with SIGSTOP: it cannot answer the
+  wire, so the call's deadline must condemn the replica and the fence
+  SIGKILL it before its requests fail over.  :meth:`resume` (SIGCONT)
+  after a fence finds nothing to wake."""
+
+  def __init__(self, transport):
+    self.transport = transport
+    self.stalls = 0
+
+  def stall(self) -> int:
+    pid = self.transport.child_pid
+    if pid is None:
+      raise RuntimeError("ProcessStaller: transport has no live child")
+    self.transport.kill(_signal.SIGSTOP)
+    self.stalls += 1
+    return pid
+
+  def resume(self) -> None:
+    pid = self.transport.child_pid
+    if pid is not None:
+      try:
+        os.kill(pid, _signal.SIGCONT)
+      except ProcessLookupError:
+        pass  # already fenced
+
+
+class ReplyDropper:
+  """Drop chosen reply frames at the parent: the child applied the call
+  and answered, the parent never hears it (the read raises the
+  ``TransportTimeout`` a deadline miss would).  A retried ``submit``
+  must hit the child's uid dedup; a lost ``step`` reply must not commit
+  tokens twice.  ``drop`` counts every reply frame the parent reads
+  (0-based)."""
+
+  def __init__(self, transport, drop: Sequence[int]):
+    self.transport = transport
+    self.inner = transport._read_frame
+    self.drop = set(drop)
+    self.calls = 0
+    self.dropped: list = []
+    transport._read_frame = self
+
+  def __call__(self, timeout):
+    from easyparallellibrary_tpu_torch.serving.transport import (
+        TransportTimeout)
+    frame = self.inner(timeout)
+    call, self.calls = self.calls, self.calls + 1
+    if call in self.drop:
+      self.drop.discard(call)
+      self.dropped.append(frame)
+      raise TransportTimeout(
+          f"chaos: reply frame {call} dropped after the child applied it")
+    return frame
+
+  def uninstall(self):
+    self.transport._read_frame = self.inner
+
+
+__all__ = ["FlakyDrafter", "FlappingHealth", "HangingStepInjector",
+           "NaNLogitsInjector", "ProcessKiller", "ProcessStaller",
+           "ReplicaHang", "ReplicaKiller", "ReplyDropper"]

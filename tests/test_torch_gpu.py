@@ -936,3 +936,205 @@ def test_serving_from_a_fit_checkpoint_on_the_card(cuda, tmp_path):
   assert sorted(out) == [0, 1, 2]
   assert pa.paged_attention_cuda.launches > launches
   assert eng.drafter_failures == 0
+
+
+# ------------------------------------------------ the fleet and offload --
+
+
+def _fleet_prompts(n=4, seed=8):
+  r = np.random.RandomState(seed)
+  return [r.randint(0, 64, (k,)).astype(np.int32)
+          for k in r.randint(2, 10, n)]
+
+
+FLEET_GEOMETRY = dict(num_slots=2, prefill_chunk=4, paged=True, block_size=4)
+
+
+def _bare_streams(cuda, prompts, max_new=8):
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
+  model, params = tiny_gpt(device=cuda)
+  eng = ContinuousBatchingEngine(model, params, **FLEET_GEOMETRY)
+  for i, p in enumerate(prompts):
+    eng.submit(Request(uid=i, prompt=p, max_new_tokens=max_new))
+  return eng.run()
+
+
+@pytest.mark.gpu
+def test_router_replicas_equal_the_bare_engine_on_the_card(cuda):
+  """An N=1 router equals the bare engine (fp32, the paged warp build:
+  2 layers x steps launches, no plain call, no new library); two
+  in-process replicas with one killed mid-decode lose nothing and stay
+  token-equal (fp32)."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.kernels import _build
+  from easyparallellibrary_tpu_torch.serving import Request, Router
+  from easyparallellibrary_tpu_torch.testing import chaos
+  from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
+  torch.backends.cuda.matmul.allow_tf32 = False
+  epl.init()
+  prompts = _fleet_prompts()
+  want = _bare_streams(cuda, prompts)
+  model, params = tiny_gpt(device=cuda)
+  libs = _build.loaded_count()
+  router = Router(model, params, num_replicas=1, **FLEET_GEOMETRY)
+  pa.reset_counts()
+  for i, p in enumerate(prompts):
+    router.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+  out = router.run()
+  torch.cuda.synchronize()
+  steps = router.replicas[0].engine.steps
+  assert pa.paged_attention_cuda.launches == 2 * steps > 0
+  assert pa.paged_attention_reference.calls == 0
+  assert _build.loaded_count() == libs
+  for i in want:
+    np.testing.assert_array_equal(out[i], want[i], err_msg=f"req {i}")
+  router = Router(model, params, num_replicas=2, **FLEET_GEOMETRY)
+  chaos.ReplicaKiller(router.replicas[0].engine, kill_calls=(3,))
+  for i, p in enumerate(prompts):
+    router.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+  out = router.run()
+  assert router.failovers == 1 and sorted(router.finished) == sorted(want)
+  for i in want:
+    np.testing.assert_array_equal(out[i], want[i], err_msg=f"req {i}")
+
+
+@pytest.mark.gpu
+def test_process_replicas_survive_a_sigkill_on_the_card(cuda):
+  """Two children on the card: a SIGKILL of one mid-decode loses
+  nothing, streams stay token-equal to the bare engine (fp32), the
+  children's paged launches reach the parent through their beats (no
+  plain call), the dead child's pid is reaped and ``close()`` leaves no
+  child."""
+  import os
+  import signal
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.serving import Request, Router
+  from easyparallellibrary_tpu_torch.testing import chaos
+  torch.backends.cuda.matmul.allow_tf32 = False
+  prompts = _fleet_prompts()
+  want = _bare_streams(cuda, prompts)
+  cfg = epl.Config({"serving": {"router": {
+      "transport": "process", "spawn_timeout_s": 300.0,
+      "rpc_timeout_s": 120.0}}})
+  epl.init(cfg)
+  router = Router(num_replicas=2, config=cfg, factory={
+      "fn": "easyparallellibrary_tpu_torch.testing.factories:tiny_gpt",
+      "kwargs": {}}, device="cuda", **FLEET_GEOMETRY)
+  pids = [rep.child_pid for rep in router.replicas]
+  try:
+    for i, p in enumerate(prompts):
+      router.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+    for _ in range(3):
+      router.step()
+    chaos.ProcessKiller(router.replicas[0]).kill()
+    router.run()
+    assert router.failovers == 1
+    assert router.replicas[0].exit_signal == signal.SIGKILL
+    for i in want:
+      np.testing.assert_array_equal(router.finished[i].tokens, want[i],
+                                    err_msg=f"req {i}")
+    launches = [rep.kernel_launches for rep in router.replicas]
+    assert all(c.get("paged_attention", 0) > 0 for c in launches)
+    assert all(c.get("paged_attention_plain", 0) == 0 for c in launches)
+  finally:
+    router.close()
+  for pid in pids:
+    with pytest.raises(ProcessLookupError):
+      os.kill(pid, 0)
+
+
+@pytest.mark.gpu
+def test_offloaded_moments_are_pinned_and_the_step_is_bit_equal(cuda,
+                                                                tmp_path):
+  """``offload.level = "v0"`` on the card: the moments live in pinned
+  host memory, 4 guarded steps (one NaN-skipped) leave params, moments
+  and steps bit-equal to the same run without offload, and a native
+  save/restore of the offloaded state is bit-equal into the same pinned
+  tensors."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.runtime import saver
+  from easyparallellibrary_tpu_torch.runtime.offload import (
+      HostOffloadOptimizer)
+  from easyparallellibrary_tpu_torch.testing import chaos
+  runs = []
+  batches = _token_batches(4)
+  for offload in ("", "v0"):
+    _, state, step, _ = _tiny_training(cuda, epl.Config({
+        "resilience.max_bad_steps": 2, "offload.level": offload}))
+    assert isinstance(state.opt_state, HostOffloadOptimizer) == bool(offload)
+    for i, b in enumerate(batches):
+      state, _ = step(state, chaos.nan_batch(b) if i == 1 else b, None)
+    torch.cuda.synchronize()
+    runs.append(state)
+  plain, off = runs
+  for name, p in plain.params.items():
+    q = off.params[name]
+    assert torch.equal(p, q), name
+    st = off.opt_state.state[q]
+    assert st["exp_avg"].is_pinned() and st["exp_avg_sq"].is_pinned()
+    for key in ("exp_avg", "exp_avg_sq", "step"):
+      assert torch.equal(plain.opt_state.state[p][key].cpu(),
+                         st[key].cpu()), (name, key)
+  ckpt = str(tmp_path / "ck")
+  saver.save_checkpoint(ckpt, saver.state_tree(off), step=3)
+  hosts = {n: off.opt_state.state[p]["exp_avg"] for n, p in
+           off.params.items()}
+  off, rstep = saver.restore_train_state(ckpt, off)
+  assert rstep == 3
+  for name, p in off.params.items():
+    assert off.opt_state.state[p]["exp_avg"] is hosts[name]
+    assert torch.equal(hosts[name],
+                       plain.opt_state.state[plain.params[name]][
+                           "exp_avg"].cpu())
+
+
+@pytest.mark.gpu
+def test_offloaded_step_streams_many_buckets_bit_equal(cuda):
+  """``HostOffloadOptimizer`` in buckets of at most the largest
+  parameter's moments, so the side streams double-buffer many buckets a
+  step: 4 guarded steps (one NaN-skipped) leave params and both moments
+  bit-equal to the run without offload."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.runtime.offload import (
+      HostOffloadOptimizer)
+  from easyparallellibrary_tpu_torch.testing import chaos
+  runs = []
+  batches = _token_batches(4, seed=1)
+  for offload in (False, True):
+    _, state, step, _ = _tiny_training(cuda, epl.Config({
+        "resilience.max_bad_steps": 2}))
+    if offload:
+      state = state.replace(opt_state=HostOffloadOptimizer(
+          state.opt_state, bucket_mb=0.01))
+      assert state.opt_state.num_buckets > 2
+    for i, b in enumerate(batches):
+      state, _ = step(state, chaos.nan_batch(b) if i == 1 else b, None)
+    torch.cuda.synchronize()
+    runs.append(state)
+  plain, off = runs
+  for name, p in plain.params.items():
+    q = off.params[name]
+    assert torch.equal(p, q), name
+    for key in ("exp_avg", "exp_avg_sq"):
+      got = off.opt_state.state[q][key]
+      assert got.is_pinned(), (name, key)
+      assert torch.equal(plain.opt_state.state[p][key].cpu(), got), (name,
+                                                                      key)
+
+
+@pytest.mark.gpu
+def test_dcp_round_trip_of_card_tensors(cuda, tmp_path):
+  """``save_checkpoint_orbax`` / ``restore_checkpoint_orbax`` (DCP) of a
+  tree of card tensors, fp32 and bf16: bit-equal, back on the card."""
+  from easyparallellibrary_tpu_torch.runtime import saver
+  g = torch.Generator(device="cpu").manual_seed(0)
+  tree = {"w": torch.randn(64, 32, generator=g).to(cuda),
+          "h": torch.randn(7, generator=g).to(cuda, torch.bfloat16),
+          "n": torch.tensor(5, dtype=torch.int32, device=cuda)}
+  saver.save_checkpoint_orbax(str(tmp_path), tree, step=1)
+  got = saver.restore_checkpoint_orbax(str(tmp_path), 1, target=tree)
+  for k, v in tree.items():
+    assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+    assert torch.equal(got[k], v), k

@@ -54,7 +54,8 @@ def _entry_points(tmp):
   from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
   from easyparallellibrary_tpu_torch.io import DevicePrefetcher
   from easyparallellibrary_tpu_torch.runtime.saver import restore_params
-  from easyparallellibrary_tpu_torch.serving import DraftModelDrafter
+  from easyparallellibrary_tpu_torch.serving import (
+      DraftModelDrafter, Router)
   from easyparallellibrary_tpu_torch.weights import (
       from_jax_params, init_params)
   cfg = GPTConfig(vocab_size=64, num_layers=1, num_heads=2, d_model=16,
@@ -78,6 +79,9 @@ def _entry_points(tmp):
       "DraftModelDrafter.from_checkpoint":
           lambda **kw: DraftModelDrafter.from_checkpoint(ckpt, GPT(cfg),
                                                          **kw),
+      "Router": lambda **kw: Router(
+          GPT(cfg), cpu_params, num_replicas=1, paged=True, num_slots=2,
+          prefill_chunk=4, block_size=4, **kw),
   }
 
 
@@ -104,7 +108,8 @@ def _fit(cfg, params, **kw):
                                   "allocate_paged_kv_cache", "tiny_gpt",
                                   "ContinuousBatchingEngine", "fit",
                                   "DevicePrefetcher", "restore_params",
-                                  "DraftModelDrafter.from_checkpoint"])
+                                  "DraftModelDrafter.from_checkpoint",
+                                  "Router"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(
     name, monkeypatch, tmp_path):
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

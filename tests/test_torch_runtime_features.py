@@ -480,3 +480,137 @@ def test_pytree_helpers_match_jax():
                        torch.zeros(4, 4, dtype=torch.bfloat16))):
     assert tpytree.leaf_bytes(tleaf) == jpytree.leaf_bytes(leaf)
     assert tpytree.leaf_bytes(leaf) == jpytree.leaf_bytes(leaf)
+
+
+# ------------------------------------------------------- host offload --
+
+
+def test_offload_fit_trajectory_matches_jax():
+  """Host offload through ``fit`` against JAX ``fit``.  On the CPU host
+  and device are one: ``offload.level = "v0"`` leaves the port's state
+  as it is (``create_sharded_train_state`` does not wrap it), so the
+  port's optimizer is then wrapped in ``HostOffloadOptimizer`` by hand,
+  in buckets small enough for more than one.  Its 6-step loss
+  trajectory equals JAX ``fit``'s at rtol 2e-5, and its final
+  parameters at rtol 2e-5, atol 1e-7 (for entries near zero).  JAX's own
+  v0 path does not run on the CPU (its pinned-host shardings fail in
+  the jitted init: pinned here as the reference's behaviour), so JAX
+  trains the same state without offload, which v0 must not change."""
+  from easyparallellibrary_tpu.parallel import api as japi
+  from easyparallellibrary_tpu.runtime import loop as jloop
+  from easyparallellibrary_tpu_torch.parallel import api as tapi
+  from easyparallellibrary_tpu_torch.runtime import loop as tloop
+  from easyparallellibrary_tpu_torch.runtime import offload as toffload
+  r = np.random.RandomState(3)
+  batches = [{"x": r.randn(16, 8).astype(np.float32),
+              "y": r.randn(16, 1).astype(np.float32)} for _ in range(6)]
+  cfg = {"offload.level": "v0"}
+
+  def recorded(step, losses):
+    def wrapped(state, batch, rng):
+      state, m = step(state, batch, rng)
+      losses.append(m["loss"])
+      return state, m
+    return wrapped
+
+  def jinit():
+    return japi.TrainState.create(apply_fn=JNet().apply, params=_jparams(),
+                                  tx=optax.adam(1e-2))
+
+  jepl.init(jepl.Config(cfg))
+  with pytest.raises(Exception, match="sharding"):
+    japi.create_sharded_train_state(jinit, jepl.current_plan().build_mesh())
+  jepl.init()
+  jmesh = jepl.current_plan().build_mesh()
+  jstate, jsh = japi.create_sharded_train_state(jinit, jmesh)
+  jlosses = []
+  jstate, _ = jloop.fit(
+      recorded(japi.parallelize(japi.make_train_step(_jloss), jmesh, jsh),
+               jlosses),
+      jstate, [jax.tree_util.tree_map(jnp.asarray, b) for b in batches],
+      num_steps=6, log_every=0)
+  tepl.init(tepl.Config(cfg), device="cpu")
+  tmesh = tepl.current_plan().build_mesh()
+  tstate, tsh = tapi.create_sharded_train_state(
+      lambda: tapi.TrainState.create(
+          apply_fn=_TNET, params=_tparams(),
+          tx=tadamw.adamw(1e-2, weight_decay=0.0)), tmesh)
+  assert not isinstance(tstate.opt_state, toffload.HostOffloadOptimizer)
+  tstate = tstate.replace(opt_state=toffload.HostOffloadOptimizer(
+      tstate.opt_state, bucket_mb=0.0005))
+  assert tstate.opt_state.num_buckets > 1
+  tlosses = []
+  tstate, _ = tloop.fit(
+      recorded(tapi.parallelize(tapi.make_train_step(_tloss), tmesh, tsh),
+               tlosses),
+      tstate, batches, num_steps=6, log_every=0, device="cpu")
+  assert isinstance(tstate.opt_state, toffload.HostOffloadOptimizer)
+  assert int(tstate.step) == 6
+  assert len(tlosses) == len(jlosses) == 6
+  np.testing.assert_allclose([float(x) for x in tlosses],
+                             [float(x) for x in jlosses], rtol=2e-5)
+  want = from_jax_params(jax.tree_util.tree_map(
+      np.asarray, nn.meta.unbox(jstate.params)), device="cpu")
+  assert sorted(want) == sorted(tstate.params)
+  for name, w in want.items():
+    np.testing.assert_allclose(tstate.params[name].detach().numpy(),
+                               w.numpy(), rtol=2e-5, atol=1e-7,
+                               err_msg=name)
+  with pytest.raises(ValueError, match="optimizer state only"):
+    toffload.offload_to_host(tstate, what="params")
+
+
+@pytest.mark.parametrize("bucket_mb", [0.0005, 0.001, 64.0],
+                         ids=["largest-leaf", "two-leaves", "one-bucket"])
+def test_host_offload_optimizer_is_bit_equal_to_no_offload(bucket_mb,
+                                                           tmp_path):
+  """``HostOffloadOptimizer`` streaming the moments through its two
+  buffers (run on the CPU, where its copies are synchronous) against the
+  same fused AdamW without it, through ``build_train_step`` with the
+  sentinel (a NaN step skipped through ``found_inf``) and
+  ``optimizer.num_apply_group = 2``: parameters, both moments and every
+  step bit-equal after 5 steps; the saver's tree is the same, and a
+  restore writes the moments into the host tensors in place."""
+  from easyparallellibrary_tpu_torch.runtime import offload as toffload
+  from easyparallellibrary_tpu_torch.runtime import saver as tsaver
+  cfg = tepl.Config({"resilience.sentinel": True,
+                     "optimizer.num_apply_group": 2})
+  tepl.init(cfg, device="cpu")
+  batch = _data()
+  runs = []
+  for offload in (False, True):
+    state = ttrainer.create_train_state(
+        _TNET, _tparams(), tadamw.adamw(1e-2, weight_decay=0.01),
+        config=cfg)
+    if offload:
+      state = state.replace(opt_state=toffload.HostOffloadOptimizer(
+          state.opt_state, bucket_mb=bucket_mb))
+    step = ttrainer.build_train_step(_tloss, config=cfg)
+    for i in range(5):
+      state, m = step(state, chaos.nan_batch(batch) if i == 2 else batch,
+                      None)
+    runs.append(state)
+  plain, off = runs
+  assert (off.opt_state.num_buckets > 1) == (bucket_mb < 1)
+  assert int(off.step) == int(plain.step) == 4
+  for name in plain.params:
+    p, q = plain.params[name], off.params[name]
+    assert torch.equal(p, q), name
+    for key in ("exp_avg", "exp_avg_sq", "step"):
+      assert torch.equal(plain.opt_state.state[p][key],
+                         off.opt_state.state[q][key]), (name, key)
+  want, got = tsaver.state_tree(plain), tsaver.state_tree(off)
+  for (pa, a), (pb, b) in zip(tpytree.tree_paths_and_leaves(want),
+                              tpytree.tree_paths_and_leaves(got)):
+    assert pa == pb and torch.equal(a, b), pa
+  tsaver.save_checkpoint(str(tmp_path), want, step=4)
+  hosts = {n: off.opt_state.state[p]["exp_avg"]
+           for n, p in off.params.items()}
+  for p in off.params.values():
+    off.opt_state.state[p]["exp_avg"].zero_()
+  off, rstep = tsaver.restore_train_state(str(tmp_path), off)
+  assert rstep == 4
+  for name, p in off.params.items():
+    assert off.opt_state.state[p]["exp_avg"] is hosts[name]
+    assert torch.equal(hosts[name],
+                       plain.opt_state.state[plain.params[name]]["exp_avg"])

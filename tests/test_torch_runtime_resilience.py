@@ -111,7 +111,7 @@ def _jax(config=None, sentinel=False, tx=None):
   return state, japi.parallelize(step, mesh, sh)
 
 
-def _port(config=None, sentinel=False, trainer=False):
+def _port(config=None, sentinel=False, trainer=False, tx=None):
   """``trainer``: the sentinel through ``build_train_step`` (fused
   AdamW's found_inf) instead of ``guard_step`` (a snapshot)."""
   tepl.init(config, device="cpu")
@@ -119,7 +119,7 @@ def _port(config=None, sentinel=False, trainer=False):
   model = TNet()
   params = from_jax_params(jax.tree_util.tree_map(
       np.asarray, nn.meta.unbox(_params0())), device="cpu")
-  tx = tadamw.adamw(1e-2, weight_decay=0.0)
+  tx = tx or tadamw.adamw(1e-2, weight_decay=0.0)
 
   def loss_fn(p, b, rng):
     pred = torch.func.functional_call(model, p, (b["x"],))
@@ -362,6 +362,104 @@ def test_rollback_lr_backoff_compounds_as_jax_inject_hyperparams(tmp_path):
   np.testing.assert_allclose(got, [want] * len(got), rtol=1e-6)
   np.testing.assert_allclose(want, 1e-2 * 0.25, rtol=1e-6)
   assert int(tstate.step) == int(jstate.step) == 10
+
+
+class _PoisonTwice:
+  """Batches of steps 4-5 poisoned on their first two draws (two
+  consecutive rollbacks to the step-4 checkpoint), on either side."""
+
+  def __init__(self, nan, num_steps=10):
+    self.nan, self.num_steps = nan, num_steps
+    self.draws, self.poisoned = {}, []
+
+  def __call__(self, start_step=0):
+    def gen():
+      for s in range(start_step, self.num_steps):
+        b = _batch(s)
+        n = self.draws.get(s, 0)
+        self.draws[s] = n + 1
+        if s in (4, 5) and n < 2:
+          self.poisoned.append(s)
+          b = self.nan(b)
+        yield b
+    return gen()
+
+
+def test_restart_after_backoff_resumes_at_the_jax_rate(tmp_path):
+  """``ops.adamw.inject_hyperparams`` keeps the rate in the checkpoint
+  at the JAX ``InjectHyperparamsState`` paths.  After two rollbacks back
+  the rate off to 1e-2 * 0.25, the JAX checkpoint restores in the port
+  at that rate (rtol 1e-6: a float32 leaf) and the port's restores in
+  JAX at it; a port ``fit`` restarted on the JAX run's checkpoints
+  resumes at it, on the JAX restart's losses (rtol 2e-5)."""
+  cfg = {"resilience": {"max_bad_steps": 2, "rollback_lr_backoff": 0.5}}
+  want_lr = 1e-2 * 0.25
+  jtx = optax.inject_hyperparams(optax.adamw)(learning_rate=1e-2,
+                                              weight_decay=0.0)
+  ttx = tadamw.inject_hyperparams(tadamw.adamw)(1e-2, weight_decay=0.0)
+  jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
+  jstate, jstep = _jax(jepl.Config(cfg), sentinel=True, tx=jtx)
+  jdata = _PoisonTwice(jchaos.nan_batch)
+  jloop.fit(jstep, jstate, jdata, num_steps=10, log_every=0,
+            checkpoint_dir=jdir, checkpoint_every=4)
+  tstate, tstep = _port(tepl.Config(cfg), sentinel=True, tx=ttx)
+  tdata = _PoisonTwice(chaos.nan_batch)
+  tloop.fit(tstep, tstate, tdata, num_steps=10, log_every=0,
+            checkpoint_dir=tdir, checkpoint_every=4, device="cpu")
+  assert tdata.poisoned == jdata.poisoned == [4, 5, 4, 5]
+
+  # JAX -> port: a fresh port state built the same way.
+  fresh, _ = _port(sentinel=True, tx=ttx)
+  assert [g["lr"] for g in fresh.opt_state.param_groups] == [1e-2]
+  fresh, rstep = tsaver.restore_train_state(jdir, fresh)
+  assert rstep == 8
+  np.testing.assert_allclose(
+      [g["lr"] for g in fresh.opt_state.param_groups], [want_lr], rtol=1e-6)
+  # Port -> JAX: the port wrote inject_hyperparams' leaves.
+  assert tsaver.latest_step(tdir) == 8
+  jfresh, _ = _jax(sentinel=True, tx=jtx)
+  from easyparallellibrary_tpu.runtime import saver as jsaver
+  restored, jrstep = jsaver.restore_checkpoint(
+      tdir, target={"params": jfresh.params, "opt_state": jfresh.opt_state})
+  assert int(jrstep) == 8
+  np.testing.assert_allclose(
+      float(restored["opt_state"].hyperparams["learning_rate"]), want_lr,
+      rtol=1e-6)
+  # The plain recipe still writes optax's plain adamw layout.
+  plain, _ = _port(sentinel=True)
+  assert isinstance(tsaver.state_tree(plain)["opt_state"], tuple)
+
+  # Restarted on the JAX checkpoints: both resume at the backed-off rate.
+  jdir2, tdir2 = str(tmp_path / "j2"), str(tmp_path / "t2")
+  import shutil
+  shutil.copytree(jdir, jdir2)
+  shutil.copytree(jdir, tdir2)
+  jstate, jstep = _jax(jepl.Config(cfg), sentinel=True, tx=jtx)
+  jstate, jm = jloop.fit(jstep, jstate, lambda start_step=0: (
+      _batch(s) for s in range(start_step, 12)), num_steps=12, log_every=0,
+                         checkpoint_dir=jdir2, checkpoint_every=0)
+  tstate, tstep = _port(tepl.Config(cfg), sentinel=True, tx=ttx)
+  tstate, tm = tloop.fit(tstep, tstate, lambda start_step=0: (
+      _batch(s) for s in range(start_step, 12)), num_steps=12, log_every=0,
+                         checkpoint_dir=tdir2, checkpoint_every=0,
+                         device="cpu")
+  np.testing.assert_allclose(
+      float(jstate.opt_state.hyperparams["learning_rate"]), want_lr,
+      rtol=1e-6)
+  np.testing.assert_allclose(
+      [g["lr"] for g in tstate.opt_state.param_groups], [want_lr], rtol=1e-6)
+  assert int(tstate.step) == int(jstate.step) == 12
+  np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                             rtol=2e-5)
+  for name, p in tstate.params.items():
+    jleaf = tsaver.params_tree({name: p})
+    for path, value in jleaf.items():
+      node = jstate.params
+      for part in path.split("/"):
+        node = node[part]
+      np.testing.assert_allclose(value.detach().numpy(),
+                                 np.asarray(nn.meta.unbox(node)), rtol=2e-5,
+                                 atol=1e-7)
 
 
 def test_backoff_learning_rate_scales_every_group():

@@ -298,11 +298,67 @@ def test_jax_run_continues_in_the_port_on_the_jax_trajectory(tmp_path):
   np.testing.assert_allclose(got, want[3:], rtol=2e-5)
 
 
-def test_orbax_path_is_not_ported():
-  with pytest.raises(NotImplementedError, match="Runtime around the step"):
-    tsaver.save_checkpoint_orbax("x", {})
-  with pytest.raises(NotImplementedError, match="Runtime around the step"):
-    tsaver.restore_checkpoint_orbax("x", 0)
+def test_orbax_path_is_not_ported(tmp_path):
+  """The orbax format itself is not ported: the port's orbax-named path
+  is DCP's (next test), and it refuses a checkpoint that the JAX
+  package's orbax path wrote with a named error, where it might
+  otherwise fail deep inside DCP's reader."""
+  _, jstate, _ = _jax_run(1)
+  path = jsaver.save_checkpoint_orbax(str(tmp_path / "jax"), _np(
+      jstate.params), step=1)
+  assert os.path.isdir(path)
+  with pytest.raises(FileNotFoundError, match="no DCP checkpoint"):
+    tsaver.restore_checkpoint_orbax(str(tmp_path / "jax"), 1, device="cpu")
+  with pytest.raises(FileNotFoundError, match="no DCP checkpoint"):
+    tsaver.restore_checkpoint_orbax(str(tmp_path / "none"), 1, device="cpu")
+
+
+def test_orbax_path_is_dcp_and_round_trips(tmp_path):
+  """The JAX package's orbax path is ``torch.distributed.checkpoint``
+  here, under the same names: a params tree round-trips bit-equal, as
+  the JAX orbax test holds it, under ``step_<N>``; the format is DCP's
+  own, not the native ``step_N`` one both packages read, so the native
+  reader finds no checkpoint in it."""
+  _, jstate, _ = _jax_run(1)
+  params = from_jax_params(_np(jstate.params), device="cpu")
+  path = tsaver.save_checkpoint_orbax(str(tmp_path / "ock"), params,
+                                      step=3)
+  assert path.endswith("step_3") and os.path.isdir(path)
+  restored = tsaver.restore_checkpoint_orbax(str(tmp_path / "ock"), 3,
+                                             target=params)
+  assert restored.keys() == params.keys()
+  for name, leaf in params.items():
+    assert torch.equal(restored[name], leaf), name
+  with pytest.raises(FileNotFoundError):
+    tsaver.restore_checkpoint(path, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dcp_train_state_round_trip_bit_equal(tmp_path, dtype):
+  """A trained state's whole tree (``state_tree``: params, both moments,
+  the int32 count; bf16 leaves in the bf16 run) through
+  ``save_checkpoint_orbax`` / ``restore_checkpoint_orbax``: every leaf
+  bit-equal with its dtype, with a target and without one (flat paths
+  on the requested device); a target of another shape is refused."""
+  params0, _, _ = _jax_run(0, dtype=dtype)
+  model, state = _torch_state(params0, dtype)
+  state, _ = _torch_train(model, state, _batches(2))
+  tree = tsaver.state_tree(state)
+  root = str(tmp_path / "dcp")
+  tsaver.save_checkpoint_orbax(root, tree, step=2)
+  got = tsaver.restore_checkpoint_orbax(root, 2, target=tree)
+  flat = tsaver.restore_checkpoint_orbax(root, 2, device="cpu")
+  want = dict(tsaver._sorted_leaves(tree))
+  assert set(flat) == set(want)
+  for (path, a), (_, b) in zip(tsaver._sorted_leaves(got),
+                               tsaver._sorted_leaves(tree)):
+    assert a.dtype == b.dtype and torch.equal(a, b), path
+    assert torch.equal(flat[path], b), path
+  if dtype == "bfloat16":
+    assert any(t.dtype == torch.bfloat16 for t in want.values())
+  bad = {"params": {k: torch.zeros(3) for k in tree["params"]}}
+  with pytest.raises(ValueError, match="shape"):
+    tsaver.restore_checkpoint_orbax(root, 2, target=bad)
 
 
 # ------------------------------------------ crash consistency (port) --
