@@ -149,11 +149,32 @@ the ``{"kernels": [...]}`` record, the last one
 of the repository, it exits with code 2 and prints no result.
 ``python3 chip_smoke.py --phases 2,3`` runs the build and the listed
 phases only (5 and 6, 10 and 11 run together) and prints no result
-lines.  ``--phases 19`` runs the latest slice's: 18g, 18h and 19.
+lines.  ``--phases 20`` runs the latest slice's:
+
+20. GPT-350M bf16, the self-healing fleet: (a) a paged engine with the
+    n-gram drafter and the autotuner under an overload burst, through
+    spec_trim, budget_tight and slot_cap and back (actuations, host ms a
+    step at each level, the tiled kernel against its plain version at a
+    real step planned at each level, non-shed streams by the gap rule,
+    no kernel library loaded); (b) the golden chaos-heal episode
+    (``tests/golden/sim_chaos_heal.json``) driven through a real fleet
+    of in-process GPT-350M replicas as recorded, its actuation sequence
+    and counters equal to the file's, then replayed by the simulator;
+    (c) blue/green rollouts to a checkpoint of ``init_params(seed=1)``:
+    in process under load (zero lost, each stream against its own
+    version's weights), one forced into a canary breach and rolled back
+    (blue streams against a never-rolled run), one process blue child to
+    one green child restoring the checkpoint; (d) two process replicas,
+    sweep against reactor in ABBA rounds, then one child SIGSTOPped
+    under the reactor; (e) phase 5's requests as concurrent SSE clients
+    of the front door on 127.0.0.1 through an in-process reactor fleet:
+    streams against direct submits, client TTFT beside the router's, a
+    disconnect freeing its slot, ``traceparent`` echoed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -3080,6 +3101,32 @@ class FleetMeter:
     self.wall = time.monotonic() - t0
     return out
 
+  def drive_timed(self, request_cls, prompts, step, wave_s, max_new=32):
+    """Phase 5's waves (8, 4, 4 requests) at wall offsets 0, ``wave_s``
+    and ``2 * wave_s``, whatever ``step`` is (a sweep, or a reactor
+    cycle of several steps per replica), then ``step`` until the fleet
+    drains.  Returns ``{index: tokens}``."""
+    router, out = self.router, {}
+    waves = [(0, 8), (8, 12), (12, 16)]
+    t0 = time.monotonic()
+    w = 0
+    while w < len(waves) or router.has_work:
+      while w < len(waves) and time.monotonic() - t0 >= w * wave_s:
+        for i in range(*waves[w]):
+          self.submitted[i] = time.monotonic()
+          router.submit(request_cls(uid=i, prompt=prompts[i],
+                                    max_new_tokens=max_new))
+        w += 1
+      if not router.has_work:
+        time.sleep(0.001)
+        continue
+      t = time.monotonic()
+      for fin in step():
+        out[fin.uid] = fin.tokens
+      self.sweeps.append(time.monotonic() - t)
+    self.wall = time.monotonic() - t0
+    return out
+
   def summary(self):
     ttft = sorted(self.first[u] - self.submitted[u] for u in self.first
                   if u in self.submitted)
@@ -3422,6 +3469,786 @@ def fleet_serving(torch, params, pa):
   return launches
 
 
+# ------------------------------------------- phase 20: the self-healing fleet
+
+# (a) the autotuner: a burst past a queue limit of 4 with the n-gram
+# drafter, hold windows of 4 steps, a burn rule that breaches on sheds.
+HEAL_WAVES, HEAL_WAVE_SIZE, HEAL_NEW, HEAL_LIGHT_MAX = 4, 10, 16, 40
+HEAL_CONF = {
+    "serving": {"resilience": {"enabled": True, "queue_limit": 4},
+                "autotune": {"enabled": True, "hold_steps": 4}},
+    "observability": {"slo": {
+        "enabled": True, "shed_objective": 0.5, "fast_window": 2,
+        "slow_window": 3, "fast_burn": 1.0, "slow_burn": 1.0}}}
+# (c) rollouts: requests and new tokens, the canary's hold (seconds on the
+# router's wall clock).
+ROLL_REQUESTS, ROLL_NEW, ROLL_HOLD_S = 24, 16, 1.0
+# (d) ABBA rounds of sweep and reactor windows, phase 5's three waves
+# REACTOR_WAVE_S apart on the wall clock (about three sweeps: a reactor
+# cycle runs several steps, so waves paced in calls would differ); the
+# wire deadline that condemns the SIGSTOPped child.
+REACTOR_ROUNDS, REACTOR_WAVE_S, STALL_RPC_TIMEOUT_S = 2, 0.075, 5.0
+
+
+def _actuation_log(monitor):
+  return [f"{e.get('actuator')}:{e.get('to_level', e.get('action'))}"
+          f"@{e.get('step')}" for e in monitor.events
+          if e.get("event") == "actuation"]
+
+
+def _versioned_gap_rule(torch, model, weights, prompts, out, versions,
+                        cache, label):
+  """``greedy_vs_generate`` per checkpoint version: each stream against
+  ``generate(use_cache=False)`` of the weights it was admitted under
+  (references kept in ``cache`` by (version, uid) for a later run)."""
+  for ver in sorted(set(versions[u] for u in out)):
+    uids = sorted(u for u in out if versions[u] == ver)
+    local = {k: cache[(ver, u)] for k, u in enumerate(uids)
+             if (ver, u) in cache}
+    greedy_vs_generate(torch, model, weights[ver], [prompts[u] for u in uids],
+                       {k: out[u] for k, u in enumerate(uids)},
+                       bf16_gap_limit, f"{label} v{ver}", refs=local)
+    for k, u in enumerate(uids):
+      cache[(ver, u)] = local[k]
+
+
+def _k2_at_plan(torch, pa, eng, plan, seed):
+  """The tiled kernel against its plain version on one real step the
+  engine planned: the plan's tables, positions and tiles (its draft runs
+  included) over the engine's layer-0 pools, random q.  Returns max
+  |kernel - plain|."""
+  pool = eng._kv["block_0"]["attn"]
+  kp, vp = pool["cached_key"], pool["cached_value"]
+  tables = torch.from_numpy(plan.block_tables[plan.slot_ids]).cuda()
+  positions = torch.from_numpy(plan.positions).cuda()
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  q = torch.randn((len(plan.positions), kp.shape[2], kp.shape[3]),
+                  generator=g, device="cuda", dtype=kp.dtype)
+  runs = pa.tile_runs_from_plan(plan.base_idx, plan.num_valid,
+                                len(plan.positions), plan.draft_base,
+                                plan.draft_cap)
+  tiles = pa.plan_tiles(runs, plan.positions, tables.shape[1], kp.shape[1],
+                        q.shape[1], q.device)
+  before = pa.paged_attention_tiled_cuda.launches
+  got = pa.paged_attention(q, kp, vp, tables, positions, tiles)
+  want = pa.paged_attention_reference(q, kp, vp, tables, positions)
+  torch.cuda.synchronize()
+  assert pa.paged_attention_tiled_cuda.launches == before + 1
+  assert bool(torch.isfinite(got).all())
+  tol = TOLERANCE["bfloat16"]
+  torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+  return (got.float() - want.float()).abs().max().item()
+
+
+def heal_autotune(torch, params, pa):
+  """(a) A paged engine with the n-gram drafter and the autotuner under
+  an overload burst: spec_trim, budget_tight, slot_cap and back.
+  Returns the tiled build's launches over the run."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.kernels import _build
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.observability import slo as slo_lib
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, NgramDrafter, Request)
+  from easyparallellibrary_tpu_torch.serving.autotune import TUNE_LEVELS
+  reset_observability()
+  conf = epl.Config(HEAL_CONF)
+  epl.init(conf)
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  eng = ContinuousBatchingEngine(
+      model, params, paged=True, num_slots=NUM_SLOTS,
+      prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE,
+      drafter=NgramDrafter(k=SPEC_K), config=conf)
+  prompts = repeating_prompts(20, HEAL_WAVES * HEAL_WAVE_SIZE
+                              + HEAL_LIGHT_MAX, cfg.vocab_size)
+  eng.submit(Request(uid="warm", prompt=prompts[0][:64], max_new_tokens=4))
+  eng.run()
+  libs = _build.loaded_count()
+  tuner = eng._autotuner
+  plans, host, max_cap = {}, {}, {}
+  plan_step = eng.scheduler.plan_step
+
+  def capture():
+    # Each level's fullest plan (most draft positions, then tokens),
+    # copied as planned; the largest draft cap seen at each level.
+    plan = plan_step()
+    if plan is not None:
+      level = tuner.level
+      max_cap[level] = max(max_cap.get(level, 0), int(plan.draft_cap.max()))
+      best = plans.get(level)
+      key = (int(plan.draft_cap.sum()), plan.scheduled_tokens)
+      if best is None or key > best[0]:
+        plans[level] = (key, dataclasses.replace(plan, **{
+            f.name: np.copy(getattr(plan, f.name))
+            for f in dataclasses.fields(plan)
+            if isinstance(getattr(plan, f.name), np.ndarray)}))
+    return plan
+
+  eng.scheduler.plan_step = capture
+  out, shed = {}, []
+
+  def step():
+    t0 = time.monotonic()
+    fins = eng.step()
+    dt = time.monotonic() - t0
+    host.setdefault(tuner.level, []).append(dt)
+    for fin in fins:
+      out[fin.uid] = fin
+
+  pa.reset_counts()
+  steps0 = eng.steps
+  uid = 0
+  for _ in range(HEAL_WAVES):
+    for _ in range(HEAL_WAVE_SIZE):
+      if not eng.submit(Request(uid=uid, prompt=prompts[uid],
+                                max_new_tokens=HEAL_NEW)):
+        shed.append(uid)
+      uid += 1
+    for _ in range(3):
+      step()
+  while eng.has_work:
+    step()
+  light = 0
+  while tuner.level > 0 or light == 0:
+    assert light < HEAL_LIGHT_MAX, f"the ladder stayed at {tuner.level}"
+    eng.submit(Request(uid=uid, prompt=prompts[uid],
+                       max_new_tokens=HEAL_NEW))
+    uid += 1
+    light += 1
+    while eng.has_work:
+      step()
+  torch.cuda.synchronize()
+  steps = eng.steps - steps0
+  launches = pa.paged_attention_tiled_cuda.launches
+  eng.scheduler.plan_step = plan_step
+  monitor = slo_lib.get_monitor()
+  levels = sorted(host)
+  log(f"   (20a) {uid} requests ({len(shed)} shed at submit, queue limit "
+      f"4), {steps} engine steps; actuations "
+      f"{_actuation_log(monitor)}")
+  for level in levels:
+    ms = sorted(host[level])
+    log(f"   (20a) {TUNE_LEVELS[level]:12s} {len(ms):4d} steps, host ms a "
+        f"step p50 {statistics.median(ms) * 1e3:.2f}, max "
+        f"{ms[-1] * 1e3:.2f}")
+  assert levels == [0, 1, 2, 3] and tuner.level == 0, levels
+  assert eng._compile_sentinel.recompiles == 0
+  assert _build.loaded_count() == libs
+  assert launches > 0 and pa.paged_attention_reference.calls == 0
+  assert pa.paged_attention_warp_cuda.launches == 0
+  log(f"   (20a) tiled launches {launches} over the run (= "
+      f"{cfg.num_layers} layers x the steps that planned work); kernel "
+      f"libraries {libs} -> {_build.loaded_count()}; compile sentinel "
+      f"silent")
+  for level in levels:
+    (drafts, tokens), plan = plans[level]
+    err = _k2_at_plan(torch, pa, eng, plan, seed=level)
+    log(f"   (20a) K2 at a {TUNE_LEVELS[level]} step ({tokens} tokens, "
+        f"{plan.active_slots} slots, draft caps max "
+        f"{int(plan.draft_cap.max())}, {drafts} draft positions): "
+        f"max|kernel - plain| = {err:.3e} (rtol = atol = "
+        f"{TOLERANCE['bfloat16']:g})")
+  log(f"   (20a) largest draft cap planned at each level "
+      f"{[max_cap[lv] for lv in levels]} (k = {SPEC_K})")
+  assert max_cap[1] <= SPEC_K // 2 and max_cap[2] == max_cap[3] == 0
+  served = sorted(u for u, f in out.items() if f.finish_reason == "length")
+  assert sorted(out) == sorted(set(range(uid)) - set(shed))
+  greedy_vs_generate(torch, model, eng.params, [prompts[u] for u in served],
+                     {k: out[u].tokens for k, u in enumerate(served)},
+                     bf16_gap_limit, "20a non-shed")
+  del eng
+  reset_observability()
+  return launches
+
+
+def heal_golden(torch, params):
+  """(b) The golden chaos-heal episode driven through a real fleet of
+  in-process GPT-350M replicas on the card, as recorded (contiguous
+  layout, 4 slots, chunk 4, the recorded arrivals and fixed dt,
+  ``sync_spawn``); then the port's simulator replays the same file."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.observability import slo as slo_lib
+  from easyparallellibrary_tpu_torch.observability.registry import (
+      MetricRegistry)
+  from easyparallellibrary_tpu_torch.serving import Router
+  from easyparallellibrary_tpu_torch.sim import replay
+  from easyparallellibrary_tpu_torch.sim.arrivals import Workload
+  from easyparallellibrary_tpu_torch.sim.engine import SimClock
+  from easyparallellibrary_tpu_torch.sim.fleet import (
+      actuation_sequence, drive_episode, warm_fleet)
+  golden = replay.load_golden()
+  want = golden["counters"]
+  reset_observability()
+  config = epl.Config(golden["config"])
+  epl.init(config)
+  model = GPT(GPTConfig(**GPT_350M, dtype=torch.bfloat16))
+  clock = SimClock()
+  router = Router(model, params, num_replicas=golden["num_replicas"],
+                  config=config, registry=MetricRegistry(), clock=clock,
+                  num_slots=golden["num_slots"],
+                  prefill_chunk=golden["chunk"])
+  prompt = np.asarray(golden["prompt"], np.int32)
+  n = len(golden["arrivals"])
+  t0 = time.monotonic()
+  warm_fleet(router, clock, prompt, golden["warm_max_new"])
+  loop = drive_episode(
+      router, clock, Workload(times=list(golden["arrivals"]),
+                              prompts=[prompt] * n,
+                              max_new=[golden["max_new"]] * n),
+      fixed_dt=golden["fixed_dt"], idle_dt=golden["idle_dt"],
+      settle_steps=golden["settle_steps"])
+  torch.cuda.synchronize()
+  real_s = time.monotonic() - t0
+  monitor = slo_lib.get_monitor()
+  seq = actuation_sequence()
+  got = {"requests": n,
+         "shed": sum(router.finished[u].finish_reason == "shed"
+                     for u in range(n)),
+         "busy_sweeps": loop["busy_sweeps"],
+         "idle_jumps": loop["idle_jumps"],
+         "replicas_peak": loop["replicas_peak"],
+         "breaches": monitor.breaches, "recoveries": monitor.recoveries,
+         "actuations": monitor.actuations}
+  first = next((i for i, (a, b) in enumerate(zip(seq, golden["sequence"]))
+                if a != b), None)
+  log(f"   (20b) real fleet of GPT-350M replicas on the card: "
+      f"{len(seq)} actuations ({'equal to' if seq == golden['sequence'] else 'DIFFERENT from'}"
+      f" the golden file's {len(golden['sequence'])}"
+      + (f"; first difference at {first}: {seq[first]} vs "
+         f"{golden['sequence'][first]}" if first is not None else "")
+      + f"); counters {got}; wall {real_s:.2f} s")
+  assert seq == golden["sequence"]
+  assert got == want, (got, want)
+  router.close()
+  del router
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.monotonic()
+  sim = replay.replay(golden)
+  sim_s = time.monotonic() - t0
+  log(f"   (20b) the port's simulator on the same file: sequence equal "
+      f"{sim['sequence'] == golden['sequence']}, shed {sim['shed']}, "
+      f"busy sweeps {sim['busy_sweeps']}, breaches {sim['breaches']}, "
+      f"recoveries {sim['recoveries']}, peak {sim['replicas_peak']}; wall "
+      f"{sim_s:.2f} s against the real fleet's {real_s:.2f} s")
+  assert sim["sequence"] == golden["sequence"]
+  for key in ("shed", "busy_sweeps", "breaches", "recoveries",
+              "replicas_peak"):
+    assert sim[key] == want[key], key
+  reset_observability()
+
+
+def _drive_rollout(router, request_cls, prompts, versions, *, begin=None,
+                   breach=None):
+  """Eight submits and a sweep, then ``begin()`` (when given), sweeps
+  while the greens spawn (blue serving), one submit a sweep from the
+  canary on until the rollout is idle again, the rest, and the fleet
+  drained.  ``breach`` fires once the canary has carried traffic.
+  Returns ``{uid: tokens}``; ``versions`` gets each request's version at
+  admission."""
+  ctr = [0]
+
+  def submit_one():
+    uid = ctr[0]
+    if uid >= len(prompts):
+      return
+    ctr[0] += 1
+    assert router.submit(request_cls(uid=uid, prompt=prompts[uid],
+                                     max_new_tokens=ROLL_NEW))
+    versions[uid] = router._replica_version(router.placement[uid])
+
+  for _ in range(8):
+    submit_one()
+  router.step()
+  if begin is not None:
+    begin()
+    deadline = time.monotonic() + 900.0
+    fired = False
+    while router.rollout.active:
+      assert time.monotonic() < deadline, router.rollout.state
+      if router.rollout.state != "spawning":
+        submit_one()
+      router.step()
+      if not router.has_work:
+        time.sleep(0.001)       # idle: leave the spawner thread the GIL
+      if (breach is not None and not fired
+          and router.rollout.state == "canary"
+          and any(v == 1 for v in versions.values())):
+        breach()
+        fired = True
+  while ctr[0] < len(prompts):
+    submit_one()
+  router.run()
+  return {u: f.tokens for u, f in router.finished.items()}
+
+
+def heal_rollout(torch, params, pa):
+  """(c) Blue/green rollouts: in process (a full rollout under load, then
+  one forced into a canary breach), then one process blue child to one
+  green child restoring the checkpoint.  Returns the tiled launches of
+  the in-process rollout run and the children's."""
+  import shutil
+  import tempfile
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.observability import slo as slo_lib
+  from easyparallellibrary_tpu_torch.runtime import saver
+  from easyparallellibrary_tpu_torch.serving import Request, Router
+  from easyparallellibrary_tpu_torch.weights import init_params
+  geometry = dict(paged=True, num_slots=NUM_SLOTS,
+                  prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE)
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  prompts = make_prompts(3, ROLL_REQUESTS, cfg.vocab_size)
+  green = init_params(GPTConfig(**GPT_350M), seed=1, device="cuda")
+  weights = {0: params, 1: green}
+  tmp = tempfile.mkdtemp(prefix="epl_phase20_")
+  launches = {}
+  cache = {}
+  try:
+    reset_observability()
+    rollout = {"enabled": True, "canary_frac": 0.5,
+               "canary_hold_s": ROLL_HOLD_S, "min_replicas": 2,
+               "spawn_timeout_s": 600.0, "drain_timeout_s": 600.0}
+    conf = epl.Config({"serving": {"rollout": rollout}})
+    epl.init(conf)
+    t0 = time.monotonic()
+    saver.save_checkpoint(tmp, saver.params_tree(green), step=1)
+    log(f"   (20c) green checkpoint (init_params(seed=1), fp32) written in "
+        f"{time.monotonic() - t0:.2f} s")
+    router = Router(model, params, num_replicas=2, config=conf, **geometry)
+    ctl = router.rollout
+    marks = {}
+
+    def begin():
+      t = time.monotonic()
+      ctl.begin(tmp)
+      marks["begin_ms"] = (time.monotonic() - t) * 1e3
+      marks["t0"] = time.monotonic()
+
+    versions = {}
+    pa.reset_counts()
+    out = _drive_rollout(router, Request, prompts, versions, begin=begin)
+    torch.cuda.synchronize()
+    launches["rollout"] = pa.paged_attention_tiled_cuda.launches
+    per_ver = {v: sum(1 for u in versions if versions[u] == v)
+               for v in (0, 1)}
+    log(f"   (20c) in-process rollout 2 blue -> 2 green: begin() (checksum "
+        f"chain and geometry, green spawns queued) {marks['begin_ms']:.1f} "
+        f"ms; begin to retired {time.monotonic() - marks['t0']:.1f} s; "
+        f"requests by version {per_ver}; lost "
+        f"{len(prompts) - len(out)}; states {router.states()}; counters "
+        f"{ctl.counters()}; tiled launches {launches['rollout']}")
+    assert sorted(out) == list(range(len(prompts)))
+    assert all(router.finished[u].finish_reason == "length" for u in out)
+    assert per_ver[0] > 0 and per_ver[1] > 0
+    assert router._fleet_version == 1 and ctl.completed == 1
+    assert launches["rollout"] > 0
+    assert pa.paged_attention_reference.calls == 0
+    _versioned_gap_rule(torch, model, weights, prompts, out, versions,
+                        cache, "20c rollout")
+    router.close()
+    del router, ctl
+    gc.collect()
+
+    # A second rollout forced into a canary breach, against a never-rolled
+    # run of the same load.
+    slo = {"enabled": True, "ttft_p99_s": 0.5}
+    rollout_hold = dict(rollout, canary_hold_s=900.0)
+    base_versions, rolled_versions = {}, {}
+    runs = []
+    for roll in (False, True):
+      reset_observability()
+      conf = epl.Config({"serving": {"rollout": rollout_hold},
+                         "observability": {"slo": slo}})
+      epl.init(conf)
+      router = Router(model, params, num_replicas=2, config=conf,
+                      **geometry)
+
+      def breach():
+        slo_lib.get_monitor().observe(router.steps,
+                                      {"serving/fleet/v1/ttft_p99_s": 99.0})
+
+      runs.append(_drive_rollout(
+          router, Request, prompts,
+          rolled_versions if roll else base_versions,
+          begin=(lambda: router.rollout.begin(tmp)) if roll else None,
+          breach=breach if roll else None))
+      if roll:
+        counters = router.rollout.counters()
+        states = router.states()
+        assert counters["rollout_rollbacks"] == 1.0
+        assert router._fleet_version == 0
+      router.close()
+      del router
+      gc.collect()
+    base, rolled = runs
+    blue = [u for u in rolled if rolled_versions[u] == 0]
+    canary = [u for u in rolled if rolled_versions[u] == 1]
+    equal = sum(np.array_equal(rolled[u], base[u]) for u in blue)
+    log(f"   (20c) canary breach: rolled back ({counters}); states "
+        f"{states}; {len(canary)} canary request(s) completed on green in "
+        f"place; blue streams equal to the never-rolled run: {equal}/"
+        f"{len(blue)}")
+    assert canary and sorted(rolled) == list(range(len(prompts)))
+    greedy_vs_generate(torch, model, params, [prompts[u] for u in blue],
+                       {k: rolled[u] for k, u in enumerate(blue)},
+                       bf16_gap_limit, "20c blue after rollback",
+                       refs={k: base[u] for k, u in enumerate(blue)},
+                       ref_name="the never-rolled run")
+    _versioned_gap_rule(torch, model, weights, prompts, rolled,
+                        rolled_versions, cache, "20c rollback")
+
+    # The process transport: one blue child to one green child that
+    # restores the checkpoint itself.
+    reset_observability()
+    conf = epl.Config({"serving": {
+        "router": {"transport": "process", "spawn_timeout_s": 600.0,
+                   "rpc_timeout_s": 300.0, "suspect_after": 1800.0,
+                   "down_after": 3600.0},
+        "rollout": dict(rollout, min_replicas=1)}})
+    epl.init(conf)
+    fleet = Router(num_replicas=1, config=conf,
+                   factory={"fn": FLEET_FACTORY, "kwargs": {}},
+                   device="cuda", **geometry)
+    pids = []
+    try:
+      blue_spawn = fleet.replicas[0].last_spawn_s
+      fleet.replicas[0].reset_launch_counts()
+      versions = {}
+      out = _drive_rollout(fleet, Request, prompts, versions,
+                           begin=lambda: fleet.rollout.begin(tmp))
+      green_rep = fleet.replicas[1]
+      child = [rep.kernel_launches.get("paged_attention_tiled", 0)
+               for rep in fleet.replicas]
+      launches["rollout_children"] = sum(child)
+      per_ver = {v: sum(1 for u in versions if versions[u] == v)
+                 for v in (0, 1)}
+      log(f"   (20c) process rollout 1 blue child -> 1 green child: cold "
+          f"spawns {blue_spawn:.1f} s (blue), {green_rep.last_spawn_s:.1f} "
+          f"s (green, restoring the checkpoint in the child); requests by "
+          f"version {per_ver}; lost {len(prompts) - len(out)}; children's "
+          f"tiled launches {child} (from their beats); states "
+          f"{fleet.states()}")
+      assert sorted(out) == list(range(len(prompts)))
+      assert per_ver[0] > 0 and per_ver[1] > 0 and all(child)
+      assert fleet._fleet_version == 1
+      _versioned_gap_rule(torch, model, weights, prompts, out, versions,
+                          cache, "20c process rollout")
+      pids = [rep.child_pid for rep in fleet.replicas]
+    finally:
+      fleet.close()
+    assert all(_gone(p) for p in pids), pids
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+    reset_observability()
+  del green
+  gc.collect()
+  torch.cuda.empty_cache()
+  return launches
+
+
+def heal_reactor(torch, params, pa, refs):
+  """(d) Two process replicas, sweep against reactor in ABBA rounds;
+  then one child SIGSTOPped under the reactor.  Returns the children's
+  tiled launches over the first reactor window."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.serving import Request, Router
+  from easyparallellibrary_tpu_torch.testing import chaos
+  geometry = dict(paged=True, num_slots=NUM_SLOTS,
+                  prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE)
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  prompts = make_prompts(2, 16, cfg.vocab_size)
+  reset_observability()
+  conf = epl.Config({"serving": {"router": {
+      "transport": "process", "reactor": True, "spawn_timeout_s": 600.0,
+      "rpc_timeout_s": STALL_RPC_TIMEOUT_S, "suspect_after": 1800.0,
+      "down_after": 3600.0}}})
+  epl.init(conf)
+  fleet = Router(num_replicas=2, config=conf,
+                 factory={"fn": FLEET_FACTORY, "kwargs": {}},
+                 device="cuda", **geometry)
+  reactor = fleet.reactor()
+  launches = 0
+  pids = [rep.child_pid for rep in fleet.replicas]
+  try:
+    warm = [p[:64] for p in make_prompts(19, 4, cfg.vocab_size)]
+    for i, p in enumerate(warm):
+      fleet.submit(Request(uid=f"warm{i}", prompt=p, max_new_tokens=4))
+    fleet.run()
+    windows = {"sweep": [], "reactor": []}
+    outs = {}
+    for turn in range(4 * REACTOR_ROUNDS):
+      # ABBA: the reactor's windows drive the fleet by its cycles, the
+      # sweep's by Router.step, under the same arrival times.
+      key = "sweep" if turn % 4 in (0, 3) else "reactor"
+      if turn == 1:
+        for rep in fleet.replicas:
+          rep.reset_launch_counts()
+      meter = FleetMeter(fleet)
+      try:
+        out = meter.drive_timed(
+            Request, prompts,
+            reactor.cycle if key == "reactor" else fleet.step,
+            REACTOR_WAVE_S)
+      finally:
+        fleet.on_tokens.remove(meter._on_tokens)
+      if turn == 1:
+        launches = sum(rep.kernel_launches.get("paged_attention_tiled", 0)
+                       for rep in fleet.replicas)
+      outs.setdefault(key, out)
+      windows[key].append(meter.summary())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    med = {}
+    for key, ws in windows.items():
+      med[key] = {k: statistics.median(w[k] for w in ws) for k in ws[0]}
+      tps = ", ".join(f"{w['tokens_per_s']:.1f}" for w in ws)
+      log(f"   (20d) 2 process replicas, {key} ({smi}): "
+          f"{_fmt_fleet(med[key])} (median of {len(ws)} windows; tokens/s "
+          f"{tps})")
+    log(f"   (20d) reactor cycles {reactor.cycles}, steps dispatched "
+        f"{reactor.dispatched}, selector waits {reactor.wire_waits}")
+    ratios = [
+        sum(w["tokens_per_s"] for w in windows["reactor"][2 * r:2 * r + 2])
+        / sum(w["tokens_per_s"] for w in windows["sweep"][2 * r:2 * r + 2])
+        for r in range(REACTOR_ROUNDS)]
+    log(f"   (20d) reactor against sweep: tokens/s x "
+        f"{med['reactor']['tokens_per_s'] / med['sweep']['tokens_per_s']:.3f}"
+        f" (per ABBA round {', '.join(f'{r:.3f}' for r in ratios)}); TTFT "
+        f"p50 {med['reactor']['ttft_p50_ms']:.1f} against "
+        f"{med['sweep']['ttft_p50_ms']:.1f} ms, ITL p50 "
+        f"{med['reactor']['itl_p50_ms']:.2f} against "
+        f"{med['sweep']['itl_p50_ms']:.2f} ms; children's tiled launches "
+        f"over the first reactor window {launches}")
+    assert launches > 0
+    for key, out in outs.items():
+      greedy_vs_generate(torch, model, params, prompts, out, bf16_gap_limit,
+                         f"20d {key}", refs=refs)
+
+    # SIGSTOP one child with work in flight, under the reactor.
+    for i, p in enumerate(prompts):
+      assert fleet.submit(Request(uid=100 + i, prompt=p, max_new_tokens=32))
+    collects = {0: 0, 1: 0}
+    collect_one = fleet._collect_one
+
+    def counting(i, now):
+      collects[i] += 1
+      return collect_one(i, now)
+
+    fleet._collect_one = counting
+    reactor.cycle()
+    victim = fleet.replicas[0]
+    assert victim.has_work
+    chaos.ProcessStaller(victim).stall()
+    t0 = time.monotonic()
+    before = dict(collects)
+    while fleet.failovers == 0:
+      assert time.monotonic() - t0 < 10 * STALL_RPC_TIMEOUT_S
+      reactor.cycle()
+    stall_s = time.monotonic() - t0
+    during = collects[1] - before[1]
+    fleet.run()
+    lost = [i for i in range(len(prompts)) if 100 + i not in fleet.finished]
+    log(f"   (20d) SIGSTOP of pid {victim.child_pid} under the reactor: "
+        f"condemned after {stall_s:.1f} s (wire deadline "
+        f"{STALL_RPC_TIMEOUT_S:g} s); the other child ran {during} steps "
+        f"meanwhile; failovers {fleet.failovers}, migrated "
+        f"{fleet.migrated_requests}, lost {len(lost)}")
+    assert not lost and during > 0 and fleet.states()[0] == "down"
+    assert all(fleet.finished[100 + i].finish_reason == "length"
+               for i in range(len(prompts)))
+    greedy_vs_generate(torch, model, params, prompts,
+                       {i: fleet.finished[100 + i].tokens
+                        for i in range(len(prompts))}, bf16_gap_limit,
+                       "20d SIGSTOP failover", refs=refs)
+    del fleet._collect_one
+  finally:
+    fleet.close()
+  assert all(_gone(p) for p in pids), pids
+  reset_observability()
+  return launches
+
+
+def _sse_clients(fd_lib, door, prompts, tag):
+  """Phase 5's 16 requests as concurrent SSE clients (8, then 4 after
+  0.15 s, then 4 after 0.3 s), each on its own thread.  Returns
+  ``(results, first, wall)``: ``{i: (tokens, done)}``, the client's
+  time to its first token event, the batch's wall time."""
+  import threading
+  results, errors, first = {}, {}, {}
+
+  def client(i, p, delay):
+    time.sleep(delay)
+    t0 = time.monotonic()
+    toks = []
+    try:
+      for event, data in fd_lib.stream_generate(
+          door.address, {"uid": f"{tag}{i}", "prompt": [int(t) for t in p],
+                         "max_new_tokens": 32}, timeout=600.0):
+        if event == "token":
+          first.setdefault(i, time.monotonic() - t0)
+          toks.extend(data["tokens"])
+        else:
+          results[i] = (toks, data)
+    except Exception as e:  # noqa: BLE001 — reported by the assert
+      errors[i] = e
+
+  delays = [0.0] * 8 + [0.15] * 4 + [0.3] * 4
+  t0 = time.monotonic()
+  threads = [threading.Thread(target=client, args=(i, p, delays[i]),
+                              daemon=True) for i, p in enumerate(prompts)]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join(timeout=600.0)
+  assert not errors, errors
+  assert sorted(results) == list(range(len(prompts)))
+  return results, first, time.monotonic() - t0
+
+
+def heal_frontdoor(torch, params, pa):
+  """(e) Phase 5's 16 requests as concurrent SSE clients on 127.0.0.1
+  through an in-process reactor fleet of two replicas (then once more
+  with the front door driving the sweep, for the TTFT it adds).
+  Returns the tiled launches over the reactor clients' run."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.serving import Request, Router
+  from easyparallellibrary_tpu_torch.serving import frontdoor as fd_lib
+  from easyparallellibrary_tpu_torch.serving.frontdoor.client import _post
+  from easyparallellibrary_tpu_torch.testing import chaos
+  geometry = dict(paged=True, num_slots=NUM_SLOTS,
+                  prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE)
+  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  model = GPT(cfg)
+  prompts = make_prompts(2, 16, cfg.vocab_size)
+  reset_observability()
+  conf = epl.Config({"serving": {"router": {"reactor": True},
+                                 "frontdoor": {"keepalive_s": 0.2}}})
+  epl.init(conf)
+  router = Router(model, params, num_replicas=2, config=conf, **geometry)
+  for i, p in enumerate(prompts):
+    router.submit(Request(uid=f"direct{i}", prompt=p, max_new_tokens=32))
+  direct = router.run()
+  direct = {i: direct[f"direct{i}"] for i in range(len(prompts))}
+  # TTFT at the router (its submit to the first streamed token, both on
+  # the front door's driver thread) beside the client's.
+  at_router, router_first = {}, {}
+  submit = router.submit
+
+  def timed_submit(req):
+    at_router[req.uid] = time.monotonic()
+    return submit(req)
+
+  router.submit = timed_submit
+  router.on_tokens.append(
+      lambda uid, toks: router_first.setdefault(uid, time.monotonic()))
+  header = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+  with fd_lib.FrontDoor(router) as door:
+    assert door.address[0] == "127.0.0.1"
+    for rep in router.replicas:
+      rep.stats.reset()
+    pa.reset_counts()
+    results, first, wall = _sse_clients(fd_lib, door, prompts, "c")
+    torch.cuda.synchronize()
+    launches = pa.paged_attention_tiled_cuda.launches
+    fleet_ttft = statistics.median(
+        router_first[f"c{i}"] - at_router[f"c{i}"] for i in results)
+    client_ttft = statistics.median(first.values())
+    log(f"   (20e) {len(prompts)} SSE clients on {door.url} through the "
+        f"reactor: {wall:.2f} s wall; TTFT p50 client-observed "
+        f"{client_ttft * 1e3:.1f} ms, at the router {fleet_ttft * 1e3:.1f} "
+        f"ms (its submit to the first committed token), the engines' "
+        f"{router.fleet_summary()['ttft_p50_s'] * 1e3:.1f} ms "
+        f"(ServingStats); {door.streamed_events} token events; tiled "
+        f"launches {launches}")
+    assert launches > 0 and pa.paged_attention_reference.calls == 0
+    for i, (toks, done) in results.items():
+      assert done["finish_reason"] == "length" and not done["truncated"]
+      assert all(type(t) is int for t in toks)
+    greedy_vs_generate(
+        torch, model, params, prompts,
+        {i: np.asarray([int(t) for t in prompts[i]] + results[i][0])
+         for i in results}, bf16_gap_limit, "20e SSE streams",
+        refs=dict(direct), ref_name="direct submits to the same fleet")
+    # A client that vanishes mid-stream frees its slot.
+    gone = chaos.DisconnectingClient(
+        door.address, {"uid": "gone",
+                       "prompt": [int(t) for t in prompts[0][:64]],
+                       "max_new_tokens": 256}, after_events=2, rst=True,
+        timeout_s=120.0)
+    gone.start()
+    gone.join(timeout=120.0)
+    deadline = time.monotonic() + 60.0
+    while getattr(router.finished.get("gone"), "finish_reason",
+                  None) != "cancelled":
+      assert time.monotonic() < deadline, "the disconnect was not cancelled"
+      time.sleep(0.02)
+    while router.has_work:
+      assert time.monotonic() < deadline
+      time.sleep(0.02)
+    active = sum(rep.num_active for rep in router.replicas)
+    resp = _post(door.address, {"uid": "tp", "prompt": [1, 2, 3],
+                                "max_new_tokens": 2}, {"traceparent": header},
+                 timeout=120.0)
+    echoed = resp.getheader("traceparent")
+    resp.read()
+    resp.close()
+    log(f"   (20e) disconnect after {gone.events_seen} events: "
+        f"{router.finished['gone'].finish_reason} at "
+        f"{router.finished['gone'].new_tokens} tokens, active slots "
+        f"{active}, disconnect cancels {door.disconnect_cancels}; "
+        f"traceparent echoed {echoed == header}")
+    assert gone.dropped and active == 0 and door.disconnect_cancels == 1
+    assert echoed == header
+  sweep_conf = epl.Config({"serving": {"router": {"reactor": False}}})
+  for rep in router.replicas:
+    rep.stats.reset()
+  with fd_lib.FrontDoor(router, config=sweep_conf) as door:
+    swept, swept_first, swept_wall = _sse_clients(fd_lib, door, prompts,
+                                                  "s")
+  log(f"   (20e) the same clients, the front door driving the sweep: "
+      f"{swept_wall:.2f} s wall; TTFT p50 client-observed "
+      f"{statistics.median(swept_first.values()) * 1e3:.1f} ms, at the "
+      f"router "
+      f"{statistics.median(router_first[f's{i}'] - at_router[f's{i}'] for i in swept) * 1e3:.1f}"
+      f" ms, the engines' "
+      f"{router.fleet_summary()['ttft_p50_s'] * 1e3:.1f} ms")
+  router.submit = submit
+  router.close()
+  reset_observability()
+  return launches
+
+
+def self_healing_fleet(torch, params, pa, refs):
+  """Phase 20: the self-healing fleet at GPT-350M width.  Returns the
+  tiled build's launches by part."""
+  launches = {}
+  t0 = time.monotonic()
+  launches["self_heal"] = heal_autotune(torch, params, pa)
+  log(f"   (20a) {time.monotonic() - t0:.1f} s")
+  t0 = time.monotonic()
+  heal_golden(torch, params)
+  log(f"   (20b) {time.monotonic() - t0:.1f} s")
+  t0 = time.monotonic()
+  launches.update(heal_rollout(torch, params, pa))
+  log(f"   (20c) {time.monotonic() - t0:.1f} s")
+  t0 = time.monotonic()
+  launches["reactor_children"] = heal_reactor(torch, params, pa, refs)
+  log(f"   (20d) {time.monotonic() - t0:.1f} s")
+  t0 = time.monotonic()
+  launches["frontdoor"] = heal_frontdoor(torch, params, pa)
+  log(f"   (20e) {time.monotonic() - t0:.1f} s")
+  return launches
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -3474,7 +4301,7 @@ def main() -> int:
   if want(3):
     with Phase("3. kernel timing"):
       times = kernel_timing(torch, pa)
-  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19)
+  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19, 20)
   # Reference streams of generate(use_cache=False), by prompt set, shared
   # between the paged phases and phase 14, which serves the same prompts.
   refs = {"float32": {}, "bfloat16": {}, "spec": {}}
@@ -3529,6 +4356,11 @@ def main() -> int:
     with Phase("19. GPT-350M bf16: the replicated fleet (router, in-process "
                "and process replicas, SIGKILL failover, drain, traces)"):
       fleet_launches = fleet_serving(torch, params, pa)
+  if want(20):
+    with Phase("20. GPT-350M bf16: the self-healing fleet (autotuner, "
+               "golden episode, rollout, reactor, front door)"):
+      heal_launches = self_healing_fleet(torch, params, pa,
+                                         refs["bfloat16"])
   del refs
   if any(map(want, serving)):
     del params
@@ -3663,7 +4495,12 @@ def main() -> int:
            launches_speculative=spec, launches_prefix_cache={
                k: v["launches"] for k, v in prefix.items()},
            launches_from_checkpoint=ckpt_paged,
-           launches_fleet=fleet_launches),
+           launches_fleet=fleet_launches,
+           launches_self_heal=heal_launches["self_heal"],
+           launches_rollout=heal_launches["rollout"],
+           launches_rollout_children=heal_launches["rollout_children"],
+           launches_reactor_children=heal_launches["reactor_children"],
+           launches_frontdoor=heal_launches["frontdoor"]),
       paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
                    warp_launches, "float32"),
   ] + flash_records + fp16_flash + [fp16_paged, mixed_paged]}), flush=True)

@@ -8,7 +8,6 @@ ROADMAP.md Queue 1 item that will bring it, in the style of
 
 from __future__ import annotations
 
-FLEET = "Router, fleet and request migration"
 TENSOR_PARALLEL = "Tensor-parallel mesh"
 PARALLEL_STRATEGIES = "Pipeline, MoE and sequence parallelism"
 RUNTIME = "Runtime around the step"

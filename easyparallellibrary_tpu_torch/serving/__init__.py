@@ -3,7 +3,10 @@
 prefix caching (paged) and serving resilience; and the replicated fleet:
 engine replicas (:mod:`replica`) in process or in child processes
 (:mod:`transport`) behind a health-checked router with failover by
-prefix replay (:mod:`router`)."""
+prefix replay (:mod:`router`), healed by the engine autotuner
+(:mod:`autotune`) and the fleet autoscaler (:mod:`autoscale`), rolled
+to a new checkpoint blue/green (:mod:`rollout`), driven readiness-first
+(:mod:`reactor`) and served over HTTP/SSE (:mod:`frontdoor`)."""
 
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     FINISH_REASONS, PRIORITIES, check_draft_compatible, check_servable)
@@ -17,7 +20,11 @@ from easyparallellibrary_tpu_torch.serving.prefix_cache import (
     PrefixCache, block_prefix_keys)
 from easyparallellibrary_tpu_torch.serving.resilience import (
     DEGRADE_LEVELS, AdmissionController, BadStepPolicy, ReplicaHealth)
+from easyparallellibrary_tpu_torch.serving.autoscale import FleetAutoscaler
+from easyparallellibrary_tpu_torch.serving.autotune import (
+    TUNE_LEVELS, EngineAutotuner)
 from easyparallellibrary_tpu_torch.serving.replica import EngineReplica
+from easyparallellibrary_tpu_torch.serving.rollout import RolloutController
 from easyparallellibrary_tpu_torch.serving.router import Router
 from easyparallellibrary_tpu_torch.serving.scheduler import (
     FCFSScheduler, FinishedRequest, PagedStepPlan, Request, StepPlan)
@@ -30,7 +37,8 @@ from easyparallellibrary_tpu_torch.serving.transport import (
 __all__ = [
     "DEGRADE_LEVELS", "NULL_BLOCK", "AdmissionController", "BadStepPolicy",
     "BlockAllocator", "ContinuousBatchingEngine", "Drafter",
-    "DraftModelDrafter", "EngineReplica", "FCFSScheduler",
+    "DraftModelDrafter", "EngineAutotuner", "EngineReplica",
+    "FCFSScheduler", "FleetAutoscaler", "RolloutController", "TUNE_LEVELS",
     "FINISH_REASONS", "FinishedRequest", "InprocTransport", "NgramDrafter",
     "PagedStepPlan", "PrefixCache", "PRIORITIES", "ProcessTransport",
     "RemoteError", "ReplicaDeadError", "ReplicaHealth", "ReplicaTransport",

@@ -79,8 +79,10 @@ the scheduler's prefix-replay snapshots; ``checkpoint_version`` names
 the weights served, scoping the prefix tree and refusing a snapshot
 pinned to other weights.
 
-Not ported (each raises, ROADMAP.md Queue 1): a device mesh and the
-autotuner.
+The autotuner (``serving.autotune.enabled``, serving/autotune.py)
+moves the scheduler's clamps between steps, from SLO breaches.
+
+Not ported (raises, ROADMAP.md Queue 1): a device mesh.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ import numpy as np
 import torch
 
 from easyparallellibrary_tpu_torch._not_ported import (
-    FLEET, TENSOR_PARALLEL, not_ported)
+    TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.env import Env
 from easyparallellibrary_tpu_torch.kernels import _build
 from easyparallellibrary_tpu_torch.kernels import paged_attention as pa_lib
@@ -215,8 +217,6 @@ class ContinuousBatchingEngine:
     check_servable(cfg)
     if mesh is not None:
       raise not_ported("a device mesh", TENSOR_PARALLEL)
-    if conf.autotune.enabled:
-      raise not_ported("the serving autotuner", FLEET)
     self.device = resolve_device(device)
     # Reconcile the ambient tracer, SLO monitor and device introspector
     # with observability.*, so a config-enabled run traces and monitors
@@ -386,6 +386,14 @@ class ContinuousBatchingEngine:
       self._slo.add_context_provider(self._capture_context)
       if self._capture_device:
         self._slo.add_listener(self._arm_device_capture, weak=True)
+    # The engine's SLO actuator: breaches move the scheduler's clamps
+    # and the admission ladder's floor between steps, never a shape.
+    self._autotuner = None
+    if conf.autotune.enabled:
+      from easyparallellibrary_tpu_torch.serving.autotune import (
+          EngineAutotuner)
+      self._autotuner = EngineAutotuner(self, self._slo,
+                                        config=root_config)
     if self.paged:
       mb = kv_lib.paged_cache_bytes(cfg, self.num_blocks,
                                     self.block_size) / 1e6
@@ -498,6 +506,9 @@ class ContinuousBatchingEngine:
     if self._admission is not None:
       ctx["degraded_level"] = self._admission.level
       ctx["shed_total"] = self._admission.shed_total
+    if self._autotuner is not None:
+      ctx["autotune_level"] = self._autotuner.level
+      ctx["autotune_actuations"] = self._autotuner.actuations
     if self._bad_policy is not None:
       ctx.update(self._bad_policy.counters())
     if self.paged:
@@ -793,9 +804,11 @@ class ContinuousBatchingEngine:
 
   def _apply_degradation(self):
     """Feed the ladder this iteration's post-admission load signals and
-    apply its level to the scheduler (speculation gate, budget clamp)."""
+    apply its level to the scheduler (speculation gate, budget clamp).
+    Occupancy is judged against the concurrency cap in force (the
+    autotuner's slot cap included)."""
     itl = self.stats.itl_ewma_s if self.stats is not None else 0.0
-    cap = min(self.num_slots, self.scheduler.max_batch)
+    cap = min(self.num_slots, self.scheduler.effective_max_batch)
     self._admission.observe(self.scheduler.queue_depth,
                             self.scheduler.num_active / cap, itl)
     self.scheduler.spec_enabled = self._admission.speculation_enabled
@@ -1037,11 +1050,14 @@ class ContinuousBatchingEngine:
                              **extra})
 
   def step(self) -> List[FinishedRequest]:
-    """One engine iteration: plan [-> degrade] [-> draft] -> device step
-    -> commit [-> bad-step policy] [-> observability].  Returns the
-    requests that retired this iteration (empty when idle), expiries and
-    cancellations included."""
+    """One engine iteration: [autotune ->] plan [-> degrade] [-> draft]
+    -> device step -> commit [-> bad-step policy] [-> observability].
+    Returns the requests that retired this iteration (empty when idle),
+    expiries and cancellations included."""
     tracer = trace_lib.get_tracer()
+    if self._autotuner is not None:
+      # Knob moves land here, between steps, steering the plan below.
+      self._autotuner.on_step(self._steps)
     with tracer.span("serving/plan", cat="serving", track="serving"):
       plan = self.scheduler.plan_step()
     if self._admission is not None:
@@ -1228,6 +1244,9 @@ class ContinuousBatchingEngine:
         # The cumulative good-counter partner of "shed", so burn-rate
         # rules evaluate on every per-step record.
         record["finished_requests"] = float(self.stats.finished_requests)
+    if self._autotuner is not None:
+      record["autotune_level"] = self._autotuner.level
+      record["autotune_actuations"] = self._autotuner.actuations
     if self.metrics_writer is not None:
       # Legacy flat keys, as the JAX engine writes them.
       self.metrics_writer.write(self._steps, record)

@@ -284,6 +284,15 @@ class _WorkerServer:
     if takes_device:
       kwargs.setdefault("device", str(device))
     model, params = fn(**kwargs)
+    checkpoint = p.get("checkpoint")
+    if checkpoint:
+      # This child serves a given checkpoint (a rollout's green replica),
+      # restored over the factory's params on the init frame's device:
+      # the checksum chain is verified and every leaf is sliced to the
+      # factory's shape, so a bad checkpoint fails the init call.
+      from easyparallellibrary_tpu_torch.runtime.saver import (
+          restore_params)
+      params, _ = restore_params(checkpoint, target=params, device=device)
     self.replica = EngineReplica(
         int(p.get("index", 0)), model, params, config=config,
         **engine_kwargs)

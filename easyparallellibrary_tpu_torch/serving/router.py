@@ -30,10 +30,13 @@ their steps.  Replicas sit behind serving/transport.py: ``inproc`` (the
 default) or ``process`` (each replica a spawned child; a dead child's
 requests come back from the parent-side journal).
 
-Not ported (each raises, ROADMAP.md Queue 1): the autoscaler, the
-blue/green rollout controller and the readiness-driven reactor
-(``serving.autoscale.enabled``, ``serving.rollout.enabled``,
-``serving.router.reactor``).
+The control plane acts at sweep boundaries only: the rollout controller
+(``serving.rollout.enabled``, serving/rollout.py), then the autoscaler
+(``serving.autoscale.enabled``, serving/autoscale.py), grow and shrink
+the fleet through :meth:`Router.build_replica` / :meth:`adopt_replica`,
+drain and rejoin.  ``serving.router.reactor`` makes :meth:`Router.run`
+drive the fleet readiness-first (serving/reactor.py); :meth:`step`
+stays the sweep.
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from easyparallellibrary_tpu_torch._not_ported import FLEET, not_ported
 from easyparallellibrary_tpu_torch.env import Env
 from easyparallellibrary_tpu_torch.observability import slo as slo_lib
 from easyparallellibrary_tpu_torch.observability import trace as trace_lib
@@ -98,15 +100,9 @@ class Router:
   def __init__(self, model=None, params=None, *, num_replicas=None,
                mesh=None, registry=None, config=None,
                clock=time.monotonic, replicas=None, factory=None,
-               transport=None, **engine_kwargs):
+               replica_factory=None, transport=None, **engine_kwargs):
     root_config = config if config is not None else Env.get().config
     rconf = root_config.serving.router
-    if root_config.serving.autoscale.enabled:
-      raise not_ported("the fleet autoscaler (serving.autoscale)", FLEET)
-    if root_config.serving.rollout.enabled:
-      raise not_ported("blue/green rollout (serving.rollout)", FLEET)
-    if rconf.reactor:
-      raise not_ported("the reactor (serving.router.reactor)", FLEET)
     self._root_config = root_config
     self._drain_timeout_s = rconf.drain_timeout_s
     self._affinity_enabled = rconf.affinity
@@ -125,6 +121,12 @@ class Router:
                       else rconf.transport)
     if "device" in engine_kwargs and engine_kwargs["device"] is not None:
       engine_kwargs["device"] = str(engine_kwargs["device"])  # JSON-able
+    # What build_replica() needs to make one more fleet member (the
+    # autoscaler's cold grow, the rollout's green spawns).  An injected
+    # replica list carries no recipe unless `replica_factory` (an
+    # ``index -> replica`` callable, the simulator's seam) is given.
+    self._replica_spec: Optional[Dict[str, Any]] = None
+    self._replica_factory = replica_factory
     if replicas is not None:
       self.replicas: List[EngineReplica] = list(replicas)
       self.transport = "injected"
@@ -154,6 +156,10 @@ class Router:
                             registry=registry, config=root_config,
                             **engine_kwargs)
             for i in range(n)]
+      self._replica_spec = {
+          "model": model, "params": params, "mesh": mesh,
+          "registry": registry, "factory": factory,
+          "engine_kwargs": dict(engine_kwargs)}
     self._itl_slo = root_config.serving.resilience.itl_slo_s
     self.health: List[ReplicaHealth] = [
         self._make_health(i) for i in range(len(self.replicas))]
@@ -164,6 +170,10 @@ class Router:
     self.on_tokens: List[Any] = []
     for rep in self.replicas:
       self._wire_stream(rep)
+    # The readiness-driven driver (serving/reactor.py), built lazily;
+    # `serving.router.reactor` makes run() drive through it.
+    self._reactor = None
+    self._reactor_enabled = bool(rconf.reactor)
     self.registry = registry
     if self._slo is not None and registry is not None:
       self._slo.attach(registry)
@@ -192,12 +202,106 @@ class Router:
     self.migrated_requests = 0       # snapshots moved (failover + drain)
     self.router_shed = 0             # shed here: no routable replica
     self.probes = 0                  # breaker half-open rejoins
+    # The fleet's SLO actuator (serving/autoscale.py) and the blue/green
+    # rollout controller (serving/rollout.py): both act in _sweep_begin,
+    # the only point the replica list may change.
+    self._autoscaler = None
+    if root_config.serving.autoscale.enabled:
+      from easyparallellibrary_tpu_torch.serving.autoscale import (
+          FleetAutoscaler)
+      self._autoscaler = FleetAutoscaler(self, config=root_config)
+    self.rollout = None
+    if root_config.serving.rollout.enabled:
+      from easyparallellibrary_tpu_torch.serving.rollout import (
+          RolloutController)
+      self.rollout = RolloutController(self, config=root_config)
     get_logger().info(
         "serving router: %d replica(s) (%s), suspect/down after "
         "%.1fs/%.1fs, drain timeout %.1fs, affinity %s",
         len(self.replicas), self.transport, rconf.suspect_after,
         rconf.down_after, rconf.drain_timeout_s,
         "on" if self._affinity_enabled else "off")
+
+  # ------------------------------------------------------------- growth
+
+  @property
+  def spawn_recipe_available(self) -> bool:
+    """True when this router can build new replicas: it built its own
+    fleet, or was given a ``replica_factory``."""
+    return (self._replica_spec is not None
+            or self._replica_factory is not None)
+
+  def build_replica(self, index: Optional[int] = None, *,
+                    checkpoint: Optional[str] = None,
+                    checkpoint_version: Optional[int] = None,
+                    params=None):
+    """Build ONE replica from the stored recipe without registering it:
+    the slow half of :meth:`add_replica` (a child's spawn and engine
+    build, or an in-process engine's weight copy), which the autoscaler
+    and the rollout run on a spawner thread.  Reads the recipe only; the
+    replica list is :meth:`adopt_replica`'s.
+
+    ``checkpoint`` / ``checkpoint_version`` / ``params`` override the
+    recipe for this one build (the rollout's green spawn); a completed
+    rollout rewrites the recipe itself."""
+    if self._replica_spec is None:
+      if self._replica_factory is not None:
+        if (checkpoint is not None or checkpoint_version is not None
+            or params is not None):
+          raise RuntimeError(
+              "build_replica() overrides (checkpoint/version/params) "
+              "are recipe levers; a replica_factory fleet builds "
+              "replicas from the factory alone")
+        return self._replica_factory(
+            len(self.replicas) if index is None else index)
+      raise RuntimeError(
+          "build_replica() needs a router that built its own replicas; "
+          "a fleet constructed from injected replicas carries no "
+          "(model, params)/factory recipe to grow from")
+    spec = self._replica_spec
+    index = len(self.replicas) if index is None else index
+    kwargs = dict(spec["engine_kwargs"])
+    if checkpoint_version is not None:
+      kwargs["checkpoint_version"] = int(checkpoint_version)
+    if self.transport == "process":
+      ckpt = checkpoint if checkpoint is not None else (
+          spec.get("checkpoint"))
+      return ProcessTransport(
+          index, spec["factory"], config=self._root_config,
+          engine_kwargs=kwargs, checkpoint=ckpt)
+    return InprocTransport(
+        index, spec["model"],
+        spec["params"] if params is None else params,
+        mesh=spec["mesh"], registry=spec["registry"],
+        config=self._root_config, **kwargs)
+
+  def adopt_replica(self, rep) -> int:
+    """Register a built replica (the fast half of :meth:`add_replica`):
+    append it to the replica and health lists, emit the trace instant,
+    flush the parked backlog.  Runs on the router's thread between
+    sweeps only."""
+    index = len(self.replicas)
+    self.replicas.append(rep)
+    self.health.append(self._make_health(index))
+    self._wire_stream(rep)
+    tracer = trace_lib.get_tracer()
+    if tracer.enabled:
+      tracer.instant(
+          "serving/replica_added", cat="serving", track="serving",
+          args={"replica": index, "transport": self.transport,
+                "pid": getattr(rep, "child_pid", None) or -1})
+    get_logger().info("fleet grew: replica %d added (%s transport)",
+                      index, self.transport)
+    self._flush_parked()
+    return index
+
+  def add_replica(self) -> int:
+    """Grow the fleet by one replica built from the construction recipe
+    (same transport, config and engine kwargs); returns its index.  The
+    synchronous operator lever: it blocks for the build (a child's spawn
+    on the process transport).  Raises on an injected fleet without a
+    ``replica_factory``."""
+    return self.adopt_replica(self.build_replica())
 
   # ------------------------------------------------------------- health
 
@@ -232,6 +336,17 @@ class Router:
             args={"replica": index, "from": old, "to": new,
                   "reason": reason})
     return hook
+
+  def reactor(self):
+    """The readiness-driven driver over this fleet (serving/reactor.py,
+    built once): each replica is dispatched again the moment its reply
+    lands.  ``run()`` drives through it when ``serving.router.reactor``
+    is on; :meth:`step` stays the sweep either way."""
+    if self._reactor is None:
+      from easyparallellibrary_tpu_torch.serving.reactor import (
+          RouterReactor)
+      self._reactor = RouterReactor(self, config=self._root_config)
+    return self._reactor
 
   def state(self, index: int) -> str:
     return self.health[index].state
@@ -504,8 +619,15 @@ class Router:
     self.placement.pop(fin.uid, None)
 
   def _sweep_begin(self, now: float) -> None:
-    """Control-plane actions at a sweep boundary: drain expiry and the
-    parked flush."""
+    """Control-plane actions at a sweep (or reactor cycle) boundary, the
+    only point the replica list may change: rollout transitions, the
+    autoscaler, drain expiry and the parked flush."""
+    if self.rollout is not None:
+      # A rollback or cutover this sweep holds or releases the
+      # autoscaler before it reads the replica set.
+      self.rollout.on_step(now)
+    if self._autoscaler is not None:
+      self._autoscaler.on_step(now)
     self._check_drains(now)
     self._flush_parked()
 
@@ -610,6 +732,12 @@ class Router:
   def _publish_rollup(self) -> None:
     self._last_rollup = self.clock()
     records = [(FLEET_NAMESPACE, self.fleet_summary())]
+    if self.rollout is not None and self.rollout.active:
+      # Per-version sub-rollups while a rollout is in flight: bare-name
+      # SLO rules suffix-match ``serving/fleet/v<N>/...``, the canary's
+      # evidence streams, with no new rules.
+      for ver, sub in self.rollout.version_rollups().items():
+        records.append((f"{FLEET_NAMESPACE}/v{ver}", sub))
     for namespace, rollup in records:
       if self.registry is not None:
         # The SLO monitor rides the registry as a sink (attach at init).
@@ -638,8 +766,10 @@ class Router:
     attached."""
     out: Dict[Any, np.ndarray] = {}
     steps = 0
+    drive = (self.reactor().cycle if self._reactor_enabled
+             else self.step)
     while self.has_work and (max_steps is None or steps < max_steps):
-      for fin in self.step():
+      for fin in drive():
         out[fin.uid] = fin.tokens
       steps += 1
       if self._parked_stalled():
@@ -995,6 +1125,10 @@ class Router:
         continue
       for key, val in rpc().items():
         counters[key] = counters.get(key, 0.0) + float(val)
+    if self._autoscaler is not None:
+      counters.update(self._autoscaler.counters())
+    if self.rollout is not None:
+      counters.update(self.rollout.counters())
     return counters
 
   def fleet_summary(self) -> Dict[str, float]:
@@ -1038,9 +1172,15 @@ class Router:
 
   def close(self):
     # Process replicas flush their ring remainder on the shutdown
-    # reply, so closing the fleet completes the merged trace.
+    # reply, so closing the fleet completes the merged trace.  Then the
+    # spawner threads stop: they hold the router, and every engine in
+    # it, while they run (and a child dies with the thread that forked
+    # it, so they stop after the replicas closed).
     for rep in self.replicas:
       rep.close()
+    for owner in (self._autoscaler, self.rollout, self._reactor):
+      if owner is not None:
+        owner.close()
 
   def __enter__(self):
     return self

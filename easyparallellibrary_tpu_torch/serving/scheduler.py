@@ -54,8 +54,9 @@ variability lives here; the device step only ever sees fixed shapes.
   replays prompt + committed prefix through chunked prefill, so its
   stream resumes where it stopped.  ``checkpoint_version`` scopes the
   prefix tree and refuses a snapshot pinned to other weights.
-
-Not ported (ROADMAP.md Queue 1): the autotuner's clamps.
+* Autotuner clamps (serving/autotune.py): ``tune_budget``,
+  ``tune_slot_cap`` and ``tune_spec_k`` move between steps and steer
+  admission and planning only.
 """
 
 from __future__ import annotations
@@ -402,14 +403,21 @@ class FCFSScheduler:
       self.prefix_cache = None
     self._admit_seq = 0
     # Max drafts per decode slot per step (0 = no drafter); switching
-    # ``spec_enabled`` off plans no drafts, Request.speculative=False
-    # opts one request out.
+    # ``spec_enabled`` off (the degradation ladder) plans no drafts,
+    # Request.speculative=False opts one request out.
     self.spec_k = spec_k
     self.spec_enabled = True
     self.prefill_token_budget = prefill_token_budget
     # The degradation ladder's clamp (engine resilience): when > 0 the
     # per-step budget is min(budget or inf, override).
     self.budget_override = 0
+    # The autotuner's clamps (serving/autotune.py), plan data only:
+    # tune_budget (> 0) joins the budget min above, tune_slot_cap (> 0)
+    # caps concurrency below max_batch, tune_spec_k (>= 0) caps each
+    # slot's drafts below spec_k.  A separate gate from spec_enabled.
+    self.tune_budget = 0
+    self.tune_slot_cap = 0
+    self.tune_spec_k = -1
     self.max_batch = max_batch if max_batch > 0 else num_slots
     self.default_stop_token = stop_token
     self.clock = clock
@@ -431,18 +439,31 @@ class FCFSScheduler:
 
   def _effective_budget(self) -> int:
     """The prefill-token budget in force: ``prefill_token_budget``
-    clamped by ``budget_override`` (0 = uncapped in both)."""
+    clamped by ``budget_override`` and ``tune_budget`` (0 = uncapped in
+    each)."""
     budget = self.prefill_token_budget
     if self.budget_override > 0 and (
         budget == 0 or self.budget_override < budget):
       budget = self.budget_override
+    if self.tune_budget > 0 and (budget == 0 or self.tune_budget < budget):
+      budget = self.tune_budget
     return budget
 
   @property
+  def effective_max_batch(self) -> int:
+    """Concurrency cap after the autotuner's slot-cap clamp (admission
+    reads this; ``max_batch`` stays the configured baseline)."""
+    if self.tune_slot_cap > 0:
+      return min(self.max_batch, self.tune_slot_cap)
+    return self.max_batch
+
+  @property
   def effective_spec_k(self) -> int:
-    """Per-slot draft cap of the next plan: ``spec_k``, or 0 while
-    speculation is switched off."""
-    return self.spec_k if self.spec_enabled else 0
+    """Per-slot draft cap after the autotuner's speculation clamp
+    (``spec_enabled`` gates drafting separately, at planning)."""
+    if self.tune_spec_k >= 0:
+      return min(self.spec_k, self.tune_spec_k)
+    return self.spec_k
 
   # ---------------------------------------------------------------- queue
 
@@ -782,6 +803,7 @@ class FCFSScheduler:
     charged its first chunk, so a step never admits more prefill than it
     can schedule."""
     budget_cap = self._effective_budget()
+    batch_cap = self.effective_max_batch
     budget_left = budget_cap
     if budget_left > 0:
       budget_left -= sum(
@@ -793,7 +815,7 @@ class FCFSScheduler:
       first_chunk = min(self.chunk, entry.prefix_len)
       if budget_cap > 0 and budget_left < first_chunk:
         break
-      if self.allocator.num_free == 0 or len(self.active) >= self.max_batch:
+      if self.allocator.num_free == 0 or len(self.active) >= batch_cap:
         # Capacity-blocked: a latency-class arrival evicts the youngest
         # throughput slot holding blocks now, instead of queueing.
         if not (self.paged and self._latency_pending
@@ -1091,7 +1113,7 @@ class FCFSScheduler:
       pos += grant
       scheduled.add(slot)
     # Pass 3: speculative draft reservations ride the leftover budget.
-    spec_k = self.effective_spec_k
+    spec_k = self.effective_spec_k if self.spec_enabled else 0
     for slot in list(self._admit_order) if spec_k > 0 else ():
       state = self.active.get(slot)
       if (state is None or state.prefilling or plan.num_valid[slot] != 1
@@ -1198,7 +1220,8 @@ class FCFSScheduler:
         plan.tokens[slot, 0] = state.generated[-1]
         plan.num_valid[slot] = 1
         plan.decode_tokens += 1
-        if spec_k > 0 and req.speculative is not False:
+        if (spec_k > 0 and self.spec_enabled
+            and req.speculative is not False):
           # At most remaining - 1 drafts can commit beside the step's
           # guaranteed token.
           remaining = req.max_new_tokens - len(state.generated)

@@ -124,6 +124,15 @@ class FrameReader:
     self.sock = sock
     self.buf = b""
 
+  def has_frame(self) -> bool:
+    """True when a whole frame already sits in the buffer (read off the
+    socket with an earlier one), so ``read`` returns without the socket
+    polling readable."""
+    if len(self.buf) < _LEN.size:
+      return False
+    (n,) = _LEN.unpack_from(self.buf)
+    return len(self.buf) >= _LEN.size + n
+
   def read(self, timeout: Optional[float] = None) -> Any:
     """Next frame as a decoded object; ``timeout`` is a per-call
     deadline in seconds (None blocks forever).  Raises
@@ -286,6 +295,18 @@ class ReplicaTransport:
   def rpc_counters(self) -> Dict[str, int]:
     return {"rpc_retries": 0, "rpc_timeouts": 0, "child_restarts": 0}
 
+  def readiness_fd(self) -> Optional[int]:
+    """A select()-able fd that turns readable when this replica's
+    pipelined step reply lands (the reactor's wait handle).  None: no
+    wire, the replica computes at :meth:`step_recv`, so the reactor
+    treats it as ready once dispatched."""
+    return None
+
+  def step_ready(self) -> bool:
+    """True when :meth:`step_recv` would return without blocking on the
+    wire (in-process replicas compute inside it)."""
+    return True
+
 
 class InprocTransport(EngineReplica, ReplicaTransport):
   """The default transport: an in-process ``EngineReplica`` (this IS
@@ -340,7 +361,9 @@ class ProcessTransport(ReplicaTransport):
   ``factory`` builds ``(model, params)`` in the child; ``engine_kwargs``
   must be JSON-serializable and pass through to the child's
   :class:`EngineReplica` (``device`` among them: the child raises when
-  it was asked for ``"cuda"`` and has none)."""
+  it was asked for ``"cuda"`` and has none).  ``checkpoint`` names a
+  checkpoint directory the child restores over the factory's params
+  (the rollout's green replicas)."""
 
   kind = "process"
 
@@ -350,9 +373,11 @@ class ProcessTransport(ReplicaTransport):
                rpc_retries: Optional[int] = None,
                rpc_backoff_s: Optional[float] = None,
                spawn_timeout_s: Optional[float] = None,
+               checkpoint: Optional[str] = None,
                start: bool = True):
     from easyparallellibrary_tpu_torch.env import Env
     self.index = index
+    self._checkpoint = checkpoint
     self._config = config if config is not None else Env.get().config
     rconf = self._config.serving.router
     self._factory = factory_spec(factory)
@@ -518,6 +543,7 @@ class ProcessTransport(ReplicaTransport):
           "factory": self._factory,
           "engine_kwargs": self._engine_kwargs,
           "config": self._config.to_dict(),
+          "checkpoint": self._checkpoint,
       })
     except Exception:
       self._fence()
@@ -921,6 +947,27 @@ class ProcessTransport(ReplicaTransport):
   def step(self) -> List[FinishedRequest]:
     self.step_send()
     return self.step_recv()
+
+  def readiness_fd(self) -> Optional[int]:
+    """The socket's fd while a step is in flight: readable exactly when
+    the child's reply (or a side-band frame) lands."""
+    if (self._inflight_step is None or self._sock is None
+        or self._condemned):
+      return None
+    try:
+      return self._sock.fileno()
+    except OSError:
+      return None
+
+  def step_ready(self) -> bool:
+    """True when the in-flight step's reply is already off the socket:
+    stashed by an interleaved submit or cancel that drained it while
+    waiting for its own reply, or buffered whole behind that reply.
+    The socket will not poll readable for either."""
+    if self._inflight_step is None:
+      return False
+    return (self._inflight_step in self._pending
+            or (self._reader is not None and self._reader.has_frame()))
 
   @property
   def has_work(self) -> bool:

@@ -26,6 +26,8 @@ Fleet (``serving/router.py``, ``serving/transport.py``):
   replica dying mid-step), :class:`ReplicaHang` (a host sleep the
   watchdog must surface) and :class:`FlappingHealth` (a replica that
   keeps dying and recovering, against the circuit breaker);
+* front door clients: :class:`SlowReader` (drains its stream too slowly)
+  and :class:`DisconnectingClient` (vanishes mid-stream);
 * process replicas, for real: :class:`ProcessKiller` (SIGKILL of the
   child), :class:`ProcessStaller` (SIGSTOP: the wire deadline must
   condemn and fence it) and :class:`ReplyDropper` (reply frames read
@@ -36,8 +38,12 @@ from __future__ import annotations
 
 import os
 import signal as _signal
+import socket as _socket
+import struct
+import threading
 import time
-from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -477,6 +483,100 @@ class ReplyDropper:
     self.transport._read_frame = self.inner
 
 
-__all__ = ["FlakyDrafter", "FlappingHealth", "HangingStepInjector",
-           "NaNLogitsInjector", "ProcessKiller", "ProcessStaller",
-           "ReplicaHang", "ReplicaKiller", "ReplyDropper"]
+# ----------------------------------------------------- front door clients
+
+
+class SlowReader(threading.Thread):
+  """A client too slow for its own stream: opens ``/v1/generate`` on a
+  live front door (serving/frontdoor/) over a raw socket, then drains
+  the SSE response ``read_bytes`` at a time with ``interval_s`` pauses,
+  so its bounded queue (``serving.frontdoor.stream_buffer``) overflows
+  and the front door must shed this flow alone.  After ``join()``:
+  ``bytes_read`` and ``eof`` (the server closed the stream)."""
+
+  def __init__(self, address: Tuple[str, int], body: Dict[str, Any],
+               headers: Optional[Dict[str, str]] = None,
+               read_bytes: int = 1, interval_s: float = 0.2,
+               duration_s: float = 30.0):
+    super().__init__(daemon=True)
+    self.address = address
+    self.body = body
+    self.headers = headers
+    self.read_bytes = int(read_bytes)
+    self.interval_s = float(interval_s)
+    self.duration_s = float(duration_s)
+    self.bytes_read = 0
+    self.eof = False
+    self.error: Optional[BaseException] = None
+
+  def run(self) -> None:
+    from easyparallellibrary_tpu_torch.serving.frontdoor.client import (
+        open_raw_stream)
+    deadline = time.monotonic() + self.duration_s
+    try:
+      sock = open_raw_stream(self.address, self.body, headers=self.headers,
+                             timeout=self.duration_s)
+      try:
+        while time.monotonic() < deadline:
+          chunk = sock.recv(self.read_bytes)
+          if not chunk:
+            self.eof = True
+            return
+          self.bytes_read += len(chunk)
+          time.sleep(self.interval_s)
+      finally:
+        sock.close()
+    except OSError as e:
+      self.error = e
+
+
+class DisconnectingClient(threading.Thread):
+  """A client that vanishes mid-stream: consumes ``after_events`` SSE
+  token events, then drops the connection, with an RST (``rst=True``,
+  SO_LINGER 0: no FIN) or a plain close.  The front door must cancel the
+  request within one keepalive interval.  After ``join()``:
+  ``events_seen`` and ``dropped`` (the stream did not finish first)."""
+
+  def __init__(self, address: Tuple[str, int], body: Dict[str, Any],
+               headers: Optional[Dict[str, str]] = None,
+               after_events: int = 2, rst: bool = False,
+               timeout_s: float = 30.0):
+    super().__init__(daemon=True)
+    self.address = address
+    self.body = body
+    self.headers = headers
+    self.after_events = int(after_events)
+    self.rst = rst
+    self.timeout_s = float(timeout_s)
+    self.events_seen = 0
+    self.dropped = False
+    self.error: Optional[BaseException] = None
+
+  def run(self) -> None:
+    from easyparallellibrary_tpu_torch.serving.frontdoor.client import (
+        open_raw_stream)
+    try:
+      sock = open_raw_stream(self.address, self.body, headers=self.headers,
+                             timeout=self.timeout_s)
+      buf = b""
+      try:
+        while self.events_seen < self.after_events:
+          chunk = sock.recv(4096)
+          if not chunk:
+            return                      # finished before the drop
+          buf += chunk
+          self.events_seen = buf.count(b"event: token")
+        if self.rst:
+          sock.setsockopt(_socket.SOL_SOCKET, _socket.SO_LINGER,
+                          struct.pack("ii", 1, 0))
+        self.dropped = True
+      finally:
+        sock.close()
+    except OSError as e:
+      self.error = e
+
+
+__all__ = ["DisconnectingClient", "FlakyDrafter", "FlappingHealth",
+           "HangingStepInjector", "NaNLogitsInjector", "ProcessKiller",
+           "ProcessStaller", "ReplicaHang", "ReplicaKiller", "ReplyDropper",
+           "SlowReader"]

@@ -455,16 +455,20 @@ def test_parked_cancel_and_passive_reap_equal_jax():
 
 
 def test_fleet_knobs_outside_the_slice_raise():
-  """The autoscaler, blue/green rollout and the reactor are not ported:
-  enabling one raises naming the ROADMAP item."""
+  """The autoscaler, blue/green rollout and the reactor have been ported
+  since: enabling each builds its controller (or driver); a process
+  fleet without a factory and an empty fleet still raise."""
   _, _, tmodel, tparams = _models()
-  for conf in ({"serving": {"autoscale": {"enabled": True}}},
-               {"serving": {"rollout": {"enabled": True}}},
-               {"serving": {"router": {"reactor": True}}}):
-    with pytest.raises(NotImplementedError,
-                       match="Router, fleet and request migration"):
-      Router(tmodel, tparams, num_replicas=1, device="cpu",
-             config=tepl.Config(conf), **GEOMETRY)
+  for conf, attr in (({"serving": {"autoscale": {"enabled": True}}},
+                      "_autoscaler"),
+                     ({"serving": {"rollout": {"enabled": True}}},
+                      "rollout"),
+                     ({"serving": {"router": {"reactor": True}}},
+                      "_reactor_enabled")):
+    router = Router(tmodel, tparams, num_replicas=1, device="cpu",
+                    config=tepl.Config(conf), **GEOMETRY)
+    assert getattr(router, attr)
+    router.close()
   with pytest.raises(ValueError, match="factory"):
     Router(num_replicas=1, device="cpu",
            config=tepl.Config({"serving": {"router": {

@@ -161,17 +161,24 @@ def test_sampled_stream_independent_of_batch_and_slot():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(config=TorchConfig({"serving.autotune.enabled": True})),
-    dict(config=TorchConfig({"serving.autotune.enabled": True,
+    dict(mesh=object(),
+         config=TorchConfig({"serving.autotune.enabled": True})),
+    dict(mesh=object(),
+         config=TorchConfig({"serving.autotune.enabled": True,
                              "observability.enabled": True})),
     dict(mesh=object()), dict(mesh=object(), registry=object()),
 ])
 def test_features_outside_the_slice_raise(kwargs):
   """What the port has not reached raises on both layouts (the
-  contiguous engine, serving resilience and observability have been
-  ported since: the autotuner and a mesh still raise beside them)."""
+  contiguous engine, serving resilience, observability and the autotuner
+  have been ported since: a mesh still raises, with the autotuner on or
+  off); with the autotuner on and no mesh, each layout builds one."""
   tmodel, tparams = tiny_gpt(device="cpu")
   for paged in (True, False):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
       ContinuousBatchingEngine(tmodel, tparams, device="cpu",
                                **{"paged": paged, **kwargs})
+    rest = {k: v for k, v in kwargs.items() if k not in ("mesh", "registry")}
+    eng = ContinuousBatchingEngine(tmodel, tparams, device="cpu",
+                                   paged=paged, **rest)
+    assert (eng._autotuner is not None) == ("config" in kwargs)
