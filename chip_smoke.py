@@ -170,6 +170,30 @@ lines.  ``--phases 20`` runs the latest slice's:
     of the front door on 127.0.0.1 through an in-process reactor fleet:
     streams against direct submits, client TTFT beside the router's, a
     disconnect freeing its slot, ``traceparent`` echoed.
+
+``--phases 21`` runs the tensor-parallel mesh, two ranks started by
+``utils.launcher.spawn`` sharing the one card (each rank's program is
+in ``testing/tp_workers.py``; every group has a deadline and the phase a
+wall limit):
+
+21. (a) whether NCCL takes two ranks on the card (it refuses two ranks
+    on one device), and the backend the phase then names (gloo over
+    CUDA tensors unless NCCL took them); every collective on CUDA
+    tensors against numpy; K2 (engine_step) and K1 (B=16, S=1024,
+    D=64) at the per-rank H = 8 against their plain versions, timed
+    beside them, their bounds and the library yardsticks; (b) GPT-350M
+    bf16 on the paged engine at tp = 2 under phase 5's load, with the
+    n-gram drafter and with the prefix cache: streams against the tp = 1
+    engine's by the gap rule, the tiled kernel's launches 24 x steps on
+    each rank, tokens/s, TTFT p50 and host ms a step beside tp = 1's;
+    (c) bench.py's training step at tp = 2, 5 steps: losses against
+    tp = 1 within one bf16 spacing, each rank's flash launches 24 x
+    steps per kernel, peak memory and step ms; (d) explicit DP = 2 with
+    8 MB fusion buckets and ZeRO-1 at DP = 2 (4 layers) against one
+    process, ZeRO-1's moment bytes half of DP's; (e) a row-parallel
+    Dense through the overlap ring against ``overlap="off"``.  Every
+    number of phase 21 is two processes time-sharing one card: a
+    correctness check, not a scaling number.
 """
 
 from __future__ import annotations
@@ -4249,6 +4273,389 @@ def self_healing_fleet(torch, params, pa, refs):
   return launches
 
 
+# ------------------------------------------------ 21. tensor-parallel mesh
+
+TP = 2                       # ranks of the model axis (phase 21)
+# Each spawned group's deadline, and phase 21's wall limit: a hung
+# collective fails the phase instead of the script's time limit.
+TP_SPAWN_DEADLINE_S, TP_PHASE_WALL_S = 600, 900
+TP_TRAIN_BATCH, TP_TRAIN_STEPS = 16, 5
+# bf16 losses of two runs whose sums are taken in another order (the
+# row-parallel all-reduces, the vocab-parallel normaliser, a per-rank
+# batch): one bf16 spacing, 2^-8, relative.
+TP_LOSS_RTOL = 2.0 ** -8
+# 21a's collectives: each rank holds two rows of X; the rings multiply
+# by W.
+TP_COLLECTIVE_X = np.arange(4 * 6, dtype=np.float32).reshape(4, 6) + 1.0
+TP_COLLECTIVE_W = np.arange(6 * 3, dtype=np.float32).reshape(6, 3) / 7
+# Phase 21d: GPT-350M widths cut to 4 layers, 8 sequences, 3 steps.
+DP_LAYERS, DP_BATCH, DP_STEPS = 4, 8, 3
+# The overlap ring against the fused all-reduce, bf16, by normalized
+# error: the output and the input gradient add the same two partial
+# products as the all-reduce (one bf16 spacing, 2^-8); the weight
+# gradient's two row-block products are each rounded to bf16 before
+# they add, where the fused product rounds once (four spacings, 2^-6).
+RING_BF16_LIMIT = {"y": 2.0 ** -8, "dx": 2.0 ** -8, "dw": 2.0 ** -6}
+
+
+def tp_backend(torch):
+  """21a: whether NCCL takes two ranks on this machine (on one card it is
+  expected to refuse), and the backend phase 21 then names: NCCL if it
+  did, else gloo over CUDA tensors (the port stages them through host
+  memory).  No quiet switch: the outcome is printed.  A probe whose ranks
+  abort (a native error outside Python) counts as a refusal and is printed
+  as one."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import WorkerError, spawn
+  try:
+    probe = spawn(tp_workers.nccl_probe, TP, (), timeout_s=180)
+  except WorkerError as e:
+    probe = [f"ranks aborted: {str(e).splitlines()[0][:200]}"]
+  ok = all(r.startswith("ok") for r in probe)
+  backend = "nccl" if ok else "gloo"
+  log(f"   NCCL with {TP} ranks on {torch.cuda.device_count()} card(s): "
+      f"{'accepted' if ok else 'refused'} ({probe[0]}); phase 21 runs "
+      f"backend={backend}")
+  return backend, probe[0]
+
+
+def tp_numpy_collectives(x, w):
+  """What each collective of ``tp_workers.chip_tp_suite`` gives rank r
+  of ``TP`` (rows of ``x`` split over the ranks), in numpy."""
+  blocks = np.split(x, TP)
+  out = []
+  for r in range(TP):
+    s = sum(blocks)
+    rec = {"all_reduce_sum": s, "all_reduce_max": np.max(blocks, 0),
+           "all_reduce_min": np.min(blocks, 0),
+           "all_reduce_mean": s / TP, "all_reduce_prod": np.prod(blocks, 0),
+           "all_gather": x, "reduce_scatter": TP * blocks[r],
+           "broadcast": blocks[1],
+           "reduce": s if r == 1 else np.zeros_like(s),
+           "ring_shift": blocks[(r - 1) % TP],
+           "all_to_all": np.split(x, TP, axis=1)[r],
+           "all_gather_matmul_ring": x @ w,
+           "matmul_reduce_scatter_ring": np.split(
+               sum(b @ w for b in blocks), TP)[r]}
+    out.append(rec)
+  return out
+
+
+def tp_check_collectives_and_ring(torch, ranks, backend, dense):
+  """21a: every collective on CUDA tensors over ``backend`` against numpy
+  (SUM of integer-valued floats exact, the rest rtol 1e-6); 21e: the
+  row-parallel Dense through the overlap ring against ``overlap="off"``
+  (``RING_BF16_LIMIT``)."""
+  x, w = TP_COLLECTIVE_X, TP_COLLECTIVE_W
+  want = tp_numpy_collectives(x, w)
+  exact = {"all_reduce_sum", "all_gather", "reduce_scatter", "broadcast",
+           "reduce", "ring_shift", "all_to_all", "all_reduce_max",
+           "all_reduce_min"}
+  for r in range(TP):
+    for op, expect in want[r].items():
+      got = ranks[r]["collectives"][op].reshape(expect.shape)
+      if op in exact:
+        np.testing.assert_array_equal(got, expect, err_msg=f"{op} rank {r}")
+      else:
+        np.testing.assert_allclose(got, expect, rtol=1e-6,
+                                   err_msg=f"{op} rank {r}")
+  log(f"   21a. {len(want[0])} collectives on CUDA tensors over {backend} "
+      f"equal numpy on both ranks (SUM exact, the rest rtol 1e-6)")
+  worst = {}
+  for r in range(TP):
+    on, off = ranks[r]["ring"]["on"], ranks[r]["ring"]["off"]
+    for key in ("y", "dx", "dw"):
+      rel = normalized_errors(torch.from_numpy(on[key]),
+                              torch.from_numpy(off[key]))
+      worst[key] = max(worst.get(key, (0.0, 0.0)), rel)
+      assert max(rel) <= RING_BF16_LIMIT[key], (key, r, rel)
+  log(f"   21e. row-parallel Dense {dense['rows']}x{dense['d_in']} -> "
+      f"{dense['d_out']} bf16, overlap ring against overlap=off "
+      f"(rel_l2, max_rel): " + ", ".join(f"{k} ({v[0]:.2e}, {v[1]:.2e})"
+                                        for k, v in worst.items())
+      + f" (limits {RING_BF16_LIMIT}); ms a call on rank 0: ring "
+      f"{ranks[0]['ring']['on']['ms']:.2f}, fused "
+      f"{ranks[0]['ring']['off']['ms']:.2f} (two ranks on one card, "
+      f"{backend})")
+  return {"ring_rel": worst, "ring_ms": ranks[0]["ring"]["on"]["ms"],
+          "fused_ms": ranks[0]["ring"]["off"]["ms"]}
+
+
+def tp_kernels_at_rank_shapes(torch, pa, fa):
+  """K2 and K1 at the per-rank shapes the TP paths launch (H / tp = 8
+  heads): the tiled paged build at ``engine_step`` and the three flash
+  kernels at B=16, H=8, S=1024, D=64, bf16 causal, each against its
+  plain version and timed beside it, its bound and the library
+  yardstick."""
+  H = GPT_350M["num_heads"] // TP
+  cases = [engine_step_case(torch, torch.bfloat16, 300 + i, H=H)
+           for i in range(4)]
+  sets = [args for args, _ in cases]
+  kernel_sets = [(*args, paged_tiles(pa, args, runs))
+                 for args, runs in cases]
+  want = pa.paged_attention_reference(*sets[0])
+  got = pa.paged_attention_cuda(*kernel_sets[0])
+  torch.cuda.synchronize()
+  paged_err = (got.float() - want.float()).abs().max().item()
+  torch.testing.assert_close(got.float(), want.float(),
+                             rtol=TOLERANCE["bfloat16"],
+                             atol=TOLERANCE["bfloat16"])
+  bound, bound_by = paged_bound(torch, *[sets[0][i] for i in (0, 1, 3, 4)])
+  lib = lambda *a: library_paged_attention(torch, *a)  # noqa: E731
+  paged = dict(kernel_ms=time_ms(torch, pa.paged_attention_cuda,
+                                 kernel_sets),
+               plain_ms=time_ms(torch, pa.paged_attention_reference, sets,
+                                reps=3),
+               library_ms=time_ms(torch, lib, sets, reps=3),
+               bound_ms=bound, bound_by=bound_by, max_abs_err=paged_err)
+  log(f"   K2 tiled build at engine_step, H={H} hd=64 bf16: "
+      + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                  for k, v in paged.items()))
+  shape = dict(B=FLASH_BENCH_SHAPE["B"], H=H, S=FLASH_BENCH_SHAPE["S"],
+               D=FLASH_BENCH_SHAPE["D"])
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  sets, graphs = [], []
+  for i in range(2):
+    q, k, v, dout = flash_case(torch, torch.bfloat16, 400 + i, **shape)
+    out, lse = fa.flash_fwd_cuda(q, k, v, True)
+    delta = (dout.float() * out.float()).sum(-1)
+    sets.append((q, k, v, dout, lse, delta))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    graphs.append((sdpa(*leaves, is_causal=True), leaves, dout))
+  q, k, v, dout, lse, delta = sets[0]
+  want_out, want_lse = fa.flash_fwd_reference(q, k, v, True)
+  got = {"fwd": (fa.flash_fwd_cuda(q, k, v, True)[0], want_out)}
+  dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, dout, want_lse, delta, True)
+  wdk, wdv = fa.flash_bwd_dkv_reference(q, k, v, dout, want_lse, delta,
+                                        True)
+  got["dkv"] = (torch.cat([dk, dv]), torch.cat([wdk, wdv]))
+  got["dq"] = (fa.flash_bwd_dq_cuda(q, k, v, dout, want_lse, delta, True),
+               fa.flash_bwd_dq_reference(q, k, v, dout, want_lse, delta,
+                                         True))
+  torch.cuda.synchronize()
+  bounds = flash_bounds(itemsize=2, **shape)
+
+  def sdpa_bwd(out, leaves, dout):
+    return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+  fwd_args = [(q, k, v, True) for q, k, v, *_ in sets]
+  bwd_args = [(*a, True) for a in sets]
+  library_bwd = time_ms(torch, sdpa_bwd, graphs, reps=5)
+  fns = {"fwd": (fa.flash_fwd_cuda, fa.flash_fwd_reference, fwd_args),
+         "dkv": (fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_reference,
+                 bwd_args),
+         "dq": (fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_reference, bwd_args)}
+  flash = {}
+  for name, (g, w) in got.items():
+    rel = normalized_errors(g, w)
+    limit = FLASH_BF16_LIMIT["fwd" if name == "fwd" else "grad"]
+    assert rel[0] <= limit["rel_l2"] and rel[1] <= limit["max_rel"], (
+        name, rel, limit)
+    kernel, plain, args = fns[name]
+    flash[name] = dict(
+        kernel_ms=time_ms(torch, kernel, args),
+        plain_ms=time_ms(torch, plain, args, reps=3),
+        library_ms=(time_ms(torch, lambda q, k, v, c: sdpa(
+            q, k, v, is_causal=c), fwd_args, reps=5)
+                    if name == "fwd" else library_bwd),
+        bound_ms=bounds[name][0], bound_by=bounds[name][1],
+        max_abs_err=(g.float() - w.float()).abs().max().item(),
+        rel_l2=rel[0], max_rel=rel[1])
+    log(f"   K1 {name:4s} B=16 H={H} S=1024 D=64 bf16 causal: "
+        + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in flash[name].items()))
+  return paged, flash
+
+
+def tp_serving_runs(V):
+  """21b's three loads: phase 5's (plain), repeating spans (the n-gram
+  drafter) and a shared 256-token system prompt (the prefix cache)."""
+  r = np.random.RandomState(5)
+  system = r.randint(0, V, (256,)).astype(np.int32)
+  shared = [np.concatenate([system, r.randint(0, V, (n,))]).astype(np.int32)
+            for n in r.randint(32, 257, 16)]
+  waves = [(0, 8), (8, 12), (12, 16)]
+  return {"plain": (make_prompts(2, 16, V), waves, 3, 0, False),
+          "ngram": (repeating_prompts(7, 16, V), waves, 3, SPEC_K, False),
+          "prefix_cache": (shared, [(0, 1), (1, 16)], 2, 0, True)}
+
+
+def tp1_serving(torch, params, pa, runs, engine_kwargs):
+  """The tp = 1 engine on each of 21b's loads, in this process."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
+  from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, NgramDrafter)
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  model = GPT(GPTConfig(**GPT_350M, dtype=torch.bfloat16))
+  one = {}
+  for name, (prompts, wv, between, k, prefix) in runs.items():
+    eng = ContinuousBatchingEngine(
+        model, params, paged=True, prefix_cache=prefix, stats=ServingStats(),
+        drafter=NgramDrafter(k=k) if k else None, **engine_kwargs)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = tp_workers.lead_waves(eng, prompts, wv, between)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    one[name] = dict(streams=out, stats=eng.stats.summary(), steps=eng.steps,
+                     host_ms_per_step=wall / eng.steps * 1e3,
+                     params=eng.params)
+    del eng
+  return model, one
+
+
+def tp_check_serving(torch, model, one, ranks, runs, backend):
+  """21b: each TP = 2 run's streams against the tp = 1 engine's by the
+  bf16 gap rule; the tiled kernel's launches on each rank 24 x engine
+  steps (counts set to 0 just before each run); tokens/s, TTFT p50 and
+  host ms a step beside tp = 1's.  Returns the launches by run and
+  rank."""
+  L = GPT_350M["num_layers"]
+  launches = {}
+  for name, (prompts, *_rest) in runs.items():
+    lead = ranks[0]["serving"][name]
+    for rank in range(TP):
+      rec = ranks[rank]["serving"][name]
+      assert rec["steps"] == lead["steps"] > 0, (name, rank, rec["steps"])
+      assert rec["tiled_launches"] == L * rec["steps"], (name, rank)
+      assert rec["all_launches"] == rec["tiled_launches"], (name, rank)
+      assert rec["plain_calls"] == 0, (name, rank)
+      assert rec["kv_heads"] == GPT_350M["num_heads"] // TP
+    launches[name] = [ranks[rank]["serving"][name]["tiled_launches"]
+                      for rank in range(TP)]
+    s1, s2 = one[name]["stats"], lead["stats"]
+    log(f"   21b. {name}: tp=2 {lead['steps']} steps, tokens/s "
+        f"{s2['tokens_per_s']:.1f}, TTFT p50 {s2['ttft_p50_s'] * 1e3:.1f} ms, "
+        f"host ms a step {lead['host_ms_per_step']:.2f}; tp=1 "
+        f"{one[name]['steps']} steps, tokens/s {s1['tokens_per_s']:.1f}, "
+        f"TTFT p50 {s1['ttft_p50_s'] * 1e3:.1f} ms, host ms a step "
+        f"{one[name]['host_ms_per_step']:.2f} (two ranks time-share one "
+        f"card over {backend}: a correctness check, not a scaling number)")
+    log(f"   21b. {name}: tiled launches per rank {launches[name]} = {L} "
+        f"layers x {lead['steps']} steps; plain-version calls 0"
+        + (f"; prefix hits {lead['prefix_hits']}" if name == "prefix_cache"
+           else "") + (f"; drafted {lead['drafted']}" if name == "ngram"
+                       else ""))
+    if name == "prefix_cache":
+      assert lead["prefix_hits"] > 0
+    if name == "ngram":
+      assert lead["drafted"] > 0
+    greedy_vs_generate(torch, model, one[name]["params"], prompts,
+                       lead["streams"], bf16_gap_limit, f"tp=2 {name}",
+                       refs=dict(one[name]["streams"]),
+                       ref_name="the tp = 1 engine")
+  return launches
+
+
+def tp_check_training(ranks, one, backend):
+  """21c: ``bench.py``'s step at tp = 2 against tp = 1: the losses within
+  ``TP_LOSS_RTOL``, each rank's flash launches 24 x steps per kernel, its
+  peak memory and step ms."""
+  L = GPT_350M["num_layers"]
+  recs = [r["training"] for r in ranks]
+  for rank, rec in enumerate(recs):
+    np.testing.assert_allclose(rec["losses"], one["losses"],
+                               rtol=TP_LOSS_RTOL, err_msg=f"rank {rank}")
+    assert all(np.isfinite(rec["losses"]))
+    assert rec["heads_per_rank"] == GPT_350M["num_heads"] // TP
+    assert all(n == L * TP_TRAIN_STEPS for n in rec["launches"].values()), (
+        rank, rec["launches"])
+    assert rec["plain_calls"] == 0
+  gap = max(abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"],
+                                                one["losses"]))
+  log(f"   21c. tp=1 losses {[round(x, 5) for x in one['losses']]}; tp=2 "
+      f"{[round(x, 5) for x in recs[0]['losses']]} (largest relative gap "
+      f"{gap:.2e}, limit {TP_LOSS_RTOL:.2e})")
+  for rank, rec in enumerate(recs):
+    log(f"   21c. tp=2 rank {rank}: flash launches {rec['launches']} = {L} "
+        f"layers x {TP_TRAIN_STEPS} steps; peak {rec['peak_gib']:.2f} GiB; "
+        f"step ms {[round(x, 1) for x in rec['step_ms']]}")
+  log(f"   21c. tp=1: peak {one['peak_gib']:.2f} GiB; step ms "
+      f"{[round(x, 1) for x in one['step_ms']]} (tp=2: two ranks "
+      f"time-share one card over {backend})")
+  return [rec["launches"] for rec in recs]
+
+
+def tp_check_data_parallel(ranks, one, backend):
+  """21d: explicit DP = 2 with 8 MB fusion buckets and ZeRO-1 at DP = 2
+  against one process within ``TP_LOSS_RTOL``; ZeRO-1's per-rank moment
+  bytes half of DP's."""
+  for rank in range(TP):
+    dp, zero = ranks[rank]["explicit"], ranks[rank]["zero1"]
+    for label, rec in (("explicit DP", dp), ("ZeRO-1", zero)):
+      np.testing.assert_allclose(rec["losses"], one["losses"],
+                                 rtol=TP_LOSS_RTOL,
+                                 err_msg=f"{label} rank {rank}")
+    assert zero["moment_bytes"] * 2 == dp["moment_bytes"], (
+        zero["moment_bytes"], dp["moment_bytes"])
+  dp, zero = ranks[0]["explicit"], ranks[0]["zero1"]
+  log(f"   21d. one process {[round(x, 5) for x in one['losses']]}; "
+      f"explicit DP=2 {[round(x, 5) for x in dp['losses']]}; ZeRO-1 DP=2 "
+      f"{[round(x, 5) for x in zero['losses']]} (rtol {TP_LOSS_RTOL:.2e})")
+  log(f"   21d. moment bytes per rank: DP {dp['moment_bytes'] / 2**20:.1f} "
+      f"MiB, ZeRO-1 {zero['moment_bytes'] / 2**20:.1f} MiB; step ms rank "
+      f"0: one process {[round(x, 1) for x in one['step_ms']]}, DP "
+      f"{[round(x, 1) for x in dp['step_ms']]}, ZeRO-1 "
+      f"{[round(x, 1) for x in zero['step_ms']]} ({backend}, two ranks on "
+      f"one card)")
+
+
+def tensor_parallel_mesh(torch, pa, fa, params):
+  """Phase 21 (module docstring): the backend probe; K1 and K2 at the
+  per-rank shapes; the tp = 1 references in this process; then every TP
+  = 2, DP = 2 and ZeRO-1 run in one group of two ranks
+  (``testing.tp_workers.chip_tp_suite``), each rank started once.
+  Returns what the kernels line carries."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  t0 = time.monotonic()
+  with Phase("21a. backend probe"):
+    backend, probe = tp_backend(torch)
+  with Phase("21 K1 and K2 at the per-rank shapes (H = 8)"):
+    paged, flash = tp_kernels_at_rank_shapes(torch, pa, fa)
+  V = GPT_350M["vocab_size"]
+  runs = tp_serving_runs(V)
+  engine_kwargs = dict(num_slots=NUM_SLOTS, prefill_chunk=PREFILL_CHUNK,
+                       block_size=BLOCK_SIZE)
+  train_cfg = dict(GPT_350M, dtype="bfloat16", remat=True,
+                   remat_policy="dots_flash", attn_impl="pallas_flash",
+                   loss_chunk=256)
+  batch = np.random.RandomState(0).randint(
+      0, V, (TP_TRAIN_BATCH, GPT_350M["max_seq_len"] + 1))
+  dp_cfg = dict(train_cfg, num_layers=DP_LAYERS)
+  r = np.random.RandomState(1)
+  dp_batches = [r.randint(0, V, (DP_BATCH, GPT_350M["max_seq_len"] + 1))
+                for _ in range(DP_STEPS)]
+  with Phase("21 the tp = 1 references (serving, training, one process)"):
+    model, one_serving = tp1_serving(torch, params, pa, runs, engine_kwargs)
+    mesh = tp_workers.setup("", device="cuda")
+    one_training = tp_workers.train_steps(mesh, train_cfg, params, batch,
+                                          TP_TRAIN_STEPS)
+    one_dp = tp_workers.dp_steps(mesh, "implicit", dp_cfg, dp_batches)
+  gc.collect()
+  torch.cuda.empty_cache()
+  dense = dict(rows=TP_TRAIN_BATCH * 1024, d_in=4096, d_out=1024, seed=3)
+  spec = {"collectives": (TP_COLLECTIVE_X, dense),
+          "serving": (dict(GPT_350M, dtype="bfloat16"), 0, runs,
+                      engine_kwargs),
+          "training": (train_cfg, batch, TP_TRAIN_STEPS),
+          "dp": (dp_cfg, dp_batches,
+                 {"communication.fusion_threshold_mb": 8})}
+  with Phase(f"21 TP = 2 serving and training, DP = 2, ZeRO-1 and the "
+             f"ring: two ranks, one group"):
+    ranks = spawn(tp_workers.chip_tp_suite, TP, (backend, spec),
+                  timeout_s=TP_SPAWN_DEADLINE_S)
+  ring = tp_check_collectives_and_ring(torch, ranks, backend, dense)
+  serving = tp_check_serving(torch, model, one_serving, ranks, runs, backend)
+  training = tp_check_training(ranks, one_training, backend)
+  tp_check_data_parallel(ranks, one_dp, backend)
+  wall = time.monotonic() - t0
+  assert wall < TP_PHASE_WALL_S, f"phase 21 took {wall:.0f} s"
+  return dict(backend=backend, nccl_probe=probe, ring=ring, paged=paged,
+              flash=flash, serving=serving, training=training)
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -4301,7 +4708,7 @@ def main() -> int:
   if want(3):
     with Phase("3. kernel timing"):
       times = kernel_timing(torch, pa)
-  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19, 20)
+  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19, 20, 21)
   # Reference streams of generate(use_cache=False), by prompt set, shared
   # between the paged phases and phase 14, which serves the same prompts.
   refs = {"float32": {}, "bfloat16": {}, "spec": {}}
@@ -4362,6 +4769,12 @@ def main() -> int:
       heal_launches = self_healing_fleet(torch, params, pa,
                                          refs["bfloat16"])
   del refs
+  if want(21):
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("21. the tensor-parallel mesh on torch.distributed (TP = 2 "
+               "serving and training, DP, ZeRO-1, the overlap ring)"):
+      tp = tensor_parallel_mesh(torch, pa, fa, params)
   if any(map(want, serving)):
     del params
   # An engine is freed by the cycle collector (its scheduler holds bound
@@ -4410,6 +4823,11 @@ def main() -> int:
 
   flash_src = "easyparallellibrary_tpu_torch/kernels/csrc/flash_attention.cu"
   flash_py = "easyparallellibrary_tpu/kernels/flash_attention.py"
+  def tp_flash(k):
+    # Phase 21c's launches on each rank and the per-rank shape's record.
+    return dict(launches_tp2=[rank[k] for rank in tp["training"]],
+                tp2_b16_h8=tp["flash"][k])
+
   flash_records = [
       kernel_record("flash_attention_fwd", "flash_fwd_wgmma_kernel<64>",
                     flash_src, f"{flash_py}:89 and :241",
@@ -4417,21 +4835,24 @@ def main() -> int:
                     flash_times["fwd"], flash_rel["fwd"],
                     FLASH_BF16_LIMIT["fwd"],
                     launches_fit=fit_launches["fwd"],
-                    launches_offload=offload_launches["fwd"]),
+                    launches_offload=offload_launches["fwd"],
+                    **tp_flash("fwd")),
       kernel_record("flash_attention_bwd_dkv",
                     "flash_bwd_dkv_wgmma_kernel<64>", flash_src,
                     f"{flash_py}:133 and :363", flash_launches["dkv"],
                     flash_errs["dkv"], flash_times["dkv"],
                     flash_rel["dkv"], FLASH_BF16_LIMIT["grad"],
                     launches_fit=fit_launches["dkv"],
-                    launches_offload=offload_launches["dkv"]),
+                    launches_offload=offload_launches["dkv"],
+                    **tp_flash("dkv")),
       kernel_record("flash_attention_bwd_dq", "flash_bwd_dq_wgmma_kernel<64>",
                     flash_src, f"{flash_py}:172 and :404",
                     flash_launches["dq"], flash_errs["dq"],
                     flash_times["dq"], flash_rel["dq"],
                     FLASH_BF16_LIMIT["grad"],
                     launches_fit=fit_launches["dq"],
-                    launches_offload=offload_launches["dq"]),
+                    launches_offload=offload_launches["dq"],
+                    **tp_flash("dq")),
   ]
   paged_src = "easyparallellibrary_tpu_torch/kernels/csrc/paged_attention.cu"
   paged_replaces = "easyparallellibrary_tpu/kernels/paged_attention.py:119"
@@ -4500,7 +4921,9 @@ def main() -> int:
            launches_rollout=heal_launches["rollout"],
            launches_rollout_children=heal_launches["rollout_children"],
            launches_reactor_children=heal_launches["reactor_children"],
-           launches_frontdoor=heal_launches["frontdoor"]),
+           launches_frontdoor=heal_launches["frontdoor"],
+           launches_tp2=tp["serving"], tp2_engine_step_h8=tp["paged"],
+           tp_backend=tp["backend"]),
       paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
                    warp_launches, "float32"),
   ] + flash_records + fp16_flash + [fp16_paged, mixed_paged]}), flush=True)

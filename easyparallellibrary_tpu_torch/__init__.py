@@ -6,7 +6,10 @@ package stays the reference the port is tested against.  Ported so far:
 * the paged serving path (``serving.ContinuousBatchingEngine`` over
   ``models.gpt.GPT``), with paged attention as a hand-written CUDA kernel
   for Hopper (``kernels/csrc/paged_attention.cu``);
-* the training step of ``bench.py`` on one device: the annotation
+* tensor, data and ZeRO-1 parallelism on ``torch.distributed``, one
+  process per rank (``cluster.Mesh``, ``communicators/``,
+  ``utils/launcher.py``);
+* the training step of ``bench.py``: the annotation
   surface below, ``parallel.create_sharded_train_state`` /
   ``make_train_step`` / ``parallelize``, ``models.gpt.gpt_loss`` with
   remat and the chunked tied cross-entropy, AdamW, and flash attention as
@@ -43,16 +46,24 @@ __version__ = "0.1.0"
 
 
 def init(config: Optional[Config] = None, devices=None,
-         layout: str = "auto", device=None) -> Env:
+         layout: str = "auto", device=None,
+         backend: Optional[str] = None) -> Env:
   """Initialize the framework: reset the global Env, install the config
-  and enumerate the devices into a :class:`Cluster` (one device: the
-  current GPU, or the CPU when ``device="cpu"``).  On one device the
-  ``auto`` and ``all`` layouts give the same mesh."""
+  and enumerate the ranks into a :class:`Cluster`.  Under a launcher
+  (``WORLD_SIZE > 1`` in the environment) this first starts the default
+  process group (``utils.launcher.init_distributed``: ``nccl`` for the
+  GPU, ``gloo`` for ``device="cpu"``, or ``backend``); each process
+  holds one device, the current GPU unless ``device="cpu"``."""
+  import os
   if layout not in ("auto", "all"):
     raise ValueError(f"unknown layout {layout!r}; expected 'auto' or 'all'")
+  if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    from easyparallellibrary_tpu_torch.utils.launcher import (
+        init_distributed)
+    device = init_distributed(backend=backend, device=device)
   env = Env.get()
   env.init(config)
-  env.cluster = Cluster(devices=devices, device=device)
+  env.cluster = Cluster(devices=devices, device=device, layout=layout)
   return env
 
 
@@ -66,8 +77,12 @@ def add_to_collection(value, key: str):
 
 
 def barrier(name: str = "epl_barrier"):
-  """Synchronize all processes: a no-op, the port runs one process."""
+  """Synchronize all processes of the default group (a no-op without
+  one)."""
   del name
+  import torch.distributed as dist
+  if dist.is_available() and dist.is_initialized():
+    dist.barrier()
 
 
 __all__ = [

@@ -8,9 +8,7 @@ ROADMAP.md Queue 1 item that will bring it, in the style of
 
 from __future__ import annotations
 
-TENSOR_PARALLEL = "Tensor-parallel mesh"
 PARALLEL_STRATEGIES = "Pipeline, MoE and sequence parallelism"
-RUNTIME = "Runtime around the step"
 OTHER_MODELS = "Other models and the tooling"
 
 

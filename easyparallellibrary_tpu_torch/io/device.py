@@ -1,8 +1,11 @@
 """Host-to-device input feeding (port of
 ``easyparallellibrary_tpu/io/device.py``).
 
-* :func:`global_batch` puts one process's host batch on the mesh's
-  device (the port runs one process on one device).
+* :func:`global_batch` assembles the processes' host batches into the
+  global batch, on the mesh's device of every process: their
+  concatenation in process order (an all-gather over the default group
+  when there is more than one process), which
+  ``parallel.parallelize`` then cuts to each rank's rows.
 * :class:`DevicePrefetcher` keeps ``depth`` batches in flight so host IO
   (``io.RecordReader``) and the copies overlap the training step.  A
   ``non_blocking`` copy from pageable memory is synchronous, so each
@@ -21,8 +24,6 @@ from typing import Any, Iterator, Optional
 import numpy as np
 import torch
 
-from easyparallellibrary_tpu_torch._not_ported import (
-    TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.utils.device import (
     process_count, resolve_device)
 
@@ -52,20 +53,26 @@ def _as_host_tensor(x) -> torch.Tensor:
   return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
 
 
-def _check_one_process():
-  if process_count() > 1:
-    raise not_ported("a global batch assembled across processes",
-                     TENSOR_PARALLEL)
+def _gather_processes(t: torch.Tensor) -> torch.Tensor:
+  import torch.distributed as dist
+
+  from easyparallellibrary_tpu_torch.communicators.collectives import (
+      _raw_all_gather)
+  return _raw_all_gather(t, dist.group.WORLD, 0)
 
 
 def global_batch(local_batch, mesh=None, spec=None, device=None):
-  """``local_batch`` (a tree of arrays or tensors) on the mesh's device
-  (``mesh.device``; without a mesh, ``device``, default the GPU).
-  ``spec`` is trivial on one device."""
+  """The global batch from each process's ``local_batch`` (a tree of
+  arrays or tensors; this process's rows), on the mesh's device
+  (``mesh.device``; without a mesh, ``device``, default the GPU): the
+  processes' rows concatenated in process order along dim 0.  ``spec``
+  is the JAX default, the leading dim over ``data``."""
   del spec
-  _check_one_process()
   dev = mesh.device if mesh is not None else resolve_device(device)
-  return _map(local_batch, lambda x: _as_host_tensor(x).to(dev))
+  many = process_count() > 1
+  return _map(local_batch, lambda x: (
+      _gather_processes(_as_host_tensor(x).to(dev)) if many
+      else _as_host_tensor(x).to(dev)))
 
 
 class DevicePrefetcher:
@@ -78,8 +85,8 @@ class DevicePrefetcher:
                depth: Optional[int] = None, device=None):
     from easyparallellibrary_tpu_torch.env import Env
     del spec
-    _check_one_process()
     self._it = iter(iterator)
+    self._mesh = mesh
     self.device = mesh.device if mesh is not None else \
         resolve_device(device)
     if depth is None:
@@ -95,6 +102,10 @@ class DevicePrefetcher:
     stream.  The pinned buffers stay referenced until the batch is
     consumed (the host allocator also holds a block until its copy's
     event completes)."""
+    if process_count() > 1:
+      # Several processes: every batch is assembled by a collective, in
+      # step with the other processes' prefetchers.
+      return global_batch(host, self._mesh, device=self.device), None, None
     if not self._cuda:
       return _map(host, _as_host_tensor), None, None
     pinned = _map(host, lambda x: _as_host_tensor(x).pin_memory())

@@ -34,9 +34,20 @@ Dropout in training mode (``dropout_rate > 0`` with an rng in
 :func:`gpt_loss`) masks the attention and MLP residual branches, as the
 JAX blocks do, with counter-based masks (``utils.prng.keep_mask``)
 keyed by the step's rng folded with the layer and the branch; the two
-frameworks' masks differ, their statistics agree.  Pipeline, MoE,
-tensor-parallel and the ring/Ulysses attention implementations raise
-(ROADMAP.md Queue 1).
+frameworks' masks differ, their statistics agree.
+
+Tensor parallelism (``tensor_parallel=True`` on a mesh whose ``model``
+axis is above 1) is Megatron-style explicit SPMD, one process per rank:
+QKV is column-parallel with ``H / tp`` whole heads per rank (q, k and v
+of the same heads), the output projection row-parallel; the MLP's
+``wi`` column- and ``wo`` row-parallel; the tied embedding
+vocab-parallel and the untied head column-parallel.  Attention runs the
+port's kernels per rank at ``H / tp`` heads.  ``forward`` returns the
+whole logits (gathered over the vocab shards); training takes the
+vocab-sharded logits into the vocab-parallel cross entropy
+(``ops.losses``), chunked or not.  ``weights.shard_params`` gives each
+rank its slice of the JAX package's parameters.  Pipeline, MoE and the
+ring/Ulysses attention implementations raise (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -52,12 +63,15 @@ from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
+from easyparallellibrary_tpu_torch import constants
 from easyparallellibrary_tpu_torch._not_ported import (
-    PARALLEL_STRATEGIES, TENSOR_PARALLEL, not_ported)
+    PARALLEL_STRATEGIES, not_ported)
+from easyparallellibrary_tpu_torch.communicators import collectives
 from easyparallellibrary_tpu_torch.kernels.flash_attention import (
     FLASH_FWD_OP, flash_attention)
 from easyparallellibrary_tpu_torch.kernels.paged_attention import (
     PagedTiles, paged_attention)
+from easyparallellibrary_tpu_torch.ops import bridging
 from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding, LayerNorm
 from easyparallellibrary_tpu_torch.ops.losses import (
     distributed_sparse_softmax_cross_entropy_with_logits)
@@ -100,8 +114,6 @@ class GPTConfig:
   loss_chunk: int = 0
 
   def __post_init__(self):
-    if self.tensor_parallel:
-      raise not_ported("GPTConfig(tensor_parallel=True)", TENSOR_PARALLEL)
     if self.attn_impl in ("ring", "ulysses"):
       raise not_ported(f"GPTConfig(attn_impl={self.attn_impl!r})",
                        PARALLEL_STRATEGIES)
@@ -111,6 +123,39 @@ class GPTConfig:
       raise not_ported("GPTConfig(num_experts > 0)", PARALLEL_STRATEGIES)
     if self.seq_parallel:
       raise not_ported("GPTConfig(seq_parallel=True)", PARALLEL_STRATEGIES)
+
+
+def tp_size(cfg: GPTConfig) -> int:
+  """The tensor-parallel width a model of ``cfg`` is built at: the
+  ambient mesh's ``model`` axis when ``tensor_parallel``, else 1."""
+  if not cfg.tensor_parallel:
+    return 1
+  return collectives.axis_size(constants.MODEL_AXIS)
+
+
+def local_heads(cfg: GPTConfig) -> int:
+  """Attention heads per rank (``H / tp``).  Heads that do not divide
+  the model axis raise: the JAX package replicates such a cache and lets
+  GSPMD pad the heads; the port shards whole heads only."""
+  tp = tp_size(cfg)
+  if cfg.num_heads % tp:
+    raise ValueError(
+        f"tensor_parallel needs num_heads ({cfg.num_heads}) divisible by "
+        f"the model axis ({tp}); the port shards whole heads per rank")
+  return cfg.num_heads // tp
+
+
+def check_unpadded_vocab(vocab_size: int, mesh) -> None:
+  """A stage-resident vocab-parallel CE needs an unpadded vocab table:
+  ``vocab_size`` must divide the mesh's ``model`` axis (JAX
+  ``pipeline_smap.check_unpadded_vocab``)."""
+  model_size = mesh.axis_size(constants.MODEL_AXIS) if mesh else 1
+  if vocab_size % max(model_size, 1):
+    raise ValueError(
+        f"smap engine with tensor_parallel needs an unpadded vocab "
+        f"table: vocab_size {vocab_size} must divide the model axis "
+        f"({model_size}) — padded vocab rows would corrupt the "
+        f"stage-resident CE normalizer")
 
 
 def _attention_scale(hd: int, dtype, device) -> torch.Tensor:
@@ -276,9 +321,12 @@ class CausalSelfAttention(nn.Module):
     super().__init__()
     self.cfg = cfg
     D = cfg.d_model
-    self.qkv = Dense(D, 3 * D, use_bias=False, dtype=cfg.dtype,
-                     param_dtype=cfg.param_dtype, device=device)
-    self.proj = Dense(D, D, use_bias=False, dtype=cfg.dtype,
+    self.heads = local_heads(cfg)
+    col, row = ("column", "row") if cfg.tensor_parallel else ("none", "none")
+    self.qkv = Dense(D, 3 * D, use_bias=False, parallel=col,
+                     dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                     device=device)
+    self.proj = Dense(D, D, use_bias=False, parallel=row, dtype=cfg.dtype,
                       param_dtype=cfg.param_dtype, device=device)
 
   def forward(self, x, paged_info=None, cache=None, decode=False,
@@ -286,8 +334,8 @@ class CausalSelfAttention(nn.Module):
     cfg = self.cfg
     dtype = dtype or cfg.dtype
     B, S, D = x.shape
-    H = cfg.num_heads
-    qkv = self.qkv(x, dtype).reshape(B, S, 3, H, D // H)
+    H = self.heads
+    qkv = self.qkv(x, dtype).reshape(B, S, 3, H, D // cfg.num_heads)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if paged_info is not None:
       out, _, _ = paged_cache_attend(
@@ -315,7 +363,7 @@ class CausalSelfAttention(nn.Module):
       raise ValueError(
           f"attn_impl must be 'xla', 'pallas_flash', 'ring' or "
           f"'ulysses'; got {cfg.attn_impl!r}")
-    return self.proj(out.reshape(B, S, D), dtype)
+    return self.proj(out.reshape(B, S, -1), dtype)
 
   def _decode_attend(self, q, k, v, cache, dtype):
     """``generate``'s KV cache: ``[B, max_seq_len, H, hd]`` grown in the
@@ -347,9 +395,10 @@ class MLP(nn.Module):
 
   def __init__(self, cfg: GPTConfig, device=None):
     super().__init__()
-    self.wi = Dense(cfg.d_model, cfg.d_ff, dtype=cfg.dtype,
+    col, row = ("column", "row") if cfg.tensor_parallel else ("none", "none")
+    self.wi = Dense(cfg.d_model, cfg.d_ff, parallel=col, dtype=cfg.dtype,
                     param_dtype=cfg.param_dtype, device=device)
-    self.wo = Dense(cfg.d_ff, cfg.d_model, dtype=cfg.dtype,
+    self.wo = Dense(cfg.d_ff, cfg.d_model, parallel=row, dtype=cfg.dtype,
                     param_dtype=cfg.param_dtype, device=device)
 
   def forward(self, x, dtype=None):
@@ -452,7 +501,9 @@ class GPT(nn.Module):
   def __init__(self, cfg: GPTConfig, device="meta"):
     super().__init__()
     self.cfg = cfg
+    self.tp = tp_size(cfg)
     self.wte = Embedding(cfg.vocab_size, cfg.d_model,
+                         parallel="vocab" if cfg.tensor_parallel else "none",
                          param_dtype=cfg.param_dtype, device=device)
     self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.d_model,
                                         dtype=cfg.param_dtype,
@@ -461,14 +512,18 @@ class GPT(nn.Module):
       self.add_module(f"block_{i}", Block(cfg, device=device))
     self.ln_f = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
     if not cfg.tie_embeddings:
-      self.lm_head = Dense(cfg.d_model, cfg.vocab_size, use_bias=False,
-                           dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                           device=device)
+      self.lm_head = Dense(
+          cfg.d_model, cfg.vocab_size, use_bias=False,
+          parallel="column" if cfg.tensor_parallel else "none",
+          dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
 
   def forward(self, ids, deterministic: bool = True, decode: bool = False,
               return_hidden: bool = False, slot_cursors=None,
               paged_info: Optional[PagedInfo] = None,
-              cache: Optional[Dict[str, Any]] = None, dropout_rng=None):
+              cache: Optional[Dict[str, Any]] = None, dropout_rng=None,
+              gather_logits: bool = True):
+    """``gather_logits=False`` (tensor-parallel training) returns this
+    rank's vocab block of the logits instead of the whole."""
     cfg = resolve_model_dtypes(self.cfg)
     train = not deterministic and cfg.dropout_rate > 0
     if train and dropout_rng is None:
@@ -522,8 +577,13 @@ class GPT(nn.Module):
     if return_hidden:
       return x
     if cfg.tie_embeddings:
-      return self.wte.attend(x)
-    return self.lm_head(x, dtype)
+      logits = self.wte.attend(x)
+    else:
+      logits = self.lm_head(x, dtype)
+    if self.tp > 1 and gather_logits:
+      logits = bridging.split_to_replica(logits, dim=-1,
+                                         logical=cfg.vocab_size)
+    return logits
 
 
 def _chunked_tied_ce(model: GPT, params, hidden, targets):
@@ -540,9 +600,12 @@ def _chunked_tied_ce(model: GPT, params, hidden, targets):
   wte = params["wte.weight"]
 
   def chunk_loss(h, t, table):
+    # Vocab-parallel: the table is this rank's block; the hidden state
+    # enters the split region (its gradient sums over the ranks).
+    h = bridging.copy_to_split(h) if model.tp > 1 else h
     logits = torch.matmul(h, table.to(h.dtype).t())
     return distributed_sparse_softmax_cross_entropy_with_logits(
-        t, logits, z_loss=cfg.z_loss).sum()
+        t, logits, z_loss=cfg.z_loss, vocab_size=cfg.vocab_size).sum()
 
   total = torch.zeros((), dtype=torch.float32, device=hidden.device)
   for i in range(S // C):
@@ -570,11 +633,12 @@ def gpt_loss(model: GPT, params, batch, rng=None):
   out = torch.func.functional_call(
       model, params, (inputs,),
       {"deterministic": not train, "return_hidden": chunked,
-       "dropout_rng": rng if train else None}, strict=True)
+       "dropout_rng": rng if train else None, "gather_logits": False},
+      strict=True)
   if chunked:
     return _chunked_tied_ce(model, params, out, targets), {}
   loss = distributed_sparse_softmax_cross_entropy_with_logits(
-      targets, out, z_loss=cfg.z_loss)
+      targets, out, z_loss=cfg.z_loss, vocab_size=cfg.vocab_size)
   return loss.mean(), {}
 
 

@@ -21,9 +21,11 @@ the scheduler planned.  This module is the measured half:
   takes a callable that returns the card's fields and never raises.
 * **Per-site measured collective bytes** — :meth:`register_site`,
   :meth:`record_site_bytes` and :func:`measured_collective_bytes` are
-  kept as host APIs for the overlap planner.  Attributing bytes from a
-  compiled program's collectives waits for the port's collectives
-  (ROADMAP.md Queue 1, "Tensor-parallel mesh").
+  the host APIs of the overlap planner.  :func:`profile_site_bytes`
+  measures a site: it runs one call of the site's code under
+  ``torch.profiler`` and counts the bytes handed to every collective
+  the backend ran (its ``nccl:<op>`` / ``gloo:<op>`` events, elements
+  times the site's dtype width), then records them for the site.
 * **HBM watermark gauges** — :meth:`DeviceIntrospector.hbm_gauges`
   reads ``torch.cuda.memory_allocated`` (in use),
   ``max_memory_allocated`` (peak) and ``mem_get_info()[1]`` (the card's
@@ -412,3 +414,50 @@ def register_site(site: str, *, kind: str, axis_n: int, m: int, k: int,
   if intro is not None:
     intro.register_site(site, kind=kind, axis_n=axis_n, m=m, k=k,
                         n_out=n_out, dtype_bytes=dtype_bytes)
+
+
+# Backend events of torch.distributed collectives in a profiler trace.
+_COLLECTIVE_EVENT_PREFIXES = ("nccl:", "gloo:")
+
+
+def collective_event_bytes(events, dtype_bytes: int) -> float:
+  """The bytes handed to the backend's collectives in ``events`` (a
+  ``torch.profiler`` event list): each ``nccl:*`` / ``gloo:*`` event's
+  first input, elements times ``dtype_bytes``."""
+  total = 0
+  for e in events:
+    if not e.name.startswith(_COLLECTIVE_EVENT_PREFIXES):
+      continue
+    shapes = [s for s in (e.input_shapes or []) if s]
+    if shapes:
+      n = 1
+      for d in shapes[0]:
+        n *= int(d)
+      total += n * dtype_bytes
+  return float(total)
+
+
+def profile_site_bytes(site: str, fn: Callable[[], Any],
+                       dtype_bytes: Optional[int] = None) -> float:
+  """Run ``fn()`` (one step of the site's code) under ``torch.profiler``
+  and return the bytes its collectives were handed
+  (:func:`collective_event_bytes`); with the ambient introspector on,
+  they become the site's measurement (``record_site_bytes``), which the
+  overlap policy then takes over the analytic derivation.
+  ``dtype_bytes`` defaults to the registered site's."""
+  import torch
+  intro = _introspector
+  if dtype_bytes is None:
+    info = intro.sites().get(site) if intro is not None else None
+    if info is None:
+      raise ValueError(f"site {site!r} is not registered; pass "
+                       "dtype_bytes")
+    dtype_bytes = info.dtype_bytes
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CPU],
+      record_shapes=True) as prof:
+    fn()
+  wire = collective_event_bytes(prof.events(), dtype_bytes)
+  if intro is not None:
+    intro.record_site_bytes(site, wire)
+  return wire

@@ -1,8 +1,28 @@
-"""Layers of the serving slice (port of ``easyparallellibrary_tpu/ops/layers.py``).
+"""Layers, with the tensor-parallel modes (port of
+``easyparallellibrary_tpu/ops/layers.py``).
 
-``Dense`` in mode ``"none"``, ``Embedding`` with its tied-head
-``attend``, and ``LayerNorm`` with flax's numerics.  The tensor-parallel,
-overlap and pipeline-stage modes of the JAX layers raise
+``Dense``, ``Embedding`` with its tied-head ``attend``, and
+``LayerNorm`` with flax's numerics.  The JAX layers shard their
+parameters by GSPMD metadata; here each rank holds its shard
+(Megatron-style explicit SPMD) and the collectives GSPMD inserted are
+written out:
+
+* ``Dense(parallel="column")``: weight rows ``[out_pad / tp, in]``; the
+  replicated input enters through ``bridging.copy_to_split`` and the
+  output stays sharded on the feature dim (``bridging.split_to_replica``
+  gathers it);
+* ``Dense(parallel="row")``: weight ``[out, in_pad / tp]``; the input is
+  this rank's feature block (a replicated input is cut to it), and the
+  partial products are all-reduced over ``model`` before the bias, or
+  run through the overlap ring (``communication.overlap``);
+* ``Embedding(parallel="vocab")``: table rows ``[V_pad / tp, D]``; ids
+  outside the rank's range are masked and the lookups all-reduced, and
+  ``attend`` gives vocab-sharded logits.
+
+Uneven widths are zero-padded to an even tiling, as the JAX layers pad
+(``_round_up``, ``_padded_init``): the padded rows and columns are zero,
+so they add nothing.  The tensor-parallel size is the ambient mesh's
+``model`` axis when the layer is built.  The pipeline-stage modes raise
 (ROADMAP.md Queue 1).
 
 Parameters are stored in ``param_dtype`` (fp32) like the flax modules.
@@ -21,8 +41,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from easyparallellibrary_tpu_torch import constants
 from easyparallellibrary_tpu_torch._not_ported import (
-    PARALLEL_STRATEGIES, TENSOR_PARALLEL, not_ported)
+    PARALLEL_STRATEGIES, not_ported)
+from easyparallellibrary_tpu_torch.communicators import collectives
+from easyparallellibrary_tpu_torch.ops import bridging
+
+
+def _model_axis_size() -> int:
+  return collectives.axis_size(constants.MODEL_AXIS)
+
+
+def _round_up(dim: int, multiple: int) -> int:
+  return ((dim + multiple - 1) // multiple) * multiple
+
+
+def _padded_init(value: torch.Tensor, padded_shape) -> torch.Tensor:
+  """A parameter initialised at its logical shape, zero-padded to the
+  padded shape (init statistics stay exact for uneven widths)."""
+  pad = []
+  for s, l in reversed(list(zip(padded_shape, value.shape))):
+    pad += [0, s - l]
+  return F.pad(value, pad) if any(pad) else value
 
 
 class Dense(nn.Module):
@@ -38,14 +78,23 @@ class Dense(nn.Module):
                parallel: str = "none", dtype: Optional[torch.dtype] = None,
                param_dtype: torch.dtype = torch.float32, device=None):
     super().__init__()
-    if parallel == "row" or parallel == "column":
-      raise not_ported(f"Dense(parallel={parallel!r})", TENSOR_PARALLEL)
-    if parallel != "none":
+    if parallel == "stage_column":
       raise not_ported(f"Dense(parallel={parallel!r})", PARALLEL_STRATEGIES)
+    if parallel not in ("none", "column", "row"):
+      raise ValueError(f"Dense.parallel must be none/column/row, got "
+                       f"{parallel!r}")
+    self.parallel = parallel
+    self.tp = _model_axis_size() if parallel != "none" else 1
+    self.in_features, self.features = in_features, features
     self.dtype = dtype
-    self.weight = nn.Parameter(torch.empty(features, in_features,
+    out_local, in_local = features, in_features
+    if parallel == "column":
+      out_local = _round_up(features, self.tp) // self.tp
+    elif parallel == "row":
+      in_local = _round_up(in_features, self.tp) // self.tp
+    self.weight = nn.Parameter(torch.empty(out_local, in_local,
                                            dtype=param_dtype, device=device))
-    self.bias = (nn.Parameter(torch.empty(features, dtype=param_dtype,
+    self.bias = (nn.Parameter(torch.empty(out_local, dtype=param_dtype,
                                           device=device))
                  if use_bias else None)
 
@@ -53,10 +102,64 @@ class Dense(nn.Module):
     """``dtype`` overrides the constructor's compute dtype for this call
     (amp O1: the GPT resolves its compute dtype at every forward)."""
     dtype = dtype or self.dtype or x.dtype
+    if self.tp > 1 and self.parallel == "column":
+      x = bridging.copy_to_split(x)
+    elif self.tp > 1 and self.parallel == "row":
+      if x.shape[-1] == self.in_features:     # replicated: keep my block
+        x = bridging.replica_to_split(x, dim=-1)
+      y = self._row_product(x.to(dtype), dtype)
+      if self.bias is not None:
+        y = y + self.bias.to(dtype)
+      return y
     y = F.linear(x.to(dtype), self.weight.to(dtype))
     if self.bias is not None:
       y = y + self.bias.to(dtype)
     return y
+
+  def _row_product(self, x, dtype):
+    """The row-parallel product summed over ``model``: the fused
+    all-reduce GSPMD inserts, or, under ``communication.overlap``, the
+    overlap ring (matmul -> ring reduce-scatter -> all-gather)."""
+    w = self.weight.to(dtype)
+    chunks = _row_overlap_chunks(x, self.tp, self.features)
+    if chunks >= 2:
+      return _row_overlap_matmul(x, w, chunks)
+    return collectives.all_reduce(F.linear(x, w), constants.MODEL_AXIS)
+
+
+def _row_overlap_chunks(x, tp: int, out_features: int) -> int:
+  """Ring chunk count for a row-parallel product under
+  ``communication.overlap``; 1 keeps the fused all-reduce.  The ring
+  engages only on a pure tensor-parallel mesh (every other axis 1) whose
+  flattened rows divide the model axis, as in the JAX layer."""
+  mesh = collectives._mesh()
+  if mesh is None or any(s > 1 for a, s in mesh.shape.items()
+                         if a != constants.MODEL_AXIS):
+    return 1
+  rows = x.numel() // x.shape[-1]
+  if rows % tp:
+    return 1
+  from easyparallellibrary_tpu_torch.communicators import overlap
+  from easyparallellibrary_tpu_torch.parallel.planner import SITE_ROW_DENSE
+  return overlap.resolve_num_chunks(
+      "matmul_reduce_scatter", tp, m=rows, k=x.shape[-1],
+      n_out=out_features, dtype=x.dtype, site=SITE_ROW_DENSE)
+
+
+def _row_overlap_matmul(x, w, num_chunks: int):
+  """``matmul_reduce_scatter`` ring over the rows, then an all-gather
+  that rebuilds the replicated activation: the bytes of the fused
+  all-reduce, with the scatter half under the partial products."""
+  from easyparallellibrary_tpu_torch.communicators import overlap
+  lead = x.shape[:-1]
+  y = overlap.matmul_reduce_scatter(x.reshape(-1, x.shape[-1]), w.t(),
+                                    constants.MODEL_AXIS,
+                                    num_chunks=num_chunks)
+  # The gather back to the replicated activation: a layout change whose
+  # backward keeps this rank's rows (the replicated-loss convention of
+  # the fused path's all-reduce).
+  y = bridging.split_to_replica(y, dim=0)
+  return y.reshape(tuple(lead) + (w.shape[0],))
 
 
 class LayerNorm(nn.Module):
@@ -88,25 +191,40 @@ class LayerNorm(nn.Module):
 
 class Embedding(nn.Module):
   """Token embedding ``[num_embeddings, features]`` with the tied head
-  :meth:`attend`.  The vocab-sharded modes raise."""
+  :meth:`attend`; vocab-sharded with ``parallel="vocab"``."""
 
   def __init__(self, num_embeddings: int, features: int,
                parallel: str = "none",
                param_dtype: torch.dtype = torch.float32, device=None):
     super().__init__()
-    if parallel == "vocab":
-      raise not_ported("Embedding(parallel='vocab')", TENSOR_PARALLEL)
-    if parallel != "none":
+    if parallel == "stage_vocab":
       raise not_ported(f"Embedding(parallel={parallel!r})",
                        PARALLEL_STRATEGIES)
+    if parallel not in ("none", "vocab"):
+      raise ValueError(f"Embedding.parallel must be none/vocab, got "
+                       f"{parallel!r}")
+    self.tp = _model_axis_size() if parallel == "vocab" else 1
     self.num_embeddings = num_embeddings
-    self.weight = nn.Parameter(torch.empty(num_embeddings, features,
+    rows = _round_up(num_embeddings, self.tp) // self.tp
+    self.weight = nn.Parameter(torch.empty(rows, features,
                                            dtype=param_dtype, device=device))
 
   def forward(self, ids):
-    return F.embedding(ids, self.weight)
+    if self.tp <= 1:
+      return F.embedding(ids, self.weight)
+    rows = self.weight.shape[0]
+    offset = collectives.axis_index(constants.MODEL_AXIS) * rows
+    mine = (ids >= offset) & (ids < offset + rows)
+    local = torch.where(mine, ids - offset, torch.zeros_like(ids))
+    out = F.embedding(local, self.weight)
+    out = torch.where(mine[..., None], out, torch.zeros_like(out))
+    return collectives.all_reduce(out, constants.MODEL_AXIS)
 
   def attend(self, x):
     """Tied-softmax logits ``x @ table.T`` in ``x``'s dtype, so a bf16
-    model's logits come out in bf16."""
+    model's logits come out in bf16.  Vocab-sharded, each rank's block
+    of ``V_pad / tp`` columns (padded columns are 0; the CE and
+    ``split_to_replica`` cut them)."""
+    if self.tp > 1:
+      x = bridging.copy_to_split(x)
     return torch.matmul(x, self.weight.to(x.dtype).t())

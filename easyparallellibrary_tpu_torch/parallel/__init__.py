@@ -1,7 +1,16 @@
-"""The train step of the PyTorch port."""
+"""The train step of the PyTorch port: one process per rank, the
+gradient collectives written out (``api``), explicit data parallelism
+(``explicit``) and the overlap planner (``planner``)."""
 
 from easyparallellibrary_tpu_torch.parallel.api import (
-    TrainState, create_sharded_train_state, make_train_step, parallelize)
+    TrainState, create_sharded_train_state, local_batch, make_train_step,
+    param_specs, parallelize, state_shardings)
+from easyparallellibrary_tpu_torch.parallel.explicit import (
+    make_explicit_dp_train_step)
+from easyparallellibrary_tpu_torch.parallel.metrics import (
+    merge_shard_metrics)
 
-__all__ = ["TrainState", "create_sharded_train_state", "make_train_step",
-           "parallelize"]
+__all__ = ["TrainState", "create_sharded_train_state", "local_batch",
+           "make_train_step", "param_specs", "parallelize",
+           "state_shardings", "make_explicit_dp_train_step",
+           "merge_shard_metrics"]

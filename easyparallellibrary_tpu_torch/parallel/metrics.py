@@ -3,9 +3,9 @@
 Users register values under the ``GraphKeys`` merge collections
 (``epl.add_to_collection``) and the train step folds them into its
 metrics: MEAN keys average the value, SUM keys sum it, CONCAT keys keep
-it (on one device the local value is the global one).  The
-collective merge inside explicit ``shard_map`` regions waits with the
-multi-device mesh (ROADMAP.md Queue 1).
+it (on one device the local value is the global one).
+:func:`merge_shard_metrics` is the collective merge of per-rank values
+over a mesh axis (JAX's inside ``shard_map`` regions).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from typing import Any, Dict
 
 import torch
 
+from easyparallellibrary_tpu_torch import constants
+from easyparallellibrary_tpu_torch.communicators import collectives
 from easyparallellibrary_tpu_torch.constants import GraphKeys
 from easyparallellibrary_tpu_torch.env import Env
 
@@ -38,3 +40,19 @@ def collect_merged(clear: bool = True) -> Dict[str, Any]:
     if clear and key in env.collections:
       env.collections[key] = []
   return out
+
+
+def merge_shard_metrics(metrics: Dict[str, Any], how: str = "mean",
+                        axis_name: str = constants.DATA_AXIS
+                        ) -> Dict[str, Any]:
+  """Merge per-rank metric values over ``axis_name``: ``mean`` and
+  ``sum`` all-reduce, ``concat`` all-gathers along dim 0."""
+  if how == "mean":
+    f = lambda v: collectives.all_reduce(v, axis_name, op=collectives.MEAN)
+  elif how == "sum":
+    f = lambda v: collectives.all_reduce(v, axis_name, op=collectives.SUM)
+  elif how == "concat":
+    f = lambda v: collectives.all_gather(v, axis_name, axis=0)
+  else:
+    raise ValueError(f"unknown merge method {how!r}")
+  return {k: f(torch.as_tensor(v)) for k, v in metrics.items()}

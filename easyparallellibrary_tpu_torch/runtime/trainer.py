@@ -23,8 +23,12 @@ from typing import Callable, Optional
 
 import torch
 
+from easyparallellibrary_tpu_torch.communicators.collectives import (
+    MEAN, all_reduce)
+from easyparallellibrary_tpu_torch.constants import DATA_AXIS
 from easyparallellibrary_tpu_torch.env import Env
-from easyparallellibrary_tpu_torch.parallel.api import TrainState
+from easyparallellibrary_tpu_torch.parallel.api import (
+    TrainState, reduce_gradients)
 from easyparallellibrary_tpu_torch.runtime import amp as amp_lib
 from easyparallellibrary_tpu_torch.runtime import resilience as resilience_lib
 from easyparallellibrary_tpu_torch.runtime.gradient_accumulation import (
@@ -87,6 +91,10 @@ def build_train_step(loss_fn: Optional[Callable] = None,
     else:
       loss, aux = accumulate_gradients(backward_fn(loss_fn, scale),
                                        ga_steps)(params, batch, rng)
+    # Over a data axis, the gradient mean GSPMD inserts in the JAX step
+    # (a no-op on one rank); the loss reported is the mean too.
+    reduce_gradients(params, cfg.communication.gradients_reduce_method)
+    loss = all_reduce(loss.detach(), DATA_AXIS, op=MEAN)
     sentinel_on = getattr(state, "sentinel", None) is not None
     if not (scaled or sentinel_on):
       apply_grad_group(state.opt_state, params, num_apply_group)

@@ -15,7 +15,7 @@ from easyparallellibrary_tpu_torch.serving.engine import (
 from easyparallellibrary_tpu_torch.serving.kv_cache import (
     NULL_BLOCK, BlockAllocator, SlotAllocator, allocate_kv_cache,
     allocate_paged_kv_cache, blocks_per_slot, cache_bytes, cache_length,
-    default_num_blocks, paged_cache_bytes)
+    default_num_blocks, kv_cache_shardings, paged_cache_bytes)
 from easyparallellibrary_tpu_torch.serving.prefix_cache import (
     PrefixCache, block_prefix_keys)
 from easyparallellibrary_tpu_torch.serving.resilience import (
@@ -44,7 +44,8 @@ __all__ = [
     "RemoteError", "ReplicaDeadError", "ReplicaHealth", "ReplicaTransport",
     "Request", "Router", "SlotAllocator", "StepPlan", "TransportError",
     "TransportTimeout",
-    "allocate_kv_cache", "allocate_paged_kv_cache", "block_prefix_keys",
+    "allocate_kv_cache", "allocate_paged_kv_cache", "kv_cache_shardings",
+    "block_prefix_keys",
     "blocks_per_slot", "cache_bytes", "cache_length",
     "check_draft_compatible", "check_servable", "default_num_blocks",
     "filtered_logits", "ngram_propose", "paged_cache_bytes",

@@ -82,7 +82,32 @@ pinned to other weights.
 The autotuner (``serving.autotune.enabled``, serving/autotune.py)
 moves the scheduler's clamps between steps, from SLO breaches.
 
-Not ported (raises, ROADMAP.md Queue 1): a device mesh.
+Tensor parallelism (``mesh=`` with a ``model`` axis above 1).  The JAX
+engine takes ``mesh=`` on one controller and GSPMD shards the one
+program.  The port keeps that API on SPMD processes, one per rank of
+the model group, each holding its shard of the weights and a K/V cache
+of ``H / tp`` heads:
+
+* rank 0 leads: it owns the scheduler, ``submit``, ``step`` and the
+  streams, and each step broadcasts the step plan over the model group
+  as one packed int32 buffer (tokens, slot ids, positions, validity,
+  block tables and the fields the tile plan is made from; the slot
+  layout's cursors follow as a second buffer);
+* every other rank calls :meth:`ContinuousBatchingEngine.follow`, which
+  receives each plan and runs the same model call on its shard
+  (``paged_step_logits`` / ``slot_step_logits``) until the leader's
+  ``close()``;
+* the logits come back whole on every rank (an all-gather over the
+  vocab shards) and rank 0 alone samples and commits;
+* a draft model on the mesh proposes on every rank from the same
+  pre-draft plan (its rollouts are greedy over whole logits, so every
+  rank draws the same drafts); a bad step's cache zeroing is broadcast
+  too.
+
+The wall-clock features (SLO monitor, watchdog, autotune) act on rank 0
+only, and no rank reaches a collective that the other skips.  A data
+axis above 1 raises: replicas of a TP engine are the router's
+(``serving/router.py``).
 """
 
 from __future__ import annotations
@@ -95,8 +120,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from easyparallellibrary_tpu_torch._not_ported import (
-    TENSOR_PARALLEL, not_ported)
+from easyparallellibrary_tpu_torch import constants
+from easyparallellibrary_tpu_torch.communicators import collectives
 from easyparallellibrary_tpu_torch.env import Env
 from easyparallellibrary_tpu_torch.kernels import _build
 from easyparallellibrary_tpu_torch.kernels import paged_attention as pa_lib
@@ -117,13 +142,40 @@ from easyparallellibrary_tpu_torch.serving.scheduler import (
 from easyparallellibrary_tpu_torch.utils import prng
 from easyparallellibrary_tpu_torch.utils.device import resolve_device
 from easyparallellibrary_tpu_torch.utils.logging import get_logger
-from easyparallellibrary_tpu_torch.weights import cast_for_compute
+from easyparallellibrary_tpu_torch.weights import (
+    cast_for_compute, local_params)
 
 # Periodic ServingStats rollup cadence (engine steps), as in the JAX
 # engine: per-step records carry only step-local gauges, so the TTFT /
 # ITL percentile SLO rules would otherwise see a rollup only at the end
 # of a run() drive.  The HBM gauges ride the same cadence.
 _STATS_PUBLISH_EVERY = 50
+
+# Lockstep messages from the leader of a tensor-parallel engine.
+_OP_STOP, _OP_STEP, _OP_PROPOSE, _OP_SANITIZE = 0, 1, 2, 3
+_PAGED_FIELDS = ("tokens", "slot_ids", "positions", "valid", "block_tables",
+                 "base_idx", "draft_base", "num_valid", "draft_cap")
+_SLOT_FIELDS = ("tokens", "num_valid", "reset", "draft_cap")
+
+
+def _check_mesh(mesh):
+  """The engine's mesh: the ambient one (``epl.init`` + ``build_mesh``),
+  whose model group carries the collectives, with no data axis."""
+  from easyparallellibrary_tpu_torch.cluster import Mesh
+  if not isinstance(mesh, Mesh):
+    raise TypeError(f"mesh must be a cluster.Mesh (epl.init() then "
+                    f"build_mesh()), got {type(mesh).__name__}")
+  cluster = Env.get().cluster
+  if cluster is None or cluster.built_mesh is not mesh:
+    raise ValueError("the engine's mesh must be the ambient mesh "
+                     "(Env.get().cluster.build_mesh()): the model's "
+                     "collectives run over its groups")
+  if mesh.axis_size(constants.DATA_AXIS) > 1:
+    raise ValueError(
+        f"a serving mesh with data={mesh.axis_size(constants.DATA_AXIS)}: "
+        "the engine shards over the model axis only; replicate it with "
+        "serving.router (one engine per replica)")
+  return mesh
 
 
 def filtered_logits(logits, temperature, top_k, top_p):
@@ -215,9 +267,18 @@ class ContinuousBatchingEngine:
     root_config = config if config is not None else Env.get().config
     conf = root_config.serving
     check_servable(cfg)
+    self.mesh = None if mesh is None else _check_mesh(mesh)
+    self._tp = 1 if mesh is None else mesh.axis_size(constants.MODEL_AXIS)
+    self.is_leader = (mesh is None
+                      or mesh.axis_index(constants.MODEL_AXIS) == 0)
+    self._followers_stopped = False
     if mesh is not None:
-      raise not_ported("a device mesh", TENSOR_PARALLEL)
-    self.device = resolve_device(device)
+      if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device}")
+      self.device = mesh.device
+    else:
+      self.device = resolve_device(device)
     # Reconcile the ambient tracer, SLO monitor and device introspector
     # with observability.*, so a config-enabled run traces and monitors
     # serving without any wiring at the call site (None = off; every
@@ -238,7 +299,8 @@ class ContinuousBatchingEngine:
     # stay in cfg.dtype.
     self.compute_dtype = resolve_model_dtypes(cfg).dtype
     self.params = cast_for_compute(
-        {k: v.to(self.device) for k, v in params.items()},
+        {k: v.to(self.device)
+         for k, v in local_params(model, params, mesh).items()},
         self.compute_dtype)
     self.num_slots = num_slots if num_slots is not None else conf.num_slots
     self.chunk = (prefill_chunk if prefill_chunk is not None
@@ -366,6 +428,19 @@ class ContinuousBatchingEngine:
                        else self._slot_spec_step)
     else:
       self._step_fn = self._paged_step if self.paged else self._slot_step
+    if self._tp > 1:
+      self._shapes = self._field_shapes(cfg)
+      rows = self.num_blocks if self.paged else self.num_slots
+      self._packet_len = 1 + max(
+          sum(int(np.prod(v)) for v in self._shapes.values()), 2 * rows)
+      if self.is_leader:
+        inner = self._step_fn
+
+        def lockstep(params, plan, *rest):
+          self._send(_OP_STEP, plan)
+          return inner(params, plan, *rest)
+
+        self._step_fn = lockstep
     self._steps = 0
     # Always-on compile sentinel: the GPU counterpart of a mid-serving
     # recompile is a kernel library built or loaded for the first time
@@ -764,6 +839,9 @@ class ContinuousBatchingEngine:
     if not self.scheduler.spec_enabled:
       self.drafter.observe_skip(plan)
       return np.zeros((N,), np.int32)
+    if self._tp > 1 and getattr(self.drafter, "mesh", None) is not None:
+      # A draft model on the mesh runs its rollouts on every rank.
+      self._send(_OP_PROPOSE, plan)
     with tracer.span("serving/draft", cat="serving", track="serving"):
       try:
         histories = self.scheduler.slot_histories(plan)
@@ -870,6 +948,8 @@ class ContinuousBatchingEngine:
     """Zero rows ``>= start[i]`` of every cache leaf's entry ``i`` where
     ``mask[i]``, in place.  Dim 0 is slots (contiguous) or pool blocks
     (paged), dim 1 the rows within."""
+    if self._tp > 1 and self.is_leader:
+      self._send(_OP_SANITIZE, None, extra=(mask, start))
     m = self._tensor(mask)
     st = self._tensor(start.astype(np.int64))
     for layer in self._kv.values():
@@ -911,6 +991,97 @@ class ContinuousBatchingEngine:
     self.scheduler.invalidate_cached_blocks(
         int(b) for b in np.nonzero(mask)[0] if b != kv_lib.NULL_BLOCK)
     self._sanitize(mask, start)
+
+  # ------------------------------------------------- tensor-parallel lockstep
+
+  def _fields(self):
+    return _PAGED_FIELDS if self.paged else _SLOT_FIELDS
+
+  def _field_shapes(self, cfg):
+    """The shape of each plan field a lockstep message carries; the
+    message is the fields flattened, after the op code, or a sanitize's
+    mask and start rows."""
+    N, T = self.num_slots, self.token_budget
+    if not self.paged:
+      return {"tokens": (N, self.chunk), "num_valid": (N,), "reset": (N,),
+              "draft_cap": (N,)}
+    mb = kv_lib.blocks_per_slot(cfg, self.block_size)
+    return {"tokens": (T,), "slot_ids": (T,), "positions": (T,),
+            "valid": (T,), "block_tables": (N, mb), "base_idx": (N,),
+            "draft_base": (N,), "num_valid": (N,), "draft_cap": (N,)}
+
+  def _send(self, op: int, plan, extra=None) -> None:
+    """Leader: broadcast one lockstep message over the model group (the
+    plan's integer fields, or a sanitize's mask and start rows), and for
+    the slot layout the cursors after it."""
+    buf = np.zeros((self._packet_len,), np.int32)
+    buf[0] = op
+    parts = []
+    if plan is not None:
+      parts = [np.asarray(getattr(plan, f)).astype(np.int32).reshape(-1)
+               for f in self._fields()]
+    elif extra is not None:
+      parts = [np.asarray(a).astype(np.int32).reshape(-1) for a in extra]
+    if parts:
+      flat = np.concatenate(parts)
+      buf[1:1 + flat.size] = flat
+    collectives.broadcast(self._tensor(buf), constants.MODEL_AXIS)
+    if plan is not None and not self.paged:
+      collectives.broadcast(self._cursors, constants.MODEL_AXIS)
+
+  def _recv(self):
+    """Follower: the next message: ``(op, plan or None, payload)``."""
+    import types
+    buf = torch.zeros((self._packet_len,), dtype=torch.int32,
+                      device=self.device)
+    buf = collectives.broadcast(buf, constants.MODEL_AXIS).cpu().numpy()
+    op = int(buf[0])
+    if op in (_OP_STOP, _OP_SANITIZE):
+      return op, None, buf[1:]
+    plan, offset = types.SimpleNamespace(), 1
+    for f in self._fields():
+      shape = self._shapes[f]
+      size = int(np.prod(shape))
+      arr = buf[offset:offset + size].reshape(shape)
+      setattr(plan, f, arr.astype(bool) if f in ("valid", "reset") else arr)
+      offset += size
+    if not self.paged:
+      self._cursors = collectives.broadcast(self._cursors,
+                                            constants.MODEL_AXIS)
+      if self.drafter is not None:
+        self.drafter.observe_commit(self._cursors)
+    return op, plan, None
+
+  @torch.inference_mode()
+  def follow(self) -> int:
+    """Serve as a follower rank of a tensor-parallel engine: run the
+    leader's steps on this rank's shard until the leader's ``close()``.
+    Returns the number of steps run."""
+    if self._tp <= 1 or self.is_leader:
+      raise RuntimeError("follow() runs on the non-leader ranks of a "
+                         "tensor-parallel engine (mesh model axis > 1)")
+    from easyparallellibrary_tpu_torch.models.gpt import slot_step_logits
+    steps = 0
+    while True:
+      op, plan, payload = self._recv()
+      if op == _OP_STOP:
+        return steps
+      if op == _OP_SANITIZE:
+        rows = self.num_blocks if self.paged else self.num_slots
+        self._sanitize(payload[:rows].astype(bool),
+                       payload[rows:2 * rows].astype(np.int64))
+      elif op == _OP_PROPOSE:
+        self.drafter.propose(plan, {})
+      elif self.paged:
+        self._score(self.params, plan)
+        steps += 1
+      else:
+        cursors = torch.where(self._tensor(plan.reset),
+                              torch.zeros_like(self._cursors),
+                              self._cursors)
+        slot_step_logits(self.model, self.params, self._kv,
+                         self._tensor(plan.tokens), cursors)
+        steps += 1
 
   # ------------------------------------------------------------ host loop
 
@@ -1003,9 +1174,14 @@ class ContinuousBatchingEngine:
     return self._steps
 
   def close(self):
-    """Stop the watchdog thread.  Idempotent; the engine still steps
-    afterwards.  Also runs when the engine is collected and on ``with``
-    exit."""
+    """Stop the watchdog thread, and release the followers of a
+    tensor-parallel leader (their :meth:`follow` returns).  Idempotent;
+    the engine still steps afterwards, unless it leads followers.  Also
+    runs on ``with`` exit, and (the watchdog) when the engine is
+    collected."""
+    if self._tp > 1 and self.is_leader and not self._followers_stopped:
+      self._followers_stopped = True
+      self._send(_OP_STOP, None)
     if self._watchdog is not None:
       self._watchdog.close()
       self._watchdog = None

@@ -57,6 +57,36 @@ def default_num_blocks(cfg, num_slots: int, block_size: int) -> int:
   return num_slots * blocks_per_slot(cfg, block_size) + 1
 
 
+def _heads(cfg) -> int:
+  """The heads a rank's cache holds: ``H / tp`` for a tensor-parallel
+  model on the ambient mesh (``models.gpt.local_heads``), else ``H``."""
+  from easyparallellibrary_tpu_torch.models.gpt import local_heads
+  return local_heads(cfg)
+
+
+def kv_cache_shardings(cfg, mesh):
+  """The cache layout on ``mesh`` (JAX ``kv_cache_shardings``): the spec
+  of every K/V leaf, heads (dim 2) split over ``model`` for a
+  tensor-parallel model on a model axis above 1, else replicated, and
+  the cursors' (replicated).  ``(None, None)`` without a mesh.  Each
+  rank allocates its own shard (``H / tp`` heads); heads that do not
+  divide the axis raise, where JAX replicates the cache."""
+  from easyparallellibrary_tpu_torch import constants
+  if mesh is None:
+    return None, None
+  tp = mesh.axis_size(constants.MODEL_AXIS)
+  sharded = bool(cfg.tensor_parallel) and tp > 1
+  if sharded and cfg.num_heads % tp:
+    raise ValueError(
+        f"num_heads {cfg.num_heads} does not divide the model axis ({tp}): "
+        "the port shards whole heads per rank (the JAX package replicates "
+        "such a cache)")
+  leaf = (None, None, constants.MODEL_AXIS, None) if sharded else ()
+  kv = {f"block_{i}": {"attn": {"cached_key": leaf, "cached_value": leaf}}
+        for i in range(cfg.num_layers)}
+  return kv, ()
+
+
 def allocate_paged_kv_cache(cfg, num_blocks: int, block_size: int,
                             device=None) -> Dict[str, Dict]:
   """Zeroed K/V pools on ``device`` (default ``"cuda"``):
@@ -72,7 +102,7 @@ def allocate_paged_kv_cache(cfg, num_blocks: int, block_size: int,
   if cfg.d_model % cfg.num_heads:
     raise ValueError(f"d_model {cfg.d_model} must divide into "
                      f"{cfg.num_heads} heads")
-  shape = (num_blocks, block_size, cfg.num_heads,
+  shape = (num_blocks, block_size, _heads(cfg),
            cfg.d_model // cfg.num_heads)
 
   def leaf():
@@ -104,7 +134,7 @@ def allocate_kv_cache(cfg, num_slots: int, chunk: int, device=None
     raise ValueError(f"d_model {cfg.d_model} must divide into "
                      f"{cfg.num_heads} heads")
   dev = resolve_device(device)
-  shape = (num_slots, cache_length(cfg, chunk), cfg.num_heads,
+  shape = (num_slots, cache_length(cfg, chunk), _heads(cfg),
            cfg.d_model // cfg.num_heads)
 
   def leaf():
@@ -117,16 +147,16 @@ def allocate_kv_cache(cfg, num_slots: int, chunk: int, device=None
 
 
 def cache_bytes(cfg, num_slots: int, chunk: int) -> int:
-  """Slot-cache footprint in bytes (K and V, all layers)."""
-  H, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+  """Slot-cache footprint in bytes (K and V, all layers) on one rank."""
+  H, hd = _heads(cfg), cfg.d_model // cfg.num_heads
   itemsize = torch.empty((), dtype=cfg.dtype).element_size()
   per_leaf = num_slots * cache_length(cfg, chunk) * H * hd
   return 2 * cfg.num_layers * per_leaf * itemsize
 
 
 def paged_cache_bytes(cfg, num_blocks: int, block_size: int) -> int:
-  """Paged-pool footprint in bytes (K and V, all layers)."""
-  H, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+  """Paged-pool footprint in bytes (K and V, all layers) on one rank."""
+  H, hd = _heads(cfg), cfg.d_model // cfg.num_heads
   itemsize = torch.empty((), dtype=cfg.dtype).element_size()
   return 2 * cfg.num_layers * num_blocks * block_size * H * hd * itemsize
 

@@ -22,8 +22,6 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from easyparallellibrary_tpu_torch._not_ported import (
-    TENSOR_PARALLEL, not_ported)
 from easyparallellibrary_tpu_torch.observability import trace as trace_lib
 from easyparallellibrary_tpu_torch.serving._capabilities import (
     check_draft_compatible)
@@ -144,8 +142,10 @@ class DraftModelDrafter(Drafter):
   """
 
   def __init__(self, model, params, k: int = 4, mesh=None):
-    if mesh is not None:
-      raise not_ported("a device mesh for the draft model", TENSOR_PARALLEL)
+    # A tensor-parallel draft model on ``mesh`` (its params whole or this
+    # rank's shard): every rank of the engine's model group runs its
+    # rollouts in lockstep (serving/engine.py).
+    self.mesh = mesh
     self.k = int(k)
     self.model = model
     self.params = params
@@ -167,8 +167,6 @@ class DraftModelDrafter(Drafter):
     (default the GPU)."""
     from easyparallellibrary_tpu_torch.runtime import saver
     del shardings
-    if mesh is not None:
-      raise not_ported("a device mesh for the draft model", TENSOR_PARALLEL)
     leaves, _ = saver.peek_leaf_shapes(directory)
     for path, shape in leaves.items():
       name = path[len("params/"):] if path.startswith("params/") else path
@@ -182,16 +180,26 @@ class DraftModelDrafter(Drafter):
             f"same tokenizer")
     if target is None:
       target = dict(model.named_parameters())
+      if mesh is not None:
+        # The checkpoint holds the whole parameters; this rank keeps its
+        # slice at bind().
+        from easyparallellibrary_tpu_torch.models.gpt import GPT
+        target = dict(GPT(dataclasses.replace(
+            model.cfg, tensor_parallel=False)).named_parameters())
     params, _ = saver.restore_params(directory, target=target,
                                      device=device)
-    return cls(model, params, k=k)
+    return cls(model, params, k=k, mesh=mesh)
 
   def bind(self, engine):
     from easyparallellibrary_tpu_torch.runtime.amp import (
         resolve_model_dtypes)
     from easyparallellibrary_tpu_torch.serving import kv_cache as kv_lib
-    from easyparallellibrary_tpu_torch.weights import cast_for_compute
+    from easyparallellibrary_tpu_torch.weights import (
+        cast_for_compute, local_params)
     check_draft_compatible(engine.model.cfg, self.model.cfg)
+    if self.mesh is not None and self.mesh is not engine.mesh:
+      raise ValueError("a draft model's mesh must be its engine's mesh")
+    self.params = local_params(self.model, self.params, self.mesh)
     self.device = engine.device
     self.num_slots = engine.num_slots
     self.chunk = engine.chunk

@@ -117,3 +117,106 @@ def cast_for_compute(params: Dict[str, torch.Tensor], compute_dtype
     owner = name.split(".")[-2] if "." in name else ""
     out[name] = p if owner in _LAYER_NORMS else p.to(compute_dtype)
   return out
+
+
+def _tp_layout(name: str, cfg):
+  """How a GPT parameter is split over ``model``: ``("qkv", None)``,
+  ``("rows" | "cols", logical width)`` or None (replicated)."""
+  parts = name.split(".")
+  leaf, owner = parts[-1], (parts[-2] if len(parts) > 1 else "")
+  if owner == "qkv":
+    return ("qkv", None)
+  if owner == "proj" and leaf == "weight":
+    return ("cols", cfg.d_model)
+  if owner == "wi":
+    return ("rows", cfg.d_ff)
+  if owner == "wo" and leaf == "weight":
+    return ("cols", cfg.d_ff)
+  if owner in ("wte", "lm_head"):
+    return ("rows", cfg.vocab_size)
+  return None
+
+
+def _block(t: torch.Tensor, dim: int, logical: int, tp: int, rank: int):
+  from easyparallellibrary_tpu_torch.ops.layers import _padded_init, _round_up
+  padded = list(t.shape)
+  padded[dim] = _round_up(logical, tp)
+  t = _padded_init(t.narrow(dim, 0, min(t.shape[dim], padded[dim])), padded)
+  size = padded[dim] // tp
+  return t.narrow(dim, rank * size, size).contiguous()
+
+
+def shard_params(params: Dict[str, torch.Tensor], cfg, mesh=None,
+                 rank: Optional[int] = None, tp: Optional[int] = None
+                 ) -> Dict[str, torch.Tensor]:
+  """This rank's slice of a whole GPT state dict for a
+  ``tensor_parallel`` model: the logical (or the JAX package's padded)
+  parameters in, each split as ``models.gpt`` lays its layers out —
+  QKV by whole heads (q, k and v of the same ``H / tp`` heads), the
+  column layers' rows and the row layers' columns zero-padded to an even
+  tiling, the embedding and head by vocab rows; everything else
+  replicated.  ``tp`` / ``rank`` default to the mesh's (the ambient
+  mesh's) ``model`` axis.  A model without ``tensor_parallel`` takes
+  the parameters as they are."""
+  from easyparallellibrary_tpu_torch import constants
+  from easyparallellibrary_tpu_torch.communicators import collectives
+  if tp is None:
+    tp = (collectives.axis_size(constants.MODEL_AXIS, mesh)
+          if cfg.tensor_parallel else 1)
+  if rank is None:
+    rank = collectives.axis_index(constants.MODEL_AXIS, mesh)
+  if tp <= 1:
+    return dict(params)
+  if cfg.num_heads % tp:
+    raise ValueError(f"num_heads {cfg.num_heads} does not divide the "
+                     f"model axis ({tp})")
+  H, hd, D = cfg.num_heads, cfg.d_model // cfg.num_heads, cfg.d_model
+  out = {}
+  for name, t in params.items():
+    layout = _tp_layout(name, cfg)
+    if layout is None:
+      out[name] = t
+    elif layout[0] == "qkv":
+      hl = H // tp
+      w = t.reshape(3, H, hd, D)[:, rank * hl:(rank + 1) * hl]
+      out[name] = w.reshape(3 * hl * hd, D).contiguous()
+    else:
+      kind, logical = layout
+      out[name] = _block(t, 0 if kind == "rows" else t.dim() - 1, logical,
+                         tp, rank)
+  return out
+
+
+def local_params(model, params: Dict[str, torch.Tensor], mesh=None
+                 ) -> Dict[str, torch.Tensor]:
+  """``params`` in ``model``'s own layout on this rank: as they are when
+  their shapes are the model's (already sharded, or no tensor
+  parallelism), else this rank's slice of the whole
+  (:func:`shard_params`)."""
+  own = {n: tuple(p.shape) for n, p in model.named_parameters()}
+  if all(tuple(params[n].shape) == s for n, s in own.items()
+         if n in params):
+    return params
+  return shard_params(params, model.cfg, mesh)
+
+
+def unshard_params(shards, cfg) -> Dict[str, torch.Tensor]:
+  """The whole logical state dict from every rank's
+  :func:`shard_params` slice (rank order): the inverse, padding cut."""
+  tp = len(shards)
+  H, hd, D = cfg.num_heads, cfg.d_model // cfg.num_heads, cfg.d_model
+  out = {}
+  for name in shards[0]:
+    layout = _tp_layout(name, cfg) if tp > 1 else None
+    parts = [s[name] for s in shards]
+    if layout is None:
+      out[name] = parts[0]
+    elif layout[0] == "qkv":
+      hl = H // tp
+      w = torch.cat([p.reshape(3, hl, hd, D) for p in parts], dim=1)
+      out[name] = w.reshape(3 * D, D)
+    else:
+      kind, logical = layout
+      dim = 0 if kind == "rows" else parts[0].dim() - 1
+      out[name] = torch.cat(parts, dim=dim).narrow(dim, 0, logical)
+  return out

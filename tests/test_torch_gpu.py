@@ -1138,3 +1138,76 @@ def test_dcp_round_trip_of_card_tensors(cuda, tmp_path):
   for k, v in tree.items():
     assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
     assert torch.equal(got[k], v), k
+
+
+# ---------------------------------------------- the tensor-parallel slice
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_tiled_kernel_at_the_tp2_rank_shape(cuda, hd):
+  """K2 at the per-rank heads of a TP = 2 GPT-350M engine (H / tp = 8)
+  at ``engine_step``: the tiled build against its plain version."""
+  step = dict(PAGED_STEPS["engine_step"], H=8)
+  args, runs = _paged_step(cuda, torch.bfloat16, 5, hd=hd, **step)
+  tiles = pa.plan_tiles(runs, args[4].cpu().numpy(), args[3].shape[1],
+                        args[1].shape[1], 8, cuda)
+  launches = pa.paged_attention_tiled_cuda.launches
+  got = pa.paged_attention(*args, tiles)
+  torch.cuda.synchronize()
+  assert pa.paged_attention_tiled_cuda.launches == launches + 1
+  want = pa.paged_attention_reference(*args)
+  torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                             atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_at_the_tp2_rank_shape(cuda):
+  """K1's three kernels at the per-rank heads of TP = 2 training
+  (H / tp = 8, S = 1024, D = 64; batch cut to 2), bf16 causal, against
+  their plain versions by chip_smoke.py's normalized limits."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  q, k, v, dout = _flash_case(cuda, torch.bfloat16, 11, 2, 8, 1024, 1024,
+                              64)
+  out, _ = fa.flash_fwd(q, k, v, True)
+  want_out, want_lse = fa.flash_fwd_reference(q, k, v, True)
+  _assert_flash_close(out, want_out, "fwd", "out")
+  delta = (dout.float() * want_out.float()).sum(-1)
+  dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, True)
+  dq = fa.flash_bwd_dq(q, k, v, dout, want_lse, delta, True)
+  want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, dout, want_lse,
+                                                delta, True)
+  want_dq = fa.flash_bwd_dq_reference(q, k, v, dout, want_lse, delta, True)
+  for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                          ("dv", dv, want_dv)):
+    _assert_flash_close(got, want, "grad", name)
+
+
+@pytest.mark.gpu
+def test_tp2_engine_on_the_card_equals_tp1(cuda):
+  """Two gloo ranks sharing the card (NCCL refuses two ranks on one
+  device): a tiny fp32 TP = 2 paged engine's staggered streams equal the
+  tp = 1 engine's, each rank's paged launches layers x steps."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT
+  from easyparallellibrary_tpu_torch.serving import ContinuousBatchingEngine
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  from easyparallellibrary_tpu_torch.weights import init_params
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg_kwargs = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32,
+                    d_ff=64, max_seq_len=64)
+  r = np.random.RandomState(0)
+  prompts = [r.randint(0, 64, (n,)).astype(np.int32) for n in (5, 3, 9, 1)]
+  runs = {"plain": (prompts, [(0, 2), (2, 4)], 1, 0, False)}
+  kw = dict(num_slots=2, prefill_chunk=4, block_size=4)
+  ranks = spawn(tp_workers.chip_tp_serving, 2,
+                ("gloo", cfg_kwargs, 0, runs, kw, "cuda"), timeout_s=300)
+  cfg = tp_workers.gpt_config(cfg_kwargs)
+  eng = ContinuousBatchingEngine(GPT(cfg), init_params(cfg, 0, device=cuda),
+                                 paged=True, **kw)
+  want = tp_workers.lead_waves(eng, prompts, [(0, 2), (2, 4)], 1)
+  for i in want:
+    np.testing.assert_array_equal(ranks[0]["plain"]["streams"][i], want[i])
+  for rec in (ranks[0]["plain"], ranks[1]["plain"]):
+    assert rec["all_launches"] == 2 * rec["steps"] > 0
+    assert rec["plain_calls"] == 0

@@ -58,6 +58,8 @@ def _entry_points(tmp):
       DraftModelDrafter, Router)
   from easyparallellibrary_tpu_torch.weights import (
       from_jax_params, init_params)
+  from easyparallellibrary_tpu_torch.cluster import Cluster
+  from easyparallellibrary_tpu_torch.utils.launcher import init_distributed
   cfg = GPTConfig(vocab_size=64, num_layers=1, num_heads=2, d_model=16,
                   d_ff=32, max_seq_len=16, dtype=torch.float32)
   cpu_params = init_params(cfg, device="cpu")
@@ -82,6 +84,9 @@ def _entry_points(tmp):
       "Router": lambda **kw: Router(
           GPT(cfg), cpu_params, num_replicas=1, paged=True, num_slots=2,
           prefill_chunk=4, block_size=4, **kw),
+      "Cluster.build_mesh": lambda **kw: Cluster(**kw).build_mesh(),
+      "init_distributed": lambda **kw: init_distributed(world_size=1,
+                                                        **kw),
   }
 
 
@@ -109,7 +114,8 @@ def _fit(cfg, params, **kw):
                                   "ContinuousBatchingEngine", "fit",
                                   "DevicePrefetcher", "restore_params",
                                   "DraftModelDrafter.from_checkpoint",
-                                  "Router"])
+                                  "Router", "Cluster.build_mesh",
+                                  "init_distributed"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(
     name, monkeypatch, tmp_path):
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -117,3 +123,34 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(
   with pytest.raises(RuntimeError, match="device='cpu'"):
     entry()
   entry(device="cpu")
+
+
+# The modules of the tensor-parallel slice; each is held to the import
+# rule above by test_no_jax_imports as well.
+TP_MODULES = ("communicators/collectives.py", "communicators/fusion.py",
+              "communicators/overlap.py", "ops/bridging.py",
+              "ops/distributed_ops.py", "parallel/explicit.py",
+              "parallel/planner.py", "runtime/zero.py", "utils/compat.py",
+              "utils/sharding.py", "utils/launcher.py",
+              "testing/tp_workers.py")
+
+
+def test_tensor_parallel_modules_exist_and_import_no_jax():
+  for rel in TP_MODULES:
+    path = PORT / rel
+    assert path.is_file(), rel
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_spawned_workers_load_no_jax():
+  """A rank started by ``utils.launcher.spawn`` runs a tensor-parallel
+  forward and backward without JAX, flax, optax or the JAX package
+  among its loaded modules."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  ranks = spawn(tp_workers.imported_modules, 2, (), timeout_s=120)
+  for loaded in ranks:
+    assert "torch" in loaded
+    assert not set(loaded) & set(FORBIDDEN), set(loaded) & set(FORBIDDEN)

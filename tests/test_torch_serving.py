@@ -175,7 +175,9 @@ def test_features_outside_the_slice_raise(kwargs):
   off); with the autotuner on and no mesh, each layout builds one."""
   tmodel, tparams = tiny_gpt(device="cpu")
   for paged in (True, False):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    # The mesh is ported (tests/test_torch_tp.py): what is not a
+    # cluster.Mesh raises.
+    with pytest.raises(TypeError, match="cluster.Mesh"):
       ContinuousBatchingEngine(tmodel, tparams, device="cpu",
                                **{"paged": paged, **kwargs})
     rest = {k: v for k, v in kwargs.items() if k not in ("mesh", "registry")}

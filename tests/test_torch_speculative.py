@@ -481,3 +481,39 @@ def test_entry_points_resolve_drafters_and_name_what_is_not_ported():
       ContinuousBatchingEngine(tmodel, tparams, paged=True,
                                prefill_chunk=8, speculative=True,
                                prefix_cache=True)
+
+
+@pytest.mark.parametrize("drafter", ["small_draft_model", "self_draft"])
+def test_draft_model_and_prefix_cache_staggered_equal_jax(drafter):
+  """The paged engine with a draft model and the prefix cache both on,
+  on staggered requests with shared prefixes, is token-equal to the JAX
+  engine with the same knobs: a 1-layer width-16 draft model (seed 9,
+  k=4) and self-draft (k=3).  Prefix hits occur and drafts are
+  accepted."""
+  epl.init()
+  jmodel, jparams, tmodel, tparams = _models()
+  if drafter == "small_draft_model":
+    jd, jdp, td, tdp = _models(dict(TINY, num_layers=1, d_model=16,
+                                    d_ff=32), seed=9)
+    k = 4
+  else:
+    jd, jdp, td, tdp = jmodel, jparams, tmodel, tparams
+    k = 3
+  shared = np.arange(1, 9, dtype=np.int32)
+  prompts = [np.concatenate([shared, p]) for p in _prompts(
+      (3, 1, 6, 2, 5, 4), seed=3, repeat=2)]
+  max_new = (6, 7, 8, 4, 5, 9)
+  knobs = dict(PAGED, prefix_cache=True)
+  stats = ServingStats()
+  eng = ContinuousBatchingEngine(
+      tmodel, tparams, device="cpu", stats=stats,
+      drafter=DraftModelDrafter(td, tdp, k=k), **knobs)
+  got = _drive_staggered(eng, Request, prompts, max_new)
+  jeng = JaxEngine(jmodel, jparams,
+                   drafter=JaxDraftModelDrafter(jd, jdp, k=k), **knobs)
+  want = _drive_staggered(jeng, JaxRequest, prompts, max_new)
+  for i in range(len(prompts)):
+    np.testing.assert_array_equal(got[i], want[i], err_msg=f"req {i}")
+  assert eng.steps == jeng._steps
+  assert eng.scheduler.prefix_hits == jeng.scheduler.prefix_hits > 0
+  assert stats.summary()["drafted_tokens"] > 0
