@@ -137,8 +137,8 @@ those paths against its plain PyTorch version:
     back), ``rejoin(0, force=True)`` respawning it, ``drain(1,
     timeout_s=0)`` through the evacuate RPC, no child left after
     ``close()``; (d) tokens/s, TTFT, ITL and host ms a sweep for 1 and 2
-    process replicas (two ABBA rounds of windows, medians and the spread
-    between rounds) and 2 in-process ones on the one card, with the
+    process replicas (one ABBA round of windows, medians and the spread
+    between windows) and 2 in-process ones on the one card, with the
     children's launches summed from their beats; (e) traced children
     (4 layers): their spans harvested, a failed-over request one flow
     across the parent and both children, the trace validated.
@@ -186,7 +186,7 @@ wall limit):
     n-gram drafter and with the prefix cache: streams against the tp = 1
     engine's by the gap rule, the tiled kernel's launches 24 x steps on
     each rank, tokens/s, TTFT p50 and host ms a step beside tp = 1's;
-    (c) bench.py's training step at tp = 2, 5 steps: losses against
+    (c) bench.py's training step at tp = 2, 2 steps: losses against
     tp = 1 within one bf16 spacing, each rank's flash launches 24 x
     steps per kernel, peak memory and step ms; (d) explicit DP = 2 with
     8 MB fusion buckets and ZeRO-1 at DP = 2 (4 layers) against one
@@ -194,10 +194,31 @@ wall limit):
     Dense through the overlap ring against ``overlap="off"``.  Every
     number of phase 21 is two processes time-sharing one card: a
     correctness check, not a scaling number.
+
+``--phases 22`` runs the pipeline, two stage ranks sharing the card over
+gloo (in the whole run, the rank group phase 21 starts; each rank's
+program is ``testing/pp_workers.chip_pipeline``):
+
+22. bench.py's GPT-350M bf16 step (flash attention, remat ``dots_flash``,
+    AdamW(3e-4, wd 0.01), batch 16 x 1024) cut into S = 2 stages of
+    M = 4 micro-batches, through ``make_gpt_train_step``: ``smap`` GPipe,
+    ``smap`` 1F1B, ``smap`` interleaved 1F1B (K = 2) and the ``vmap``
+    layout's PreferBackwardOptimizer, each 1 warm and 3 timed steps.  On
+    each rank: the losses within 2^-12 relative (a sixteenth of one bf16
+    spacing) of the one-process step's (the same batch and
+    ``init_params`` weights), K1's launches
+    equal to the schedule's formula and the plain versions' calls 0,
+    step ms, peak memory, the bytes staged through the host a step, the
+    bubble fraction, the 1F1B run's profiled step's device busy and idle
+    share; and
+    K1's forward and dK/dV at the stage's shape against their plain
+    versions.  Two processes time-sharing one card:
+    a correctness check, not a scaling number.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -3074,7 +3095,9 @@ FLEET_FACTORY = "easyparallellibrary_tpu_torch.testing.factories:gpt_350m"
 FLEET_KILL_CALL = 6          # ReplicaKiller: step calls after prefill began
 FLEET_FP32_REQUESTS, FLEET_FP32_NEW = 8, 16
 FLEET_TRACE_LAYERS = 4       # 19e: depth cut for the traced children
-FLEET_ROUNDS = 2             # 19d: ABBA rounds of 1 and 2 process replicas
+# 19d: ABBA rounds of 1 and 2 process replicas (one, so that phase 22
+# fits the script's time).
+FLEET_ROUNDS = 1
 
 
 class FleetMeter:
@@ -3504,14 +3527,16 @@ HEAL_CONF = {
     "observability": {"slo": {
         "enabled": True, "shed_objective": 0.5, "fast_window": 2,
         "slow_window": 3, "fast_burn": 1.0, "slow_burn": 1.0}}}
-# (c) rollouts: requests and new tokens, the canary's hold (seconds on the
-# router's wall clock).
-ROLL_REQUESTS, ROLL_NEW, ROLL_HOLD_S = 24, 16, 1.0
+# (c) rollouts: requests (16: 8 before begin(), the rest from the canary
+# on) and new tokens, the canary's hold (seconds on the router's wall
+# clock).
+ROLL_REQUESTS, ROLL_NEW, ROLL_HOLD_S = 16, 16, 1.0
 # (d) ABBA rounds of sweep and reactor windows, phase 5's three waves
 # REACTOR_WAVE_S apart on the wall clock (about three sweeps: a reactor
 # cycle runs several steps, so waves paced in calls would differ); the
 # wire deadline that condemns the SIGSTOPped child.
-REACTOR_ROUNDS, REACTOR_WAVE_S, STALL_RPC_TIMEOUT_S = 2, 0.075, 5.0
+# 20d: one ABBA round of sweep and reactor windows (the script's time).
+REACTOR_ROUNDS, REACTOR_WAVE_S, STALL_RPC_TIMEOUT_S = 1, 0.075, 5.0
 
 
 def _actuation_log(monitor):
@@ -4279,7 +4304,9 @@ TP = 2                       # ranks of the model axis (phase 21)
 # Each spawned group's deadline, and phase 21's wall limit: a hung
 # collective fails the phase instead of the script's time limit.
 TP_SPAWN_DEADLINE_S, TP_PHASE_WALL_S = 600, 900
-TP_TRAIN_BATCH, TP_TRAIN_STEPS = 16, 5
+# 21c: 2 steps (a step over gloo is ~10 s a rank): the first loss holds
+# the TP forward, the second the TP backward and one AdamW update.
+TP_TRAIN_BATCH, TP_TRAIN_STEPS = 16, 2
 # bf16 losses of two runs whose sums are taken in another order (the
 # row-parallel all-reduces, the vocab-parallel normaliser, a per-rank
 # batch): one bf16 spacing, 2^-8, relative.
@@ -4601,12 +4628,14 @@ def tp_check_data_parallel(ranks, one, backend):
       f"one card)")
 
 
-def tensor_parallel_mesh(torch, pa, fa, params):
+def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False):
   """Phase 21 (module docstring): the backend probe; K1 and K2 at the
   per-rank shapes; the tp = 1 references in this process; then every TP
   = 2, DP = 2 and ZeRO-1 run in one group of two ranks
-  (``testing.tp_workers.chip_tp_suite``), each rank started once.
-  Returns what the kernels line carries."""
+  (``testing.tp_workers.chip_tp_suite``), each rank started once; with
+  ``pipeline``, phase 22's runs in the same group after them (the
+  reference made here, the checks by ``pipeline_phase``).  Returns what
+  the kernels line carries."""
   from easyparallellibrary_tpu_torch.testing import tp_workers
   from easyparallellibrary_tpu_torch.utils.launcher import spawn
   t0 = time.monotonic()
@@ -4635,6 +4664,12 @@ def tensor_parallel_mesh(torch, pa, fa, params):
     one_dp = tp_workers.dp_steps(mesh, "implicit", dp_cfg, dp_batches)
   gc.collect()
   torch.cuda.empty_cache()
+  pp = None
+  if pipeline:
+    with Phase("22 the one-process reference (in phase 21's group)"):
+      t_pp = time.monotonic()
+      pp = pipeline_spec(torch, params, batch)
+      pp_ref_s = time.monotonic() - t_pp
   dense = dict(rows=TP_TRAIN_BATCH * 1024, d_in=4096, d_out=1024, seed=3)
   spec = {"collectives": (TP_COLLECTIVE_X, dense),
           "serving": (dict(GPT_350M, dtype="bfloat16"), 0, runs,
@@ -4642,8 +4677,11 @@ def tensor_parallel_mesh(torch, pa, fa, params):
           "training": (train_cfg, batch, TP_TRAIN_STEPS),
           "dp": (dp_cfg, dp_batches,
                  {"communication.fusion_threshold_mb": 8})}
+  if pp is not None:
+    spec["pipeline"] = pp[1]
   with Phase(f"21 TP = 2 serving and training, DP = 2, ZeRO-1 and the "
-             f"ring: two ranks, one group"):
+             f"ring" + (", then 22's pipeline runs" if pp else "")
+             + ": two ranks, one group"):
     ranks = spawn(tp_workers.chip_tp_suite, TP, (backend, spec),
                   timeout_s=TP_SPAWN_DEADLINE_S)
   ring = tp_check_collectives_and_ring(torch, ranks, backend, dense)
@@ -4651,9 +4689,144 @@ def tensor_parallel_mesh(torch, pa, fa, params):
   training = tp_check_training(ranks, one_training, backend)
   tp_check_data_parallel(ranks, one_dp, backend)
   wall = time.monotonic() - t0
+  pp_launches = None
+  if pp is not None:
+    pp_wall = pp_ref_s + max(r["pipeline"]["wall_s"] for r in ranks)
+    wall -= pp_wall
+    with Phase("22. the pipeline (S = 2, M = 4) on phase 21's ranks"):
+      pp_launches = pipeline_phase(torch, fa, params, (ranks, pp[0]),
+                                   backend)
+    log(f"   22. wall {pp_wall:.1f} s (reference {pp_ref_s:.1f} s, the "
+        f"slower rank's runs {pp_wall - pp_ref_s:.1f} s)")
+    assert pp_wall < PP_PHASE_WALL_S, f"phase 22 took {pp_wall:.0f} s"
   assert wall < TP_PHASE_WALL_S, f"phase 21 took {wall:.0f} s"
   return dict(backend=backend, nccl_probe=probe, ring=ring, paged=paged,
-              flash=flash, serving=serving, training=training)
+              flash=flash, serving=serving, training=training,
+              pipeline=pp_launches)
+
+
+# ------------------------------------------------------ 22. the pipeline
+
+PP = 2                       # stage ranks (phase 22)
+PP_M, PP_STEPS = 4, 4        # micro-batches; 1 warm + 3 timed steps
+PP_PHASE_WALL_S = 400
+# The pipeline's losses against one process's: sound runs read 1.7e-5 to
+# 3.1e-5 relative over 4 steps (the micro-batch sums in another order);
+# 2^-12 leaves 8x room and sits 16x inside one bf16 spacing (2^-8), so a
+# stage that learns wrongly shows by the third step.
+PP_LOSS_RTOL = 2.0 ** -12
+# (name, pipeline.engine, pipeline.strategy, pipeline_interleave)
+PP_RUNS = [("smap_gpipe", "smap", "PreferForward", 1),
+           ("smap_1f1b", "smap", "PreferBackward", 1),
+           ("smap_interleaved", "smap", "PreferBackward", 2),
+           ("vmap_1f1b_grouped", "", "PreferBackwardOptimizer", 1)]
+# The run that takes one more step under torch.profiler (a profiled
+# window costs ~10 s a run in this script's time).
+PP_PROFILED = "smap_1f1b"
+PP_DISPATCH = {"smap_gpipe": ["smap", "gpipe", None],
+               "smap_1f1b": ["smap", "1f1b", None],
+               "smap_interleaved": ["smap", "interleaved", None],
+               "vmap_1f1b_grouped": ["vmap", "1f1b", PP]}
+
+
+def pipeline_spec(torch, params, batch):
+  """22: the one-process step's losses (the reference) in this process,
+  and the ranks' spec.  The pipeline takes no ``loss_chunk`` (the JAX
+  package refuses it with stages), so neither does the reference."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  cfg = dict(GPT_350M, dtype="bfloat16", remat=True,
+             remat_policy="dots_flash", attn_impl="pallas_flash")
+  mesh = tp_workers.setup("", device="cuda")
+  one = tp_workers.train_steps(mesh, cfg, params, batch, PP_STEPS)
+  gc.collect()
+  torch.cuda.empty_cache()
+  log(f"   22. one process: losses {[round(x, 5) for x in one['losses']]}, "
+      f"step ms {[round(x, 1) for x in one['step_ms']]}, peak "
+      f"{one['peak_gib']:.2f} GiB, flash launches {one['launches']}")
+  return one, {"cfg": cfg, "seed": 0, "batch": batch, "M": PP_M,
+               "steps": PP_STEPS, "runs": PP_RUNS, "profile": PP_PROFILED}
+
+
+def pipeline_checks(torch, ranks, one, backend):
+  """22: every run on both ranks against the one-process losses
+  (``PP_LOSS_RTOL``; every run's gap is printed before any is held),
+  K1's launches against the schedule's formula, the plain versions'
+  calls 0, the dispatch; K1 at the stage's shape within
+  ``FLASH_BF16_LIMIT``.  Returns K1's launches by run and rank."""
+  L = GPT_350M["num_layers"]
+  launches, held = {}, []
+  for rank in range(PP):
+    rec = ranks[rank]["pipeline"]
+    for k, limit in (("fwd", FLASH_BF16_LIMIT["fwd"]),
+                     ("dkv", FLASH_BF16_LIMIT["grad"])):
+      rel = rec["kernels"][k]
+      assert rel[0] <= limit["rel_l2"] and rel[1] <= limit["max_rel"], (
+          rank, k, rel, limit)
+    log(f"   22. rank {rank}: K1 at the stage's shape (B={16 // PP_M} "
+        f"H=16 S=1024 D=64 bf16 causal) against the plain version "
+        f"(rel_l2, max_rel): fwd {rec['kernels']['fwd']}, dkv "
+        f"{rec['kernels']['dkv']}; rank wall {rec['wall_s']:.1f} s")
+  for name, *_ in PP_RUNS:
+    launches[name] = []
+    for rank in range(PP):
+      run = ranks[rank]["pipeline"]["runs"][name]
+      held.append((f"{name} rank {rank}", run["losses"]))
+      assert run["launches"] == run["formula"], (name, rank, run)
+      assert run["plain_calls"] == 0, (name, rank)
+      assert list(run["dispatch"]) == PP_DISPATCH[name], (name, run)
+      launches[name].append(run["launches"])
+      gap = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                    one["losses"]))
+      log(f"   22. {name} rank {rank}: losses "
+          f"{[round(x, 5) for x in run['losses']]} (largest relative gap "
+          f"{gap:.2e}, limit {PP_LOSS_RTOL:.2e}); step ms "
+          f"{[round(x, 1) for x in run['step_ms']]} (warm "
+          f"{run['warm_ms']:.1f}); peak {run['peak_gib']:.2f} GiB; K1 "
+          f"launches {run['launches']} = formula over {PP_STEPS} steps "
+          f"({L // PP} layers x {PP_M} micro-batches"
+          + (", forwards doubled by stage remat" if run["launches"]["fwd"]
+             > run["launches"]["dkv"] else "")
+          + f"); staged through the host {run['staged_bytes_per_step'] / 2**20:.1f}"
+          f" MiB a step, of it hops {run['hop_bytes_per_step'] / 2**20:.1f} "
+          f"MiB; {run['ticks']} ticks; bubble_fraction({PP}, {PP_M}) = "
+          f"{run['bubble_fraction']:.3f} ({backend}, two ranks on one card)")
+      prof = run.get("profiled")
+      if prof is None:
+        continue
+      assert prof["device_busy_ms"] > 0, (name, rank, prof)
+      log(f"   22. {name} rank {rank}, one more step under torch.profiler: "
+          f"host wall {prof['wall_ms']:.1f} ms, this rank's device busy "
+          f"{prof['device_busy_ms']:.1f} ms (of it copies "
+          f"{prof['copy_ms']:.1f}), idle share "
+          f"{1 - prof['device_busy_ms'] / prof['wall_ms']:.3f}")
+  for what, losses in held:
+    np.testing.assert_allclose(losses, one["losses"], rtol=PP_LOSS_RTOL,
+                               err_msg=what)
+  return launches
+
+
+def pipeline_phase(torch, fa, params, ranks=None, backend=None):
+  """Phase 22 alone (``--phases 22``: its own group of two ranks), or
+  the checks of the pipeline runs phase 21's group made."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  t0 = time.monotonic()
+  if ranks is None:
+    backend = "gloo"
+    batch = np.random.RandomState(0).randint(
+        0, GPT_350M["vocab_size"], (TP_TRAIN_BATCH,
+                                    GPT_350M["max_seq_len"] + 1))
+    with Phase("22 the one-process reference"):
+      one, spec = pipeline_spec(torch, params, batch)
+    with Phase("22 the pipeline runs: two stage ranks, one group"):
+      ranks = spawn(tp_workers.chip_tp_suite, PP, (backend, {
+          "pipeline": spec}), timeout_s=TP_SPAWN_DEADLINE_S)
+  else:
+    ranks, one = ranks
+  launches = pipeline_checks(torch, ranks, one, backend)
+  wall = time.monotonic() - t0
+  assert wall < PP_PHASE_WALL_S, f"phase 22 took {wall:.0f} s"
+  return launches
 
 
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
@@ -4700,21 +4873,28 @@ def main() -> int:
   t_start = time.monotonic()
   log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
       f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-  with Phase("1. build kernels"):
-    build_kernels()
+  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19, 20, 21, 22)
+  # The serving phases' GPT-350M weights are drawn (numpy, one core)
+  # while nvcc builds the kernels.
+  draw = any(map(want, serving))
+  with Phase("1. build kernels" + ("; meanwhile init GPT-350M weights "
+                                   "(numpy, seed 0)" if draw else "")):
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+      built = pool.submit(build_kernels)
+      if draw:
+        t0 = time.monotonic()
+        params = init_params(GPTConfig(**GPT_350M), seed=0, device="cuda")
+        log(f"   GPT-350M weights drawn in {time.monotonic() - t0:.1f} s")
+      built.result()
   if want(2):
     with Phase("2. kernel vs plain version"):
       errs = kernel_parity(torch, pa)
   if want(3):
     with Phase("3. kernel timing"):
       times = kernel_timing(torch, pa)
-  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19, 20, 21)
   # Reference streams of generate(use_cache=False), by prompt set, shared
   # between the paged phases and phase 14, which serves the same prompts.
   refs = {"float32": {}, "bfloat16": {}, "spec": {}}
-  if any(map(want, serving)):
-    with Phase("init GPT-350M weights (numpy, seed 0)"):
-      params = init_params(GPTConfig(**GPT_350M), seed=0, device="cuda")
   if want(4):
     with Phase("4. GPT-350M fp32: engine vs generate(use_cache=False)"):
       warp_launches = engine_fp32_vs_generate(torch, params, pa,
@@ -4773,8 +4953,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with Phase("21. the tensor-parallel mesh on torch.distributed (TP = 2 "
-               "serving and training, DP, ZeRO-1, the overlap ring)"):
-      tp = tensor_parallel_mesh(torch, pa, fa, params)
+               "serving and training, DP, ZeRO-1, the overlap ring)"
+               + ("; 22. the pipeline in the same rank group" if want(22)
+                  else "")):
+      tp = tensor_parallel_mesh(torch, pa, fa, params, pipeline=want(22))
+  elif want(22):
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("22. the pipeline on torch.distributed (S = 2 stage ranks)"):
+      pipeline_phase(torch, fa, params)
   if any(map(want, serving)):
     del params
   # An engine is freed by the cycle collector (its scheduler holds bound
@@ -4824,9 +5011,12 @@ def main() -> int:
   flash_src = "easyparallellibrary_tpu_torch/kernels/csrc/flash_attention.cu"
   flash_py = "easyparallellibrary_tpu/kernels/flash_attention.py"
   def tp_flash(k):
-    # Phase 21c's launches on each rank and the per-rank shape's record.
+    # Phase 21c's launches on each rank and the per-rank shape's record;
+    # phase 22's launches on each stage rank, by run.
     return dict(launches_tp2=[rank[k] for rank in tp["training"]],
-                tp2_b16_h8=tp["flash"][k])
+                tp2_b16_h8=tp["flash"][k],
+                launches_pipeline={name: [rank[k] for rank in ranks]
+                                   for name, ranks in tp["pipeline"].items()})
 
   flash_records = [
       kernel_record("flash_attention_fwd", "flash_fwd_wgmma_kernel<64>",

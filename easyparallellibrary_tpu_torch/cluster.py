@@ -13,7 +13,10 @@ its devices.
 Layouts mirror the JAX ones: ``auto`` infers the data axis from the
 world size, ``all`` puts every rank on the data axis, and the
 ``cluster.mesh_shape`` spec (``SpecificLayout``) gives exact sizes.
-Stage, seq and expert axes above 1 raise (ROADMAP.md Queue 1).
+The ``stage`` axis carries the pipeline (``parallel/pipeline.py``): its
+group holds the ranks of one pipeline, each a stage, and each stage is a
+``VirtualDevice`` of the ranks that share its stage index.  Seq and
+expert axes above 1 raise (ROADMAP.md Queue 1).
 
 A world of one (no process group) is the one-device mesh of earlier
 slices: every axis has size 1 and no group.
@@ -262,15 +265,14 @@ class Cluster:
 
   def build_mesh(self, **requested: int) -> Mesh:
     """Build the 5-axis mesh and its process groups (collective: every
-    rank calls it with the same request).  Stage, seq and expert axes
-    above 1 raise ``NotImplementedError``."""
+    rank calls it with the same request).  Seq and expert axes above 1
+    raise ``NotImplementedError``."""
     if self._spec:
       self.layout = SpecificLayout(self._spec)
     asked = dict(requested)
     if isinstance(self.layout, SpecificLayout):
       asked.update(self.layout.sizes)
-    for axis in (constants.STAGE_AXIS, constants.SEQ_AXIS,
-                 constants.EXPERT_AXIS):
+    for axis in (constants.SEQ_AXIS, constants.EXPERT_AXIS):
       if asked.get(axis, 1) > 1:
         raise not_ported(f"a mesh with {axis}={asked[axis]}",
                          PARALLEL_STRATEGIES)
@@ -286,7 +288,10 @@ class Cluster:
               if self.process_count > 1 else {})
     self._mesh = Mesh(shape=sizes, devices=tuple(self.devices),
                       rank=self.process_index, groups=groups)
-    self.virtual_devices = [VirtualDevice(0, self.devices)]
+    stage_of = [c[constants.STAGE_AXIS] for c in _all_coords(sizes)]
+    self.virtual_devices = [
+        VirtualDevice(i, [d for d, s in zip(self.devices, stage_of) if s == i])
+        for i in range(sizes[constants.STAGE_AXIS])]
     return self._mesh
 
   @property

@@ -73,6 +73,11 @@ def axis_index(axis_name: str, mesh=None) -> int:
   return 0 if m is None else m.axis_index(axis_name)
 
 
+# Bytes this process copied from the card to host memory to hand them to
+# gloo (``chip_smoke.py`` reads it a step; set it to 0 to start a count).
+staged_bytes = 0
+
+
 def _host_staged(group, x: torch.Tensor) -> bool:
   return x.is_cuda and dist.get_backend(group) == "gloo"
 
@@ -80,8 +85,12 @@ def _host_staged(group, x: torch.Tensor) -> bool:
 def _wire(group, x: torch.Tensor) -> torch.Tensor:
   """The contiguous buffer a collective runs on: ``x`` itself, or a host
   copy for a CUDA tensor on a gloo group."""
+  global staged_bytes
   x = x.contiguous()
-  return x.cpu() if _host_staged(group, x) else x
+  if _host_staged(group, x):
+    staged_bytes += x.numel() * x.element_size()
+    return x.cpu()
+  return x
 
 
 # --------------------------------------------------------------- raw ops

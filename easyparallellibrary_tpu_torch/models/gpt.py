@@ -46,8 +46,22 @@ port's kernels per rank at ``H / tp`` heads.  ``forward`` returns the
 whole logits (gathered over the vocab shards); training takes the
 vocab-sharded logits into the vocab-parallel cross entropy
 (``ops.losses``), chunked or not.  ``weights.shard_params`` gives each
-rank its slice of the JAX package's parameters.  Pipeline, MoE and the
-ring/Ulysses attention implementations raise (ROADMAP.md Queue 1).
+rank its slice of the JAX package's parameters.
+
+Pipeline parallelism (``pipeline_stages`` S > 1): the blocks are grouped
+into ``S * pipeline_interleave`` chunks (:func:`stage_layout`; uneven
+layers give masked slots, skipped), stacked over the stages as the JAX
+parameter tree stacks them (``pipeline.stages.stacked.block_i.*`` with a
+leading ``[S]`` dim, ``pipeline_{k}`` for pass k of an interleaved
+model).  On one process the model holds every row and ``forward`` runs
+the chunks in layer order (the JAX package's sequential ground truth).
+Built on a mesh whose ``stage`` axis is S, it holds this rank's row
+(``[1, ...]``), and under ``pipeline.engine = "smap"`` its vocab slice
+of the tied table or head (``stage_vocab`` / ``stage_column``); the
+pipeline engines (:func:`make_gpt_train_step`) run it a part at a time
+(``forward(..., pipeline_part=...)``: the feed, one chunk, the emit).
+MoE and the ring/Ulysses attention implementations raise (ROADMAP.md
+Queue 1).
 """
 
 from __future__ import annotations
@@ -75,8 +89,11 @@ from easyparallellibrary_tpu_torch.ops import bridging
 from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding, LayerNorm
 from easyparallellibrary_tpu_torch.ops.losses import (
     distributed_sparse_softmax_cross_entropy_with_logits)
+from easyparallellibrary_tpu_torch.parallel.pipeline_smap import (
+    check_unpadded_vocab)
 from easyparallellibrary_tpu_torch.runtime.amp import resolve_model_dtypes
 from easyparallellibrary_tpu_torch.utils import prng
+from easyparallellibrary_tpu_torch.utils.logging import get_logger
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,8 +134,6 @@ class GPTConfig:
     if self.attn_impl in ("ring", "ulysses"):
       raise not_ported(f"GPTConfig(attn_impl={self.attn_impl!r})",
                        PARALLEL_STRATEGIES)
-    if self.pipeline_stages > 1:
-      raise not_ported("GPTConfig(pipeline_stages > 1)", PARALLEL_STRATEGIES)
     if self.num_experts > 0:
       raise not_ported("GPTConfig(num_experts > 0)", PARALLEL_STRATEGIES)
     if self.seq_parallel:
@@ -145,17 +160,26 @@ def local_heads(cfg: GPTConfig) -> int:
   return cfg.num_heads // tp
 
 
-def check_unpadded_vocab(vocab_size: int, mesh) -> None:
-  """A stage-resident vocab-parallel CE needs an unpadded vocab table:
-  ``vocab_size`` must divide the mesh's ``model`` axis (JAX
-  ``pipeline_smap.check_unpadded_vocab``)."""
-  model_size = mesh.axis_size(constants.MODEL_AXIS) if mesh else 1
-  if vocab_size % max(model_size, 1):
-    raise ValueError(
-        f"smap engine with tensor_parallel needs an unpadded vocab "
-        f"table: vocab_size {vocab_size} must divide the model axis "
-        f"({model_size}) — padded vocab rows would corrupt the "
-        f"stage-resident CE normalizer")
+def stage_size(cfg: GPTConfig) -> int:
+  """The stage axis a pipelined model of ``cfg`` is built at: the
+  ambient mesh's ``stage`` axis (1: one process holds every stage).  An
+  axis above 1 must equal ``pipeline_stages``."""
+  if cfg.pipeline_stages <= 1:
+    return 1
+  n = collectives.axis_size(constants.STAGE_AXIS)
+  if n > 1 and n != cfg.pipeline_stages:
+    raise ValueError(f"pipeline_stages={cfg.pipeline_stages} on a mesh "
+                     f"whose stage axis is {n}")
+  return n
+
+
+def _engine_is_smap(cfg: GPTConfig) -> bool:
+  """True when the active Config dispatches the ``smap`` engine for this
+  (pipelined) model."""
+  if cfg.pipeline_stages <= 1:
+    return False
+  from easyparallellibrary_tpu_torch.env import Env
+  return Env.get().config.pipeline.engine == "smap"
 
 
 def _attention_scale(hd: int, dtype, device) -> torch.Tensor:
@@ -477,12 +501,15 @@ def _remat_context(name: str):
                            _save_ops_policy(saved))
 
 
-def _remat_block(block: nn.Module, x, policy: str, dtype, drop_key=None):
+def _remat_block(block: nn.Module, x, policy: str, dtype, drop_key=None,
+                 params=None):
   """``block(x)`` under ``torch.utils.checkpoint``.  The block's
-  parameters are bound explicitly, since the recompute runs in the
-  backward, after the caller's ``functional_call`` has unbound them; a
-  dropout key redraws the same masks in the recompute."""
-  params = dict(block.named_parameters())
+  parameters (``params``, default its own) are bound explicitly, since
+  the recompute runs in the backward, after the caller's
+  ``functional_call`` has unbound them; a dropout key redraws the same
+  masks in the recompute."""
+  if params is None:
+    params = dict(block.named_parameters())
 
   def run(h):
     return torch.func.functional_call(block, params, (h,),
@@ -494,6 +521,83 @@ def _remat_block(block: nn.Module, x, policy: str, dtype, drop_key=None):
   return checkpoint(run, x, use_reentrant=False, context_fn=context)
 
 
+def stage_layout(num_layers: int, num_chunks: int,
+                 stage_plan: Optional[tuple] = None):
+  """Blocks over pipeline chunks: ``(blocks_per_chunk, n_active)``.
+  Even models give ``(L / chunks, None)``; uneven ones allocate
+  ``ceil(L / chunks)`` slots a chunk with ``n_active[c]`` real blocks in
+  chunk ``c`` (the first ``L % chunks`` chunks carry the extra block).
+  ``stage_plan`` (the planner's) pins the per-chunk counts."""
+  if stage_plan is not None:
+    counts = tuple(int(c) for c in stage_plan)
+    if len(counts) != num_chunks or sum(counts) != num_layers \
+        or min(counts) < 1:
+      raise ValueError(
+          f"stage_plan {counts} must hold {num_chunks} positive counts "
+          f"summing to num_layers={num_layers}")
+    slots = max(counts)
+    if all(c == slots for c in counts):
+      return slots, None
+    return slots, counts
+  if num_layers % num_chunks == 0:
+    return num_layers // num_chunks, None
+  base, rem = divmod(num_layers, num_chunks)
+  counts = tuple(base + 1 if c < rem else base for c in range(num_chunks))
+  return base + 1, counts
+
+
+class StageBlocks(nn.Module):
+  """One pipeline chunk's blocks, each parameter stacked over ``rows``
+  stage rows (``[rows, ...]``: every stage on one process, or this
+  rank's one).  ``forward(x, row, n_active)`` runs row ``row``'s blocks;
+  a slot at ``i >= n_active`` (an uneven stage's spare) is skipped, and
+  its parameters take a zero gradient."""
+
+  def __init__(self, cfg: GPTConfig, blocks_per_stage: int, rows: int,
+               device=None):
+    super().__init__()
+    self.cfg = cfg
+    self.blocks_per_stage = blocks_per_stage
+    for i in range(blocks_per_stage):
+      block = Block(cfg, device=device)
+      for mod in block.modules():
+        for name, p in list(mod._parameters.items()):
+          if p is not None:
+            mod._parameters[name] = nn.Parameter(torch.empty(
+                (rows,) + tuple(p.shape), dtype=p.dtype, device=p.device))
+      self.add_module(f"block_{i}", block)
+
+  def forward(self, x, row: int, n_active: Optional[int] = None, dtype=None,
+              drop_key=None):
+    cfg = self.cfg
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(self.blocks_per_stage):
+      if n_active is not None and i >= n_active:
+        break
+      block = getattr(self, f"block_{i}")
+      params = {n: p[row] for n, p in block.named_parameters()}
+      key = None if drop_key is None else prng.host_fold_in(drop_key, i)
+      if remat:
+        x = _remat_block(block, x, cfg.remat_policy, dtype, key, params)
+      else:
+        x = torch.func.functional_call(block, params, (x,),
+                                       {"dtype": dtype, "drop_key": key})
+    return x
+
+
+def stage_dropout_key(rng, cfg: GPTConfig, m: int, k: int, s: int):
+  """The dropout key of micro-batch ``m`` in chunk ``k`` of stage ``s``:
+  ``rng`` folded with ``m * (S K) + k S + s`` (the JAX engines' fold), the
+  same in a stage's forward and its recompute, distinct for every
+  (micro-batch, virtual stage)."""
+  S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
+  return prng.host_fold_in(rng, m * (S * K) + k * S + s)
+
+
+def _pass_name(k: int, K: int) -> str:
+  return "pipeline" if K == 1 else f"pipeline_{k}"
+
+
 class GPT(nn.Module):
   """Decoder-only LM.  ``forward(ids) -> logits``; parameter names follow
   the flax tree (``block_0.attn.qkv.weight``, ``wte.weight``, ``wpe``)."""
@@ -502,33 +606,116 @@ class GPT(nn.Module):
     super().__init__()
     self.cfg = cfg
     self.tp = tp_size(cfg)
-    self.wte = Embedding(cfg.vocab_size, cfg.d_model,
-                         parallel="vocab" if cfg.tensor_parallel else "none",
+    self.stages = stage_size(cfg)
+    smap = _engine_is_smap(cfg)
+    if smap:
+      vocab, head = "stage_vocab", "stage_column"
+    elif cfg.tensor_parallel:
+      vocab, head = "vocab", "column"
+    else:
+      vocab, head = "none", "none"
+    self.wte = Embedding(cfg.vocab_size, cfg.d_model, parallel=vocab,
                          param_dtype=cfg.param_dtype, device=device)
     self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.d_model,
                                         dtype=cfg.param_dtype,
                                         device=device))
-    for i in range(cfg.num_layers):
-      self.add_module(f"block_{i}", Block(cfg, device=device))
+    if cfg.pipeline_stages > 1:
+      S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
+      per_chunk, self.n_active = stage_layout(cfg.num_layers, S * K,
+                                              cfg.stage_plan)
+      for k in range(K):
+        stages = nn.Module()
+        stages.add_module("stacked", StageBlocks(
+            cfg, per_chunk, 1 if self.stages > 1 else S, device=device))
+        holder = nn.Module()
+        holder.add_module("stages", stages)
+        self.add_module(_pass_name(k, K), holder)
+    else:
+      for i in range(cfg.num_layers):
+        self.add_module(f"block_{i}", Block(cfg, device=device))
     self.ln_f = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
     if not cfg.tie_embeddings:
       self.lm_head = Dense(
-          cfg.d_model, cfg.vocab_size, use_bias=False,
-          parallel="column" if cfg.tensor_parallel else "none",
+          cfg.d_model, cfg.vocab_size, use_bias=False, parallel=head,
           dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+
+  def run_chunk(self, x, k: int, s: int, dtype, drop_key=None):
+    """Chunk ``k`` of stage ``s`` (virtual stage ``k * S + s``) on
+    ``x``: row ``s`` of pass ``k`` on one process, this rank's row on a
+    stage mesh."""
+    cfg = self.cfg
+    S = cfg.pipeline_stages
+    K = max(1, cfg.pipeline_interleave)
+    v = k * S + s
+    stacked = getattr(self, _pass_name(k, K)).stages.stacked
+    return stacked(x, 0 if self.stages > 1 else s,
+                   None if self.n_active is None else self.n_active[v],
+                   dtype, drop_key)
+
+  def _pipeline_part(self, part, x, targets, cfg, dropout_rng):
+    """The pipeline engines' pieces on this rank (``pipeline_part``):
+    ``"feed"`` (ids -> the first stage's input), ``("stage", chunk,
+    micro_batch)`` (this rank's chunk) and ``"emit"`` (the last stage's
+    output and ``targets`` -> the micro-batch's mean loss)."""
+    dtype = cfg.dtype
+    if part == "feed":
+      if self.wte.parallel == "stage_vocab":
+        # One rank owns each id's row, so the sum over the axes of the
+        # partials cast to the compute dtype is the cast lookup, exactly
+        # (half the bytes of JAX's fp32 sum, the same values).
+        from easyparallellibrary_tpu_torch.parallel import pipeline_smap
+        h = pipeline_smap.vocab_partial_embed(
+            self.wte.weight, x, self.wte.vocab_axes).to(dtype)
+        for axis in self.wte.vocab_axes:
+          h = collectives.all_reduce(h, axis)
+      else:
+        h = self.wte(x).to(dtype)
+      return h + self.wpe[:x.shape[1]][None].to(dtype)
+    if part == "emit":
+      h = self.ln_f(x, dtype)
+      logits = (self.wte.attend(h) if cfg.tie_embeddings
+                else self.lm_head(h, dtype))
+      if self.wte.parallel == "stage_vocab":
+        from easyparallellibrary_tpu_torch.parallel import pipeline_smap
+        loss = pipeline_smap.sharded_softmax_ce(
+            logits, targets, z_loss=cfg.z_loss, axes=self.wte.vocab_axes)
+      else:
+        loss = distributed_sparse_softmax_cross_entropy_with_logits(
+            targets, logits, z_loss=cfg.z_loss, vocab_size=cfg.vocab_size)
+      return loss.mean()
+    _, j, m = part
+    s = collectives.axis_index(constants.STAGE_AXIS)
+    key = None
+    if dropout_rng is not None:
+      key = stage_dropout_key(dropout_rng, cfg, m, j, s)
+    return self.run_chunk(x, j, s, dtype, key)
 
   def forward(self, ids, deterministic: bool = True, decode: bool = False,
               return_hidden: bool = False, slot_cursors=None,
               paged_info: Optional[PagedInfo] = None,
               cache: Optional[Dict[str, Any]] = None, dropout_rng=None,
-              gather_logits: bool = True):
+              gather_logits: bool = True, pipeline_part=None,
+              targets=None):
     """``gather_logits=False`` (tensor-parallel training) returns this
-    rank's vocab block of the logits instead of the whole."""
+    rank's vocab block of the logits instead of the whole;
+    ``pipeline_part`` runs one piece for the pipeline engines
+    (:meth:`_pipeline_part`)."""
     cfg = resolve_model_dtypes(self.cfg)
     train = not deterministic and cfg.dropout_rate > 0
     if train and dropout_rng is None:
       raise ValueError("dropout in training mode (deterministic=False) "
                        "needs a dropout_rng key")
+    if pipeline_part is not None:
+      return self._pipeline_part(pipeline_part, ids, targets, cfg,
+                                 dropout_rng if train else None)
+    if cfg.pipeline_stages > 1 and decode:
+      raise ValueError("KV-cache decode is single-program; run generation "
+                       "on a non-pipelined config (pipeline_stages=1)")
+    if self.stages > 1:
+      raise ValueError(
+          "this rank's model holds one pipeline stage; train it through "
+          "make_gpt_train_step (the pipeline engines), or run the whole "
+          "model on a process without a stage axis")
     if (slot_cursors is not None or paged_info is not None) and not decode:
       raise ValueError("slot_cursors/paged_info are decode-mode arguments "
                        "(serving engine); pass decode=True")
@@ -561,7 +748,14 @@ class GPT(nn.Module):
       pos = self.wpe[:S][None]
     x = self.wte(ids).to(dtype) + pos.to(dtype)
     remat = cfg.remat and not decode and torch.is_grad_enabled()
-    for i in range(cfg.num_layers):
+    if cfg.pipeline_stages > 1:
+      S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
+      for k in range(K):
+        for s in range(S):
+          key = (prng.host_fold_in(dropout_rng, k * S + s) if train
+                 else None)
+          x = self.run_chunk(x, k, s, dtype, key)
+    for i in range(0 if cfg.pipeline_stages > 1 else cfg.num_layers):
       block = getattr(self, f"block_{i}")
       drop_key = prng.host_fold_in(dropout_rng, i) if train else None
       if remat:
@@ -640,6 +834,297 @@ def gpt_loss(model: GPT, params, batch, rng=None):
   loss = distributed_sparse_softmax_cross_entropy_with_logits(
       targets, out, z_loss=cfg.z_loss, vocab_size=cfg.vocab_size)
   return loss.mean(), {}
+
+
+def _pipeline_grad_fn(model: GPT, schedule, collective: bool):
+  """``grad_fn(params, batch, rng, loss_scale=None) -> (loss, metrics)``
+  over this rank's parameters: the per-rank executor
+  (``parallel.pipeline.Pipeline``) walks ``schedule`` over this rank's
+  rows of the batch cut into micro-batches, adding the gradients of
+  ``loss_scale * loss`` into the parameters' ``.grad``.  ``collective``:
+  the stage-resident boundary layers of the ``smap`` layout, fed and
+  emitted by every rank at the same tick; without it (the ``vmap``
+  layout) the boundary leaves' gradients and the loss are summed over
+  the stage axis after the schedule.  A leaf the schedule gave no
+  gradient (an uneven stage's masked slot) takes zeros, so AdamW decays
+  it as the JAX package's does.  ``grad_fn.schedule`` is ``schedule``,
+  the table the executor walks."""
+  from easyparallellibrary_tpu_torch.parallel import pipeline_smap
+  from easyparallellibrary_tpu_torch.parallel.pipeline import Pipeline
+  cfg = resolve_model_dtypes(model.cfg)
+  M = cfg.num_micro_batch
+
+  def grad_fn(params, batch, rng, loss_scale=None):
+    from easyparallellibrary_tpu_torch.utils.pytree import (
+        split_micro_batches)
+    train = cfg.dropout_rate > 0 and rng is not None
+    device = next(iter(params.values())).device
+    ids = torch.as_tensor(batch["ids"]).long().to(device)
+    split = split_micro_batches({"inputs": ids[:, :-1],
+                                 "targets": ids[:, 1:]}, M)
+    mbs = [{k: v[m] for k, v in split.items()} for m in range(M)]
+
+    def call(x, **kw):
+      return torch.func.functional_call(model, params, (x,), kw, strict=True)
+
+    def feed(mb):
+      return call(mb["inputs"], pipeline_part="feed")
+
+    def stage(j, x, m):
+      return call(x, pipeline_part=("stage", j, m), deterministic=not train,
+                  dropout_rng=rng if train else None)
+
+    def emit(y, mb):
+      return call(y, pipeline_part="emit", targets=mb["targets"])
+
+    rows, length = mbs[0]["inputs"].shape
+    loss = Pipeline(schedule, feed, stage, emit,
+                    act_shape=(rows, length, cfg.d_model),
+                    act_dtype=cfg.dtype, device=device,
+                    collective_boundary=collective)(mbs, loss_scale)
+    if not collective:
+      loss = collectives.all_reduce(loss, constants.STAGE_AXIS)
+      pipeline_smap._reduce_grads(
+          params, [n for n in params if not n.startswith("pipeline")])
+    for p in params.values():
+      if p.requires_grad and p.grad is None:
+        p.grad = torch.zeros_like(p)
+    return loss, {}
+
+  grad_fn.schedule = schedule
+  return grad_fn
+
+
+def _check_stage_mesh(model: GPT, what: str) -> None:
+  if model.stages <= 1:
+    raise ValueError(
+        f"{what} runs one stage a rank: build the model on a mesh whose "
+        f"stage axis is pipeline_stages={model.cfg.pipeline_stages} "
+        f"(cluster.mesh_shape 'stage:{model.cfg.pipeline_stages}')")
+
+
+def make_gpt_1f1b_grad_fn(model: GPT):
+  """1F1B gradient function for a pipelined GPT with the boundary layers
+  replicated on every stage rank (the ``vmap`` layout): rank 0 feeds,
+  the last rank emits, and the tied table's gradient is summed over the
+  stage axis before the update, as GSPMD does in the JAX engine.
+  Returns ``grad_fn(params, batch, rng, loss_scale=None) -> (loss,
+  metrics)`` that adds the gradients of ``loss_scale * loss`` into the
+  parameters' ``.grad`` (``runtime.trainer.build_train_step``'s
+  ``grad_fn``)."""
+  from easyparallellibrary_tpu_torch.parallel.schedule_1f1b import (
+      one_f_one_b_schedule)
+  cfg = model.cfg
+  if cfg.pipeline_stages <= 1:
+    raise ValueError("1F1B needs pipeline_stages > 1")
+  if cfg.pipeline_interleave > 1:
+    raise ValueError(
+        "1F1B with pipeline_interleave > 1 is not supported on the "
+        "vmap layout (as the JAX package's lockstep engine); use "
+        "pipeline.engine='smap' for true Megatron-interleaved 1F1B, "
+        "interleave=1, or PreferForward for circular weight placement")
+  _check_stage_mesh(model, "the 1F1B engine")
+  return _pipeline_grad_fn(
+      model, one_f_one_b_schedule(cfg.pipeline_stages, cfg.num_micro_batch),
+      collective=False)
+
+
+def make_gpt_gpipe_grad_fn(model: GPT, remat_stage: bool = False):
+  """GPipe gradient function with the boundary layers replicated (the
+  ``vmap`` layout's PreferForward, and its fallback for an interleaved
+  model: ``K`` chained passes, the circular weight placement), where
+  the JAX package differentiates through its vmapped ``Pipeline``."""
+  from easyparallellibrary_tpu_torch.parallel.pipeline import gpipe_schedule
+  cfg = model.cfg
+  _check_stage_mesh(model, "the GPipe engine")
+  schedule = gpipe_schedule(cfg.pipeline_stages, cfg.num_micro_batch,
+                            max(1, cfg.pipeline_interleave), remat_stage)
+  return _pipeline_grad_fn(model, schedule, collective=False)
+
+
+def make_gpt_smap_grad_fn(model: GPT, mesh=None, schedule: str = "1f1b"):
+  """The ``smap`` engine's gradient function for GPT: stage-resident
+  boundary layers (the tied table or head ``[V/S, D]`` a stage, the
+  lookup and the cross-entropy collective over the stage axis), every
+  rank feeding and emitting at the same tick (``parallel.pipeline_smap``).
+  ``schedule``: ``"1f1b"`` (interleaved 1F1B when ``pipeline_interleave``
+  K > 1) or ``"gpipe"``.  Takes the same parameter names as the other
+  engines (``weights.shard_params`` cuts each rank's rows), so
+  checkpoints move between engines.  Returns ``grad_fn(params, batch,
+  rng, loss_scale=None) -> (loss, metrics)``."""
+  from easyparallellibrary_tpu_torch.parallel.pipeline import gpipe_schedule
+  from easyparallellibrary_tpu_torch.parallel.pipeline_interleaved import (
+      interleaved_pipe_schedule)
+  from easyparallellibrary_tpu_torch.parallel.schedule_1f1b import (
+      one_f_one_b_schedule)
+  cfg = model.cfg
+  S, M = cfg.pipeline_stages, cfg.num_micro_batch
+  K = max(1, cfg.pipeline_interleave)
+  if S <= 1:
+    raise ValueError("smap pipeline needs pipeline_stages > 1")
+  if schedule == "1f1b" and K > 1:
+    schedule = "interleaved"
+  if schedule == "interleaved" and K < 2:
+    raise ValueError("schedule='interleaved' needs pipeline_interleave "
+                     ">= 2 (K virtual chunks per device)")
+  if schedule == "gpipe" and K > 1:
+    raise ValueError(
+        "pipeline_interleave > 1 on the smap engine requires the "
+        "interleaved-1F1B schedule (pipeline.strategy PreferBackward*); "
+        "GPipe order does not interleave chunks")
+  if schedule not in ("gpipe", "1f1b", "interleaved"):
+    raise ValueError(f"schedule must be gpipe|1f1b|interleaved, "
+                     f"got {schedule!r}")
+  if cfg.vocab_size % S:
+    raise ValueError(f"vocab_size {cfg.vocab_size} must divide into "
+                     f"{S} stage-resident shards")
+  if cfg.tensor_parallel:
+    from easyparallellibrary_tpu_torch.env import Env
+    check_unpadded_vocab(cfg.vocab_size,
+                         mesh if mesh is not None else Env.get().cluster.mesh)
+  if model.wte.parallel != "stage_vocab":
+    raise ValueError("the smap engine needs the stage-resident boundary "
+                     "layers: build the model under pipeline.engine='smap'")
+  _check_stage_mesh(model, "the smap engine")
+  if schedule == "interleaved":
+    table = interleaved_pipe_schedule(S, K, M)
+  elif schedule == "gpipe":
+    table = gpipe_schedule(S, M)
+  else:
+    table = one_f_one_b_schedule(S, M)
+  return _pipeline_grad_fn(model, table, collective=True)
+
+
+def auto_parallel_gpt(cfg: GPTConfig, config=None) -> GPT:
+  """Auto-parallel model build: with ``auto.auto_parallel`` on and
+  ``pipeline.num_stages`` N > 1 (and stages not pinned already), the
+  stage layout comes from ``parallel.planner.AutoStageGenerator`` over
+  the blocks and lands in ``GPTConfig.stage_plan``, with N stages and
+  ``pipeline.num_micro_batch``; otherwise the config passes through.
+  Only the transformer blocks are planned (the boundary layers run
+  outside the stacked trunk), with unit weights: GPT blocks are
+  uniform."""
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.parallel.planner import (
+      AutoStageGenerator)
+  conf = config if config is not None else Env.get().config
+  N = conf.pipeline.num_stages
+  if not conf.auto.auto_parallel or N <= 1 or cfg.pipeline_stages > 1:
+    return GPT(cfg)
+  K = max(1, cfg.pipeline_interleave)
+  chunks = N * K
+  L = cfg.num_layers
+  if L < chunks:
+    raise ValueError(
+        f"auto-parallel needs num_layers >= stages*interleave "
+        f"({L} < {chunks}); reduce pipeline.num_stages")
+  stages = AutoStageGenerator(num_stages=chunks).search(
+      [f"block_{i}" for i in range(L)])
+  counts = tuple(len(s) for s in stages)
+  if len(counts) != chunks or min(counts) < 1:
+    raise ValueError(
+        f"auto stage search produced an invalid plan {counts} for "
+        f"{chunks} chunks over {L} blocks")
+  mb = conf.pipeline.num_micro_batch
+  return GPT(dataclasses.replace(
+      cfg, pipeline_stages=N, stage_plan=counts,
+      num_micro_batch=mb if mb > 1 else max(cfg.num_micro_batch, 1)))
+
+
+# Once-per-process latches: the advisory and generate()'s pipeline
+# fallback say the same thing every time.
+_SMAP_ADVICE_LOGGED = [False]
+_PP_GENERATE_FALLBACK_LOGGED = [False]
+
+
+def _smap_preconditions_ok(cfg: GPTConfig, conf, sched) -> bool:
+  """True iff ``pipeline.engine='smap'`` would take this config (the
+  advisory of :func:`make_gpt_train_step` never recommends an engine that
+  would raise)."""
+  S = cfg.pipeline_stages
+  K = max(1, cfg.pipeline_interleave)
+  if cfg.vocab_size % S:
+    return False
+  if K > 1 and not sched.remat_stage:
+    return False
+  model_size = collectives.axis_size(constants.MODEL_AXIS)
+  return not (cfg.tensor_parallel and model_size > 1
+              and cfg.vocab_size % (S * model_size))
+
+
+def make_gpt_train_step(model: GPT, config=None):
+  """Config-driven train step for GPT, engine- and schedule-aware (the
+  JAX dispatch):
+
+  * ``pipeline.engine = "smap"``: :func:`make_gpt_smap_grad_fn`,
+    ``PreferBackward*`` -> ``"1f1b"`` (interleaved with
+    ``pipeline_interleave`` > 1), ``PreferForward`` -> ``"gpipe"``;
+  * ``""`` / ``"vmap"``: ``PreferBackward*`` -> :func:`make_gpt_1f1b_grad_fn`,
+    ``PreferForward`` (or an interleaved model, with a warning) -> GPipe
+    (:func:`make_gpt_gpipe_grad_fn`);
+  * ``PreferBackwardOptimizer`` applies the update in one group a stage
+    unless ``optimizer.num_apply_group`` pins a count.
+
+  A non-pipelined config, ``pipeline_debug_sequential``, or a pipelined
+  model held whole by one process (no stage axis) train through
+  :func:`gpt_loss`.  ZeRO under the pipeline raises (ROADMAP.md Queue 1).
+  The returned step carries ``dispatch``: ``(engine, schedule,
+  num_apply_group)``.
+  """
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.runtime.trainer import build_train_step
+  from easyparallellibrary_tpu_torch.strategies.scheduler import (
+      get_scheduler)
+  cfg = model.cfg
+  conf = config if config is not None else Env.get().config
+  groups = None
+  grad_fn = None
+  dispatch = ("autodiff", None, None)
+  if cfg.pipeline_stages > 1 and not cfg.pipeline_debug_sequential:
+    sched = get_scheduler(cfg.pipeline_schedule or conf.pipeline.strategy)
+    if sched.grouped_apply and conf.optimizer.num_apply_group <= 1:
+      groups = cfg.pipeline_stages
+    if conf.zero.level:
+      raise not_ported(f"zero.level={conf.zero.level!r} under the pipeline",
+                       PARALLEL_STRATEGIES)
+    if model.stages <= 1:
+      dispatch = ("autodiff", None, groups)
+    elif conf.pipeline.engine == "smap":
+      schedule = "1f1b" if sched.remat_stage else "gpipe"
+      grad_fn = make_gpt_smap_grad_fn(model, schedule=schedule)
+      dispatch = ("smap", grad_fn.schedule.name, groups)
+    else:
+      if not _SMAP_ADVICE_LOGGED[0] and \
+          _smap_preconditions_ok(cfg, conf, sched):
+        _SMAP_ADVICE_LOGGED[0] = True
+        get_logger().info(
+            "pipeline.engine=%r keeps the embedding and head on every stage "
+            "rank; pipeline.engine='smap' makes them stage-resident "
+            "([V/S, D] a stage).", conf.pipeline.engine)
+      use_1f1b = sched.remat_stage
+      if use_1f1b and cfg.pipeline_interleave > 1:
+        get_logger().warning(
+            "pipeline.strategy=%s requests 1F1B but pipeline_interleave=%d "
+            "is only interleaved on the smap engine "
+            "(pipeline.engine='smap'); falling back to GPipe order (M "
+            "live activations per stage).", sched.name,
+            cfg.pipeline_interleave)
+        use_1f1b = False
+      if use_1f1b:
+        grad_fn = make_gpt_1f1b_grad_fn(model)
+      else:
+        grad_fn = make_gpt_gpipe_grad_fn(model, sched.remat_stage)
+        groups = None
+      dispatch = ("vmap", grad_fn.schedule.name, groups)
+  if grad_fn is None:
+    step = build_train_step(lambda p, b, r: gpt_loss(model, p, b, r),
+                            config=conf, num_apply_group=groups)
+  else:
+    step = build_train_step(grad_fn=grad_fn, config=conf,
+                            num_apply_group=groups)
+  step.dispatch = dispatch
+  step.grad_fn = grad_fn
+  return step
 
 
 def gpt_flops_per_token(cfg: GPTConfig, seq_len: Optional[int] = None
@@ -725,6 +1210,19 @@ def generate(model: GPT, params, prompt_ids, max_new_tokens: int,
 
   if max_new_tokens <= 0:
     return ids
+  if use_cache and model.cfg.pipeline_stages > 1:
+    # KV-cache decode is single-program: a pipelined config re-runs the
+    # whole forward for every token (logged once per process).
+    if not _PP_GENERATE_FALLBACK_LOGGED[0]:
+      _PP_GENERATE_FALLBACK_LOGGED[0] = True
+      get_logger().warning(
+          "generate(use_cache=True) on a pipelined config "
+          "(pipeline_stages=%d) falls back to full-forward-per-token: "
+          "KV-cache decode is single-program and cannot span pipeline "
+          "stages.  Restore the checkpoint into a pipeline_stages=1 config "
+          "for O(1)-per-token decoding.  (Logged once per process.)",
+          model.cfg.pipeline_stages)
+    use_cache = False
   if use_cache:
     cache: Dict[str, Any] = {}
     logits = call(ids[:, :plen], decode=True, cache=cache)

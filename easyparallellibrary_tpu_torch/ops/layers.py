@@ -22,8 +22,16 @@ written out:
 Uneven widths are zero-padded to an even tiling, as the JAX layers pad
 (``_round_up``, ``_padded_init``): the padded rows and columns are zero,
 so they add nothing.  The tensor-parallel size is the ambient mesh's
-``model`` axis when the layer is built.  The pipeline-stage modes raise
-(ROADMAP.md Queue 1).
+``model`` axis when the layer is built.
+
+The stage-resident boundary layers of the ``smap`` pipeline engine
+(``parallel/pipeline_smap.py``) split the vocab over the ``stage`` axis
+(and over ``model`` inside it, stage-major, when the model is also
+tensor-parallel): ``Embedding(parallel="stage_vocab")`` holds
+``[V / n, D]`` rows and sums its partial lookups over the axes, and
+``Dense(parallel="stage_column")`` (the untied head) holds ``[V / n,
+D]`` and gives this rank's vocab slab of the logits, as ``attend``
+does.  The vocab must divide ``n``.
 
 Parameters are stored in ``param_dtype`` (fp32) like the flax modules.
 The JAX layers cast a weight to the compute dtype on every call; the
@@ -42,8 +50,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from easyparallellibrary_tpu_torch import constants
-from easyparallellibrary_tpu_torch._not_ported import (
-    PARALLEL_STRATEGIES, not_ported)
 from easyparallellibrary_tpu_torch.communicators import collectives
 from easyparallellibrary_tpu_torch.ops import bridging
 
@@ -78,17 +84,19 @@ class Dense(nn.Module):
                parallel: str = "none", dtype: Optional[torch.dtype] = None,
                param_dtype: torch.dtype = torch.float32, device=None):
     super().__init__()
-    if parallel == "stage_column":
-      raise not_ported(f"Dense(parallel={parallel!r})", PARALLEL_STRATEGIES)
-    if parallel not in ("none", "column", "row"):
-      raise ValueError(f"Dense.parallel must be none/column/row, got "
-                       f"{parallel!r}")
+    if parallel not in ("none", "column", "row", "stage_column"):
+      raise ValueError(f"Dense.parallel must be none/column/row/"
+                       f"stage_column, got {parallel!r}")
     self.parallel = parallel
     self.tp = _model_axis_size() if parallel != "none" else 1
     self.in_features, self.features = in_features, features
     self.dtype = dtype
     out_local, in_local = features, in_features
-    if parallel == "column":
+    if parallel == "stage_column":
+      from easyparallellibrary_tpu_torch.parallel import pipeline_smap
+      self.vocab_axes = pipeline_smap.vocab_axes(self.tp > 1)
+      out_local = pipeline_smap.vocab_rows(features, self.vocab_axes)
+    elif parallel == "column":
       out_local = _round_up(features, self.tp) // self.tp
     elif parallel == "row":
       in_local = _round_up(in_features, self.tp) // self.tp
@@ -102,7 +110,10 @@ class Dense(nn.Module):
     """``dtype`` overrides the constructor's compute dtype for this call
     (amp O1: the GPT resolves its compute dtype at every forward)."""
     dtype = dtype or self.dtype or x.dtype
-    if self.tp > 1 and self.parallel == "column":
+    if self.parallel == "stage_column":
+      for axis in self.vocab_axes:
+        x = bridging.copy_to_split(x, axis)
+    elif self.tp > 1 and self.parallel == "column":
       x = bridging.copy_to_split(x)
     elif self.tp > 1 and self.parallel == "row":
       if x.shape[-1] == self.in_features:     # replicated: keep my block
@@ -197,19 +208,29 @@ class Embedding(nn.Module):
                parallel: str = "none",
                param_dtype: torch.dtype = torch.float32, device=None):
     super().__init__()
-    if parallel == "stage_vocab":
-      raise not_ported(f"Embedding(parallel={parallel!r})",
-                       PARALLEL_STRATEGIES)
-    if parallel not in ("none", "vocab"):
-      raise ValueError(f"Embedding.parallel must be none/vocab, got "
-                       f"{parallel!r}")
-    self.tp = _model_axis_size() if parallel == "vocab" else 1
+    if parallel not in ("none", "vocab", "stage_vocab"):
+      raise ValueError(f"Embedding.parallel must be none/vocab/stage_vocab, "
+                       f"got {parallel!r}")
+    self.parallel = parallel
+    self.tp = _model_axis_size() if parallel != "none" else 1
     self.num_embeddings = num_embeddings
-    rows = _round_up(num_embeddings, self.tp) // self.tp
+    if parallel == "stage_vocab":
+      from easyparallellibrary_tpu_torch.parallel import pipeline_smap
+      self.vocab_axes = pipeline_smap.vocab_axes(self.tp > 1)
+      rows = pipeline_smap.vocab_rows(num_embeddings, self.vocab_axes)
+    else:
+      rows = _round_up(num_embeddings, self.tp) // self.tp
     self.weight = nn.Parameter(torch.empty(rows, features,
                                            dtype=param_dtype, device=device))
 
   def forward(self, ids):
+    if self.parallel == "stage_vocab":
+      from easyparallellibrary_tpu_torch.parallel import pipeline_smap
+      out = pipeline_smap.vocab_partial_embed(self.weight, ids,
+                                              self.vocab_axes)
+      for axis in self.vocab_axes:
+        out = collectives.all_reduce(out, axis)
+      return out
     if self.tp <= 1:
       return F.embedding(ids, self.weight)
     rows = self.weight.shape[0]
@@ -224,7 +245,11 @@ class Embedding(nn.Module):
     """Tied-softmax logits ``x @ table.T`` in ``x``'s dtype, so a bf16
     model's logits come out in bf16.  Vocab-sharded, each rank's block
     of ``V_pad / tp`` columns (padded columns are 0; the CE and
-    ``split_to_replica`` cut them)."""
-    if self.tp > 1:
+    ``split_to_replica`` cut them); stage-vocab-sharded, this rank's
+    slab of ``V / n`` columns."""
+    if self.parallel == "stage_vocab":
+      for axis in self.vocab_axes:
+        x = bridging.copy_to_split(x, axis)
+    elif self.tp > 1:
       x = bridging.copy_to_split(x)
     return torch.matmul(x, self.weight.to(x.dtype).t())

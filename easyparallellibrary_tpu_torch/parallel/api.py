@@ -90,8 +90,10 @@ class TrainState:
 def param_specs(model) -> Dict[str, tuple]:
   """Each parameter's spec from the layers of ``model`` (an
   ``nn.Module``): ``model`` on the split dim of the tensor-parallel
-  layers (column rows, row columns, vocab rows), ``()`` (replicated)
-  otherwise."""
+  layers (column rows, row columns, vocab rows), the vocab axes on the
+  rows of a stage-resident table or head, ``stage`` on the leading dim
+  of a pipelined model's stacked leaves on a stage mesh, ``()``
+  (replicated) otherwise."""
   from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding
   specs: Dict[str, tuple] = {}
   if not isinstance(model, torch.nn.Module):
@@ -99,7 +101,11 @@ def param_specs(model) -> Dict[str, tuple]:
   m = constants.MODEL_AXIS
   for prefix, mod in model.named_modules():
     name = f"{prefix}." if prefix else ""
-    if isinstance(mod, Dense) and mod.tp > 1:
+    stage_vocab = getattr(mod, "parallel", "") in ("stage_column",
+                                                   "stage_vocab")
+    if stage_vocab:
+      specs[name + "weight"] = (tuple(mod.vocab_axes), None)
+    elif isinstance(mod, Dense) and mod.tp > 1:
       if mod.parallel == "column":
         specs[name + "weight"] = (m, None)
         if mod.bias is not None:
@@ -108,6 +114,12 @@ def param_specs(model) -> Dict[str, tuple]:
         specs[name + "weight"] = (None, m)
     elif isinstance(mod, Embedding) and mod.tp > 1:
       specs[name + "weight"] = (m, None)
+  if getattr(model, "stages", 1) > 1:
+    # A pipelined model's stacked leaves: the stage row is this rank's.
+    for name, p in model.named_parameters():
+      if name.startswith("pipeline"):
+        specs[name] = (constants.STAGE_AXIS,) + tuple(
+            specs.get(name, (None,) * (p.dim() - 1)))
   return specs
 
 

@@ -1,14 +1,16 @@
-"""Weighted contiguous bucketing (the ``partition_balance`` part of
-``easyparallellibrary_tpu/parallel/partitioner.py``), shared by the
-grouped optimizer apply and the auto gradient-checkpoint segmentation.
-The stage partitioning and repeated-block detection of that module wait
-for the pipeline (ROADMAP.md Queue 1, "Pipeline, MoE and sequence
-parallelism").
+"""Stage partitioning (port of
+``easyparallellibrary_tpu/parallel/partitioner.py``): weighted
+contiguous bucketing (``partition_balance``, shared with the grouped
+optimizer apply and the auto gradient-checkpoint segmentation), stage
+partitioning of an ordered block list, and repeated-block detection,
+for the stage planner (``parallel/planner.py``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import re
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 def partition_balance(weights: Sequence[float], num_parts: int
@@ -67,3 +69,25 @@ def partition_balance(weights: Sequence[float], num_parts: int
         best_k, best_cost = k, cost
     ranges[idx:idx + 1] = [(s, best_k), (best_k, e)]
   return ranges
+
+
+def find_repeated_blocks(names: Sequence[str]
+                         ) -> "OrderedDict[str, List[str]]":
+  """Group names by their repeated-layer pattern: names whose digits,
+  each run replaced by ``#``, match belong to one family (``block_0``,
+  ``block_1`` ...), in first-seen order."""
+  groups: "OrderedDict[str, List[str]]" = OrderedDict()
+  for name in names:
+    groups.setdefault(re.sub(r"\d+", "#", name), []).append(name)
+  return groups
+
+
+def partition_stages(block_names: Sequence[str], num_stages: int,
+                     weights: Optional[Dict[str, float]] = None
+                     ) -> List[List[str]]:
+  """An ordered block list in ``num_stages`` contiguous groups balanced
+  by ``weights`` (parameter counts or FLOPs; 1 for a block without
+  one)."""
+  ws = [float(weights.get(b, 1.0)) if weights else 1.0 for b in block_names]
+  return [list(block_names[s:e])
+          for s, e in partition_balance(ws, num_stages)]

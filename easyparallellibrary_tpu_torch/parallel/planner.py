@@ -1,12 +1,23 @@
-"""The overlap half of the planner (port of
-``easyparallellibrary_tpu/parallel/planner.py:100-244``).
+"""The auto-parallel planner: stage search and the collective-matmul
+crossover (port of ``easyparallellibrary_tpu/parallel/planner.py``).
 
-The canonical overlap-site names, and the analytic crossover that
-decides whether a collective next to a matrix product runs as the fused
-collective or as the chunked ring of ``communicators/overlap.py``
-(``communication.overlap = "auto"``).  The cost-model twin
-(``plan_collective_matmul_from_cost``) and the stage generator stay with
-ROADMAP.md Queue 1.
+:class:`AutoStageGenerator` searches the stage boundaries of an ordered
+block list, as the reference's generator does with its three policies:
+``balance_param`` (contiguous min-max by parameter count),
+``balance_flops`` (by per-block FLOPs, when given) and
+``repeated_layers`` (cut at the dominant repeated family's members).
+Its cost-model search counts each block's FLOPs with
+``torch.utils.flop_counter.FlopCounterMode``, where the JAX package asks
+XLA's cost analysis: the counter sees the matrix products (and
+attention), not the elementwise work, which for blocks of one structure
+gives the same partition.
+
+The overlap half: the canonical overlap-site names, and the analytic
+crossover that decides whether a collective next to a matrix product
+runs as the fused collective or as the chunked ring of
+``communicators/overlap.py`` (``communication.overlap = "auto"``).  The
+cost-model twin (``plan_collective_matmul_from_cost``) stays with
+ROADMAP.md Queue 1 item 12.
 
 The model's constants are for this card, not measured by the port: the
 link rate is NVLink's 450 GB/s each way (NVIDIA's H100 SXM data sheet),
@@ -20,7 +31,75 @@ bytes.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
+
+from easyparallellibrary_tpu_torch.parallel.partitioner import (
+    find_repeated_blocks, partition_stages)
+from easyparallellibrary_tpu_torch.utils.pytree import tree_param_count
+
+
+class AutoStageGenerator:
+  """Search the stage assignment of an ordered block list (the
+  reference's ``AutoStageGenerator``).  ``policy`` / ``num_stages``
+  default to ``auto.stage_policy`` / ``pipeline.num_stages``."""
+
+  def __init__(self, policy: Optional[str] = None,
+               num_stages: Optional[int] = None):
+    from easyparallellibrary_tpu_torch.env import Env
+    cfg = Env.get().config
+    self.policy = policy or cfg.auto.stage_policy
+    self.num_stages = num_stages or cfg.pipeline.num_stages
+
+  def search(self, block_names: Sequence[str],
+             block_params: Optional[Dict[str, int]] = None,
+             block_flops: Optional[Dict[str, float]] = None
+             ) -> List[List[str]]:
+    """``num_stages`` lists of block names, in order."""
+    names = list(block_names)
+    if self.num_stages <= 1:
+      return [names]
+    if self.policy == "balance_flops" and block_flops:
+      return partition_stages(names, self.num_stages, block_flops)
+    if self.policy == "repeated_layers":
+      # The dominant family sets the cuts, at the positions of its
+      # members in the whole list, so blocks between them stay with
+      # their neighbours.
+      family = max(find_repeated_blocks(names).values(), key=len)
+      if len(family) >= self.num_stages:
+        fam_stages = partition_stages(family, self.num_stages, block_params)
+        cuts = [names.index(s[0]) for s in fam_stages]
+        cuts[0] = 0
+        cuts.append(len(names))
+        return [names[cuts[s]:cuts[s + 1]] for s in range(self.num_stages)]
+      from easyparallellibrary_tpu_torch.utils.logging import get_logger
+      get_logger().warning(
+          "repeated_layers policy found only %d repeated blocks for %d "
+          "stages; falling back to balance_param", len(family),
+          self.num_stages)
+    return partition_stages(names, self.num_stages, block_params or {})
+
+  def search_from_params(self, params_by_block: Dict[str, dict]
+                         ) -> List[List[str]]:
+    """Stage search weighted by each block's parameter count."""
+    weights = {name: float(tree_param_count(tree))
+               for name, tree in params_by_block.items()}
+    return self.search(list(params_by_block), block_params=weights)
+
+  def search_from_cost_model(self, apply_fns: Dict[str, Callable],
+                             *sample_args) -> List[List[str]]:
+    """Stage search weighted by each block's FLOPs on ``sample_args``,
+    counted by ``FlopCounterMode`` (a block it counts no FLOPs for
+    weighs 1), whatever the instance's policy."""
+    from torch.utils.flop_counter import FlopCounterMode
+    flops = {}
+    for name, fn in apply_fns.items():
+      counter = FlopCounterMode(display=False)
+      with counter:
+        fn(*sample_args)
+      flops[name] = float(counter.get_total_flops()) or 1.0
+    if self.num_stages <= 1:
+      return [list(apply_fns)]
+    return partition_stages(list(apply_fns), self.num_stages, flops)
 
 SITE_ROW_DENSE = "layers/row_dense"
 SITE_GATHER_MATMUL = "distributed_ops/gather_matmul"

@@ -67,7 +67,7 @@ def gpt_logits_and_loss(rank, world, mesh_shape: str, cfg_kwargs: dict,
   for chunk in loss_chunks:
     cfg = gpt_config(cfg_kwargs, tensor_parallel=True, loss_chunk=chunk)
     model = GPT(cfg)
-    local = shard_params(to_torch(params, mesh.device), cfg)
+    local = shard_params(to_torch(params, mesh.device), model)
     for p in local.values():
       p.requires_grad_(True)
     if logits is None:
@@ -256,7 +256,7 @@ def gpt_train_losses(rank, world, mesh_shape: str, cfg_kwargs: dict,
   tp = mesh.axis_size("model") > 1
   cfg = gpt_config(cfg_kwargs, tensor_parallel=tp)
   model = GPT(cfg)
-  local = shard_params(to_torch(params, mesh.device), cfg)
+  local = shard_params(to_torch(params, mesh.device), model)
   state, shardings = create_sharded_train_state(
       lambda: TrainState.create(apply_fn=model, params=local,
                                 tx=adamw(lr, weight_decay=weight_decay)),
@@ -516,10 +516,11 @@ def imported_modules(rank, world):
   whole = init_params(gpt_config(dict(vocab_size=32, num_layers=1,
                                       num_heads=2, d_model=8, d_ff=16,
                                       max_seq_len=8)), 0, device="cpu")
+  model = GPT(cfg)
   local = {k: v.requires_grad_(True)
-           for k, v in shard_params(whole, cfg).items()}
-  loss, _ = gpt_loss(GPT(cfg), local, {"ids": torch.zeros((1, 5),
-                                                          dtype=torch.long)})
+           for k, v in shard_params(whole, model).items()}
+  loss, _ = gpt_loss(model, local, {"ids": torch.zeros((1, 5),
+                                                       dtype=torch.long)})
   loss.backward()
   return sorted({m.split(".")[0] for m in sys.modules})
 
@@ -663,11 +664,12 @@ def chip_tp_serving(rank, world, backend: str, cfg_kwargs: dict, seed: int,
                     runs: dict, engine_kwargs: dict, device: str = "cuda"):
   """TP serving: :func:`_serve_runs` over the rank's shard of
   ``init_params(seed)`` at ``model:world``."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT
   from easyparallellibrary_tpu_torch.weights import init_params, shard_params
   mesh = setup(f"model:{world}", device=device, backend=backend)
   cfg = gpt_config(cfg_kwargs, tensor_parallel=True)
   local = shard_params(init_params(gpt_config(cfg_kwargs), seed,
-                                   device=mesh.device), cfg)
+                                   device=mesh.device), GPT(cfg))
   return _serve_runs(rank, mesh, cfg, local, runs, engine_kwargs)
 
 
@@ -826,33 +828,50 @@ def _collectives_and_ring(rank, world, mesh, x: np.ndarray, dense: dict):
 
 def chip_tp_suite(rank, world, backend: str, spec: dict,
                   device: str = "cuda"):
-  """Phase 21's work on the ranks, in one group (each rank started
-  once): at ``model:world`` the collectives and the overlap ring
-  (``spec["collectives"]``: x, dense), TP serving (``spec["serving"]``:
-  cfg_kwargs, seed, runs, engine_kwargs) and ``bench.py``'s training
-  step (``spec["training"]``: cfg_kwargs, batch, steps) over one draw of
-  ``init_params(seed)``; then at ``data:world`` explicit DP and ZeRO-1
-  (``spec["dp"]``: cfg_kwargs, batches, the explicit step's config)."""
+  """Phases 21 and 22 on the ranks, in one group (each rank started
+  once), each part run where ``spec`` holds it: at ``model:world`` the
+  collectives and the overlap ring (``spec["collectives"]``: x, dense),
+  TP serving (``spec["serving"]``: cfg_kwargs, seed, runs, engine_kwargs)
+  and ``bench.py``'s training step (``spec["training"]``: cfg_kwargs,
+  batch, steps) over one draw of ``init_params(seed)``; at
+  ``data:world`` explicit DP and ZeRO-1 (``spec["dp"]``: cfg_kwargs,
+  batches, the explicit step's config); and at ``stage:world`` the
+  pipeline runs (``spec["pipeline"]``, ``pp_workers.chip_pipeline``)."""
   import gc
 
+  from easyparallellibrary_tpu_torch.models.gpt import GPT
   from easyparallellibrary_tpu_torch.weights import init_params, shard_params
-  mesh = setup(f"model:{world}", device=device, backend=backend)
-  out = _collectives_and_ring(rank, world, mesh, *spec["collectives"])
-  cfg_kwargs, seed, runs, engine_kwargs = spec["serving"]
-  cfg = gpt_config(cfg_kwargs, tensor_parallel=True)
-  local = shard_params(init_params(gpt_config(cfg_kwargs), seed,
-                                   device=mesh.device), cfg)
-  out["serving"] = _serve_runs(rank, mesh, cfg, local, runs, engine_kwargs)
-  gc.collect()
-  train_cfg, batch, steps = spec["training"]
-  out["training"] = train_steps(mesh, train_cfg, local, batch, steps)
-  del local
-  gc.collect()
-  if torch.device(device).type == "cuda":
-    torch.cuda.empty_cache()
-  dp_cfg, batches, config = spec["dp"]
-  for kind, conf in (("explicit", config), ("zero1", None)):
-    mesh = setup(f"data:{world}", device=device, backend=backend,
-                 config=conf)
-    out[kind] = dp_steps(mesh, kind, dp_cfg, batches)
+  out, flat = {}, None
+  if "collectives" in spec:
+    mesh = setup(f"model:{world}", device=device, backend=backend)
+    out = _collectives_and_ring(rank, world, mesh, *spec["collectives"])
+    cfg_kwargs, seed, runs, engine_kwargs = spec["serving"]
+    cfg = gpt_config(cfg_kwargs, tensor_parallel=True)
+    whole = init_params(gpt_config(cfg_kwargs), seed, device=mesh.device)
+    local = shard_params(whole, GPT(cfg))
+    if spec.get("pipeline", {}).get("seed") == seed:
+      # The pipeline runs start from the same draw: keep it on the host.
+      flat = {k: v.cpu() for k, v in whole.items()}
+    del whole
+    out["serving"] = _serve_runs(rank, mesh, cfg, local, runs,
+                                 engine_kwargs)
+    gc.collect()
+    train_cfg, batch, steps = spec["training"]
+    out["training"] = train_steps(mesh, train_cfg, local, batch, steps)
+    del local
+    gc.collect()
+    if torch.device(device).type == "cuda":
+      torch.cuda.empty_cache()
+    dp_cfg, batches, config = spec["dp"]
+    for kind, conf in (("explicit", config), ("zero1", None)):
+      mesh = setup(f"data:{world}", device=device, backend=backend,
+                   config=conf)
+      out[kind] = dp_steps(mesh, kind, dp_cfg, batches)
+  if "pipeline" in spec:
+    from easyparallellibrary_tpu_torch.testing import pp_workers
+    gc.collect()
+    if torch.device(device).type == "cuda":
+      torch.cuda.empty_cache()
+    out["pipeline"] = pp_workers.chip_pipeline(rank, world, backend,
+                                               spec["pipeline"], device, flat)
   return out

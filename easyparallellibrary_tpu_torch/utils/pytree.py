@@ -53,6 +53,12 @@ def tree_bytes(tree) -> int:
   return sum(leaf_bytes(leaf) for _, leaf in tree_paths_and_leaves(tree))
 
 
+def tree_param_count(tree) -> int:
+  """Elements over every leaf of ``tree`` (a scalar counts one)."""
+  return sum(int(np.prod(tuple(getattr(leaf, "shape", ())) or (1,)))
+             for _, leaf in tree_paths_and_leaves(tree))
+
+
 def split_micro_batches(batch, num_micro_batch: int):
   """``[B, ...] -> [M, B/M, ...]`` on every leaf of ``batch`` (a dict,
   list or tuple tree of tensors or arrays): the micro-batch slicing of

@@ -1211,3 +1211,34 @@ def test_tp2_engine_on_the_card_equals_tp1(cuda):
   for rec in (ranks[0]["plain"], ranks[1]["plain"]):
     assert rec["all_launches"] == 2 * rec["steps"] > 0
     assert rec["plain_calls"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine,strategy", [("smap", "PreferBackward"),
+                                             ("", "PreferForward")])
+def test_pipeline_step_on_the_card_equals_one_process(cuda, engine,
+                                                      strategy):
+  """Two gloo stage ranks sharing the card (every hop staged through host
+  memory): three AdamW steps of a small fp32 GPT with the flash kernels,
+  cut into 2 stages of 4 micro-batches (``smap`` 1F1B; the ``vmap``
+  layout's GPipe), give the one-process step's losses."""
+  from easyparallellibrary_tpu_torch.testing import pp_workers, tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  from easyparallellibrary_tpu_torch.weights import init_params, stack_stages
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg_kwargs = dict(vocab_size=64, num_layers=4, num_heads=2, d_model=128,
+                    d_ff=256, max_seq_len=64, attn_impl="pallas_flash")
+  flat = init_params(tp_workers.gpt_config(cfg_kwargs), 0, device="cpu")
+  pp_kwargs = dict(cfg_kwargs, pipeline_stages=2, num_micro_batch=4)
+  stacked = {k: v.numpy() for k, v in stack_stages(
+      flat, tp_workers.gpt_config(pp_kwargs)).items()}
+  r = np.random.RandomState(0)
+  batches = [r.randint(0, 64, (8, 65)).astype(np.int32) for _ in range(3)]
+  ranks = spawn(pp_workers.train, 2,
+                ("stage:2", engine, strategy, pp_kwargs, stacked, batches,
+                 1e-2, 0.01, "cuda", "gloo"), timeout_s=300)
+  one = tp_workers.gpt_train_losses(
+      0, 1, "", cfg_kwargs, {k: v.numpy() for k, v in flat.items()},
+      batches, 1e-2, device="cuda")
+  for rank in ranks:
+    np.testing.assert_allclose(rank["losses"], one["losses"], rtol=1e-4)

@@ -517,3 +517,36 @@ def test_draft_model_and_prefix_cache_staggered_equal_jax(drafter):
   assert eng.steps == jeng._steps
   assert eng.scheduler.prefix_hits == jeng.scheduler.prefix_hits > 0
   assert stats.summary()["drafted_tokens"] > 0
+
+
+@pytest.mark.parametrize("drafter", ["small_draft_model", "self_draft"])
+def test_draft_model_contiguous_staggered_equal_jax(drafter):
+  """The same two draft models on the contiguous-slot engine (no prefix
+  cache) are token-equal to the JAX contiguous engine with the same
+  knobs, and drafts are proposed."""
+  epl.init()
+  jmodel, jparams, tmodel, tparams = _models()
+  if drafter == "small_draft_model":
+    jd, jdp, td, tdp = _models(dict(TINY, num_layers=1, d_model=16,
+                                    d_ff=32), seed=9)
+    k = 4
+  else:
+    jd, jdp, td, tdp = jmodel, jparams, tmodel, tparams
+    k = 3
+  shared = np.arange(1, 9, dtype=np.int32)
+  prompts = [np.concatenate([shared, p]) for p in _prompts(
+      (3, 1, 6, 2, 5, 4), seed=3, repeat=2)]
+  max_new = (6, 7, 8, 4, 5, 9)
+  knobs = dict(num_slots=3, prefill_chunk=8)
+  stats = ServingStats()
+  eng = ContinuousBatchingEngine(
+      tmodel, tparams, device="cpu", stats=stats,
+      drafter=DraftModelDrafter(td, tdp, k=k), **knobs)
+  got = _drive_staggered(eng, Request, prompts, max_new)
+  jeng = JaxEngine(jmodel, jparams,
+                   drafter=JaxDraftModelDrafter(jd, jdp, k=k), **knobs)
+  want = _drive_staggered(jeng, JaxRequest, prompts, max_new)
+  for i in range(len(prompts)):
+    np.testing.assert_array_equal(got[i], want[i], err_msg=f"req {i}")
+  assert eng.steps == jeng._steps
+  assert stats.summary()["drafted_tokens"] > 0

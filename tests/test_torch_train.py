@@ -300,14 +300,16 @@ def test_split_raises_not_ported_once_the_mesh_is_built():
 
 @pytest.mark.parametrize("mesh_shape,devices,error", [
     ("data:1,model:1", 1, None),
-    ("stage:2", 1, NotImplementedError),
+    ("stage:2", 1, ValueError),
+    ("seq:2", 1, NotImplementedError),
     ("bogus:1", 1, ValueError),
     ("", 2, NotImplementedError),
 ])
 def test_mesh_above_one_device_raises(mesh_shape, devices, error):
   """The one-device mesh: a ``cluster.mesh_shape`` spec of ones builds
   it; an axis above 1, from the spec or from several devices on the data
-  axis, raises when the mesh is built."""
+  axis, raises when the mesh is built: a stage axis (ported) because one
+  process cannot lay it out, a seq axis because it is not ported."""
   tepl.init(tepl.Config({"cluster.mesh_shape": mesh_shape}),
             devices=[torch.device("cpu")] * devices)
   with tepl.replicate(1):
