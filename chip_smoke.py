@@ -84,9 +84,9 @@ those paths against its plain PyTorch version:
     plain versions at phase 7's shapes and the fp16 warp paged kernel at
     ``engine_step`` and ``spec_step`` (normalized-error limits, their
     sensitivity to faults), each timed beside its plain version, its
-    bound and SDPA in fp16; the bench's training step with an fp32
-    GPTConfig under ``amp.level=O1`` against the explicit-bf16 config
-    (equal losses); O1-fp16 training at 4 layers (fp16 flash launches);
+    bound and SDPA in fp16; the bench's training step (12 layers) with
+    an fp32 GPTConfig under ``amp.level=O1`` against the explicit-bf16
+    config (equal losses); O1-fp16 training at 4 layers (fp16 flash launches);
     a short O1-fp16 paged serving run through the fp16 warp build; the
     mixed build (fp16 q over bf16 pools, amp O1 in fp16 over a bf16
     model config) against its plain version at ``engine_step`` and
@@ -103,12 +103,13 @@ those paths against its plain PyTorch version:
     the compile sentinel; an ITL rule breach's diagnostic bundle, and a
     watchdog breach arming a ``torch.profiler`` trace of the next step
     that names the paged kernel; a short traced contiguous run;
-18. the training runtime around the step, GPT-350M bf16 at ``bench.py``'s
-    configuration: token records written and read back by the native
+18. the training runtime around the step, bf16 at ``bench.py``'s
+    configuration cut to 12 of its 24 layers (``RT_LAYERS``): token
+    records written and read back by the native
     ``RecordReader`` through ``DevicePrefetcher`` into ``fit(
     build_train_step(...))`` with the anomaly sentinel on — (a) 10 steps
-    with a ~4 GB checkpoint every 10 (tokens/s, MFU, save seconds, the
-    flash launches against 24 x steps); (b) a fresh state resuming at
+    with a ~2 GB checkpoint every 10 (tokens/s, MFU, save seconds, the
+    flash launches against 12 x steps); (b) a fresh state resuming at
     step 10 (restore seconds, restored state bit-equal to the live one,
     steps 11-20 against the uninterrupted run); (c) a two-step NaN
     window under ``set_sync_debug_mode("error")`` left bit-identical,
@@ -122,7 +123,7 @@ those paths against its plain PyTorch version:
     no offload: the moments pinned on the host, the losses loss for
     loss and the final params and moments bit-equal, peak HBM and step
     ms both ways, the flash launches, a native
-    save/restore of the offloaded state bit-equal; (h) that 4.04 GB
+    save/restore of the offloaded state bit-equal; (h) that 2.0 GB
     state through ``torch.distributed.checkpoint``
     (``save_checkpoint_orbax``), restored bit-equal, its seconds beside
     the native saver's;
@@ -158,7 +159,8 @@ lines.  ``--phases 20`` runs the latest slice's:
     real step planned at each level, non-shed streams by the gap rule,
     no kernel library loaded); (b) the golden chaos-heal episode
     (``tests/golden/sim_chaos_heal.json``) driven through a real fleet
-    of in-process GPT-350M replicas as recorded, its actuation sequence
+    of in-process replicas at GPT-350M's widths and 12 of its layers
+    (``HEAL_LAYERS``, as (c)) as recorded, its actuation sequence
     and counters equal to the file's, then replayed by the simulator;
     (c) blue/green rollouts to a checkpoint of ``init_params(seed=1)``:
     in process under load (zero lost, each stream against its own
@@ -186,9 +188,9 @@ wall limit):
     n-gram drafter and with the prefix cache: streams against the tp = 1
     engine's by the gap rule, the tiled kernel's launches 24 x steps on
     each rank, tokens/s, TTFT p50 and host ms a step beside tp = 1's;
-    (c) bench.py's training step at tp = 2, 2 steps: losses against
-    tp = 1 within one bf16 spacing, each rank's flash launches 24 x
-    steps per kernel, peak memory and step ms; (d) explicit DP = 2 with
+    (c) bench.py's training step at 12 of its layers at tp = 2, 2
+    steps: losses against tp = 1 within one bf16 spacing, each rank's
+    flash launches 12 x steps per kernel, peak memory and step ms; (d) explicit DP = 2 with
     8 MB fusion buckets and ZeRO-1 at DP = 2 (4 layers) against one
     process, ZeRO-1's moment bytes half of DP's; (e) a row-parallel
     Dense through the overlap ring against ``overlap="off"``.  Every
@@ -214,6 +216,31 @@ program is ``testing/pp_workers.chip_pipeline``):
     K1's forward and dK/dV at the stage's shape against their plain
     versions.  Two processes time-sharing one card:
     a correctness check, not a scaling number.
+
+``--phases 23`` runs MoE, sequence parallelism and ZeRO under the
+pipeline (in the whole run 23b and 23c ride phase 21's rank group;
+each rank's program is in ``testing/sp_workers.py``):
+
+23. (a) BASELINE.md row 5's GPT-MoE (12 layers at GPT-350M's widths, 8
+    experts every 2nd block, top-1, capacity factor 1.25, the einsum
+    path; bf16, remat ``dots_flash``, ``loss_chunk`` 256) at 8 x 1024 on
+    one card through ``bench.build_training``, 1 warm and 3 timed
+    steps: losses, the aux loss, step ms, tokens/s, MFU, peak, the
+    tokens dropped at step 1 (the routers concentrate at random init),
+    K1 launches 12 a kernel a step; (b) the same weights and batch as
+    ``moe_impl="a2a"`` on ``expert:2`` (4 sequences a rank), 2 steps:
+    losses within 2^-8 of (a)'s, the expert moments a rank half of
+    (a)'s; (c) GPT-350M (24 layers) at ``max_seq_len`` 4096, batch 2,
+    ``seq_parallel`` on ``seq:2`` with the zigzag ring, the contiguous
+    ring and Ulysses, 2 steps each: losses within 2^-8 of one process's
+    ``pallas_flash`` run, K1's launches a rank equal to
+    ``sequence.ring_attention.launches_per_layer`` (1 a layer for
+    Ulysses) with the plain versions never called, peak and bytes
+    staged through the host a step; (d) ZeRO v1 and v0 under the smap
+    1F1B pipeline on four ranks (stage 2 x data 2) of their own,
+    GPT-350M widths at 4 layers, 8 x 1024, M = 2, 2 steps: losses within
+    2^-12 of the same pipeline without ZeRO, moments a rank half, K1's
+    launches the schedule's formula.
 """
 
 from __future__ import annotations
@@ -226,6 +253,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -303,11 +331,17 @@ PROFILE_STEPS = 20
 # prefill has started), and phase 16's O1-fp16 training cut.
 TRANSIENT_FAULT, PERSISTENT_FAULT = (6,), (6, 7)
 O1_FP16_LAYERS, O1_FP16_BATCH, O1_STEPS = 4, 4, 3
+# 16c's O1-over-fp32 against explicit bf16: 12 of the 24 layers (the
+# script's time).
+O1_LAYERS = 12
 # Phase 18: batch, records, fit's steps before and after the resume, the
 # sentinel's window, dropout, and the resumed losses' tolerance (kept
 # only where the card's products are not deterministic run to run).
 RT_BATCH, RT_RECORDS, RT_STEPS, RT_RESUME_STEPS = 16, 1024, 10, 20
 RT_MAX_BAD, RT_DROPOUT, RT_RESUME_RTOL = 4, 0.1, 1e-3
+# Phases 18-18h run bench.py's widths at 12 of its 24 layers (the
+# script's time; a checkpoint of that state is 2.0 GB).
+RT_LAYERS = 12
 
 
 def log(msg: str) -> None:
@@ -1936,8 +1970,9 @@ def fp16_timing(torch, fa, pa):
 
 def amp_training(torch, fa, bench):
   """The bench's training step with an fp32 GPTConfig under
-  ``amp.level=O1`` (bf16) against the explicit-bf16 config, full width,
-  ``O1_STEPS`` steps at batch 8 from the same weights and batch: equal
+  ``amp.level=O1`` (bf16) against the explicit-bf16 config, full width
+  at ``O1_LAYERS`` layers, ``O1_STEPS`` steps at batch 8 from the same
+  weights and batch: equal
   losses (O1 is that compute dtype and nothing else).  Then O1 with
   ``compute_dtype=fp16`` at ``O1_FP16_LAYERS`` layers: finite losses,
   and each fp16 flash kernel launched layers x steps times (counts set
@@ -1948,7 +1983,8 @@ def amp_training(torch, fa, bench):
   losses = {}
   for label, dtype, config in (("O1 over fp32", torch.float32, o1),
                                ("explicit bf16", torch.bfloat16, {})):
-    cfg = bench.bench_config(torch.device("cuda"), dtype=dtype)[0]
+    cfg = bench.bench_config(torch.device("cuda"), dtype=dtype,
+                             num_layers=O1_LAYERS)[0]
     state, step, batch, rng, _ = bench.build_training(
         cfg, 8, "cuda", config=Config(config))
     losses[label] = []
@@ -2938,13 +2974,14 @@ def _state_fingerprint(torch, state):
 
 
 def offload_training(torch, fa, bench):
-  """Phase 18g: ``bench.py``'s configuration (GPT-350M bf16 over fp32
-  params, batch 16 x 1024) through ``bench.build_training`` without and
+  """Phase 18g: ``bench.py``'s configuration at RT_LAYERS layers (bf16
+  over fp32 params, batch 16 x 1024) through ``bench.build_training``
+  without and
   with ``offload.level = "v0"``: the moments pinned on the host, the
   losses loss for loss and the final params and moments bit-equal
   (fingerprints of their bits), the peak HBM (``max_memory_allocated`` from
   before the state is built) and the median step ms both ways, the
-  flash launches of the offloaded run (24 x steps), and a native
+  flash launches of the offloaded run (layers x steps), and a native
   save/restore of the offloaded state bit-equal.  Returns the offloaded
   state, its flash launches and the native save and restore seconds."""
   import tempfile
@@ -2952,7 +2989,7 @@ def offload_training(torch, fa, bench):
   from easyparallellibrary_tpu_torch.runtime import saver
   from easyparallellibrary_tpu_torch.runtime.offload import (
       HostOffloadOptimizer)
-  cfg = bench.bench_config(torch.device("cuda"))[0]
+  cfg = bench.bench_config(torch.device("cuda"), num_layers=RT_LAYERS)[0]
   B, L = RT_BATCH, cfg.num_layers
   runs = {}
   for level in ("", "v0"):
@@ -3053,8 +3090,8 @@ def offload_training(torch, fa, bench):
 
 
 def dcp_checkpoint(torch, state, native_s):
-  """Phase 18h: the offloaded GPT-350M state's whole tree (params, both
-  moments, the count: 4.04 GB) through ``save_checkpoint_orbax`` /
+  """Phase 18h: the offloaded state's whole tree (params, both moments,
+  the count: 2.0 GB at RT_LAYERS) through ``save_checkpoint_orbax`` /
   ``restore_checkpoint_orbax`` (``torch.distributed.checkpoint``, one
   process, no process group), restored bit-equal, its seconds beside the
   native saver's."""
@@ -3082,7 +3119,8 @@ def dcp_checkpoint(torch, state, native_s):
         f"{gbytes:.3f} GB ({len(want)} leaves; native saver: save "
         f"{native_s[0]:.2f} s, restore {native_s[1]:.2f} s); every leaf "
         f"bit-equal: {same}")
-    assert same and gbytes > 4.0
+    leaves = sum(v.numel() * v.element_size() for v in want.values()) / 1e9
+    assert same and gbytes >= leaves, (same, gbytes, leaves)
     return save_s, restore_s
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
@@ -3531,6 +3569,17 @@ HEAL_CONF = {
 # on) and new tokens, the canary's hold (seconds on the router's wall
 # clock).
 ROLL_REQUESTS, ROLL_NEW, ROLL_HOLD_S = 16, 16, 1.0
+# (b) and (c) run GPT-350M's widths at 12 of its 24 layers (the script's
+# time): the first 12 blocks of the seed-0 draw are the 12-layer draw's,
+# bit for bit, so the in-process replicas, the process children and the
+# references share their weights.
+HEAL_LAYERS = 12
+
+
+def depth_cut(params, layers: int):
+  """The weights of the first ``layers`` blocks of a GPT (and the rest)."""
+  return {k: v for k, v in params.items()
+          if not k.startswith("block_") or int(k.split(".")[0][6:]) < layers}
 # (d) ABBA rounds of sweep and reactor windows, phase 5's three waves
 # REACTOR_WAVE_S apart on the wall clock (about three sweeps: a reactor
 # cycle runs several steps, so waves paced in calls would differ); the
@@ -3732,7 +3781,9 @@ def heal_golden(torch, params):
   reset_observability()
   config = epl.Config(golden["config"])
   epl.init(config)
-  model = GPT(GPTConfig(**GPT_350M, dtype=torch.bfloat16))
+  model = GPT(GPTConfig(**dict(GPT_350M, num_layers=HEAL_LAYERS),
+                        dtype=torch.bfloat16))
+  params = depth_cut(params, HEAL_LAYERS)
   clock = SimClock()
   router = Router(model, params, num_replicas=golden["num_replicas"],
                   config=config, registry=MetricRegistry(), clock=clock,
@@ -3848,10 +3899,12 @@ def heal_rollout(torch, params, pa):
   from easyparallellibrary_tpu_torch.weights import init_params
   geometry = dict(paged=True, num_slots=NUM_SLOTS,
                   prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  widths = dict(GPT_350M, num_layers=HEAL_LAYERS)
+  cfg = GPTConfig(**widths, dtype=torch.bfloat16)
   model = GPT(cfg)
+  params = depth_cut(params, HEAL_LAYERS)
   prompts = make_prompts(3, ROLL_REQUESTS, cfg.vocab_size)
-  green = init_params(GPTConfig(**GPT_350M), seed=1, device="cuda")
+  green = init_params(GPTConfig(**widths), seed=1, device="cuda")
   weights = {0: params, 1: green}
   tmp = tempfile.mkdtemp(prefix="epl_phase20_")
   launches = {}
@@ -3960,7 +4013,8 @@ def heal_rollout(torch, params, pa):
         "rollout": dict(rollout, min_replicas=1)}})
     epl.init(conf)
     fleet = Router(num_replicas=1, config=conf,
-                   factory={"fn": FLEET_FACTORY, "kwargs": {}},
+                   factory={"fn": FLEET_FACTORY,
+                            "kwargs": {"num_layers": HEAL_LAYERS}},
                    device="cuda", **geometry)
     pids = []
     try:
@@ -4307,6 +4361,9 @@ TP_SPAWN_DEADLINE_S, TP_PHASE_WALL_S = 600, 900
 # 21c: 2 steps (a step over gloo is ~10 s a rank): the first loss holds
 # the TP forward, the second the TP backward and one AdamW update.
 TP_TRAIN_BATCH, TP_TRAIN_STEPS = 16, 2
+# ... at 12 of GPT-350M's 24 layers (the script's time; the serving
+# weights' first 12 blocks).
+TP_TRAIN_LAYERS = 12
 # bf16 losses of two runs whose sums are taken in another order (the
 # row-parallel all-reduces, the vocab-parallel normaliser, a per-rank
 # batch): one bf16 spacing, 2^-8, relative.
@@ -4576,10 +4633,10 @@ def tp_check_serving(torch, model, one, ranks, runs, backend):
 
 
 def tp_check_training(ranks, one, backend):
-  """21c: ``bench.py``'s step at tp = 2 against tp = 1: the losses within
-  ``TP_LOSS_RTOL``, each rank's flash launches 24 x steps per kernel, its
-  peak memory and step ms."""
-  L = GPT_350M["num_layers"]
+  """21c: ``bench.py``'s step at TP_TRAIN_LAYERS layers, tp = 2 against
+  tp = 1: the losses within ``TP_LOSS_RTOL``, each rank's flash launches
+  layers x steps per kernel, its peak memory and step ms."""
+  L = TP_TRAIN_LAYERS
   recs = [r["training"] for r in ranks]
   for rank, rec in enumerate(recs):
     np.testing.assert_allclose(rec["losses"], one["losses"],
@@ -4628,14 +4685,15 @@ def tp_check_data_parallel(ranks, one, backend):
       f"one card)")
 
 
-def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False):
+def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None):
   """Phase 21 (module docstring): the backend probe; K1 and K2 at the
   per-rank shapes; the tp = 1 references in this process; then every TP
   = 2, DP = 2 and ZeRO-1 run in one group of two ranks
   (``testing.tp_workers.chip_tp_suite``), each rank started once; with
   ``pipeline``, phase 22's runs in the same group after them (the
-  reference made here, the checks by ``pipeline_phase``).  Returns what
-  the kernels line carries."""
+  reference made here, the checks by ``pipeline_phase``); with ``p23``
+  (``phase23_parent``'s), phase 23b and 23c's runs after those.
+  Returns what the kernels line carries."""
   from easyparallellibrary_tpu_torch.testing import tp_workers
   from easyparallellibrary_tpu_torch.utils.launcher import spawn
   t0 = time.monotonic()
@@ -4647,9 +4705,9 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False):
   runs = tp_serving_runs(V)
   engine_kwargs = dict(num_slots=NUM_SLOTS, prefill_chunk=PREFILL_CHUNK,
                        block_size=BLOCK_SIZE)
-  train_cfg = dict(GPT_350M, dtype="bfloat16", remat=True,
-                   remat_policy="dots_flash", attn_impl="pallas_flash",
-                   loss_chunk=256)
+  train_cfg = dict(GPT_350M, num_layers=TP_TRAIN_LAYERS, dtype="bfloat16",
+                   remat=True, remat_policy="dots_flash",
+                   attn_impl="pallas_flash", loss_chunk=256)
   batch = np.random.RandomState(0).randint(
       0, V, (TP_TRAIN_BATCH, GPT_350M["max_seq_len"] + 1))
   dp_cfg = dict(train_cfg, num_layers=DP_LAYERS)
@@ -4679,8 +4737,11 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False):
                  {"communication.fusion_threshold_mb": 8})}
   if pp is not None:
     spec["pipeline"] = pp[1]
+  if p23 is not None:
+    spec.update(p23["spec"])
   with Phase(f"21 TP = 2 serving and training, DP = 2, ZeRO-1 and the "
              f"ring" + (", then 22's pipeline runs" if pp else "")
+             + (", then 23b and 23c" if p23 else "")
              + ": two ranks, one group"):
     ranks = spawn(tp_workers.chip_tp_suite, TP, (backend, spec),
                   timeout_s=TP_SPAWN_DEADLINE_S)
@@ -4699,10 +4760,18 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False):
     log(f"   22. wall {pp_wall:.1f} s (reference {pp_ref_s:.1f} s, the "
         f"slower rank's runs {pp_wall - pp_ref_s:.1f} s)")
     assert pp_wall < PP_PHASE_WALL_S, f"phase 22 took {pp_wall:.0f} s"
+  p23_launches = None
+  if p23 is not None:
+    group_s = max(r["p23_wall_s"] for r in ranks)
+    wall -= group_s
+    with Phase("23b, 23c on phase 21's ranks: checks"):
+      p23_launches = phase23_checks(ranks, p23)
+    log(f"   23b, 23c. wall {group_s:.1f} s on the slower rank")
+    p23["group_wall_s"] = group_s
   assert wall < TP_PHASE_WALL_S, f"phase 21 took {wall:.0f} s"
   return dict(backend=backend, nccl_probe=probe, ring=ring, paged=paged,
               flash=flash, serving=serving, training=training,
-              pipeline=pp_launches)
+              pipeline=pp_launches, p23=p23_launches)
 
 
 # ------------------------------------------------------ 22. the pipeline
@@ -4829,6 +4898,295 @@ def pipeline_phase(torch, fa, params, ranks=None, backend=None):
   return launches
 
 
+
+# ---------------------------- 23. MoE, sequence parallelism, ZeRO + pipe
+
+# BASELINE.md row 5 (benchmarks/single_chip_models.py's GPT-MoE): 12
+# layers at GPT-350M widths, 8 experts in every 2nd block, top-1,
+# capacity factor 1.25, the einsum path on one card.
+MOE_CFG = dict(GPT_350M, num_layers=12, num_experts=8, moe_every=2,
+               moe_top_k=1, capacity_factor=1.25, moe_impl="einsum",
+               dtype="bfloat16", remat=True, remat_policy="dots_flash",
+               attn_impl="pallas_flash", loss_chunk=256)
+MOE_BATCH, MOE_STEPS, MOE_A2A_STEPS = 8, 4, 2    # 23a: 1 warm + 3 timed
+# GPT-350M (bench.py's widths and 24 layers) at 4096 tokens, batch 2.
+SEQ_CFG = dict(GPT_350M, max_seq_len=4096, dtype="bfloat16", remat=True,
+               remat_policy="dots_flash", loss_chunk=256)
+SEQ_BATCH, SEQ_STEPS, SEQ_WPE_SEED = 2, 2, 23
+SEQ_RUNS = [("ring_zigzag", "ring", "zigzag"),
+            ("ring_contiguous", "ring", "contiguous"),
+            ("ulysses", "ulysses", "zigzag")]
+# GPT-350M widths at 4 layers, 8 x 1024, two stages of M = 2, 2 steps.
+PZ_CFG = dict(GPT_350M, num_layers=4, dtype="bfloat16", remat=True,
+              remat_policy="dots_flash", attn_impl="pallas_flash")
+PZ_BATCH, PZ_M, PZ_STEPS, PZ_WORLD = 8, 2, 2, 4
+# The a2a losses against one card: within one bf16 spacing (2^-8
+# relative); ZeRO against the same pipeline without it: 2^-12, phase
+# 22's rule; the sequence-parallel losses against one process: 2^-13
+# (sound runs read <= 2.55e-5; a ring backward that keeps dK / dV on the
+# computing rank reads 2.6e-4 for the contiguous layout, 9.8e-4 zigzag).
+A2A_LOSS_RTOL, PZ_LOSS_RTOL, SEQ_LOSS_RTOL = 2.0 ** -8, 2.0 ** -12, 2.0 ** -13
+# 23b's forward against the one-card einsum run on each rank's rows
+# alone (the same routing, the same tokens): every MoE block's drops
+# equal, its outputs within 2^-10 normalized L2 and the cross-entropy
+# within 2^-16 (sound runs read 0 and 4.5e-9; an a2a that skips the
+# return exchange reads outputs off by 0.25-1.19).
+A2A_OUT_RTOL, A2A_CE_RTOL = 2.0 ** -10, 2.0 ** -16
+P23_WALL_S = 400
+
+
+def moe_one_card(torch, fa, bench, moe_params):
+  """23a: the GPT-MoE through ``bench.build_training`` (``epl.init`` ->
+  ``parallelize(make_train_step(gpt_loss))``) from ``moe_params``
+  (``init_params(seed 0)``), MOE_STEPS steps on its batch: losses, the
+  aux loss, ms, tokens/s, MFU, peak, the tokens dropped at step 1 (the
+  dispatch masks'; at random init the routers concentrate and drop a
+  large share, in the JAX package too:
+  tests/test_torch_moe.py::test_router_at_init_concentrates_in_both_packages),
+  K1's launches (12 a kernel a step) with the plain versions never
+  called.  Then 23b's per-source reference: one forward from
+  ``moe_params`` on each a2a rank's rows alone
+  (``sp_workers.moe_forward_probe``), whose capacity is that rank's
+  per-source one.  Returns the record, the batch and the reference."""
+  from easyparallellibrary_tpu_torch.models.gpt import (
+      GPTConfig, gpt_flops_per_token)
+  from easyparallellibrary_tpu_torch.testing import sp_workers
+  from easyparallellibrary_tpu_torch.runtime.zero import moment_bytes
+  cfg = GPTConfig(**dict(MOE_CFG, dtype=torch.bfloat16))
+  torch.backends.cuda.matmul.allow_tf32 = False
+  state, step, batch, _, mesh = bench.build_training(
+      cfg, MOE_BATCH, "cuda", seed=0, params=moe_params)
+  dev = mesh.device
+  moe = [m for m in state.apply_fn.modules() if hasattr(m, "last_dropped")]
+  torch.cuda.synchronize(dev)
+  torch.cuda.reset_peak_memory_stats(dev)
+  fa.reset_counts()
+  losses, aux, ms, dropped = [], [], [], None
+  for i in range(MOE_STEPS):
+    t0 = time.perf_counter()
+    state, m = step(state, batch, None)
+    losses.append(float(m["loss"]))
+    aux.append(float(m["moe_aux_loss"]))
+    torch.cuda.synchronize(dev)
+    ms.append((time.perf_counter() - t0) * 1e3)
+    if i == 0:
+      dropped = int(sum(int(x.last_dropped) for x in moe))
+  launches = {"fwd": fa.flash_fwd_cuda.launches,
+              "dkv": fa.flash_bwd_dkv_cuda.launches,
+              "dq": fa.flash_bwd_dq_cuda.launches}
+  plain = (fa.flash_fwd_reference.calls + fa.flash_bwd_dkv_reference.calls
+           + fa.flash_bwd_dq_reference.calls)
+  tokens = MOE_BATCH * cfg.max_seq_len
+  step_s = statistics.median(ms[1:]) / 1e3
+  ex = {id(p) for n, p in state.params.items()
+        if n.endswith(("moe.wi", "moe.wo"))}
+  ex_bytes = sum(v.numel() * v.element_size()
+                 for p, st in state.opt_state.state.items() if id(p) in ex
+                 for v in st.values() if torch.is_tensor(v) and v.dim())
+  rec = {"losses": losses, "moe_aux_loss": aux, "warm_ms": ms[0],
+         "step_ms": ms[1:], "tokens_per_s": tokens / step_s,
+         "mfu": gpt_flops_per_token(cfg) * tokens / step_s
+         / PEAK_OPS_PER_S["bfloat16"],
+         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+         "dropped_step1": dropped, "launches": launches, "plain_calls": plain,
+         "params": sum(p.numel() for p in state.params.values()),
+         "moment_bytes": moment_bytes(state.opt_state),
+         "expert_moment_bytes": ex_bytes}
+  log(f"   23a. GPT-MoE one card: losses {[round(x, 5) for x in losses]}, "
+      f"aux {[round(x, 4) for x in aux]}, step ms "
+      f"{[round(x, 1) for x in ms]}, {rec['tokens_per_s']:.0f} tokens/s, "
+      f"MFU {rec['mfu']:.4f}, peak {rec['peak_gib']:.2f} GiB, dropped "
+      f"{dropped}, K1 {launches}, {rec['params'] / 1e6:.1f}M params")
+  per_step = cfg.num_layers * MOE_STEPS
+  assert launches == {"fwd": per_step, "dkv": per_step, "dq": per_step}, \
+      launches
+  assert plain == 0, plain
+  assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+  ids = batch["ids"].numpy()
+  rows = MOE_BATCH // TP
+  reference = [sp_workers.moe_forward_probe(
+      state.apply_fn, moe_params,
+      torch.from_numpy(ids[e * rows:(e + 1) * rows]).to(dev))
+               for e in range(TP)]
+  del state, step, batch, moe
+  gc.collect()
+  torch.cuda.empty_cache()
+  return rec, ids, reference
+
+
+def seq_reference(torch, params):
+  """23c's one-process reference: ``attn_impl="pallas_flash"`` at
+  SEQ_CFG from the GPT-350M draw ``params`` with the longer position
+  table, SEQ_STEPS steps.  Returns its record and the ranks' spec."""
+  from easyparallellibrary_tpu_torch.testing import sp_workers, tp_workers
+  batch = np.random.RandomState(SEQ_WPE_SEED).randint(
+      0, GPT_350M["vocab_size"], (SEQ_BATCH, SEQ_CFG["max_seq_len"] + 1))
+  long = sp_workers.long_context_params(params, SEQ_CFG["max_seq_len"],
+                                        SEQ_WPE_SEED)
+  mesh = tp_workers.setup("", device="cuda")
+  one = tp_workers.train_steps(mesh, dict(SEQ_CFG, attn_impl="pallas_flash"),
+                               long, batch, SEQ_STEPS)
+  del long
+  gc.collect()
+  torch.cuda.empty_cache()
+  log(f"   23c. one process: losses {[round(x, 5) for x in one['losses']]}, "
+      f"step ms {[round(x, 1) for x in one['step_ms']]}, peak "
+      f"{one['peak_gib']:.2f} GiB, K1 {one['launches']}")
+  return one, {"cfg": SEQ_CFG, "seed": 0, "wpe_seed": SEQ_WPE_SEED,
+               "batch": batch, "steps": SEQ_STEPS, "runs": SEQ_RUNS}
+
+
+def phase23_parent(torch, fa, bench, params, moe_params):
+  """23a and 23c's reference in this process; the specs of 23b and 23c
+  for the ranks."""
+  t0 = time.monotonic()
+  with Phase("23a. GPT-MoE (BASELINE row 5) on one card"):
+    moe, ids, reference = moe_one_card(torch, fa, bench, moe_params)
+  with Phase("23c the one-process reference (4096 tokens)"):
+    seq_one, seq_spec = seq_reference(torch, params)
+  with Phase("23b the GPT-MoE weights to a file for the ranks"):
+    # The ranks load 23a's draw (seconds) instead of drawing it again.
+    fd, path = tempfile.mkstemp(prefix="epl_phase23_moe_", suffix=".pt")
+    os.close(fd)
+    torch.save({k: v.cpu() for k, v in moe_params.items()}, path)
+    fd, ref_path = tempfile.mkstemp(prefix="epl_phase23_ref_", suffix=".pt")
+    os.close(fd)
+    torch.save(reference, ref_path)
+  moe_spec = {"cfg": MOE_CFG, "weights": path, "batch": ids,
+              "steps": MOE_A2A_STEPS, "reference": ref_path}
+  return {"moe": moe, "seq": seq_one, "wall_s": time.monotonic() - t0,
+          "spec": {"moe": moe_spec, "sequence": seq_spec}}
+
+
+def phase23_checks(ranks, p23):
+  """23b and 23c on the ranks against 23a and the one-process
+  reference.  Returns K1's launches by run."""
+  os.remove(p23["spec"]["moe"]["weights"])
+  os.remove(p23["spec"]["moe"]["reference"])
+  moe = p23["moe"]
+  launches = {"moe_one_card": moe["launches"]}
+  # Every rank's numbers are printed before any is held.
+  for r in ranks:
+    c = r["moe"]["per_source"]
+    log(f"   23b. a2a rank {r['moe']['coords']['expert']} against one card "
+        f"on its rows: MoE outputs rel L2 {c['out_rel_l2']}, max abs "
+        f"{c['out_max_abs']}, dropped {c['dropped']} (one card "
+        f"{c['dropped_ref']}), CE {c['ce']} (one card {c['ce_ref']}, "
+        f"rel {c['ce_rel']:.3e})")
+  for r in ranks:
+    got = r["moe"]
+    log(f"   23b. a2a rank {r['moe']['coords']['expert']}: losses "
+        f"{[round(x, 5) for x in got['losses']]}, step ms "
+        f"{[round(x, 1) for x in got['step_ms']]}, peak "
+        f"{got['peak_gib']:.2f} GiB, dropped {got['dropped_step1']}, "
+        f"staged {got['staged_bytes_per_step'] / 2**20:.1f} MiB a step, "
+        f"expert moments {got['expert_moment_bytes'] / 2**20:.1f} MiB "
+        f"(one card {moe['expert_moment_bytes'] / 2**20:.1f} MiB), K1 "
+        f"{got['launches']}, loss rel to one card "
+        f"{[f'{abs(a - b) / abs(b):.3e}' for a, b in zip(got['losses'],
+                                                          moe['losses'])]}")
+  for r in ranks:
+    c = r["moe"]["per_source"]
+    assert c["dropped"] == c["dropped_ref"], c
+    assert max(c["out_rel_l2"]) <= A2A_OUT_RTOL, c
+    assert c["ce_rel"] <= A2A_CE_RTOL, c
+    got = r["moe"]
+    for a, b in zip(got["losses"], moe["losses"]):
+      assert abs(a - b) <= A2A_LOSS_RTOL * abs(b), (got["losses"],
+                                                   moe["losses"])
+    assert got["expert_moment_bytes"] * 2 == moe["expert_moment_bytes"]
+    assert got["plain_calls"] == 0
+  launches["moe_a2a"] = [r["moe"]["launches"] for r in ranks]
+  one = p23["seq"]
+  launches["sequence"] = {}
+  # Every run's gap is printed before any is held.
+  for name, _, _ in SEQ_RUNS:
+    for r in ranks:
+      got = r["sequence"]["runs"][name]
+      i = r["sequence"]["coords"]["seq"]
+      gaps = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                  one["losses"])]
+      log(f"   23c. {name} rank {i}: losses "
+          f"{[round(x, 5) for x in got['losses']]} (one process "
+          f"{[round(x, 5) for x in one['losses']]}, rel "
+          f"{[f'{g:.3e}' for g in gaps]}), step ms "
+          f"{[round(x, 1) for x in got['step_ms']]}, peak "
+          f"{got['peak_gib']:.2f} GiB, staged "
+          f"{got['staged_bytes_per_step'] / 2**20:.1f} MiB a step, K1 "
+          f"{got['launches']} (formula {got['formula']} a kernel)")
+  for name, _, _ in SEQ_RUNS:
+    launches["sequence"][name] = []
+    for r in ranks:
+      got = r["sequence"]["runs"][name]
+      for a, b in zip(got["losses"], one["losses"]):
+        assert abs(a - b) <= SEQ_LOSS_RTOL * abs(b), (name, got["losses"],
+                                                     one["losses"])
+      assert all(v == got["formula"] for v in got["launches"].values()), \
+          (name, got["launches"], got["formula"])
+      assert got["plain_calls"] == 0
+      launches["sequence"][name].append(got["launches"])
+  return launches
+
+
+def pipeline_zero_phase(torch):
+  """23d: ZeRO v1 and v0 under the smap 1F1B pipeline on four ranks
+  (stage 2 x data 2) in a group of their own, against the same pipeline
+  without ZeRO."""
+  from easyparallellibrary_tpu_torch.testing import sp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  batch = np.random.RandomState(4).randint(
+      0, GPT_350M["vocab_size"], (PZ_BATCH, GPT_350M["max_seq_len"] + 1))
+  spec = {"cfg": PZ_CFG, "seed": 0, "batch": batch, "M": PZ_M,
+          "steps": PZ_STEPS}
+  ranks = spawn(sp_workers.chip_pipeline_zero, PZ_WORLD, ("gloo", spec),
+                timeout_s=TP_SPAWN_DEADLINE_S)
+  launches = {}
+  for r in ranks:
+    c = r["coords"]
+    runs = r["runs"]
+    base = runs["none"]
+    for level in ("none", "v1", "v0"):
+      got = runs[level]
+      log(f"   23d. {level} stage {c['stage']} data {c['data']}: losses "
+          f"{[round(x, 6) for x in got['losses']]}, step ms "
+          f"{[round(x, 1) for x in got['step_ms']]}, peak "
+          f"{got['peak_gib']:.2f} GiB, moments "
+          f"{got['moment_bytes'] / 2**20:.1f} MiB "
+          f"({got['moment_bytes'] / base['moment_bytes']:.4f} of none), "
+          f"staged {got['staged_bytes_per_step'] / 2**20:.1f} MiB a step, "
+          f"K1 {got['launches']}")
+      for a, b in zip(got["losses"], base["losses"]):
+        assert abs(a - b) <= PZ_LOSS_RTOL * abs(b), (level, got["losses"],
+                                                    base["losses"])
+      assert got["launches"] == got["formula"], (got["launches"],
+                                                 got["formula"])
+      assert got["plain_calls"] == 0
+      if level != "none":
+        share = got["moment_bytes"] / base["moment_bytes"]
+        assert 0.49 <= share <= 0.51, (level, share)
+      launches.setdefault(level, []).append(got["launches"])
+  return launches
+
+
+def phase23_alone(torch, fa, bench, params, moe_params):
+  """``--phases 23``: 23a and 23c's reference here, 23b and 23c in a
+  group of two ranks of their own, 23d in its group of four."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  t0 = time.monotonic()
+  p23 = phase23_parent(torch, fa, bench, params, moe_params)
+  with Phase("23b, 23c: the a2a MoE and the sequence-parallel runs, two "
+             "ranks"):
+    ranks = spawn(tp_workers.chip_tp_suite, TP, ("gloo", p23["spec"]),
+                  timeout_s=TP_SPAWN_DEADLINE_S)
+  launches = phase23_checks(ranks, p23)
+  with Phase("23d. ZeRO v1 and v0 under the smap pipeline, four ranks"):
+    launches["pipeline_zero"] = pipeline_zero_phase(torch)
+  wall = time.monotonic() - t0
+  log(f"   23. wall {wall:.1f} s")
+  return launches
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -4873,7 +5231,7 @@ def main() -> int:
   t_start = time.monotonic()
   log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
       f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19, 20, 21, 22)
+  serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19, 20, 21, 22, 23)
   # The serving phases' GPT-350M weights are drawn (numpy, one core)
   # while nvcc builds the kernels.
   draw = any(map(want, serving))
@@ -4885,6 +5243,11 @@ def main() -> int:
         t0 = time.monotonic()
         params = init_params(GPTConfig(**GPT_350M), seed=0, device="cuda")
         log(f"   GPT-350M weights drawn in {time.monotonic() - t0:.1f} s")
+      if want(23):
+        t0 = time.monotonic()
+        moe_params = init_params(GPTConfig(**dict(
+            MOE_CFG, dtype=torch.bfloat16)), seed=0, device="cuda")
+        log(f"   GPT-MoE weights drawn in {time.monotonic() - t0:.1f} s")
       built.result()
   if want(2):
     with Phase("2. kernel vs plain version"):
@@ -4949,19 +5312,43 @@ def main() -> int:
       heal_launches = self_healing_fleet(torch, params, pa,
                                          refs["bfloat16"])
   del refs
+  p23 = None
+  if want(21) and want(23):
+    gc.collect()
+    torch.cuda.empty_cache()
+    t23 = time.monotonic()
+    p23 = phase23_parent(torch, fa, bench, params, moe_params)
+    del moe_params
   if want(21):
     gc.collect()
     torch.cuda.empty_cache()
     with Phase("21. the tensor-parallel mesh on torch.distributed (TP = 2 "
                "serving and training, DP, ZeRO-1, the overlap ring)"
                + ("; 22. the pipeline in the same rank group" if want(22)
-                  else "")):
-      tp = tensor_parallel_mesh(torch, pa, fa, params, pipeline=want(22))
+                  else "")
+               + ("; 23b, 23c in the same rank group" if p23 else "")):
+      tp = tensor_parallel_mesh(torch, pa, fa, params, pipeline=want(22),
+                                p23=p23)
+    if p23 is not None:
+      with Phase("23d. ZeRO v1 and v0 under the smap pipeline, four ranks"):
+        t0 = time.monotonic()
+        tp["p23"]["pipeline_zero"] = pipeline_zero_phase(torch)
+        pz_s = time.monotonic() - t0
+      log(f"   23. wall {p23['wall_s'] + p23['group_wall_s'] + pz_s:.1f} s "
+          f"(23a and the reference {p23['wall_s']:.1f} s, 23b and 23c on "
+          f"phase 21's ranks {p23['group_wall_s']:.1f} s, 23d {pz_s:.1f} s)")
+      assert time.monotonic() - t23 < TP_PHASE_WALL_S + P23_WALL_S
   elif want(22):
     gc.collect()
     torch.cuda.empty_cache()
     with Phase("22. the pipeline on torch.distributed (S = 2 stage ranks)"):
       pipeline_phase(torch, fa, params)
+  if want(23) and not want(21):
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("23. MoE, sequence parallelism and ZeRO under the pipeline"):
+      phase23_alone(torch, fa, bench, params, moe_params)
+    del moe_params
   if any(map(want, serving)):
     del params
   # An engine is freed by the cycle collector (its scheduler holds bound
@@ -4992,7 +5379,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("18. GPT-350M bf16: fit() with checkpoints, resume, sentinel "
                "and rollback"):
-      fit_launches, ckpt_paged = training_runtime(torch, fa, pa, bench)
+      fit_launches, ckpt_paged = training_runtime(
+          torch, fa, pa, bench, widths=dict(GPT_350M, num_layers=RT_LAYERS))
   if want(18) or want(19):
     gc.collect()
     torch.cuda.empty_cache()
@@ -5012,11 +5400,20 @@ def main() -> int:
   flash_py = "easyparallellibrary_tpu/kernels/flash_attention.py"
   def tp_flash(k):
     # Phase 21c's launches on each rank and the per-rank shape's record;
-    # phase 22's launches on each stage rank, by run.
+    # phase 22's launches on each stage rank, by run; phase 23's by run
+    # (23a one card, 23b and 23c each rank, 23d each rank by ZeRO level).
+    p23 = tp["p23"]
     return dict(launches_tp2=[rank[k] for rank in tp["training"]],
                 tp2_b16_h8=tp["flash"][k],
                 launches_pipeline={name: [rank[k] for rank in ranks]
-                                   for name, ranks in tp["pipeline"].items()})
+                                   for name, ranks in tp["pipeline"].items()},
+                launches_moe=p23["moe_one_card"][k],
+                launches_moe_a2a=[r[k] for r in p23["moe_a2a"]],
+                launches_sequence={name: [r[k] for r in ranks] for name, ranks
+                                   in p23["sequence"].items()},
+                launches_pipeline_zero={
+                    lvl: [r[k] for r in ranks]
+                    for lvl, ranks in p23["pipeline_zero"].items()})
 
   flash_records = [
       kernel_record("flash_attention_fwd", "flash_fwd_wgmma_kernel<64>",

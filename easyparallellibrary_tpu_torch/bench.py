@@ -59,12 +59,13 @@ def bench_config(device: torch.device, **overrides):
 
 
 def build_training(cfg, batch_size: int, device=None, seed: int = 0,
-                   config=None):
+                   config=None, params=None):
   """``bench.py``'s setup for one batch size: ``epl.init(config)`` ->
   ``replicate(1)`` -> ``build_mesh`` -> ``create_sharded_train_state`` ->
   ``parallelize(make_train_step(gpt_loss))`` with AdamW(3e-4,
   weight_decay=0.01), weights from ``weights.init_params(seed)`` and a
-  numpy batch of ``batch_size`` sequences.  ``config`` is the port's
+  numpy batch of ``batch_size`` sequences (``params``: those weights
+  instead, drawn by the caller).  ``config`` is the port's
   ``Config`` (default: the defaults; ``amp.level="O1"`` there sets the
   compute dtype).  Returns ``(state, step, batch, rng, mesh)``."""
   import easyparallellibrary_tpu_torch as epl
@@ -85,7 +86,8 @@ def build_training(cfg, batch_size: int, device=None, seed: int = 0,
 
   def init_fn(s):
     return TrainState.create(
-        apply_fn=model, params=init_params(cfg, s, device=mesh.device),
+        apply_fn=model, params=(init_params(cfg, s, device=mesh.device)
+                                if params is None else params),
         tx=tx)
 
   state, shardings = create_sharded_train_state(init_fn, mesh, seed)

@@ -15,8 +15,11 @@ world size, ``all`` puts every rank on the data axis, and the
 ``cluster.mesh_shape`` spec (``SpecificLayout``) gives exact sizes.
 The ``stage`` axis carries the pipeline (``parallel/pipeline.py``): its
 group holds the ranks of one pipeline, each a stage, and each stage is a
-``VirtualDevice`` of the ranks that share its stage index.  Seq and
-expert axes above 1 raise (ROADMAP.md Queue 1).
+``VirtualDevice`` of the ranks that share its stage index.  The ``seq``
+axis carries sequence parallelism (``sequence/``: each rank a slice of
+the tokens) and the ``expert`` axis the MoE experts (``models/moe.py``:
+each rank ``E / ep`` of them; under ``moe_impl="a2a"`` the batch rows
+split over ``("data", "expert")``).
 
 A world of one (no process group) is the one-device mesh of earlier
 slices: every axis has size 1 and no group.
@@ -31,8 +34,6 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from easyparallellibrary_tpu_torch import constants
-from easyparallellibrary_tpu_torch._not_ported import (
-    PARALLEL_STRATEGIES, not_ported)
 from easyparallellibrary_tpu_torch.env import Env
 from easyparallellibrary_tpu_torch.utils.device import (
     process_count, process_index, resolve_device)
@@ -264,18 +265,10 @@ class Cluster:
     return len(self.devices)
 
   def build_mesh(self, **requested: int) -> Mesh:
-    """Build the 5-axis mesh and its process groups (collective: every
-    rank calls it with the same request).  Seq and expert axes above 1
-    raise ``NotImplementedError``."""
+    """Build the 5-axis mesh and its process groups, one a mesh axis
+    above 1 (collective: every rank calls it with the same request)."""
     if self._spec:
       self.layout = SpecificLayout(self._spec)
-    asked = dict(requested)
-    if isinstance(self.layout, SpecificLayout):
-      asked.update(self.layout.sizes)
-    for axis in (constants.SEQ_AXIS, constants.EXPERT_AXIS):
-      if asked.get(axis, 1) > 1:
-        raise not_ported(f"a mesh with {axis}={asked[axis]}",
-                         PARALLEL_STRATEGIES)
     if len(self.devices) != self.process_count:
       # The JAX package drives several devices from one process; the
       # port's SPMD design does not.

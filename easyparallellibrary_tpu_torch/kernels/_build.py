@@ -30,8 +30,12 @@ KERNELS = ("paged_attention", "flash_attention")
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
+# ``-split-compile=0`` runs the device optimisation of a source on as many
+# threads as the machine has cores (the kernels' template instances are
+# independent), which shortens the flash source's build.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

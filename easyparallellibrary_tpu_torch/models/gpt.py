@@ -60,8 +60,26 @@ Built on a mesh whose ``stage`` axis is S, it holds this rank's row
 of the tied table or head (``stage_vocab`` / ``stage_column``); the
 pipeline engines (:func:`make_gpt_train_step`) run it a part at a time
 (``forward(..., pipeline_part=...)``: the feed, one chunk, the emit).
-MoE and the ring/Ulysses attention implementations raise (ROADMAP.md
-Queue 1).
+
+Mixture-of-experts (``num_experts > 0``): every ``moe_every``-th block's
+MLP is ``models.moe.MoEMLP`` (a stage's blocks follow the pattern by
+their index in the stage, as the JAX ``StageBlocks``).  The JAX blocks
+sow the load-balancing loss into a flax collection; here an MoE block
+returns it (``return_aux=True``), ``forward(..., return_aux=True)`` sums
+it over the blocks, and :func:`gpt_loss` and the pipeline engines add
+``moe_aux_weight`` times it (``moe_aux_loss`` in the metrics).  Under
+``moe_impl="a2a"`` on an ``expert`` axis the batch rows split over
+``("data", "expert")``.
+
+Sequence parallelism (``attn_impl="ring"`` / ``"ulysses"`` on a mesh
+whose ``seq`` axis is above 1): each rank holds a contiguous slice of
+the tokens (:func:`local_tokens`: the next-token shift is taken over the
+whole sequence first), its positions offset by the slice's start (JAX
+``token_offset_slice``), and attention is ``sequence.ring_attention`` /
+``sequence.ulysses_attention`` over the seq group.  Each rank's loss is
+the mean over its tokens; the gradients of the replicated leaves are
+averaged over ``data`` and the split axes (``split_axes``,
+``parallel.api.reduce_gradients``).
 """
 
 from __future__ import annotations
@@ -78,8 +96,6 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from easyparallellibrary_tpu_torch import constants
-from easyparallellibrary_tpu_torch._not_ported import (
-    PARALLEL_STRATEGIES, not_ported)
 from easyparallellibrary_tpu_torch.communicators import collectives
 from easyparallellibrary_tpu_torch.kernels.flash_attention import (
     FLASH_FWD_OP, flash_attention)
@@ -98,8 +114,7 @@ from easyparallellibrary_tpu_torch.utils.logging import get_logger
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-  """Every field of the JAX ``GPTConfig``.  A field whose feature the
-  port has not reached raises when set to anything but its default."""
+  """Every field of the JAX ``GPTConfig``."""
   vocab_size: int = 32768
   num_layers: int = 12
   num_heads: int = 16
@@ -129,15 +144,6 @@ class GPTConfig:
   pipeline_interleave: int = 1
   stage_plan: Optional[tuple] = None
   loss_chunk: int = 0
-
-  def __post_init__(self):
-    if self.attn_impl in ("ring", "ulysses"):
-      raise not_ported(f"GPTConfig(attn_impl={self.attn_impl!r})",
-                       PARALLEL_STRATEGIES)
-    if self.num_experts > 0:
-      raise not_ported("GPTConfig(num_experts > 0)", PARALLEL_STRATEGIES)
-    if self.seq_parallel:
-      raise not_ported("GPTConfig(seq_parallel=True)", PARALLEL_STRATEGIES)
 
 
 def tp_size(cfg: GPTConfig) -> int:
@@ -171,6 +177,56 @@ def stage_size(cfg: GPTConfig) -> int:
     raise ValueError(f"pipeline_stages={cfg.pipeline_stages} on a mesh "
                      f"whose stage axis is {n}")
   return n
+
+
+def split_axes(cfg: GPTConfig) -> tuple:
+  """The mesh axes besides ``data`` over which a model of ``cfg`` built on
+  the ambient mesh splits the global batch: ``expert`` for the a2a MoE
+  (the rows), ``seq`` for ring or Ulysses attention on a seq axis above 1
+  (the tokens, JAX ``seq_manual_mode``)."""
+  out = ()
+  if (cfg.num_experts > 0 and cfg.moe_impl == "a2a"
+      and collectives.axis_size(constants.EXPERT_AXIS) > 1):
+    out += (constants.EXPERT_AXIS,)
+  if (cfg.attn_impl in ("ring", "ulysses")
+      and collectives.axis_size(constants.SEQ_AXIS) > 1):
+    out += (constants.SEQ_AXIS,)
+  return out
+
+
+def _uses_moe(cfg: GPTConfig, i: int) -> bool:
+  return cfg.num_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1
+
+
+def local_tokens(model, ids):
+  """``(inputs, targets)`` of this rank from the (data-local) ``ids [B,
+  S+1]``: the rows of its ``expert`` rank under the a2a MoE, the
+  next-token shift over the whole sequence, then the tokens of its
+  ``seq`` rank under sequence parallelism (JAX
+  ``check_seq_token_count``'s guard)."""
+  axes = model.split_axes
+  if constants.EXPERT_AXIS in axes:
+    from easyparallellibrary_tpu_torch.sequence._util import (
+        axis_if_divisible)
+    from easyparallellibrary_tpu_torch.env import Env
+    mesh = Env.get().cluster.mesh
+    if axis_if_divisible(ids.shape[0], mesh, constants.EXPERT_AXIS) is None:
+      raise ValueError(f"batch rows {ids.shape[0]} must divide the expert "
+                       f"axis ({mesh.axis_size(constants.EXPERT_AXIS)}) "
+                       "for the a2a MoE")
+    rows = ids.shape[0] // mesh.axis_size(constants.EXPERT_AXIS)
+    i = mesh.axis_index(constants.EXPERT_AXIS)
+    ids = ids[i * rows:(i + 1) * rows]
+  inputs, targets = ids[:, :-1], ids[:, 1:]
+  if constants.SEQ_AXIS in axes:
+    from easyparallellibrary_tpu_torch.parallel.pipeline_smap import (
+        check_seq_token_count)
+    n = collectives.axis_size(constants.SEQ_AXIS)
+    check_seq_token_count(inputs.shape[1], n, True)
+    s = inputs.shape[1] // n
+    i = collectives.axis_index(constants.SEQ_AXIS)
+    inputs, targets = (t[:, i * s:(i + 1) * s] for t in (inputs, targets))
+  return inputs, targets
 
 
 def _engine_is_smap(cfg: GPTConfig) -> bool:
@@ -352,6 +408,8 @@ class CausalSelfAttention(nn.Module):
                      device=device)
     self.proj = Dense(D, D, use_bias=False, parallel=row, dtype=cfg.dtype,
                       param_dtype=cfg.param_dtype, device=device)
+    # A stage program of the smap engine (the JAX seq-manual region).
+    self.manual = _engine_is_smap(cfg) and stage_size(cfg) > 1
 
   def forward(self, x, paged_info=None, cache=None, decode=False,
               slot_cursors=None, dtype=None):
@@ -377,6 +435,14 @@ class CausalSelfAttention(nn.Module):
                                     dtype)
     elif decode:
       out = self._decode_attend(q, k, v, cache, dtype)
+    elif cfg.attn_impl == "ring":
+      from easyparallellibrary_tpu_torch.sequence.ring_attention import (
+          ring_attention)
+      out = ring_attention(q, k, v, causal=True, manual=self.manual)
+    elif cfg.attn_impl == "ulysses":
+      from easyparallellibrary_tpu_torch.sequence.ulysses import (
+          ulysses_attention)
+      out = ulysses_attention(q, k, v, causal=True, manual=self.manual)
     elif cfg.attn_impl == "pallas_flash":
       out = flash_attention(q, k, v, causal=True)
     elif cfg.attn_impl == "xla":
@@ -441,17 +507,29 @@ def _dropout(y, key, rate: float):
 
 
 class Block(nn.Module):
+  """``use_moe``: the MLP is ``models.moe.MoEMLP`` (submodule ``moe``),
+  whose load-balancing loss ``forward(..., return_aux=True)`` returns
+  beside the output."""
 
-  def __init__(self, cfg: GPTConfig, device=None):
+  def __init__(self, cfg: GPTConfig, device=None, use_moe: bool = False):
     super().__init__()
     self.cfg = cfg
+    self.use_moe = use_moe
     self.ln1 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
     self.attn = CausalSelfAttention(cfg, device=device)
     self.ln2 = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
-    self.mlp = MLP(cfg, device=device)
+    if use_moe:
+      from easyparallellibrary_tpu_torch.models.moe import MoEMLP
+      self.moe = MoEMLP(cfg, top_k=cfg.moe_top_k, impl=cfg.moe_impl,
+                        device=device)
+      self.moe.split_axes = (constants.DATA_AXIS,) + tuple(
+          a for a in split_axes(cfg) if a != constants.EXPERT_AXIS)
+    else:
+      self.mlp = MLP(cfg, device=device)
 
   def forward(self, x, paged_info=None, cache=None, decode=False,
-              slot_cursors=None, dtype=None, drop_key=None):
+              slot_cursors=None, dtype=None, drop_key=None,
+              return_aux=False):
     rate = self.cfg.dropout_rate
     attn_key = mlp_key = None
     if drop_key is not None:
@@ -459,7 +537,19 @@ class Block(nn.Module):
       mlp_key = prng.host_fold_in(drop_key, 1)
     x = x + _dropout(self.attn(self.ln1(x, dtype), paged_info, cache,
                                decode, slot_cursors, dtype), attn_key, rate)
-    return x + _dropout(self.mlp(self.ln2(x, dtype), dtype), mlp_key, rate)
+    aux = None
+    if self.use_moe:
+      y, aux = self.moe(self.ln2(x, dtype), dtype)
+    else:
+      y = self.mlp(self.ln2(x, dtype), dtype)
+    x = x + _dropout(y, mlp_key, rate)
+    return (x, aux) if return_aux else x
+
+
+def _add_aux(total, aux):
+  if aux is None:
+    return total
+  return aux if total is None else total + aux
 
 
 # Matrix products as the dispatcher sees them below autograd: F.linear,
@@ -485,16 +575,18 @@ def _remat_context(name: str):
 
   * ``"dots"`` saves every matrix-product output (recomputing only the
     elementwise work); the flash forward then re-runs in the backward;
-  * ``"dots_flash"`` also saves the flash op's ``(out, lse)``, so the
-    backward never re-runs the flash forward kernel (the JAX policy saves
-    the ``flash_out`` / ``flash_lse`` names);
+  * ``"dots_flash"`` also saves the flash op's and the ring's ``(out,
+    lse)``, so the backward never re-runs the flash forward kernel or the
+    ring (the JAX policy saves the ``flash_out`` / ``flash_lse`` names);
   * ``"nothing"``, ``"everything"`` (and any other name, as in the JAX
     ``_remat_policy``) recompute the whole block.
   """
   if name == "dots":
     saved = _DOT_OPS
   elif name == "dots_flash":
-    saved = _DOT_OPS | {FLASH_FWD_OP}
+    from easyparallellibrary_tpu_torch.sequence.ring_attention import (
+        RING_FWD_OP)
+    saved = _DOT_OPS | {FLASH_FWD_OP, RING_FWD_OP}
   else:
     return None
   return functools.partial(create_selective_checkpoint_contexts,
@@ -503,9 +595,9 @@ def _remat_context(name: str):
 
 def _remat_block(block: nn.Module, x, policy: str, dtype, drop_key=None,
                  params=None):
-  """``block(x)`` under ``torch.utils.checkpoint``.  The block's
-  parameters (``params``, default its own) are bound explicitly, since
-  the recompute runs in the backward, after the caller's
+  """``block(x)`` under ``torch.utils.checkpoint``: ``(x, aux)``.  The
+  block's parameters (``params``, default its own) are bound explicitly,
+  since the recompute runs in the backward, after the caller's
   ``functional_call`` has unbound them; a dropout key redraws the same
   masks in the recompute."""
   if params is None:
@@ -513,7 +605,8 @@ def _remat_block(block: nn.Module, x, policy: str, dtype, drop_key=None,
 
   def run(h):
     return torch.func.functional_call(block, params, (h,),
-                                      {"dtype": dtype, "drop_key": drop_key})
+                                      {"dtype": dtype, "drop_key": drop_key,
+                                       "return_aux": True})
 
   context = _remat_context(policy)
   if context is None:
@@ -549,9 +642,10 @@ def stage_layout(num_layers: int, num_chunks: int,
 class StageBlocks(nn.Module):
   """One pipeline chunk's blocks, each parameter stacked over ``rows``
   stage rows (``[rows, ...]``: every stage on one process, or this
-  rank's one).  ``forward(x, row, n_active)`` runs row ``row``'s blocks;
-  a slot at ``i >= n_active`` (an uneven stage's spare) is skipped, and
-  its parameters take a zero gradient."""
+  rank's one).  ``forward(x, row, n_active) -> (x, aux)`` runs row
+  ``row``'s blocks (``aux`` their summed MoE loss, None without MoE); a
+  slot at ``i >= n_active`` (an uneven stage's spare) is skipped, and its
+  parameters take a zero gradient."""
 
   def __init__(self, cfg: GPTConfig, blocks_per_stage: int, rows: int,
                device=None):
@@ -559,7 +653,7 @@ class StageBlocks(nn.Module):
     self.cfg = cfg
     self.blocks_per_stage = blocks_per_stage
     for i in range(blocks_per_stage):
-      block = Block(cfg, device=device)
+      block = Block(cfg, device=device, use_moe=_uses_moe(cfg, i))
       for mod in block.modules():
         for name, p in list(mod._parameters.items()):
           if p is not None:
@@ -571,6 +665,7 @@ class StageBlocks(nn.Module):
               drop_key=None):
     cfg = self.cfg
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = None
     for i in range(self.blocks_per_stage):
       if n_active is not None and i >= n_active:
         break
@@ -578,11 +673,13 @@ class StageBlocks(nn.Module):
       params = {n: p[row] for n, p in block.named_parameters()}
       key = None if drop_key is None else prng.host_fold_in(drop_key, i)
       if remat:
-        x = _remat_block(block, x, cfg.remat_policy, dtype, key, params)
+        x, a = _remat_block(block, x, cfg.remat_policy, dtype, key, params)
       else:
-        x = torch.func.functional_call(block, params, (x,),
-                                       {"dtype": dtype, "drop_key": key})
-    return x
+        x, a = torch.func.functional_call(
+            block, params, (x,),
+            {"dtype": dtype, "drop_key": key, "return_aux": True})
+      aux = _add_aux(aux, a)
+    return x, aux
 
 
 def stage_dropout_key(rng, cfg: GPTConfig, m: int, k: int, s: int):
@@ -607,6 +704,7 @@ class GPT(nn.Module):
     self.cfg = cfg
     self.tp = tp_size(cfg)
     self.stages = stage_size(cfg)
+    self.split_axes = split_axes(cfg)
     smap = _engine_is_smap(cfg)
     if smap:
       vocab, head = "stage_vocab", "stage_column"
@@ -623,6 +721,11 @@ class GPT(nn.Module):
       S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
       per_chunk, self.n_active = stage_layout(cfg.num_layers, S * K,
                                               cfg.stage_plan)
+      if self.n_active is not None and cfg.num_experts > 0:
+        raise ValueError(
+            f"num_layers={cfg.num_layers} must divide evenly into "
+            f"{S * K} stages when MoE is enabled (the aux losses of "
+            f"masked slots cannot be skipped per stage)")
       for k in range(K):
         stages = nn.Module()
         stages.add_module("stacked", StageBlocks(
@@ -632,7 +735,8 @@ class GPT(nn.Module):
         self.add_module(_pass_name(k, K), holder)
     else:
       for i in range(cfg.num_layers):
-        self.add_module(f"block_{i}", Block(cfg, device=device))
+        self.add_module(f"block_{i}", Block(cfg, device=device,
+                                            use_moe=_uses_moe(cfg, i)))
     self.ln_f = LayerNorm(cfg.d_model, dtype=cfg.dtype, device=device)
     if not cfg.tie_embeddings:
       self.lm_head = Dense(
@@ -642,7 +746,7 @@ class GPT(nn.Module):
   def run_chunk(self, x, k: int, s: int, dtype, drop_key=None):
     """Chunk ``k`` of stage ``s`` (virtual stage ``k * S + s``) on
     ``x``: row ``s`` of pass ``k`` on one process, this rank's row on a
-    stage mesh."""
+    stage mesh.  Returns ``(x, aux)``."""
     cfg = self.cfg
     S = cfg.pipeline_stages
     K = max(1, cfg.pipeline_interleave)
@@ -655,8 +759,9 @@ class GPT(nn.Module):
   def _pipeline_part(self, part, x, targets, cfg, dropout_rng):
     """The pipeline engines' pieces on this rank (``pipeline_part``):
     ``"feed"`` (ids -> the first stage's input), ``("stage", chunk,
-    micro_batch)`` (this rank's chunk) and ``"emit"`` (the last stage's
-    output and ``targets`` -> the micro-batch's mean loss)."""
+    micro_batch)`` (this rank's chunk; ``(y, aux)`` with MoE) and
+    ``"emit"`` (the last stage's output and ``targets`` -> the
+    micro-batch's mean loss)."""
     dtype = cfg.dtype
     if part == "feed":
       if self.wte.parallel == "stage_vocab":
@@ -670,7 +775,7 @@ class GPT(nn.Module):
           h = collectives.all_reduce(h, axis)
       else:
         h = self.wte(x).to(dtype)
-      return h + self.wpe[:x.shape[1]][None].to(dtype)
+      return h + self._positions(x.shape[1])[None].to(dtype)
     if part == "emit":
       h = self.ln_f(x, dtype)
       logits = (self.wte.attend(h) if cfg.tie_embeddings
@@ -688,18 +793,30 @@ class GPT(nn.Module):
     key = None
     if dropout_rng is not None:
       key = stage_dropout_key(dropout_rng, cfg, m, j, s)
-    return self.run_chunk(x, j, s, dtype, key)
+    y, aux = self.run_chunk(x, j, s, dtype, key)
+    return y if aux is None else (y, aux)
+
+  def _positions(self, S: int):
+    """The position rows of this rank's ``S`` tokens: offset by its
+    slice's start when the tokens split over ``seq`` (JAX
+    ``token_offset_slice``)."""
+    from easyparallellibrary_tpu_torch.parallel.pipeline_smap import (
+        token_offset_slice)
+    return token_offset_slice(self.wpe, S,
+                              constants.SEQ_AXIS in self.split_axes)
 
   def forward(self, ids, deterministic: bool = True, decode: bool = False,
               return_hidden: bool = False, slot_cursors=None,
               paged_info: Optional[PagedInfo] = None,
               cache: Optional[Dict[str, Any]] = None, dropout_rng=None,
               gather_logits: bool = True, pipeline_part=None,
-              targets=None):
+              targets=None, return_aux: bool = False):
     """``gather_logits=False`` (tensor-parallel training) returns this
     rank's vocab block of the logits instead of the whole;
     ``pipeline_part`` runs one piece for the pipeline engines
-    (:meth:`_pipeline_part`)."""
+    (:meth:`_pipeline_part`); ``return_aux`` returns ``(out, aux)``, the
+    blocks' summed MoE loss (0 without MoE).  Under sequence
+    parallelism ``ids`` are this rank's tokens (:func:`local_tokens`)."""
     cfg = resolve_model_dtypes(self.cfg)
     train = not deterministic and cfg.dropout_rate > 0
     if train and dropout_rng is None:
@@ -745,39 +862,45 @@ class GPT(nn.Module):
       cache["pos_index"] = S if S > 1 else offset + 1
       pos = self.wpe[offset:offset + S][None]
     else:
-      pos = self.wpe[:S][None]
+      pos = self._positions(S)[None]
     x = self.wte(ids).to(dtype) + pos.to(dtype)
     remat = cfg.remat and not decode and torch.is_grad_enabled()
+    aux = None
     if cfg.pipeline_stages > 1:
       S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
       for k in range(K):
         for s in range(S):
           key = (prng.host_fold_in(dropout_rng, k * S + s) if train
                  else None)
-          x = self.run_chunk(x, k, s, dtype, key)
+          x, a = self.run_chunk(x, k, s, dtype, key)
+          aux = _add_aux(aux, a)
     for i in range(0 if cfg.pipeline_stages > 1 else cfg.num_layers):
       block = getattr(self, f"block_{i}")
       drop_key = prng.host_fold_in(dropout_rng, i) if train else None
       if remat:
-        x = _remat_block(block, x, cfg.remat_policy, dtype, drop_key)
+        x, a = _remat_block(block, x, cfg.remat_policy, dtype, drop_key)
+        aux = _add_aux(aux, a)
         continue
       layer_cache = None
       if cache is not None:
         layer_cache = cache.setdefault(f"block_{i}", {}).setdefault(
             "attn", {})
-      x = block(x, paged_info, layer_cache, decode, slot_cursors, dtype,
-                drop_key)
+      x, a = block(x, paged_info, layer_cache, decode, slot_cursors, dtype,
+                   drop_key, return_aux=True)
+      aux = _add_aux(aux, a)
     x = self.ln_f(x, dtype)
     if return_hidden:
-      return x
-    if cfg.tie_embeddings:
-      logits = self.wte.attend(x)
+      out = x
+    elif cfg.tie_embeddings:
+      out = self.wte.attend(x)
     else:
-      logits = self.lm_head(x, dtype)
-    if self.tp > 1 and gather_logits:
-      logits = bridging.split_to_replica(logits, dim=-1,
-                                         logical=cfg.vocab_size)
-    return logits
+      out = self.lm_head(x, dtype)
+    if not return_hidden and self.tp > 1 and gather_logits:
+      out = bridging.split_to_replica(out, dim=-1, logical=cfg.vocab_size)
+    if return_aux:
+      return out, (aux if aux is not None else
+                   torch.zeros((), dtype=torch.float32, device=x.device))
+    return out
 
 
 def _chunked_tied_ce(model: GPT, params, hidden, targets):
@@ -813,10 +936,13 @@ def gpt_loss(model: GPT, params, batch, rng=None):
   """Next-token cross entropy; ``batch = {"ids": [B, S+1] int}``.
   Returns ``(loss, metrics)``.  With ``cfg.loss_chunk > 0`` (tied
   embeddings, no pipeline) the LM head and CE run chunked over the
-  sequence (:func:`_chunked_tied_ce`)."""
+  sequence (:func:`_chunked_tied_ce`).  With MoE the blocks' summed
+  load-balancing loss is added with weight ``moe_aux_weight`` and
+  reported as ``moe_aux_loss``.  Under the split axes of the model
+  (``split_axes``) the loss is the mean over this rank's tokens
+  (:func:`local_tokens`)."""
   cfg = model.cfg
-  ids = batch["ids"].long()
-  inputs, targets = ids[:, :-1], ids[:, 1:]
+  inputs, targets = local_tokens(model, batch["ids"].long())
   train = cfg.dropout_rate > 0 and rng is not None
   chunked = cfg.loss_chunk > 0
   if chunked and (not cfg.tie_embeddings or cfg.pipeline_stages > 1):
@@ -824,24 +950,34 @@ def gpt_loss(model: GPT, params, batch, rng=None):
         "loss_chunk requires tie_embeddings=True and pipeline_stages<=1 "
         f"(got tie_embeddings={cfg.tie_embeddings}, "
         f"pipeline_stages={cfg.pipeline_stages})")
+  moe = cfg.num_experts > 0
   out = torch.func.functional_call(
       model, params, (inputs,),
       {"deterministic": not train, "return_hidden": chunked,
-       "dropout_rng": rng if train else None, "gather_logits": False},
+       "dropout_rng": rng if train else None, "gather_logits": False,
+       "return_aux": moe},
       strict=True)
+  if moe:
+    out, aux = out
   if chunked:
-    return _chunked_tied_ce(model, params, out, targets), {}
-  loss = distributed_sparse_softmax_cross_entropy_with_logits(
-      targets, out, z_loss=cfg.z_loss, vocab_size=cfg.vocab_size)
-  return loss.mean(), {}
+    loss = _chunked_tied_ce(model, params, out, targets)
+  else:
+    loss = distributed_sparse_softmax_cross_entropy_with_logits(
+        targets, out, z_loss=cfg.z_loss, vocab_size=cfg.vocab_size).mean()
+  if not moe:
+    return loss, {}
+  return loss + cfg.moe_aux_weight * aux, {"moe_aux_loss": aux.detach()}
 
 
 def _pipeline_grad_fn(model: GPT, schedule, collective: bool):
   """``grad_fn(params, batch, rng, loss_scale=None) -> (loss, metrics)``
   over this rank's parameters: the per-rank executor
   (``parallel.pipeline.Pipeline``) walks ``schedule`` over this rank's
-  rows of the batch cut into micro-batches, adding the gradients of
-  ``loss_scale * loss`` into the parameters' ``.grad``.  ``collective``:
+  rows (and tokens, :func:`local_tokens`) of the batch cut into
+  micro-batches, adding the gradients of ``loss_scale * loss`` into the
+  parameters' ``.grad``.  With MoE the stages' load-balancing losses
+  enter the objective with ``moe_aux_weight`` (JAX
+  ``stage_aux_weight``): ``mean_m loss_m + w sum_{s,m} aux / M``.  ``collective``:
   the stage-resident boundary layers of the ``smap`` layout, fed and
   emitted by every rank at the same tick; without it (the ``vmap``
   layout) the boundary leaves' gradients and the loss are summed over
@@ -849,7 +985,7 @@ def _pipeline_grad_fn(model: GPT, schedule, collective: bool):
   gradient (an uneven stage's masked slot) takes zeros, so AdamW decays
   it as the JAX package's does.  ``grad_fn.schedule`` is ``schedule``,
   the table the executor walks."""
-  from easyparallellibrary_tpu_torch.parallel import pipeline_smap
+  from easyparallellibrary_tpu_torch.parallel.api import _reduce_grads
   from easyparallellibrary_tpu_torch.parallel.pipeline import Pipeline
   cfg = resolve_model_dtypes(model.cfg)
   M = cfg.num_micro_batch
@@ -859,9 +995,9 @@ def _pipeline_grad_fn(model: GPT, schedule, collective: bool):
         split_micro_batches)
     train = cfg.dropout_rate > 0 and rng is not None
     device = next(iter(params.values())).device
-    ids = torch.as_tensor(batch["ids"]).long().to(device)
-    split = split_micro_batches({"inputs": ids[:, :-1],
-                                 "targets": ids[:, 1:]}, M)
+    inputs, targets = local_tokens(
+        model, torch.as_tensor(batch["ids"]).long().to(device))
+    split = split_micro_batches({"inputs": inputs, "targets": targets}, M)
     mbs = [{k: v[m] for k, v in split.items()} for m in range(M)]
 
     def call(x, **kw):
@@ -878,18 +1014,23 @@ def _pipeline_grad_fn(model: GPT, schedule, collective: bool):
       return call(y, pipeline_part="emit", targets=mb["targets"])
 
     rows, length = mbs[0]["inputs"].shape
-    loss = Pipeline(schedule, feed, stage, emit,
+    aux_w = cfg.moe_aux_weight if cfg.num_experts > 0 else None
+    pipe = Pipeline(schedule, feed, stage, emit,
                     act_shape=(rows, length, cfg.d_model),
                     act_dtype=cfg.dtype, device=device,
-                    collective_boundary=collective)(mbs, loss_scale)
+                    collective_boundary=collective, stage_aux_weight=aux_w)
+    loss = pipe(mbs, loss_scale)
     if not collective:
       loss = collectives.all_reduce(loss, constants.STAGE_AXIS)
-      pipeline_smap._reduce_grads(
+      _reduce_grads(
           params, [n for n in params if not n.startswith("pipeline")])
     for p in params.values():
       if p.requires_grad and p.grad is None:
         p.grad = torch.zeros_like(p)
-    return loss, {}
+    if cfg.num_experts <= 0:
+      return loss, {}
+    return (loss + aux_w * pipe.stage_aux_loss,
+            {"moe_aux_loss": pipe.stage_aux_loss.detach()})
 
   grad_fn.schedule = schedule
   return grad_fn
@@ -917,6 +1058,11 @@ def make_gpt_1f1b_grad_fn(model: GPT):
   cfg = model.cfg
   if cfg.pipeline_stages <= 1:
     raise ValueError("1F1B needs pipeline_stages > 1")
+  if cfg.num_experts > 0 and cfg.num_layers % cfg.pipeline_stages:
+    raise ValueError(
+        f"num_layers={cfg.num_layers} must divide evenly into "
+        f"{cfg.pipeline_stages} stages when MoE is enabled (the aux "
+        f"losses of masked slots cannot be skipped per stage)")
   if cfg.pipeline_interleave > 1:
     raise ValueError(
         "1F1B with pipeline_interleave > 1 is not supported on the "
@@ -952,6 +1098,7 @@ def make_gpt_smap_grad_fn(model: GPT, mesh=None, schedule: str = "1f1b"):
   engines (``weights.shard_params`` cuts each rank's rows), so
   checkpoints move between engines.  Returns ``grad_fn(params, batch,
   rng, loss_scale=None) -> (loss, metrics)``."""
+  from easyparallellibrary_tpu_torch.parallel import pipeline_smap
   from easyparallellibrary_tpu_torch.parallel.pipeline import gpipe_schedule
   from easyparallellibrary_tpu_torch.parallel.pipeline_interleaved import (
       interleaved_pipe_schedule)
@@ -975,6 +1122,16 @@ def make_gpt_smap_grad_fn(model: GPT, mesh=None, schedule: str = "1f1b"):
   if schedule not in ("gpipe", "1f1b", "interleaved"):
     raise ValueError(f"schedule must be gpipe|1f1b|interleaved, "
                      f"got {schedule!r}")
+  # Sequence parallelism composes: the stage programs run the ring or
+  # Ulysses over the seq group (seq peers share a stage index, so they
+  # walk the same ticks and meet at every collective; no uniform-compute
+  # mode is needed), tokens split like rows over data.
+  pipeline_smap.seq_manual_mode(cfg.attn_impl, cfg.num_heads)
+  if cfg.num_experts > 0 and cfg.num_layers % (S * K):
+    raise ValueError(
+        f"num_layers={cfg.num_layers} must divide evenly into "
+        f"{S * K} stages/chunks when MoE is enabled (matches the "
+        f"model's own constraint)")
   if cfg.vocab_size % S:
     raise ValueError(f"vocab_size {cfg.vocab_size} must divide into "
                      f"{S} stage-resident shards")
@@ -1047,9 +1204,18 @@ def _smap_preconditions_ok(cfg: GPTConfig, conf, sched) -> bool:
     return False
   if K > 1 and not sched.remat_stage:
     return False
+  if cfg.num_experts > 0 and cfg.num_layers % (S * K):
+    return False
   model_size = collectives.axis_size(constants.MODEL_AXIS)
-  return not (cfg.tensor_parallel and model_size > 1
-              and cfg.vocab_size % (S * model_size))
+  if cfg.tensor_parallel and model_size > 1 \
+      and cfg.vocab_size % (S * model_size):
+    return False
+  seq = collectives.axis_size(constants.SEQ_AXIS)
+  if seq > 1 and cfg.attn_impl == "ring" and \
+      conf.sequence.ring_impl not in ("flash", "dense"):
+    return False  # the einsum ring cannot run in a stage program
+  return not (seq > 1 and cfg.attn_impl == "ulysses"
+              and cfg.num_heads % seq)
 
 
 def make_gpt_train_step(model: GPT, config=None):
@@ -1067,9 +1233,11 @@ def make_gpt_train_step(model: GPT, config=None):
 
   A non-pipelined config, ``pipeline_debug_sequential``, or a pipelined
   model held whole by one process (no stage axis) train through
-  :func:`gpt_loss`.  ZeRO under the pipeline raises (ROADMAP.md Queue 1).
-  The returned step carries ``dispatch``: ``(engine, schedule,
-  num_apply_group)``.
+  :func:`gpt_loss`.  ZeRO (``zero.level``, a state built by
+  ``create_sharded_train_state``) composes with every engine: the step
+  reduce-scatters the gradients to their data-axis owners
+  (``runtime.zero.apply_sharded``).  The returned step carries
+  ``dispatch``: ``(engine, schedule, num_apply_group)``.
   """
   from easyparallellibrary_tpu_torch.env import Env
   from easyparallellibrary_tpu_torch.runtime.trainer import build_train_step
@@ -1084,9 +1252,6 @@ def make_gpt_train_step(model: GPT, config=None):
     sched = get_scheduler(cfg.pipeline_schedule or conf.pipeline.strategy)
     if sched.grouped_apply and conf.optimizer.num_apply_group <= 1:
       groups = cfg.pipeline_stages
-    if conf.zero.level:
-      raise not_ported(f"zero.level={conf.zero.level!r} under the pipeline",
-                       PARALLEL_STRATEGIES)
     if model.stages <= 1:
       dispatch = ("autodiff", None, groups)
     elif conf.pipeline.engine == "smap":
@@ -1133,6 +1298,10 @@ def gpt_flops_per_token(cfg: GPTConfig, seq_len: Optional[int] = None
   S = seq_len or cfg.max_seq_len
   D, F, L, V = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.vocab_size
   n_matmul = L * (4 * D * D + 2 * D * F) + D * V   # qkv+proj, mlp, head
+  if cfg.num_experts > 0 and cfg.moe_top_k > 1:
+    # Top-k > 1 runs the FFN of every MoE block k times a token.
+    n_moe = sum(_uses_moe(cfg, i) for i in range(L))
+    n_matmul += n_moe * 2 * D * F * (cfg.moe_top_k - 1)
   attn = L * 2 * D * S                              # qk^T and attn*v
   return 6.0 * n_matmul + 6.0 * attn
 

@@ -24,7 +24,8 @@ from __future__ import annotations
 
 import copy
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -91,9 +92,11 @@ def param_specs(model) -> Dict[str, tuple]:
   """Each parameter's spec from the layers of ``model`` (an
   ``nn.Module``): ``model`` on the split dim of the tensor-parallel
   layers (column rows, row columns, vocab rows), the vocab axes on the
-  rows of a stage-resident table or head, ``stage`` on the leading dim
-  of a pipelined model's stacked leaves on a stage mesh, ``()``
-  (replicated) otherwise."""
+  rows of a stage-resident table or head, ``expert`` (and ``model``) on
+  the expert weights of an MoE layer, ``stage`` on the leading dim of a
+  pipelined model's stacked leaves on a stage mesh, ``()`` (replicated)
+  otherwise."""
+  from easyparallellibrary_tpu_torch.models.moe import MoEMLP
   from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding
   specs: Dict[str, tuple] = {}
   if not isinstance(model, torch.nn.Module):
@@ -114,6 +117,9 @@ def param_specs(model) -> Dict[str, tuple]:
         specs[name + "weight"] = (None, m)
     elif isinstance(mod, Embedding) and mod.tp > 1:
       specs[name + "weight"] = (m, None)
+    elif isinstance(mod, MoEMLP):
+      for leaf, spec in mod.param_specs().items():
+        specs[name + leaf] = spec
   if getattr(model, "stages", 1) > 1:
     # A pipelined model's stacked leaves: the stage row is this rank's.
     for name, p in model.named_parameters():
@@ -184,18 +190,113 @@ def local_batch(batch, mesh, device=None):
   return out
 
 
-def reduce_gradients(params: Dict[str, torch.Tensor], reduce_method: str,
-                     mesh=None) -> None:
-  """The gradient all-reduce over the data axis that GSPMD inserts:
-  the mean of the ranks' gradients (``"sum"``: scaled by the data-
-  parallel degree), bucketed (``communicators.fusion``), in place."""
+def grad_mean_axes(model) -> Tuple[str, ...]:
+  """The axes whose ranks hold distinct parts of the global batch, over
+  which the gradients are averaged: ``data``, and the model's own split
+  axes (``models.gpt.split_axes``: the seq tokens, the a2a MoE's
+  expert rows)."""
+  return (constants.DATA_AXIS,) + tuple(getattr(model, "split_axes", ()))
+
+
+def _sharded_over(spec, axis: str) -> bool:
+  for entry in spec or ():
+    if entry == axis or (isinstance(entry, tuple) and axis in entry):
+      return True
+  return False
+
+
+def _batch_sum(grads, axis: str):
+  return fusion.batch_all_reduce(grads, axis) if grads else {}
+
+
+def _reduce_grads(params: Dict[str, torch.Tensor],
+                  stage_summed: Iterable[str] = (),
+                  mean_axes: Sequence[str] = (),
+                  specs: Optional[Dict[str, tuple]] = None,
+                  owners: Optional[Dict[str, torch.Tensor]] = None,
+                  dims: Optional[Dict[str, Optional[int]]] = None,
+                  reduce_method: str = "mean", mesh=None) -> None:
+  """The cross-rank gradient reduction every engine shares (JAX
+  ``pipeline_smap._reduce_grads``), in place.
+
+  1. Each leaf of ``stage_summed`` (a boundary leaf of the pipeline's
+     ``vmap`` layout, whose gradient each rank holds only its part of:
+     the feed's on stage 0, the emit's on the last) is summed over the
+     stage group.
+  2. Over each axis of ``mean_axes`` but ``data`` (the seq mean first):
+     a leaf replicated over it is averaged, a leaf sharded over it (an
+     expert shard under the a2a MoE, which gathers its gradient from
+     every rank's tokens) divided by the axis size.
+  3. Over ``data`` (when in ``mean_axes``): the mean (``reduce_method
+     "sum"``: the sum), or, with ZeRO (``owners`` and ``dims``), each
+     leaf with an owner dim reduce-scattered to this rank's owner slice
+     (``owners[name].grad``, divided by dp), bucketed through
+     ``fusion.batch_reduce_scatter`` (a ring when ``communication.
+     overlap`` asks), the others averaged.
+
+  Every reduction is bucketed (``communicators.fusion``)."""
+  specs = specs or {}
+  if collectives.axis_size(constants.STAGE_AXIS, mesh) > 1:
+    grads = {}
+    for n in stage_summed:
+      p = params[n]
+      grads[n] = p.grad if p.grad is not None else torch.zeros_like(p)
+    for n, g in _batch_sum(grads, constants.STAGE_AXIS).items():
+      params[n].grad = g
+  live = {n: p for n, p in params.items() if p.grad is not None}
+  for axis in mean_axes:
+    size = collectives.axis_size(axis, mesh)
+    if axis == constants.DATA_AXIS or size <= 1:
+      continue
+    whole = {n: p.grad for n, p in live.items()
+             if not _sharded_over(specs.get(n), axis)}
+    for n, g in _batch_sum(whole, axis).items():
+      live[n].grad = g / size
+    for n, p in live.items():
+      if n not in whole:
+        p.grad = p.grad / size
   dp = collectives.axis_size(constants.DATA_AXIS, mesh)
-  if dp <= 1:
+  if constants.DATA_AXIS not in mean_axes or dp <= 1:
     return
-  grads = {n: p.grad for n, p in params.items() if p.grad is not None}
-  summed = fusion.batch_all_reduce(grads, constants.DATA_AXIS)
-  for n, g in summed.items():
-    params[n].grad = g if reduce_method == "sum" else g / dp
+  div = 1 if reduce_method == "sum" else dp
+  scattered = {}
+  if owners is not None:
+    scattered = {n: p.grad for n, p in live.items()
+                 if dims.get(n) is not None}
+  rest = {n: p.grad for n, p in live.items() if n not in scattered}
+  for n, g in _batch_sum(rest, constants.DATA_AXIS).items():
+    live[n].grad = g / div
+  if scattered:
+    from easyparallellibrary_tpu_torch.runtime.zero import (
+        _zero1_overlap_chunks)
+    chunks = _zero1_overlap_chunks(scattered, dims, dp)
+    red = fusion.batch_reduce_scatter(
+        scattered, constants.DATA_AXIS, {n: dims[n] for n in scattered},
+        dp, num_chunks=chunks if chunks >= 2 else 0)
+    for n, g in red.items():
+      owners[n].grad = g / div
+
+
+def reduce_gradients(params: Dict[str, torch.Tensor], reduce_method: str,
+                     mesh=None, model=None) -> None:
+  """The gradient reduction GSPMD inserts, in place and bucketed
+  (``communicators.fusion``): over the split axes of ``model`` (the
+  step's ``apply_fn``; :func:`grad_mean_axes`) the mean, a leaf sharded
+  over such an axis divided by its size; over ``data`` the mean of the
+  ranks' gradients (``"sum"``: scaled by the data-parallel degree)
+  (:func:`_reduce_grads`)."""
+  _reduce_grads(params, mean_axes=grad_mean_axes(model),
+                specs=param_specs(model), reduce_method=reduce_method,
+                mesh=mesh)
+
+
+def mean_loss(loss, model=None):
+  """The reported loss: the mean of the ranks' over
+  :func:`grad_mean_axes`."""
+  loss = loss.detach()
+  for axis in grad_mean_axes(model):
+    loss = collectives.all_reduce(loss, axis, op=collectives.MEAN)
+  return loss
 
 
 def make_train_step(loss_fn: Callable, *,
@@ -216,11 +317,9 @@ def make_train_step(loss_fn: Callable, *,
     loss, aux = loss_fn(state.params, batch, rng)
     aux = {**(aux or {}), **collect_merged()}
     loss.backward()
-    reduce_gradients(state.params, method)
+    reduce_gradients(state.params, method, model=state.apply_fn)
     state.apply_gradients()
-    loss = collectives.all_reduce(loss.detach(), constants.DATA_AXIS,
-                                  op=collectives.MEAN)
-    return state, {"loss": loss, **aux}
+    return state, {"loss": mean_loss(loss, state.apply_fn), **aux}
 
   return train_step
 

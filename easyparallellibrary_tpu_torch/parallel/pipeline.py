@@ -202,8 +202,9 @@ class Pipeline:
     with ``collective_boundary`` (then only rank 0's result enters the
     stage, and every rank's graph takes rank 0's cotangent in the
     feed's backward, broadcast over the stage axis);
-  * ``stage_fn(chunk, x, m) -> y``: this rank's chunk, shape-preserving,
-    with no stage-axis collective;
+  * ``stage_fn(chunk, x, m) -> y`` (or ``(y, aux)``, a differentiable
+    fp32 auxiliary loss of the chunk, such as MoE load balancing): this
+    rank's chunk, shape-preserving, with no stage-axis collective;
   * ``emit_fn(y, mb) -> loss``: head and mean loss of one micro-batch.
     Run by the last rank alone, or by every rank with
     ``collective_boundary`` on the last rank's output (broadcast), where
@@ -211,15 +212,21 @@ class Pipeline:
 
   Calling it, ``pipe(mbs, loss_scale)``, walks the table: the
   parameters' ``.grad`` accumulate the gradients of ``loss_scale *
-  mean_m loss_m``, and it returns ``mean_m loss_m`` on the ranks that
-  emitted (zero elsewhere).
+  (mean_m loss_m + stage_aux_weight * sum_{s,m} aux / M)`` (JAX's
+  ``stage_aux_weight`` objective), and it returns ``mean_m loss_m`` on
+  the ranks that emitted (zero elsewhere).  With a ``stage_aux_weight``
+  (None: the stages return no aux), ``stage_aux_loss`` is then
+  ``sum_{s,m} aux / M``, summed over the stage axis.
   """
 
   def __init__(self, schedule: PipeSchedule, feed_fn: Callable,
                stage_fn: Callable, emit_fn: Callable, *,
                act_shape: Sequence[int], act_dtype: torch.dtype,
-               device, collective_boundary: bool = False, mesh=None):
+               device, collective_boundary: bool = False, mesh=None,
+               stage_aux_weight: Optional[float] = None):
     self.schedule = schedule
+    self.stage_aux_weight = stage_aux_weight
+    self.stage_aux_loss = None
     self.feed_fn, self.stage_fn, self.emit_fn = feed_fn, stage_fn, emit_fn
     self.act_shape, self.act_dtype = tuple(act_shape), act_dtype
     self.device = torch.device(device)
@@ -246,6 +253,16 @@ class Pipeline:
     last_out: Dict[int, torch.Tensor] = {}
     feed_ct: Dict[int, torch.Tensor] = {}
     loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+    aux_seed = None
+    if self.stage_aux_weight is not None:
+      aux_seed = torch.tensor(self.stage_aux_weight / M, device=self.device) \
+          * seed
+
+    def run_stage(j, x, m):
+      out = self.stage_fn(j, x, m)
+      return out if isinstance(out, tuple) else (out, None)
+
     for tick in sched.ticks:
       if tick.feed is not None and (self.collective or me == 0):
         x = self.feed_fn(mbs[tick.feed])
@@ -260,13 +277,15 @@ class Pipeline:
         x = inbuf.pop((v, m))
         if sched.remat_stage:
           with torch.no_grad():
-            y = self.stage_fn(j, x, m)
+            y, aux = run_stage(j, x, m)
           res[(v, m)] = (x,)
         else:
           x = x.requires_grad_(True)
-          y = self.stage_fn(j, x, m)
-          res[(v, m)] = (x, y)
+          y, aux = run_stage(j, x, m)
+          res[(v, m)] = (x, y, aux)
           y = y.detach()
+        if aux is not None:
+          aux_sum = aux_sum + aux.detach().float()
         if v == V - 1:
           last_out[m] = y
         else:
@@ -291,10 +310,14 @@ class Pipeline:
         saved = res.pop((v, m))
         if sched.remat_stage:
           x = saved[0].requires_grad_(True)
-          y = self.stage_fn(j, x, m)
+          y, aux = run_stage(j, x, m)
         else:
-          x, y = saved
-        torch.autograd.backward(y, grad_tensors=cot.pop((v, m)))
+          x, y, aux = saved
+        outs, cots = [y], [cot.pop((v, m))]
+        if aux is not None and aux_seed is not None:
+          outs.append(aux)
+          cots.append(aux_seed)
+        torch.autograd.backward(outs, grad_tensors=cots)
         if v > 0:
           sends.append(((me - 1) % S, _BWD_TAG, x.grad))
         else:
@@ -310,6 +333,9 @@ class Pipeline:
     if res or inbuf or cot or feeds:
       raise RuntimeError(f"schedule {sched.name!r} left work undone on "
                          f"stage {me}")
+    if self.stage_aux_weight is not None:
+      self.stage_aux_loss = collectives.all_reduce(
+          aux_sum, constants.STAGE_AXIS) / M
     return loss_sum / M
 
   def _hop(self, tick: Tick, sends, inbuf, cot):

@@ -26,17 +26,30 @@ LayerNorm's gradient is the same on every rank.  The feed's backward
 broadcasts stage 0's input cotangent, so each rank scatters it into its
 own rows and the position table's gradient is whole on every rank.  No
 stage-replicated leaf needs the JAX engine's sum over the stage axis;
-the ``vmap`` layout's boundary leaves do (:func:`_reduce_grads`).
+the ``vmap`` layout's boundary leaves do (``parallel.api._reduce_grads``).
+
+Sequence parallelism composes (:func:`seq_manual_mode`): under ring or
+Ulysses attention on a seq axis the stage programs hold a slice of the
+tokens (positions from :func:`token_offset_slice`) and run the
+attention's seq collectives themselves.  The JAX engine must then run
+stage compute branch-uniformly, since XLA lowers a collective-permute to
+one channel over the whole mesh; the port's seq peers share a stage
+index, walk the same table and skip the same ticks, so they meet at
+every collective without it.  The gradients are averaged over the split
+axes (the seq mean first) and then over ``data``, or reduce-scattered
+there to their ZeRO owners, by the reduction every engine shares
+(``parallel.api._reduce_grads``; the owner dims are
+``runtime.zero.zero1_grad_layout``'s).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
 from easyparallellibrary_tpu_torch import constants
-from easyparallellibrary_tpu_torch.communicators import collectives, fusion
+from easyparallellibrary_tpu_torch.communicators import collectives
 from easyparallellibrary_tpu_torch.parallel.pipeline import (
     Pipeline, gpipe_schedule)
 from easyparallellibrary_tpu_torch.parallel.schedule_1f1b import (
@@ -130,26 +143,44 @@ def check_unpadded_vocab(vocab_size: int, mesh) -> None:
         f"stage-resident CE normalizer")
 
 
-def _reduce_grads(params: Dict[str, torch.Tensor],
-                  stage_summed: Iterable[str], mesh=None) -> None:
-  """The engines' cross-rank gradient reduction over the stage axis:
-  each leaf of ``stage_summed`` (a boundary leaf of the ``vmap`` layout,
-  whose gradient each rank holds only its part of: the feed's on stage
-  0, the emit's on the last) is summed over the stage group, bucketed,
-  in place.  The mean over ``data`` is the train step's
-  (``parallel.api.reduce_gradients``), as every step's; ZeRO-1 under the
-  pipeline is not ported (ROADMAP.md Queue 1)."""
-  if collectives.axis_size(constants.STAGE_AXIS, mesh) <= 1:
-    return
-  grads = {}
-  for n in stage_summed:
-    p = params[n]
-    grads[n] = p.grad if p.grad is not None else torch.zeros_like(p)
-  if not grads:
-    return
-  summed = fusion.batch_all_reduce(grads, constants.STAGE_AXIS)
-  for n, g in summed.items():
-    params[n].grad = g
+def seq_manual_mode(attn_impl: str, num_heads: int):
+  """``(seq_size, seq_manual)`` of a model wiring on the ambient mesh,
+  with the JAX guards: the einsum ring cannot run in a stage program,
+  and Ulysses needs the heads to divide the seq axis."""
+  from easyparallellibrary_tpu_torch.env import Env
+  seq_size = collectives.axis_size(constants.SEQ_AXIS)
+  seq_manual = attn_impl in ("ring", "ulysses") and seq_size > 1
+  if seq_manual:
+    if attn_impl == "ring":
+      ring_impl = Env.get().config.sequence.ring_impl
+      if ring_impl not in ("flash", "dense"):
+        raise ValueError(
+            f"sequence.ring_impl={ring_impl!r} cannot run inside the "
+            "smap engine's seq-manual region (the einsum ring is a "
+            "global-array GSPMD program); use ring_impl='flash' or "
+            "'dense', or a vmapped engine (pipeline.engine='')")
+    elif num_heads % seq_size:
+      raise ValueError(
+          f"Ulysses on the smap engine requires num_heads "
+          f"({num_heads}) divisible by the seq axis ({seq_size})")
+  return seq_size, seq_manual
+
+
+def token_offset_slice(table, t_loc: int, seq_manual: bool):
+  """Rows of a replicated position table for this rank's token slice
+  (offset ``seq_rank * t_loc``); the plain prefix otherwise."""
+  if seq_manual:
+    off = collectives.axis_index(constants.SEQ_AXIS) * t_loc
+    return table[off:off + t_loc]
+  return table[:t_loc]
+
+
+def check_seq_token_count(n_tokens: int, seq_size: int,
+                          seq_manual: bool) -> None:
+  if seq_manual and n_tokens % seq_size:
+    raise ValueError(
+        f"token count {n_tokens} must divide into {seq_size} seq "
+        "shards for sequence parallelism")
 
 
 def make_smap_gpipe_grad_fn(feed_fn: Callable, stage_fn: Callable,

@@ -23,12 +23,9 @@ from typing import Callable, Optional
 
 import torch
 
-from easyparallellibrary_tpu_torch.communicators.collectives import (
-    MEAN, all_reduce)
-from easyparallellibrary_tpu_torch.constants import DATA_AXIS
 from easyparallellibrary_tpu_torch.env import Env
 from easyparallellibrary_tpu_torch.parallel.api import (
-    TrainState, reduce_gradients)
+    TrainState, mean_loss, reduce_gradients)
 from easyparallellibrary_tpu_torch.runtime import amp as amp_lib
 from easyparallellibrary_tpu_torch.runtime import resilience as resilience_lib
 from easyparallellibrary_tpu_torch.runtime.gradient_accumulation import (
@@ -63,6 +60,11 @@ def build_train_step(loss_fn: Optional[Callable] = None,
   no accumulation is added around it).  The step unscales, checks and
   applies as for ``loss_fn``.
 
+  A ZeRO state (``state.zero``: ``create_sharded_train_state`` under
+  ``zero.level``) reduce-scatters the gradients to their data-axis
+  owners, steps the owner slices and all-gathers the parameters
+  (``runtime.zero.apply_sharded``), under every engine.
+
   A guarded step (a loss scale, or the state's sentinel counters) needs
   a fused optimizer (``create_train_state`` builds one); the metrics
   then carry ``grads_finite``, and ``bad_steps`` / ``bad_steps_total`` /
@@ -91,11 +93,21 @@ def build_train_step(loss_fn: Optional[Callable] = None,
     else:
       loss, aux = accumulate_gradients(backward_fn(loss_fn, scale),
                                        ga_steps)(params, batch, rng)
-    # Over a data axis, the gradient mean GSPMD inserts in the JAX step
-    # (a no-op on one rank); the loss reported is the mean too.
-    reduce_gradients(params, cfg.communication.gradients_reduce_method)
-    loss = all_reduce(loss.detach(), DATA_AXIS, op=MEAN)
+    model = state.apply_fn
+    loss = mean_loss(loss, model)
     sentinel_on = getattr(state, "sentinel", None) is not None
+    if getattr(state, "zero", None) is not None:
+      if scaled or sentinel_on:
+        raise ValueError("a guarded step (loss scale or anomaly sentinel) "
+                         "does not compose with ZeRO")
+      from easyparallellibrary_tpu_torch.runtime.zero import apply_sharded
+      apply_sharded(state, cfg.communication.gradients_reduce_method)
+      return state, {"loss": loss, **(aux or {})}
+    # Over a data axis (and the model's split axes), the gradient mean
+    # GSPMD inserts in the JAX step (a no-op on one rank); the loss
+    # reported is the mean too.
+    reduce_gradients(params, cfg.communication.gradients_reduce_method,
+                     model=model)
     if not (scaled or sentinel_on):
       apply_grad_group(state.opt_state, params, num_apply_group)
       state.step = state.step + 1

@@ -6,14 +6,22 @@ In the JAX package ZeRO is a sharding decision (v0) and an explicit
 the same dataflow written out: each parameter's owner dim is the first
 one the data axis divides (:func:`zero_owner_dim`); this rank's
 optimizer holds only its slice of every such parameter (AdamW's moments
-at 1 / dp of their size), and :func:`make_zero1_train_step` runs
+at 1 / dp of their size), and :func:`apply_sharded` runs
 ``reduce_scatter(grads) / dp -> the owner's update -> all_gather(params)``
 over the data group.  A parameter no dim of which divides stays whole
-on every rank and takes the mean gradient, as in JAX.
+on every rank and takes the mean gradient, as in JAX.  A dim the
+parameter's spec already shards (the stage dim of a pipelined model's
+stacked leaves, the tensor-parallel and expert dims) is never the owner
+dim (:func:`zero1_grad_layout`), so ZeRO composes with the pipeline
+engines and the other axes: any train step of
+``runtime.trainer.build_train_step`` over a ZeRO state, and
+:func:`make_zero1_train_step`, reduce the gradients to their owners
+through :func:`apply_sharded`.
 
-The optimizer must be elementwise: :func:`_assert_elementwise_tx`
-probes it (a global-norm clip couples positions, so its 1 / dp slices
-would diverge from the whole) and raises, as the JAX guard does.
+The optimizer must be elementwise: :func:`apply_sharded` probes it once
+a layout (:func:`_assert_elementwise_tx`: a global-norm clip couples
+positions, so its 1 / dp slices would diverge from the whole) and
+raises, as the JAX guard does.
 """
 
 from __future__ import annotations
@@ -39,17 +47,51 @@ def zero_owner_dim(shape, taken, data_size: int) -> Optional[int]:
   return None
 
 
-def _zero1_dim(shape, dp: int) -> Optional[int]:
-  return zero_owner_dim(tuple(shape), [False] * len(shape), dp)
+def zero1_grad_layout(params: Dict[str, torch.Tensor],
+                      specs: Dict[str, tuple], dp: int
+                      ) -> Dict[str, Optional[int]]:
+  """ZeRO owner dims (JAX ``pipeline_smap.zero1_grad_layout``): each
+  leaf's dim its gradient is reduce-scattered over ``data`` to (None: it
+  stays whole and takes the mean), by :func:`zero_owner_dim` on this
+  rank's shape with the dims its spec already shards taken (the stage
+  dim of a stacked leaf, the tensor-parallel and expert dims), the rule
+  that lays out the v0 / v1 optimizer state, so the scattered gradients
+  land on it."""
+  dims = {}
+  for name, p in params.items():
+    spec = list(specs.get(name, ()) or ())
+    spec += [None] * (p.dim() - len(spec))
+    dims[name] = zero_owner_dim(tuple(p.shape),
+                                [e is not None for e in spec], dp)
+  return dims
+
+
+def _zero1_overlap_chunks(grads: Dict[str, torch.Tensor],
+                          dims: Dict[str, Optional[int]], dp: int) -> int:
+  """The ring chunk count ``communication.overlap`` picks for the
+  reduce-to-owner, one decision for the whole gradient set (1: fused)."""
+  from easyparallellibrary_tpu_torch.communicators import overlap
+  total, dtype = 0, None
+  for name, g in grads.items():
+    if dims.get(name) is not None:
+      total += g.numel()
+      dtype = dtype or g.dtype
+  if not total:
+    return 1
+  return overlap.resolve_num_chunks(
+      "reduce_scatter", dp, m=dp, k=max(total // dp, 1), n_out=0,
+      dtype=dtype)
 
 
 @dataclasses.dataclass
 class ZeroLayout:
   """Which dim each parameter's optimizer slice is cut on (None: whole)
-  and this rank's owner leaves, which the optimizer steps."""
+  and this rank's owner leaves, which the optimizer steps.
+  ``tx_checked``: the optimizer passed :func:`_assert_elementwise_tx`."""
   dims: Dict[str, Optional[int]]
   owners: Dict[str, torch.Tensor]
   dp: int
+  tx_checked: bool = False
 
 
 def shard_opt_state(state, shardings, mesh, level: str):
@@ -65,10 +107,10 @@ def shard_opt_state(state, shardings, mesh, level: str):
                          "optimizer state stays unsharded", level)
     return state, shardings
   idx = mesh.axis_index(constants.DATA_AXIS)
-  dims, owners = {}, {}
+  dims = zero1_grad_layout(state.params, shardings, dp)
+  owners = {}
   for name, p in state.params.items():
-    d = _zero1_dim(p.shape, dp)
-    dims[name] = d
+    d = dims[name]
     if d is None:
       owners[name] = p
     else:
@@ -85,6 +127,33 @@ def shard_opt_state(state, shardings, mesh, level: str):
       spec[d] = constants.DATA_AXIS
     shardings[f"opt_state/{name}"] = tuple(spec)
   return state, shardings
+
+
+def apply_sharded(state, reduce_method: str = "mean") -> None:
+  """The ZeRO update of a state whose parameters hold this rank's
+  gradients: the reduction to the owners (``parallel.api._reduce_grads``:
+  the split axes' mean first, then the reduce-scatter over data), the
+  optimizer's step on the owner slices, and the new slices all-gathered
+  over data into the parameters, in place.  The first update of a
+  layout probes the optimizer (:func:`_assert_elementwise_tx`)."""
+  from easyparallellibrary_tpu_torch.parallel.api import (
+      _reduce_grads, grad_mean_axes, param_specs)
+  zero = state.zero
+  if not zero.tx_checked:
+    _assert_elementwise_tx(state.tx, state.params)
+    zero.tx_checked = True
+  model = state.apply_fn
+  with torch.no_grad():
+    _reduce_grads(state.params, mean_axes=grad_mean_axes(model),
+                  specs=param_specs(model), owners=zero.owners,
+                  dims=zero.dims, reduce_method=reduce_method)
+    state.opt_state.step()
+    for name, p in state.params.items():
+      d = zero.dims[name]
+      if d is not None:
+        p.copy_(collectives.all_gather(zero.owners[name],
+                                       constants.DATA_AXIS, axis=d))
+  state.step = state.step + 1
 
 
 def moment_bytes(opt: torch.optim.Optimizer) -> int:
@@ -152,57 +221,37 @@ def _assert_elementwise_tx(tx, params: Dict[str, torch.Tensor]) -> None:
 
 
 def make_zero1_train_step(loss_fn: Callable, mesh) -> Callable:
-  """ZeRO-1 step ``(state, batch, rng) -> (state, metrics)``: the local
-  gradients of this rank's rows of the global ``batch``; each divisible
-  gradient reduce-scattered to its owner (and divided by dp), the others
-  averaged; the optimizer's step on the owner slices; the new slices
-  all-gathered into the whole parameters.  Build the state with
+  """ZeRO-1 step ``(state, batch, rng) -> (state, metrics)`` on a pure
+  data-parallel mesh: the local gradients of this rank's rows of the
+  global ``batch``, then :func:`apply_sharded` (each divisible gradient
+  reduce-scattered to its owner and divided by dp, the others averaged;
+  the optimizer's step on the owner slices; the new slices all-gathered
+  into the whole parameters).  Build the state with
   ``create_sharded_train_state(..., zero_level="v1")``."""
   for name, size in mesh.shape.items():
     if name != constants.DATA_AXIS and size > 1:
       raise ValueError(
           f"explicit ZeRO-1 supports pure data parallelism; mesh axis "
           f"{name!r} has size {size}")
-  axis = constants.DATA_AXIS
-  checked = {}
 
   def step(state, batch, rng):
     from easyparallellibrary_tpu_torch.parallel.api import local_batch
     from easyparallellibrary_tpu_torch.parallel.metrics import (
         merge_shard_metrics)
-    zero = getattr(state, "zero", None)
-    if zero is None:
+    if getattr(state, "zero", None) is None:
       raise ValueError("make_zero1_train_step needs a ZeRO state: build it "
                        "with create_sharded_train_state(..., "
                        "zero_level='v1') on a data axis above 1")
-    if not checked:
-      _assert_elementwise_tx(state.tx, state.params)
-      checked["tx"] = True
     for p in state.params.values():
       p.grad = None
     loss, aux = loss_fn(state.params, local_batch(batch, mesh), rng)
     loss.backward()
-    with torch.no_grad():
-      for name, p in state.params.items():
-        d = zero.dims[name]
-        if d is None:
-          g = collectives.all_reduce(p.grad, axis, op=collectives.MEAN)
-          p.grad = g
-        else:
-          zero.owners[name].grad = collectives.reduce_scatter(
-              p.grad, axis, axis=d) / zero.dp
-      state.opt_state.step()
-      for name, p in state.params.items():
-        d = zero.dims[name]
-        if d is not None:
-          p.copy_(collectives.all_gather(zero.owners[name], axis, axis=d))
-    state.step = state.step + 1
-    metrics = {"loss": collectives.all_reduce(loss.detach(), axis,
-                                              op=collectives.MEAN)}
+    apply_sharded(state)
+    metrics = {"loss": collectives.all_reduce(
+        loss.detach(), constants.DATA_AXIS, op=collectives.MEAN)}
     if aux:
       metrics.update(merge_shard_metrics(
           {k: torch.as_tensor(v).detach() for k, v in aux.items()}))
     return state, metrics
 
   return step
-

@@ -33,24 +33,26 @@ def _model(cfg_kwargs: dict, mesh, **extra):
 
 
 def _coords(mesh) -> dict:
-  return {a: mesh.axis_index(a) for a in ("stage", "data", "model")}
+  return {a: mesh.axis_index(a)
+          for a in ("stage", "data", "seq", "expert", "model")}
 
 
 def grads(rank, world, mesh_shape: str, engine: str, strategy: str,
           cfg_kwargs: dict, params: Dict[str, np.ndarray],
           ids: np.ndarray, loss_scale: Optional[float] = None,
-          rng=None, dropout_draws: int = 0):
+          rng=None, dropout_draws: int = 0, config=None):
   """One gradient of the pipelined GPT through
   ``make_gpt_train_step``'s grad function on ``mesh_shape``: the loss,
-  the rank's coordinates and its slice's gradients (the data mean
-  taken).  ``dropout_draws``: also the losses of that many extra draws
-  with ``rng`` folded by the draw index."""
-  from easyparallellibrary_tpu_torch.communicators import collectives
+  the rank's coordinates and its slice's gradients (the mean over the
+  data and split axes taken).  ``dropout_draws``: also the losses of
+  that many extra draws with ``rng`` folded by the draw index.
+  ``config``: more Config entries."""
   from easyparallellibrary_tpu_torch.models import gpt as gpt_lib
   from easyparallellibrary_tpu_torch.parallel.api import (
-      local_batch, reduce_gradients)
+      local_batch, mean_loss, reduce_gradients)
   from easyparallellibrary_tpu_torch.weights import shard_params
-  mesh = setup(mesh_shape, config=_pipeline_config(engine, strategy))
+  mesh = setup(mesh_shape, config=_pipeline_config(engine, strategy,
+                                                   config))
   model = _model(cfg_kwargs, mesh)
   cfg = model.cfg
   local = shard_params(to_torch(params, mesh.device), model)
@@ -61,8 +63,8 @@ def grads(rank, world, mesh_shape: str, engine: str, strategy: str,
   grad_fn = step.grad_fn
   key = None if rng is None else np.asarray(rng, np.uint32)
   loss, _ = grad_fn(local, batch, key, loss_scale=loss_scale)
-  reduce_gradients(local, "mean")
-  loss = collectives.all_reduce(loss, "data", op=collectives.MEAN)
+  reduce_gradients(local, "mean", model=model)
+  loss = mean_loss(loss, model)
   out = {"loss": float(loss), "coords": _coords(mesh),
          "grads": to_numpy({k: p.grad for k, p in local.items()}),
          "dispatch": step.dispatch}
@@ -81,17 +83,20 @@ def grads(rank, world, mesh_shape: str, engine: str, strategy: str,
 def train(rank, world, mesh_shape: str, engine: str, strategy: str,
           cfg_kwargs: dict, params: Dict[str, np.ndarray], batches,
           lr: float, weight_decay: float = 0.01, device: str = "cpu",
-          backend: Optional[str] = None):
+          backend: Optional[str] = None, config=None):
   """``len(batches)`` AdamW steps through ``create_sharded_train_state``
   and ``parallelize(make_gpt_train_step(model))``: the losses, the
-  dispatch and the rank's final parameter slice."""
+  dispatch, the optimizer's moment bytes and the rank's final parameter
+  slice.  ``config``: more Config entries (``zero.level``,
+  ``sequence.*``)."""
+  from easyparallellibrary_tpu_torch.runtime.zero import moment_bytes
   from easyparallellibrary_tpu_torch.models.gpt import make_gpt_train_step
   from easyparallellibrary_tpu_torch.ops.adamw import adamw
   from easyparallellibrary_tpu_torch.parallel.api import (
       TrainState, create_sharded_train_state, parallelize)
   from easyparallellibrary_tpu_torch.weights import local_params
   mesh = setup(mesh_shape, device=device, backend=backend,
-               config=_pipeline_config(engine, strategy))
+               config=_pipeline_config(engine, strategy, config))
   model = _model(cfg_kwargs, mesh)
   local = local_params(model, to_torch(params, mesh.device), mesh)
   state, shardings = create_sharded_train_state(
@@ -105,30 +110,80 @@ def train(rank, world, mesh_shape: str, engine: str, strategy: str,
     state, m = run(state, {"ids": np.asarray(batch)}, None)
     losses.append(float(m["loss"]))
   return {"losses": losses, "dispatch": step.dispatch,
-          "coords": _coords(mesh), "params": to_numpy(dict(state.params))}
+          "coords": _coords(mesh), "params": to_numpy(dict(state.params)),
+          "moment_bytes": moment_bytes(state.opt_state)}
+
+
+def zero_refuses_coupled(rank, world, mesh_shape: str, engine: str,
+                         strategy: str, level: str, cfg_kwargs: dict,
+                         params: Dict[str, np.ndarray], ids):
+  """The message of a ZeRO (``level``) train step of the pipelined GPT on
+  ``mesh_shape`` under an optimizer that clips by the global norm
+  (``tp_workers.clipped_adamw``; empty when nothing was raised)."""
+  from easyparallellibrary_tpu_torch.models.gpt import make_gpt_train_step
+  from easyparallellibrary_tpu_torch.parallel.api import (
+      TrainState, create_sharded_train_state, parallelize)
+  from easyparallellibrary_tpu_torch.testing.tp_workers import clipped_adamw
+  from easyparallellibrary_tpu_torch.weights import local_params
+  mesh = setup(mesh_shape, config=_pipeline_config(
+      engine, strategy, {"zero.level": level}))
+  model = _model(cfg_kwargs, mesh)
+  local = local_params(model, to_torch(params, mesh.device), mesh)
+  state, shardings = create_sharded_train_state(
+      lambda: TrainState.create(apply_fn=model, params=local,
+                                tx=clipped_adamw()), mesh)
+  run = parallelize(make_gpt_train_step(model), mesh, shardings)
+  try:
+    run(state, {"ids": np.asarray(ids)}, None)
+  except ValueError as e:
+    return str(e)
+  return ""
 
 
 def not_ported_errors(rank, world):
-  """The messages ZeRO under the pipeline, MoE and a seq axis raise."""
+  """The compositions item 10 brought build and take a train step (ZeRO
+  under the pipeline, a pipelined MoE, ring attention on a seq axis of
+  ``world`` ranks): each one's loss; and the message ``profile_step``
+  still raises, naming item 12."""
   from easyparallellibrary_tpu_torch import _not_ported
-  from easyparallellibrary_tpu_torch.models.gpt import (
-      GPT, GPTConfig, make_gpt_train_step)
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, make_gpt_train_step
+  from easyparallellibrary_tpu_torch.ops.adamw import adamw
+  from easyparallellibrary_tpu_torch.parallel.api import (
+      TrainState, create_sharded_train_state, parallelize)
+  from easyparallellibrary_tpu_torch.profiler.profiler import profile_step
+  from easyparallellibrary_tpu_torch.weights import (
+      init_params, shard_params, stack_stages)
+  base = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32, d_ff=64,
+              max_seq_len=16)
+  pipe = dict(pipeline_stages=2, num_micro_batch=2)
+  ids = np.random.RandomState(0).randint(0, 64, (4, 17))
   out = {}
-  mesh = setup("stage:2", config={"zero.level": "v1"})
-  cfg = gpt_config(dict(vocab_size=64, num_layers=2, num_heads=4,
-                        d_model=32, d_ff=64, max_seq_len=16,
-                        pipeline_stages=2, num_micro_batch=2))
-  for key, fn in (("zero", lambda: make_gpt_train_step(GPT(cfg))),
-                  ("moe", lambda: GPTConfig(num_experts=4,
-                                            pipeline_stages=2)),
-                  ("seq", lambda: setup(f"seq:{world}"))):
-    try:
-      fn()
-      out[key] = ""
-    except NotImplementedError as e:
-      out[key] = str(e)
-  del mesh
-  out["item"] = _not_ported.PARALLEL_STRATEGIES
+  for key, mesh_shape, config, over in (
+      ("zero", "stage:2", {"zero.level": "v1"}, pipe),
+      ("moe", "stage:2", {}, dict(pipe, num_experts=4, moe_every=1)),
+      ("seq", f"seq:{world}", {}, {"attn_impl": "ring",
+                                   "seq_parallel": True})):
+    mesh = setup(mesh_shape, config=config)
+    cfg = gpt_config(dict(base, **over))
+    model = GPT(cfg)
+    flat = {k: v for k, v in over.items() if k not in pipe}
+    whole = init_params(gpt_config(dict(base, **flat)), seed=1,
+                        device="cpu")
+    if cfg.pipeline_stages > 1:
+      whole = stack_stages(whole, cfg)
+    local = shard_params(whole, model)
+    state, shardings = create_sharded_train_state(
+        lambda: TrainState.create(apply_fn=model, params=local,
+                                  tx=adamw(1e-2)), mesh)
+    run = parallelize(make_gpt_train_step(model), mesh, shardings)
+    _, metrics = run(state, {"ids": ids}, None)
+    out[key] = float(metrics["loss"])
+  try:
+    profile_step(lambda: None)
+    out["profile"] = ""
+  except NotImplementedError as e:
+    out["profile"] = str(e)
+  out["item"] = _not_ported.OTHER_MODELS
   return out
 
 
@@ -155,10 +210,11 @@ def gather(ranks, cfg_kwargs: dict, key: str = "grads"
 def suite(rank, world, cases):
   """Several of this module's programs in one group of ranks (each rank
   started once): ``cases`` is ``[(name, args)]``, ``name`` one of
-  ``grads``, ``train`` and ``not_ported_errors``.  Returns each case's
-  result, in order."""
+  ``grads``, ``train``, ``not_ported_errors`` and
+  ``zero_refuses_coupled``.  Returns each case's result, in order."""
   programs = {"grads": grads, "train": train,
-              "not_ported_errors": not_ported_errors}
+              "not_ported_errors": not_ported_errors,
+              "zero_refuses_coupled": zero_refuses_coupled}
   return [programs[name](rank, world, *args) for name, args in cases]
 
 

@@ -336,15 +336,11 @@ def dp_train(rank, world, kind: str, params: Dict[str, np.ndarray],
           "moment_bytes": zero.moment_bytes(state.opt_state)}
 
 
-def zero_refuses_coupled_optimizer(rank, world, params):
-  """The ZeRO-1 step's message for an optimizer that clips by a global
-  norm (it couples every position)."""
+def clipped_adamw(lr: float = 1e-2):
+  """An optimizer recipe that clips the gradients by their global norm
+  before AdamW's step: it couples every position, so ZeRO refuses it."""
   from easyparallellibrary_tpu_torch.ops.adamw import Recipe, adamw
-  from easyparallellibrary_tpu_torch.parallel.api import (
-      TrainState, create_sharded_train_state)
-  from easyparallellibrary_tpu_torch.runtime import zero
-  mesh = setup(f"data:{world}")
-  inner = adamw(1e-2)
+  inner = adamw(lr)
 
   class Clipped(torch.optim.Optimizer):
     def __init__(self, named):
@@ -357,11 +353,20 @@ def zero_refuses_coupled_optimizer(rank, world, params):
       torch.nn.utils.clip_grad_norm_(list(self.named.values()), 1.0)
       return self.opt.step(closure)
 
-  tx = Recipe(lambda named, fused=None: Clipped(named))
+  return Recipe(lambda named, fused=None: Clipped(named))
+
+
+def zero_refuses_coupled_optimizer(rank, world, params):
+  """The ZeRO-1 step's message for an optimizer that clips by a global
+  norm (it couples every position)."""
+  from easyparallellibrary_tpu_torch.parallel.api import (
+      TrainState, create_sharded_train_state)
+  from easyparallellibrary_tpu_torch.runtime import zero
+  mesh = setup(f"data:{world}")
   state, _ = create_sharded_train_state(
       lambda: TrainState.create(apply_fn=None, params=to_torch(params,
                                                                "cpu"),
-                                tx=tx), mesh, zero_level="v1")
+                                tx=clipped_adamw()), mesh, zero_level="v1")
   step = zero.make_zero1_train_step(lambda p, b, r: _mlp_loss(p, b), mesh)
   try:
     step(state, {"x": np.zeros((2, 16), np.float32),
@@ -679,8 +684,9 @@ def train_steps(mesh, cfg_kwargs: dict, params, batch: np.ndarray,
   weight_decay=0.01), flash attention, remat ``dots_flash``,
   ``loss_chunk``) on ``mesh`` (tensor-parallel on a model axis above 1),
   ``steps`` times on one batch, from a copy of ``params`` (whole, or the
-  rank's shard): the losses, each step's ms, the rank's peak memory and
-  its flash launches over the steps (counts set to 0 just before)."""
+  rank's shard; of a deeper model, its first blocks): the losses, each
+  step's ms, the rank's peak memory and its flash launches over the
+  steps (counts set to 0 just before)."""
   import time
 
   from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
@@ -694,6 +700,8 @@ def train_steps(mesh, cfg_kwargs: dict, params, batch: np.ndarray,
   cfg = gpt_config(cfg_kwargs, tensor_parallel=mesh.axis_size("model") > 1)
   model = GPT(cfg)
   local = local_params(model, params, mesh)
+  # The model's leaves: a config of fewer layers takes the first blocks.
+  local = {n: local[n] for n, _ in model.named_parameters()}
   state, shardings = create_sharded_train_state(
       lambda: TrainState.create(apply_fn=model, params=local,
                                 tx=adamw(3e-4, weight_decay=0.01)), mesh)
@@ -835,8 +843,11 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
   and ``bench.py``'s training step (``spec["training"]``: cfg_kwargs,
   batch, steps) over one draw of ``init_params(seed)``; at
   ``data:world`` explicit DP and ZeRO-1 (``spec["dp"]``: cfg_kwargs,
-  batches, the explicit step's config); and at ``stage:world`` the
-  pipeline runs (``spec["pipeline"]``, ``pp_workers.chip_pipeline``)."""
+  batches, the explicit step's config); at ``stage:world`` the
+  pipeline runs (``spec["pipeline"]``, ``pp_workers.chip_pipeline``);
+  and phase 23's a2a MoE at ``expert:world`` (``spec["moe"]``) and
+  sequence-parallel runs at ``seq:world`` (``spec["sequence"]``,
+  ``sp_workers.chip_moe_a2a`` / ``chip_sequence``)."""
   import gc
 
   from easyparallellibrary_tpu_torch.models.gpt import GPT
@@ -849,8 +860,10 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
     cfg = gpt_config(cfg_kwargs, tensor_parallel=True)
     whole = init_params(gpt_config(cfg_kwargs), seed, device=mesh.device)
     local = shard_params(whole, GPT(cfg))
-    if spec.get("pipeline", {}).get("seed") == seed:
-      # The pipeline runs start from the same draw: keep it on the host.
+    if seed in (spec.get("pipeline", {}).get("seed"),
+                spec.get("sequence", {}).get("seed")):
+      # The pipeline and sequence runs start from the same draw: keep it
+      # on the host.
       flat = {k: v.cpu() for k, v in whole.items()}
     del whole
     out["serving"] = _serve_runs(rank, mesh, cfg, local, runs,
@@ -874,4 +887,15 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
       torch.cuda.empty_cache()
     out["pipeline"] = pp_workers.chip_pipeline(rank, world, backend,
                                                spec["pipeline"], device, flat)
+  if "moe" in spec or "sequence" in spec:
+    import time
+
+    from easyparallellibrary_tpu_torch.testing import sp_workers
+    t0 = time.monotonic()
+    gc.collect()
+    out["moe"] = sp_workers.chip_moe_a2a(rank, world, backend, spec["moe"],
+                                         device)
+    out["sequence"] = sp_workers.chip_sequence(rank, world, backend,
+                                               spec["sequence"], device, flat)
+    out["p23_wall_s"] = time.monotonic() - t0
   return out

@@ -9,7 +9,10 @@ tree, so ``block_3/mlp/wi/kernel`` becomes ``block_3.mlp.wi.weight``:
   ``bias`` -> ``bias``;
 * Embedding ``embedding`` -> ``weight``; ``wpe`` -> ``wpe``;
 * LayerNorm ``scale`` -> ``weight``, ``bias`` -> ``bias`` (only
-  LayerNorms have a ``scale``).
+  LayerNorms have a ``scale``);
+* an MoE block's ``moe/router_kernel [D, E]``, ``moe/wi [E, D, F]`` and
+  ``moe/wo [E, F, D]`` keep their names and layout
+  (``block_1.moe.wi``).
 """
 
 from __future__ import annotations
@@ -84,9 +87,11 @@ def _lecun_normal(rng: np.random.Generator, fan_in: int, shape):
 
 def init_params(cfg, seed: int = 0, device=None) -> Dict[str, torch.Tensor]:
   """Fresh GPT weights drawn with numpy from ``seed``, in the JAX
-  package's initialiser families: ``lecun_normal`` for Dense kernels,
-  ``normal(0.02)`` for the token and position embeddings, zeros for
-  biases, ones for LayerNorm scales.  (The JAX package draws from its
+  package's initialiser families: ``lecun_normal`` for Dense kernels and
+  the expert weights (flax counts an expert weight's leading ``E`` as
+  receptive field: fan-in ``E * D`` for ``wi``, ``E * F`` for ``wo``),
+  ``normal(0.02)`` for the token and position embeddings and the MoE
+  router, zeros for biases, ones for LayerNorm scales.  (The JAX package draws from its
   own PRNG, so the values differ from ``GPT.init``; the CPU tests bridge
   the JAX package's own initialised tree with :func:`from_jax_params`.)
   Parameters are in ``cfg.param_dtype`` on ``device`` (default
@@ -96,12 +101,20 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, torch.Tensor]:
   rng = np.random.default_rng(seed)
   shapes = {name: tuple(p.shape) for name, p in
             GPT(cfg, device="meta").named_parameters()}
+  for name, shape in shapes.items():
+    # The whole experts, whatever expert axis the ambient mesh has.
+    if _is_expert(name):
+      E, D, F = cfg.num_experts, cfg.d_model, cfg.d_ff
+      shapes[name] = shape[:-3] + ((E, D, F) if name.endswith("wi")
+                                   else (E, F, D))
   out = {}
   for name, shape in shapes.items():
     leaf_owner = name.split(".")[-2] if "." in name else ""
-    if name in ("wte.weight", "wpe"):
+    if name in ("wte.weight", "wpe") or name.endswith("moe.router_kernel"):
       arr = rng.standard_normal(shape, dtype=np.float32)
       arr *= np.float32(0.02)
+    elif leaf_owner == "moe":   # wi / wo [(S,) E, in, out]
+      arr = _lecun_normal(rng, shape[-3] * shape[-2], shape)
     elif leaf_owner in _LAYER_NORMS:
       arr = np.full(shape, 1.0 if name.endswith("weight") else 0.0,
                     np.float32)
@@ -109,7 +122,9 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, torch.Tensor]:
       arr = np.zeros(shape, np.float32)
     else:  # Dense weight [(S,) out, in]: fan_in is the input width.
       arr = _lecun_normal(rng, shape[-1], shape)
-    out[name] = torch.from_numpy(arr).to(device=dev, dtype=cfg.param_dtype)
+    dtype = torch.float32 if name.endswith("router_kernel") \
+        else cfg.param_dtype
+    out[name] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
   return out
 
 
@@ -128,9 +143,12 @@ def cast_for_compute(params: Dict[str, torch.Tensor], compute_dtype
 
 def _tp_layout(name: str, cfg):
   """How a GPT parameter is split over ``model``: ``("qkv", None)``,
-  ``("rows" | "cols", logical width)`` or None (replicated)."""
+  ``("rows" | "cols" | "inner", logical width)`` (the first, last or
+  second-to-last dim) or None (replicated)."""
   parts = name.split(".")
   leaf, owner = parts[-1], (parts[-2] if len(parts) > 1 else "")
+  if owner == "moe":
+    return {"wi": ("cols", cfg.d_ff), "wo": ("inner", cfg.d_ff)}.get(leaf)
   if owner == "qkv":
     return ("qkv", None)
   if owner == "proj" and leaf == "weight":
@@ -153,6 +171,14 @@ def _block(t: torch.Tensor, dim: int, logical: int, tp: int, rank: int):
   return t.narrow(dim, rank * size, size).contiguous()
 
 
+def _split_dim(kind: str, lead: int, t: torch.Tensor) -> int:
+  return {"rows": lead, "cols": t.dim() - 1, "inner": t.dim() - 2}[kind]
+
+
+def _is_expert(name: str) -> bool:
+  return name.endswith(("moe.wi", "moe.wo"))
+
+
 def _stacked(name: str) -> bool:
   """A pipelined model's stage-stacked leaf (leading ``[S]`` dim)."""
   return name.startswith("pipeline")
@@ -161,7 +187,9 @@ def _stacked(name: str) -> bool:
 def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
                  rank: Optional[int] = None, tp: Optional[int] = None,
                  stage: Optional[int] = None,
-                 stage_rank: Optional[int] = None
+                 stage_rank: Optional[int] = None,
+                 expert: Optional[int] = None,
+                 expert_rank: Optional[int] = None
                  ) -> Dict[str, torch.Tensor]:
   """This rank's slice of a whole GPT state dict, in ``model``'s layout
   (its ``cfg`` and its vocab layout, ``model.wte.parallel``).
@@ -176,8 +204,11 @@ def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
   out — QKV by whole heads (q, k and v of the same ``H / tp`` heads),
   the column layers' rows and the row layers' columns zero-padded to an
   even tiling, the embedding and head by vocab rows; everything else
-  replicated.  ``tp`` / ``rank`` and ``stage`` / ``stage_rank`` default
-  to the mesh's (the ambient mesh's) ``model`` and ``stage`` axes."""
+  replicated.  The experts of an MoE block (``wi``, ``wo``) keep this rank's
+  ``E / ep`` of them over ``expert``, their ``F`` dim cut over
+  ``model`` under ``tensor_parallel``.  ``tp`` / ``rank``, ``stage`` /
+  ``stage_rank`` and ``expert`` / ``expert_rank`` default to the mesh's
+  (the ambient mesh's) ``model``, ``stage`` and ``expert`` axes."""
   from easyparallellibrary_tpu_torch import constants
   from easyparallellibrary_tpu_torch.communicators import collectives
   cfg = model.cfg
@@ -192,8 +223,12 @@ def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
         if pipelined else 1
   if stage_rank is None:
     stage_rank = collectives.axis_index(constants.STAGE_AXIS, mesh)
+  if expert is None:
+    expert = collectives.axis_size(constants.EXPERT_AXIS, mesh)
+  if expert_rank is None:
+    expert_rank = collectives.axis_index(constants.EXPERT_AXIS, mesh)
   stage_vocab = pipelined and model.wte.parallel == "stage_vocab"
-  if tp <= 1 and stage <= 1 and not stage_vocab:
+  if tp <= 1 and stage <= 1 and expert <= 1 and not stage_vocab:
     return dict(params)
   if cfg.num_heads % tp:
     raise ValueError(f"num_heads {cfg.num_heads} does not divide the "
@@ -204,6 +239,9 @@ def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
     lead = 1 if _stacked(name) else 0
     if lead and stage > 1:
       t = t.narrow(0, stage_rank, 1)
+    if expert > 1 and _is_expert(name):
+      el = cfg.num_experts // expert
+      t = t.narrow(lead, expert_rank * el, el)
     layout = _tp_layout(name, cfg)
     if stage_vocab and name.split(".")[0] in ("wte", "lm_head"):
       n = stage * tp
@@ -214,7 +252,7 @@ def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
       out[name] = t.narrow(0, (stage_rank * tp + rank) * rows,
                            rows).contiguous()
     elif layout is None or tp <= 1:
-      out[name] = t.contiguous() if lead else t
+      out[name] = t.contiguous()
     elif layout[0] == "qkv":
       hl = H // tp
       w = t.reshape(t.shape[:lead] + (3, H, hd, D))
@@ -222,8 +260,7 @@ def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
       out[name] = w.reshape(t.shape[:lead] + (3 * hl * hd, D)).contiguous()
     else:
       kind, logical = layout
-      out[name] = _block(t, lead if kind == "rows" else t.dim() - 1,
-                         logical, tp, rank)
+      out[name] = _block(t, _split_dim(kind, lead, t), logical, tp, rank)
   return out
 
 
@@ -274,9 +311,24 @@ def unshard_params(shards, cfg) -> Dict[str, torch.Tensor]:
         rows.append(w.reshape(w.shape[:lead] + (3 * D, D)))
       else:
         kind, logical = layout
-        dim = lead if kind == "rows" else parts[0].dim() - 1
+        dim = _split_dim(kind, lead, parts[0])
         rows.append(torch.cat(parts, dim=dim).narrow(dim, 0, logical))
     out[name] = torch.cat(rows, dim=0) if lead else rows[0]
+  return out
+
+
+def gather_experts(shards) -> Dict[str, torch.Tensor]:
+  """The inverse of the expert cut of :func:`shard_params`: ``shards``
+  the slices of the ranks of one expert group, in expert-axis order;
+  the expert weights concatenated over their ``E`` dim (after a
+  pipelined model's stage dim), the rest as rank 0 holds them."""
+  out = {}
+  for name, t in shards[0].items():
+    if _is_expert(name):
+      out[name] = torch.cat([s[name] for s in shards],
+                            dim=1 if _stacked(name) else 0)
+    else:
+      out[name] = t
   return out
 
 
@@ -293,15 +345,18 @@ def stack_stages(params: Dict[str, torch.Tensor], cfg
   counts = n_active or (per_chunk,) * (S * K)
   starts = np.cumsum((0,) + tuple(counts))
   out = {n: t for n, t in params.items() if not n.startswith("block_")}
-  subs = sorted({n.split(".", 1)[1] for n in params
-                 if n.startswith("block_0.")})
   for k in range(K):
     for j in range(per_chunk):
+      # Slot j's leaves, as the first chunk holding a block there has
+      # them (an MoE pattern must repeat in every chunk).
+      first = next(c for c in range(S * K) if j < counts[c])
+      subs = sorted(n.split(".", 1)[1] for n in params
+                    if n.startswith(f"block_{starts[first] + j}."))
       for sub in subs:
         rows = []
         for s in range(S):
           c = k * S + s
-          like = params[f"block_0.{sub}"]
+          like = params[f"block_{starts[first] + j}.{sub}"]
           rows.append(params[f"block_{starts[c] + j}.{sub}"]
                       if j < counts[c] else torch.zeros_like(like))
         out[f"{_pass_name(k, K)}.stages.stacked.block_{j}.{sub}"] = \

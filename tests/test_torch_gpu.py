@@ -1242,3 +1242,88 @@ def test_pipeline_step_on_the_card_equals_one_process(cuda, engine,
       batches, 1e-2, device="cuda")
   for rank in ranks:
     np.testing.assert_allclose(rank["losses"], one["losses"], rtol=1e-4)
+
+
+# ----------------------------- MoE and sequence parallelism (slice 13)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["zigzag", "contiguous"])
+def test_ring_attention_step_on_the_card(cuda, layout):
+  """Two gloo seq ranks sharing the card: one fp32 flash ring step
+  (forward and the recommunicating backward) gives the whole sequence's
+  attention and gradients, and each rank launches the forward kernel as
+  the layout's formula says."""
+  from easyparallellibrary_tpu_torch.sequence.ring_attention import (
+      launches_per_layer)
+  from easyparallellibrary_tpu_torch.testing import sp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  torch.backends.cuda.matmul.allow_tf32 = False
+  r = np.random.RandomState(0)
+  q, k, v, dout = (r.randn(2, 256, 4, 64).astype(np.float32)
+                   for _ in range(4))
+  ranks = spawn(sp_workers.attention, 2, (
+      "seq:2", {"sequence.ring_layout": layout}, "ring", True, q, k, v, dout,
+      None, False, "cuda", "gloo"), timeout_s=300)
+  leaves = [torch.from_numpy(a).to(cuda).requires_grad_(True)
+            for a in (q, k, v)]
+  s = torch.einsum("bqhd,bkhd->bhqk", *leaves[:2]) / 8.0
+  s = s.masked_fill(~torch.ones(256, 256, dtype=torch.bool,
+                                device=cuda).tril(), float("-inf"))
+  want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), leaves[2])
+  (want * torch.from_numpy(dout).to(cuda)).sum().backward()
+  ranks = sorted(ranks, key=lambda x: x["coords"]["seq"])
+  for key, ref in zip(("out", "dq", "dk", "dv"),
+                      [want] + [t.grad for t in leaves]):
+    got = np.concatenate([x[key] for x in ranks], axis=1)
+    np.testing.assert_allclose(got, ref.detach().cpu().numpy(), atol=1e-4,
+                               rtol=1e-4)
+  for i, x in enumerate(ranks):
+    assert x["fwd_calls"] == launches_per_layer(2, i, True,
+                                                layout == "zigzag")
+
+
+@pytest.mark.gpu
+def test_moe_layer_on_the_card_routes_as_on_the_cpu(cuda):
+  """An fp32 ``MoEMLP`` (top-2, with drops) on the card routes every
+  token as on the CPU, even with TF32 allowed for matmuls (the router
+  product runs at full fp32 precision): the same drops, the output and
+  gradients within the experts' TF32 rounding by normalized error."""
+  from torch.func import functional_call
+
+  from easyparallellibrary_tpu_torch.models.gpt import GPTConfig
+  from easyparallellibrary_tpu_torch.models.moe import MoEMLP
+  cfg = GPTConfig(vocab_size=64, num_layers=2, num_heads=4, d_model=256,
+                  d_ff=512, max_seq_len=64, num_experts=8,
+                  capacity_factor=0.75, moe_top_k=2, dtype=torch.float32)
+  r = np.random.RandomState(1)
+  params = {"router_kernel": r.randn(256, 8).astype(np.float32) * 0.5,
+            "wi": r.randn(8, 256, 512).astype(np.float32) * 0.02,
+            "wo": r.randn(8, 512, 256).astype(np.float32) * 0.02}
+  x = r.randn(4, 64, 256).astype(np.float32)
+  results = {}
+  was = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    for dev in (torch.device("cpu"), cuda):
+      layer = MoEMLP(cfg, top_k=2, device="meta")
+      p = {k: torch.from_numpy(a).to(dev).requires_grad_(True)
+           for k, a in params.items()}
+      xx = torch.from_numpy(x).to(dev)
+      out, aux = functional_call(layer, p, (xx,))
+      (out.square().sum() + aux).backward()
+      results[dev.type] = (out.detach().cpu(), layer.last_dropped.cpu(),
+                           {k: t.grad.cpu() for k, t in p.items()})
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = was
+  (oc, dc, gc_), (og, dg, gg) = results["cpu"], results["cuda"]
+  assert int(dc) == int(dg) and int(dc) > 0
+
+  def rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+  # TF32 experts read ~1e-3 by normalized error; one token sent to
+  # another expert moves the output by ~4e-2.
+  assert rel(og, oc) < 1e-2, rel(og, oc)
+  for k in gc_:
+    assert rel(gg[k], gc_[k]) < 2e-2, (k, rel(gg[k], gc_[k]))

@@ -416,9 +416,13 @@ def test_pipelined_generate_falls_back_to_full_forward():
 
 
 def test_not_ported_compositions_raise_naming_the_item(ranks2):
-  """ZeRO under the pipeline, MoE and a seq axis raise
-  ``NotImplementedError`` naming ROADMAP Queue 1's item (slice 13)."""
+  """ZeRO under the pipeline, a pipelined MoE and a seq axis, which
+  raised until item 10 was ported, now build and take a train step with
+  a finite loss; what still raises (``profile_step``) names ROADMAP
+  Queue 1's item 12."""
+  from easyparallellibrary_tpu_torch import _not_ported
+  assert not hasattr(_not_ported, "PARALLEL_STRATEGIES")
   for r in ranks2["not_ported"]:
     for key in ("zero", "moe", "seq"):
-      assert r[key], key
-      assert r["item"] in r[key], (key, r[key])
+      assert np.isfinite(r[key]) and r[key] > 0, (key, r[key])
+    assert r["item"] in r["profile"], r["profile"]
