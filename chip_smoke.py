@@ -8,7 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA GPU and
 GPT-350M (``easyparallellibrary_tpu_torch``) — the paged
 continuous-batching engine (plain, speculative, with the prefix cache),
 and the training step of ``bench.py`` — and holds every CUDA kernel of
-those paths against its plain PyTorch version:
+those paths against its plain PyTorch version.  The serving phases run
+12 of GPT-350M's 24 layers (``SERVE_LAYERS``; widths kept), training
+phase 10 all 24:
 
 1. build the kernels from the checkout's sources (one ``nvcc`` per
    source, started together) and print the card's name and power limit;
@@ -241,6 +243,34 @@ each rank's program is in ``testing/sp_workers.py``):
     GPT-350M widths at 4 layers, 8 x 1024, M = 2, 2 steps: losses within
     2^-12 of the same pipeline without ZeRO, moments a rank half, K1's
     launches the schedule's formula.
+
+``--phases 24`` runs BERT and ResNet, the models of BASELINE.md rows 1-3
+(in the whole run 24c and 24e ride phase 21's rank group; each rank's
+program is ``testing/bert_workers.chip_phase24``):
+
+24. (a) BERT-Large MLM at ``benchmarks/single_chip_models.py``'s shape
+    (8 x 512, bf16, whole-block remat, ``attn_impl="pallas_flash"``: K1
+    without the mask) through ``epl.init`` -> ``replicate`` ->
+    ``create_sharded_train_state`` -> ``parallelize(
+    make_bert_train_step)``, 1 warm and 5 timed AdamW steps: step ms,
+    tokens/s, MFU (the benchmark's FLOPs a token), peak, K1's launches
+    equal to 2L forwards, L dK/dV and L dQ a step; at 4 layers in fp32,
+    the flash loss and gradients against dense attention; one step of
+    ``BertForQuestionAnswering``; (b) the three kernels without the mask
+    at B=8 H=16 S=512 D=64 bf16 against their plain versions
+    (``FLASH_BF16_LIMIT``), timed beside the plain versions, SDPA with
+    ``is_causal=False`` and the bounds of full attention; (c) BASELINE
+    row 2: (a)'s model, weights and batch in S = 2 stages of M = 4 under
+    the smap 1F1B on two ranks, 3 steps: losses within 2^-12 of (a)'s
+    first three, K1's launches the schedule's formula, step ms and peak
+    a rank; (d) ResNet-50 at 64 x 224 x 224, bf16: group norm through
+    ``make_train_step``, 1 warm and 5 steps (images/s, step ms, MFU by
+    the benchmark's count, peak), and batch norm through
+    ``MutableTrainState`` / ``make_mutable_train_step``, 3 steps (the
+    running statistics move and stay finite); (e) BASELINE row 3:
+    ResNet-50 with a 131072-class head built under ``split(2)`` on two
+    model ranks, 32 images, 2 steps: losses within 2^-12 of one process.
+    Phase 24's own wall is held under 150 s.
 """
 
 from __future__ import annotations
@@ -269,6 +299,13 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 
 GPT_350M = dict(vocab_size=32768, num_layers=24, num_heads=16, d_model=1024,
                 d_ff=4096, max_seq_len=1024)
+# The serving phases (4-6, 12-17, 19-20, 21b) run GPT-350M's widths at 12
+# of its 24 layers (the script's time: a slow host read the whole script
+# at 1251 s at 24): the first 12 blocks of the seed-0 draw
+# (``depth_cut``) are the 12-layer draw's, bit for bit, so the
+# process children, the TP ranks and the references share weights.
+SERVE_LAYERS = 12
+GPT_SERVE = dict(GPT_350M, num_layers=SERVE_LAYERS)
 NUM_SLOTS, PREFILL_CHUNK, BLOCK_SIZE = 8, 128, 16
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
 # Flash attention, fp32: the JAX tests' tolerances (forward rtol 2e-5 /
@@ -737,7 +774,7 @@ def engine_fp32_vs_generate(torch, params, pa, refs):
       ContinuousBatchingEngine, Request)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  cfg = GPTConfig(**GPT_350M, dtype=torch.float32)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.float32)
   model = GPT(cfg)
   prompts = make_prompts(1, NUM_SLOTS, cfg.vocab_size)
   eng = ContinuousBatchingEngine(model, params, paged=True,
@@ -796,7 +833,7 @@ def engine_bf16_serving(torch, params, pa, refs):
   from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
   from easyparallellibrary_tpu_torch.serving import (
       ContinuousBatchingEngine, Request)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   stats = ServingStats()
   model = GPT(cfg)
   eng = ContinuousBatchingEngine(model, params, paged=True,
@@ -871,7 +908,7 @@ def speculative_serving(torch, params, pa, refs):
   from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
   from easyparallellibrary_tpu_torch.serving import (
       ContinuousBatchingEngine, DraftModelDrafter, NgramDrafter, Request)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   model = GPT(cfg)
   L = cfg.num_layers
   prompts = repeating_prompts(4, 16, cfg.vocab_size)
@@ -966,7 +1003,7 @@ def prefix_cache_serving(torch, params, pa):
   from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
   from easyparallellibrary_tpu_torch.serving import (
       ContinuousBatchingEngine, Request)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   model = GPT(cfg)
   L, V = cfg.num_layers, cfg.vocab_size
   r = np.random.RandomState(5)
@@ -1315,20 +1352,22 @@ def flash_lse_autograd(torch, fa):
       f"autograd: max|diff| {worst:.2e} (rtol 2e-4, atol 2e-5)")
 
 
-def flash_bounds(B, H, S, D, itemsize):
-  """(least ms, "bytes" | "operations") of the causal forward, dK/dV and
-  dQ at this shape: each input read once and each output written once
-  over the HBM rate, against the causal products' operations (4, 8 and
-  6 x B*H*S*S*D/2) over the bf16 tensor-core peak."""
+def flash_bounds(B, H, S, D, itemsize, causal=True):
+  """(least ms, "bytes" | "operations") of the forward, dK/dV and dQ at
+  this shape: each input read once and each output written once over the
+  HBM rate, against the products' operations over the bf16 tensor-core
+  peak: 4, 8 and 6 x B*H*S*S*D/2 causal (the half of the scores at or
+  below the diagonal), twice that for full attention."""
   row = B * H * S * D * itemsize
   rows = B * H * S * 4                          # one fp32 [B, H, S]
   work = {"fwd": (4 * row + rows, 4),           # q, k, v, o; lse
           "dkv": (6 * row + 2 * rows, 8),       # q, k, v, dO, dk, dv
           "dq": (5 * row + 2 * rows, 6)}        # q, k, v, dO, dq
+  pairs = B * H * S * S * (0.5 if causal else 1.0)
   out = {}
   for name, (nbytes, units) in work.items():
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = units * B * H * S * S * D / 2 / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    t_ops = units * pairs * D / PEAK_OPS_PER_S["bfloat16"] * 1e3
     out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
   return out
@@ -1348,33 +1387,33 @@ def host_us(torch, fn, args, calls=200):
   return elapsed / calls * 1e6
 
 
-def flash_timing(torch, fa):
-  """Kernel, plain-version and library times at the training shape, bf16
-  causal.  The library yardsticks (never called by the port) are
-  ``scaled_dot_product_attention(is_causal=True)``'s forward for the
-  forward kernel and its backward alone for each backward kernel: one
-  ``autograd.grad`` with ``retain_graph=True`` on a graph built once, so
-  the forward stays outside the timed window.  Also each wrapper's host
-  time per call: the forward wrapper encodes 3 TMA tensor maps per call,
-  dK/dV and dQ 4 each."""
+def flash_timing(torch, fa, shape=FLASH_BENCH_SHAPE, causal=True):
+  """Kernel, plain-version and library times at ``shape`` (the training
+  shape by default), bf16, ``causal`` or full.  The library yardsticks
+  (never called by the port) are ``scaled_dot_product_attention(
+  is_causal=causal)``'s forward for the forward kernel and its backward
+  alone for each backward kernel: one ``autograd.grad`` with
+  ``retain_graph=True`` on a graph built once, so the forward stays
+  outside the timed window.  Also each wrapper's host time per call: the
+  forward wrapper encodes 3 TMA tensor maps per call, dK/dV and dQ 4
+  each."""
   sdpa = torch.nn.functional.scaled_dot_product_attention
-  shape = FLASH_BENCH_SHAPE
   sets, graphs = [], []
   for i in range(2):                  # two copies: each call finds L2 cold
     q, k, v, dout = flash_case(torch, torch.bfloat16, 200 + i, **shape)
-    out, lse = fa.flash_fwd_cuda(q, k, v, True)
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal)
     delta = (dout.float() * out.float()).sum(-1)
     sets.append((q, k, v, dout, lse, delta))
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    graphs.append((sdpa(*leaves, is_causal=True), leaves, dout))
+    graphs.append((sdpa(*leaves, is_causal=causal), leaves, dout))
 
   def sdpa_bwd(out, leaves, dout):
     return torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
-  fwd_args = [(q, k, v, True) for q, k, v, *_ in sets]
-  bwd_args = [(*a, True) for a in sets]
+  fwd_args = [(q, k, v, causal) for q, k, v, *_ in sets]
+  bwd_args = [(*a, causal) for a in sets]
   library_bwd = time_ms(torch, sdpa_bwd, graphs, reps=5)
-  bounds = flash_bounds(itemsize=2, **shape)
+  bounds = flash_bounds(itemsize=2, causal=causal, **shape)
   rows = {
       "fwd": dict(kernel_ms=time_ms(torch, fa.flash_fwd_cuda, fwd_args),
                   plain_ms=time_ms(torch, fa.flash_fwd_reference, fwd_args,
@@ -1397,7 +1436,9 @@ def flash_timing(torch, fa):
   for name, row in rows.items():
     row["bound_ms"], row["bound_by"] = bounds[name]
     row["host_us"] = host_us(torch, *wrappers[name])
-    log(f"   {name:4s} B=16 H=16 S=1024 D=64 bf16 causal: "
+    log(f"   {name:4s} "
+        + " ".join(f"{k}={v}" for k, v in shape.items())
+        + f" bf16 {'causal' if causal else 'full'}: "
         + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in row.items()))
   pair = rows["dkv"]["kernel_ms"] + rows["dq"]["kernel_ms"]
@@ -1557,7 +1598,7 @@ def contiguous_serving(torch, params, pa, refs):
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   for dtype_name in ("float32", "bfloat16"):
-    cfg = GPTConfig(**GPT_350M, dtype=getattr(torch, dtype_name))
+    cfg = GPTConfig(**GPT_SERVE, dtype=getattr(torch, dtype_name))
     model = GPT(cfg)
     gb = kv_cache.cache_bytes(cfg, NUM_SLOTS, PREFILL_CHUNK) / 1e9
     stats = ServingStats()
@@ -1733,7 +1774,7 @@ def serving_resilience(torch, params, pa):
   the fault-free run by the bf16 gap rule), with the counters; the
   poisoned rows read back as zero right after the bad step."""
   from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   model = GPT(cfg)
   prompts = resilience_prompts(6, cfg.vocab_size)
   for layout in ("paged", "contiguous"):
@@ -2039,7 +2080,7 @@ def fp16_serving(torch, params, pa):
       ContinuousBatchingEngine, Request)
   Env.get().reset(Config({"amp.level": "O1", "amp.compute_dtype": "fp16"}))
   try:
-    cfg = GPTConfig(**GPT_350M, dtype=torch.float16)
+    cfg = GPTConfig(**GPT_SERVE, dtype=torch.float16)
     model = GPT(cfg)
     eng = ContinuousBatchingEngine(model, params, paged=True,
                                    num_slots=NUM_SLOTS,
@@ -2180,7 +2221,7 @@ def mixed_serving(torch, params, pa):
       ContinuousBatchingEngine, Request)
   Env.get().reset(Config({"amp.level": "O1", "amp.compute_dtype": "fp16"}))
   try:
-    cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+    cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
     model = GPT(cfg)
     eng = ContinuousBatchingEngine(model, params, paged=True,
                                    num_slots=NUM_SLOTS,
@@ -2318,7 +2359,7 @@ def observability_serving(torch, params, pa):
       device as device_lib, trace as trace_lib)
   shutil.rmtree(OBS_DIR, ignore_errors=True)
   OBS_DIR.mkdir(parents=True)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   model = GPT(cfg)
   prompts = make_prompts(2, 16, cfg.vocab_size)
   # Host ms per step and synchronising calls in two rounds of ABBA
@@ -2480,7 +2521,7 @@ def contiguous_traced(torch, params):
   tmp.mkdir()
   reset_observability()
   Env.get().reset(obs_config(tmp))
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   eng = ContinuousBatchingEngine(GPT(cfg), params, paged=False,
                                  num_slots=NUM_SLOTS,
                                  prefill_chunk=PREFILL_CHUNK)
@@ -3273,7 +3314,7 @@ def fleet_serving(torch, params, pa):
   from easyparallellibrary_tpu_torch.testing import chaos
   geometry = dict(paged=True, num_slots=NUM_SLOTS,
                   prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   model = GPT(cfg)
   prompts = make_prompts(2, 16, cfg.vocab_size)
   n = len(prompts)
@@ -3322,7 +3363,7 @@ def fleet_serving(torch, params, pa):
                      bf16_gap_limit, "19b bf16 failover",
                      refs=dict(ref), ref_name="the bare engine")
   del router, killer
-  cfg32 = GPTConfig(**GPT_350M, dtype=torch.float32)
+  cfg32 = GPTConfig(**GPT_SERVE, dtype=torch.float32)
   model32 = GPT(cfg32)
   p32 = prompts[:FLEET_FP32_REQUESTS]
   runs32 = []
@@ -3352,7 +3393,7 @@ def fleet_serving(torch, params, pa):
                  "down_after": 3600.0}
   conf = epl.Config({"serving": {"router": router_conf}})
   epl.init(conf)
-  factory = {"fn": FLEET_FACTORY, "kwargs": {}}
+  factory = {"fn": FLEET_FACTORY, "kwargs": {"num_layers": SERVE_LAYERS}}
   t0 = time.monotonic()
   fleet = Router(num_replicas=2, config=conf, factory=factory,
                  device="cuda", **geometry)
@@ -3652,7 +3693,7 @@ def heal_autotune(torch, params, pa):
   reset_observability()
   conf = epl.Config(HEAL_CONF)
   epl.init(conf)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   model = GPT(cfg)
   eng = ContinuousBatchingEngine(
       model, params, paged=True, num_slots=NUM_SLOTS,
@@ -4063,7 +4104,7 @@ def heal_reactor(torch, params, pa, refs):
   from easyparallellibrary_tpu_torch.testing import chaos
   geometry = dict(paged=True, num_slots=NUM_SLOTS,
                   prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   model = GPT(cfg)
   prompts = make_prompts(2, 16, cfg.vocab_size)
   reset_observability()
@@ -4073,7 +4114,8 @@ def heal_reactor(torch, params, pa, refs):
       "down_after": 3600.0}}})
   epl.init(conf)
   fleet = Router(num_replicas=2, config=conf,
-                 factory={"fn": FLEET_FACTORY, "kwargs": {}},
+                 factory={"fn": FLEET_FACTORY,
+                          "kwargs": {"num_layers": SERVE_LAYERS}},
                  device="cuda", **geometry)
   reactor = fleet.reactor()
   launches = 0
@@ -4229,7 +4271,7 @@ def heal_frontdoor(torch, params, pa):
   from easyparallellibrary_tpu_torch.testing import chaos
   geometry = dict(paged=True, num_slots=NUM_SLOTS,
                   prefill_chunk=PREFILL_CHUNK, block_size=BLOCK_SIZE)
-  cfg = GPTConfig(**GPT_350M, dtype=torch.bfloat16)
+  cfg = GPTConfig(**GPT_SERVE, dtype=torch.bfloat16)
   model = GPT(cfg)
   prompts = make_prompts(2, 16, cfg.vocab_size)
   reset_observability()
@@ -4571,7 +4613,7 @@ def tp1_serving(torch, params, pa, runs, engine_kwargs):
   from easyparallellibrary_tpu_torch.serving import (
       ContinuousBatchingEngine, NgramDrafter)
   from easyparallellibrary_tpu_torch.testing import tp_workers
-  model = GPT(GPTConfig(**GPT_350M, dtype=torch.bfloat16))
+  model = GPT(GPTConfig(**GPT_SERVE, dtype=torch.bfloat16))
   one = {}
   for name, (prompts, wv, between, k, prefix) in runs.items():
     eng = ContinuousBatchingEngine(
@@ -4591,11 +4633,11 @@ def tp1_serving(torch, params, pa, runs, engine_kwargs):
 
 def tp_check_serving(torch, model, one, ranks, runs, backend):
   """21b: each TP = 2 run's streams against the tp = 1 engine's by the
-  bf16 gap rule; the tiled kernel's launches on each rank 24 x engine
+  bf16 gap rule; the tiled kernel's launches on each rank SERVE_LAYERS x engine
   steps (counts set to 0 just before each run); tokens/s, TTFT p50 and
   host ms a step beside tp = 1's.  Returns the launches by run and
   rank."""
-  L = GPT_350M["num_layers"]
+  L = SERVE_LAYERS
   launches = {}
   for name, (prompts, *_rest) in runs.items():
     lead = ranks[0]["serving"][name]
@@ -4685,15 +4727,17 @@ def tp_check_data_parallel(ranks, one, backend):
       f"one card)")
 
 
-def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None):
+def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None,
+                         p24=None):
   """Phase 21 (module docstring): the backend probe; K1 and K2 at the
   per-rank shapes; the tp = 1 references in this process; then every TP
   = 2, DP = 2 and ZeRO-1 run in one group of two ranks
   (``testing.tp_workers.chip_tp_suite``), each rank started once; with
   ``pipeline``, phase 22's runs in the same group after them (the
   reference made here, the checks by ``pipeline_phase``); with ``p23``
-  (``phase23_parent``'s), phase 23b and 23c's runs after those.
-  Returns what the kernels line carries."""
+  (``phase23_parent``'s), phase 23b and 23c's runs after those; with
+  ``p24`` (``phase24_parent``'s), phase 24c and 24e's last.  Returns what
+  the kernels line carries."""
   from easyparallellibrary_tpu_torch.testing import tp_workers
   from easyparallellibrary_tpu_torch.utils.launcher import spawn
   t0 = time.monotonic()
@@ -4715,7 +4759,8 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None):
   dp_batches = [r.randint(0, V, (DP_BATCH, GPT_350M["max_seq_len"] + 1))
                 for _ in range(DP_STEPS)]
   with Phase("21 the tp = 1 references (serving, training, one process)"):
-    model, one_serving = tp1_serving(torch, params, pa, runs, engine_kwargs)
+    model, one_serving = tp1_serving(
+        torch, depth_cut(params, SERVE_LAYERS), pa, runs, engine_kwargs)
     mesh = tp_workers.setup("", device="cuda")
     one_training = tp_workers.train_steps(mesh, train_cfg, params, batch,
                                           TP_TRAIN_STEPS)
@@ -4731,7 +4776,7 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None):
   dense = dict(rows=TP_TRAIN_BATCH * 1024, d_in=4096, d_out=1024, seed=3)
   spec = {"collectives": (TP_COLLECTIVE_X, dense),
           "serving": (dict(GPT_350M, dtype="bfloat16"), 0, runs,
-                      engine_kwargs),
+                      engine_kwargs, SERVE_LAYERS),
           "training": (train_cfg, batch, TP_TRAIN_STEPS),
           "dp": (dp_cfg, dp_batches,
                  {"communication.fusion_threshold_mb": 8})}
@@ -4739,9 +4784,12 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None):
     spec["pipeline"] = pp[1]
   if p23 is not None:
     spec.update(p23["spec"])
+  if p24 is not None:
+    spec["p24"] = p24["spec"]
   with Phase(f"21 TP = 2 serving and training, DP = 2, ZeRO-1 and the "
              f"ring" + (", then 22's pipeline runs" if pp else "")
              + (", then 23b and 23c" if p23 else "")
+             + (", then 24c and 24e" if p24 else "")
              + ": two ranks, one group"):
     ranks = spawn(tp_workers.chip_tp_suite, TP, (backend, spec),
                   timeout_s=TP_SPAWN_DEADLINE_S)
@@ -4768,10 +4816,19 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None):
       p23_launches = phase23_checks(ranks, p23)
     log(f"   23b, 23c. wall {group_s:.1f} s on the slower rank")
     p23["group_wall_s"] = group_s
+  p24_launches = None
+  if p24 is not None:
+    group_s = max(r["p24"]["wall_s"] for r in ranks)
+    wall -= group_s
+    t_check = time.monotonic()
+    with Phase("24c, 24e on phase 21's ranks: checks"):
+      p24_launches = phase24_checks(ranks, p24)
+    p24["group_wall_s"] = group_s + time.monotonic() - t_check
+    log(f"   24c, 24e. wall {group_s:.1f} s on the slower rank")
   assert wall < TP_PHASE_WALL_S, f"phase 21 took {wall:.0f} s"
   return dict(backend=backend, nccl_probe=probe, ring=ring, paged=paged,
               flash=flash, serving=serving, training=training,
-              pipeline=pp_launches, p23=p23_launches)
+              pipeline=pp_launches, p23=p23_launches, p24=p24_launches)
 
 
 # ------------------------------------------------------ 22. the pipeline
@@ -5187,6 +5244,440 @@ def phase23_alone(torch, fa, bench, params, moe_params):
   return launches
 
 
+# --------------------------------------------------- 24. BERT and ResNet
+
+# BASELINE.md rows 1-3 (benchmarks/single_chip_models.py:104-118): BERT-
+# Large at its benchmark shape, 8 x 512, bf16, whole-block remat, flash
+# attention (non-causal K1); ResNet-50 at 64 x 224 x 224, 1000 classes.
+BERT_CFG = dict(vocab_size=30528, num_layers=24, num_heads=16, d_model=1024,
+                d_ff=4096, max_seq_len=512, dtype="bfloat16", remat=True,
+                attn_impl="pallas_flash")
+# 1 warm-up and 5 timed steps; 76 of 512 tokens masked in every row
+# (15%, a fixed count: 24c's micro-batches then hold equal counts);
+# AdamW(1e-4, wd 0.01), seeds.
+BERT_BATCH, BERT_STEPS, BERT_MASKED, BERT_LR = 8, 5, 76, 1e-4
+BERT_SEED, BERT_DATA_SEED = 0, 24
+BERT_FP32_LAYERS, BERT_GRAD_LIMIT = 4, 1e-4
+# 24b: K1 without the mask at BERT-Large's attention shape.
+BERT_FLASH_SHAPE = dict(B=8, H=16, S=512, D=64)
+# 24c: two stage ranks, M = 4 (BASELINE row 2), 3 steps, against 24a's
+# first 3 (the same weights, batch and optimizer), phase 22's rule.
+BERT_PP_M, BERT_PP_STEPS = 4, 3
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS, RESNET_BN_STEPS = 64, 224, 5, 3
+RESNET_LR = 1e-3
+# 24e: BASELINE row 3, ResNet-50 with a 131072-class head under
+# split(2), 32 images, 2 steps, against one process.  AdamW at 1e-4:
+# Adam's first step moves each weight by ~lr in its gradient's sign, so
+# a near-zero trunk gradient whose sign the bf16 rounding of the head's
+# input gradient flips (two partial sums against one) moves by 2 lr; at
+# 1e-3 step 2's loss read 2.9e-4 relative from one process (NVIDIA H100
+# 80GB HBM3, 700 W), past 2^-12.
+SPLIT_CLASSES, SPLIT_BATCH, SPLIT_STEPS, SPLIT_SEED = 131072, 32, 2, 25
+SPLIT_LR = 1e-4
+P24_LOSS_RTOL = 2.0 ** -12
+P24_WALL_S = 150
+
+
+def bert_config(torch, **over):
+  from easyparallellibrary_tpu_torch.models.bert import BertConfig
+  kw = dict(BERT_CFG, **over)
+  return BertConfig(**dict(kw, dtype=getattr(torch, kw["dtype"])
+                           if isinstance(kw["dtype"], str) else kw["dtype"]))
+
+
+def resnet_cfg(torch, **over):
+  from easyparallellibrary_tpu_torch.models.resnet import resnet50_config
+  return resnet50_config(**dict(dict(dtype=torch.bfloat16), **over))
+
+
+def launch_counts(fa):
+  return ({"fwd": fa.flash_fwd_cuda.launches,
+           "dkv": fa.flash_bwd_dkv_cuda.launches,
+           "dq": fa.flash_bwd_dq_cuda.launches},
+          fa.flash_fwd_reference.calls + fa.flash_bwd_dkv_reference.calls
+          + fa.flash_bwd_dq_reference.calls)
+
+
+def bert_one_card(torch, fa, params, smi):
+  """24a: BERT-Large MLM through ``epl.init`` -> ``replicate`` ->
+  ``create_sharded_train_state`` -> ``parallelize(make_bert_train_step)``
+  from ``params`` (``init_params(BERT_SEED)``): 1 + BERT_STEPS AdamW
+  steps, step ms, tokens/s, MFU (the benchmark's FLOPs a token over
+  ``peak_flops_per_chip``), peak memory; K1's launches over every step
+  (counts set to 0 just before) against full remat's 2L forwards, L
+  dK/dV and L dQ a step."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.models.bert import (
+      Bert, bert_flops_per_token, make_bert_train_step)
+  from easyparallellibrary_tpu_torch.ops.adamw import adamw
+  from easyparallellibrary_tpu_torch.parallel.api import (
+      TrainState, create_sharded_train_state, parallelize)
+  from easyparallellibrary_tpu_torch.profiler.flops import peak_flops_per_chip
+  from easyparallellibrary_tpu_torch.testing.bert_workers import mlm_batch
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg = bert_config(torch)
+  epl.init(device="cuda")
+  with epl.replicate(1):
+    model = Bert(cfg)
+  mesh = epl.current_plan().build_mesh()
+  dev = mesh.device
+  state, sh = create_sharded_train_state(
+      lambda: TrainState.create(apply_fn=model, params=params,
+                                tx=adamw(BERT_LR, weight_decay=0.01)), mesh)
+  step = make_bert_train_step(model)
+  assert step.dispatch == ("autodiff", None, None), step.dispatch
+  run = parallelize(step, mesh, sh)
+  batch = mlm_batch(cfg.vocab_size, BERT_BATCH, cfg.max_seq_len,
+                    BERT_MASKED, BERT_DATA_SEED)
+  torch.cuda.synchronize(dev)
+  torch.cuda.reset_peak_memory_stats(dev)
+  fa.reset_counts()
+  losses, ms = [], []
+  for _ in range(1 + BERT_STEPS):
+    t0 = time.perf_counter()
+    state, m = run(state, batch, None)
+    losses.append(float(m["loss"]))
+    torch.cuda.synchronize(dev)
+    ms.append((time.perf_counter() - t0) * 1e3)
+  launches, plain = launch_counts(fa)
+  n, L = 1 + BERT_STEPS, cfg.num_layers
+  tokens = BERT_BATCH * cfg.max_seq_len
+  step_s = statistics.median(ms[1:]) / 1e3
+  rec = {"losses": losses, "warm_ms": ms[0], "step_ms": ms[1:],
+         "tokens_per_s": tokens / step_s,
+         "mfu": bert_flops_per_token(cfg) * tokens / step_s
+         / peak_flops_per_chip(dev),
+         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+         "launches": launches, "formula": {"fwd": 2 * L * n, "dkv": L * n,
+                                           "dq": L * n}}
+  log(f"   24a. BERT-Large MLM, 8 x 512 bf16, remat, flash (non-causal): "
+      f"losses {[round(x, 5) for x in losses]}, step ms "
+      f"{[round(x, 1) for x in ms]} (median {step_s * 1e3:.1f}), "
+      f"{rec['tokens_per_s']:.0f} tokens/s, MFU {rec['mfu']:.4f}, peak "
+      f"{rec['peak_gib']:.2f} GiB; K1 {launches} over {n} steps = 2L / L / "
+      f"L a step (L = {L}); plain calls {plain} ({smi})")
+  assert launches == rec["formula"], (launches, rec["formula"])
+  assert plain == 0
+  assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+  del state, run, step
+  return rec
+
+
+def bert_fp32_flash_vs_dense(torch, fa, params, smi):
+  """24a: BERT-Large widths at BERT_FP32_LAYERS layers, fp32 without
+  TF32, one gradient of ``bert_mlm_loss`` at 8 x 512 with
+  ``attn_impl="pallas_flash"`` (the fp32 kernels, causal=False) against
+  ``"xla"`` (dense): the loss within 1e-5 relative and every gradient
+  within BERT_GRAD_LIMIT by normalized error (phase 9's check for GPT).
+  Then one AdamW step of ``BertForQuestionAnswering`` (the same trunk
+  in bf16 and an fp32 span head): its loss finite."""
+  from easyparallellibrary_tpu_torch.models.bert import (
+      Bert, BertForQuestionAnswering, bert_mlm_loss, bert_qa_loss)
+  from easyparallellibrary_tpu_torch.ops.adamw import adamw
+  from easyparallellibrary_tpu_torch.parallel.api import (
+      TrainState, make_train_step)
+  from easyparallellibrary_tpu_torch.testing.bert_workers import mlm_batch
+  torch.backends.cuda.matmul.allow_tf32 = False
+  trunk = {k: v for k, v in params.items()
+           if not k.startswith("block_")
+           or int(k.split(".")[0][6:]) < BERT_FP32_LAYERS}
+  batch = {k: torch.from_numpy(v).cuda() for k, v in mlm_batch(
+      BERT_CFG["vocab_size"], BERT_BATCH, 512, BERT_MASKED,
+      BERT_DATA_SEED).items()}
+  runs = {}
+  for attn in ("pallas_flash", "xla"):
+    cfg = bert_config(torch, num_layers=BERT_FP32_LAYERS,
+                      dtype=torch.float32, attn_impl=attn)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in trunk.items()}
+    fa.reset_counts()
+    loss, _ = bert_mlm_loss(Bert(cfg), leaves, batch)
+    loss.backward()
+    launches, plain = launch_counts(fa)
+    L = BERT_FP32_LAYERS
+    assert launches == ({"fwd": 2 * L, "dkv": L, "dq": L}
+                        if attn == "pallas_flash" else
+                        {"fwd": 0, "dkv": 0, "dq": 0}), (attn, launches)
+    assert plain == 0
+    runs[attn] = (loss.item(), {k: v.grad for k, v in leaves.items()})
+  (lf, gf), (lx, gx) = runs["pallas_flash"], runs["xla"]
+  worst = max(((gf[k] - gx[k]).norm() / gx[k].norm()).item() for k in gx)
+  log(f"   24a. {BERT_FP32_LAYERS} layers fp32, flash vs dense: loss "
+      f"{lf:.7f} / {lx:.7f} (rel {abs(lf - lx) / abs(lx):.2e}), gradients' "
+      f"largest normalized error {worst:.2e} (limit {BERT_GRAD_LIMIT}) "
+      f"({smi})")
+  assert abs(lf - lx) <= 1e-5 * abs(lx) and worst <= BERT_GRAD_LIMIT
+  del runs, gf, gx
+  qa_cfg = bert_config(torch, num_layers=BERT_FP32_LAYERS)
+  model = BertForQuestionAnswering(qa_cfg)
+  r = np.random.RandomState(BERT_DATA_SEED)
+  qa = {f"bert.{k}": v for k, v in trunk.items()}
+  qa["qa_outputs.weight"] = torch.from_numpy(
+      r.randn(2, 1024).astype(np.float32) / 32.0).cuda()
+  qa["qa_outputs.bias"] = torch.zeros(2, device="cuda")
+  state = TrainState.create(apply_fn=model, params=qa,
+                            tx=adamw(BERT_LR, weight_decay=0.01))
+  step = make_train_step(lambda p, b, rng: bert_qa_loss(model, p, b))
+  qb = {"ids": batch["ids"],
+        "start_positions": torch.from_numpy(r.randint(0, 512, (8,))).cuda(),
+        "end_positions": torch.from_numpy(r.randint(0, 512, (8,))).cuda()}
+  fa.reset_counts()
+  state, m = step(state, qb, None)
+  launches, plain = launch_counts(fa)
+  loss = float(m["loss"])
+  log(f"   24a. BertForQuestionAnswering ({BERT_FP32_LAYERS} layers bf16, "
+      f"fp32 qa_outputs), one AdamW step: loss {loss:.5f}, K1 {launches}")
+  assert np.isfinite(loss) and plain == 0 and launches["fwd"] > 0
+
+
+def bert_flash_kernels(torch, fa, smi):
+  """24b: K1 without the mask at BERT_FLASH_SHAPE, bf16: each kernel
+  against its plain version within FLASH_BF16_LIMIT; kernel, plain and
+  SDPA(is_causal=False) times, and the bounds of full attention."""
+  q, k, v, dout = flash_case(torch, torch.bfloat16, 24, **BERT_FLASH_SHAPE)
+  out, lse = fa.flash_fwd(q, k, v, False)
+  want_out, want_lse = fa.flash_fwd_reference(q, k, v, False)
+  delta = (dout.float() * want_out.float()).sum(-1)
+  dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, False)
+  dq = fa.flash_bwd_dq(q, k, v, dout, want_lse, delta, False)
+  want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, dout, want_lse,
+                                                delta, False)
+  want_dq = fa.flash_bwd_dq_reference(q, k, v, dout, want_lse, delta, False)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-6)
+  rel, errs = {}, {}
+  for kernel, name, got, want in (("fwd", "out", out, want_out),
+                                  ("dkv", "dk", dk, want_dk),
+                                  ("dkv", "dv", dv, want_dv),
+                                  ("dq", "dq", dq, want_dq)):
+    limit = FLASH_BF16_LIMIT["fwd" if kernel == "fwd" else "grad"]
+    r = normalized_errors(got, want)
+    assert r[0] <= limit["rel_l2"] and r[1] <= limit["max_rel"], (name, r)
+    prev = rel.get(kernel, (0.0, 0.0))
+    rel[kernel] = (max(prev[0], r[0]), max(prev[1], r[1]))
+    errs[kernel] = max(errs.get(kernel, 0.0),
+                       (got.float() - want.float()).abs().max().item())
+  log(f"   24b. K1 full (non-causal) at B=8 H=16 S=512 D=64 bf16 vs plain "
+      f"(rel_l2, max_rel): {rel}; limits {FLASH_BF16_LIMIT} ({smi})")
+  rows = flash_timing(torch, fa, shape=BERT_FLASH_SHAPE, causal=False)
+  return {k: dict(rows[k], rel=rel[k], max_abs_err=errs[k]) for k in rows}
+
+
+def resnet_one_card(torch, smi):
+  """24d: ResNet-50 (GroupNorm) through ``parallelize(make_train_step)``
+  with the benchmark's cross-entropy, 1 + RESNET_STEPS AdamW steps at
+  64 x 224 x 224: images/s, step ms, MFU (the benchmark's count), peak;
+  then BatchNorm through ``MutableTrainState`` /
+  ``make_mutable_train_step``, RESNET_BN_STEPS steps: the running
+  statistics move and stay finite."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.models.resnet import (
+      ResNet, resnet_flops_per_image)
+  from easyparallellibrary_tpu_torch.ops.adamw import adamw
+  from easyparallellibrary_tpu_torch.ops.losses import (
+      distributed_sparse_softmax_cross_entropy_with_logits as ce)
+  from easyparallellibrary_tpu_torch.parallel.api import (
+      MutableTrainState, TrainState, create_sharded_train_state,
+      make_mutable_train_step, make_train_step, parallelize)
+  from easyparallellibrary_tpu_torch.profiler.flops import peak_flops_per_chip
+  from easyparallellibrary_tpu_torch.testing.bert_workers import images
+  from easyparallellibrary_tpu_torch.weights import (
+      init_model_state, init_params)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  x, y = images(RESNET_BATCH, RESNET_IMAGE, 1000, 1)
+  batch = {"x": x, "y": y}
+  out = {}
+  for norm in ("group", "batch"):
+    cfg = resnet_cfg(torch, norm=norm)
+    epl.init(device="cuda")
+    with epl.replicate(1):
+      model = ResNet(cfg)
+    mesh = epl.current_plan().build_mesh()
+    dev = mesh.device
+    params = init_params(cfg, seed=0, device=dev)
+    tx = adamw(RESNET_LR, weight_decay=0.01)
+    if norm == "group":
+      state, sh = create_sharded_train_state(
+          lambda: TrainState.create(apply_fn=model, params=params, tx=tx),
+          mesh)
+
+      def loss_fn(p, b, rng):
+        logits = torch.func.functional_call(model, p, (b["x"],))
+        return ce(b["y"], logits).mean(), {}
+
+      run = parallelize(make_train_step(loss_fn), mesh, sh)
+      steps = 1 + RESNET_STEPS
+    else:
+      stats0 = init_model_state(cfg, device=dev)
+      state, sh = create_sharded_train_state(
+          lambda: MutableTrainState.create(apply_fn=model, params=params,
+                                           tx=tx, model_state=stats0), mesh)
+
+      def loss_fn(p, ms, b, rng):
+        logits, new = torch.func.functional_call(
+            model, {**p, **ms}, (b["x"],), {"train": True, "mutable": True})
+        return ce(b["y"], logits).mean(), ({}, new)
+
+      run = parallelize(make_mutable_train_step(loss_fn), mesh, sh)
+      steps = RESNET_BN_STEPS
+    del params
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms = [], []
+    for _ in range(steps):
+      t0 = time.perf_counter()
+      state, m = run(state, batch, None)
+      losses.append(float(m["loss"]))
+      torch.cuda.synchronize(dev)
+      ms.append((time.perf_counter() - t0) * 1e3)
+    step_s = statistics.median(ms[1:]) / 1e3
+    rec = {"losses": losses, "warm_ms": ms[0], "step_ms": ms[1:],
+           "images_per_s": RESNET_BATCH / step_s,
+           "mfu": resnet_flops_per_image(cfg, RESNET_IMAGE) * RESNET_BATCH
+           / step_s / peak_flops_per_chip(dev),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    assert all(np.isfinite(losses)), losses
+    extra = ""
+    if norm == "batch":
+      moved = max((state.model_state[k] - stats0[k]).abs().max().item()
+                  for k in stats0)
+      finite = all(bool(torch.isfinite(v).all())
+                   for v in state.model_state.values())
+      rec["stats_moved"] = moved
+      extra = (f"; running statistics moved by up to {moved:.4f}, finite "
+               f"{finite}")
+      assert finite and moved > 0
+    log(f"   24d. ResNet-50 {norm} norm, 64 x 224 x 224 bf16: losses "
+        f"{[round(v, 5) for v in losses]}, step ms "
+        f"{[round(v, 1) for v in ms]}, {rec['images_per_s']:.1f} images/s, "
+        f"MFU {rec['mfu']:.4f}, peak {rec['peak_gib']:.2f} GiB{extra} "
+        f"({smi})")
+    out[norm] = rec
+    del state, run
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+def split_reference(torch, params, smi):
+  """24e's one-process reference: ResNet-50 with SPLIT_CLASSES classes
+  (no split), SPLIT_STEPS AdamW steps on SPLIT_BATCH images through
+  ``parallelize(make_train_step)`` with the distributed cross-entropy."""
+  from easyparallellibrary_tpu_torch.testing import bert_workers, tp_workers
+  mesh = tp_workers.setup("", device="cuda")
+  x, y = bert_workers.images(SPLIT_BATCH, RESNET_IMAGE, SPLIT_CLASSES,
+                             SPLIT_SEED)
+  cfg = dict(stage_sizes=(3, 4, 6, 3), num_classes=SPLIT_CLASSES,
+             dtype="bfloat16")
+  one = bert_workers.resnet_split_head(0, 1, cfg, params, x, y,
+                                       steps=SPLIT_STEPS, lr=SPLIT_LR,
+                                       device="cuda")
+  log(f"   24e. one process: losses {[round(v, 6) for v in one['losses']]}, "
+      f"step ms {[round(v, 1) for v in one['step_ms']]}, peak "
+      f"{one['peak_gib']:.2f} GiB ({smi})")
+  return one, cfg
+
+
+def phase24_parent(torch, fa, bert_params, split_params, smi):
+  """24a, 24b, 24d and 24e's reference in this process; the weights of
+  24c and 24e to files for the ranks; their spec."""
+  t0 = time.monotonic()
+  with Phase("24a. BERT-Large MLM (BASELINE row 2's model) on one card"):
+    bert = bert_one_card(torch, fa, bert_params, smi)
+    bert_fp32_flash_vs_dense(torch, fa, bert_params, smi)
+  gc.collect()
+  torch.cuda.empty_cache()
+  with Phase("24b. K1 without the mask at BERT's shape"):
+    flash = bert_flash_kernels(torch, fa, smi)
+  with Phase("24d. ResNet-50 on one card (BASELINE row 1's model)"):
+    resnet = resnet_one_card(torch, smi)
+  with Phase("24e the one-process reference (131072 classes)"):
+    split_one, split_cfg = split_reference(torch, split_params, smi)
+  gc.collect()
+  torch.cuda.empty_cache()
+  paths = []
+  for tree in (bert_params, split_params):
+    fd, path = tempfile.mkstemp(prefix="epl_phase24_", suffix=".pt")
+    os.close(fd)
+    torch.save({k: v.cpu() for k, v in tree.items()}, path)
+    paths.append(path)
+  spec = {"bert": {"cfg": BERT_CFG, "weights": paths[0], "M": BERT_PP_M,
+                   "steps": BERT_PP_STEPS, "lr": BERT_LR,
+                   "batch": (BERT_BATCH, 512, BERT_MASKED, BERT_DATA_SEED)},
+          "resnet": {"cfg": split_cfg, "weights": paths[1],
+                     "batch": SPLIT_BATCH, "image": RESNET_IMAGE,
+                     "seed": SPLIT_SEED, "steps": SPLIT_STEPS,
+                     "lr": SPLIT_LR}}
+  return {"bert": bert, "flash": flash, "resnet": resnet,
+          "split": split_one, "spec": spec, "smi": smi,
+          "wall_s": time.monotonic() - t0}
+
+
+def phase24_checks(ranks, p24):
+  """24c and 24e on the ranks against 24a's first steps and the
+  one-process reference: every rank's numbers are printed before any is
+  held.  Returns K1's launches on each rank."""
+  for path in (p24["spec"]["bert"]["weights"],
+               p24["spec"]["resnet"]["weights"]):
+    os.remove(path)
+  one = p24["bert"]["losses"][:BERT_PP_STEPS]
+  split_one = p24["split"]["losses"]
+  smi = p24["smi"]
+  for r in ranks:
+    got, c = r["p24"]["bert"], r["p24"]["bert"]["coords"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got["losses"], one)]
+    log(f"   24c. BERT-Large smap 1F1B, stage rank {c['stage']}: losses "
+        f"{[round(v, 5) for v in got['losses']]} (one card {[round(v, 5) for v in one]}, rel "
+        f"{[f'{g:.2e}' for g in gaps]}, limit {P24_LOSS_RTOL:.2e}), step ms "
+        f"{[round(v, 1) for v in got['step_ms']]}, peak "
+        f"{got['peak_gib']:.2f} GiB, staged "
+        f"{got['staged_bytes_per_step'] / 2**20:.1f} MiB a step, K1 "
+        f"{got['launches']} (formula {got['formula']}: 12 layers x M = 4 "
+        f"x {BERT_PP_STEPS} steps, forwards doubled by stage remat) ({smi})")
+    sp = r["p24"]["resnet"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(sp["losses"], split_one)]
+    log(f"   24e. ResNet-50 131072-class head under split(2), model rank "
+        f"{sp['coords']['model']} ({sp['head_rows']} head rows): losses "
+        f"{[round(v, 6) for v in sp['losses']]} (one process "
+        f"{[round(v, 6) for v in split_one]}, rel {[f'{g:.2e}' for g in gaps]}),"
+        f" step ms {[round(v, 1) for v in sp['step_ms']]}, peak "
+        f"{sp['peak_gib']:.2f} GiB ({smi})")
+  launches = []
+  for r in ranks:
+    got = r["p24"]["bert"]
+    for a, b in zip(got["losses"], one):
+      assert abs(a - b) <= P24_LOSS_RTOL * abs(b), (got["losses"], one)
+    assert got["launches"] == got["formula"], (got["launches"],
+                                               got["formula"])
+    assert got["plain_calls"] == 0
+    assert tuple(got["dispatch"]) == ("smap", "1f1b", None), got["dispatch"]
+    sp = r["p24"]["resnet"]
+    assert sp["head_rows"] * TP == SPLIT_CLASSES
+    for a, b in zip(sp["losses"], split_one):
+      assert abs(a - b) <= P24_LOSS_RTOL * abs(b), (sp["losses"], split_one)
+    launches.append(got["launches"])
+  return launches
+
+
+def phase24_alone(torch, fa, bert_params, split_params, smi):
+  """``--phases 24``: the parent's part here, 24c and 24e in a group of
+  two ranks of their own."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  p24 = phase24_parent(torch, fa, bert_params, split_params, smi)
+  del bert_params, split_params
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.monotonic()
+  with Phase("24c, 24e: the BERT pipeline and the split head, two ranks"):
+    ranks = spawn(tp_workers.chip_tp_suite, TP, ("gloo", {"p24": p24[
+        "spec"]}), timeout_s=TP_SPAWN_DEADLINE_S)
+  p24["launches"] = phase24_checks(ranks, p24)
+  p24["group_wall_s"] = time.monotonic() - t0
+  return p24
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -5232,6 +5723,7 @@ def main() -> int:
   log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
       f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
   serving = (4, 5, 6, 12, 13, 14, 15, 16, 17, 19, 20, 21, 22, 23)
+  smi = ""
   # The serving phases' GPT-350M weights are drawn (numpy, one core)
   # while nvcc builds the kernels.
   draw = any(map(want, serving))
@@ -5248,7 +5740,17 @@ def main() -> int:
         moe_params = init_params(GPTConfig(**dict(
             MOE_CFG, dtype=torch.bfloat16)), seed=0, device="cuda")
         log(f"   GPT-MoE weights drawn in {time.monotonic() - t0:.1f} s")
-      built.result()
+      if want(24):
+        t0 = time.monotonic()
+        bert_params = init_params(bert_config(torch), seed=BERT_SEED,
+                                  device="cuda")
+        split_params = init_params(resnet_cfg(
+            torch, num_classes=SPLIT_CLASSES), seed=0, device="cuda")
+        log(f"   BERT-Large and ResNet-50 (131072 classes) weights drawn "
+            f"in {time.monotonic() - t0:.1f} s")
+      smi = built.result()
+  if draw:
+    serve = depth_cut(params, SERVE_LAYERS)
   if want(2):
     with Phase("2. kernel vs plain version"):
       errs = kernel_parity(torch, pa)
@@ -5260,11 +5762,11 @@ def main() -> int:
   refs = {"float32": {}, "bfloat16": {}, "spec": {}}
   if want(4):
     with Phase("4. GPT-350M fp32: engine vs generate(use_cache=False)"):
-      warp_launches = engine_fp32_vs_generate(torch, params, pa,
+      warp_launches = engine_fp32_vs_generate(torch, serve, pa,
                                               refs["float32"])
   if want(5) or want(6):
     with Phase("5. GPT-350M bf16: serving staggered requests"):
-      launches, eng = engine_bf16_serving(torch, params, pa,
+      launches, eng = engine_bf16_serving(torch, serve, pa,
                                           refs["bfloat16"])
     with Phase("6. GPT-350M bf16: where the engine step's time goes"):
       step_breakdown(torch, eng)
@@ -5272,18 +5774,18 @@ def main() -> int:
   if want(12):
     with Phase("12. GPT-350M bf16: speculative serving (n-gram, then "
                "self-draft)"):
-      spec = speculative_serving(torch, params, pa, refs["spec"])
+      spec = speculative_serving(torch, serve, pa, refs["spec"])
   if want(13):
     with Phase("13. GPT-350M bf16: prefix caching (shared system prompt, "
                "second turns)"):
-      prefix = prefix_cache_serving(torch, params, pa)
+      prefix = prefix_cache_serving(torch, serve, pa)
   if want(14):
     with Phase("14. GPT-350M: the contiguous-slot engine (default config)"):
-      contiguous_serving(torch, params, pa, refs)
+      contiguous_serving(torch, serve, pa, refs)
   if want(15):
     with Phase("15. GPT-350M bf16: serving resilience (paged with the "
                "prefix cache, contiguous)"):
-      serving_resilience(torch, params, pa)
+      serving_resilience(torch, serve, pa)
   if want(16):
     with Phase("16a. fp16 builds vs plain versions"):
       fp16_flash_errs, fp16_flash_rel = fp16_flash_parity(torch, fa)
@@ -5292,26 +5794,32 @@ def main() -> int:
       fp16_flash_times, fp16_paged_times = fp16_timing(torch, fa, pa)
     with Phase("16c. amp O1 training (bench's step) and O1-fp16 serving"):
       fp16_flash_launches = amp_training(torch, fa, bench)
-      fp16_warp_launches = fp16_serving(torch, params, pa)
+      fp16_warp_launches = fp16_serving(torch, serve, pa)
     with Phase("16d. the mixed build (fp16 q over bf16 pools): parity, "
                "timing, O1-fp16 serving over a bf16 config"):
       mixed_err, mixed_rel = mixed_paged_parity(torch, pa)
       mixed_times = mixed_timing(torch, pa)
-      mixed_launches = mixed_serving(torch, params, pa)
+      mixed_launches = mixed_serving(torch, serve, pa)
   if want(17):
     with Phase("17. GPT-350M bf16: serving observability (traced against "
                "untraced, device truth, SLO, contiguous)"):
-      observability_serving(torch, params, pa)
+      observability_serving(torch, serve, pa)
   if want(19):
     with Phase("19. GPT-350M bf16: the replicated fleet (router, in-process "
                "and process replicas, SIGKILL failover, drain, traces)"):
-      fleet_launches = fleet_serving(torch, params, pa)
+      fleet_launches = fleet_serving(torch, serve, pa)
   if want(20):
     with Phase("20. GPT-350M bf16: the self-healing fleet (autotuner, "
                "golden episode, rollout, reactor, front door)"):
-      heal_launches = self_healing_fleet(torch, params, pa,
+      heal_launches = self_healing_fleet(torch, serve, pa,
                                          refs["bfloat16"])
   del refs
+  p24 = None
+  if want(21) and want(24):
+    gc.collect()
+    torch.cuda.empty_cache()
+    p24 = phase24_parent(torch, fa, bert_params, split_params, smi)
+    del bert_params, split_params
   p23 = None
   if want(21) and want(23):
     gc.collect()
@@ -5328,7 +5836,7 @@ def main() -> int:
                   else "")
                + ("; 23b, 23c in the same rank group" if p23 else "")):
       tp = tensor_parallel_mesh(torch, pa, fa, params, pipeline=want(22),
-                                p23=p23)
+                                p23=p23, p24=p24)
     if p23 is not None:
       with Phase("23d. ZeRO v1 and v0 under the smap pipeline, four ranks"):
         t0 = time.monotonic()
@@ -5349,8 +5857,20 @@ def main() -> int:
     with Phase("23. MoE, sequence parallelism and ZeRO under the pipeline"):
       phase23_alone(torch, fa, bench, params, moe_params)
     del moe_params
+  if want(24) and not want(21):
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("24. BERT and ResNet"):
+      p24 = phase24_alone(torch, fa, bert_params, split_params, smi)
+    del bert_params, split_params
+  if p24 is not None:
+    p24_wall = p24["wall_s"] + p24["group_wall_s"]
+    log(f"   24. wall {p24_wall:.1f} s (24a, 24b, 24d and 24e's reference "
+        f"{p24['wall_s']:.1f} s, 24c and 24e on the ranks "
+        f"{p24['group_wall_s']:.1f} s) ({smi})")
+    assert p24_wall < P24_WALL_S, f"phase 24 took {p24_wall:.0f} s"
   if any(map(want, serving)):
-    del params
+    del params, serve
   # An engine is freed by the cycle collector (its scheduler holds bound
   # methods of it): collect before the training phases, so that phase
   # 10's peak memory counts training alone.
@@ -5401,7 +5921,9 @@ def main() -> int:
   def tp_flash(k):
     # Phase 21c's launches on each rank and the per-rank shape's record;
     # phase 22's launches on each stage rank, by run; phase 23's by run
-    # (23a one card, 23b and 23c each rank, 23d each rank by ZeRO level).
+    # (23a one card, 23b and 23c each rank, 23d each rank by ZeRO level);
+    # phase 24's (24a's BERT-Large on one card, 24c's each stage rank)
+    # and 24b's record of the kernel without the mask at BERT's shape.
     p23 = tp["p23"]
     return dict(launches_tp2=[rank[k] for rank in tp["training"]],
                 tp2_b16_h8=tp["flash"][k],
@@ -5413,7 +5935,10 @@ def main() -> int:
                                    in p23["sequence"].items()},
                 launches_pipeline_zero={
                     lvl: [r[k] for r in ranks]
-                    for lvl, ranks in p23["pipeline_zero"].items()})
+                    for lvl, ranks in p23["pipeline_zero"].items()},
+                launches_bert=p24["bert"]["launches"][k],
+                launches_bert_pipeline=[rank[k] for rank in tp["p24"]],
+                bert_full_b8_h16_s512=p24["flash"][k])
 
   flash_records = [
       kernel_record("flash_attention_fwd", "flash_fwd_wgmma_kernel<64>",

@@ -16,6 +16,10 @@ The ones on a gradient path are differentiable
   same replicated loss (the row-parallel layers and the vocab-parallel
   cross entropy rely on it).  JAX differentiates a ``shard_map`` body as
   the sum of the ranks' objectives, so its psum's backward sums;
+* ``psum``: the SUM all-reduce with JAX's backward, which sums the
+  cotangents over the axis: for a statistic of the global batch (batch
+  norm's sums, a masked loss's numerator) whose every rank's objective
+  depends on every rank's rows;
 * ``all_gather`` and ``reduce_scatter``: each the other's backward;
 * ``all_to_all`` and ``ppermute``: backward runs the inverse exchange.
 
@@ -182,6 +186,18 @@ class _AllReduce(torch.autograd.Function):
     return (g if ctx.scale == 1.0 else g * ctx.scale), None, None
 
 
+class _PSum(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group = group
+    return _raw_all_reduce(x, group, SUM)
+
+  @staticmethod
+  def backward(ctx, g):
+    return _raw_all_reduce(g.contiguous(), ctx.group, SUM), None
+
+
 class _AllGather(torch.autograd.Function):
 
   @staticmethod
@@ -249,6 +265,17 @@ def all_reduce(x, axis_name: str, op: str = SUM, mesh=None):
   if op in (MAX, MIN):
     return _raw_all_reduce(x.detach(), group, op)
   return _AllReduce.apply(x, group, op)
+
+
+def psum(x, axis_name: str, mesh=None):
+  """The SUM all-reduce over a mesh axis with JAX ``psum``'s transpose:
+  the backward sums the cotangents over the axis, so each rank's
+  gradient holds every rank's objective's dependence on its own rows.
+  The identity on an axis of size 1."""
+  group = group_of(axis_name, mesh)
+  if group is None:
+    return x
+  return _PSum.apply(x, group)
 
 
 def all_gather(x, axis_name: str, axis: int = 0, tiled: bool = True,

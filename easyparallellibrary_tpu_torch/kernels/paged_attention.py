@@ -465,11 +465,35 @@ def reset_counts():
   paged_attention_reference.calls = 0
 
 
+# The JAX hook's names: "pallas" is the port's kernels; the JAX
+# package's "interpret" (the Pallas kernel on its interpreter) has no
+# counterpart, since a CUDA kernel has no interpreter.
+IMPLS = ("pallas", "reference")
+_IMPL_OVERRIDE = [None]
+
+
+def set_paged_attention_impl(impl: Optional[str]) -> None:
+  """Pin the dispatcher of :func:`paged_attention` (``None`` restores
+  the device rule), the JAX package's test and benchmark hook.
+  ``"pallas"`` pins the kernels and ``"reference"`` the plain version;
+  a tensor on a device the pinned one does not run on raises (neither
+  ever stands in for the other)."""
+  if impl is not None and impl not in IMPLS:
+    raise ValueError(f"impl must be one of {IMPLS} or None; got {impl!r}")
+  _IMPL_OVERRIDE[0] = impl
+
+
 def paged_attention(q, k_pages, v_pages, tables_tok, positions,
                     tiles: Optional[PagedTiles] = None):
   """Paged gather-attend over a flat token batch (module docstring):
   the kernels for CUDA tensors, the plain version for CPU tensors (which
   needs no tile plan and ignores one)."""
+  pinned = _IMPL_OVERRIDE[0]
+  if pinned is not None and pinned != ("pallas" if q.is_cuda
+                                       else "reference"):
+    raise ValueError(f"paged_attention is pinned to {pinned!r} "
+                     f"(set_paged_attention_impl), which does not run on "
+                     f"{q.device}")
   if q.is_cuda:
     return paged_attention_cuda(q, k_pages, v_pages, tables_tok, positions,
                                 tiles)

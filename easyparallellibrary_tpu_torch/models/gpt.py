@@ -648,12 +648,13 @@ class StageBlocks(nn.Module):
   parameters take a zero gradient."""
 
   def __init__(self, cfg: GPTConfig, blocks_per_stage: int, rows: int,
-               device=None):
+               device=None, block_fn=None):
     super().__init__()
     self.cfg = cfg
     self.blocks_per_stage = blocks_per_stage
     for i in range(blocks_per_stage):
-      block = Block(cfg, device=device, use_moe=_uses_moe(cfg, i))
+      block = (block_fn(i) if block_fn is not None else
+               Block(cfg, device=device, use_moe=_uses_moe(cfg, i)))
       for mod in block.modules():
         for name, p in list(mod._parameters.items()):
           if p is not None:
@@ -662,9 +663,12 @@ class StageBlocks(nn.Module):
       self.add_module(f"block_{i}", block)
 
   def forward(self, x, row: int, n_active: Optional[int] = None, dtype=None,
-              drop_key=None):
+              drop_key=None, remat: Optional[bool] = None):
+    """``remat`` overrides ``cfg.remat`` (False: the caller recomputes
+    the whole stage already)."""
     cfg = self.cfg
-    remat = cfg.remat and torch.is_grad_enabled()
+    remat = (cfg.remat if remat is None else remat) and \
+        torch.is_grad_enabled()
     aux = None
     for i in range(self.blocks_per_stage):
       if n_active is not None and i >= n_active:
@@ -673,7 +677,8 @@ class StageBlocks(nn.Module):
       params = {n: p[row] for n, p in block.named_parameters()}
       key = None if drop_key is None else prng.host_fold_in(drop_key, i)
       if remat:
-        x, a = _remat_block(block, x, cfg.remat_policy, dtype, key, params)
+        x, a = _remat_block(block, x, getattr(cfg, "remat_policy", "nothing"),
+                            dtype, key, params)
       else:
         x, a = torch.func.functional_call(
             block, params, (x,),
@@ -693,6 +698,36 @@ def stage_dropout_key(rng, cfg: GPTConfig, m: int, k: int, s: int):
 
 def _pass_name(k: int, K: int) -> str:
   return "pipeline" if K == 1 else f"pipeline_{k}"
+
+
+def run_chunk(model, x, k: int, s: int, dtype, drop_key=None, remat=None):
+  """Chunk ``k`` of stage ``s`` (virtual stage ``k * S + s``) of a
+  pipelined ``model`` (GPT or BERT) on ``x``: row ``s`` of pass ``k`` on
+  one process, this rank's row on a stage mesh.  Returns ``(x, aux)``."""
+  cfg = model.cfg
+  S = cfg.pipeline_stages
+  K = max(1, cfg.pipeline_interleave)
+  v = k * S + s
+  stacked = getattr(model, _pass_name(k, K)).stages.stacked
+  return stacked(x, 0 if model.stages > 1 else s,
+                 None if model.n_active is None else model.n_active[v],
+                 dtype, drop_key, remat)
+
+
+def add_stage_passes(model, cfg, per_chunk: int, device, stage_cls=None):
+  """The stacked stage rows of a pipelined model: ``pipeline`` (or
+  ``pipeline_{k}`` for pass ``k`` of an interleaved one) ``.stages.
+  stacked``, a ``stage_cls`` (default :class:`StageBlocks`) of
+  ``per_chunk`` blocks over every stage row on one process, or this
+  rank's one on a stage mesh."""
+  S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
+  for k in range(K):
+    stages = nn.Module()
+    stages.add_module("stacked", (stage_cls or StageBlocks)(
+        cfg, per_chunk, 1 if model.stages > 1 else S, device=device))
+    holder = nn.Module()
+    holder.add_module("stages", stages)
+    model.add_module(_pass_name(k, K), holder)
 
 
 class GPT(nn.Module):
@@ -726,13 +761,7 @@ class GPT(nn.Module):
             f"num_layers={cfg.num_layers} must divide evenly into "
             f"{S * K} stages when MoE is enabled (the aux losses of "
             f"masked slots cannot be skipped per stage)")
-      for k in range(K):
-        stages = nn.Module()
-        stages.add_module("stacked", StageBlocks(
-            cfg, per_chunk, 1 if self.stages > 1 else S, device=device))
-        holder = nn.Module()
-        holder.add_module("stages", stages)
-        self.add_module(_pass_name(k, K), holder)
+      add_stage_passes(self, cfg, per_chunk, device)
     else:
       for i in range(cfg.num_layers):
         self.add_module(f"block_{i}", Block(cfg, device=device,
@@ -742,19 +771,6 @@ class GPT(nn.Module):
       self.lm_head = Dense(
           cfg.d_model, cfg.vocab_size, use_bias=False, parallel=head,
           dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
-
-  def run_chunk(self, x, k: int, s: int, dtype, drop_key=None):
-    """Chunk ``k`` of stage ``s`` (virtual stage ``k * S + s``) on
-    ``x``: row ``s`` of pass ``k`` on one process, this rank's row on a
-    stage mesh.  Returns ``(x, aux)``."""
-    cfg = self.cfg
-    S = cfg.pipeline_stages
-    K = max(1, cfg.pipeline_interleave)
-    v = k * S + s
-    stacked = getattr(self, _pass_name(k, K)).stages.stacked
-    return stacked(x, 0 if self.stages > 1 else s,
-                   None if self.n_active is None else self.n_active[v],
-                   dtype, drop_key)
 
   def _pipeline_part(self, part, x, targets, cfg, dropout_rng):
     """The pipeline engines' pieces on this rank (``pipeline_part``):
@@ -793,7 +809,7 @@ class GPT(nn.Module):
     key = None
     if dropout_rng is not None:
       key = stage_dropout_key(dropout_rng, cfg, m, j, s)
-    y, aux = self.run_chunk(x, j, s, dtype, key)
+    y, aux = run_chunk(self, x, j, s, dtype, key)
     return y if aux is None else (y, aux)
 
   def _positions(self, S: int):
@@ -872,7 +888,7 @@ class GPT(nn.Module):
         for s in range(S):
           key = (prng.host_fold_in(dropout_rng, k * S + s) if train
                  else None)
-          x, a = self.run_chunk(x, k, s, dtype, key)
+          x, a = run_chunk(self, x, k, s, dtype, key)
           aux = _add_aux(aux, a)
     for i in range(0 if cfg.pipeline_stages > 1 else cfg.num_layers):
       block = getattr(self, f"block_{i}")

@@ -27,17 +27,26 @@ import torch
 
 # Port parameter names -> the JAX tree's leaf names (weights.py maps the
 # other way): the exclusion patterns are written against the JAX paths.
-_LAYER_NORMS = ("ln1", "ln2", "ln_f")
+_LAYER_NORMS = ("ln1", "ln2", "ln_f", "ln_emb", "proj_norm")
+_EMBEDDINGS = ("wte", "wse")
+
+
+def is_norm(owner: str) -> bool:
+  """True for a norm layer's name: the transformers' LayerNorms and
+  ResNet's ``GroupNorm_i`` / ``BatchNorm_i`` / ``proj_norm`` (their
+  weight is flax's ``scale``)."""
+  return owner in _LAYER_NORMS or owner.startswith(("GroupNorm_",
+                                                     "BatchNorm_"))
 
 
 def jax_path(name: str) -> str:
-  """``block_0.ln1.weight`` -> ``block_0/ln1/scale``; Dense weights are
-  ``kernel``, the token table ``embedding``."""
+  """``block_0.ln1.weight`` -> ``block_0/ln1/scale``; Dense and Conv
+  weights are ``kernel``, the token and segment tables ``embedding``."""
   parts = name.split(".")
   if parts[-1] == "weight":
     owner = parts[-2] if len(parts) > 1 else ""
-    parts[-1] = ("scale" if owner in _LAYER_NORMS
-                 else "embedding" if owner == "wte" else "kernel")
+    parts[-1] = ("scale" if is_norm(owner)
+                 else "embedding" if owner in _EMBEDDINGS else "kernel")
   return "/".join(parts)
 
 

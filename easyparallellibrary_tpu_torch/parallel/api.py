@@ -88,6 +88,37 @@ class TrainState:
     return self
 
 
+class MutableTrainState(TrainState):
+  """A TrainState carrying non-trainable model state beside the
+  parameters (JAX ``MutableTrainState``): ``model_state`` is a dict of
+  tensors named as the model's buffers (batch norm's running statistics,
+  ``stage0_block0.BatchNorm_0.mean``), replaced by every step of
+  :func:`make_mutable_train_step`.  ``create`` keeps its own copies, as
+  of the parameters."""
+
+  def __init__(self, *, model_state: Optional[Dict[str, torch.Tensor]] = None,
+               **fields):
+    super().__init__(**fields)
+    self.model_state = model_state
+
+  @classmethod
+  def create(cls, *, apply_fn, params: Dict[str, torch.Tensor], tx,
+             model_state: Optional[Dict[str, torch.Tensor]] = None,
+             fused: Optional[bool] = None, **extra) -> "MutableTrainState":
+    own = None if model_state is None else {
+        name: t.detach().clone() for name, t in model_state.items()}
+    return super().create(apply_fn=apply_fn, params=params, tx=tx,
+                          fused=fused, model_state=own, **extra)
+
+  def apply_gradients(self, model_state=None) -> "MutableTrainState":
+    """One optimizer step from the parameters' ``.grad`` and the new
+    ``model_state`` (when given), in place."""
+    super().apply_gradients()
+    if model_state is not None:
+      self.model_state = {k: v.detach() for k, v in model_state.items()}
+    return self
+
+
 def param_specs(model) -> Dict[str, tuple]:
   """Each parameter's spec from the layers of ``model`` (an
   ``nn.Module``): ``model`` on the split dim of the tensor-parallel
@@ -144,7 +175,9 @@ def create_sharded_train_state(init_fn: Callable[..., TrainState],
                                ) -> Tuple[TrainState, Dict[str, Any]]:
   """``state = init_fn(*init_args)`` with every parameter (this rank's
   shard of it) on the mesh's device.  Returns ``(state, shardings)``,
-  each parameter's spec (``state_shardings``).  ZeRO (``zero.level``,
+  each parameter's spec (``state_shardings``); a
+  :class:`MutableTrainState`'s ``model_state`` rides beside the
+  parameters, on the same device.  ZeRO (``zero.level``,
   or ``zero_level``) rebuilds the optimizer over this rank's owner
   slices on a data axis above 1 (``runtime.zero.shard_opt_state``; its
   entries' specs land under ``opt_state/<name>``).  Host offload
@@ -155,8 +188,10 @@ def create_sharded_train_state(init_fn: Callable[..., TrainState],
   zero_level = cfg.zero.level if zero_level is None else zero_level
   offload = bool(cfg.offload.level) if offload is None else offload
   state = init_fn(*init_args)
-  wrong = sorted(n for n, p in state.params.items()
-                 if p.device != mesh.device)
+  leaves = dict(state.params)
+  for name, t in (getattr(state, "model_state", None) or {}).items():
+    leaves[f"model_state/{name}"] = t
+  wrong = sorted(n for n, p in leaves.items() if p.device != mesh.device)
   if wrong:
     raise ValueError(f"init_fn placed {wrong[:3]} (and {len(wrong)} in all) "
                      f"off the mesh's device {mesh.device}")
@@ -320,6 +355,31 @@ def make_train_step(loss_fn: Callable, *,
     reduce_gradients(state.params, method, model=state.apply_fn)
     state.apply_gradients()
     return state, {"loss": mean_loss(loss, state.apply_fn), **aux}
+
+  return train_step
+
+
+def make_mutable_train_step(loss_fn: Callable) -> Callable:
+  """The train step of a model with mutable state (batch norm's running
+  statistics), for a :class:`MutableTrainState`: ``loss_fn(params,
+  model_state, batch, rng) -> (loss, (aux, new_model_state))``,
+  typically ``functional_call(model, {**params, **model_state}, (x,),
+  {"train": True, "mutable": True})``.  The gradients are averaged over
+  the data axis (the JAX step's GSPMD mean; it reads no
+  ``gradients_reduce_method``), and the optimizer step and the new model
+  state are applied together.  Under a data axis the statistics are the
+  global batch's already (the model sums them over ``data``, as GSPMD
+  does in the JAX program), so every rank's new state is the same."""
+
+  def train_step(state: MutableTrainState, batch, rng):
+    for p in state.params.values():
+      p.grad = None
+    loss, (aux, new_model_state) = loss_fn(state.params, state.model_state,
+                                           batch, rng)
+    loss.backward()
+    reduce_gradients(state.params, "mean", model=state.apply_fn)
+    state.apply_gradients(model_state=new_model_state)
+    return state, {"loss": mean_loss(loss, state.apply_fn), **(aux or {})}
 
   return train_step
 

@@ -669,8 +669,41 @@ def _is_kernel(path: str) -> bool:
 
 def _stored(path: str, t: torch.Tensor) -> torch.Tensor:
   """A port leaf in the JAX layout: Dense kernels ``[out, in]`` ->
-  ``[in, out]``."""
-  return t.detach().t() if _is_kernel(path) and t.dim() == 2 else t.detach()
+  ``[in, out]``, Conv kernels ``[out, in, kh, kw]`` -> HWIO."""
+  t = t.detach()
+  if _is_kernel(path) and t.dim() == 2:
+    return t.t()
+  if _is_kernel(path) and t.dim() == 4:
+    return t.permute(2, 3, 1, 0)
+  return t
+
+
+def _stored_shape(path: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+  """The JAX layout's shape of a port leaf of ``shape``."""
+  if _is_kernel(path) and len(shape) == 2:
+    return shape[::-1]
+  if _is_kernel(path) and len(shape) == 4:
+    return (shape[2], shape[3], shape[1], shape[0])
+  return shape
+
+
+def _from_stored(path: str, value: torch.Tensor) -> torch.Tensor:
+  """The inverse of :func:`_stored`."""
+  if _is_kernel(path) and value.dim() == 2:
+    return value.t()
+  if _is_kernel(path) and value.dim() == 4:
+    return value.permute(3, 2, 0, 1)
+  return value
+
+
+def model_state_tree(model_state: Dict[str, torch.Tensor]
+                     ) -> Dict[str, Any]:
+  """A :class:`~easyparallellibrary_tpu_torch.parallel.api.
+  MutableTrainState`'s ``model_state`` as the JAX package holds it:
+  ``{"batch_stats": {jax_path: leaf}}``."""
+  from easyparallellibrary_tpu_torch.ops.adamw import jax_path
+  return {"batch_stats": {jax_path(n): t.detach()
+                          for n, t in model_state.items()}}
 
 
 def params_tree(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -716,8 +749,12 @@ def state_tree(state) -> Dict[str, Any]:
     count = torch.zeros((), dtype=torch.int32)
   count = torch.as_tensor(count).detach().reshape(()).to(torch.int32)
   adam = {"count": count, "mu": mu, "nu": nu}
+  extra = {}
+  if getattr(state, "model_state", None):
+    extra["model_state"] = model_state_tree(state.model_state)
   if not getattr(opt, "inject_hyperparams", False):
-    return {"params": params_tree(state.params), "opt_state": (adam,)}
+    return {"params": params_tree(state.params), "opt_state": (adam,),
+            **extra}
   # optax.inject_hyperparams(optax.adamw)'s state: the hyperparameters
   # beside the inner chain's Adam state (its EmptyStates hold no leaf).
   group = opt.param_groups[0]
@@ -729,7 +766,7 @@ def state_tree(state) -> Dict[str, Any]:
            for k, v in hyper.items()}
   return {"params": params_tree(state.params),
           "opt_state": {"count": count, "hyperparams": hyper,
-                        "inner_state": (adam,)}}
+                        "inner_state": (adam,)}, **extra}
 
 
 def _fill_adam_state(opt: torch.optim.Optimizer, p: torch.Tensor,
@@ -783,14 +820,21 @@ def restore_train_state(directory: str, state, after_step: int = -1,
       reader.load(_apply_assign_map(f"{prefix}{jax_path(name)}", assign_map)
                   for prefix in prefixes for name in state.params)
 
+      model_state = getattr(state, "model_state", None) or {}
+      reader.load(_apply_assign_map(f"model_state/batch_stats/"
+                                    f"{jax_path(name)}", assign_map)
+                  for name in model_state)
+
       def load(prefix, name, live):
         jpath = jax_path(name)
         ck = _apply_assign_map(f"{prefix}{jpath}", assign_map)
-        shape = tuple(live.shape)
-        if _is_kernel(jpath) and live.dim() == 2:
-          shape = shape[::-1]
+        shape = _stored_shape(jpath, tuple(live.shape))
         value = reader.tensor(ck, shape).to(live.device, live.dtype)
-        return value.t() if _is_kernel(jpath) and live.dim() == 2 else value
+        return _from_stored(jpath, value)
+
+      for name, t in model_state.items():
+        with torch.no_grad():
+          t.copy_(load("model_state/batch_stats/", name, t))
 
       opt = state.opt_state
       for name, p in state.params.items():
@@ -846,12 +890,9 @@ def restore_params(directory: str, target=None, device=None,
                 for jpath, _, _ in wanted.values())
     out = {}
     for name, (jpath, shape, dtype) in wanted.items():
-      kernel = _is_kernel(jpath) and (shape is None or len(shape) == 2)
-      stored_shape = None if shape is None else (
-          shape[::-1] if kernel else shape)
+      stored_shape = None if shape is None else _stored_shape(jpath, shape)
       value = reader.tensor(_apply_assign_map(jpath, amap), stored_shape)
-      if kernel and value.dim() == 2:
-        value = value.t().contiguous()
+      value = _from_stored(jpath, value).contiguous()
       out[name] = value.to(device=dev, dtype=dtype or value.dtype)
     return out, reader.step
   raise FileNotFoundError(f"no valid checkpoint under {directory!r}")

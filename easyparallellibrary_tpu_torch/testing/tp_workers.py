@@ -839,15 +839,18 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
   """Phases 21 and 22 on the ranks, in one group (each rank started
   once), each part run where ``spec`` holds it: at ``model:world`` the
   collectives and the overlap ring (``spec["collectives"]``: x, dense),
-  TP serving (``spec["serving"]``: cfg_kwargs, seed, runs, engine_kwargs)
-  and ``bench.py``'s training step (``spec["training"]``: cfg_kwargs,
-  batch, steps) over one draw of ``init_params(seed)``; at
+  TP serving (``spec["serving"]``: cfg_kwargs, seed, runs, engine_kwargs
+  and optionally the serving depth) and ``bench.py``'s training step
+  (``spec["training"]``: cfg_kwargs, batch, steps) over one draw of
+  ``init_params(seed)``; at
   ``data:world`` explicit DP and ZeRO-1 (``spec["dp"]``: cfg_kwargs,
   batches, the explicit step's config); at ``stage:world`` the
   pipeline runs (``spec["pipeline"]``, ``pp_workers.chip_pipeline``);
-  and phase 23's a2a MoE at ``expert:world`` (``spec["moe"]``) and
+  phase 23's a2a MoE at ``expert:world`` (``spec["moe"]``) and
   sequence-parallel runs at ``seq:world`` (``spec["sequence"]``,
-  ``sp_workers.chip_moe_a2a`` / ``chip_sequence``)."""
+  ``sp_workers.chip_moe_a2a`` / ``chip_sequence``); and phase 24's
+  BERT pipeline and ResNet split head (``spec["p24"]``,
+  ``bert_workers.chip_phase24``)."""
   import gc
 
   from easyparallellibrary_tpu_torch.models.gpt import GPT
@@ -856,10 +859,16 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
   if "collectives" in spec:
     mesh = setup(f"model:{world}", device=device, backend=backend)
     out = _collectives_and_ring(rank, world, mesh, *spec["collectives"])
-    cfg_kwargs, seed, runs, engine_kwargs = spec["serving"]
-    cfg = gpt_config(cfg_kwargs, tensor_parallel=True)
+    cfg_kwargs, seed, runs, engine_kwargs, *layers = spec["serving"]
+    # The draw at cfg_kwargs' depth (the pipeline's and the sequence
+    # runs' too); serving at the first ``layers`` blocks of it, if given.
+    serve_kwargs = dict(cfg_kwargs, num_layers=layers[0]) if layers \
+        else cfg_kwargs
+    cfg = gpt_config(serve_kwargs, tensor_parallel=True)
     whole = init_params(gpt_config(cfg_kwargs), seed, device=mesh.device)
-    local = shard_params(whole, GPT(cfg))
+    names = {n for n, _ in GPT(gpt_config(serve_kwargs)).named_parameters()}
+    local = shard_params({k: v for k, v in whole.items() if k in names},
+                         GPT(cfg))
     if seed in (spec.get("pipeline", {}).get("seed"),
                 spec.get("sequence", {}).get("seed")):
       # The pipeline and sequence runs start from the same draw: keep it
@@ -898,4 +907,11 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
     out["sequence"] = sp_workers.chip_sequence(rank, world, backend,
                                                spec["sequence"], device, flat)
     out["p23_wall_s"] = time.monotonic() - t0
+  if "p24" in spec:
+    from easyparallellibrary_tpu_torch.testing import bert_workers
+    gc.collect()
+    if torch.device(device).type == "cuda":
+      torch.cuda.empty_cache()
+    out["p24"] = bert_workers.chip_phase24(rank, world, backend,
+                                           spec["p24"], device)
   return out

@@ -1,15 +1,19 @@
-"""GPT weights for the port: the bridge from the JAX parameter tree, and a
-seeded initialiser.
+"""Model weights for the port (GPT, BERT, ResNet): the bridge from the
+JAX parameter tree, and seeded initialisers.
 
-The port's GPT (``models/gpt.py``) names its parameters after the flax
-tree, so ``block_3/mlp/wi/kernel`` becomes ``block_3.mlp.wi.weight``:
+The port's models name their parameters after the flax tree, so
+``block_3/mlp/wi/kernel`` becomes ``block_3.mlp.wi.weight``:
 
 * Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed; a
   pipelined model's stacked ``[S, in, out]`` -> ``[S, out, in]``),
   ``bias`` -> ``bias``;
+* Conv ``kernel`` HWIO ``[kh, kw, in, out]`` -> ``weight [out, in, kh,
+  kw]``;
 * Embedding ``embedding`` -> ``weight``; ``wpe`` -> ``wpe``;
-* LayerNorm ``scale`` -> ``weight``, ``bias`` -> ``bias`` (only
-  LayerNorms have a ``scale``);
+* LayerNorm, GroupNorm and BatchNorm ``scale`` -> ``weight``, ``bias``
+  -> ``bias`` (only norms have a ``scale``); a BatchNorm's
+  ``batch_stats`` (``mean``, ``var``) keep their names, as the model's
+  buffers (``from_jax_params(variables["batch_stats"])``);
 * an MoE block's ``moe/router_kernel [D, E]``, ``moe/wi [E, D, F]`` and
   ``moe/wo [E, F, D]`` keep their names and layout
   (``block_1.moe.wi``).
@@ -22,9 +26,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from easyparallellibrary_tpu_torch.ops.adamw import is_norm
 from easyparallellibrary_tpu_torch.utils.device import resolve_device
-
-_LAYER_NORMS = ("ln1", "ln2", "ln_f")
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -46,16 +49,18 @@ def _torch_name(path: str) -> str:
 def from_jax_params(tree: Dict[str, Any], device=None,
                     dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, torch.Tensor]:
-  """Map a JAX GPT parameter tree — nested dicts of numpy arrays, with
-  any ``nn.Partitioned`` boxes already unboxed — to the port's state
-  dict on ``device`` (default ``"cuda"``).  ``dtype`` recasts every leaf
+  """Map a JAX parameter tree (GPT, BERT, ResNet, or a ResNet's
+  ``batch_stats``) — nested dicts of numpy arrays, with any
+  ``nn.Partitioned`` boxes already unboxed — to the port's state dict on
+  ``device`` (default ``"cuda"``).  ``dtype`` recasts every leaf
   (default: keep each array's own)."""
   dev = resolve_device(device)
   out = {}
   for path, value in _flatten(tree):
     arr = np.asarray(value)
     if path.split("/")[-1] == "kernel":
-      arr = np.swapaxes(arr, -1, -2)
+      arr = (np.transpose(arr, (3, 2, 0, 1)) if arr.ndim == 4
+             else np.swapaxes(arr, -1, -2))
     if arr.dtype.name == "bfloat16":
       # ml_dtypes' bf16 (the JAX package's) as its bits: torch reads no
       # ml_dtypes array.
@@ -86,21 +91,23 @@ def _lecun_normal(rng: np.random.Generator, fan_in: int, shape):
 
 
 def init_params(cfg, seed: int = 0, device=None) -> Dict[str, torch.Tensor]:
-  """Fresh GPT weights drawn with numpy from ``seed``, in the JAX
-  package's initialiser families: ``lecun_normal`` for Dense kernels and
-  the expert weights (flax counts an expert weight's leading ``E`` as
-  receptive field: fan-in ``E * D`` for ``wi``, ``E * F`` for ``wo``),
-  ``normal(0.02)`` for the token and position embeddings and the MoE
-  router, zeros for biases, ones for LayerNorm scales.  (The JAX package draws from its
-  own PRNG, so the values differ from ``GPT.init``; the CPU tests bridge
-  the JAX package's own initialised tree with :func:`from_jax_params`.)
+  """Fresh weights of a GPT, BERT or ResNet config drawn with numpy from
+  ``seed``, in the JAX package's initialiser families: ``lecun_normal``
+  for Dense kernels, Conv kernels (fan-in ``kh * kw * in``, flax's
+  receptive field) and the expert weights (flax counts an expert
+  weight's leading ``E`` as receptive field: fan-in ``E * D`` for
+  ``wi``, ``E * F`` for ``wo``), ``normal(0.02)`` for the token,
+  position and segment embeddings and the MoE router, zeros for biases,
+  ones for norm scales.  (The JAX package draws from its own PRNG, so
+  the values differ from ``model.init``; the CPU tests bridge the JAX
+  package's own initialised tree with :func:`from_jax_params`.)
   Parameters are in ``cfg.param_dtype`` on ``device`` (default
-  ``"cuda"``)."""
-  from easyparallellibrary_tpu_torch.models.gpt import GPT
+  ``"cuda"``).  A ResNet's batch statistics come from
+  :func:`init_model_state`."""
   dev = resolve_device(device)
   rng = np.random.default_rng(seed)
-  shapes = {name: tuple(p.shape) for name, p in
-            GPT(cfg, device="meta").named_parameters()}
+  model = _meta_model(cfg)
+  shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
   for name, shape in shapes.items():
     # The whole experts, whatever expert axis the ambient mesh has.
     if _is_expert(name):
@@ -110,16 +117,19 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, torch.Tensor]:
   out = {}
   for name, shape in shapes.items():
     leaf_owner = name.split(".")[-2] if "." in name else ""
-    if name in ("wte.weight", "wpe") or name.endswith("moe.router_kernel"):
+    if name in ("wte.weight", "wpe", "wse.weight") \
+        or name.endswith("moe.router_kernel"):
       arr = rng.standard_normal(shape, dtype=np.float32)
       arr *= np.float32(0.02)
     elif leaf_owner == "moe":   # wi / wo [(S,) E, in, out]
       arr = _lecun_normal(rng, shape[-3] * shape[-2], shape)
-    elif leaf_owner in _LAYER_NORMS:
+    elif is_norm(leaf_owner):
       arr = np.full(shape, 1.0 if name.endswith("weight") else 0.0,
                     np.float32)
     elif name.endswith("bias"):
       arr = np.zeros(shape, np.float32)
+    elif len(shape) == 4:      # Conv weight [out, in, kh, kw]
+      arr = _lecun_normal(rng, shape[1] * shape[2] * shape[3], shape)
     else:  # Dense weight [(S,) out, in]: fan_in is the input width.
       arr = _lecun_normal(rng, shape[-1], shape)
     dtype = torch.float32 if name.endswith("router_kernel") \
@@ -128,16 +138,40 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, torch.Tensor]:
   return out
 
 
+def _meta_model(cfg):
+  """The model of ``cfg`` on the ``meta`` device (its parameter names
+  and shapes)."""
+  from easyparallellibrary_tpu_torch.models.bert import BertConfig
+  from easyparallellibrary_tpu_torch.models.resnet import ResNet, ResNetConfig
+  if isinstance(cfg, ResNetConfig):
+    return ResNet(cfg, device="meta")
+  if isinstance(cfg, BertConfig):
+    from easyparallellibrary_tpu_torch.models.bert import Bert
+    return Bert(cfg, device="meta")
+  from easyparallellibrary_tpu_torch.models.gpt import GPT
+  return GPT(cfg, device="meta")
+
+
+def init_model_state(cfg, device=None) -> Dict[str, torch.Tensor]:
+  """A batch-norm ResNet's fresh running statistics (flax's: means 0,
+  variances 1, fp32), named as the model's buffers; empty for a model
+  without any."""
+  dev = resolve_device(device)
+  return {name: (torch.zeros if name.endswith("mean") else torch.ones)(
+      tuple(b.shape), dtype=torch.float32, device=dev)
+          for name, b in _meta_model(cfg).named_buffers()}
+
+
 def cast_for_compute(params: Dict[str, torch.Tensor], compute_dtype
                      ) -> Dict[str, torch.Tensor]:
   """Cast every weight the model reads in the compute dtype (Dense
-  kernels and biases, the embeddings) once, keeping the LayerNorm
+  kernels and biases, the embeddings) once, keeping the norm
   parameters in their fp32 storage (flax applies them in fp32).  Same
   numbers as the JAX package's cast on every call."""
   out = {}
   for name, p in params.items():
     owner = name.split(".")[-2] if "." in name else ""
-    out[name] = p if owner in _LAYER_NORMS else p.to(compute_dtype)
+    out[name] = p if is_norm(owner) else p.to(compute_dtype)
   return out
 
 
@@ -191,8 +225,9 @@ def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
                  expert: Optional[int] = None,
                  expert_rank: Optional[int] = None
                  ) -> Dict[str, torch.Tensor]:
-  """This rank's slice of a whole GPT state dict, in ``model``'s layout
-  (its ``cfg`` and its vocab layout, ``model.wte.parallel``).
+  """This rank's slice of a whole GPT or BERT state dict, in ``model``'s
+  layout (its ``cfg`` and its vocab layout, ``model.wte.parallel``), or
+  of a ResNet's, whose split head keeps this rank's block of the classes.
 
   Pipelined (``pipeline_stages > 1`` on a ``stage`` axis of ``stage``
   ranks): each stage-stacked leaf keeps this rank's row (``[1, ...]``),
@@ -212,6 +247,17 @@ def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
   from easyparallellibrary_tpu_torch import constants
   from easyparallellibrary_tpu_torch.communicators import collectives
   cfg = model.cfg
+  from easyparallellibrary_tpu_torch.models.resnet import ResNetConfig
+  if isinstance(cfg, ResNetConfig):
+    # Only a head built under a split scope is cut, by classes.
+    tp = model.tp if tp is None else tp
+    if rank is None:
+      rank = collectives.axis_index(constants.MODEL_AXIS, mesh)
+    out = dict(params)
+    if tp > 1:
+      for name in ("head.weight", "head.bias"):
+        out[name] = _block(params[name], 0, cfg.num_classes, tp, rank)
+    return out
   if tp is None:
     tp = (collectives.axis_size(constants.MODEL_AXIS, mesh)
           if cfg.tensor_parallel else 1)
@@ -255,9 +301,12 @@ def shard_params(params: Dict[str, torch.Tensor], model, mesh=None,
       out[name] = t.contiguous()
     elif layout[0] == "qkv":
       hl = H // tp
-      w = t.reshape(t.shape[:lead] + (3, H, hd, D))
+      # The weight's rows hold (3, H, hd); a bias (BERT's) has no D.
+      tail = (D,) if name.endswith("weight") else ()
+      w = t.reshape(t.shape[:lead] + (3, H, hd) + tail)
       w = w.narrow(lead + 1, rank * hl, hl)
-      out[name] = w.reshape(t.shape[:lead] + (3 * hl * hd, D)).contiguous()
+      out[name] = w.reshape(t.shape[:lead] + (3 * hl * hd,) + tail
+                            ).contiguous()
     else:
       kind, logical = layout
       out[name] = _block(t, _split_dim(kind, lead, t), logical, tp, rank)
@@ -306,9 +355,10 @@ def unshard_params(shards, cfg) -> Dict[str, torch.Tensor]:
         rows.append(parts[0])
       elif layout[0] == "qkv":
         hl = H // tp
-        w = torch.cat([p.reshape(p.shape[:lead] + (3, hl, hd, D))
+        tail = (D,) if name.endswith("weight") else ()
+        w = torch.cat([p.reshape(p.shape[:lead] + (3, hl, hd) + tail)
                        for p in parts], dim=lead + 1)
-        rows.append(w.reshape(w.shape[:lead] + (3 * D, D)))
+        rows.append(w.reshape(w.shape[:lead] + (3 * D,) + tail))
       else:
         kind, logical = layout
         dim = _split_dim(kind, lead, parts[0])
@@ -341,7 +391,8 @@ def stack_stages(params: Dict[str, torch.Tensor], cfg
   zeros."""
   from easyparallellibrary_tpu_torch.models.gpt import _pass_name, stage_layout
   S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
-  per_chunk, n_active = stage_layout(cfg.num_layers, S * K, cfg.stage_plan)
+  per_chunk, n_active = stage_layout(cfg.num_layers, S * K,
+                                     getattr(cfg, "stage_plan", None))
   counts = n_active or (per_chunk,) * (S * K)
   starts = np.cumsum((0,) + tuple(counts))
   out = {n: t for n, t in params.items() if not n.startswith("block_")}
@@ -370,7 +421,8 @@ def unstack_stages(params: Dict[str, torch.Tensor], cfg
   pipelined checkpoint in a non-pipelined model's layout."""
   from easyparallellibrary_tpu_torch.models.gpt import _pass_name, stage_layout
   S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
-  per_chunk, n_active = stage_layout(cfg.num_layers, S * K, cfg.stage_plan)
+  per_chunk, n_active = stage_layout(cfg.num_layers, S * K,
+                                     getattr(cfg, "stage_plan", None))
   counts = n_active or (per_chunk,) * (S * K)
   starts = np.cumsum((0,) + tuple(counts))
   out = {n: t for n, t in params.items() if not _stacked(n)}

@@ -1327,3 +1327,141 @@ def test_moe_layer_on_the_card_routes_as_on_the_cpu(cuda):
   assert rel(og, oc) < 1e-2, rel(og, oc)
   for k in gc_:
     assert rel(gg[k], gc_[k]) < 2e-2, (k, rel(gg[k], gc_[k]))
+
+
+# BERT's encoder block at BERT-Large width (phase 24's shape, batch cut):
+# the flash kernels with causal=False against the plain version, bf16
+# (chip_smoke.py's FLASH_BF16_LIMIT forward limit).
+BERT_BF16_LIMIT = (5e-3, 1e-2)
+
+
+@pytest.mark.gpu
+def test_bert_encoder_block_flash_matches_plain_version(cuda):
+  """One ``EncoderBlock`` of BERT-Large (D 1024, 16 heads of 64, S 512),
+  bf16, with ``attn_impl="pallas_flash"``: the non-causal wgmma kernels
+  (one launch each) against the same block on the plain version of the
+  same kernels: the output, the input's and every parameter's gradient
+  under one fixed cotangent, by normalized error within the forward's
+  ``FLASH_BF16_LIMIT`` (``chip_smoke.py``; the forward's rounding of
+  the attention output reaches every gradient through the activations,
+  so the kernels' own gradient limit, which 24b holds at this shape, is
+  not the block's); and the output against dense attention
+  (``attn_impl="xla"``) within the same."""
+  import dataclasses
+
+  from torch.func import functional_call
+
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  from easyparallellibrary_tpu_torch.models.bert import (
+      EncoderBlock, bert_large_config)
+  from easyparallellibrary_tpu_torch.weights import init_params
+  cfg = bert_large_config(num_layers=1, max_seq_len=512,
+                          attn_impl="pallas_flash")
+  params = {k[len("block_0."):]: v for k, v in
+            init_params(cfg, seed=0, device=cuda).items()
+            if k.startswith("block_0.")}
+  r = np.random.RandomState(0)
+  x, cot = (torch.from_numpy(r.randn(2, 512, 1024).astype(np.float32)).to(
+      cuda, torch.bfloat16) for _ in range(2))
+
+  def run(cfg, plain=False):
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    xx = x.detach().clone().requires_grad_(True)
+    fa.reset_counts()
+    real = (fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq)
+    if plain:   # the same block with the kernels' plain versions
+      fa.flash_fwd = fa.flash_fwd_reference
+      fa.flash_bwd_dkv = fa.flash_bwd_dkv_reference
+      fa.flash_bwd_dq = fa.flash_bwd_dq_reference
+    try:
+      out = functional_call(EncoderBlock(cfg, device="meta"), p, (xx,))
+      out.backward(cot)
+    finally:
+      fa.flash_fwd, fa.flash_bwd_dkv, fa.flash_bwd_dq = real
+    counts = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dkv_cuda.launches,
+              fa.flash_bwd_dq_cuda.launches)
+    return counts, {"out": out.detach(), "dx": xx.grad,
+                    **{k: v.grad for k, v in p.items()}}
+
+  counts, kernel = run(cfg)
+  assert counts == (1, 1, 1)
+  readings = {}
+  for label, other in (("plain", run(cfg, plain=True)),
+                       ("dense", run(dataclasses.replace(cfg,
+                                                         attn_impl="xla")))):
+    assert other[0] == (0, 0, 0), label
+    for k, got in kernel.items():
+      if label == "dense" and k != "out":
+        # Dense attention rounds p to bf16 elsewhere: its gradients stray
+        # from flash's by up to ~6e-3 on the CPU too.
+        continue
+      want = other[1][k].float()
+      got = got.float()
+      if k == "qkv.bias":
+        # The key bias's gradient is 0 up to rounding (a shift of every
+        # key's score by one constant a query): the query and value
+        # parts are held, the key part against their scale.
+        key = slice(1024, 2048)
+        rest = torch.cat([want[:1024], want[2048:]]).abs().max()
+        readings[f"{label} qkv.bias key"] = (
+            (got[key] - want[key]).abs().max() / rest).item()
+        got, want = (torch.cat([t[:1024], t[2048:]]) for t in (got, want))
+      diff = got - want
+      readings[f"{label} {k}"] = ((diff.norm() / want.norm()).item(),
+                                  (diff.abs().max() / want.abs().max()).item())
+  bad = {k: v for k, v in readings.items()
+         if (v > BERT_BF16_LIMIT[1] if isinstance(v, float) else
+             v[0] > BERT_BF16_LIMIT[0] or v[1] > BERT_BF16_LIMIT[1])}
+  assert not bad, (bad, readings)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", ["group", "batch"])
+def test_tiny_resnet_step_on_the_card_matches_the_cpu(cuda, norm):
+  """Two AdamW steps of a small ResNet (fp32, NHWC 32 x 32) on the card
+  and on the CPU from the same weights: the losses (and, with batch
+  norm, the running statistics) agree to the card's fp32 convolutions
+  (TF32 off)."""
+  from torch.func import functional_call
+
+  from easyparallellibrary_tpu_torch.models.resnet import (
+      ResNet, ResNetConfig)
+  from easyparallellibrary_tpu_torch.ops.adamw import adamw
+  from easyparallellibrary_tpu_torch.parallel import api
+  from easyparallellibrary_tpu_torch.weights import (
+      init_model_state, init_params)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  cfg = ResNetConfig(stage_sizes=(1, 1), num_filters=16, num_classes=10,
+                     norm_groups=4, norm=norm, dtype=torch.float32)
+  r = np.random.RandomState(0)
+  x = r.randn(8, 32, 32, 3).astype(np.float32)
+  y = r.randint(0, 10, (8,))
+  results = {}
+  for dev in (torch.device("cpu"), cuda):
+    model = ResNet(cfg)
+    state = api.MutableTrainState.create(
+        apply_fn=model, params=init_params(cfg, seed=1, device=dev),
+        tx=adamw(1e-3, weight_decay=0.01),
+        model_state=init_model_state(cfg, device=dev))
+
+    def loss_fn(params, model_state, batch, rng):
+      out = functional_call(model, {**params, **model_state},
+                            (batch["x"],), {"train": True,
+                                            "mutable": True})
+      return torch.nn.functional.cross_entropy(out[0], batch["y"]), (
+          {}, out[1])
+
+    step = api.make_mutable_train_step(loss_fn)
+    batch = {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)}
+    losses = []
+    for _ in range(2):
+      state, m = step(state, batch, None)
+      losses.append(m["loss"].item())
+    results[dev.type] = (losses, {k: v.cpu() for k, v in
+                                  state.model_state.items()})
+  assert np.isfinite(results["cuda"][0]).all()
+  np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-4)
+  for k, v in results["cpu"][1].items():
+    torch.testing.assert_close(results["cuda"][1][k], v, rtol=1e-4,
+                               atol=1e-5)
