@@ -30,6 +30,18 @@ perf-gate:
 # The full static + perf gate chain: epl-lint, then the perf budget.
 gate: lint perf-gate
 
+# The PyTorch port's twins of the three targets above: epl-lint over
+# easyparallellibrary_tpu_torch/, and the port's perf budget
+# (easyparallellibrary_tpu_torch/perf_budget.json) checked with the
+# reference twins on the CPU (drop --device cpu on a machine with the GPU).
+lint-torch:
+	python -m easyparallellibrary_tpu_torch.analysis
+
+perf-gate-torch:
+	python -m easyparallellibrary_tpu_torch.observability.perfgate --device cpu
+
+gate-torch: lint-torch perf-gate-torch
+
 bench:
 	python bench.py
 
@@ -240,4 +252,4 @@ help:
 clean:
 	$(MAKE) -C csrc clean
 
-.PHONY: all build test lint perf-gate gate bench chaos chaos-serve chaos-router chaos-proc chaos-heal chaos-rollout chaos-frontdoor serve-bench paged-bench prefix-bench spec-bench overload-bench router-bench frontdoor-bench heal-bench rollout-bench sim-bench sim-golden trace-demo trace-fleet obs-bench help clean
+.PHONY: all build test lint perf-gate gate lint-torch perf-gate-torch gate-torch bench chaos chaos-serve chaos-router chaos-proc chaos-heal chaos-rollout chaos-frontdoor serve-bench paged-bench prefix-bench spec-bench overload-bench router-bench frontdoor-bench heal-bench rollout-bench sim-bench sim-golden trace-demo trace-fleet obs-bench help clean

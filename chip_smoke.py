@@ -271,6 +271,31 @@ program is ``testing/bert_workers.chip_phase24``):
     ResNet-50 with a 131072-class head built under ``split(2)`` on two
     model ranks, 32 images, 2 steps: losses within 2^-12 of one process.
     Phase 24's own wall is held under 150 s.
+
+``--phases 25`` runs the tooling (in the whole run 25f rides phase 21's
+rank group):
+
+25. (a) ``profiler.profile_step`` over bench.py's GPT-350M bf16 step (24
+    layers, 16 x 1024, flash attention, remat ``dots_flash``,
+    ``loss_chunk`` 256): its FLOPs equal to the same step's count with
+    the flash dispatch routed to the plain versions on the card and with
+    plain attention (``attn_impl="xla"``), within 5% above
+    ``gpt_flops_per_token`` x tokens; its memory report beside the
+    allocator's peak and phase 10's; K1's launches two steps x 24; the
+    caller's parameters bit-equal; (b) ``FlopsProfiler`` and
+    ``MemoryProfiler`` over 6 steps, the MFU line beside
+    ``StepProfiler``'s; (c) the perf gate with the reference twins on the
+    card: 0 violations against the port's budget (generated on the CPU),
+    K2 launched by the paged twin, each twin's measured peak within the
+    CPU card's static bound, a planted regression refused; (d) the
+    evidence writer into a temporary log, stamped with the card's name
+    and power limit; (e) ``examples.train_gpt`` at GPT-350M widths, 4
+    layers, 3 steps, its K1 launches; ``runtime.offload.offload_to_host(
+    state, "all")`` at bench.py's configuration cut to 4 layers against
+    no offload, 2 steps each: losses and parameters bit-equal, the memory
+    held between steps and the second step's peak both lower; (f) ``profiler.flops.
+    collective_op_sizes`` of a row-parallel Dense (bf16, 1024 x 4096 ->
+    1024) on two ranks: one all-reduce of the analytic bytes.
 """
 
 from __future__ import annotations
@@ -4775,6 +4800,7 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None,
       pp_ref_s = time.monotonic() - t_pp
   dense = dict(rows=TP_TRAIN_BATCH * 1024, d_in=4096, d_out=1024, seed=3)
   spec = {"collectives": (TP_COLLECTIVE_X, dense),
+          "row_dense": ROW_DENSE_SIZES,
           "serving": (dict(GPT_350M, dtype="bfloat16"), 0, runs,
                       engine_kwargs, SERVE_LAYERS),
           "training": (train_cfg, batch, TP_TRAIN_STEPS),
@@ -4828,7 +4854,9 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None,
   assert wall < TP_PHASE_WALL_S, f"phase 21 took {wall:.0f} s"
   return dict(backend=backend, nccl_probe=probe, ring=ring, paged=paged,
               flash=flash, serving=serving, training=training,
-              pipeline=pp_launches, p23=p23_launches, p24=p24_launches)
+              pipeline=pp_launches, p23=p23_launches, p24=p24_launches,
+              row_dense_collectives=[r["row_dense_collectives"]
+                                     for r in ranks])
 
 
 # ------------------------------------------------------ 22. the pipeline
@@ -5678,6 +5706,342 @@ def phase24_alone(torch, fa, bert_params, split_params, smi):
   return p24
 
 
+# ------------------------------------------------------------ 25. tooling
+
+# 25a/25b's step: bench.py's GPT-350M bf16 step at its largest batch.
+TOOL_BATCH = 16
+# 25b: steps of the FlopsProfiler / MemoryProfiler / StepProfiler window
+# (a FlopsProfiler line every 5 steps after the first).
+TOOL_STEPS, TOOL_LINE_EVERY, TOOL_MEM_EVERY = 6, 5, 2
+# 25e: the example's depth and steps, and the offload step's depth.
+TOOL_EXAMPLE_LAYERS, TOOL_EXAMPLE_STEPS, TOOL_EXAMPLE_BATCH = 4, 3, 8
+OFFLOAD_ALL_LAYERS = 4
+# Phase 25's own wall limit (the whole script runs under a time
+# limit).
+P25_WALL_S = 90
+# 25f: the row-parallel Dense whose collectives are counted (bf16).
+ROW_DENSE_SIZES = dict(rows=1024, d_in=4096, d_out=1024)
+
+
+def flash_counts(fa):
+  return {"fwd": fa.flash_fwd_cuda.launches,
+          "dkv": fa.flash_bwd_dkv_cuda.launches,
+          "dq": fa.flash_bwd_dq_cuda.launches}
+
+
+def _params_snapshot(torch, state):
+  return {k: v.detach().clone() for k, v in state.params.items()}
+
+
+def tool_profile_step(torch, fa, bench, phase10_peak_gib, params=None):
+  """25a: ``profile_step`` over bench.py's step at full width; its FLOPs
+  against the same step's count with the plain versions (the flash
+  dispatch routed to them on the card) and with plain attention
+  (``attn_impl="xla"``, whose products ``FlopCounterMode`` counts
+  itself), and against ``gpt_flops_per_token``; its memory beside the
+  allocator's peak and phase 10's; K1's launches; the caller's state
+  bit-equal."""
+  from easyparallellibrary_tpu_torch.models.gpt import gpt_flops_per_token
+  from easyparallellibrary_tpu_torch.profiler import flops as flops_lib
+  from easyparallellibrary_tpu_torch.profiler.profiler import profile_step
+  dev = torch.device("cuda")
+  cfg = bench.bench_config(dev)[0]
+  if params is not None:
+    params = {k: v.to(dev) for k, v in params.items()}
+  state, step, batch, rng, _ = bench.build_training(cfg, TOOL_BATCH, "cuda",
+                                                    params=params)
+  del params
+  tokens = TOOL_BATCH * cfg.max_seq_len
+  before = _params_snapshot(torch, state)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  fa.reset_counts()
+  t0 = time.monotonic()
+  report = profile_step(step, state, batch, rng, tokens_per_step=tokens)
+  torch.cuda.synchronize()
+  prof_s = time.monotonic() - t0
+  launches = flash_counts(fa)
+  plain_calls = (fa.flash_fwd_reference.calls
+                 + fa.flash_bwd_dkv_reference.calls
+                 + fa.flash_bwd_dq_reference.calls)
+  peak = torch.cuda.max_memory_allocated()
+  same = all(torch.equal(v, before[k]) for k, v in state.params.items())
+  del before
+  # The same step with the flash dispatch routed to the plain versions,
+  # on the card.
+  route = fa._route
+  fa._route = lambda q, cuda_fn, plain_fn, *args: plain_fn(*args)
+  try:
+    plain = flops_lib.compiled_cost(step, state, batch, rng)["flops"]
+  finally:
+    fa._route = route
+  params = {k: v.detach() for k, v in state.params.items()}
+  xla_cfg = dataclasses.replace(cfg, attn_impl="xla")
+  xstate, xstep, *_ = bench.build_training(xla_cfg, TOOL_BATCH, "cuda",
+                                           params=params)
+  xla = flops_lib.compiled_cost(xstep, xstate, batch, rng)["flops"]
+  del xstate, xstep, params
+  formula = gpt_flops_per_token(cfg, cfg.max_seq_len) * tokens
+  flops = report["cost_flops"]
+  gib = 2.0 ** 30
+  log(f"   profile_step ({prof_s:.1f} s, two runs on copies): "
+      f"{json.dumps(report)}")
+  log(f"   flops: kernels {flops:.6g}, plain versions {plain:.6g}, plain "
+      f"attention {xla:.6g}, gpt_flops_per_token x tokens {formula:.6g} "
+      f"(count / formula {flops / formula:.6f})")
+  log(f"   memory: temp {report['temp_size_in_bytes'] / gib:.2f} GiB + "
+      f"arguments {report['argument_size_in_bytes'] / gib:.2f} GiB = "
+      f"total {report['total_bytes'] / gib:.2f} GiB; allocator peak over "
+      f"the call {peak / gib:.2f} GiB (the caller's state and a copy "
+      f"included); phase 10's peak {phase10_peak_gib} GiB; generated "
+      f"code {report['generated_code_size_in_bytes'] / 2**20:.2f} MiB")
+  log(f"   K1 launches {launches} (two steps x {cfg.num_layers} layers); "
+      f"plain calls {plain_calls}; caller's parameters bit-equal: {same}")
+  assert flops == plain == xla, (flops, plain, xla)
+  assert 1.0 <= flops / formula <= 1.05, flops / formula
+  assert all(n == 2 * cfg.num_layers for n in launches.values()), launches
+  assert plain_calls == 0 and same
+  assert state.step == 0 and not state.opt_state.state
+  return dict(report=report, launches=launches, formula=formula,
+              state=state, step=step, batch=batch, rng=rng, cfg=cfg)
+
+
+def tool_profilers(torch, fa, ctx, tmp):
+  """25b: ``FlopsProfiler`` (with 25a's count) and ``MemoryProfiler``
+  over ``TOOL_STEPS`` steps, the MFU line beside ``StepProfiler``'s."""
+  from easyparallellibrary_tpu_torch.profiler import (
+      FlopsProfiler, MemoryProfiler, StepProfiler)
+  state, step, batch, rng = (ctx[k] for k in ("state", "step", "batch",
+                                              "rng"))
+  tokens = TOOL_BATCH * ctx["cfg"].max_seq_len
+  fp = FlopsProfiler(flops_per_step=ctx["report"]["cost_flops"],
+                     every_n_steps=TOOL_LINE_EVERY)
+  mp = MemoryProfiler(every_n_steps=TOOL_MEM_EVERY,
+                      csv_path=os.path.join(tmp, "memory.csv"))
+  sp = StepProfiler(flops_per_step=ctx["formula"], tokens_per_step=tokens,
+                    warmup=1)
+  fa.reset_counts()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  lines = []
+  for _ in range(TOOL_STEPS):
+    state, m = step(state, batch, rng)
+    torch.cuda.synchronize()
+    line = fp.step()
+    if line:
+      lines.append(line)
+    mp.step()
+    sp.tick()
+  mp.dump_csv()
+  mp.dump_png(os.path.join(tmp, "memory.png"))
+  launches = flash_counts(fa)
+  summary = sp.summary()
+  log(f"   FlopsProfiler: {lines}")
+  log(f"   StepProfiler: {summary}")
+  log(f"   MemoryProfiler: {len(mp.records)} records, peak "
+      f"{mp.peak_bytes() / 2**30:.2f} GiB, CSV "
+      f"{os.path.getsize(os.path.join(tmp, 'memory.csv'))} bytes; K1 "
+      f"launches {launches}; loss {float(m['loss']):.4f}")
+  assert len(lines) == 1 and 0 < lines[0]["mfu"] < 1, lines
+  assert 0 < summary["mfu"] < 1
+  assert len(mp.records) == TOOL_STEPS // TOOL_MEM_EVERY
+  assert mp.peak_bytes() > 0
+  assert all(n == TOOL_STEPS * ctx["cfg"].num_layers
+             for n in launches.values()), launches
+  return dict(flops_line=lines[0], step_profiler=summary,
+              launches=launches)
+
+
+def tool_perfgate(torch, pa):
+  """25c: the port's perf gate on the card: the reference twins built on
+  the card (the paged twin through K2), 0 violations, each twin's
+  measured peak within the CPU card's static bound, and planted
+  regressions refused."""
+  from easyparallellibrary_tpu_torch.observability import perfgate
+  budget = perfgate.load_budget()
+  pa.reset_counts()
+  t0 = time.monotonic()
+  cards = perfgate.collect_cards(device="cuda")
+  torch.cuda.synchronize()
+  k2 = pa.paged_attention_cuda.launches
+  violations = perfgate.run_gate(cards=cards)
+  planted = {k: dict(v, flops=2 * v["flops"], compile_count=2.0)
+             for k, v in cards.items()}
+  refused = perfgate.run_gate(cards=planted)
+  bounds = {}
+  for label, card in cards.items():
+    cpu_bound = budget["cost_cards"][label]["peak_hbm_bytes"]["max"] / 1.25
+    bounds[label] = (card["peak_hbm_bytes"], cpu_bound)
+  log(f"   gate on the card ({time.monotonic() - t0:.1f} s): "
+      f"{len(violations)} violation(s) {violations}; K2 launches {k2}")
+  for label, (got, bound) in bounds.items():
+    log(f"   {label}: compile_count {cards[label]['compile_count']:g}, "
+        f"flops {cards[label]['flops']:g}, peak {got:g} B against the CPU "
+        f"card's static bound {bound:g} B ({got / bound:.3f})")
+  log(f"   planted regression (flops x2, a second compile): "
+      f"{len(refused)} violation(s)")
+  assert violations == [], violations
+  assert k2 > 0
+  assert all(got <= bound for got, bound in bounds.values()), bounds
+  assert len(refused) == 2 * len(cards), refused
+  return k2
+
+
+def tool_evidence(torch, smi, ctx, profilers, tmp):
+  """25d: the evidence writer into a temporary log, the record stamped
+  with the card's name and power limit, read back and valid."""
+  from easyparallellibrary_tpu_torch.utils import bench_evidence as ev
+  path = os.path.join(tmp, "BENCH_EVIDENCE.json")
+  name, _, limit = smi.splitlines()[0].partition(",")
+  line = profilers["flops_line"]
+  rec = ev.append_record(dict(
+      metric="chip_smoke_gpt350m_step", value=line["mfu"], unit="mfu",
+      flops_per_step=ctx["report"]["cost_flops"],
+      step_time_s=line["step_time_s"],
+      **ev.run_context(device_kind=torch.cuda.get_device_name(),
+                       power_limit=limit.strip(), backend="cuda")),
+      path=path)
+  back = ev.latest_record("chip_smoke_gpt350m_step", path)
+  log(f"   record: {json.dumps(back)}")
+  assert back == rec and ev.validate_record(back) == []
+  assert back["device_kind"] == torch.cuda.get_device_name() == name.strip()
+  assert back["power_limit"] == limit.strip() and back["power_limit"]
+
+
+def tool_example(torch, fa):
+  """25e: ``examples.train_gpt`` on the card at GPT-350M widths, 4
+  layers, 3 steps; K1's launches."""
+  from easyparallellibrary_tpu_torch.examples import train_gpt
+  fa.reset_counts()
+  t0 = time.monotonic()
+  out = train_gpt.main([
+      "--layers", str(TOOL_EXAMPLE_LAYERS), "--d-model", "1024",
+      "--heads", "16", "--vocab", "32768", "--seq-len", "1024",
+      "--batch", str(TOOL_EXAMPLE_BATCH), "--steps",
+      str(TOOL_EXAMPLE_STEPS)])
+  torch.cuda.synchronize()
+  launches = flash_counts(fa)
+  log(f"   train_gpt ({time.monotonic() - t0:.1f} s): losses "
+      f"{out['losses']}, {out['profile']}; K1 launches {launches}")
+  assert all(np.isfinite(out["losses"]))
+  assert all(n == TOOL_EXAMPLE_LAYERS * TOOL_EXAMPLE_STEPS
+             for n in launches.values()), launches
+  return launches
+
+
+def tool_offload(torch, fa, bench):
+  """25e: ``offload_to_host(state, "all")`` at bench.py's configuration
+  cut to ``OFFLOAD_ALL_LAYERS`` layers (the blocks' parameters and every
+  moment pinned on the host, streamed around each block's forward and
+  remat recompute, the update through two buffers) against the same
+  state without offload, 2 steps each: losses and parameters bit-equal;
+  the second step's peak, the memory held between steps, and its ms."""
+  from easyparallellibrary_tpu_torch.runtime.offload import offload_to_host
+  cfg = bench.bench_config(torch.device("cuda"),
+                           num_layers=OFFLOAD_ALL_LAYERS)[0]
+  runs = {}
+  for name in ("plain", "all"):
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state, step, batch, rng, _ = bench.build_training(cfg, TOOL_BATCH,
+                                                      "cuda")
+    if name == "all":
+      state = offload_to_host(state, "all")
+    losses = []
+    state, m = step(state, batch, rng)
+    losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, rng)
+    losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    runs[name] = dict(
+        losses=losses, ms=ms, held_gib=held / 2**30,
+        peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+        launches=flash_counts(fa),
+        params={k: v.detach().cpu() for k, v in state.params.items()})
+    del state, step
+  plain, off = runs["plain"], runs["all"]
+  same = all(torch.equal(v, off["params"][k])
+             for k, v in plain["params"].items())
+  for name, r in runs.items():
+    log(f"   {name}: losses {r['losses']}, held between steps "
+        f"{r['held_gib']:.3f} GiB, step 2 peak {r['peak_gib']:.3f} GiB, "
+        f"{r['ms']:.1f} ms, K1 {r['launches']}")
+  log(f"   offload('all') saves {plain['held_gib'] - off['held_gib']:.3f} "
+      f"GiB held and {plain['peak_gib'] - off['peak_gib']:.3f} GiB of the "
+      f"step's peak; parameters bit-equal: {same}")
+  assert plain["losses"] == off["losses"] and same
+  assert off["held_gib"] < plain["held_gib"]
+  assert off["peak_gib"] < plain["peak_gib"]
+  assert all(n == OFFLOAD_ALL_LAYERS for n in off["launches"].values())
+  return off["launches"]
+
+
+def tool_collectives_check(ranks):
+  """25f: each rank's collectives of the row-parallel Dense
+  (``tp_workers.row_dense_collectives``) against the analytic bytes (one
+  all-reduce of the bf16 [rows, d_out] output)."""
+  want = ROW_DENSE_SIZES["rows"] * ROW_DENSE_SIZES["d_out"] * 2
+  for got in ranks:
+    log(f"   rank collectives {got['sizes']}, collective_bytes "
+        f"{got['bytes']:g} (analytic {want})")
+    assert got["sizes"] == [("all_reduce", float(want))], got
+    assert got["bytes"] == want
+
+
+def tool_collectives_alone(torch):
+  """25f without phase 21's group: two gloo ranks of their own."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  ranks = spawn(tp_workers.row_dense_collective_sizes, 2,
+                (ROW_DENSE_SIZES["rows"], ROW_DENSE_SIZES["d_in"],
+                 ROW_DENSE_SIZES["d_out"], "cuda", "gloo", "bfloat16"),
+                timeout_s=TP_SPAWN_DEADLINE_S)
+  tool_collectives_check(ranks)
+
+
+def tooling_phase(torch, fa, pa, bench, smi, phase10_peak_gib, tp=None,
+                  params=None):
+  """Phase 25 (module docstring): 25a-25e here, 25f from phase 21's
+  rank group (or a group of its own).  Returns what the kernels line
+  carries."""
+  t0 = time.monotonic()
+  with tempfile.TemporaryDirectory() as tmp:
+    with Phase("25a. profile_step over bench.py's GPT-350M step"):
+      ctx = tool_profile_step(torch, fa, bench, phase10_peak_gib, params)
+    with Phase("25b. FlopsProfiler and MemoryProfiler over 6 steps"):
+      profilers = tool_profilers(torch, fa, ctx, tmp)
+    del ctx["state"], ctx["step"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("25c. the perf gate on the card"):
+      k2 = tool_perfgate(torch, pa)
+    with Phase("25d. the evidence writer"):
+      tool_evidence(torch, smi, ctx, profilers, tmp)
+    with Phase("25e. examples.train_gpt on the card, and "
+               "offload_to_host('all')"):
+      example = tool_example(torch, fa)
+      offload = tool_offload(torch, fa, bench)
+  with Phase("25f. collective_bytes of a row-parallel Dense on two ranks"):
+    if tp is not None:
+      tool_collectives_check(tp["row_dense_collectives"])
+    else:
+      tool_collectives_alone(torch)
+  wall = time.monotonic() - t0
+  log(f"   25. wall {wall:.1f} s")
+  assert wall < P25_WALL_S, f"phase 25 took {wall:.0f} s"
+  return dict(profile_step=ctx["launches"],
+              profilers=profilers["launches"], example=example,
+              offload_all=offload, perfgate_k2=k2,
+              flops=ctx["report"]["cost_flops"])
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -5869,7 +6233,12 @@ def main() -> int:
         f"{p24['wall_s']:.1f} s, 24c and 24e on the ranks "
         f"{p24['group_wall_s']:.1f} s) ({smi})")
     assert p24_wall < P24_WALL_S, f"phase 24 took {p24_wall:.0f} s"
+  tool_params = None
   if any(map(want, serving)):
+    if want(25):
+      # Phase 25a's step takes the serving draw's weights (bench.py's
+      # seed-0 draw), kept on the host meanwhile.
+      tool_params = {k: v.cpu() for k, v in params.items()}
     del params, serve
   # An engine is freed by the cycle collector (its scheduler holds bound
   # methods of it): collect before the training phases, so that phase
@@ -5912,6 +6281,16 @@ def main() -> int:
                "checkpoint)"):
       dcp_checkpoint(torch, off_state, native_s)
     del off_state
+  if want(25):
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("25. the tooling: profile_step, the profilers, the perf gate, "
+               "the evidence writer, the examples, collective_bytes"):
+      tool = tooling_phase(
+          torch, fa, pa, bench, smi,
+          record["detail"]["peak_hbm_gb"] if want(10) else "(not run)",
+          tp if want(21) else None, tool_params)
+    del tool_params
   log(f"total {time.monotonic() - t_start:.1f} s")
   if only is not None:
     return 0
@@ -5938,7 +6317,11 @@ def main() -> int:
                     for lvl, ranks in p23["pipeline_zero"].items()},
                 launches_bert=p24["bert"]["launches"][k],
                 launches_bert_pipeline=[rank[k] for rank in tp["p24"]],
-                bert_full_b8_h16_s512=p24["flash"][k])
+                bert_full_b8_h16_s512=p24["flash"][k],
+                launches_profile_step=tool["profile_step"][k],
+                launches_profilers=tool["profilers"][k],
+                launches_example=tool["example"][k],
+                launches_offload_all=tool["offload_all"][k])
 
   flash_records = [
       kernel_record("flash_attention_fwd", "flash_fwd_wgmma_kernel<64>",
@@ -6035,7 +6418,7 @@ def main() -> int:
            launches_reactor_children=heal_launches["reactor_children"],
            launches_frontdoor=heal_launches["frontdoor"],
            launches_tp2=tp["serving"], tp2_engine_step_h8=tp["paged"],
-           tp_backend=tp["backend"]),
+           tp_backend=tp["backend"], launches_perfgate=tool["perfgate_k2"]),
       paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
                    warp_launches, "float32"),
   ] + flash_records + fp16_flash + [fp16_paged, mixed_paged]}), flush=True)

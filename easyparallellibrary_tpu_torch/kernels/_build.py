@@ -118,6 +118,14 @@ def loaded_count() -> int:
     return len(_LIBS)
 
 
+def loaded_bytes() -> int:
+  """The file size of every kernel library this process has loaded
+  (``profiler.memory.compiled_memory``'s generated-code bytes)."""
+  with _LOCK:
+    names = list(_LIBS)
+  return sum(library_path(name).stat().st_size for name in names)
+
+
 def load(name: str) -> ctypes.CDLL:
   """The loaded library of kernel ``name``, built first if needed."""
   with _LOCK:

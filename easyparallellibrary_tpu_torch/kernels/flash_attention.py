@@ -29,6 +29,11 @@ Each of the three functions comes in three forms, kernel layout
   CPU tensor goes to the plain version, a CUDA tensor to the kernel.  A
   CUDA tensor never reaches a plain version through them.
 
+The dispatchers count by formula under a cost count (``_cost``): the
+forward op's FLOPs are registered with the flop counter, and the two
+backward dispatchers book theirs through ``_cost.kernel_call``, so a
+step counts the same whichever of kernel and plain version ran.
+
 The autograd boundary is the custom op ``epl_torch::flash_attention_fwd``
 (``FLASH_FWD_OP``), whose backward runs ``_bwd_kernels``.  Being a
 dispatcher op, it is visible to ``torch.utils.checkpoint``'s selective
@@ -42,8 +47,8 @@ and ``flash_attention_lse`` on ``[B, S, H, D]``, with the block
 arguments validated as there (an explicit block must divide the
 sequence).  The kernels' own tile is theirs to choose, so ``block_q`` /
 ``block_k`` keep only their validation meaning.  The TPU block autotune
-table (``set_block_want``) waits with ``benchmarks/flash_autotune.py``
-(ROADMAP.md Queue 1).
+table (``set_block_want``) waits with ``benchmarks/flash_autotune.py`` for
+the port's benchmark (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,6 +58,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from easyparallellibrary_tpu_torch.kernels import _cost
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -270,13 +278,17 @@ def flash_fwd(q, k, v, causal: bool):
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool):
-  return _route(q, flash_bwd_dkv_cuda, flash_bwd_dkv_reference, q, k, v,
-                dout, lse, delta, causal)
+  return _cost.kernel_call(
+      "flash_bwd_dkv", _cost.attention_flops(q.shape, k.shape), _route, q,
+      flash_bwd_dkv_cuda, flash_bwd_dkv_reference, q, k, v, dout, lse, delta,
+      causal)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool):
-  return _route(q, flash_bwd_dq_cuda, flash_bwd_dq_reference, q, k, v, dout,
-                lse, delta, causal)
+  return _cost.kernel_call(
+      "flash_bwd_dq", _cost.attention_flops(q.shape, k.shape), _route, q,
+      flash_bwd_dq_cuda, flash_bwd_dq_reference, q, k, v, dout, lse, delta,
+      causal)
 
 
 def reset_counts():
@@ -300,6 +312,11 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_flash_fwd_op.register_fake
 def _(q, k, v, causal):
   return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.epl_torch.flash_attention_fwd)
+def _flash_fwd_flops(q_shape, k_shape, *args, **kwargs) -> int:
+  return _cost.attention_flops(q_shape, k_shape)
 
 
 def _flash_setup_context(ctx, inputs, output):

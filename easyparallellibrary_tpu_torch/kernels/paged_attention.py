@@ -34,7 +34,8 @@ Each wrapper keeps a plain integer count of its launches (``.launches``
 on the four CUDA functions; ``paged_attention_cuda`` counts every
 launch, the three builds their own) and the plain version of its calls
 (``paged_attention_reference.calls``), so a run can show which one its
-main path went through.
+main path went through.  Under a cost count the dispatcher books the
+formula of ``kernels/_cost.py`` whichever of the two runs.
 
 Shapes (one flat token batch, serving/engine.py):
 
@@ -74,6 +75,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from easyparallellibrary_tpu_torch.kernels import _cost
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The one mix of query and pool types the kernels take (q, pools).
@@ -495,10 +498,15 @@ def paged_attention(q, k_pages, v_pages, tables_tok, positions,
                      f"(set_paged_attention_impl), which does not run on "
                      f"{q.device}")
   if q.is_cuda:
-    return paged_attention_cuda(q, k_pages, v_pages, tables_tok, positions,
-                                tiles)
-  if q.device.type == "cpu":
-    return paged_attention_reference(q, k_pages, v_pages, tables_tok,
-                                     positions)
-  raise ValueError(f"paged_attention: no implementation for device "
-                   f"{q.device}")
+    impl, args = paged_attention_cuda, (q, k_pages, v_pages, tables_tok,
+                                        positions, tiles)
+  elif q.device.type == "cpu":
+    impl, args = paged_attention_reference, (q, k_pages, v_pages,
+                                             tables_tok, positions)
+  else:
+    raise ValueError(f"paged_attention: no implementation for device "
+                     f"{q.device}")
+  return _cost.kernel_call(
+      "paged_attention",
+      _cost.paged_flops(q.shape, tables_tok.shape, k_pages.shape[1]), impl,
+      *args)

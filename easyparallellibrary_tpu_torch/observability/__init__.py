@@ -20,10 +20,12 @@ One event substrate for the serving engine, all host code:
   first step, HBM watermark gauges from ``torch.cuda``, and the
   per-site collective-bytes store (``observability.device.*``).
 
+* :mod:`perfgate` — the perf regression gate over the cost cards of
+  the reference twins and ``BENCH_EVIDENCE.json``, against the port's
+  ``perf_budget.json`` (``make perf-gate-torch``).
+
 Knobs: the ``observability.*`` config group (enabled / trace_path /
-ring_capacity / sample_rate / metrics_jsonl / slo.* / device.*).  The
-JAX package's ``perfgate`` is not ported (ROADMAP.md Queue 1, "Other
-models and the tooling").
+ring_capacity / sample_rate / metrics_jsonl / slo.* / device.*).
 """
 
 from easyparallellibrary_tpu_torch.observability.device import (

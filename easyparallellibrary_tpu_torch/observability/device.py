@@ -12,9 +12,12 @@ the scheduler planned.  This module is the measured half:
   serving engine fills the card from what it can count and measure:
   ``flops`` and ``bytes_accessed`` of the GPT forward at the step's
   token capacity (``profiler/flops.py``), ``argument_bytes`` (params
-  plus the KV caches), ``peak_hbm_bytes`` (the allocator's measured peak
-  over the first step, after ``torch.cuda.reset_peak_memory_stats``; on
-  the CPU a static bound), and ``donation_verified`` — whether the step
+  plus the KV caches), ``peak_hbm_bytes`` (the arguments plus what the
+  first step added at its peak, :class:`StepPeak`: by the allocator
+  after ``torch.cuda.reset_peak_memory_stats`` on the card; on the CPU
+  from ``torch.profiler``'s memory events, each allocation rounded up to
+  the card allocator's 512-byte block, a bound of the card's reading
+  where the kernels allocate no more than their plain versions), and ``donation_verified`` — whether the step
   wrote the KV caches in place, read off the caches' ``data_ptr()``
   before and after the step: the port's counterpart of XLA's
   ``alias_size_in_bytes > 0``.  :meth:`DeviceIntrospector.capture_twin`
@@ -414,6 +417,88 @@ def register_site(site: str, *, kind: str, axis_n: int, m: int, k: int,
   if intro is not None:
     intro.register_site(site, kind=kind, axis_n=axis_n, m=m, k=k,
                         n_out=n_out, dtype_bytes=dtype_bytes)
+
+
+# The card's caching allocator hands out blocks in multiples of 512
+# bytes (``torch.cuda.memory_allocated`` counts them so).
+ALLOCATOR_BLOCK = 512
+
+
+def _blocks(nbytes: int) -> int:
+  return -(-nbytes // ALLOCATOR_BLOCK) * ALLOCATOR_BLOCK
+
+
+class StepPeak:
+  """What one step adds, at its peak, to the memory in use when it
+  starts: on the card the allocator's peak (``max_memory_allocated``
+  after ``reset_peak_memory_stats``) less its bytes at the start; on the
+  CPU the peak of ``torch.profiler``'s memory events over the step, each
+  allocation rounded up to the card allocator's block, and a free
+  counted only against an allocation of its size made in the step (what
+  the allocator would hold on the card for the same allocations).
+  ``start()`` before the step, ``stop()`` after it; ``added`` is None
+  when nothing was measured (the CPU profiler was already running)."""
+
+  def __init__(self, device):
+    import torch
+    self.device = torch.device(device)
+    self.added: Optional[float] = None
+    self._prof = None
+    self._mem0 = 0
+
+  def start(self) -> "StepPeak":
+    import torch
+    if self.device.type == "cuda":
+      torch.cuda.reset_peak_memory_stats(self.device)
+      self._mem0 = torch.cuda.memory_allocated(self.device)
+      return self
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU],
+        profile_memory=True)
+    try:
+      prof.__enter__()
+    except RuntimeError:   # another profiler holds the thread
+      return self
+    self._prof = prof
+    return self
+
+  def stop(self) -> Optional[float]:
+    import torch
+    if self.device.type == "cuda":
+      if self.added is None:
+        self.added = max(0.0, float(
+            torch.cuda.max_memory_allocated(self.device) - self._mem0))
+      return self.added
+    if self._prof is None:
+      return self.added
+    prof, self._prof = self._prof, None
+    prof.__exit__(None, None, None)
+    live = peak = 0
+    open_blocks: Dict[int, int] = {}
+    for e in prof.profiler.kineto_results.events():
+      if e.name() != "[memory]":
+        continue
+      n = _blocks(abs(e.nbytes()))
+      if e.nbytes() > 0:
+        open_blocks[n] = open_blocks.get(n, 0) + 1
+        live += n
+        peak = max(peak, live)
+      elif open_blocks.get(n):
+        open_blocks[n] -= 1
+        live -= n
+    self.added = float(peak)
+    return self.added
+
+
+def allocator_peak_bytes(device) -> float:
+  """The allocator's peak allocated bytes on ``device`` since its last
+  ``torch.cuda.reset_peak_memory_stats`` (0.0 off the card): the
+  warmup-time read behind the serving and training cost cards."""
+  import torch
+  device = torch.device(device)
+  if device.type != "cuda":
+    return 0.0
+  return float(torch.cuda.max_memory_allocated(device))
 
 
 # Backend events of torch.distributed collectives in a profiler trace.

@@ -7,17 +7,18 @@ block list, as the reference's generator does with its three policies:
 ``balance_flops`` (by per-block FLOPs, when given) and
 ``repeated_layers`` (cut at the dominant repeated family's members).
 Its cost-model search counts each block's FLOPs with
-``torch.utils.flop_counter.FlopCounterMode``, where the JAX package asks
-XLA's cost analysis: the counter sees the matrix products (and
-attention), not the elementwise work, which for blocks of one structure
-gives the same partition.
+``profiler.flops.compiled_cost`` (``FlopCounterMode`` and the kernels'
+formulas), where the JAX package asks XLA's cost analysis: the count
+sees the matrix products (and attention), not the elementwise work,
+which for blocks of one structure gives the same partition.
 
 The overlap half: the canonical overlap-site names, and the analytic
 crossover that decides whether a collective next to a matrix product
 runs as the fused collective or as the chunked ring of
-``communicators/overlap.py`` (``communication.overlap = "auto"``).  The
-cost-model twin (``plan_collective_matmul_from_cost``) stays with
-ROADMAP.md Queue 1 item 12.
+``communicators/overlap.py`` (``communication.overlap = "auto"``).  Its
+cost-model twin, :func:`plan_collective_matmul_from_cost`, reads the
+FLOPs of one counted run of the local product
+(``profiler.flops.compiled_cost``) instead of analytic dims.
 
 The model's constants are for this card, not measured by the port: the
 link rate is NVLink's 450 GB/s each way (NVIDIA's H100 SXM data sheet),
@@ -32,6 +33,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
 
 from easyparallellibrary_tpu_torch.parallel.partitioner import (
     find_repeated_blocks, partition_stages)
@@ -88,15 +91,11 @@ class AutoStageGenerator:
   def search_from_cost_model(self, apply_fns: Dict[str, Callable],
                              *sample_args) -> List[List[str]]:
     """Stage search weighted by each block's FLOPs on ``sample_args``,
-    counted by ``FlopCounterMode`` (a block it counts no FLOPs for
+    counted by ``compiled_cost`` (a block it counts no FLOPs for
     weighs 1), whatever the instance's policy."""
-    from torch.utils.flop_counter import FlopCounterMode
-    flops = {}
-    for name, fn in apply_fns.items():
-      counter = FlopCounterMode(display=False)
-      with counter:
-        fn(*sample_args)
-      flops[name] = float(counter.get_total_flops()) or 1.0
+    from easyparallellibrary_tpu_torch.profiler.flops import compiled_cost
+    flops = {name: compiled_cost(fn, *sample_args)["flops"] or 1.0
+             for name, fn in apply_fns.items()}
     if self.num_stages <= 1:
       return [list(apply_fns)]
     return partition_stages(list(apply_fns), self.num_stages, flops)
@@ -180,3 +179,35 @@ def plan_collective_matmul(kind: str, *, m: int, k: int, n_out: int,
   enabled = best_t < fused_us
   return OverlapDecision(enabled, best_k if enabled else 1,
                          fused_us, best_t, comm_us, matmul_us)
+
+
+def plan_collective_matmul_from_cost(fn: Callable, *sample_args,
+                                     kind: str, axis_size: int,
+                                     **model_kwargs) -> OverlapDecision:
+  """The crossover fed by the cost count instead of analytic dims: one
+  counted run of ``fn(*sample_args)`` (the LOCAL per-rank product, on
+  copies of the arguments) gives its FLOPs
+  (``profiler.flops.compiled_cost``), which are read back as one
+  ``[m, k] @ [k, n_out]`` with the caller's ``k`` / ``n_out`` hints (a
+  cube without them) and scored by :func:`plan_collective_matmul`, as
+  the JAX twin does; ``peak_flops`` defaults to the card's rate."""
+  from easyparallellibrary_tpu_torch.profiler.flops import (
+      _GUESS, compiled_cost, peak_flops_per_chip)
+  cost = compiled_cost(fn, *sample_args)
+  flops = float(cost.get("flops", 0.0)) or 1.0
+  peak = model_kwargs.pop("peak_flops", None)
+  if peak is None:
+    peak = peak_flops_per_chip() if torch.cuda.is_available() else _GUESS
+  k_hint = model_kwargs.pop("k", None)
+  n_hint = model_kwargs.pop("n_out", None)
+  if k_hint and n_hint:
+    m = max(int(flops / (2.0 * k_hint * n_hint)), 1)
+    k_dim, n_dim = k_hint, n_hint
+  else:
+    side = max(int(round((flops / 2.0) ** (1.0 / 3.0))), 1)
+    m = k_dim = n_dim = side
+  if kind == "all_gather_matmul":
+    m = max(m // max(axis_size, 1), 1)  # the count saw the gathered rows
+  return plan_collective_matmul(kind, m=m, k=k_dim, n_out=n_dim,
+                                axis_size=axis_size, peak_flops=peak,
+                                **model_kwargs)

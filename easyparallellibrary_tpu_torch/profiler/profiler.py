@@ -1,11 +1,16 @@
-"""Step profiler — wall clock, throughput, MFU and device-trace capture
-(port of ``easyparallellibrary_tpu/profiler/profiler.py``).
+"""Step profiler — the static cost model of a step, wall clock,
+throughput, MFU and device-trace capture (port of
+``easyparallellibrary_tpu/profiler/profiler.py``).
 
+:func:`profile_step` is the planner-facing cost model: FLOPs and bytes
+(``flops.compiled_cost``), the memory of the step
+(``memory.compiled_memory``), the expected pipeline bubble.  The JAX
+package lowers the step without running it; the port runs it once for
+each analysis, on copies of the arguments, so the caller's state is
+left bit-equal and a second call gives the same report.
 :class:`StepProfiler` is ``fit``'s timing hook; its ``trace`` brackets a
 ``torch.profiler`` capture (``observability.trace.Tracer.device_trace``,
-the counterpart of the JAX package's XLA trace).  :func:`profile_step`,
-the static cost model, needs the compiled-cost and memory analyses,
-which are not ported.
+the counterpart of the JAX package's XLA trace).
 """
 
 from __future__ import annotations
@@ -15,16 +20,38 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from easyparallellibrary_tpu_torch._not_ported import (
-    OTHER_MODELS, not_ported)
-from easyparallellibrary_tpu_torch.profiler.flops import estimate_mfu
+from easyparallellibrary_tpu_torch.parallel.pipeline import bubble_fraction
+from easyparallellibrary_tpu_torch.profiler.flops import (
+    compiled_cost, estimate_mfu)
+from easyparallellibrary_tpu_torch.profiler.memory import compiled_memory
+from easyparallellibrary_tpu_torch.utils.logging import get_logger
 
 
 def profile_step(fn: Callable, *args, tokens_per_step: Optional[int] = None,
                  num_stages: int = 1, num_micro_batch: int = 1,
                  **kwargs) -> Dict[str, float]:
-  raise not_ported("profile_step (compiled_cost and compiled_memory)",
-                   OTHER_MODELS)
+  """Profile of a train step: ``cost_flops``, ``cost_bytes accessed``,
+  ``cost_bytes accessedout{}``, the memory keys of
+  ``compiled_memory``, ``pipeline_bubble`` (``num_stages > 1``) and
+  ``tokens_per_step`` (when given).  Two runs of ``fn`` (one counted,
+  one measured), each on fresh copies of the arguments; on a process
+  group every rank must make the call."""
+  report = {}
+  try:
+    report.update({f"cost_{k}": v for k, v in
+                   compiled_cost(fn, *args, **kwargs).items()
+                   if isinstance(v, (int, float))})
+  except Exception as e:  # pragma: no cover
+    get_logger().warning("cost analysis unavailable: %s", e)
+  try:
+    report.update(compiled_memory(fn, *args, **kwargs))
+  except Exception as e:  # pragma: no cover
+    get_logger().warning("memory analysis unavailable: %s", e)
+  if num_stages > 1:
+    report["pipeline_bubble"] = bubble_fraction(num_stages, num_micro_batch)
+  if tokens_per_step:
+    report["tokens_per_step"] = float(tokens_per_step)
+  return report
 
 
 class StepProfiler:

@@ -280,8 +280,7 @@ def fit(step_fn: Callable,
                                 if isinstance(v, torch.Tensor)])
                     for st in state.opt_state.state.values())
     dev = next(iter(state.params.values())).device
-    peak = float(torch.cuda.max_memory_allocated(dev)) \
-        if dev.type == "cuda" else 0.0
+    peak = device_lib.allocator_peak_bytes(dev)
     return {"flops": float(getattr(profiler, "flops_per_step", 0.0) or 0.0),
             "argument_bytes": float(tree_bytes(state.params) + opt_bytes
                                     + tree_bytes(batch)),
@@ -340,11 +339,13 @@ def fit(step_fn: Callable,
         watchdog.disarm()
       if check_every and (step_idx + 1) % check_every == 0 \
           and "bad_steps" in metrics:
-        # The sentinel's designed read: one sync per max_bad_steps
-        # window, never per step.
+        # epl-lint: disable=host-sync — the sentinel's designed read: one
+        # sync per max_bad_steps window, amortized, never per step
         bad = int(metrics["bad_steps"])
         if profiler is not None and hasattr(profiler, "note_bad_step") \
             and "bad_steps_total" in metrics:
+          # epl-lint: disable=host-sync — same amortized window as the
+          # bad_steps read above; no additional per-step sync
           total_bad = int(metrics["bad_steps_total"])
           if total_bad > fed["bad"]:
             profiler.note_bad_step(total_bad - fed["bad"])
@@ -406,6 +407,9 @@ def fit(step_fn: Callable,
         with tracer.span("train/host_sync", cat="train", track="train",
                          record=step_rec):
           loss = metrics.get("loss")
+          # epl-lint: disable=host-sync — the loop's ONE designated
+          # periodic sync point (log_every boundary), wrapped in the
+          # train/host_sync span precisely because it syncs
           loss_text = f"{float(loss):.5f}" if loss is not None else "n/a"
           log.info("step %d: loss %s", step_idx + 1, loss_text)
       if (checkpoint_dir and checkpoint_every

@@ -46,10 +46,12 @@ from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+from torch.utils.flop_counter import register_flop_formula
 
 from easyparallellibrary_tpu_torch import constants
 from easyparallellibrary_tpu_torch.communicators import collectives
 from easyparallellibrary_tpu_torch.communicators.overlap import ring_step
+from easyparallellibrary_tpu_torch.kernels import _cost
 from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
 
 NEG_INF = -1e30
@@ -322,6 +324,20 @@ def _ring_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_ring_fwd_op.register_fake
 def _(q, k, v, causal, zigzag, dense):
   return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.epl_torch.ring_flash_fwd)
+def _ring_fwd_flops(q_shape, k_shape, v_shape, causal, zigzag, dense,
+                    *args, **kwargs) -> int:
+  """The blocks this rank's ring multiplies (``launches_per_layer``),
+  each counted as a flash forward: whole slices, or half slices under
+  the zigzag layout."""
+  del v_shape, dense
+  n, idx = _seq()
+  B, H, s, D = q_shape
+  side = s // 2 if zigzag else s
+  return (launches_per_layer(n, idx, causal, zigzag)
+          * _cost.attention_flops((B, H, side, D), (B, H, side, D)))
 
 
 def _ring_setup_context(ctx, inputs, output):

@@ -451,6 +451,7 @@ class ContinuousBatchingEngine:
         self._twin_label, _build.loaded_count,
         on_recompile=[self._note_recompile])
     self._card_ptrs: Optional[List[int]] = None
+    self._card_peak: Optional[device_lib.StepPeak] = None
     if self._slo is not None:
       # The monitor consumes this engine's registry records (it is a
       # registry sink) and merges this engine's state summary into
@@ -629,8 +630,9 @@ class ContinuousBatchingEngine:
     (``profiler.flops.gpt_forward_flops``); the bytes the step must move
     at that capacity — the parameters and the KV caches read once (what
     the attention kernel reads at most); the parameter and cache bytes
-    as its arguments; the allocator's measured peak over the step (on
-    the CPU, the arguments plus the logits: a static bound); and
+    as its arguments; its peak: the arguments plus what the step added
+    at its peak (``observability.device.StepPeak``: measured, so the
+    rest of the process's memory is not the twin's); and
     whether the step wrote the caches in place (their ``data_ptr()``
     unchanged)."""
     cfg = self.model.cfg
@@ -639,11 +641,8 @@ class ContinuousBatchingEngine:
                             for p in self.params.values()))
     leaves = self._kv_leaves()
     kv_bytes = float(sum(x.numel() * x.element_size() for x in leaves))
-    if self.device.type == "cuda":
-      peak = float(torch.cuda.max_memory_allocated(self.device))
-    else:
-      itemsize = torch.finfo(self.compute_dtype).bits // 8
-      peak = param_bytes + kv_bytes + tokens * cfg.vocab_size * itemsize
+    added, self._card_peak = self._card_peak.added, None
+    peak = param_bytes + kv_bytes + (added or 0.0)
     return dict(
         flops=gpt_forward_flops(cfg, tokens, cfg.max_seq_len),
         bytes_accessed=param_bytes + kv_bytes,
@@ -666,7 +665,10 @@ class ContinuousBatchingEngine:
   # ----------------------------------------------------------- device step
 
   def _tensor(self, array: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+    """A plan array as a tensor of the step: a copy on the engine's
+    device (also on the CPU, so that the step's inputs are the step's
+    memory there as on the card)."""
+    return torch.tensor(np.ascontiguousarray(array), device=self.device)
 
   def _sampling_args(self, plan):
     return (self._tensor(plan.keys.astype(np.int64)),
@@ -1246,8 +1248,7 @@ class ContinuousBatchingEngine:
         and not self._introspector.has_card(self._twin_label)):
       # The cost card's peak is measured over the first step, and its
       # in-place check reads the caches' addresses before it.
-      if self.device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(self.device)
+      self._card_peak = device_lib.StepPeak(self.device).start()
       self._card_ptrs = [x.data_ptr() for x in self._kv_leaves()]
     t0 = time.monotonic()
     if self._watchdog is not None:
@@ -1297,6 +1298,8 @@ class ContinuousBatchingEngine:
         self._watchdog.disarm()
       if device_ctx is not None:
         device_ctx.__exit__(None, None, None)
+      if self._card_peak is not None:
+        self._card_peak.stop()
     if slot_ok is not None:
       self._handle_bad_slots(plan, slot_ok)
       finished.extend(self.scheduler.take_finished())
@@ -1315,7 +1318,10 @@ class ContinuousBatchingEngine:
       ptrs, self._card_ptrs = self._card_ptrs, None
       self._introspector.capture_twin(
           self._twin_label, lambda: self._cost_card(ptrs),
-          compile_count=self._compile_sentinel.cache_size() or 0,
+          # The twin's step program once, plus every kernel library the
+          # sentinel saw load past warmup: 1 on a healthy twin on any
+          # device, as the JAX twin's jit cache size.
+          compile_count=1 + self._compile_sentinel.recompiles,
           meta=self._twin_meta())
     if (self._introspector is not None
         and (self._steps == 1

@@ -16,8 +16,7 @@ pure host policy and the port imports nothing of the JAX package).
   retry is exact); past ``max_step_retries`` the request is requeued
   with its committed prefix, and past ``max_requeues`` it is failed.
 * **Replica health** — :class:`ReplicaHealth`, the state machine and
-  circuit breaker a multi-replica router reads (the router itself is
-  not ported: ROADMAP.md Queue 1).
+  circuit breaker a multi-replica router reads (serving/router.py).
 
 No device work, no torch: unit-testable with a fake clock.  Knobs: the
 ``serving.resilience.*`` config group.

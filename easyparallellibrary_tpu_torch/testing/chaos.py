@@ -32,6 +32,11 @@ Fleet (``serving/router.py``, ``serving/transport.py``):
   child), :class:`ProcessStaller` (SIGSTOP: the wire deadline must
   condemn and fence it) and :class:`ReplyDropper` (reply frames read
   and discarded at the parent: the exactly-once machinery under test).
+
+Traffic: :func:`poisson_trace` (Poisson arrivals, the arrival model of
+every overload episode) and :func:`overload_burst` (an overload burst
+and its quiet tail), numpy draws bit-equal to the JAX package's for a
+seed.
 """
 
 from __future__ import annotations
@@ -580,3 +585,46 @@ __all__ = ["DisconnectingClient", "FlakyDrafter", "FlappingHealth",
            "HangingStepInjector", "NaNLogitsInjector", "ProcessKiller",
            "ProcessStaller", "ReplicaHang", "ReplicaKiller", "ReplyDropper",
            "SlowReader"]
+
+
+# ---------------------------------------------------------------- traffic --
+
+
+def poisson_trace(rate_per_s: float, n: int, seed: int = 0,
+                  rng: "np.random.RandomState" = None,
+                  first_at_zero: bool = True) -> np.ndarray:
+  """Arrival-time offsets (seconds, ascending) for ``n`` requests of a
+  Poisson process at ``rate_per_s``.  Pass ``rng`` to draw from an
+  existing generator; ``first_at_zero=False`` keeps the sampled first
+  gap."""
+  if rate_per_s <= 0:
+    raise ValueError(f"rate_per_s must be > 0: {rate_per_s}")
+  if rng is None:
+    rng = np.random.RandomState(seed)
+  gaps = rng.exponential(1.0 / rate_per_s, n)
+  if first_at_zero:
+    gaps[0] = 0.0
+  return np.cumsum(gaps)
+
+
+def overload_burst(service_rate_per_s: float, n_burst: int,
+                   n_recover: int, factor: float = 3.0,
+                   recover_frac: float = 0.5,
+                   seed: int = 0) -> np.ndarray:
+  """Arrival offsets of a self-healing episode: ``n_burst`` Poisson
+  arrivals at ``factor`` x the sustainable service rate (the overload
+  that must breach the SLO burn rules and fire the actuators), then
+  ``n_recover`` arrivals at ``recover_frac`` x the service rate (the
+  quiet tail in which the error budget recovers), from one seeded
+  stream."""
+  if factor <= 1.0:
+    raise ValueError(f"factor must be > 1 (an overload): {factor}")
+  if not 0 < recover_frac <= 1.0:
+    raise ValueError(f"recover_frac must be in (0, 1]: {recover_frac}")
+  rng = np.random.RandomState(seed)
+  burst = poisson_trace(service_rate_per_s * factor, n_burst, rng=rng)
+  if n_recover <= 0:
+    return burst
+  tail = poisson_trace(service_rate_per_s * recover_frac, n_recover,
+                       rng=rng, first_at_zero=False)
+  return np.concatenate([burst, burst[-1] + tail])

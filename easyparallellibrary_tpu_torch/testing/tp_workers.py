@@ -557,6 +557,39 @@ def row_dense_site_bytes(rank, world, rows: int, d_in: int, d_out: int):
     dev.install(None)
 
 
+def row_dense_collectives(mesh, rows: int, d_in: int, d_out: int,
+                          dtype: str = "float32"):
+  """``profiler.flops.collective_op_sizes`` of one forward of a
+  row-parallel Dense at the fused all-reduce
+  (``communication.overlap="off"`` for the call) on ``mesh``'s model
+  axis, and their sum (``collective_bytes``)."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.ops.layers import Dense
+  from easyparallellibrary_tpu_torch.profiler import flops
+  config = epl.Env.get().config
+  policy, config.communication.overlap = config.communication.overlap, "off"
+  try:
+    layer = Dense(d_in, d_out, parallel="row", dtype=getattr(torch, dtype),
+                  device=mesh.device)
+    x = torch.ones(rows, d_in // mesh.axis_size("model"),
+                   device=mesh.device, dtype=getattr(torch, dtype))
+    with torch.no_grad():
+      sizes = flops.collective_sizes_of(layer, x)
+      total = flops.collective_bytes(layer, x)
+  finally:
+    config.communication.overlap = policy
+  return {"sizes": sizes, "bytes": total}
+
+
+def row_dense_collective_sizes(rank, world, rows: int, d_in: int,
+                               d_out: int, device: str = "cpu",
+                               backend: Optional[str] = None,
+                               dtype: str = "float32"):
+  """:func:`row_dense_collectives` at ``model:world``."""
+  mesh = setup(f"model:{world}", device=device, backend=backend)
+  return row_dense_collectives(mesh, rows, d_in, d_out, dtype)
+
+
 # ------------------------------------------------------- the card's phase
 
 
@@ -859,6 +892,9 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
   if "collectives" in spec:
     mesh = setup(f"model:{world}", device=device, backend=backend)
     out = _collectives_and_ring(rank, world, mesh, *spec["collectives"])
+    if "row_dense" in spec:
+      out["row_dense_collectives"] = row_dense_collectives(
+          mesh, dtype="bfloat16", **spec["row_dense"])
     cfg_kwargs, seed, runs, engine_kwargs, *layers = spec["serving"]
     # The draw at cfg_kwargs' depth (the pipeline's and the sequence
     # runs' too); serving at the first ``layers`` blocks of it, if given.

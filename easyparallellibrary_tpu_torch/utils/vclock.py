@@ -13,8 +13,8 @@ calls :func:`install`.
 
 The contract is deliberately minimal — two zero-argument callables and
 a process-global install/reset pair — because the point is replay
-determinism, not a scheduling framework: a discrete-event engine (the
-JAX package's ``sim/``, not ported yet) owns the virtual timeline and
+determinism, not a scheduling framework: a discrete-event engine (``sim/``)
+owns the virtual timeline and
 installs itself here for the duration of an episode so that *config-built*
 policy objects (which never saw a ``clock=`` kwarg) still read
 simulated time.  Installation is idempotent per episode; always pair

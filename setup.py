@@ -15,7 +15,9 @@ setup(
     packages=find_packages(exclude=("tests",)),
     package_data={"easyparallellibrary_tpu": ["lib/*.so"],
                   "easyparallellibrary_tpu_torch": ["kernels/csrc/*.cu",
-                                                   "kernels/csrc/*.cuh"]},
+                                                   "kernels/csrc/*.cuh",
+                                                   "perf_budget.json",
+                                                   "analysis/baseline.json"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     entry_points={

@@ -1465,3 +1465,109 @@ def test_tiny_resnet_step_on_the_card_matches_the_cpu(cuda, norm):
   for k, v in results["cpu"][1].items():
     torch.testing.assert_close(results["cuda"][1][k], v, rtol=1e-4,
                                atol=1e-5)
+
+
+# ------------------------------------------------------------ the tooling
+
+
+def _tool_gpt(device, dtype, attn_impl="pallas_flash"):
+  """A small GPT train step (head dim 64, the kernels' wgmma shape) of
+  ``bench.build_training`` on ``device``."""
+  from easyparallellibrary_tpu_torch import bench
+  cfg = bench.bench_config(
+      torch.device(device), vocab_size=256, num_layers=2, num_heads=2,
+      d_model=128, d_ff=256, max_seq_len=128, dtype=dtype,
+      attn_impl=attn_impl, remat=True, remat_policy="dots_flash",
+      loss_chunk=64)[0]
+  return bench.build_training(cfg, 2, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn_impl", ["pallas_flash", "xla"])
+def test_compiled_cost_on_the_card_equals_the_cpu_count(cuda, attn_impl):
+  """The FLOPs of one train step counted on the card (the flash kernels,
+  launched through ctypes, counted by formula) equal the count of the
+  same step on the CPU (their plain versions), and the kernels ran."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  from easyparallellibrary_tpu_torch.profiler.flops import compiled_cost
+  counts = {}
+  for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+    state, step, batch, rng, _ = _tool_gpt(dev, dtype, attn_impl)
+    fa.reset_counts()
+    counts[dev] = compiled_cost(step, state, batch, rng)["flops"]
+    if dev == "cuda" and attn_impl == "pallas_flash":
+      assert fa.flash_fwd_cuda.launches == 2
+      assert fa.flash_bwd_dq_cuda.launches == 2
+  assert counts["cuda"] == counts["cpu"] > 0
+
+
+@pytest.mark.gpu
+def test_profile_step_on_the_card_leaves_the_state_and_measures(cuda):
+  from easyparallellibrary_tpu_torch.profiler.profiler import profile_step
+  state, step, batch, rng, _ = _tool_gpt("cuda", torch.bfloat16)
+  state, _m = step(state, batch, rng)
+  before = {k: v.detach().clone() for k, v in state.params.items()}
+  moments = [v.clone() for st in state.opt_state.state.values()
+             for v in st.values()]
+  first = profile_step(step, state, batch, rng)
+  second = profile_step(step, state, batch, rng)
+  assert first["cost_flops"] == second["cost_flops"] > 0
+  assert first["temp_size_in_bytes"] > 0
+  assert first["generated_code_size_in_bytes"] > 0
+  for k, v in state.params.items():
+    assert torch.equal(v, before[k]), k
+  after = [v for st in state.opt_state.state.values() for v in st.values()]
+  assert all(torch.equal(a, b) for a, b in zip(after, moments))
+
+
+@pytest.mark.gpu
+def test_perf_gate_passes_on_the_card(cuda):
+  """The reference twins on the card against the budget generated on the
+  CPU: no violation, the paged twin through K2, every measured peak
+  within the CPU card's static bound."""
+  from easyparallellibrary_tpu_torch.observability import perfgate
+  pa.reset_counts()
+  cards = perfgate.collect_cards(device="cuda")
+  assert pa.paged_attention_cuda.launches > 0
+  assert perfgate.run_gate(cards=cards) == []
+  budget = perfgate.load_budget()
+  for label, card in cards.items():
+    bound = budget["cost_cards"][label]["peak_hbm_bytes"]["max"] / 1.25
+    assert card["peak_hbm_bytes"] <= bound, (label, card["peak_hbm_bytes"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["params", "all"])
+def test_parameter_offload_on_the_card_is_bit_equal(cuda, what):
+  """``offload_to_host(state, what)`` on the card: the blocks' parameters
+  pinned on the host and streamed around each block's forward and remat
+  recompute, the update through the two buffers; three steps bit-equal
+  in loss and parameters to the same steps without offload, with less
+  memory held between steps."""
+  from easyparallellibrary_tpu_torch.runtime.offload import (
+      HostOffloadOptimizer, offload_to_host)
+  import gc
+  runs = []
+  for offload in (False, True):
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    state, step, batch, rng, _ = _tool_gpt("cuda", torch.bfloat16)
+    if offload:
+      state = offload_to_host(state, what=what, bucket_mb=0.05)
+      assert isinstance(state.opt_state, HostOffloadOptimizer)
+      assert state.params["block_0.attn.qkv.weight"].is_pinned()
+      assert state.params["wte.weight"].is_cuda
+    losses = []
+    for _ in range(3):
+      state, m = step(state, batch, rng)
+      losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    runs.append((losses, {k: v.detach().cpu() for k, v in
+                          state.params.items()},
+                 torch.cuda.memory_allocated() - base))
+    del state, step
+  (plain, pp, plain_mem), (off, op, off_mem) = runs
+  assert plain == off
+  assert off_mem < plain_mem, (off_mem, plain_mem)
+  for k, v in pp.items():
+    assert torch.equal(v, op[k]), k

@@ -238,7 +238,7 @@ def ranks2(refs):
                                  num_micro_batch=4),
                             refs[name]["params"], refs[name]["batches"],
                             LR)))
-  cases.append(("not_ported_errors", ()))
+  cases.append(("composition_losses", ()))
   ranks = spawn(pp_workers.suite, 2, (cases,), timeout_s=DEADLINE)
   names = TWO + ["loss_scale", "dropout_1f1b", "dropout_gpipe"] + \
       list(TRAIN) + ["not_ported"]
@@ -417,12 +417,14 @@ def test_pipelined_generate_falls_back_to_full_forward():
 
 def test_not_ported_compositions_raise_naming_the_item(ranks2):
   """ZeRO under the pipeline, a pipelined MoE and a seq axis, which
-  raised until item 10 was ported, now build and take a train step with
-  a finite loss; what still raises (``profile_step``) names ROADMAP
-  Queue 1's item 12."""
-  from easyparallellibrary_tpu_torch import _not_ported
-  assert not hasattr(_not_ported, "PARALLEL_STRATEGIES")
+  raised until they were ported, build and take a train step with a
+  finite loss; ``profile_step``, the last feature that raised, counts
+  2 * 4^3 FLOPs for a [4, 4] product on each rank; and the module that
+  raised "not ported" is gone."""
+  import importlib.util
+  assert importlib.util.find_spec(
+      "easyparallellibrary_tpu_torch._not_ported") is None
   for r in ranks2["not_ported"]:
     for key in ("zero", "moe", "seq"):
       assert np.isfinite(r[key]) and r[key] > 0, (key, r[key])
-    assert r["item"] in r["profile"], r["profile"]
+    assert r["profile_flops"] == 2 * 4 ** 3, r["profile_flops"]
