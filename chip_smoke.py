@@ -82,16 +82,22 @@ phase 10 all 24:
     against the fault-free run, the counters), and the poisoned rows read
     back as zero right after the bad step (shared prefix blocks
     bit-identical);
-16. amp O1 and the fp16 builds: the fp16 flash kernels against their
-    plain versions at phase 7's shapes and the fp16 warp paged kernel at
-    ``engine_step`` and ``spec_step`` (normalized-error limits, their
-    sensitivity to faults), each timed beside its plain version, its
-    bound and SDPA in fp16; the bench's training step (12 layers) with
-    an fp32 GPTConfig under ``amp.level=O1`` against the explicit-bf16
-    config (equal losses); O1-fp16 training at 4 layers (fp16 flash launches);
-    a short O1-fp16 paged serving run through the fp16 warp build; the
-    mixed build (fp16 q over bf16 pools, amp O1 in fp16 over a bf16
-    model config) against its plain version at ``engine_step`` and
+16. amp O1 and the fp16 builds: ``flash_route`` for every dtype and
+    head dim (fp16's forward and dK/dV on the wgmma builds at head dims
+    64 and 128, fp16 dQ on the CUDA cores); the fp16 flash kernels
+    against their plain versions at phase 7's shapes and the fp16 warp
+    paged kernel at ``engine_step`` and ``spec_step`` (normalized-error
+    limits, their sensitivity to faults), each timed beside its plain
+    version, its bound and SDPA in fp16, the flash kernels also beside
+    their bf16 builds in turns; the bench's training step (12 layers)
+    with an fp32 GPTConfig under ``amp.level=O1`` against the
+    explicit-bf16 config (equal losses); O1-fp16 training at 4 layers
+    (fp16 flash launches), then at bench.py's full width (24 layers,
+    16 x 1024) under the dynamic loss scale: step ms, MFU, peak memory,
+    finite losses, 24 launches of each flash kernel a step, no plain
+    version; a short O1-fp16 paged serving run through the fp16 warp
+    build; the mixed build (fp16 q over bf16 pools, amp O1 in fp16 over
+    a bf16 model config) against its plain version at ``engine_step`` and
     ``spec_step`` (``PAGED_MIXED_LIMIT`` and its sensitivity), timed
     beside its plain version, its bound and gather + SDPA in fp32, and a
     short O1-fp16 paged serving run over a bf16 config through it;
@@ -393,6 +399,10 @@ PROFILE_STEPS = 20
 # prefill has started), and phase 16's O1-fp16 training cut.
 TRANSIENT_FAULT, PERSISTENT_FAULT = (6,), (6, 7)
 O1_FP16_LAYERS, O1_FP16_BATCH, O1_STEPS = 4, 4, 3
+# 16c's O1-fp16 run at bench.py's full width (24 layers, 16 x 1024,
+# dots_flash, loss_chunk 256) under the dynamic loss scale: one warm-up
+# step, then O1_FULL_STEPS timed ones.
+O1_FULL_BATCH, O1_FULL_STEPS = 16, 3
 # 16c's O1-over-fp32 against explicit bf16: 12 of the 24 layers (the
 # script's time).
 O1_LAYERS = 12
@@ -1854,11 +1864,41 @@ def serving_resilience(torch, params, pa):
 # ------------------------------------------ phase 16: amp O1 and fp16
 
 
+def flash_routes(torch, fa):
+  """The build each flash kernel takes, by dtype and head dim, as the
+  library's own dispatch gates report it (``flash_route``), against
+  this slice's plan: the wgmma builds for bf16 at head dims 64 and 128
+  (all three kernels) and for fp16's forward and dK/dV there; the CUDA
+  cores for fp16 dQ, for fp32 and at every other head dim.  Returns the
+  fp16 routes at head dim 64, by kernel."""
+  got, want = {}, {}
+  for dtype_name in ("float32", "bfloat16", "float16"):
+    dtype = getattr(torch, dtype_name)
+    for D in (32, 64, 128, 256):
+      for kernel in ("fwd", "dkv", "dq"):
+        tensor_cores = D in (64, 128) and (
+            dtype_name == "bfloat16"
+            or (dtype_name == "float16" and kernel != "dq"))
+        want[dtype_name, D, kernel] = ("wgmma" if tensor_cores
+                                       else "cuda_cores")
+        got[dtype_name, D, kernel] = fa.flash_route(kernel, dtype, D)
+  for dtype_name in ("float32", "bfloat16", "float16"):
+    log(f"   flash_route {dtype_name:8s}: " + "; ".join(
+        f"D={D} " + " ".join(f"{k} {got[dtype_name, D, k]}"
+                             for k in ("fwd", "dkv", "dq"))
+        for D in (32, 64, 128, 256)))
+  assert got == want, {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+  return {k: got["float16", 64, k] for k in ("fwd", "dkv", "dq")}
+
+
 def fp16_flash_parity(torch, fa):
   """The fp16 flash builds against their plain versions at phase 7's
   shapes, causal and not, by normalized error against
-  ``FLASH_FP16_LIMIT``; then the limits' sensitivity.  Returns the max
-  abs error and the largest normalized errors per kernel."""
+  ``FLASH_FP16_LIMIT`` (the forward and dK/dV on the wgmma builds at
+  head dims 64 and 128, dQ and head dim 32 on the CUDA cores, each
+  case's route printed beside it); then the limits' sensitivity.
+  Returns the max abs error and the largest normalized errors per
+  kernel."""
   errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
   rel = {kernel: (0.0, 0.0) for kernel in errs}
   for seed, (label, shape) in enumerate(FLASH_SHAPES):
@@ -1894,8 +1934,10 @@ def fp16_flash_parity(torch, fa):
         rel[kernel] = (max(rel[kernel][0], rel_l2),
                        max(rel[kernel][1], max_rel))
         readings.append(f"{name} {err:.2e} ({rel_l2:.2e}, {max_rel:.2e})")
-      log(f"   {label:14s} float16  causal={causal!s:5s} max|kernel - plain|"
-          f" (rel_l2, max_rel): " + ", ".join(readings))
+      routes = "/".join(fa.flash_route(k, torch.float16, shape["D"])
+                        for k in ("fwd", "dkv", "dq"))
+      log(f"   {label:14s} float16  causal={causal!s:5s} ({routes}) "
+          f"max|kernel - plain| (rel_l2, max_rel): " + ", ".join(readings))
   log(f"   fp16 limits (rel_l2, max_rel): {FLASH_FP16_LIMIT}")
   flash_check_sensitivity(torch, fa, "float16")
   return errs, rel
@@ -1970,8 +2012,10 @@ def fp16_timing(torch, fa, pa):
   """Each fp16 kernel beside its plain version, its bound and the
   library yardstick: the flash kernels at the training shape (B=16 H=16
   S=1024 D=64, causal; SDPA's fp16 forward, and its backward alone),
-  the warp paged build at ``engine_step`` and ``spec_step`` (gather +
-  SDPA in fp16).  The bound counts fp16 bytes and the fp16 peak rate."""
+  and beside them the same kernels in bf16 on the same values, timed in
+  turns (fp16, bf16, bf16, fp16); the warp paged build at
+  ``engine_step`` and ``spec_step`` (gather + SDPA in fp16).  The bound
+  counts fp16 bytes and the fp16 peak rate."""
   sdpa = torch.nn.functional.scaled_dot_product_attention
   shape = FLASH_BENCH_SHAPE
   sets, graphs = [], []
@@ -2006,11 +2050,26 @@ def fp16_timing(torch, fa, pa):
                                   reps=3),
                  library_ms=library_bwd),
   }
+  # The same kernels in bf16 on the same values, in turns with fp16.
+  kernels = {"fwd": (fa.flash_fwd_cuda, fwd_args),
+             "dkv": (fa.flash_bwd_dkv_cuda, bwd_args),
+             "dq": (fa.flash_bwd_dq_cuda, bwd_args)}
+  for name, (fn, args) in kernels.items():
+    as_bf16 = [tuple(x.to(torch.bfloat16) if torch.is_tensor(x)
+                     and x.dtype == torch.float16 else x for x in a)
+               for a in args]
+    turns = [time_ms(torch, fn, args), time_ms(torch, fn, as_bf16),
+             time_ms(torch, fn, as_bf16), time_ms(torch, fn, args)]
+    rows[name]["kernel_ms_turns"] = turns[0], turns[3]
+    rows[name]["bf16_kernel_ms"] = (turns[1] + turns[2]) / 2
   for name, row in rows.items():
     row["bound_ms"], row["bound_by"] = bounds[name]
     log(f"   fp16 {name:4s} B=16 H=16 S=1024 D=64 causal: "
         + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                    for k, v in row.items()))
+                    for k, v in row.items() if k != "kernel_ms_turns")
+        + f"; in turns fp16 {row['kernel_ms_turns'][0]:.4f} / "
+        f"{row['kernel_ms_turns'][1]:.4f}, fp16 / bf16 "
+        f"{row['kernel_ms'] / row['bf16_kernel_ms']:.2f}x")
   paged = {}
   for label in ("engine_step", "spec_step"):
     if label == "engine_step":
@@ -2089,6 +2148,101 @@ def amp_training(torch, fa, bench):
   torch.cuda.empty_cache()
   Env.get().reset()               # build_training installed the O1 config
   return launches
+
+
+def o1_fp16_full_width(torch, fa, bench, params):
+  """The O1-fp16 training path at bench.py's full width: its GPTConfig
+  (24 layers, ``pallas_flash``, ``dots_flash``, ``loss_chunk`` 256) in
+  fp32 under ``amp.level=O1`` fp16 with the dynamic loss scale, through
+  the guarded step (``runtime.trainer``: scaled backward, unscale,
+  ``found_inf`` into fused AdamW), batch ``O1_FULL_BATCH`` x 1024, on a
+  copy of phase 1's ``init_params(seed=0)`` weights.  One warm-up step,
+  then ``O1_FULL_STEPS`` timed with the host clock between
+  synchronizes; every flash count is set to 0 just before the warm-up
+  and read after the last step.  Its peak memory is counted above what
+  the earlier phases left resident (as phase 10 measures training
+  alone), beside the process's peak.  Holds: finite losses, every
+  step's gradients finite, each kernel launched 24 times a step, no
+  plain version called.  Returns the launch counts and the step's
+  numbers."""
+  import easyparallellibrary_tpu_torch as epl
+  from easyparallellibrary_tpu_torch.config import Config
+  from easyparallellibrary_tpu_torch.env import Env
+  from easyparallellibrary_tpu_torch.models.gpt import (
+      GPT, gpt_flops_per_token, gpt_loss)
+  from easyparallellibrary_tpu_torch.ops.adamw import adamw
+  from easyparallellibrary_tpu_torch.parallel import (
+      create_sharded_train_state, parallelize)
+  from easyparallellibrary_tpu_torch.runtime.trainer import (
+      build_train_step, create_train_state)
+  from easyparallellibrary_tpu_torch.utils import prng
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg = bench.bench_config(torch.device("cuda"), dtype=torch.float32)[0]
+  layers, seq = cfg.num_layers, cfg.max_seq_len
+  gc.collect()
+  torch.cuda.synchronize()
+  resident = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  try:
+    epl.init(Config({"amp.level": "O1", "amp.compute_dtype": "fp16",
+                     "amp.loss_scale": "dynamic"}), device="cuda")
+    with epl.replicate(1):
+      model = GPT(cfg)
+    mesh = epl.current_plan().build_mesh()
+    weights = {k: v.clone() for k, v in params.items()}
+    state, sh = create_sharded_train_state(
+        lambda: create_train_state(model, weights,
+                                   adamw(3e-4, weight_decay=0.01)), mesh)
+    step = parallelize(build_train_step(
+        lambda p, b, r: gpt_loss(model, p, b, r)), mesh, sh)
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (O1_FULL_BATCH, seq + 1))
+    batch, rng = {"ids": torch.from_numpy(ids)}, prng.prng_key(0)
+    fa.reset_counts()
+    state, metrics = step(state, batch, rng)
+    records = [metrics]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(O1_FULL_STEPS):
+      state, metrics = step(state, batch, rng)
+      records.append(metrics)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / O1_FULL_STEPS
+    launches = {"fwd": fa.flash_fwd_cuda.launches,
+                "dkv": fa.flash_bwd_dkv_cuda.launches,
+                "dq": fa.flash_bwd_dq_cuda.launches}
+    plain = (fa.flash_fwd_reference.calls, fa.flash_bwd_dkv_reference.calls,
+             fa.flash_bwd_dq_reference.calls)
+    losses = [m["loss"].item() for m in records]
+    finite = [m["grads_finite"].item() for m in records]
+    scales = [m["loss_scale"].item() for m in records]
+    peak = torch.cuda.max_memory_allocated()
+  finally:
+    Env.get().reset()
+  steps = 1 + O1_FULL_STEPS
+  tokens = O1_FULL_BATCH * seq
+  mfu = gpt_flops_per_token(cfg, seq) * tokens / step_s / PEAK_OPS_PER_S[
+      "float16"]
+  log(f"   O1 fp16, {layers} layers, {O1_FULL_BATCH} x {seq}, dynamic loss "
+      f"scale: step {step_s * 1e3:.2f} ms ({O1_FULL_STEPS} steps after 1 "
+      f"warm-up), tokens/s {tokens / step_s:.1f}, MFU {mfu:.4f} of "
+      f"{PEAK_OPS_PER_S['float16']:.3g} FLOP/s, peak memory "
+      f"{(peak - resident) / 2 ** 30:.2f} GiB above the "
+      f"{resident / 2 ** 30:.2f} GiB resident before it (process peak "
+      f"{peak / 2 ** 30:.2f}); losses {losses}, gradients finite {finite}, "
+      f"loss scale {scales}")
+  log(f"   fp16 flash launches {launches} over {steps} steps x {layers} "
+      f"layers; plain-version calls {plain}")
+  assert all(np.isfinite(losses)), losses
+  assert all(f == 1.0 for f in finite), finite
+  assert all(n == layers * steps for n in launches.values()), launches
+  assert plain == (0, 0, 0), plain
+  del state, step, weights
+  torch.cuda.empty_cache()
+  return launches, dict(step_ms=step_s * 1e3, mfu=mfu,
+                        peak_gib=(peak - resident) / 2 ** 30,
+                        resident_gib=resident / 2 ** 30, losses=losses,
+                        loss_scale=scales)
 
 
 def fp16_serving(torch, params, pa):
@@ -6152,12 +6306,15 @@ def main() -> int:
       serving_resilience(torch, serve, pa)
   if want(16):
     with Phase("16a. fp16 builds vs plain versions"):
+      fp16_routes = flash_routes(torch, fa)
       fp16_flash_errs, fp16_flash_rel = fp16_flash_parity(torch, fa)
       fp16_paged_err, fp16_paged_rel = fp16_paged_parity(torch, pa)
     with Phase("16b. fp16 kernel timing"):
       fp16_flash_times, fp16_paged_times = fp16_timing(torch, fa, pa)
     with Phase("16c. amp O1 training (bench's step) and O1-fp16 serving"):
-      fp16_flash_launches = amp_training(torch, fa, bench)
+      fp16_flash_launches_4l = amp_training(torch, fa, bench)
+      fp16_flash_launches, o1_full = o1_fp16_full_width(torch, fa, bench,
+                                                        params)
       fp16_warp_launches = fp16_serving(torch, serve, pa)
     with Phase("16d. the mixed build (fp16 q over bf16 pools): parity, "
                "timing, O1-fp16 serving over a bf16 config"):
@@ -6364,17 +6521,22 @@ def main() -> int:
             "spec_step": times[(dtype_name, "spec_step")],
             "random_tables": times[(dtype_name, "random_tables")]}
 
+  # The fp16 rows' launches are the full-width O1-fp16 run's (16c).
   fp16_flash = [
       kernel_record(name, build, flash_src, replaces,
                     fp16_flash_launches[k], fp16_flash_errs[k],
                     fp16_flash_times[k], fp16_flash_rel[k],
                     FLASH_FP16_LIMIT["fwd" if k == "fwd" else "grad"],
-                    dtype="fp16")
+                    dtype="fp16", build_route=fp16_routes[k],
+                    bf16_ms_same_phase=fp16_flash_times[k]["bf16_kernel_ms"],
+                    launches_o1_4_layers=fp16_flash_launches_4l[k],
+                    o1_fp16_step=o1_full)
       for name, k, build, replaces in (
-          ("flash_attention_fwd_fp16", "fwd", "flash_fwd_kernel<__half, 4>",
-           f"{flash_py}:89 and :241"),
+          ("flash_attention_fwd_fp16", "fwd",
+           "flash_fwd_wgmma_kernel<__half, 64>", f"{flash_py}:89 and :241"),
           ("flash_attention_bwd_dkv_fp16", "dkv",
-           "flash_bwd_dkv_kernel<__half, 4, 4>", f"{flash_py}:133 and :363"),
+           "flash_bwd_dkv_wgmma_kernel<__half, 64>",
+           f"{flash_py}:133 and :363"),
           ("flash_attention_bwd_dq_fp16", "dq",
            "flash_bwd_dq_kernel<__half, 4, 4>", f"{flash_py}:172 and :404"))]
   row = fp16_paged_times["engine_step"]

@@ -264,6 +264,11 @@ class Cluster:
   def num_devices(self) -> int:
     return len(self.devices)
 
+  @property
+  def devices_per_process(self) -> int:
+    """1: the port runs one device per process."""
+    return 1
+
   def build_mesh(self, **requested: int) -> Mesh:
     """Build the 5-axis mesh and its process groups, one a mesh axis
     above 1 (collective: every rank calls it with the same request)."""

@@ -12,14 +12,24 @@
 //               `_bwd_dq_kernel_stream` (:404), launched by
 //               `_bwd_kernels`.
 // The resident/streaming pairs exist only for the TPU's ~16 MB VMEM
-// budget; here one tiled kernel covers every length.  Which build runs:
+// budget; here one tiled kernel covers every length.  Which build runs
+// (wgmma_takes and wg::with_head_dim; epl_flash_route reports it):
 //   bf16, D in {64, 128}: forward, dK/dV and dQ on wgmma with TMA-fed,
 //     double-buffered tiles (namespace wg below);
-//   everything else (fp32 at every D; bf16 at any other D, 32 included;
-//     fp16 at every D): IEEE fp32 FMAs on the CUDA cores.  fp16 tiles are
-//     converted to fp32 as they are loaded, so scores, the running max
-//     and the accumulators stay in fp32 (fp16's range ends at 65504); p
-//     and dS are rounded to fp16 only where the products read them.
+//   fp16, D in {64, 128}: the forward and dK/dV on the same wgmma
+//     kernels, instantiated for __half (the .f16.f16 form of the
+//     instruction, FLOAT16 tensor maps; fragments, descriptors and
+//     swizzle are bf16's);
+//   everything else (fp32 at every D; bf16 and fp16 at any other D, 32
+//     included; fp16 dQ at every D): IEEE fp32 FMAs on the CUDA cores,
+//     16-bit tiles converted to fp32 as they are loaded.
+// In every build scores, the running max, the denominator and the
+// accumulators stay in fp32 (fp16's range ends at 65504); p and dS are
+// rounded to the element type only where the products read them (the
+// wgmma builds: in the A operand's registers), and dK and dQ are scaled
+// in fp32 before they are rounded.  An fp16 dS or dK that overflows
+// under a large loss scale is inf here as in the plain version: the
+// guarded step's found_inf skips that step.
 // Same functions as the Pallas kernels, on [B*H, S, D] row-major tensors:
 //   scores s = (q . k) accumulated in fp32, times scale = 1/sqrt(D) as an
 //   fp32 constant; causal entries (k_pos > q_pos) are -1e30, as the
@@ -51,17 +61,17 @@
 //     copy overlaps the current tile's products.  Products are warpgroup
 //     wgmma: scores (and dP) from two shared-memory operands, then P.V
 //     (forward), P^T.dO and dS^T.Q (dK/dV) or dS.K (dQ) with P / dS
-//     packed to bf16 in registers as the A operand, which is where the
-//     Pallas kernels' roundings of p and dS happen.  The softmax runs on
-//     the accumulator fragments in registers, in base 2 with log2(e)
-//     folded into the score scale; only tiles that cross the causal
-//     diagonal or the key count are masked, and tiles past the diagonal
-//     are skipped.
-//   * fp32, and bf16 at the head dims above not taken, run on the CUDA
-//     cores as IEEE fp32 FMAs (no TF32): 256 threads a CTA, tiles
-//     converted to fp32 in shared memory at row stride D + 1 (odd: column
-//     walks are free of bank conflicts), each thread a 4 x 4 register
-//     micro-tile of the 64 x 64 score tile.
+//     packed to the element type in registers as the A operand, which is
+//     where the Pallas kernels' roundings of p and dS happen.  The
+//     softmax runs on the accumulator fragments in registers, in base 2
+//     with log2(e) folded into the score scale; only tiles that cross the
+//     causal diagonal or the key count are masked, and tiles past the
+//     diagonal are skipped.
+//   * fp32, fp16 dQ, and bf16 and fp16 at the head dims above not taken,
+//     run on the CUDA cores as IEEE fp32 FMAs (no TF32): 256 threads a
+//     CTA, tiles converted to fp32 in shared memory at row stride D + 1
+//     (odd: column walks are free of bank conflicts), each thread a 4 x 4
+//     register micro-tile of the 64 x 64 score tile.
 //   * The forward and dQ grids run their Q tiles from the last (the
 //     longest, under causal masking) to the first, and dK/dV its KV tiles
 //     from the first, so that the heaviest CTAs start first.  They do so
@@ -597,22 +607,30 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Two floats rounded to bf16 and packed as one 32-bit operand register
-// (lo in the low half): a tensor-core A fragment entry.
+// Two floats rounded to T (bf16 or fp16, round to nearest even) and
+// packed as one 32-bit operand register (lo in the low half): a
+// tensor-core A fragment entry, or two adjacent outputs.
+template <typename T>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "a 16-bit T");
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// --------------------------------- wgmma forward and dK/dV (bf16, wg::) --
-// The forward and dK/dV for bf16 at D in {64, 128}.  A CTA is two
+// ------------------------------------- wgmma forward, dK/dV, dQ (wg::) --
+// The wgmma builds, for a 16-bit element type T (bf16, or fp16 where the
+// dispatcher admits it: see wgmma_takes) at D in {64, 128}.  A CTA is two
 // consumer warpgroups (threads 0-255), each owning 64 rows of the CTA's
-// 128-row block (query rows in the forward, key rows in dK/dV), and one
-// producer warp (threads 256-287) whose lane 0 issues the TMA loads.
-// Shared-memory tiles are in the B128 layout of hopper.cuh.
+// 128-row block (query rows in the forward and dQ, key rows in dK/dV),
+// and one producer warp (threads 256-287) whose lane 0 issues the TMA
+// loads.  Shared-memory tiles are in the B128 layout of hopper.cuh.
 namespace wg {
 
-using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 constexpr int kRows = 64;  // a consumer warpgroup's rows: wgmma's M
@@ -629,7 +647,7 @@ constexpr int kDqK = 64;                         // keys a dQ KV tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Bytes of a [rows, D] bf16 tile.
+// Bytes of a [rows, D] tile of a 16-bit type.
 __host__ __device__ constexpr uint32_t tile_bytes(int rows, int D) {
   return rows * D * 2;
 }
@@ -690,12 +708,14 @@ __device__ __forceinline__ void online_softmax(float (&sc)[K], float (&m)[2],
 }
 
 // The A operand of k-step kk of a product whose reduction runs over the
-// columns of accumulator d (columns 16 kk .. 16 kk + 15), rounded to bf16.
-template <int K>
+// columns of accumulator d (columns 16 kk .. 16 kk + 15), rounded to T.
+template <typename T, int K>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
                                          const float (&d)[K], int kk) {
 #pragma unroll
-  for (int x = 0; x < 4; ++x) a[x] = pack(d[8 * kk + 2 * x], d[8 * kk + 2 * x + 1]);
+  for (int x = 0; x < 4; ++x) {
+    a[x] = pack<T>(d[8 * kk + 2 * x], d[8 * kk + 2 * x + 1]);
+  }
 }
 
 // Descriptors of the k-th 16-wide reduction slice of a B128 tile of
@@ -728,12 +748,12 @@ struct FwdLayout {
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                        __grid_constant__ const CUtensorMap k_map,
                        __grid_constant__ const CUtensorMap v_map,
-                       bf16* __restrict__ o, float* __restrict__ lse, int S,
+                       T* __restrict__ o, float* __restrict__ lse, int S,
                        int Skv, int causal, float scale_log2) {
   using L = FwdLayout<D>;
   constexpr int kTile = tile_bytes(kFwdK, D);
@@ -807,8 +827,8 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<kFwdK>(sc, k_major(q_base, kFwdQ, kk),
-                      k_major(k_base, kFwdK, kk), kk > 0);
+      wgmma_ss<T, kFwdK>(sc, k_major(q_base, kFwdQ, kk),
+                         k_major(k_base, kFwdK, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -835,12 +855,12 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     // O += P V, p rounded to V's type in the A operand.
     uint32_t pa[kFwdK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kFwdK / 16; ++kk) acc_to_a(pa[kk], sc, kk);
+    for (int kk = 0; kk < kFwdK / 16; ++kk) acc_to_a<T>(pa[kk], sc, kk);
     fence_operands(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kFwdK / 16; ++kk) {
-      wgmma_rs_mn<D>(acc, pa[kk], mn_major(v_base, kFwdK, kk), 1);
+      wgmma_rs_mn<T, D>(acc, pa[kk], mn_major(v_base, kFwdK, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -855,12 +875,12 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     if (r >= S) continue;
-    bf16* orow = o + (static_cast<size_t>(bh) * S + r) * D;
+    T* orow = o + (static_cast<size_t>(bh) * S + r) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
-          pack(acc[4 * j + 2 * h] / l_safe[h],
-               acc[4 * j + 2 * h + 1] / l_safe[h]);
+          pack<T>(acc[4 * j + 2 * h] / l_safe[h],
+                  acc[4 * j + 2 * h + 1] / l_safe[h]);
     }
     if (t4 == 0) {
       lse[static_cast<size_t>(bh) * S + r] = (m[h] + log2f(l_safe[h])) * kLn2;
@@ -888,7 +908,7 @@ struct DkvLayout {
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                            __grid_constant__ const CUtensorMap k_map,
@@ -896,7 +916,7 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                            __grid_constant__ const CUtensorMap do_map,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           T* __restrict__ dk, T* __restrict__ dv,
                            int S, int Skv, int causal, float scale,
                            float scale_log2) {
   using L = DkvLayout<D>;
@@ -989,10 +1009,10 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<kBwdQ>(st, k_major(k_base, kBwdK, kk),
-                      k_major(q_base, kBwdQ, kk), kk > 0);
-      wgmma_ss<kBwdQ>(dpt, k_major(v_base, kBwdK, kk),
-                      k_major(o_base, kBwdQ, kk), kk > 0);
+      wgmma_ss<T, kBwdQ>(st, k_major(k_base, kBwdK, kk),
+                         k_major(q_base, kBwdQ, kk), kk > 0);
+      wgmma_ss<T, kBwdQ>(dpt, k_major(v_base, kBwdK, kk),
+                         k_major(o_base, kBwdQ, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1022,16 +1042,16 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     uint32_t pa[kBwdQ / 16][4], da[kBwdQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBwdQ / 16; ++kk) {
-      acc_to_a(pa[kk], st, kk);
-      acc_to_a(da[kk], dpt, kk);
+      acc_to_a<T>(pa[kk], st, kk);
+      acc_to_a<T>(da[kk], dpt, kk);
     }
     fence_operands(acc_v);
     fence_operands(acc_k);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBwdQ / 16; ++kk) {
-      wgmma_rs_mn<D>(acc_v, pa[kk], mn_major(o_base, kBwdQ, kk), 1);
-      wgmma_rs_mn<D>(acc_k, da[kk], mn_major(q_base, kBwdQ, kk), 1);
+      wgmma_rs_mn<T, D>(acc_v, pa[kk], mn_major(o_base, kBwdQ, kk), 1);
+      wgmma_rs_mn<T, D>(acc_k, da[kk], mn_major(q_base, kBwdQ, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1044,14 +1064,14 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
   for (int h = 0; h < 2; ++h) {
     const int kr = key + 8 * h;
     if (kr >= Skv) continue;
-    bf16* krow = dk + (static_cast<size_t>(bh) * Skv + kr) * D;
-    bf16* vrow = dv + (static_cast<size_t>(bh) * Skv + kr) * D;
+    T* krow = dk + (static_cast<size_t>(bh) * Skv + kr) * D;
+    T* vrow = dv + (static_cast<size_t>(bh) * Skv + kr) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(krow + 8 * j + 2 * t4) =
-          pack(acc_k[4 * j + 2 * h] * scale, acc_k[4 * j + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(krow + 8 * j + 2 * t4) = pack<T>(
+          acc_k[4 * j + 2 * h] * scale, acc_k[4 * j + 2 * h + 1] * scale);
       *reinterpret_cast<uint32_t*>(vrow + 8 * j + 2 * t4) =
-          pack(acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
+          pack<T>(acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -1077,7 +1097,7 @@ struct DqLayout {
   static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                           __grid_constant__ const CUtensorMap k_map,
@@ -1085,7 +1105,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                           __grid_constant__ const CUtensorMap do_map,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dq, int S, int Skv, int causal,
+                          T* __restrict__ dq, int S, int Skv, int causal,
                           float scale, float scale_log2) {
   using L = DqLayout<D>;
   constexpr int kTile = tile_bytes(kDqK, D);
@@ -1167,10 +1187,10 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<kDqK>(sc, k_major(q_base, kDqQ, kk),
-                     k_major(k_base, kDqK, kk), kk > 0);
-      wgmma_ss<kDqK>(dp, k_major(o_base, kDqQ, kk),
-                     k_major(v_base, kDqK, kk), kk > 0);
+      wgmma_ss<T, kDqK>(sc, k_major(q_base, kDqQ, kk),
+                        k_major(k_base, kDqK, kk), kk > 0);
+      wgmma_ss<T, kDqK>(dp, k_major(o_base, kDqQ, kk),
+                        k_major(v_base, kDqK, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1195,12 +1215,12 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     // dQ += dS K, dS rounded to K's type in the A operand.
     uint32_t da[kDqK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kDqK / 16; ++kk) acc_to_a(da[kk], dp, kk);
+    for (int kk = 0; kk < kDqK / 16; ++kk) acc_to_a<T>(da[kk], dp, kk);
     fence_operands(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDqK / 16; ++kk) {
-      wgmma_rs_mn<D>(acc, da[kk], mn_major(k_base, kDqK, kk), 1);
+      wgmma_rs_mn<T, D>(acc, da[kk], mn_major(k_base, kDqK, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1212,11 +1232,11 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     if (r >= S) continue;
-    bf16* qrow = dq + (static_cast<size_t>(bh) * S + r) * D;
+    T* qrow = dq + (static_cast<size_t>(bh) * S + r) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(qrow + 8 * j + 2 * t4) =
-          pack(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(qrow + 8 * j + 2 * t4) = pack<T>(
+          acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
     }
   }
 }
@@ -1262,26 +1282,50 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Which build takes a call: the three kernels run their wgmma builds for
-// bf16 at D in {64, 128}; everything else runs the CUDA-core kernels.  A
-// refused tensor map or launch is returned, never retried on another
-// build.
+// The three kernels, numbered as epl_flash_route takes them.
+enum FlashKernel { kFwdKernel = 0, kDkvKernel = 1, kDqKernel = 2 };
+
+// Which build takes a call: kernel K in element type T runs its wgmma
+// build when wgmma_takes<T, K>() and wg::with_head_dim takes D (64 or
+// 128): bf16 for all three kernels, fp16 for the forward and dK/dV (fp16
+// dQ still runs on the CUDA cores).  Everything else runs the CUDA-core
+// kernels.  The dispatchers and epl_flash_route read these two gates
+// alone.  A refused tensor map or launch is returned, never retried on
+// another build.
+template <typename T, int K>
+constexpr bool wgmma_takes() {
+  return std::is_same<T, __nv_bfloat16>::value ||
+         (std::is_same<T, __half>::value && K != kDqKernel);
+}
+
+template <typename T>
+int route(int kernel, int D) {
+  bool takes;
+  switch (kernel) {
+    case kFwdKernel: takes = wgmma_takes<T, kFwdKernel>(); break;
+    case kDkvKernel: takes = wgmma_takes<T, kDkvKernel>(); break;
+    case kDqKernel: takes = wgmma_takes<T, kDqKernel>(); break;
+    default: return -1;
+  }
+  return takes && wg::with_head_dim(D, [](auto) {}) ? 1 : 0;
+}
+
 template <typename T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v,
                          void* o, float* lse, int BH, int S, int Skv, int D,
                          int causal, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (wgmma_takes<T, kFwdKernel>()) {
     cudaError_t err = cudaSuccess;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
           CUtensorMap q_map, k_map, v_map;
-          if (!hopper::encode_bf16_rows(&q_map, q, BH, S, kD, wg::kFwdQ) ||
-              !hopper::encode_bf16_rows(&k_map, k, BH, Skv, kD, wg::kFwdK) ||
-              !hopper::encode_bf16_rows(&v_map, v, BH, Skv, kD, wg::kFwdK)) {
+          if (!hopper::encode_rows<T>(&q_map, q, BH, S, kD, wg::kFwdQ) ||
+              !hopper::encode_rows<T>(&k_map, k, BH, Skv, kD, wg::kFwdK) ||
+              !hopper::encode_rows<T>(&v_map, v, BH, Skv, kD, wg::kFwdK)) {
             err = kTensorMapError;
             return;
           }
-          auto kernel = wg::flash_fwd_wgmma_kernel<kD>;
+          auto kernel = wg::flash_fwd_wgmma_kernel<T, kD>;
           const size_t smem = wg::FwdLayout<kD>::kBytes + 1024;
           err = allow_smem(kernel, smem);
           if (err != cudaSuccess) return;
@@ -1316,20 +1360,20 @@ cudaError_t dkv_dispatch(const void* q, const void* k, const void* v,
                          const float* delta, void* dk, void* dv, int BH,
                          int S, int Skv, int D, int causal, float scale,
                          cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (wgmma_takes<T, kDkvKernel>()) {
     cudaError_t err = cudaSuccess;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
           CUtensorMap q_map, k_map, v_map, do_map;
-          if (!hopper::encode_bf16_rows(&q_map, q, BH, S, kD, wg::kBwdQ) ||
-              !hopper::encode_bf16_rows(&k_map, k, BH, Skv, kD, wg::kBwdK) ||
-              !hopper::encode_bf16_rows(&v_map, v, BH, Skv, kD, wg::kBwdK) ||
-              !hopper::encode_bf16_rows(&do_map, dout, BH, S, kD,
-                                        wg::kBwdQ)) {
+          if (!hopper::encode_rows<T>(&q_map, q, BH, S, kD, wg::kBwdQ) ||
+              !hopper::encode_rows<T>(&k_map, k, BH, Skv, kD, wg::kBwdK) ||
+              !hopper::encode_rows<T>(&v_map, v, BH, Skv, kD, wg::kBwdK) ||
+              !hopper::encode_rows<T>(&do_map, dout, BH, S, kD,
+                                      wg::kBwdQ)) {
             err = kTensorMapError;
             return;
           }
-          auto kernel = wg::flash_bwd_dkv_wgmma_kernel<kD>;
+          auto kernel = wg::flash_bwd_dkv_wgmma_kernel<T, kD>;
           const size_t smem = wg::DkvLayout<kD>::kBytes + 1024;
           err = allow_smem(kernel, smem);
           if (err != cudaSuccess) return;
@@ -1366,20 +1410,20 @@ cudaError_t dq_dispatch(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, void* dq, int BH, int S, int Skv,
                         int D, int causal, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (wgmma_takes<T, kDqKernel>()) {
     cudaError_t err = cudaSuccess;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
           CUtensorMap q_map, k_map, v_map, do_map;
-          if (!hopper::encode_bf16_rows(&q_map, q, BH, S, kD, wg::kDqQ) ||
-              !hopper::encode_bf16_rows(&k_map, k, BH, Skv, kD, wg::kDqK) ||
-              !hopper::encode_bf16_rows(&v_map, v, BH, Skv, kD, wg::kDqK) ||
-              !hopper::encode_bf16_rows(&do_map, dout, BH, S, kD,
-                                        wg::kDqQ)) {
+          if (!hopper::encode_rows<T>(&q_map, q, BH, S, kD, wg::kDqQ) ||
+              !hopper::encode_rows<T>(&k_map, k, BH, Skv, kD, wg::kDqK) ||
+              !hopper::encode_rows<T>(&v_map, v, BH, Skv, kD, wg::kDqK) ||
+              !hopper::encode_rows<T>(&do_map, dout, BH, S, kD,
+                                      wg::kDqQ)) {
             err = kTensorMapError;
             return;
           }
-          auto kernel = wg::flash_bwd_dq_wgmma_kernel<kD>;
+          auto kernel = wg::flash_bwd_dq_wgmma_kernel<T, kD>;
           const size_t smem = wg::DqLayout<kD>::kBytes + 1024;
           err = allow_smem(kernel, smem);
           if (err != cudaSuccess) return;
@@ -1487,6 +1531,18 @@ int epl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                causal, scale, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// Which build the dispatcher gives kernel (0 forward, 1 dK/dV, 2 dQ) at
+// dtype (as above) and head dim D: 1 the wgmma build, 0 the CUDA-core
+// build, -1 for a kernel or dtype there is not.
+int epl_flash_route(int kernel, int dtype, int D) {
+  switch (dtype) {
+    case 0: return route<float>(kernel, D);
+    case 1: return route<__nv_bfloat16>(kernel, D);
+    case 2: return route<__half>(kernel, D);
+    default: return -1;
+  }
 }
 
 const char* epl_cuda_error_string(int err) {

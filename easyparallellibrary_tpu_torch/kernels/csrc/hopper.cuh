@@ -5,7 +5,7 @@
 //
 // Tile layout.  Every operand tile in shared memory is the layout that a
 // TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes and that a wgmma
-// descriptor of layout type B128 reads: a [rows, cols] bf16 tile is
+// descriptor of layout type B128 reads: a [rows, cols] 16-bit tile is
 // stored as cols / 64 column blocks of [rows, 64] (one 128-byte row
 // each), block c at byte offset c * rows * 128, each block 1024-byte
 // aligned.  Within a block, the 16-byte chunk j of row r sits at chunk
@@ -25,8 +25,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -154,104 +157,115 @@ __device__ __forceinline__ void fence_operands(float (&d)[K]) {
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64, N] (+)= A[64, 16] B[16, N], bf16 operands, fp32 accumulators in
-// the wgmma fragment layout (thread (warp w, lane 4g + t) of the
-// warpgroup holds rows 16w + g and 16w + g + 8, columns 8j + 2t and
-// 8j + 2t + 1: d[4j + 2h + e] is row 16w + g + 8h, column 8j + 2t + e).
-// scale_d = 0 overwrites D.
+// D[64, N] (+)= A[64, 16] B[16, N], 16-bit operands of type T (bf16 or
+// fp16: the instruction's .bf16.bf16 or .f16.f16 form, with the same
+// fragment layouts and descriptors), fp32 accumulators in the wgmma
+// fragment layout (thread (warp w, lane 4g + t) of the warpgroup holds
+// rows 16w + g and 16w + g + 8, columns 8j + 2t and 8j + 2t + 1:
+// d[4j + 2h + e] is row 16w + g + 8h, column 8j + 2t + e).  scale_d = 0
+// overwrites D.
 //
-// wgmma_ss: A and B from shared memory, both K-major.
-template <int N>
+// wgmma_ss<T, 64>: A and B from shared memory, both K-major.
+// wgmma_rs_mn<T, 64 | 128>: A from registers (the mma.sync m16n8k16 A
+// layout within each warp's 16 rows), B from shared memory MN-major.
+
+// The 16-bit operand types the products take.
+template <typename T>
+__host__ __device__ constexpr bool is_wgmma_operand() {
+  return std::is_same<T, __nv_bfloat16>::value ||
+         std::is_same<T, __half>::value;
+}
+
+#define HOPPER_D32                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31])
+#define HOPPER_D64_HI                                                     \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),        \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),    \
+      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),    \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),    \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),    \
+      "+f"(d[62]), "+f"(d[63])
+#define HOPPER_REGS32                                                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+  "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define HOPPER_REGS64_HI                                                  \
+  "%32, %33, %34, %35, %36, %37, %38, %39,"                               \
+  "%40, %41, %42, %43, %44, %45, %46, %47,"                               \
+  "%48, %49, %50, %51, %52, %53, %54, %55,"                               \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// TY: the PTX operand type, "bf16" or "f16".
+#define HOPPER_WGMMA_SS_64(TY)                                            \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+      HOPPER_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                    \
+      : HOPPER_D32                                                        \
+      : "l"(a), "l"(b), "r"(scale_d))
+#define HOPPER_WGMMA_RS_64(TY)                                            \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+      HOPPER_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"      \
+      : HOPPER_D32                                                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
+#define HOPPER_WGMMA_RS_128(TY)                                           \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
+      HOPPER_REGS32 "," HOPPER_REGS64_HI                                  \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                    \
+      : HOPPER_D32, HOPPER_D64_HI                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
+
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int scale_d);
-// wgmma_rs_mn: A from registers (the mma.sync m16n8k16 A layout within
-// each warp's 16 rows), B from shared memory MN-major.
-template <int N>
+                                         uint64_t b, int scale_d) {
+  static_assert(is_wgmma_operand<T>() && N == 64, "no such wgmma_ss");
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_WGMMA_SS_64("f16");
+  } else {
+    HOPPER_WGMMA_SS_64("bf16");
+  }
+}
+
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
-                                            uint64_t b, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+  static_assert(is_wgmma_operand<T>() && (N == 64 || N == 128),
+                "no such wgmma_rs_mn");
+  if constexpr (N == 64) {
+    if constexpr (std::is_same<T, __half>::value) {
+      HOPPER_WGMMA_RS_64("f16");
+    } else {
+      HOPPER_WGMMA_RS_64("bf16");
+    }
+  } else {
+    if constexpr (std::is_same<T, __half>::value) {
+      HOPPER_WGMMA_RS_128("f16");
+    } else {
+      HOPPER_WGMMA_RS_128("bf16");
+    }
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs_mn<64>(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
-      "p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_mn<128>(float (&d)[64],
-                                                const uint32_t (&a)[4],
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, "
-      "p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
+#undef HOPPER_WGMMA_RS_128
+#undef HOPPER_WGMMA_RS_64
+#undef HOPPER_WGMMA_SS_64
+#undef HOPPER_REGS64_HI
+#undef HOPPER_REGS32
+#undef HOPPER_D64_HI
+#undef HOPPER_D32
 
 // -------------------------------------------------------- tensor maps --
 
@@ -282,27 +296,36 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A [depth, rows, cols] row-major bf16 tensor (cols a multiple of 64, the
-// base 16-byte aligned) as a 3-D map read in boxes of (64 columns,
-// box_rows rows, one matrix) into the B128 tile layout.  Rows past `rows`
-// read as zeros: a tail tile never sees the next matrix.  False if
-// cuTensorMapEncodeTiled refuses the map.
-inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int depth,
-                             int rows, int cols, int box_rows) {
+// The tensor-map element type of a 16-bit operand type.
+template <typename T>
+constexpr CUtensorMapDataType tensor_map_type() {
+  static_assert(is_wgmma_operand<T>(), "no tensor map type");
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// A [depth, rows, cols] row-major tensor of 16-bit T (bf16 or fp16; cols
+// a multiple of 64, the base 16-byte aligned) as a 3-D map read in boxes
+// of (64 columns, box_rows rows, one matrix) into the B128 tile layout.
+// Rows past `rows` read as zeros: a tail tile never sees the next
+// matrix.  False if cuTensorMapEncodeTiled refuses the map.
+template <typename T>
+inline bool encode_rows(CUtensorMap* map, const void* base, int depth,
+                        int rows, int cols, int box_rows) {
+  static_assert(sizeof(T) == 2, "a 16-bit element: 64 columns, 128 bytes");
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(depth)};
   const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(cols) * sizeof(__nv_bfloat16),
-      static_cast<cuuint64_t>(rows) * cols * sizeof(__nv_bfloat16)};
+      static_cast<cuuint64_t>(cols) * sizeof(T),
+      static_cast<cuuint64_t>(rows) * cols * sizeof(T)};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map, tensor_map_type<T>(), 3, const_cast<void*>(base), dims,
+                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -7,10 +7,13 @@ another dQ (a CTA per Q tile).  The kernels live in
 ``csrc/flash_attention.cu`` and replace the six Pallas bodies; the
 resident/streaming split of the TPU version answered its VMEM budget and
 has no counterpart here.  In bf16 at head dims 64 and 128 the three
-kernels read their tiles through TMA tensor maps, which the library
-encodes on every call from the pointers and sizes given (3 maps for the
-forward, 4 each for dK/dV and dQ).  fp32, fp16, and bf16 at other head
-dims run the CUDA-core build, which accumulates in fp32.
+kernels run their wgmma builds, which read their tiles through TMA
+tensor maps that the library encodes on every call from the pointers
+and sizes given (3 maps for the forward, 4 each for dK/dV and dQ); in
+fp16 at those head dims the forward and dK/dV run the same builds
+instantiated for fp16.  fp32, fp16 dQ, and both 16-bit types at other
+head dims run the CUDA-core build, which accumulates in fp32.
+``flash_route`` says which build a call takes.
 
 Each of the three functions comes in three forms, kernel layout
 ``[B, H, S, D]`` (``lse`` and ``delta`` ``[B, H, S]`` fp32):
@@ -157,7 +160,31 @@ def _library():
       fn.restype = ctypes.c_int
     lib.epl_cuda_error_string.argtypes = [i]
     lib.epl_cuda_error_string.restype = ctypes.c_char_p
+    lib.epl_flash_route.argtypes = [i, i, i]
+    lib.epl_flash_route.restype = i
   return lib
+
+
+_ROUTE_KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}
+
+
+def flash_route(kernel: str, dtype: torch.dtype, D: int) -> str:
+  """The build the dispatcher gives ``kernel`` (``"fwd"``, ``"dkv"`` or
+  ``"dq"``) in ``dtype`` at head dim ``D``: ``"wgmma"`` (the tensor-core
+  build) or ``"cuda_cores"``.  The library answers from the gates its
+  dispatchers read (``epl_flash_route``), so it is built at the first
+  call: on a machine with ``nvcc``."""
+  if kernel not in _ROUTE_KERNELS:
+    raise ValueError(f"flash_route: kernel {kernel!r} is not one of "
+                     f"{sorted(_ROUTE_KERNELS)}")
+  if dtype not in _DTYPE_CODES:
+    raise ValueError(f"flash_route: dtype {dtype} is not one of "
+                     f"{list(_DTYPE_CODES)}")
+  code = _library().epl_flash_route(_ROUTE_KERNELS[kernel],
+                                    _DTYPE_CODES[dtype], int(D))
+  if code not in (0, 1):
+    raise RuntimeError(f"epl_flash_route({kernel}, {dtype}, {D}) = {code}")
+  return "wgmma" if code == 1 else "cuda_cores"
 
 
 def _check(name, q, k, v, dout=None, lse=None, delta=None):

@@ -19,7 +19,8 @@ from easyparallellibrary_tpu_torch.serving.kv_cache import (
 from easyparallellibrary_tpu_torch.serving.prefix_cache import (
     PrefixCache, block_prefix_keys)
 from easyparallellibrary_tpu_torch.serving.resilience import (
-    DEGRADE_LEVELS, AdmissionController, BadStepPolicy, ReplicaHealth)
+    DEGRADE_LEVELS, HEALTH_STATES, AdmissionController, BadStepPolicy,
+    ReplicaHealth)
 from easyparallellibrary_tpu_torch.serving.autoscale import FleetAutoscaler
 from easyparallellibrary_tpu_torch.serving.autotune import (
     TUNE_LEVELS, EngineAutotuner)
@@ -39,7 +40,8 @@ __all__ = [
     "BlockAllocator", "ContinuousBatchingEngine", "Drafter",
     "DraftModelDrafter", "EngineAutotuner", "EngineReplica",
     "FCFSScheduler", "FleetAutoscaler", "RolloutController", "TUNE_LEVELS",
-    "FINISH_REASONS", "FinishedRequest", "InprocTransport", "NgramDrafter",
+    "FINISH_REASONS", "FinishedRequest", "HEALTH_STATES", "InprocTransport",
+    "NgramDrafter",
     "PagedStepPlan", "PrefixCache", "PRIORITIES", "ProcessTransport",
     "RemoteError", "ReplicaDeadError", "ReplicaHealth", "ReplicaTransport",
     "Request", "Router", "SlotAllocator", "StepPlan", "TransportError",

@@ -243,7 +243,9 @@ class ContinuousBatchingEngine:
   (``observability.registry.MetricRegistry``) receive the per-step
   ``serving/*`` records; ``track_prefix`` names this engine's Perfetto
   tracks (default ``"serving"``); ``checkpoint_version`` is the version
-  of the weights served (0 before any rollout).
+  of the weights served (0 before any rollout).  ``donate_cache`` is
+  taken for the JAX package's signature and ignored: the port donates
+  nothing, since the eager step writes the caches in place.
   """
 
   def __init__(self, model, params, *, device=None, mesh=None,
@@ -252,6 +254,7 @@ class ContinuousBatchingEngine:
                prefill_token_budget: Optional[int] = None,
                max_batch: Optional[int] = None,
                stop_token: Optional[int] = None,
+               donate_cache: Optional[bool] = None,
                drafter=None, speculative: Optional[bool] = None,
                draft_model=None, draft_params=None,
                resilience: Optional[bool] = None,
@@ -839,7 +842,12 @@ class ContinuousBatchingEngine:
     skips the drafter.  Returns ``num_draft [N]``."""
     N = plan.draft_cap.shape[0]
     if not self.scheduler.spec_enabled:
-      self.drafter.observe_skip(plan)
+      # getattr: observe_skip postdates the drafter protocol, so a
+      # duck-typed drafter without it must not crash the engine the
+      # first time the ladder reaches spec_off.
+      skip = getattr(self.drafter, "observe_skip", None)
+      if skip is not None:
+        skip(plan)
       return np.zeros((N,), np.int32)
     if self._tp > 1 and getattr(self.drafter, "mesh", None) is not None:
       # A draft model on the mesh runs its rollouts on every rank.

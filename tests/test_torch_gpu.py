@@ -154,10 +154,18 @@ def test_flash_ragged_tail_reads_nothing_of_the_next_head(cuda, causal, D):
   head's q, k, v and dO are 1e3 times larger: a leak into head 0's tail
   would show in head 0's outputs, which must still match the plain
   versions."""
+  _check_ragged_tail(cuda, torch.bfloat16, 1e3, causal, D,
+                     _assert_flash_close)
+
+
+def _check_ragged_tail(device, dtype, factor, causal, D, close):
+  """Head 1 of [2, 2, 200, D] inputs scaled by ``factor``; every output
+  finite, head 0's against its plain version by ``close(got, want,
+  kind, name)``."""
   from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
-  q, k, v, dout = _flash_case(cuda, torch.bfloat16, 11, 2, 2, 200, 200, D)
+  q, k, v, dout = _flash_case(device, dtype, 11, 2, 2, 200, 200, D)
   for x in (q, k, v, dout):
-    x[:, 1] *= 1e3
+    x[:, 1] *= factor
   out, lse = fa.flash_fwd(q, k, v, causal)
   want_out, want_lse = fa.flash_fwd_reference(q, k, v, causal)
   delta = (dout.float() * want_out.float()).sum(-1)
@@ -170,12 +178,12 @@ def test_flash_ragged_tail_reads_nothing_of_the_next_head(cuda, causal, D):
   torch.cuda.synchronize()
   for got in (out, lse, dk, dv, dq):
     assert bool(torch.isfinite(got).all())
-  _assert_flash_close(out[:, 0], want_out[:, 0], "fwd", "out, head 0")
+  close(out[:, 0], want_out[:, 0], "fwd", "out, head 0")
   torch.testing.assert_close(lse[:, 0], want_lse[:, 0], rtol=2e-5,
                              atol=2e-6)
-  _assert_flash_close(dk[:, 0], want_dk[:, 0], "grad", "dk, head 0")
-  _assert_flash_close(dv[:, 0], want_dv[:, 0], "grad", "dv, head 0")
-  _assert_flash_close(dq[:, 0], want_dq[:, 0], "grad", "dq, head 0")
+  close(dk[:, 0], want_dk[:, 0], "grad", "dk, head 0")
+  close(dv[:, 0], want_dv[:, 0], "grad", "dv, head 0")
+  close(dq[:, 0], want_dq[:, 0], "grad", "dq, head 0")
 
 
 @pytest.mark.gpu
@@ -468,13 +476,20 @@ def _assert_normalized_close(got, want, limit, name):
     (1, 2, 128, 192, 128),
     (1, 2, 96, 96, 256),
     (1, 1, 1, 1, 64),
+    (2, 16, 1024, 1024, 64),
 ])
 def test_flash_fp16_kernels_match_plain_versions(cuda, causal, B, H, S, Skv,
                                                  D):
-  """The fp16 builds (the CUDA-core kernels instantiated for __half) at
-  ragged lengths, a key length past the query length, a one-token
-  sequence and head dims 8 to 256."""
+  """The fp16 builds at ragged lengths, a key length past the query
+  length, a one-token sequence, head dims 8 to 256 and the training
+  shape (batch cut to 2): the forward and dK/dV on the wgmma builds at
+  head dims 64 and 128, dQ and every other head dim on the CUDA-core
+  kernels, as ``flash_route`` reports."""
   from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  tensor_cores = D in (64, 128)
+  assert [fa.flash_route(k, torch.float16, D) for k in ("fwd", "dkv", "dq")
+          ] == ["wgmma" if tensor_cores else "cuda_cores"] * 2 + [
+              "cuda_cores"], D
   q, k, v, dout = _flash_case(cuda, torch.float16, 17, B, H, S, Skv, D)
   launches = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dkv_cuda.launches,
               fa.flash_bwd_dq_cuda.launches)
@@ -493,9 +508,38 @@ def test_flash_fp16_kernels_match_plain_versions(cuda, causal, B, H, S, Skv,
   assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.float16
   _assert_normalized_close(out, want_out, FLASH_FP16_LIMIT["fwd"], "out")
   torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-6)
-  for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
-                          ("dv", dv, want_dv)):
+  grads = [("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)]
+  if Skv == 1:
+    # One key: the softmax has no gradient with respect to its only
+    # score, so the exact dK is 0, and dS = p (dP - delta) is the
+    # difference of two fp32 sums of the same D products of dO and V,
+    # taken in other orders by the wgmma build and by the plain version
+    # (the CUDA-core dQ takes the plain version's order).  The plain
+    # version is then no reference for dK: both are held to 0 within
+    # that rounding, 2 D 2^-24 max(sum |dO V|) max|q| / sqrt(D), with
+    # fp16's relative and subnormal rounding of dS and dK on top.
+    terms = (dout.float() * v.float()).abs().sum(-1).max()
+    bound = (2 * D * 2.0 ** -24 * terms * (1 + 2.0 ** -10)
+             * q.float().abs().max() / D ** 0.5 + 2.0 ** -24).item()
+    for name, got in (("dk", dk), ("plain dk", want_dk)):
+      assert got.float().abs().max().item() <= bound, (name, bound)
+    grads = [g for g in grads if g[0] != "dk"]
+  for name, got, want in grads:
     _assert_normalized_close(got, want, FLASH_FP16_LIMIT["grad"], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_fp16_ragged_tail_reads_nothing_of_the_next_head(cuda, causal,
+                                                              D):
+  """The fp16 wgmma builds (forward, dK/dV) read their tiles through
+  FLOAT16 TMA maps: at S = 200 the rows past S arrive as zeros, not as
+  the next head's.  The next head is 10 times larger (1e3 would take its
+  own dK past fp16's range)."""
+  def close(got, want, kind, name):
+    _assert_normalized_close(got, want, FLASH_FP16_LIMIT[kind], name)
+  _check_ragged_tail(cuda, torch.float16, 10.0, causal, D, close)
 
 
 @pytest.mark.gpu

@@ -7,6 +7,7 @@ the CPU on their own: without a GPU they raise unless the caller passes
 """
 
 import ast
+import re
 import pathlib
 
 import numpy as np
@@ -214,3 +215,125 @@ def test_every_jax_module_has_a_port_counterpart():
   for path in PORT.rglob("*.py"):
     text = path.read_text()
     assert "not_ported" not in text and "not ported" not in text, path
+
+
+# ------------------------------------------------ the packages' exports --
+
+# JAX public names the port leaves out on purpose (ROADMAP.md Queue 3):
+# sharding objects with no PyTorch meaning, and the TPU kernel's Pallas
+# entry, whose role the CUDA wrapper plays.  Each names the module that
+# exports it in the JAX package; test_deliberate_differences_are_current
+# keeps the list from going stale.
+DELIBERATE_DIFFERENCES = {
+    "kernels.paged_attention_pallas":
+        "the Pallas call; the port's is paged_attention_cuda",
+    "parallel.batch_sharding": "a jax.sharding.NamedSharding",
+    "parallel.named_sharding": "a jax.sharding.NamedSharding",
+    "parallel.replicated_sharding": "a jax.sharding.NamedSharding",
+    "serving.kv_cache.kv_spec": "a PartitionSpec of the cache",
+    "observability.device.specs_of": "PartitionSpecs of a jax.Array tree",
+    "ops.layers.PaddedPartitioned": "flax partitioning metadata",
+    "ops.layers.default_kernel_init": "a flax initializer",
+    "utils.pytree.tree_map_with_path_str": "a jax.tree_util path walk",
+    "runtime.offload.DEVICE_MEMORY_KIND": "a jax memory kind",
+}
+
+
+def _top_level(path):
+  """``(names bound at the top level of a source, its __all__ or None)``:
+  what its own imports, assignments and definitions bind (a submodule
+  imported elsewhere does not count)."""
+  tree = ast.parse(path.read_text(), filename=str(path))
+  names, exported = set(), None
+  for node in tree.body:
+    if isinstance(node, (ast.Assign, ast.AnnAssign)):
+      targets = node.targets if isinstance(node, ast.Assign) else [
+          node.target]
+      for target in targets:
+        if isinstance(target, ast.Name) and target.id == "__all__":
+          exported = set(ast.literal_eval(node.value))
+        elif isinstance(target, ast.Name):
+          names.add(target.id)
+    elif isinstance(node, (ast.Import, ast.ImportFrom)):
+      names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+      names.add(node.name)
+  return names, exported
+
+
+def _bound_names(init):
+  """The public names an ``__init__.py`` exports: its ``__all__`` when
+  it has one, else the public names its top level binds."""
+  names, exported = _top_level(init)
+  if exported is not None:
+    return exported
+  return {n for n in names if not n.startswith("_")}
+
+
+def _jax_packages():
+  jax_root = ROOT / "easyparallellibrary_tpu"
+  return sorted(p.parent.relative_to(jax_root).as_posix()
+                for p in jax_root.rglob("__init__.py"))
+
+
+@pytest.mark.parametrize("package", _jax_packages())
+def test_package_exports_match_the_jax_package(package):
+  """Every public name of a JAX package's ``__init__`` is bound by the
+  port's namesake ``__init__`` too, or is a deliberate difference; and
+  each bound name resolves once the port's package is imported."""
+  import importlib
+  jax_init = ROOT / "easyparallellibrary_tpu" / package / "__init__.py"
+  port_init = PORT / package / "__init__.py"
+  assert port_init.is_file(), package
+  prefix = "" if package == "." else package.replace("/", ".") + "."
+  port_names = _bound_names(port_init)
+  missing = sorted(n for n in _bound_names(jax_init) - port_names
+                   if prefix + n not in DELIBERATE_DIFFERENCES)
+  assert not missing, f"{package}: the port does not export {missing}"
+  module = importlib.import_module(
+      "easyparallellibrary_tpu_torch" + ("" if package == "."
+                                         else "." + prefix[:-1]))
+  assert all(hasattr(module, n) for n in port_names), package
+
+
+def test_deliberate_differences_are_current():
+  """Each listed name is bound by the JAX package's module and by no
+  top level of the port's namesake (read from the sources: the JAX
+  package is not imported here)."""
+  for dotted in DELIBERATE_DIFFERENCES:
+    *mod, name = dotted.split(".")
+    paths = []
+    for root in (ROOT / "easyparallellibrary_tpu", PORT):
+      base = root.joinpath(*mod)
+      paths.append(base / "__init__.py" if base.is_dir()
+                   else base.with_suffix(".py"))
+    assert name in _top_level(paths[0])[0], dotted
+    names, exported = _top_level(paths[1])
+    assert name not in names | (exported or set()), dotted
+
+
+def test_cluster_counts_one_device_per_process():
+  """``Cluster.devices_per_process`` as JAX ``cluster.py`` has it: the
+  port runs one device per process."""
+  from easyparallellibrary_tpu_torch.cluster import Cluster
+  assert Cluster(device="cpu").devices_per_process == 1
+  assert Cluster(devices=[torch.device("cpu")]).devices_per_process == 1
+
+
+def test_engine_takes_donate_cache_and_ignores_it():
+  """The JAX engine's ``donate_cache`` keyword: taken, and the same
+  greedy stream whichever value it has."""
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  from easyparallellibrary_tpu_torch.testing.factories import tiny_gpt
+  model, params = tiny_gpt(device="cpu")
+  outs = []
+  for donate in (None, True, False):
+    eng = ContinuousBatchingEngine(model, params, device="cpu",
+                                   num_slots=2, prefill_chunk=4,
+                                   donate_cache=donate)
+    eng.submit(Request(uid="a", prompt=np.array([1, 2, 3], np.int32),
+                       max_new_tokens=4))
+    outs.append(eng.run()["a"])
+    eng.close()
+  assert all(np.array_equal(o, outs[0]) for o in outs), outs

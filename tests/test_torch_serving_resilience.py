@@ -29,7 +29,8 @@ from easyparallellibrary_tpu.models import GPT as JaxGPT
 from easyparallellibrary_tpu.models import GPTConfig as JaxGPTConfig
 from easyparallellibrary_tpu.models.gpt import generate as jax_generate
 from easyparallellibrary_tpu.serving import (
-    ContinuousBatchingEngine as JaxEngine, Request as JaxRequest)
+    ContinuousBatchingEngine as JaxEngine, NgramDrafter as JaxNgramDrafter,
+    Request as JaxRequest)
 from easyparallellibrary_tpu.serving import resilience as jres
 from easyparallellibrary_tpu.testing import chaos as jchaos
 import easyparallellibrary_tpu_torch as tepl
@@ -405,6 +406,49 @@ def test_the_ladder_switches_speculation_off_and_clamps_the_budget():
   eng._apply_degradation()
   assert eng._admission.budget_tightened
   assert eng.scheduler._effective_budget() == eng.chunk
+
+
+class _DuckDrafter:
+  """A drafter written before ``observe_skip`` joined the protocol: it
+  has ``k``, ``bind``, ``propose`` and ``observe_commit`` only, and
+  forwards them to the n-gram drafter it wraps."""
+
+  def __init__(self, inner):
+    self._inner = inner
+    self.k = inner.k
+
+  def bind(self, engine):
+    self._inner.bind(engine)
+
+  def propose(self, plan, histories):
+    return self._inner.propose(plan, histories)
+
+  def observe_commit(self, new_cursors):
+    self._inner.observe_commit(new_cursors)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_a_drafter_without_observe_skip_survives_spec_off(layout):
+  """With speculation off (the ladder's spec_off) the engine skips the
+  drafter; one without ``observe_skip`` must not crash it.  Streams
+  token-equal to the JAX engine's with the same duck drafter."""
+  jmodel, jparams, tmodel, tparams = _models()
+  prompts = _prompts((4, 6), seed=11)
+  eng = _engine(tmodel, tparams, layout, prefill_chunk=8,
+                drafter=_DuckDrafter(NgramDrafter(k=2)))
+  jeng = JaxEngine(jmodel, jparams, num_slots=2, prefill_chunk=8,
+                   drafter=_DuckDrafter(JaxNgramDrafter(k=2)),
+                   **LAYOUTS[layout])
+  assert not hasattr(eng.drafter, "observe_skip")
+  for e, cls in ((eng, Request), (jeng, JaxRequest)):
+    e.scheduler.spec_enabled = False
+    for i, p in enumerate(prompts):
+      e.submit(cls(uid=i, prompt=p, max_new_tokens=6))
+  out, jout = eng.run(), jeng.run()
+  assert sorted(out) == sorted(jout) == [0, 1]
+  for i, p in enumerate(prompts):
+    np.testing.assert_array_equal(out[i], np.asarray(jout[i]))
+    np.testing.assert_array_equal(out[i], _oracle(jmodel, jparams, p, 6))
 
 
 # ------------------------------------------------------------- sanitize --
