@@ -83,24 +83,29 @@ phase 10 all 24:
     back as zero right after the bad step (shared prefix blocks
     bit-identical);
 16. amp O1 and the fp16 builds: ``flash_route`` for every dtype and
-    head dim (fp16's forward and dK/dV on the wgmma builds at head dims
-    64 and 128, fp16 dQ on the CUDA cores); the fp16 flash kernels
-    against their plain versions at phase 7's shapes and the fp16 warp
-    paged kernel at ``engine_step`` and ``spec_step`` (normalized-error
-    limits, their sensitivity to faults), each timed beside its plain
-    version, its bound and SDPA in fp16, the flash kernels also beside
-    their bf16 builds in turns; the bench's training step (12 layers)
+    head dim (fp16's forward, dK/dV and dQ on the wgmma builds at head
+    dims 64 and 128) and ``paged_route`` for every pair of types and
+    head dim; the fp16 flash kernels against their plain versions at
+    phase 7's shapes and the fp16 paged kernel (the slot-tiled build at
+    head dims 64 and 128, the warp build at 32) at ``engine_step``,
+    ``spec_step`` and ``rollout_step`` (normalized-error limits, their
+    sensitivity to faults), each timed beside its plain version, its
+    bound and SDPA in fp16, the flash kernels also beside their bf16
+    builds in turns, the tiled paged build beside the warp build it
+    replaced; the bench's training step (12 layers)
     with an fp32 GPTConfig under ``amp.level=O1`` against the
     explicit-bf16 config (equal losses); O1-fp16 training at 4 layers
     (fp16 flash launches), then at bench.py's full width (24 layers,
     16 x 1024) under the dynamic loss scale: step ms, MFU, peak memory,
     finite losses, 24 launches of each flash kernel a step, no plain
-    version; a short O1-fp16 paged serving run through the fp16 warp
-    build; the mixed build (fp16 q over bf16 pools, amp O1 in fp16 over
-    a bf16 model config) against its plain version at ``engine_step`` and
-    ``spec_step`` (``PAGED_MIXED_LIMIT`` and its sensitivity), timed
-    beside its plain version, its bound and gather + SDPA in fp32, and a
-    short O1-fp16 paged serving run over a bf16 config through it;
+    version; a short O1-fp16 paged serving run through the fp16 tiled
+    build; the mixed case (fp16 q over bf16 pools, amp O1 in fp16 over a
+    bf16 model config: the tiled build's tf32 instantiation at head dims
+    64 and 128, the mixed warp build at 32) against its plain version at
+    ``engine_step``, ``spec_step`` and ``rollout_step``
+    (``PAGED_MIXED_LIMIT`` and its sensitivity), timed beside its plain
+    version, the mixed warp build, its bound and gather + SDPA in fp32,
+    and a short O1-fp16 paged serving run over a bf16 config through it;
 17. serving observability, GPT-350M bf16: phase 5's load through the
     paged engine (n-gram drafter, prefix cache) with the tracer, the SLO
     monitor, the device introspector and a JSONL registry sink on,
@@ -323,10 +328,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the peak rates the
-# bound uses for each input type (fp32 without tensor cores, bf16 dense
-# tensor cores).
+# bound uses for each operand type (fp32 without tensor cores, bf16 and
+# fp16 dense tensor cores, tf32: the mixed paged build's products).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
+                  "tfloat32": 495e12}
 
 GPT_350M = dict(vocab_size=32768, num_layers=24, num_heads=16, d_model=1024,
                 d_ff=4096, max_seq_len=1024)
@@ -354,15 +360,15 @@ FLASH_TOLERANCE = dict(fwd=(2e-5, 2e-6), grad=(5e-4, 1e-5))
 # flash_check_sensitivity shows the faults they catch.
 FLASH_BF16_LIMIT = {"fwd": dict(rel_l2=5e-3, max_rel=1e-2),
                     "grad": dict(rel_l2=5e-4, max_rel=1e-2)}
-# fp16 (the CUDA-core builds instantiated for __half): the same rule.
-# The largest readings over phase 7's shapes on an NVIDIA H100 80GB HBM3
-# at 700 W: out 2.8e-4 /
-# 7.0e-4; the gradients 0 (the CUDA-core backward sums in the order of
-# the plain version's fp32 products, and fp16 output hides the rest).
+# fp16: the same rule.  Set when every fp16 kernel ran on the CUDA
+# cores, from the largest readings over phase 7's shapes on an NVIDIA
+# H100 80GB HBM3 at 700 W: out 2.8e-4 / 7.0e-4; the gradients 0 (that
+# backward summed in the order of the plain version's fp32 products).
 # The forward limits are 3.5 / 2.9 times its readings; the gradient
 # limits catch every fault flash_check_sensitivity must catch, at 0.6 /
 # 0.4 of the smallest such reading (tests/test_torch_gpu.py holds its
-# shapes to them).
+# shapes to them).  The wgmma builds at head dims 64 and 128 sum in
+# another order, so their gradients read above 0, inside these limits.
 FLASH_FP16_LIMIT = {"fwd": dict(rel_l2=1e-3, max_rel=2e-3),
                     "grad": dict(rel_l2=2e-4, max_rel=2e-3)}
 # The fp16 warp paged build against its plain version (p rounded after
@@ -544,13 +550,14 @@ def scheduled_step_case(torch, dtype, seed, kind, H=16, hd=64):
            runs) for p in calls]
 
 
-def paged_bound(torch, q, kp, tables, positions, out_itemsize=None):
+def paged_bound(torch, q, kp, tables, positions, out_itemsize=None,
+                ops_type=None):
   """(least ms, "bytes" | "operations") for one paged-attention call on
   these inputs: the K/V rows it must read (each distinct pool row once,
   in the pools' type), q, the live table entries, positions and the
   output (``out_itemsize`` bytes a value, by default q's), over the HBM
-  rate; ~4 operations per attended K/V element over the input type's
-  peak rate."""
+  rate; ~4 operations per attended K/V element over the peak rate of
+  ``ops_type`` (a ``PEAK_OPS_PER_S`` key, by default q's type)."""
   T, H, hd = q.shape
   bs, MB = kp.shape[1], tables.shape[1]
   pos = positions.cpu().numpy().astype(np.int64)
@@ -567,7 +574,7 @@ def paged_bound(torch, q, kp, tables, positions, out_itemsize=None):
             + q.numel() * (itemsize + out_itemsize)
             + 4 * int((last // bs + 1).sum()) + 4 * T)
   ops = 4 * int((last + 1).sum()) * H * hd
-  dtype = str(q.dtype).replace("torch.", "")
+  dtype = ops_type or str(q.dtype).replace("torch.", "")
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
   return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -678,7 +685,7 @@ def kernel_parity(torch, pa):
         calls = [(args, None, runs)]
       err = 0.0
       for args, plan_pos, runs in calls:
-        tiled = pa.takes_tiles(dtype, args[0].shape[2])
+        tiled = pa.takes_tiles(dtype, dtype, args[0].shape[2])
         before = pa.paged_attention_tiled_cuda.launches
         outs = [pa.paged_attention(*args)]  # the dispatcher -> the kernel
         if tiled and runs is not None:
@@ -729,7 +736,7 @@ def kernel_timing(torch, pa):
                  for i in range(4)]
       sets = [args for args, _ in cases]
       kernel_sets = sets
-      if pa.takes_tiles(dtype, sets[0][0].shape[2]):
+      if pa.takes_tiles(dtype, dtype, sets[0][0].shape[2]):
         kernel_sets = [(*args, paged_tiles(pa, args, runs))
                        for args, runs in cases]
       bound, bound_by = paged_bound(torch, *[sets[0][i] for i in (0, 1, 3,
@@ -1867,18 +1874,15 @@ def serving_resilience(torch, params, pa):
 def flash_routes(torch, fa):
   """The build each flash kernel takes, by dtype and head dim, as the
   library's own dispatch gates report it (``flash_route``), against
-  this slice's plan: the wgmma builds for bf16 at head dims 64 and 128
-  (all three kernels) and for fp16's forward and dK/dV there; the CUDA
-  cores for fp16 dQ, for fp32 and at every other head dim.  Returns the
-  fp16 routes at head dim 64, by kernel."""
+  this slice's plan: the wgmma builds for bf16 and fp16 at head dims 64
+  and 128 (all three kernels); the CUDA cores for fp32 and at every
+  other head dim.  Returns the fp16 routes at head dim 64, by kernel."""
   got, want = {}, {}
   for dtype_name in ("float32", "bfloat16", "float16"):
     dtype = getattr(torch, dtype_name)
     for D in (32, 64, 128, 256):
       for kernel in ("fwd", "dkv", "dq"):
-        tensor_cores = D in (64, 128) and (
-            dtype_name == "bfloat16"
-            or (dtype_name == "float16" and kernel != "dq"))
+        tensor_cores = D in (64, 128) and dtype_name != "float32"
         want[dtype_name, D, kernel] = ("wgmma" if tensor_cores
                                        else "cuda_cores")
         got[dtype_name, D, kernel] = fa.flash_route(kernel, dtype, D)
@@ -1891,12 +1895,65 @@ def flash_routes(torch, fa):
   return {k: got["float16", 64, k] for k in ("fwd", "dkv", "dq")}
 
 
+def paged_routes(torch, pa):
+  """The build each paged-attention call takes, by (query, pool) types
+  and head dim, as the library's own gate reports it (``paged_route``),
+  against the dispatcher's rule (``takes_tiles``): the tiled build for
+  bf16 / bf16, fp16 / fp16 and fp16 / bf16 at head dims 64 and 128, a
+  warp build for every other pair the kernels take."""
+  names = {torch.float32: "fp32", torch.bfloat16: "bf16",
+           torch.float16: "fp16"}
+  pairs = [(t, t) for t in names] + [pa.MIXED_DTYPES,
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float16, torch.float32)]
+  got, want = {}, {}
+  for q_dtype, kv_dtype in pairs:
+    for hd in (32, 64, 128, 256):
+      key = (names[q_dtype], names[kv_dtype], hd)
+      got[key] = pa.paged_route(q_dtype, kv_dtype, hd)
+      want[key] = ("tiled" if pa.takes_tiles(q_dtype, kv_dtype, hd)
+                   else "warp")
+  for q_dtype, kv_dtype in pairs:
+    log(f"   paged_route {names[q_dtype]} q / {names[kv_dtype]} pools: "
+        + "; ".join(f"hd={hd} {got[names[q_dtype], names[kv_dtype], hd]}"
+                    for hd in (32, 64, 128, 256)))
+  assert got == want, {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+
+
+def paged_counts(pa):
+  """Every paged build's launch count: the tiled build's by pair of
+  types, its total, the warp build's and the mixed warp build's."""
+  return dict(pa.paged_attention_tiled_cuda.by_build,
+              tiled=pa.paged_attention_tiled_cuda.launches,
+              warp=pa.paged_attention_warp_cuda.launches,
+              mixed=pa.paged_attention_mixed_cuda.launches)
+
+
+def paged_build_of(pa, q, kp):
+  """The build the dispatcher's rule gives a call (``paged_counts``'s
+  key)."""
+  if pa.takes_tiles(q.dtype, kp.dtype, q.shape[-1]):
+    return pa.TILED_BUILDS[q.dtype, kp.dtype]
+  return "mixed" if q.dtype != kp.dtype else "warp"
+
+
+def paged_launched(pa, before, build):
+  """Asserts that exactly one launch, of ``build``, was counted since
+  ``before``."""
+  want = dict(before)
+  want[build] += 1
+  if build in pa.TILED_BUILDS.values():
+    want["tiled"] += 1
+  got = paged_counts(pa)
+  assert got == want, (build, before, got)
+
+
 def fp16_flash_parity(torch, fa):
   """The fp16 flash builds against their plain versions at phase 7's
   shapes, causal and not, by normalized error against
-  ``FLASH_FP16_LIMIT`` (the forward and dK/dV on the wgmma builds at
-  head dims 64 and 128, dQ and head dim 32 on the CUDA cores, each
-  case's route printed beside it); then the limits' sensitivity.
+  ``FLASH_FP16_LIMIT`` (the forward, dK/dV and dQ on the wgmma builds at
+  head dims 64 and 128, head dim 32 on the CUDA cores, each case's route
+  printed beside it); then the limits' sensitivity.
   Returns the max abs error and the largest normalized errors per
   kernel."""
   errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
@@ -1943,36 +2000,53 @@ def fp16_flash_parity(torch, fa):
   return errs, rel
 
 
-def fp16_paged_parity(torch, pa):
-  """The fp16 warp build against its plain version at ``engine_step``
-  (head dims 64 and 128: fp16 never takes the tiled build) and at the
-  scheduler's ``spec_step`` and ``rollout_step``, by normalized error
-  against ``PAGED_FP16_LIMIT``; then faults the limit must catch (a lost
-  block of K/V rows, p rounded to bf16 instead of fp16).  Returns the max
-  abs error and the largest normalized errors."""
-  cases = [("engine_step", engine_step_case(torch, torch.float16, 31)[0]),
-           ("engine_step_hd128", engine_step_case(torch, torch.float16, 32,
-                                                  H=8, hd=128)[0])]
+def paged_parity_cases(torch, dtype, seed):
+  """Paged-attention calls in ``dtype`` (q and pools; the mixed case
+  rounds them after), each with the tile plan the engine would give it:
+  ``engine_step`` at head dims 64 and 128, the scheduler's ``spec_step``
+  and ``rollout_step`` (hd 64), and ``engine_step`` at head dim 32 (H =
+  32), which the tiled build does not take."""
+  cases = []
+  for label, geo, at in (("engine_step", {}, seed),
+                         ("engine_step_hd128", dict(H=8, hd=128), seed + 1),
+                         ("engine_step_hd32", dict(H=32, hd=32), seed + 3)):
+    args, runs = engine_step_case(torch, dtype, at, **geo)
+    cases.append((label, args, runs, None))
   for kind in ("spec_step", "rollout_step"):
-    for args, _, _ in scheduled_step_case(torch, torch.float16, 33, kind):
-      cases.append((kind, args))
-  err, rel = 0.0, (0.0, 0.0)
-  for label, args in cases:
-    before = (pa.paged_attention_warp_cuda.launches,
-              pa.paged_attention_tiled_cuda.launches)
-    got = pa.paged_attention(*args)
+    for args, plan_pos, runs in scheduled_step_case(torch, dtype, seed + 2,
+                                                    kind):
+      cases.append((kind, args, runs, plan_pos))
+  return cases
+
+
+def fp16_paged_parity(torch, pa):
+  """fp16 paged attention against its plain version at
+  ``paged_parity_cases``: the tiled build at head dims 64 and 128 (over
+  the engine's tile plan), the warp build at 32, each call counted on
+  its build alone; by normalized error against ``PAGED_FP16_LIMIT``;
+  then faults the limit must catch (a lost block of K/V rows, p rounded
+  to bf16 instead of fp16).  Returns the max abs error and the largest
+  normalized errors of the tiled build, and of the warp build."""
+  cases = paged_parity_cases(torch, torch.float16, 31)
+  err, rel = {}, {}
+  for label, args, runs, plan_pos in cases:
+    build = paged_build_of(pa, args[0], args[1])
+    tiles = (paged_tiles(pa, args, runs, plan_pos) if build != "warp"
+             else None)
+    before = paged_counts(pa)
+    got = pa.paged_attention(*args, tiles)
     want = pa.paged_attention_reference(*args)
     torch.cuda.synchronize()
-    assert (pa.paged_attention_warp_cuda.launches,
-            pa.paged_attention_tiled_cuda.launches) == (before[0] + 1,
-                                                        before[1]), label
+    paged_launched(pa, before, build)
     assert got.dtype == torch.float16 and bool(torch.isfinite(got).all())
     e = (got.float() - want.float()).abs().max().item()
     r = normalized_errors(got, want)
     assert r[0] <= PAGED_FP16_LIMIT["rel_l2"] and (
         r[1] <= PAGED_FP16_LIMIT["max_rel"]), (label, r)
-    err, rel = max(err, e), (max(rel[0], r[0]), max(rel[1], r[1]))
-    log(f"   {label:18s} float16 warp max|kernel - plain| {e:.3e}, "
+    key = "warp" if build == "warp" else "tiled"
+    e0, r0 = err.get(key, 0.0), rel.get(key, (0.0, 0.0))
+    err[key], rel[key] = max(e0, e), (max(r0[0], r[0]), max(r0[1], r[1]))
+    log(f"   {label:18s} float16 {build:5s} max|kernel - plain| {e:.3e}, "
         f"rel_l2 {r[0]:.2e}, max_rel {r[1]:.2e}")
   q, kp, vp, tables, positions = cases[0][1]
   want = pa.paged_attention_reference(q, kp, vp, tables, positions)
@@ -2013,9 +2087,11 @@ def fp16_timing(torch, fa, pa):
   library yardstick: the flash kernels at the training shape (B=16 H=16
   S=1024 D=64, causal; SDPA's fp16 forward, and its backward alone),
   and beside them the same kernels in bf16 on the same values, timed in
-  turns (fp16, bf16, bf16, fp16); the warp paged build at
-  ``engine_step`` and ``spec_step`` (gather + SDPA in fp16).  The bound
-  counts fp16 bytes and the fp16 peak rate."""
+  turns (fp16, bf16, bf16, fp16); the tiled paged build at
+  ``engine_step`` and ``spec_step`` over tiles planned before the timed
+  window (gather + SDPA in fp16), in turns with the warp build it
+  replaced (tiled, warp, tiled).  The bound counts fp16 bytes and the
+  fp16 peak rate."""
   sdpa = torch.nn.functional.scaled_dot_product_attention
   shape = FLASH_BENCH_SHAPE
   sets, graphs = [], []
@@ -2070,27 +2146,49 @@ def fp16_timing(torch, fa, pa):
         + f"; in turns fp16 {row['kernel_ms_turns'][0]:.4f} / "
         f"{row['kernel_ms_turns'][1]:.4f}, fp16 / bf16 "
         f"{row['kernel_ms'] / row['bf16_kernel_ms']:.2f}x")
-  paged = {}
-  for label in ("engine_step", "spec_step"):
-    if label == "engine_step":
-      sets_p = [engine_step_case(torch, torch.float16, 400 + i)[0]
-                for i in range(4)]
-    else:
-      sets_p = [args for i in range(4) for args, _, _ in
-                scheduled_step_case(torch, torch.float16, 400 + i, label)]
-    bound, bound_by = paged_bound(torch, *[sets_p[0][i] for i in (0, 1, 3,
-                                                                    4)])
-    lib = lambda *a: library_paged_attention(torch, *a)  # noqa: E731
-    row = dict(kernel_ms=time_ms(torch, pa.paged_attention_cuda, sets_p),
-               plain_ms=time_ms(torch, pa.paged_attention_reference, sets_p,
-                                reps=3),
-               library_ms=time_ms(torch, lib, sets_p, reps=3),
-               bound_ms=bound, bound_by=bound_by)
-    log(f"   fp16 paged warp {label:12s}: "
-        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                    for k, v in row.items()))
-    paged[label] = row
+  paged = {label: paged_timing_row(torch, pa, torch.float16, label,
+                                   pa.paged_attention_warp_cuda)
+           for label in ("engine_step", "spec_step")}
   return rows, paged
+
+
+def paged_timing_row(torch, pa, dtype, label, warp_build, mixed=False):
+  """One paged-attention timing row in ``dtype`` (fp16 q over bf16 pools
+  when ``mixed``) at ``engine_step`` or ``spec_step``, four draws, tiles
+  planned before the timed window: the dispatcher's (tiled) build in
+  turns with ``warp_build`` (tiled, warp, tiled), the plain version,
+  gather + SDPA (in fp32, the promoted type, when ``mixed``) and the
+  bound."""
+  seed = 500 if mixed else 400
+  if label == "engine_step":
+    cases = [engine_step_case(torch, dtype, seed + i) for i in range(4)]
+  else:
+    cases = [(args, runs) for i in range(4) for args, _, runs in
+             scheduled_step_case(torch, dtype, seed + i, label)]
+  if mixed:
+    cases = [(mixed_case(torch, args), runs) for args, runs in cases]
+  sets = [args for args, _ in cases]
+  tiled_sets = [(*args, paged_tiles(pa, args, runs)) for args, runs in cases]
+  assert all(paged_build_of(pa, a[0], a[1]) != "warp" for a in sets)
+  bound, bound_by = paged_bound(
+      torch, *[sets[0][i] for i in (0, 1, 3, 4)],
+      out_itemsize=4 if mixed else None,
+      ops_type="tfloat32" if mixed else None)
+  lib_sets = ([tuple(x.float() if x.is_floating_point() else x for x in a)
+               for a in sets] if mixed else sets)
+  lib = lambda *a: library_paged_attention(torch, *a)  # noqa: E731
+  row = dict(kernel_ms=time_ms(torch, pa.paged_attention_cuda, tiled_sets),
+             warp_build_ms=time_ms(torch, warp_build, sets),
+             kernel_ms_again=time_ms(torch, pa.paged_attention_cuda,
+                                     tiled_sets),
+             plain_ms=time_ms(torch, pa.paged_attention_reference, sets,
+                              reps=3),
+             library_ms=time_ms(torch, lib, lib_sets, reps=3),
+             bound_ms=bound, bound_by=bound_by)
+  log(f"   {'mixed' if mixed else 'fp16'} paged tiled {label:12s}: "
+      + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                  for k, v in row.items()))
+  return row
 
 
 def amp_training(torch, fa, bench):
@@ -2248,10 +2346,11 @@ def o1_fp16_full_width(torch, fa, bench, params):
 def fp16_serving(torch, params, pa):
   """A short O1-fp16 paged serving run at GPT-350M width: the model
   config in fp16 (the pools follow the model config's dtype, as in the
-  JAX package) under ``amp.level=O1`` fp16, 8 requests; the fp16 warp
-  build launched layers x steps times (the tiled build and the plain
-  version never), streams against ``generate(use_cache=False)`` by the
-  gap rule at fp16's spacing.  Returns the warp build's launches."""
+  JAX package) under ``amp.level=O1`` fp16, 8 requests; the tiled
+  build's fp16 instantiation launched layers x steps times (the warp
+  builds and the plain version never), streams against
+  ``generate(use_cache=False)`` by the gap rule at fp16's spacing.
+  Returns the tiled fp16 build's launches."""
   from easyparallellibrary_tpu_torch.env import Env
   from easyparallellibrary_tpu_torch.config import Config
   from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
@@ -2272,13 +2371,15 @@ def fp16_serving(torch, params, pa):
       eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
     out = eng.run()
     torch.cuda.synchronize()
-    launches = pa.paged_attention_warp_cuda.launches
+    launches = pa.paged_attention_tiled_cuda.by_build["fp16"]
     assert launches == cfg.num_layers * eng.steps > 0, (launches, eng.steps)
-    assert pa.paged_attention_tiled_cuda.launches == 0
+    assert paged_counts(pa) == dict(
+        paged_counts(pa), tiled=launches, fp16=launches, warp=0, mixed=0,
+        bf16=0, fp16_bf16=0), paged_counts(pa)
     assert pa.paged_attention_reference.calls == 0
     log(f"   O1 fp16 paged serving: {len(prompts)} requests, {eng.steps} "
-        f"steps; fp16 warp-build launches {launches} = {cfg.num_layers} x "
-        f"{eng.steps}")
+        f"steps; fp16 tiled-build launches {launches} = {cfg.num_layers} x "
+        f"{eng.steps}, warp builds 0, plain version 0")
     greedy_vs_generate(torch, model, eng.params, prompts, out,
                        lambda top1: bf16_gap_limit(top1, 2.0 ** -10),
                        "O1 fp16 paged")
@@ -2294,46 +2395,39 @@ def mixed_case(torch, args):
   return (q.half(), kp.bfloat16(), vp.bfloat16(), tables, positions)
 
 
-def mixed_cases(torch):
-  """The mixed build's parity cases: ``engine_step`` at head dims 64 and
-  128 (fp16 q never takes the tiled build) and the scheduler's
-  ``spec_step``, each drawn in fp32 and rounded to the two types."""
-  cases = [("engine_step", engine_step_case(torch, torch.float32, 41)[0]),
-           ("engine_step_hd128", engine_step_case(torch, torch.float32, 42,
-                                                  H=8, hd=128)[0])]
-  cases += [("spec_step", args) for args, _, _ in
-            scheduled_step_case(torch, torch.float32, 43, "spec_step")]
-  return [(label, mixed_case(torch, args)) for label, args in cases]
-
-
 def mixed_paged_parity(torch, pa):
-  """The mixed build against its plain version at ``engine_step`` and
-  ``spec_step``, by normalized error against ``PAGED_MIXED_LIMIT``, each
-  call counted on the mixed build alone and returning fp32; then faults
-  the limit must catch (a lost block of K rows, p rounded to bf16
-  instead of the query's fp16).  Returns the max abs error and the
-  largest normalized errors."""
-  err, rel = 0.0, (0.0, 0.0)
-  cases = mixed_cases(torch)
-  for label, args in cases:
-    before = (pa.paged_attention_mixed_cuda.launches,
-              pa.paged_attention_warp_cuda.launches,
-              pa.paged_attention_tiled_cuda.launches)
-    got = pa.paged_attention(*args)
+  """fp16 q over bf16 pools (fp32 out) against its plain version at
+  ``paged_parity_cases`` (drawn in fp32, rounded to the two types): the
+  tiled build's mixed instantiation at head dims 64 and 128 (over the
+  engine's tile plan), the mixed warp build at 32, each call counted on
+  its build alone; by normalized error against ``PAGED_MIXED_LIMIT``;
+  then faults the limit must catch (a lost block of K rows, p rounded
+  to bf16 instead of the query's fp16).  Returns the max abs error and
+  the largest normalized errors of the tiled build, and of the warp
+  build."""
+  err, rel = {}, {}
+  cases = [(label, mixed_case(torch, args), runs, plan_pos)
+           for label, args, runs, plan_pos in
+           paged_parity_cases(torch, torch.float32, 41)]
+  for label, args, runs, plan_pos in cases:
+    build = paged_build_of(pa, args[0], args[1])
+    tiles = (paged_tiles(pa, args, runs, plan_pos) if build != "mixed"
+             else None)
+    before = paged_counts(pa)
+    got = pa.paged_attention(*args, tiles)
     want = pa.paged_attention_reference(*args)
     torch.cuda.synchronize()
-    assert (pa.paged_attention_mixed_cuda.launches,
-            pa.paged_attention_warp_cuda.launches,
-            pa.paged_attention_tiled_cuda.launches) == (
-                before[0] + 1, before[1], before[2]), label
+    paged_launched(pa, before, build)
     assert got.dtype == want.dtype == torch.float32, label
     assert bool(torch.isfinite(got).all()), label
     e = (got - want).abs().max().item()
     r = normalized_errors(got, want)
     assert r[0] <= PAGED_MIXED_LIMIT["rel_l2"] and (
         r[1] <= PAGED_MIXED_LIMIT["max_rel"]), (label, r)
-    err, rel = max(err, e), (max(rel[0], r[0]), max(rel[1], r[1]))
-    log(f"   {label:18s} fp16 q / bf16 pools, mixed build: max|kernel - "
+    key = "warp" if build == "mixed" else "tiled"
+    e0, r0 = err.get(key, 0.0), rel.get(key, (0.0, 0.0))
+    err[key], rel[key] = max(e0, e), (max(r0[0], r[0]), max(r0[1], r[1]))
+    log(f"   {label:18s} fp16 q / bf16 pools, {build} build: max|kernel - "
         f"plain| {e:.3e}, rel_l2 {r[0]:.2e}, max_rel {r[1]:.2e}")
   q, kp, vp, tables, positions = cases[0][1]
   want = pa.paged_attention_reference(q, kp, vp, tables, positions)
@@ -2355,44 +2449,24 @@ def mixed_paged_parity(torch, pa):
 
 
 def mixed_timing(torch, pa):
-  """The mixed build beside its plain version, its bound (fp16 q and
-  bf16 K/V read, fp32 written) and gather + SDPA in fp32, the promoted
-  type, at ``engine_step`` and ``spec_step``."""
-  rows = {}
-  for label in ("engine_step", "spec_step"):
-    if label == "engine_step":
-      sets = [engine_step_case(torch, torch.float32, 500 + i)[0]
-              for i in range(4)]
-    else:
-      sets = [args for i in range(4) for args, _, _ in
-              scheduled_step_case(torch, torch.float32, 500 + i, label)]
-    sets = [mixed_case(torch, args) for args in sets]
-    fp32_sets = [(q.float(), kp.float(), vp.float(), t, p)
-                 for q, kp, vp, t, p in sets]
-    bound, bound_by = paged_bound(torch, *[sets[0][i] for i in (0, 1, 3, 4)],
-                                  out_itemsize=4)
-    lib = lambda *a: library_paged_attention(torch, *a)  # noqa: E731
-    row = dict(kernel_ms=time_ms(torch, pa.paged_attention_cuda, sets),
-               plain_ms=time_ms(torch, pa.paged_attention_reference, sets,
-                                reps=3),
-               library_ms=time_ms(torch, lib, fp32_sets, reps=3),
-               bound_ms=bound, bound_by=bound_by)
-    log(f"   mixed paged {label:12s}: "
-        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                    for k, v in row.items()))
-    rows[label] = row
-  return rows
+  """The tiled build's mixed instantiation beside the mixed warp build
+  it replaced, its plain version, its bound (fp16 q and bf16 K/V read,
+  fp32 written; tf32 products) and gather + SDPA in fp32, the promoted
+  type, at ``engine_step`` and ``spec_step`` (``paged_timing_row``)."""
+  return {label: paged_timing_row(torch, pa, torch.float32, label,
+                                  pa.paged_attention_mixed_cuda, mixed=True)
+          for label in ("engine_step", "spec_step")}
 
 
 def mixed_serving(torch, params, pa):
   """A short O1-fp16 paged serving run over a bf16 model config at
   GPT-350M width, 8 requests: the pools stay bf16 (the model config's),
-  the queries are fp16, so every attention call is the mixed build
-  (counts set to 0 just before: layers x steps launches; the tiled and
-  warp builds and the plain version never); streams against
-  ``generate(use_cache=False)`` under the same config, by the gap rule
-  at bf16's spacing (the pools round K/V to bf16, the reference keeps
-  them in fp16).  Returns the mixed build's launches."""
+  the queries are fp16, so every attention call is the tiled build's
+  mixed instantiation (counts set to 0 just before: layers x steps
+  launches; the warp builds and the plain version never); streams
+  against ``generate(use_cache=False)`` under the same config, by the
+  gap rule at bf16's spacing (the pools round K/V to bf16, the reference
+  keeps them in fp16).  Returns the tiled mixed build's launches."""
   from easyparallellibrary_tpu_torch.env import Env
   from easyparallellibrary_tpu_torch.config import Config
   from easyparallellibrary_tpu_torch.models.gpt import GPT, GPTConfig
@@ -2414,15 +2488,17 @@ def mixed_serving(torch, params, pa):
       eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
     out = eng.run()
     torch.cuda.synchronize()
-    launches = pa.paged_attention_mixed_cuda.launches
+    launches = pa.paged_attention_tiled_cuda.by_build["fp16_bf16"]
     assert launches == cfg.num_layers * eng.steps > 0, (launches, eng.steps)
     assert pa.paged_attention_cuda.launches == launches
-    assert pa.paged_attention_tiled_cuda.launches == 0
-    assert pa.paged_attention_warp_cuda.launches == 0
+    assert paged_counts(pa) == dict(
+        paged_counts(pa), tiled=launches, fp16_bf16=launches, warp=0,
+        mixed=0, bf16=0, fp16=0), paged_counts(pa)
     assert pa.paged_attention_reference.calls == 0
     log(f"   O1 fp16 over bf16 pools, paged serving: {len(prompts)} "
-        f"requests, {eng.steps} steps; mixed-build launches {launches} = "
-        f"{cfg.num_layers} x {eng.steps}")
+        f"requests, {eng.steps} steps; tiled mixed-build launches "
+        f"{launches} = {cfg.num_layers} x {eng.steps}, warp builds 0, plain "
+        f"version 0")
     greedy_vs_generate(torch, model, eng.params, prompts, out,
                        bf16_gap_limit, "O1 fp16 over bf16 paged")
   finally:
@@ -6307,6 +6383,7 @@ def main() -> int:
   if want(16):
     with Phase("16a. fp16 builds vs plain versions"):
       fp16_routes = flash_routes(torch, fa)
+      paged_routes(torch, pa)
       fp16_flash_errs, fp16_flash_rel = fp16_flash_parity(torch, fa)
       fp16_paged_err, fp16_paged_rel = fp16_paged_parity(torch, pa)
     with Phase("16b. fp16 kernel timing"):
@@ -6315,9 +6392,10 @@ def main() -> int:
       fp16_flash_launches_4l = amp_training(torch, fa, bench)
       fp16_flash_launches, o1_full = o1_fp16_full_width(torch, fa, bench,
                                                         params)
-      fp16_warp_launches = fp16_serving(torch, serve, pa)
-    with Phase("16d. the mixed build (fp16 q over bf16 pools): parity, "
-               "timing, O1-fp16 serving over a bf16 config"):
+      fp16_tiled_launches = fp16_serving(torch, serve, pa)
+    with Phase("16d. fp16 q over bf16 pools (the tiled build's mixed "
+               "instantiation): parity, timing, O1-fp16 serving over a bf16 "
+               "config"):
       mixed_err, mixed_rel = mixed_paged_parity(torch, pa)
       mixed_times = mixed_timing(torch, pa)
       mixed_launches = mixed_serving(torch, serve, pa)
@@ -6481,7 +6559,8 @@ def main() -> int:
                 launches_offload_all=tool["offload_all"][k])
 
   flash_records = [
-      kernel_record("flash_attention_fwd", "flash_fwd_wgmma_kernel<64>",
+      kernel_record("flash_attention_fwd",
+                    "flash_fwd_wgmma_kernel<__nv_bfloat16, 64>",
                     flash_src, f"{flash_py}:89 and :241",
                     flash_launches["fwd"], flash_errs["fwd"],
                     flash_times["fwd"], flash_rel["fwd"],
@@ -6490,15 +6569,16 @@ def main() -> int:
                     launches_offload=offload_launches["fwd"],
                     **tp_flash("fwd")),
       kernel_record("flash_attention_bwd_dkv",
-                    "flash_bwd_dkv_wgmma_kernel<64>", flash_src,
+                    "flash_bwd_dkv_wgmma_kernel<__nv_bfloat16, 64>",
+                    flash_src,
                     f"{flash_py}:133 and :363", flash_launches["dkv"],
                     flash_errs["dkv"], flash_times["dkv"],
                     flash_rel["dkv"], FLASH_BF16_LIMIT["grad"],
                     launches_fit=fit_launches["dkv"],
                     launches_offload=offload_launches["dkv"],
                     **tp_flash("dkv")),
-      kernel_record("flash_attention_bwd_dq", "flash_bwd_dq_wgmma_kernel<64>",
-                    flash_src, f"{flash_py}:172 and :404",
+      kernel_record("flash_attention_bwd_dq",
+                    "flash_bwd_dq_wgmma_kernel<__nv_bfloat16, 64>", flash_src, f"{flash_py}:172 and :404",
                     flash_launches["dq"], flash_errs["dq"],
                     flash_times["dq"], flash_rel["dq"],
                     FLASH_BF16_LIMIT["grad"],
@@ -6538,37 +6618,47 @@ def main() -> int:
            "flash_bwd_dkv_wgmma_kernel<__half, 64>",
            f"{flash_py}:133 and :363"),
           ("flash_attention_bwd_dq_fp16", "dq",
-           "flash_bwd_dq_kernel<__half, 4, 4>", f"{flash_py}:172 and :404"))]
-  row = fp16_paged_times["engine_step"]
-  fp16_paged = {
-      "name": "paged_attention_warp_fp16", "route": "cuda",
-      "build": "paged_attention_kernel<__half, 1>", "source": paged_src,
-      "replaces": paged_replaces, "launches": fp16_warp_launches,
-      "max_abs_err": fp16_paged_err, "ms": row["kernel_ms"],
-      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-      "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-      "dtype": "float16", "shape": "engine_step",
-      "spec_step": fp16_paged_times["spec_step"],
-      "fp16_rel_l2_err": fp16_paged_rel[0],
-      "fp16_max_rel_err": fp16_paged_rel[1],
-      "fp16_rel_l2_limit": PAGED_FP16_LIMIT["rel_l2"],
-      "fp16_max_rel_limit": PAGED_FP16_LIMIT["max_rel"]}
-  row = mixed_times["engine_step"]
-  mixed_paged = {
-      "name": "paged_attention_mixed_fp16_bf16", "route": "cuda",
-      "build": "paged_attention_kernel<__half, __nv_bfloat16, float, 1>",
-      "source": paged_src, "replaces": paged_replaces,
-      "launches": mixed_launches, "max_abs_err": mixed_err,
-      "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-      "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-      "library_ms": row["library_ms"], "dtype": "float16 q, bfloat16 pools",
-      "shape": "engine_step", "spec_step": mixed_times["spec_step"],
-      "mixed_rel_l2_err": mixed_rel[0], "mixed_max_rel_err": mixed_rel[1],
-      "mixed_rel_l2_limit": PAGED_MIXED_LIMIT["rel_l2"],
-      "mixed_max_rel_limit": PAGED_MIXED_LIMIT["max_rel"]}
+           "flash_bwd_dq_wgmma_kernel<__half, 64>",
+           f"{flash_py}:172 and :404"))]
+
+  def tiled_16bit_record(name, build, launches, times, err, rel, limit,
+                         dtype, tag, warp_build, warp_err, warp_rel):
+    # The tiled build at engine_step (hd 64), the warp build it replaced
+    # timed beside it and still held at hd 32 (16a / 16d).
+    row = times["engine_step"]
+    return {"name": name, "route": "cuda", "build": build,
+            "source": paged_src, "replaces": paged_replaces,
+            "launches": launches, "max_abs_err": err, "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "dtype": dtype, "shape": "engine_step",
+            "warp_build": warp_build, "warp_build_ms": row["warp_build_ms"],
+            "kernel_ms_again": row["kernel_ms_again"],
+            "spec_step": times["spec_step"],
+            f"{tag}_rel_l2_err": rel[0], f"{tag}_max_rel_err": rel[1],
+            f"{tag}_rel_l2_limit": limit["rel_l2"],
+            f"{tag}_max_rel_limit": limit["max_rel"],
+            "warp_build_hd32_max_abs_err": warp_err,
+            "warp_build_hd32_rel_err": warp_rel}
+
+  fp16_paged = tiled_16bit_record(
+      "paged_attention_tiled_fp16",
+      "paged_attention_tiled_kernel<__half, __half, __half, 64>",
+      fp16_tiled_launches, fp16_paged_times, fp16_paged_err["tiled"],
+      fp16_paged_rel["tiled"], PAGED_FP16_LIMIT, "float16", "fp16",
+      "paged_attention_kernel<__half, __half, __half, 1>",
+      fp16_paged_err["warp"], fp16_paged_rel["warp"])
+  mixed_paged = tiled_16bit_record(
+      "paged_attention_tiled_fp16_bf16",
+      "paged_attention_tiled_kernel<__half, __nv_bfloat16, float, 64>",
+      mixed_launches, mixed_times, mixed_err["tiled"], mixed_rel["tiled"],
+      PAGED_MIXED_LIMIT, "float16 q, bfloat16 pools", "mixed",
+      "paged_attention_kernel<__half, __nv_bfloat16, float, 1>",
+      mixed_err["warp"], mixed_rel["warp"])
   print(json.dumps({"kernels": [
       dict(paged_record("paged_attention_tiled",
-                        "paged_attention_tiled_kernel<64>", launches,
+                        "paged_attention_tiled_kernel<__nv_bfloat16, "
+                        "__nv_bfloat16, __nv_bfloat16, 64>", launches,
                         "bfloat16"),
            launches_speculative=spec, launches_prefix_cache={
                k: v["launches"] for k, v in prefix.items()},
@@ -6581,7 +6671,8 @@ def main() -> int:
            launches_frontdoor=heal_launches["frontdoor"],
            launches_tp2=tp["serving"], tp2_engine_step_h8=tp["paged"],
            tp_backend=tp["backend"], launches_perfgate=tool["perfgate_k2"]),
-      paged_record("paged_attention_warp", "paged_attention_kernel<float, 1>",
+      paged_record("paged_attention_warp",
+                   "paged_attention_kernel<float, float, float, 1>",
                    warp_launches, "float32"),
   ] + flash_records + fp16_flash + [fp16_paged, mixed_paged]}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,12 @@
 // (wgmma_takes and wg::with_head_dim; epl_flash_route reports it):
 //   bf16, D in {64, 128}: forward, dK/dV and dQ on wgmma with TMA-fed,
 //     double-buffered tiles (namespace wg below);
-//   fp16, D in {64, 128}: the forward and dK/dV on the same wgmma
-//     kernels, instantiated for __half (the .f16.f16 form of the
-//     instruction, FLOAT16 tensor maps; fragments, descriptors and
-//     swizzle are bf16's);
+//   fp16, D in {64, 128}: the same three wgmma kernels, instantiated
+//     for __half (the .f16.f16 form of the instruction, FLOAT16 tensor
+//     maps; fragments, descriptors and swizzle are bf16's);
 //   everything else (fp32 at every D; bf16 and fp16 at any other D, 32
-//     included; fp16 dQ at every D): IEEE fp32 FMAs on the CUDA cores,
-//     16-bit tiles converted to fp32 as they are loaded.
+//     included): IEEE fp32 FMAs on the CUDA cores, 16-bit tiles
+//     converted to fp32 as they are loaded.
 // In every build scores, the running max, the denominator and the
 // accumulators stay in fp32 (fp16's range ends at 65504); p and dS are
 // rounded to the element type only where the products read them (the
@@ -67,8 +66,8 @@
 //     with log2(e) folded into the score scale; only tiles that cross the
 //     causal diagonal or the key count are masked, and tiles past the
 //     diagonal are skipped.
-//   * fp32, fp16 dQ, and bf16 and fp16 at the head dims above not taken,
-//     run on the CUDA cores as IEEE fp32 FMAs (no TF32): 256 threads a
+//   * fp32, and bf16 and fp16 at the head dims above not taken, run on
+//     the CUDA cores as IEEE fp32 FMAs (no TF32): 256 threads a
 //     CTA, tiles converted to fp32 in shared memory at row stride D + 1
 //     (odd: column walks are free of bank conflicts), each thread a 4 x 4
 //     register micro-tile of the 64 x 64 score tile.
@@ -623,8 +622,8 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 }
 
 // ------------------------------------- wgmma forward, dK/dV, dQ (wg::) --
-// The wgmma builds, for a 16-bit element type T (bf16, or fp16 where the
-// dispatcher admits it: see wgmma_takes) at D in {64, 128}.  A CTA is two
+// The wgmma builds, for a 16-bit element type T (bf16 or fp16: see
+// wgmma_takes) at D in {64, 128}.  A CTA is two
 // consumer warpgroups (threads 0-255), each owning 64 rows of the CTA's
 // 128-row block (query rows in the forward and dQ, key rows in dK/dV),
 // and one producer warp (threads 256-287) whose lane 0 issues the TMA
@@ -1285,36 +1284,29 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // The three kernels, numbered as epl_flash_route takes them.
 enum FlashKernel { kFwdKernel = 0, kDkvKernel = 1, kDqKernel = 2 };
 
-// Which build takes a call: kernel K in element type T runs its wgmma
-// build when wgmma_takes<T, K>() and wg::with_head_dim takes D (64 or
-// 128): bf16 for all three kernels, fp16 for the forward and dK/dV (fp16
-// dQ still runs on the CUDA cores).  Everything else runs the CUDA-core
-// kernels.  The dispatchers and epl_flash_route read these two gates
-// alone.  A refused tensor map or launch is returned, never retried on
-// another build.
-template <typename T, int K>
+// Which build takes a call: each kernel in element type T runs its
+// wgmma build when wgmma_takes<T>() (bf16 and fp16) and wg::with_head_dim
+// takes D (64 or 128).  Everything else runs the CUDA-core kernels.  The
+// dispatchers and epl_flash_route read these two gates alone.  A refused
+// tensor map or launch is returned, never retried on another build.
+template <typename T>
 constexpr bool wgmma_takes() {
-  return std::is_same<T, __nv_bfloat16>::value ||
-         (std::is_same<T, __half>::value && K != kDqKernel);
+  return hopper::is_wgmma_operand<T>();
 }
 
 template <typename T>
 int route(int kernel, int D) {
-  bool takes;
-  switch (kernel) {
-    case kFwdKernel: takes = wgmma_takes<T, kFwdKernel>(); break;
-    case kDkvKernel: takes = wgmma_takes<T, kDkvKernel>(); break;
-    case kDqKernel: takes = wgmma_takes<T, kDqKernel>(); break;
-    default: return -1;
+  if (kernel != kFwdKernel && kernel != kDkvKernel && kernel != kDqKernel) {
+    return -1;
   }
-  return takes && wg::with_head_dim(D, [](auto) {}) ? 1 : 0;
+  return wgmma_takes<T>() && wg::with_head_dim(D, [](auto) {}) ? 1 : 0;
 }
 
 template <typename T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v,
                          void* o, float* lse, int BH, int S, int Skv, int D,
                          int causal, float scale, cudaStream_t stream) {
-  if constexpr (wgmma_takes<T, kFwdKernel>()) {
+  if constexpr (wgmma_takes<T>()) {
     cudaError_t err = cudaSuccess;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
@@ -1360,7 +1352,7 @@ cudaError_t dkv_dispatch(const void* q, const void* k, const void* v,
                          const float* delta, void* dk, void* dv, int BH,
                          int S, int Skv, int D, int causal, float scale,
                          cudaStream_t stream) {
-  if constexpr (wgmma_takes<T, kDkvKernel>()) {
+  if constexpr (wgmma_takes<T>()) {
     cudaError_t err = cudaSuccess;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
@@ -1410,7 +1402,7 @@ cudaError_t dq_dispatch(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, void* dq, int BH, int S, int Skv,
                         int D, int causal, float scale, cudaStream_t stream) {
-  if constexpr (wgmma_takes<T, kDqKernel>()) {
+  if constexpr (wgmma_takes<T>()) {
     cudaError_t err = cudaSuccess;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;

@@ -11,19 +11,24 @@
 // the V product, as the Pallas kernel does, and output = acc / max(l,
 // 1e-30).
 //
-// Which build runs: bf16 at hd in {64, 128} takes the slot-tiled build
-// (namespace tiled, below); fp32, fp16, and bf16 at other head dims,
-// take the warp build that follows here.  The warp build converts fp16
-// K/V and q to fp32 as it loads them, keeps scores, the running max and
-// the accumulator in fp32, and rounds p to fp16 before the V product.
+// Which build runs (tiled::takes; epl_paged_route reports it): bf16 q
+// over bf16 pools, fp16 over fp16, and fp16 over bf16 (the mixed case
+// below), at hd in {64, 128}, take the slot-tiled build (namespace
+// tiled, below); fp32, and every type at other head dims, take the warp
+// build that follows here.  The warp build converts 16-bit K/V and q to
+// fp32 as it loads them, keeps scores, the running max and the
+// accumulator in fp32, and rounds p to the query's type before the V
+// product.
 //
-// Mixed build (amp O1 computing in fp16 over a bf16 model config's
-// pools): the warp kernel with an fp16 query over bf16 K/V, computing
-// what the JAX reference (`paged_attention_reference`) computes at
-// these types, where jnp.einsum promotes fp16 x bf16 to fp32: scores
-// from q and K both read into fp32, an fp32 softmax, p rounded to fp16
-// (the reference's probs.astype(q.dtype)) and multiplied by V read
-// into fp32, and an fp32 output, the promoted type.
+// Mixed case (amp O1 computing in fp16 over a bf16 model config's
+// pools): an fp16 query over bf16 K/V, computing what the JAX reference
+// (`paged_attention_reference`) computes at these types, where
+// jnp.einsum promotes fp16 x bf16 to fp32: scores from q and K both read
+// into fp32, an fp32 softmax, p rounded to fp16 (the reference's
+// probs.astype(q.dtype)) and multiplied by V read into fp32, and an fp32
+// output, the promoted type.  Neither operand is rounded to the other's
+// type: bf16 would drop 3 bits of q, and fp16 cannot hold bf16 values
+// below 6.1e-5 or above 65504.
 //
 // What bounds it on this card: bytes.  A token reads (pos + 1) * H * hd
 // * 2 * itemsize bytes of K/V and does about 4 operations per element
@@ -47,7 +52,7 @@
 // consecutive positions, so a warp per token reads the slot's context
 // once per token: up to 128 times what the chunk needs.
 //
-// Slot-tiled build (bf16, hd in {64, 128}).  A query tile is a run of
+// Slot-tiled build (hd in {64, 128}).  A query tile is a run of
 // flat tokens of one slot with consecutive positions, at most 64 rows: a
 // prefill chunk cut into tiles, or one decode token.  The host plans the
 // tiles once per engine step (kernels/paged_attention.py) and cuts each
@@ -61,12 +66,24 @@
 //     shared memory), into two stages of padded shared memory: the next
 //     stage's copies are in flight while the current stage's products run.
 //     Each K/V row of the split is read once for all rows of the tile.
-//   * Products on the tensor cores: mma.sync m16n8k16, bf16 operands,
-//     fp32 accumulation.  S = Q K^T from fragments (K's rows are the
-//     columns of the B operand), P V with P repacked from the score
-//     fragments to bf16 in registers (where the Pallas kernel rounds p)
-//     and V through ldmatrix.trans.  mma.sync, not wgmma: a tile has 1 to
-//     64 rows and a warp owns 16 of them, so a decode tile uses one row of
+//   * Products on the tensor cores, fp32 accumulation.  S = Q K^T from
+//     fragments (K's rows are the columns of the B operand), P V with P
+//     repacked from the score fragments to the query's type in registers
+//     (where the Pallas kernel rounds p) and V through ldmatrix.trans.
+//     bf16 and fp16: mma.sync m16n8k16 in that type.  Mixed (fp16 q and
+//     p, bf16 K and V): no m16n8k16 form mixes the two, so each 16-deep
+//     step is two m16n8k8 in tf32, every 16-bit operand widened to fp32
+//     from the same fragments (mma16).  tf32 keeps 10 mantissa bits and
+//     fp32's exponent, so every finite fp16 and bf16 value, p rounded to
+//     fp16 included, is exact in it: each product equals the reference's
+//     fp32 product, and only the order of the sums differs, as in the
+//     warp build.  The kernel is bytes-bound, so tf32's half rate costs
+//     tensor cycles that are idle anyway.  Its q fragments are read from
+//     shared memory at each k-step and widened per product, so that its
+//     wider operands fit the 16-bit builds' register budget (hd = 64:
+//     four CTAs an SM).  mma.sync, not wgmma: a
+//     tile has 1 to 64 rows and a warp owns 16 of them, so a decode tile
+//     uses one row of
 //     one warp's MMA and no warpgroup waits on rows it does not have; the
 //     kernel is bytes-bound, and 16-row MMAs waste no loads, only tensor
 //     cycles that are idle anyway.  (Letting the four warps of a decode
@@ -87,6 +104,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -330,17 +349,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   }
 }
 
-// ------------------------------------------- slot-tiled build (bf16) --
+// ------------------------- slot-tiled build (bf16, fp16, mixed) --
 namespace tiled {
 
-using bf16 = __nv_bfloat16;
 using hopper::smem_addr;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // rows of a query tile, at most
 constexpr int kKeys = 64;           // keys of a shared-memory stage
-constexpr int kPad = 8;             // bf16 of padding per shared-memory row
+constexpr int kPad = 8;             // 16-bit values of padding a row
 constexpr float kLog2e = 1.4426950408889634f;
 
 // One work item: a split of one query tile (the planner's int32 x 8).
@@ -372,22 +390,122 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// The three builds, by (query, pool, output) type: bf16 / bf16 / bf16,
+// fp16 / fp16 / fp16, and the mixed fp16 / bf16 / fp32.  Every operand
+// fragment below holds 16-bit pairs (q and p in TQ, K and V in TKV), as
+// m16n8k16 takes them; mma16 turns one such 16-deep step into the
+// instruction the pair of types has.
+template <typename TQ, typename TKV>
+__host__ __device__ constexpr bool same_16bit() {
+  return std::is_same<TQ, TKV>::value && hopper::is_wgmma_operand<TQ>();
+}
+template <typename TQ, typename TKV>
+__host__ __device__ constexpr bool mixed_16bit() {
+  return std::is_same<TQ, __half>::value &&
+         std::is_same<TKV, __nv_bfloat16>::value;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+// A 16-bit pair widened to two fp32 bit patterns (the element at the
+// lower address first).  Exact: every finite fp16 and bf16 value is an
+// fp32 value with at most 10 mantissa bits, so also a tf32 value.
+__device__ __forceinline__ void widen(uint32_t w, const __half*,
+                                      uint32_t& lo, uint32_t& hi) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  lo = __float_as_uint(f.x);
+  hi = __float_as_uint(f.y);
+}
+__device__ __forceinline__ void widen(uint32_t w, const __nv_bfloat16*,
+                                      uint32_t& lo, uint32_t& hi) {
+  lo = w << 16;
+  hi = w & 0xffff0000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// C (16 x 8, fp32) += A (16 x 16, TQ) B (16 x 8, TKV), fragments in the
+// m16n8k16 layout: a[0..3] rows g, g + 8, columns 2t, 2t + 1 (a[0],
+// a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); b[0] rows 2t, 2t + 1, b[1] rows
+// 2t + 8, 2t + 9, column g.  One type: one m16n8k16.  Mixed: two
+// m16n8k8.tf32, each 8 deep, the pairs widened to fp32; thread t's k
+// indices t and t + 4 of the tf32 layout are taken to be depth 2t and
+// 2t + 1 (and 2t + 8, 2t + 9 in the second), so the 16-bit fragments
+// serve unchanged: A's words split into their low and high halves, B's
+// likewise.  A sum over depth does not depend on the order of its terms,
+// and A and B name the same depth index the same way.
+template <typename TQ, typename TKV>
+__device__ __forceinline__ void mma16(float* c, const uint32_t* a,
+                                      const uint32_t* b) {
+  if constexpr (same_16bit<TQ, TKV>()) {
+    if constexpr (std::is_same<TQ, __half>::value) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+    } else {
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+    }
+  } else {
+    static_assert(mixed_16bit<TQ, TKV>(), "no such tiled build");
+#pragma unroll
+    for (int k8 = 0; k8 < 2; ++k8) {
+      uint32_t a0, a2, a1, a3, b0, b1;
+      widen(a[2 * k8], static_cast<const TQ*>(nullptr), a0, a2);
+      widen(a[2 * k8 + 1], static_cast<const TQ*>(nullptr), a1, a3);
+      widen(b[k8], static_cast<const TKV*>(nullptr), b0, b1);
+      mma_tf32(c, a0, a1, a2, a3, b0, b1);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Two floats rounded to the 16-bit T (round to nearest even), as a pair.
+template <typename T>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// Output values 2 (8-byte aligned for fp32) or 4 (16-byte aligned) at a
+// time, in the output type.
+template <typename TO>
+__device__ __forceinline__ void store2(TO* p, float x, float y) {
+  if constexpr (std::is_same<TO, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = pack<TO>(x, y);
+  }
+}
+template <typename TO>
+__device__ __forceinline__ void store4(TO* p, const float* o) {
+  if constexpr (std::is_same<TO, float>::value) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+    store2(p, o[0], o[1]);
+    store2(p + 2, o[2], o[3]);
+  }
 }
 
 // 2^x in one special-function instruction; exp2(-inf) = 0.
@@ -406,11 +524,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFullMask, x, 2);
 }
 
-// mma.sync m16n8k16 fragments, lane = 4 g + t.  A (16 x 16, row-major)
-// at x[r0.., k0..]: rows g, g + 8, columns 2t, 2t + 1, 2t + 8, 2t + 9.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* x, int ld,
+// mma.sync m16n8k16 fragments of a 16-bit T, lane = 4 g + t.  A (16 x
+// 16, row-major) at x[r0.., k0..]: rows g, g + 8, columns 2t, 2t + 1,
+// 2t + 8, 2t + 9.
+template <typename T>
+__device__ __forceinline__ void load_a(uint32_t* a, const T* x, int ld,
                                        int r0, int k0, int g, int t) {
-  const bf16* p = x + (r0 + g) * ld + k0 + 2 * t;
+  const T* p = x + (r0 + g) * ld + k0 + 2 * t;
   a[0] = ld32(p);
   a[1] = ld32(p + 8 * ld);
   a[2] = ld32(p + 8);
@@ -419,16 +539,18 @@ __device__ __forceinline__ void load_a(uint32_t* a, const bf16* x, int ld,
 
 // B (16 x 8) whose column n is row n0 + n of the row-major tile x (a
 // product against x^T).
-__device__ __forceinline__ void load_b(uint32_t* b, const bf16* x, int ld,
+template <typename T>
+__device__ __forceinline__ void load_b(uint32_t* b, const T* x, int ld,
                                        int n0, int k0, int g, int t) {
-  const bf16* p = x + (n0 + g) * ld + k0 + 2 * t;
+  const T* p = x + (n0 + g) * ld + k0 + 2 * t;
   b[0] = ld32(p);
   b[1] = ld32(p + 8);
 }
 
 // B (16 x 8) straight from the row-major tile x: rows k0 .. k0 + 15 are
 // the reduction, columns n0 .. n0 + 7 the output.
-__device__ __forceinline__ void load_b_trans(uint32_t* b, const bf16* x,
+template <typename T>
+__device__ __forceinline__ void load_b_trans(uint32_t* b, const T* x,
                                              int ld, int k0, int n0,
                                              int lane) {
   const uint32_t addr = smem_addr(x + (k0 + (lane & 15)) * ld + n0);
@@ -440,7 +562,7 @@ __device__ __forceinline__ void load_b_trans(uint32_t* b, const bf16* x,
 
 template <int HD>
 struct Layout {
-  static constexpr int kLd = HD + kPad;  // bf16 per shared-memory row
+  static constexpr int kLd = HD + kPad;  // 16-bit values a row
   static constexpr int kTileBytes = kKeys * kLd * 2;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kRows * kLd * 2;
@@ -451,26 +573,28 @@ struct Layout {
 };
 
 // hd = 64 fits four CTAs an SM (at most 128 registers a thread), so a
-// step's CTAs, most of them decode splits, run in one wave.
-template <int HD>
+// step's CTAs, most of them decode splits, run in one wave.  TQ, TKV, TO:
+// the query's, the pools' and the output's types (see mma16).
+template <typename TQ, typename TKV, typename TO, int HD>
 __global__ void __launch_bounds__(kThreads, HD == 64 ? 4 : 2)
-paged_attention_tiled_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k_pages,
-                             const bf16* __restrict__ v_pages,
+paged_attention_tiled_kernel(const TQ* __restrict__ q,
+                             const TKV* __restrict__ k_pages,
+                             const TKV* __restrict__ v_pages,
                              const int* __restrict__ tables,
                              const int* __restrict__ positions,
                              const Item* __restrict__ items,
                              float* __restrict__ partial, int partial_rows,
                              int* __restrict__ counters,
-                             bf16* __restrict__ out, int T, int H, int NB,
+                             TO* __restrict__ out, int T, int H, int NB,
                              int bs, int MB, float scale_log2) {
+  static_assert(sizeof(TQ) == 2 && sizeof(TKV) == 2, "16-bit tiles");
   using L = Layout<HD>;
   constexpr int ld = L::kLd;
   constexpr int kChunks = HD / 8;  // 16-byte chunks of a row
   extern __shared__ __align__(16) uint8_t smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
+  TQ* sQ = reinterpret_cast<TQ*>(smem + L::kQ);
+  TKV* sK = reinterpret_cast<TKV*>(smem + L::kK);
+  TKV* sV = reinterpret_cast<TKV*>(smem + L::kV);
   int* s_pos = reinterpret_cast<int*>(smem + L::kPos);
   int* s_table = reinterpret_cast<int*>(smem + L::kTable);
   __shared__ int s_last;
@@ -491,7 +615,7 @@ paged_attention_tiled_kernel(const bf16* __restrict__ q,
     const int r = idx / kChunks;
     const int c = (idx - r * kChunks) * 8;
     const bool live = r < it.rows;
-    const bf16* src =
+    const TQ* src =
         live ? q + (it.t0 + r) * row_stride + static_cast<size_t>(h) * HD + c
              : q;
     cp_async16(sQ + r * ld + c, src, live);
@@ -514,8 +638,8 @@ paged_attention_tiled_kernel(const bf16* __restrict__ q,
   // Keys [k0, k0 + kKeys) of this head into stage s; keys past the split
   // are zeros.
   auto load_stage = [&](int s, int k0) {
-    bf16* dk = sK + s * kKeys * ld;
-    bf16* dv = sV + s * kKeys * ld;
+    TKV* dk = sK + s * kKeys * ld;
+    TKV* dv = sV + s * kKeys * ld;
     for (int idx = tid; idx < kKeys * kChunks; idx += kThreads) {
       const int r = idx / kChunks;
       const int c = (idx - r * kChunks) * 8;
@@ -553,6 +677,10 @@ paged_attention_tiled_kernel(const bf16* __restrict__ q,
   }
   float m[2] = {-INFINITY, -INFINITY};  // running max of score * scale_log2
   float l[2] = {0.f, 0.f};               // this thread's part of the sum
+  // q's A fragments: held in registers by the 16-bit builds, reloaded
+  // from shared memory at each k-step by the mixed build, whose widened
+  // operands need the registers (held, they spilled at hd = 64).
+  constexpr bool kQInRegs = !mixed_16bit<TQ, TKV>();
   uint32_t qa[HD / 16][4];
 
   if (n_stages > 0) load_stage(0, k_begin);
@@ -563,14 +691,14 @@ paged_attention_tiled_kernel(const bf16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();  // everything but the stage just started
     __syncthreads();
-    if (active && st == 0) {
+    if (kQInRegs && active && st == 0) {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) load_a(qa[kk], sQ, ld, r0, 16 * kk,
                                                   g, t);
     }
     if (active && k0 <= warp_last) {
-      const bf16* cK = sK + (st & 1) * kKeys * ld;
-      const bf16* cV = sV + (st & 1) * kKeys * ld;
+      const TKV* cK = sK + (st & 1) * kKeys * ld;
+      const TKV* cV = sV + (st & 1) * kKeys * ld;
       float s[kKeys / 8][4];
 #pragma unroll
       for (int n = 0; n < kKeys / 8; ++n) {
@@ -579,11 +707,18 @@ paged_attention_tiled_kernel(const bf16* __restrict__ q,
       }
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4];
+        if constexpr (kQInRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+        } else {
+          load_a(a, sQ, ld, r0, 16 * kk, g, t);
+        }
 #pragma unroll
         for (int n = 0; n < kKeys / 8; ++n) {
           uint32_t b[2];
           load_b(b, cK, ld, 8 * n, 16 * kk, g, t);
-          mma(s[n], qa[kk], b);
+          mma16<TQ, TKV>(s[n], a, b);
         }
       }
       // Mask (key past the split or past the row's position), then one
@@ -624,19 +759,46 @@ paged_attention_tiled_kernel(const bf16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
       }
-      // O += P V, p rounded to bf16 in the A operand.
+      // O += P V, p rounded to the query's type (the Pallas kernel's
+      // p.astype(v.dtype), the reference's probs.astype(q.dtype)): in the
+      // A operand's 16-bit pairs, or for the mixed build in place in the
+      // score fragments, which then are its tf32 A operand as they stand
+      // (mma16's depth order: a0..a3 = rows g, g + 8 at keys 2t, then
+      // rows g, g + 8 at keys 2t + 1), with no repacking registers.
+      if constexpr (mixed_16bit<TQ, TKV>()) {
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] = __half2float(__float2half_rn(s[n][e]));
+          }
+        }
+      }
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) {
         uint32_t a[4];
-        a[0] = pack(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        if constexpr (!mixed_16bit<TQ, TKV>()) {
+          a[0] = pack<TQ>(s[2 * kk][0], s[2 * kk][1]);
+          a[1] = pack<TQ>(s[2 * kk][2], s[2 * kk][3]);
+          a[2] = pack<TQ>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          a[3] = pack<TQ>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        }
 #pragma unroll
         for (int n = 0; n < HD / 8; ++n) {
           uint32_t b[2];
           load_b_trans(b, cV, ld, 16 * kk, 8 * n, lane);
-          mma(acc[n], a, b);
+          if constexpr (mixed_16bit<TQ, TKV>()) {
+#pragma unroll
+            for (int k8 = 0; k8 < 2; ++k8) {
+              const float* p = s[2 * kk + k8];
+              uint32_t b0, b1;
+              widen(b[k8], static_cast<const TKV*>(nullptr), b0, b1);
+              mma_tf32(acc[n], __float_as_uint(p[0]), __float_as_uint(p[2]),
+                       __float_as_uint(p[1]), __float_as_uint(p[3]), b0, b1);
+            }
+          } else {
+            mma16<TQ, TKV>(acc[n], a, b);
+          }
         }
       }
     }
@@ -653,11 +815,11 @@ paged_attention_tiled_kernel(const bf16* __restrict__ q,
       const int r = r0 + g + 8 * hh;
       if (r >= it.rows) continue;
       const float inv = 1.f / fmaxf(l[hh], 1e-30f);
-      bf16* orow = out + (it.t0 + r) * row_stride + static_cast<size_t>(h) * HD;
+      TO* orow = out + (it.t0 + r) * row_stride + static_cast<size_t>(h) * HD;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
-            pack(acc[n][2 * hh] * inv, acc[n][2 * hh + 1] * inv);
+        store2(orow + 8 * n + 2 * t, acc[n][2 * hh] * inv,
+               acc[n][2 * hh + 1] * inv);
       }
     }
     return;
@@ -728,33 +890,67 @@ paged_attention_tiled_kernel(const bf16* __restrict__ q,
       big = big_new;
     }
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    bf16* orow =
-        out + (it.t0 + r) * row_stride + static_cast<size_t>(h) * HD + c;
-    *reinterpret_cast<uint32_t*>(orow) = pack(o[0] * inv, o[1] * inv);
-    *reinterpret_cast<uint32_t*>(orow + 2) = pack(o[2] * inv, o[3] * inv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] *= inv;
+    store4(out + (it.t0 + r) * row_stride + static_cast<size_t>(h) * HD + c,
+           o);
   }
   if (tid == 0) counters[static_cast<size_t>(first) * H + h] = 0;
 }
 
-template <int HD>
+template <typename TQ, typename TKV, typename TO, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* tables, const int* positions, const void* items,
                    int n_items, void* partial, int partial_rows,
                    int* counters, void* out, int T, int H, int NB, int bs,
                    int MB, float scale, cudaStream_t stream) {
-  auto kernel = paged_attention_tiled_kernel<HD>;
+  auto kernel = paged_attention_tiled_kernel<TQ, TKV, TO, HD>;
   const int smem = Layout<HD>::bytes(MB);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_items, H);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), tables, positions,
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), tables, positions,
       static_cast<const Item*>(items), static_cast<float*>(partial),
-      partial_rows, counters, static_cast<bf16*>(out), T, H, NB, bs, MB,
+      partial_rows, counters, static_cast<TO*>(out), T, H, NB, bs, MB,
       scale * kLog2e);
   return cudaGetLastError();
+}
+
+// The builds this namespace has, by dtype code (0 float32, 1 bfloat16, 2
+// float16) of the query and of the pools, and head dim: bf16 / bf16,
+// fp16 / fp16 and fp16 / bf16 at hd 64 and 128.  The tiled entry and
+// epl_paged_route read this gate alone.
+__host__ __device__ constexpr bool takes(int q_dtype, int kv_dtype, int hd) {
+  return (hd == 64 || hd == 128) &&
+         ((q_dtype == 1 && kv_dtype == 1) || (q_dtype == 2 && kv_dtype == 2) ||
+          (q_dtype == 2 && kv_dtype == 1));
+}
+
+template <typename TQ, typename TKV, typename TO>
+struct Types {
+  using Q = TQ;
+  using KV = TKV;
+  using O = TO;
+};
+
+// Calls f(Types<TQ, TKV, TO>, HD as a compile-time constant) for a call
+// that takes() admits; cudaErrorInvalidValue for any other.
+template <typename F>
+cudaError_t with_build(int q_dtype, int kv_dtype, int hd, F f) {
+  using std::integral_constant;
+  auto at_hd = [&](auto types) {
+    return hd == 64 ? f(types, integral_constant<int, 64>{})
+                    : f(types, integral_constant<int, 128>{});
+  };
+  if (!takes(q_dtype, kv_dtype, hd)) return cudaErrorInvalidValue;
+  if (q_dtype == 1) {
+    return at_hd(Types<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>{});
+  }
+  if (kv_dtype == 2) return at_hd(Types<__half, __half, __half>{});
+  return at_hd(Types<__half, __nv_bfloat16, float>{});
 }
 
 }  // namespace tiled
@@ -811,37 +1007,46 @@ int epl_paged_attention_mixed(const void* q, const void* k_pages,
       scale, static_cast<cudaStream_t>(stream));
 }
 
-// The slot-tiled build: bf16 only, hd in {64, 128}.  items int32
-// [n_items, 8] (tiled::Item); partial fp32 scratch of partial_rows * H *
-// (hd + 2) floats (may be null when no tile is split); counters int32
-// [n_items * H], zero on entry and left zero on exit.
+// The slot-tiled build: q_dtype / kv_dtype (codes as above) bf16 / bf16,
+// fp16 / fp16 or fp16 / bf16, hd in {64, 128} (tiled::takes); out in q's
+// type, or fp32 for fp16 over bf16.  items int32 [n_items, 8]
+// (tiled::Item); partial fp32 scratch of partial_rows * H * (hd + 2)
+// floats (may be null when no tile is split); counters int32 [n_items *
+// H], zero on entry and left zero on exit.
 int epl_paged_attention_tiled(const void* q, const void* k_pages,
                               const void* v_pages, const void* tables_tok,
                               const void* positions, const void* items,
                               int n_items, void* partial, int partial_rows,
                               void* counters, void* out, int num_tokens,
                               int H, int hd, int NB, int bs, int MB,
-                              float scale, void* stream) {
+                              int q_dtype, int kv_dtype, float scale,
+                              void* stream) {
+  if (!tiled::takes(q_dtype, kv_dtype, hd)) return cudaErrorInvalidValue;
   if (n_items == 0 || H == 0) return cudaSuccess;
   if (n_items < 0 || num_tokens <= 0 || H < 0 || NB <= 0 || bs <= 0 ||
       MB <= 0 || partial_rows < 0) {
     return cudaErrorInvalidValue;
   }
-  const int* tab = static_cast<const int*>(tables_tok);
-  const int* pos = static_cast<const int*>(positions);
-  int* cnt = static_cast<int*>(counters);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64) {
-    return tiled::launch<64>(q, k_pages, v_pages, tab, pos, items, n_items,
-                             partial, partial_rows, cnt, out, num_tokens, H,
-                             NB, bs, MB, scale, s);
-  }
-  if (hd == 128) {
-    return tiled::launch<128>(q, k_pages, v_pages, tab, pos, items, n_items,
-                              partial, partial_rows, cnt, out, num_tokens, H,
-                              NB, bs, MB, scale, s);
-  }
-  return cudaErrorInvalidValue;
+  return tiled::with_build(q_dtype, kv_dtype, hd, [&](auto types, auto d) {
+    using B = decltype(types);
+    return tiled::launch<typename B::Q, typename B::KV, typename B::O,
+                         decltype(d)::value>(
+        q, k_pages, v_pages, static_cast<const int*>(tables_tok),
+        static_cast<const int*>(positions), items, n_items, partial,
+        partial_rows, static_cast<int*>(counters), out, num_tokens, H, NB,
+        bs, MB, scale, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// Which build a call of q_dtype over kv_dtype pools (codes as above) at
+// head dim hd takes: 1 the slot-tiled build, 0 a warp build (the mixed
+// one for fp16 over bf16), -1 none.
+int epl_paged_route(int q_dtype, int kv_dtype, int hd) {
+  if (tiled::takes(q_dtype, kv_dtype, hd)) return 1;
+  const bool warp = hd > 0 && hd <= 256 && hd % 8 == 0 &&
+                    ((q_dtype == kv_dtype && q_dtype >= 0 && q_dtype <= 2) ||
+                     (q_dtype == 2 && kv_dtype == 1));
+  return warp ? 0 : -1;
 }
 
 const char* epl_cuda_error_string(int err) {

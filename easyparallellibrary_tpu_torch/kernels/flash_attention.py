@@ -10,9 +10,9 @@ has no counterpart here.  In bf16 at head dims 64 and 128 the three
 kernels run their wgmma builds, which read their tiles through TMA
 tensor maps that the library encodes on every call from the pointers
 and sizes given (3 maps for the forward, 4 each for dK/dV and dQ); in
-fp16 at those head dims the forward and dK/dV run the same builds
-instantiated for fp16.  fp32, fp16 dQ, and both 16-bit types at other
-head dims run the CUDA-core build, which accumulates in fp32.
+fp16 at those head dims all three run the same builds instantiated for
+fp16.  fp32, and both 16-bit types at other head dims, run the
+CUDA-core build, which accumulates in fp32.
 ``flash_route`` says which build a call takes.
 
 Each of the three functions comes in three forms, kernel layout

@@ -10,29 +10,33 @@ its slot's block table (shapes below).  The functions:
   cast back to the input dtype before the V product).  The CPU path, and
   the oracle both builds are held against on the card.
 * :func:`paged_attention_tiled_cuda` — the slot-tiled kernel of
-  ``csrc/paged_attention.cu`` (bf16, head dim 64 or 128): one CTA per
-  (query tile, head, context split), tensor-core products, split
-  contexts combined in the same launch.  It takes a :class:`PagedTiles`
-  plan (:func:`plan_tiles`).
+  ``csrc/paged_attention.cu`` at head dim 64 or 128, in three builds: bf16
+  q over bf16 pools, fp16 over fp16, and fp16 over bf16 (amp O1
+  computing in fp16 over a bf16 model config; fp32 output, the promoted
+  type the JAX reference's einsums compute in): one CTA per (query tile,
+  head, context split), tensor-core products, split contexts combined in
+  the same launch.  It takes a :class:`PagedTiles` plan
+  (:func:`plan_tiles`).
 * :func:`paged_attention_warp_cuda` — the warp kernel of the same source
-  (one warp per token and head), for fp32, for fp16, and for bf16 at the
+  (one warp per token and head), for fp32, and for bf16 and fp16 at the
   other head dims.
 * :func:`paged_attention_mixed_cuda` — the warp kernel built for an fp16
-  query over bf16 pools (amp O1 computing in fp16 over a bf16 model
-  config), with an fp32 output: the promoted type the JAX reference's
-  einsums compute in.
+  query over bf16 pools, fp32 out, at the other head dims.
 * :func:`paged_attention_cuda` — the CUDA entry: it checks the
-  arguments and launches the build that takes them (the tiled build for
-  bf16 at head dims 64 and 128, the mixed build for fp16 q over bf16
-  pools, the warp build otherwise).  An fp16 call runs the warp build's
-  fp16 instantiation.
+  arguments and launches the build that takes them (:func:`takes_tiles`:
+  the tiled build for the three pairs of types above at head dims 64 and
+  128; otherwise the mixed warp build for fp16 q over bf16 pools, the
+  warp build for the rest).  :func:`paged_route` asks the library which
+  build its own gate gives a call.
 * :func:`paged_attention` — the dispatcher: a CPU tensor goes to the
   plain version, a CUDA tensor to :func:`paged_attention_cuda`.  A CUDA
   tensor never reaches the plain version through it.
 
 Each wrapper keeps a plain integer count of its launches (``.launches``
 on the four CUDA functions; ``paged_attention_cuda`` counts every
-launch, the three builds their own) and the plain version of its calls
+launch, the builds their own, and ``paged_attention_tiled_cuda.by_build``
+splits the tiled launches by build: ``"bf16"``, ``"fp16"``,
+``"fp16_bf16"``) and the plain version of its calls
 (``paged_attention_reference.calls``), so a run can show which one its
 main path went through.  Under a cost count the dispatcher books the
 formula of ``kernels/_cost.py`` whichever of the two runs.
@@ -83,6 +87,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MIXED_DTYPES = (torch.float16, torch.bfloat16)
 _MAX_HEAD_DIM = 256
 TILE_ROWS = 64             # rows of a query tile, at most (the kernel's)
+# The tiled build's (q, pools) types and head dims (csrc: tiled::takes),
+# each pair by the name its launches are counted under.
+TILED_BUILDS = {(torch.bfloat16, torch.bfloat16): "bf16",
+                (torch.float16, torch.float16): "fp16",
+                MIXED_DTYPES: "fp16_bf16"}
 TILED_HEAD_DIMS = (64, 128)
 _ITEM_FIELDS = 8           # int32 per work item (csrc: tiled::Item)
 
@@ -245,18 +254,21 @@ def plan_tiles(runs, positions, MB: int, bs: int, H: int,
       partial_rows=partial_rows)
 
 
-def takes_tiles(dtype, hd: int) -> bool:
-  """Whether the tiled build (which needs a tile plan) takes this call."""
-  return dtype == torch.bfloat16 and hd in TILED_HEAD_DIMS
+def takes_tiles(q_dtype, pool_dtype, hd: int) -> bool:
+  """Whether the tiled build (which needs a tile plan) takes a call of a
+  ``q_dtype`` query over ``pool_dtype`` pools at head dim ``hd``: the
+  one rule :func:`paged_attention_cuda` routes by."""
+  return (q_dtype, pool_dtype) in TILED_BUILDS and hd in TILED_HEAD_DIMS
 
 
 def needs_tiles(k_pages, q_dtype=None) -> bool:
   """Whether a call over this pool launches the tiled build: a CUDA pool
-  of a dtype and head dim it takes, read by a query of the same dtype
-  (``q_dtype``, when the caller knows it; an fp16 query over bf16 pools
-  runs the mixed build)."""
-  return (k_pages.is_cuda and takes_tiles(k_pages.dtype, k_pages.shape[-1])
-          and (q_dtype is None or q_dtype == k_pages.dtype))
+  read by a query of ``q_dtype`` (the caller's compute dtype; by default
+  the pool's own) that :func:`takes_tiles` admits.  The engine and the
+  draft model plan a step's tiles by this question."""
+  q_dtype = k_pages.dtype if q_dtype is None else q_dtype
+  return k_pages.is_cuda and takes_tiles(q_dtype, k_pages.dtype,
+                                         k_pages.shape[-1])
 
 
 # ------------------------------------------------------------- wrappers --
@@ -272,11 +284,35 @@ def _library():
     lib.epl_paged_attention_mixed.argtypes = [p] * 6 + [i] * 6 + [f, p]
     lib.epl_paged_attention_mixed.restype = i
     lib.epl_paged_attention_tiled.argtypes = ([p] * 6 + [i, p, i, p, p]
-                                              + [i] * 6 + [f, p])
+                                              + [i] * 8 + [f, p])
     lib.epl_paged_attention_tiled.restype = i
+    lib.epl_paged_route.argtypes = [i] * 3
+    lib.epl_paged_route.restype = i
     lib.epl_cuda_error_string.argtypes = [i]
     lib.epl_cuda_error_string.restype = ctypes.c_char_p
   return lib
+
+
+def paged_route(q_dtype, pool_dtype, hd: int) -> str:
+  """The build a CUDA call of a ``q_dtype`` query over ``pool_dtype``
+  pools at head dim ``hd`` takes, as the library's own gate answers it
+  (``epl_paged_route``, from the constant the tiled entry reads):
+  ``"tiled"`` or ``"warp"`` (a warp build, the mixed one for fp16 over
+  bf16).  A narrower query over fp32 pools is read in fp32, as
+  :func:`paged_attention_cuda` reads it.  It builds the library at the
+  first call: on a machine with ``nvcc``."""
+  if pool_dtype == torch.float32:
+    q_dtype = torch.float32
+  if q_dtype not in _DTYPE_CODES or pool_dtype not in _DTYPE_CODES:
+    raise ValueError(f"paged_route: no build takes {q_dtype} over "
+                     f"{pool_dtype}")
+  code = _library().epl_paged_route(_DTYPE_CODES[q_dtype],
+                                    _DTYPE_CODES[pool_dtype], int(hd))
+  if code not in (0, 1):
+    raise ValueError(f"paged_route: no build takes {q_dtype} over "
+                     f"{pool_dtype} at head dim {hd} (epl_paged_route "
+                     f"{code})")
+  return "tiled" if code == 1 else "warp"
 
 
 def _check_args(q, k_pages, v_pages, tables_tok, positions):
@@ -359,8 +395,9 @@ def paged_attention_warp_cuda(q, k_pages, v_pages, tables_tok, positions):
 
 
 def paged_attention_mixed_cuda(q, k_pages, v_pages, tables_tok, positions):
-  """The mixed build on the current stream: an fp16 ``q`` over bf16
-  pools (any supported head dim); returns ``[T, H, hd]`` in fp32, the
+  """The mixed warp build on the current stream: an fp16 ``q`` over bf16
+  pools (any supported head dim; the dispatcher gives it the head dims
+  the tiled build does not take); returns ``[T, H, hd]`` in fp32, the
   type the JAX reference promotes these einsums to.  p is rounded to
   fp16 before the V product, as the reference's ``probs.astype(q.dtype)``
   does."""
@@ -385,14 +422,17 @@ def paged_attention_mixed_cuda(q, k_pages, v_pages, tables_tok, positions):
 
 def paged_attention_tiled_cuda(q, k_pages, v_pages, tables_tok, positions,
                                tiles: PagedTiles):
-  """The slot-tiled build on the current stream (bf16, head dim 64 or
-  128) over the work items of ``tiles``; returns ``[T, H, hd]``."""
+  """The slot-tiled build on the current stream (a pair of types of
+  :data:`TILED_BUILDS`, head dim 64 or 128) over the work items of
+  ``tiles``; returns ``[T, H, hd]`` in ``q``'s dtype, or fp32 for an
+  fp16 ``q`` over bf16 pools (the promoted type)."""
   _check_args(q, k_pages, v_pages, tables_tok, positions)
-  _one_dtype("paged_attention_tiled_cuda", q, k_pages)
   T, H, hd = q.shape
-  if not takes_tiles(q.dtype, hd):
-    raise ValueError(f"paged_attention_tiled_cuda takes bfloat16 at head "
-                     f"dims {TILED_HEAD_DIMS}; got {q.dtype}, {hd}")
+  if not takes_tiles(q.dtype, k_pages.dtype, hd):
+    raise ValueError(f"paged_attention_tiled_cuda takes (q, pools) "
+                     f"{[(str(a), str(b)) for a, b in TILED_BUILDS]} at "
+                     f"head dims {TILED_HEAD_DIMS}; got {q.dtype} over "
+                     f"{k_pages.dtype}, {hd}")
   items, counters = tiles.items, tiles.counters
   if (items.device != q.device or counters.device != q.device
       or items.dtype != torch.int32 or counters.dtype != torch.int32
@@ -403,7 +443,9 @@ def paged_attention_tiled_cuda(q, k_pages, v_pages, tables_tok, positions,
                      f"for this batch (H={H}) on {q.device}")
   lib = _library()
   NB, bs = k_pages.shape[:2]
-  out = torch.empty_like(q)
+  out = torch.empty(q.shape, dtype=torch.promote_types(q.dtype,
+                                                       k_pages.dtype),
+                    device=q.device)
   partial = torch.empty((tiles.partial_rows * H * (hd + 2),),
                         dtype=torch.float32, device=q.device)
   with torch.cuda.device(q.device):
@@ -413,33 +455,35 @@ def paged_attention_tiled_cuda(q, k_pages, v_pages, tables_tok, positions,
         tables_tok.data_ptr(), positions.data_ptr(), items.data_ptr(),
         items.shape[0], partial.data_ptr() if partial.numel() else None,
         tiles.partial_rows, counters.data_ptr(), out.data_ptr(), T, H, hd,
-        NB, bs, tables_tok.shape[1], 1.0 / math.sqrt(hd), stream)
+        NB, bs, tables_tok.shape[1], _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k_pages.dtype], 1.0 / math.sqrt(hd), stream)
   _raise_on(lib, err, "paged_attention (tiled build)")
   paged_attention_tiled_cuda.launches += 1
+  paged_attention_tiled_cuda.by_build[
+      TILED_BUILDS[q.dtype, k_pages.dtype]] += 1
   return out
 
 
 def paged_attention_cuda(q, k_pages, v_pages, tables_tok, positions,
                          tiles: Optional[PagedTiles] = None):
-  """The CUDA entry: the tiled build for bf16 at head dims 64 and 128
-  (planning the tiles from the batch when ``tiles`` is None, which reads
-  the tables and positions back to the host), the warp build otherwise.
-  A narrower ``q`` over fp32 pools (amp O1 over an fp32 model config)
-  is read in fp32, an exact cast: the fp32 build then keeps p in fp32,
-  as the Pallas kernel's ``p.astype(v.dtype)`` does, and the output is
-  fp32, the promoted type the plain version returns too.  An fp16 ``q``
-  over bf16 pools (amp O1 in fp16 over a bf16 model config) runs the
-  mixed build (``tiles`` unused), whose output is fp32, the promoted
-  type.  Raises on any other mix of dtypes, on arguments the kernels do
-  not take and on a refused launch."""
+  """The CUDA entry, routed by :func:`takes_tiles` alone: the tiled build
+  for bf16 over bf16, fp16 over fp16 and fp16 over bf16 at head dims 64
+  and 128 (planning the tiles from the batch when ``tiles`` is None,
+  which reads the tables and positions back to the host); otherwise the
+  mixed warp build for an fp16 ``q`` over bf16 pools (``tiles`` unused)
+  and the warp build for the rest.  An fp16 ``q`` over bf16 pools (amp
+  O1 in fp16 over a bf16 model config) gives fp32, the promoted type.  A
+  narrower ``q`` over fp32 pools (amp O1 over an fp32 model config) is
+  read in fp32, an exact cast: the fp32 build then keeps p in fp32, as
+  the Pallas kernel's ``p.astype(v.dtype)`` does, and the output is
+  fp32, the promoted type the plain version returns too.  Raises on any
+  other mix of dtypes, on arguments the kernels do not take and on a
+  refused launch (never retried on another build)."""
   if k_pages.dtype == torch.float32 and q.dtype != torch.float32:
     q = q.float()
   _check_args(q, k_pages, v_pages, tables_tok, positions)
   T, H, hd = q.shape
-  if q.dtype != k_pages.dtype:
-    out = paged_attention_mixed_cuda(q, k_pages, v_pages, tables_tok,
-                                     positions)
-  elif takes_tiles(q.dtype, hd):
+  if takes_tiles(q.dtype, k_pages.dtype, hd):
     if tiles is None:
       pos = positions.cpu().numpy()
       runs = tile_runs_from_tokens(tables_tok.cpu().numpy(), pos)
@@ -447,6 +491,9 @@ def paged_attention_cuda(q, k_pages, v_pages, tables_tok, positions,
                          H, q.device)
     out = paged_attention_tiled_cuda(q, k_pages, v_pages, tables_tok,
                                      positions, tiles)
+  elif q.dtype != k_pages.dtype:
+    out = paged_attention_mixed_cuda(q, k_pages, v_pages, tables_tok,
+                                     positions)
   else:
     out = paged_attention_warp_cuda(q, k_pages, v_pages, tables_tok,
                                     positions)
@@ -458,6 +505,7 @@ paged_attention_cuda.launches = 0
 paged_attention_warp_cuda.launches = 0
 paged_attention_mixed_cuda.launches = 0
 paged_attention_tiled_cuda.launches = 0
+paged_attention_tiled_cuda.by_build = dict.fromkeys(TILED_BUILDS.values(), 0)
 
 
 def reset_counts():
@@ -465,6 +513,8 @@ def reset_counts():
   for fn in (paged_attention_cuda, paged_attention_warp_cuda,
              paged_attention_mixed_cuda, paged_attention_tiled_cuda):
     fn.launches = 0
+  paged_attention_tiled_cuda.by_build = dict.fromkeys(TILED_BUILDS.values(),
+                                                      0)
   paged_attention_reference.calls = 0
 
 

@@ -206,9 +206,13 @@ class DraftModelDrafter(Drafter):
     self.token_budget = engine.token_budget
     self._paged = bool(engine.paged)
     cfg = self.model.cfg
+    # The dtype the draft model computes in (amp O1 resolves it from the
+    # ambient config, as for the engine's model); its caches stay in
+    # cfg.dtype.
+    self.compute_dtype = resolve_model_dtypes(cfg).dtype
     self.params = cast_for_compute(
         {n: p.to(self.device) for n, p in self.params.items()},
-        resolve_model_dtypes(cfg).dtype)
+        self.compute_dtype)
     if not self._paged:
       self._kv, self._cursors = kv_lib.allocate_kv_cache(
           cfg, engine.num_slots, engine.chunk, self.device)
@@ -273,7 +277,9 @@ class DraftModelDrafter(Drafter):
     model, params = self.model, self.params
     pool = self._kv["block_0"]["attn"]["cached_key"]
     MB = plan.block_tables.shape[1]
-    tiled = pa.needs_tiles(pool)
+    # The engine's question (ContinuousBatchingEngine._score): the query
+    # is in the compute dtype, which under amp O1 need not be the pool's.
+    tiled = pa.needs_tiles(pool, self.compute_dtype)
     tables = self._tensor(plan.block_tables)
     # The mirror: the engine's flat batch as planned (its draft
     # positions reserved and still invalid), over the same tiles.

@@ -270,10 +270,12 @@ def test_paged_tiled_kernel_matches_plain_version(cuda, step, hd):
                                atol=2e-2)
 
 
-def _plan_case(device, seed, kind, hd, H=4):
+def _plan_case(device, seed, kind, hd, H=4, q_dtype=torch.bfloat16,
+               kv_dtype=torch.bfloat16):
   """The tiled kernel's inputs at a step of the real scheduler
   (``testing.step_plans``, 8 slots, chunk 128, bs 16, k = 4): q and the
-  pools random in bf16, and a list of ``(tables, positions, tiles)``
+  pools random in ``q_dtype`` / ``kv_dtype``, and a list of ``(tables,
+  positions, tiles)``
   calls: one for a speculative or a warm-prefix step (tiles from the
   planner with the plan's draft runs), four for a draft model's rollout
   (one-row tiles planned once from the last call, slot 0 crossing
@@ -297,8 +299,9 @@ def _plan_case(device, seed, kind, hd, H=4):
   tiles = pa.plan_tiles(runs, plan_pos, MB, 16, H, device)
   r = np.random.RandomState(seed)
   floats = [torch.from_numpy(r.randn(*shape).astype(np.float32)).to(
-      device, torch.bfloat16) for shape in ((len(tables), H, hd),
-                                            (NB, 16, H, hd), (NB, 16, H, hd))]
+      device, dtype) for shape, dtype in (((len(tables), H, hd), q_dtype),
+                                          ((NB, 16, H, hd), kv_dtype),
+                                          ((NB, 16, H, hd), kv_dtype))]
   tables = torch.from_numpy(tables).to(device)
   return floats, [(tables, torch.from_numpy(p).to(device), tiles)
                   for p in calls]
@@ -467,6 +470,32 @@ def _assert_normalized_close(got, want, limit, name):
   assert rel_l2 <= limit[0] and max_rel <= limit[1], (name, rel_l2, max_rel)
 
 
+def _build_of(args):
+  """The build the dispatcher's rule gives a call: a tiled build's name
+  (``pa.TILED_BUILDS``), or ``"warp"`` / ``"mixed"`` for the warp builds."""
+  q, kp = args[0], args[1]
+  if pa.takes_tiles(q.dtype, kp.dtype, q.shape[-1]):
+    return pa.TILED_BUILDS[q.dtype, kp.dtype]
+  return "mixed" if q.dtype != kp.dtype else "warp"
+
+
+def _paged_counts():
+  return dict(pa.paged_attention_tiled_cuda.by_build,
+              tiled=pa.paged_attention_tiled_cuda.launches,
+              warp=pa.paged_attention_warp_cuda.launches,
+              mixed=pa.paged_attention_mixed_cuda.launches)
+
+
+def _counted(before, build):
+  """``before`` with one launch of ``build`` added (and the tiled total
+  for a tiled build)."""
+  after = dict(before)
+  after[build] += 1
+  if build in pa.TILED_BUILDS.values():
+    after["tiled"] += 1
+  return after
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("B,H,S,Skv,D", [
@@ -482,14 +511,13 @@ def test_flash_fp16_kernels_match_plain_versions(cuda, causal, B, H, S, Skv,
                                                  D):
   """The fp16 builds at ragged lengths, a key length past the query
   length, a one-token sequence, head dims 8 to 256 and the training
-  shape (batch cut to 2): the forward and dK/dV on the wgmma builds at
-  head dims 64 and 128, dQ and every other head dim on the CUDA-core
+  shape (batch cut to 2): the forward, dK/dV and dQ on the wgmma builds
+  at head dims 64 and 128, every other head dim on the CUDA-core
   kernels, as ``flash_route`` reports."""
   from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
   tensor_cores = D in (64, 128)
   assert [fa.flash_route(k, torch.float16, D) for k in ("fwd", "dkv", "dq")
-          ] == ["wgmma" if tensor_cores else "cuda_cores"] * 2 + [
-              "cuda_cores"], D
+          ] == ["wgmma" if tensor_cores else "cuda_cores"] * 3, D
   q, k, v, dout = _flash_case(cuda, torch.float16, 17, B, H, S, Skv, D)
   launches = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dkv_cuda.launches,
               fa.flash_bwd_dq_cuda.launches)
@@ -511,19 +539,21 @@ def test_flash_fp16_kernels_match_plain_versions(cuda, causal, B, H, S, Skv,
   grads = [("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)]
   if Skv == 1:
     # One key: the softmax has no gradient with respect to its only
-    # score, so the exact dK is 0, and dS = p (dP - delta) is the
-    # difference of two fp32 sums of the same D products of dO and V,
-    # taken in other orders by the wgmma build and by the plain version
-    # (the CUDA-core dQ takes the plain version's order).  The plain
-    # version is then no reference for dK: both are held to 0 within
-    # that rounding, 2 D 2^-24 max(sum |dO V|) max|q| / sqrt(D), with
-    # fp16's relative and subnormal rounding of dS and dK on top.
+    # score, so the exact dS, dK and dQ are 0, and dS = p (dP - delta) is
+    # the difference of two fp32 sums of the same D products of dO and
+    # V, taken in other orders by the wgmma builds and by the plain
+    # version.  The plain version is then no reference for dK and dQ:
+    # both builds' are held to 0 within that rounding, 2 D 2^-24
+    # max(sum |dO V|) over sqrt(D), times max|q| (dK) or max|k| (dQ),
+    # with fp16's relative and subnormal rounding of dS and of the
+    # gradient on top.
     terms = (dout.float() * v.float()).abs().sum(-1).max()
-    bound = (2 * D * 2.0 ** -24 * terms * (1 + 2.0 ** -10)
-             * q.float().abs().max() / D ** 0.5 + 2.0 ** -24).item()
-    for name, got in (("dk", dk), ("plain dk", want_dk)):
+    noise = 2 * D * 2.0 ** -24 * terms * (1 + 2.0 ** -10) / D ** 0.5
+    for name, got, other in (("dk", dk, q), ("plain dk", want_dk, q),
+                             ("dq", dq, k), ("plain dq", want_dq, k)):
+      bound = (noise * other.float().abs().max() + 2.0 ** -24).item()
       assert got.float().abs().max().item() <= bound, (name, bound)
-    grads = [g for g in grads if g[0] != "dk"]
+    grads = [g for g in grads if g[0] == "dv"]
   for name, got, want in grads:
     _assert_normalized_close(got, want, FLASH_FP16_LIMIT["grad"], name)
 
@@ -551,16 +581,14 @@ def test_flash_fp16_ragged_tail_reads_nothing_of_the_next_head(cuda, causal,
     dict(seed=5, T=3, H=1, hd=8, NB=5, bs=2, MB=3),
 ])
 def test_paged_fp16_warp_build_matches_plain_version(cuda, shape):
-  """fp16 runs the warp build at every head dim, 64 and 128 included
-  (the tiled build stays bf16-only)."""
+  """fp16 runs the tiled build at head dims 64 and 128 and the warp
+  build at every other head dim, each call counted on its build
+  alone."""
   args = _case(cuda, torch.float16, **shape)
-  launches = (pa.paged_attention_warp_cuda.launches,
-              pa.paged_attention_tiled_cuda.launches)
+  before = _paged_counts()
   got = pa.paged_attention(*args)
   torch.cuda.synchronize()
-  assert (pa.paged_attention_warp_cuda.launches,
-          pa.paged_attention_tiled_cuda.launches) == (launches[0] + 1,
-                                                      launches[1])
+  assert _paged_counts() == _counted(before, _build_of(args))
   assert got.dtype == torch.float16
   want = pa.paged_attention_reference(*args)
   _assert_normalized_close(got, want, PAGED_FP16_LIMIT, "paged fp16")
@@ -599,9 +627,10 @@ def test_paged_fp16_query_over_fp32_pools_runs_the_fp32_build(cuda):
   rounds p to the query's fp16 before the V product, the kernel keeps it
   in fp32 (the Pallas kernel's ``p.astype(v.dtype)``): held to fp16's
   resolution, rtol = atol = 2e-3.  amp O1 in fp16 over a bf16 config
-  (fp16 q over bf16 pools, which once raised here) runs the mixed build
-  at an engine step of the real scheduler, held to its plain version by
-  ``PAGED_MIXED_LIMIT``; any other mix of types still raises."""
+  (fp16 q over bf16 pools, which once raised here) runs the tiled
+  build's mixed instantiation at an engine step of the real scheduler
+  (head dim 64), held to its plain version by ``PAGED_MIXED_LIMIT``; any
+  other mix of types still raises."""
   q, kp, vp, tables, positions = _case(cuda, torch.float32, seed=7, T=9,
                                        H=4, hd=64, NB=13, bs=16, MB=6)
   q = q.half()
@@ -613,13 +642,10 @@ def test_paged_fp16_query_over_fp32_pools_runs_the_fp32_build(cuda):
   assert got.dtype == want.dtype == torch.float32
   torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
   args = _engine_step_mixed(cuda, seed=7)
-  launches = (pa.paged_attention_mixed_cuda.launches,
-              pa.paged_attention_tiled_cuda.launches)
+  before = _paged_counts()
   got = pa.paged_attention(*args)
   torch.cuda.synchronize()
-  assert (pa.paged_attention_mixed_cuda.launches,
-          pa.paged_attention_tiled_cuda.launches) == (launches[0] + 1,
-                                                      launches[1])
+  assert _paged_counts() == _counted(before, "fp16_bf16")
   want = pa.paged_attention_reference(*args)
   assert got.dtype == want.dtype == torch.float32
   _assert_normalized_close(got, want, PAGED_MIXED_LIMIT, "engine_step")
@@ -657,15 +683,17 @@ def _engine_step_mixed(device, seed, H=16, hd=64):
     dict(seed=6, T=1, H=1, hd=64, NB=2, bs=16, MB=1),
 ])
 def test_paged_mixed_build_matches_plain_version(cuda, shape):
-  """The mixed build (fp16 q over bf16 pools, fp32 out) at ragged head
-  dims 8 to 256, one token, a one-block table; a NaN in q gives NaN in
-  that token's output row and nowhere else."""
+  """fp16 q over bf16 pools (fp32 out) at ragged head dims 8 to 256, one
+  token, a one-block table: the tiled build's mixed instantiation at
+  head dims 64 and 128, the mixed warp build elsewhere, each call
+  counted on its build alone; a NaN in q gives NaN in that token's
+  output row and nowhere else."""
   q, kp, vp, tables, positions = _case(cuda, torch.float32, **shape)
   args = (q.half(), kp.bfloat16(), vp.bfloat16(), tables, positions)
-  launches = pa.paged_attention_mixed_cuda.launches
+  before = _paged_counts()
   got = pa.paged_attention(*args)
   torch.cuda.synchronize()
-  assert pa.paged_attention_mixed_cuda.launches == launches + 1
+  assert _paged_counts() == _counted(before, _build_of(args))
   want = pa.paged_attention_reference(*args)
   assert got.dtype == torch.float32
   _assert_normalized_close(got, want, PAGED_MIXED_LIMIT, "paged mixed")
@@ -675,6 +703,77 @@ def test_paged_mixed_build_matches_plain_version(cuda, shape):
   assert bool(torch.isnan(got[0, 0]).all())
   assert bool(torch.isfinite(got[1:]).all()) and bool(
       torch.isfinite(got[0, 1:]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kind", ["speculative", "warm_prefix", "rollout"])
+@pytest.mark.parametrize("build", ["fp16", "fp16_bf16"])
+def test_paged_tiled_fp16_and_mixed_builds_on_scheduler_plans(cuda, build,
+                                                              kind, hd):
+  """The tiled build's fp16 and mixed (fp16 q over bf16 pools, fp32 out)
+  instantiations over the planner's tiles of a speculative step, a
+  warm-prefix step and a draft model's rollout calls: each call counted
+  on its build, the plan's counters left at 0, and the output held by
+  ``PAGED_FP16_LIMIT`` / ``PAGED_MIXED_LIMIT`` to the plain version
+  over the pools read in fp32 (exact): scores and the V product in fp32
+  as the kernels (and the Pallas kernel) take them, p rounded to the
+  query's fp16.  For the mixed build that is its plain version; the
+  fp16 plain version rounds the scores to fp16 as well, which at head
+  dim 128 over the rollout's 8 rows alone comes near the limit (the warp
+  fp16 build reads the same there)."""
+  q_dtype, kv_dtype = {"fp16": (torch.float16, torch.float16),
+                       "fp16_bf16": pa.MIXED_DTYPES}[build]
+  (q, kp, vp), calls = _plan_case(cuda, 8, kind, hd, q_dtype=q_dtype,
+                                  kv_dtype=kv_dtype)
+  limit = PAGED_FP16_LIMIT if build == "fp16" else PAGED_MIXED_LIMIT
+  for tables, positions, tiles in calls:
+    before = _paged_counts()
+    got = pa.paged_attention(q, kp, vp, tables, positions, tiles)
+    torch.cuda.synchronize()
+    assert _paged_counts() == _counted(before, build)
+    assert not tiles.counters.any()
+    want = pa.paged_attention_reference(q, kp.float(), vp.float(), tables,
+                                        positions)
+    assert got.dtype == torch.promote_types(q_dtype, kv_dtype)
+    assert bool(torch.isfinite(got).all())
+    _assert_normalized_close(got, want, limit, f"{build} {kind}")
+
+
+@pytest.mark.gpu
+def test_paged_route_is_the_dispatchers_rule(cuda):
+  """The library's own gate (``paged_route``, from the constant the
+  tiled entry reads) gives every (query, pool) type pair and head dim
+  the build ``takes_tiles`` routes it to."""
+  dtypes = (torch.float32, torch.bfloat16, torch.float16)
+  for q_dtype in dtypes:
+    for kv_dtype in dtypes:
+      for hd in (8, 32, 64, 128, 256):
+        want = "tiled" if pa.takes_tiles(q_dtype, kv_dtype, hd) else "warp"
+        if kv_dtype != torch.float32 and q_dtype != kv_dtype and (
+            (q_dtype, kv_dtype) != pa.MIXED_DTYPES):
+          with pytest.raises(ValueError, match="no build"):
+            pa.paged_route(q_dtype, kv_dtype, hd)
+          continue
+        assert pa.paged_route(q_dtype, kv_dtype, hd) == want, (
+            q_dtype, kv_dtype, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("build", ["fp16", "fp16_bf16"])
+def test_paged_tiled_fp16_refused_launch_raises(cuda, build):
+  """The fp16 and mixed tiled builds raise on a refused launch (65536
+  heads exceed the grid's y dimension) and count nothing: no warp build
+  stands in."""
+  H = 65536
+  args, runs = _paged_step(cuda, torch.float16, 5, slots=[(0, 1)], T=1,
+                           H=H, hd=64, bs=1, MB=4, NB=2)
+  if build == "fp16_bf16":
+    args = (args[0], args[1].bfloat16(), args[2].bfloat16(), *args[3:])
+  before = _paged_counts()
+  with pytest.raises(RuntimeError, match="launch failed"):
+    pa.paged_attention(*args)
+  assert _paged_counts() == before
 
 
 @pytest.mark.gpu

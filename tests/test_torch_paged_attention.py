@@ -7,6 +7,8 @@ runs only on the card: tests/test_torch_gpu.py holds it against the
 plain version there.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -301,10 +303,35 @@ def test_split_tiles_with_plan_or_derived_tiles_match_plain_version(seed):
 
 
 def test_tiled_build_takes_bf16_at_head_dims_64_and_128_only():
-  assert pa.takes_tiles(torch.bfloat16, 64)
-  assert pa.takes_tiles(torch.bfloat16, 128)
-  assert not pa.takes_tiles(torch.float32, 64)
-  assert not pa.takes_tiles(torch.bfloat16, 32)
+  assert pa.takes_tiles(torch.bfloat16, torch.bfloat16, 64)
+  assert pa.takes_tiles(torch.bfloat16, torch.bfloat16, 128)
+  assert not pa.takes_tiles(torch.float32, torch.float32, 64)
+  assert not pa.takes_tiles(torch.bfloat16, torch.bfloat16, 32)
+
+
+_TYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+          "fp16": torch.float16}
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("pool", list(_TYPES))
+@pytest.mark.parametrize("q", list(_TYPES))
+def test_tiled_build_routing_table(q, pool, hd):
+  """The one routing rule, over every (query, pool) type pair and head
+  dim: the tiled build takes bf16 over bf16, fp16 over fp16 and fp16
+  over bf16 at head dims 64 and 128; every other call runs a warp build
+  (``chip_smoke.py`` holds the library's ``paged_route`` to this table
+  on the card).  ``needs_tiles`` asks the same question of a CUDA pool
+  and a compute dtype."""
+  want = (q, pool) in {("bf16", "bf16"), ("fp16", "fp16"),
+                       ("fp16", "bf16")} and hd in (64, 128)
+  assert pa.takes_tiles(_TYPES[q], _TYPES[pool], hd) == want
+  cuda_pool = types.SimpleNamespace(is_cuda=True, dtype=_TYPES[pool],
+                                    shape=(9, 16, 2, hd))
+  assert pa.needs_tiles(cuda_pool, _TYPES[q]) == want
+  cpu_pool = types.SimpleNamespace(is_cuda=False, dtype=_TYPES[pool],
+                                   shape=(9, 16, 2, hd))
+  assert not pa.needs_tiles(cpu_pool, _TYPES[q])
 
 
 # ------------------------------- plans of speculative and warm-prefix steps
