@@ -306,7 +306,23 @@ rank group):
     no offload, 2 steps each: losses and parameters bit-equal, the memory
     held between steps and the second step's peak both lower; (f) ``profiler.flops.
     collective_op_sizes`` of a row-parallel Dense (bf16, 1024 x 4096 ->
-    1024) on two ranks: one all-reduce of the analytic bytes.
+    1024) on two ranks: one all-reduce of the analytic bytes;
+26. checkpoints of a sharded training state, in phase 21's rank group
+    (``testing.ckpt_workers.train_resume``): GPT-350M widths at 4 layers,
+    bf16 over fp32 parameters, K1, AdamW, 8 x 1024 from
+    ``init_params(seed=0)`` — (a) TP = 2, (b) ZeRO v1 at ``data:2``, (c)
+    the smap 1F1B pipeline at ``stage:2`` (2 layers a stage): ``fit``
+    checkpoints at step 3 (each leaf gathered by its layout, only rank 0
+    writing) and goes on to step 6; a fresh state restores its blocks
+    (parameters and moments bit-equal to the saving run's) and resumes
+    to step 6 bit-equal to it; every checkpoint at the one-process
+    logical layout; K1's launches at their formula, no plain call; save
+    and restore seconds, bytes gathered through the host, the leader's
+    host memory, each step's wall; 26a's checkpoint reloaded at tp = 1 in
+    this process, its loss on a held batch within 2^-8 of the TP ranks';
+    (d) the paged engine at tp = 1 serving 8 staggered greedy requests
+    from it, the streams against ``generate(use_cache=False)`` by the
+    gap rule, K2's tiled launches at layers x steps, none warp or plain.
 """
 
 from __future__ import annotations
@@ -316,6 +332,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4983,7 +5000,7 @@ def tp_check_data_parallel(ranks, one, backend):
 
 
 def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None,
-                         p24=None):
+                         p24=None, p26_root=None):
   """Phase 21 (module docstring): the backend probe; K1 and K2 at the
   per-rank shapes; the tp = 1 references in this process; then every TP
   = 2, DP = 2 and ZeRO-1 run in one group of two ranks
@@ -4991,8 +5008,9 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None,
   ``pipeline``, phase 22's runs in the same group after them (the
   reference made here, the checks by ``pipeline_phase``); with ``p23``
   (``phase23_parent``'s), phase 23b and 23c's runs after those; with
-  ``p24`` (``phase24_parent``'s), phase 24c and 24e's last.  Returns what
-  the kernels line carries."""
+  ``p24`` (``phase24_parent``'s), phase 24c and 24e's; with ``p26_root``
+  (a directory for its checkpoints), phase 26's last.  Returns what the
+  kernels line carries."""
   from easyparallellibrary_tpu_torch.testing import tp_workers
   from easyparallellibrary_tpu_torch.utils.launcher import spawn
   t0 = time.monotonic()
@@ -5042,10 +5060,14 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None,
     spec.update(p23["spec"])
   if p24 is not None:
     spec["p24"] = p24["spec"]
+  p26 = None
+  if p26_root is not None:
+    spec["p26"] = p26 = phase26_spec(p26_root, backend)
   with Phase(f"21 TP = 2 serving and training, DP = 2, ZeRO-1 and the "
              f"ring" + (", then 22's pipeline runs" if pp else "")
              + (", then 23b and 23c" if p23 else "")
              + (", then 24c and 24e" if p24 else "")
+             + (", then 26a-c" if p26 else "")
              + ": two ranks, one group"):
     ranks = spawn(tp_workers.chip_tp_suite, TP, (backend, spec),
                   timeout_s=TP_SPAWN_DEADLINE_S)
@@ -5081,10 +5103,17 @@ def tensor_parallel_mesh(torch, pa, fa, params, pipeline=False, p23=None,
       p24_launches = phase24_checks(ranks, p24)
     p24["group_wall_s"] = group_s + time.monotonic() - t_check
     log(f"   24c, 24e. wall {group_s:.1f} s on the slower rank")
+  p26_out = None
+  if p26 is not None:
+    wall -= max(r["p26"]["wall_s"] for r in ranks)
+    with Phase("26. sharded checkpoints on phase 21's ranks: checks, the "
+               "tp = 1 reload, 26d serving"):
+      p26_out = phase26_finish(torch, pa, ranks, p26, backend)
   assert wall < TP_PHASE_WALL_S, f"phase 21 took {wall:.0f} s"
   return dict(backend=backend, nccl_probe=probe, ring=ring, paged=paged,
               flash=flash, serving=serving, training=training,
               pipeline=pp_launches, p23=p23_launches, p24=p24_launches,
+              p26=p26_out,
               row_dense_collectives=[r["row_dense_collectives"]
                                      for r in ranks])
 
@@ -6272,6 +6301,191 @@ def tooling_phase(torch, fa, pa, bench, smi, phase10_peak_gib, tp=None,
               flops=ctx["report"]["cost_flops"])
 
 
+# ------------------------------------------- 26. sharded checkpoints
+
+# GPT-350M widths cut to 4 layers (the script's time), bench.py's bf16
+# step over fp32 parameters (flash, remat ``dots_flash``, loss_chunk 256)
+# and AdamW(3e-4), 8 x 1024 a step: 6 steps, the checkpoint at step 3.
+P26_CFG = dict(GPT_350M, num_layers=4, dtype="bfloat16", remat=True,
+               remat_policy="dots_flash", attn_impl="pallas_flash",
+               loss_chunk=256)
+P26_BATCH, P26_STEPS, P26_SPLIT, P26_M, P26_LR = 8, 6, 3, 2, 3e-4
+P26_RUNS = {  # sub-phase: (mesh, Config entries, GPT config overrides)
+    "26a": ("model:2", None, {}),
+    "26b": ("data:2", {"zero.level": "v1"}, {}),
+    "26c": ("stage:2", {"pipeline.engine": "smap",
+                        "pipeline.strategy": "PreferBackward"},
+            {"pipeline_stages": 2, "num_micro_batch": P26_M}),
+}
+# 26a's checkpoint restored at tp = 1 in one process: its loss on a held
+# batch within one bf16 spacing (2^-8, relative) of the TP ranks'.
+P26_RELOAD_RTOL = 2.0 ** -8
+P26_REQUESTS = 8
+P26_WALL_S = 400
+
+
+def phase26_spec(root, backend):
+  """Phase 26's rank runs (``ckpt_workers.train_resume`` a sub-phase,
+  each from ``init_params(seed 0)``) and its held batch."""
+  r = np.random.RandomState(26)
+  shape = (P26_BATCH, GPT_350M["max_seq_len"] + 1)
+  batches = [r.randint(0, GPT_350M["vocab_size"], shape)
+             for _ in range(P26_STEPS)]
+  held = np.random.RandomState(27).randint(0, GPT_350M["vocab_size"], shape)
+  runs = [(mesh, dict(P26_CFG, **over), 0, batches, os.path.join(root, name),
+           P26_SPLIT, config, P26_LR, held if name == "26a" else None,
+           "cuda", backend)
+          for name, (mesh, config, over) in P26_RUNS.items()]
+  return {"root": root, "runs": runs, "held": held}
+
+
+def p26_logical_index(torch):
+  """``{path: shape}`` of a ``fit`` checkpoint of P26_CFG's model as one
+  process holds it (the JAX layout's logical shapes)."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT
+  from easyparallellibrary_tpu_torch.runtime import saver
+  from easyparallellibrary_tpu_torch.testing.tp_workers import gpt_config
+  model = GPT(gpt_config(P26_CFG), device="meta")
+  tree = saver.params_tree(dict(model.named_parameters()))
+  out = {"opt_state/0/count": []}
+  for path, leaf in tree.items():
+    for prefix in ("params/", "opt_state/0/mu/", "opt_state/0/nu/"):
+      out[prefix + path] = list(leaf.shape)
+  return out
+
+
+def phase26_checks(torch, ranks, spec, backend):
+  """26a-c on the ranks: each resume bit-equal (the restored blocks, the
+  steps after it, the final state), K1's launches at their formula and
+  no plain call, every checkpoint's leaves at the logical layout; the
+  save and restore seconds, bytes gathered, the leader's host memory
+  and each step's wall.  Returns K1's launches by sub-phase and rank."""
+  want = p26_logical_index(torch)
+  launches = {}
+  for i, name in enumerate(P26_RUNS):
+    recs = [r["p26"]["runs"][i] for r in ranks]
+    for rank, rec in enumerate(recs):
+      assert rec["rstep"] == P26_SPLIT, (name, rank, rec["rstep"])
+      assert rec["restored_differ"] == [], (name, rank,
+                                            rec["restored_differ"])
+      assert rec["final_differ"] == [], (name, rank, rec["final_differ"])
+      assert rec["resumed"] == rec["straight"][P26_SPLIT:], (name, rank)
+      assert all(np.isfinite(rec["straight"])), (name, rank)
+      assert rec["launches"] == rec["formula"], (name, rank, rec["launches"])
+      assert not any(rec["plain_calls"].values()), (name, rec["plain_calls"])
+      save = rec["save"]
+      log(f"   {name} rank {rank}: losses "
+          f"{[round(x, 5) for x in rec['straight']]}, resumed "
+          f"{[round(x, 5) for x in rec['resumed']]} (bit-equal); step ms "
+          f"{[round(x, 1) for x in rec['straight_ms']]} then "
+          f"{[round(x, 1) for x in rec['resumed_ms']]}; K1 {rec['launches']}"
+          f" = formula {rec['formula']}")
+      log(f"   {name} rank {rank}: save {save['seconds']:.2f} s, gathered "
+          f"{save['gathered_bytes'] / 2**20:.1f} MiB through the host, "
+          f"shard arrays held at most {save['host_peak_bytes'] / 2**20:.1f}"
+          f" MiB, resident peak +{save['rss_peak_bytes'] / 2**20:.1f} MiB; "
+          f"restore {rec['restore_s']:.2f} s")
+    index = recs[0]["index"]
+    if name == "26c":
+      stacked = {p: s for p, s in index.items() if "/pipeline/" in p}
+      assert stacked and all(s[0] == 2 for s in stacked.values()), stacked
+      count = lambda d: sum(int(np.prod(s)) for p, s in d.items()
+                            if p.startswith("params/"))  # noqa: E731
+      assert count(index) == count(want), (count(index), count(want))
+    else:
+      assert index == want, sorted(set(index) ^ set(want))[:4]
+    launches[name] = [rec["launches"] for rec in recs]
+  log(f"   26. every checkpoint at the logical layout ({len(want)} leaves; "
+      f"26c's stacked [2, ...]); {backend}, two ranks on one card")
+  return launches
+
+
+def p26_reload_and_serve(torch, pa, spec, tp_loss):
+  """26a's checkpoint in this process at tp = 1: its loss on the held
+  batch against the TP ranks' (``P26_RELOAD_RTOL``), then 26d: the paged
+  engine serving P26_REQUESTS staggered greedy requests from it, the
+  streams against ``generate(use_cache=False)`` by the gap rule, K2's
+  tiled launches at layers x steps, none warp or plain."""
+  from easyparallellibrary_tpu_torch.models.gpt import GPT, gpt_loss
+  from easyparallellibrary_tpu_torch.runtime import saver
+  from easyparallellibrary_tpu_torch.serving import (
+      ContinuousBatchingEngine, Request)
+  from easyparallellibrary_tpu_torch.testing.tp_workers import gpt_config
+  root = os.path.join(spec["root"], "26a")
+  t0 = time.monotonic()
+  params, step = saver.restore_params(root, device="cuda")
+  torch.cuda.synchronize()
+  load_s = time.monotonic() - t0
+  assert step == P26_SPLIT
+  model = GPT(gpt_config(P26_CFG))
+  with torch.no_grad():
+    loss, _ = gpt_loss(model, params, {"ids": torch.from_numpy(
+        spec["held"]).cuda()}, None)
+  loss = float(loss)
+  gap = abs(loss - tp_loss) / abs(tp_loss)
+  log(f"   26a. tp = 1 reload ({load_s:.2f} s): held-batch loss {loss:.6f} "
+      f"against the TP ranks' {tp_loss:.6f} (relative {gap:.2e}, limit "
+      f"{P26_RELOAD_RTOL:.2e})")
+  assert gap <= P26_RELOAD_RTOL, (loss, tp_loss)
+  serve_model = GPT(gpt_config(dict(GPT_350M, num_layers=4,
+                                    dtype="bfloat16")))
+  eng = ContinuousBatchingEngine(serve_model, params, paged=True,
+                                 num_slots=NUM_SLOTS,
+                                 prefill_chunk=PREFILL_CHUNK,
+                                 block_size=BLOCK_SIZE)
+  prompts = make_prompts(26, P26_REQUESTS, GPT_350M["vocab_size"])
+  pa.reset_counts()
+  out = {}
+  for i, p in enumerate(prompts):
+    if i == P26_REQUESTS // 2:
+      for _ in range(3):
+        for fin in eng.step():
+          out[fin.uid] = fin.tokens
+    eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+  out.update(eng.run())
+  torch.cuda.synchronize()
+  launches = pa.paged_attention_tiled_cuda.launches
+  layers = serve_model.cfg.num_layers
+  assert launches == layers * eng.steps > 0, (launches, eng.steps)
+  assert pa.paged_attention_warp_cuda.launches == 0
+  assert pa.paged_attention_reference.calls == 0
+  assert sorted(out) == list(range(P26_REQUESTS))
+  log(f"   26d. {P26_REQUESTS} staggered requests from 26a's checkpoint: "
+      f"{eng.steps} engine steps, tiled launches {launches} = {layers} "
+      f"layers x {eng.steps} steps, warp 0, plain 0")
+  greedy_vs_generate(torch, serve_model, eng.params, prompts, out,
+                     bf16_gap_limit, "26d")
+  eng.close()
+  return launches
+
+
+def phase26_alone(torch, pa):
+  """``--phases 26`` without phase 21: two gloo ranks of their own."""
+  from easyparallellibrary_tpu_torch.testing import tp_workers
+  from easyparallellibrary_tpu_torch.utils.launcher import spawn
+  root = tempfile.mkdtemp(prefix="epl_phase26_")
+  try:
+    spec = phase26_spec(root, "gloo")
+    ranks = spawn(tp_workers.chip_tp_suite, TP, ("gloo", {"p26": spec}),
+                  timeout_s=TP_SPAWN_DEADLINE_S)
+    return phase26_finish(torch, pa, ranks, spec, "gloo")
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase26_finish(torch, pa, ranks, spec, backend):
+  """The parent's half of phase 26, after the ranks ran 26a-c."""
+  t0 = time.monotonic()
+  launches = phase26_checks(torch, ranks, spec, backend)
+  tp_loss = ranks[0]["p26"]["runs"][0]["held_loss"]
+  serving = p26_reload_and_serve(torch, pa, spec, tp_loss)
+  wall = max(r["p26"]["wall_s"] for r in ranks) + time.monotonic() - t0
+  log(f"   26. wall {wall:.1f} s (the ranks' runs "
+      f"{max(r['p26']['wall_s'] for r in ranks):.1f} s)")
+  assert wall < P26_WALL_S, f"phase 26 took {wall:.0f} s"
+  return {"flash": launches, "paged": serving}
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -6426,16 +6640,25 @@ def main() -> int:
     t23 = time.monotonic()
     p23 = phase23_parent(torch, fa, bench, params, moe_params)
     del moe_params
+  p26 = None
   if want(21):
     gc.collect()
     torch.cuda.empty_cache()
+    p26_root = tempfile.mkdtemp(prefix="epl_phase26_") if want(26) else None
     with Phase("21. the tensor-parallel mesh on torch.distributed (TP = 2 "
                "serving and training, DP, ZeRO-1, the overlap ring)"
                + ("; 22. the pipeline in the same rank group" if want(22)
                   else "")
-               + ("; 23b, 23c in the same rank group" if p23 else "")):
-      tp = tensor_parallel_mesh(torch, pa, fa, params, pipeline=want(22),
-                                p23=p23, p24=p24)
+               + ("; 23b, 23c in the same rank group" if p23 else "")
+               + ("; 26. sharded checkpoints in the same rank group"
+                  if p26_root else "")):
+      try:
+        tp = tensor_parallel_mesh(torch, pa, fa, params, pipeline=want(22),
+                                  p23=p23, p24=p24, p26_root=p26_root)
+      finally:
+        if p26_root:
+          shutil.rmtree(p26_root, ignore_errors=True)
+    p26 = tp["p26"]
     if p23 is not None:
       with Phase("23d. ZeRO v1 and v0 under the smap pipeline, four ranks"):
         t0 = time.monotonic()
@@ -6456,6 +6679,12 @@ def main() -> int:
     with Phase("23. MoE, sequence parallelism and ZeRO under the pipeline"):
       phase23_alone(torch, fa, bench, params, moe_params)
     del moe_params
+  if want(26) and not want(21):
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("26. checkpoints of a sharded training state (TP, ZeRO-1, "
+               "smap 1F1B) and serving from one, two ranks"):
+      p26 = phase26_alone(torch, pa)
   if want(24) and not want(21):
     gc.collect()
     torch.cuda.empty_cache()
@@ -6556,7 +6785,10 @@ def main() -> int:
                 launches_profile_step=tool["profile_step"][k],
                 launches_profilers=tool["profilers"][k],
                 launches_example=tool["example"][k],
-                launches_offload_all=tool["offload_all"][k])
+                launches_offload_all=tool["offload_all"][k],
+                launches_sharded_checkpoint={
+                    name: [rank[k] for rank in ranks]
+                    for name, ranks in p26["flash"].items()})
 
   flash_records = [
       kernel_record("flash_attention_fwd",
@@ -6670,7 +6902,8 @@ def main() -> int:
            launches_reactor_children=heal_launches["reactor_children"],
            launches_frontdoor=heal_launches["frontdoor"],
            launches_tp2=tp["serving"], tp2_engine_step_h8=tp["paged"],
-           tp_backend=tp["backend"], launches_perfgate=tool["perfgate_k2"]),
+           tp_backend=tp["backend"], launches_perfgate=tool["perfgate_k2"],
+           launches_checkpoint_serving=p26["paged"]),
       paged_record("paged_attention_warp",
                    "paged_attention_kernel<float, float, float, 1>",
                    warp_launches, "float32"),

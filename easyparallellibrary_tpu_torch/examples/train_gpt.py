@@ -85,11 +85,7 @@ def _rank_main(argv: List[str]):
   from easyparallellibrary_tpu_torch.weights import (
       init_params, local_params, stack_stages)
 
-  parser = _parser()
-  args = parser.parse_args(argv)
-  if args.ckpt and world_size(args) > 1:
-    # Each rank holds its slice; the saver writes one whole tree.
-    parser.error("--ckpt saves the whole parameters of a one-rank run")
+  args = _parser().parse_args(argv)
   env = epl.init(epl.Config({
       "pipeline.num_micro_batch": args.micro,
       "pipeline.engine": args.engine,
@@ -158,9 +154,12 @@ def _rank_main(argv: List[str]):
   if is_leader():
     print("profile:", summary)
   if args.ckpt:
-    # The bare params tree, as the JAX script saves it.
-    save_checkpoint(args.ckpt, params_tree(state.params), step=args.steps)
-    print("checkpoint saved to", args.ckpt)
+    # The bare params tree, as the JAX script saves it: every rank takes
+    # part, each parameter gathered to its logical shape by its layout.
+    save_checkpoint(args.ckpt, params_tree(state.params, shardings),
+                    step=args.steps)
+    if is_leader():
+      print("checkpoint saved to", args.ckpt)
   return {"losses": losses, "profile": summary, "mesh": dict(mesh.shape)}
 
 

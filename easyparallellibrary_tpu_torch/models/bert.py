@@ -109,6 +109,7 @@ class EncoderBlock(nn.Module):
     self.ln1 = LayerNorm(D, dtype=dt, device=device)
     self.qkv = Dense(D, 3 * D, parallel=col, dtype=dt, param_dtype=pd,
                      device=device)
+    self.qkv.out_groups = 3     # q, k and v of this rank's heads
     self.proj = Dense(D, D, parallel=row, dtype=dt, param_dtype=pd,
                       device=device)
     self.ln2 = LayerNorm(D, dtype=dt, device=device)
@@ -197,8 +198,8 @@ class Bert(nn.Module):
                          device=device)
     self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, D, dtype=pd,
                                         device=device))
-    self.wse = Embedding(cfg.type_vocab_size, D, param_dtype=pd,
-                         device=device)
+    self.wse = Embedding(cfg.type_vocab_size, D, parallel="none",
+                         param_dtype=pd, device=device)
     self.ln_emb = LayerNorm(D, dtype=cfg.dtype, device=device)
     if cfg.pipeline_stages > 1:
       S, K = cfg.pipeline_stages, max(1, cfg.pipeline_interleave)
@@ -310,7 +311,8 @@ class BertForQuestionAnswering(nn.Module):
     self.cfg = cfg
     self.split_axes = ()
     self.bert = BertEncoderTrunk(cfg, device=device)
-    self.qa_outputs = Dense(cfg.d_model, 2, dtype=torch.float32,
+    self.qa_outputs = Dense(cfg.d_model, 2, parallel="none",
+                            dtype=torch.float32,
                             param_dtype=cfg.param_dtype, device=device)
 
   def forward(self, ids, type_ids=None):

@@ -406,6 +406,7 @@ class CausalSelfAttention(nn.Module):
     self.qkv = Dense(D, 3 * D, use_bias=False, parallel=col,
                      dtype=cfg.dtype, param_dtype=cfg.param_dtype,
                      device=device)
+    self.qkv.out_groups = 3     # q, k and v of this rank's heads
     self.proj = Dense(D, D, use_bias=False, parallel=row, dtype=cfg.dtype,
                       param_dtype=cfg.param_dtype, device=device)
     # A stage program of the smap engine (the JAX seq-manual region).

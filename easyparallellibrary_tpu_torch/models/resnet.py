@@ -254,12 +254,6 @@ class BottleneckBlock(nn.Module):
     return F.relu(residual + y)
 
 
-def _active_split() -> bool:
-  from easyparallellibrary_tpu_torch.env import Env
-  ctx = Env.get().strategy_context
-  return bool(ctx and ctx.stack and ctx.stack[-1].kind == "split")
-
-
 class ResNet(nn.Module):
   """``forward(x [B, H, W, 3], train=False) -> logits [B, num_classes]``
   (fp32).  ``mutable=True`` (batch norm in training mode) returns
@@ -283,11 +277,10 @@ class ResNet(nn.Module):
         self.add_module(f"stage{i}_block{j}", BottleneckBlock(
             cfg, width, filters, strides, device=device))
         width = filters * 4
-    split = _active_split() and \
-        collectives.axis_size(constants.MODEL_AXIS) > 1
-    self.head = Dense(width, cfg.num_classes, parallel="column" if split
-                      else "none", dtype=torch.float32, param_dtype=pd,
-                      device=device)
+    # parallel="auto": column-parallel when built under a split scope on
+    # a model axis above 1, as JAX's head under split (resnet.py:111).
+    self.head = Dense(width, cfg.num_classes, dtype=torch.float32,
+                      param_dtype=pd, device=device)
     self.tp = self.head.tp
     for name, mod in self.named_modules():
       if isinstance(mod, BatchNorm):

@@ -24,6 +24,18 @@ Uneven widths are zero-padded to an even tiling, as the JAX layers pad
 so they add nothing.  The tensor-parallel size is the ambient mesh's
 ``model`` axis when the layer is built.
 
+``parallel="auto"`` (the default of both layers, as in JAX) is resolved
+when the layer is built, from the innermost active ``split`` scope
+(:func:`_active_split`): under one, a Dense is column-parallel and an
+Embedding vocab-parallel; outside one, or at a model axis of 1, both are
+``"none"``.  With ``auto.tensor_split`` the auto Dense layers built
+inside one split scope alternate column, row, column... in the order
+they are built (flax's ``Dense_<i>`` auto-names in the JAX layer; a
+nested split continues its outer scope's count and does not re-shard).
+A column layer fed this rank's feature block (another column layer's
+output) gathers it first, the activation gather GSPMD inserts between
+two column layers.
+
 The stage-resident boundary layers of the ``smap`` pipeline engine
 (``parallel/pipeline_smap.py``) split the vocab over the ``stage`` axis
 (and over ``model`` inside it, stage-major, when the model is also
@@ -58,6 +70,38 @@ def _model_axis_size() -> int:
   return collectives.axis_size(constants.MODEL_AXIS)
 
 
+def _active_split():
+  """The split scope that owns the layers being built: the innermost
+  active scope when it is a split, or, for a nested split, the outer
+  split it continues (``is_nested``); None outside a split."""
+  from easyparallellibrary_tpu_torch.env import Env
+  ctx = Env.get().strategy_context
+  if ctx is None or ctx.current is None or ctx.current.kind != "split":
+    return None
+  for scope in reversed(ctx.stack):
+    if scope.kind == "split" and not scope.is_nested:
+      return scope
+  return ctx.current
+
+
+def _auto_mode(layer: str) -> str:
+  """``parallel="auto"`` resolved at build time: ``"none"`` outside a
+  split scope or at a model axis of 1; else an Embedding is ``"vocab"``
+  and a Dense ``"column"``, or with ``auto.tensor_split`` ``"row"`` for
+  every second auto Dense the scope builds."""
+  scope = _active_split()
+  if scope is None or _model_axis_size() <= 1:
+    return "none"
+  if layer == "embedding":
+    return "vocab"
+  from easyparallellibrary_tpu_torch.env import Env
+  if not Env.get().config.auto.tensor_split:
+    return "column"
+  built = scope.auto_dense_built
+  scope.auto_dense_built = built + 1
+  return "row" if built % 2 else "column"
+
+
 def _round_up(dim: int, multiple: int) -> int:
   return ((dim + multiple - 1) // multiple) * multiple
 
@@ -81,12 +125,14 @@ class Dense(nn.Module):
   """
 
   def __init__(self, in_features: int, features: int, use_bias: bool = True,
-               parallel: str = "none", dtype: Optional[torch.dtype] = None,
+               parallel: str = "auto", dtype: Optional[torch.dtype] = None,
                param_dtype: torch.dtype = torch.float32, device=None):
     super().__init__()
-    if parallel not in ("none", "column", "row", "stage_column"):
-      raise ValueError(f"Dense.parallel must be none/column/row/"
+    if parallel not in ("auto", "none", "column", "row", "stage_column"):
+      raise ValueError(f"Dense.parallel must be auto/none/column/row/"
                        f"stage_column, got {parallel!r}")
+    if parallel == "auto":
+      parallel = _auto_mode("dense")
     self.parallel = parallel
     self.tp = _model_axis_size() if parallel != "none" else 1
     self.in_features, self.features = in_features, features
@@ -105,6 +151,10 @@ class Dense(nn.Module):
     self.bias = (nn.Parameter(torch.empty(out_local, dtype=param_dtype,
                                           device=device))
                  if use_bias else None)
+    # A column layer whose output dim is this many groups, each split
+    # over ``model`` on its own (a fused QKV: q, k and v of the same
+    # heads on a rank).  The checkpoint layout reads it.
+    self.out_groups = 1
 
   def forward(self, x, dtype: Optional[torch.dtype] = None):
     """``dtype`` overrides the constructor's compute dtype for this call
@@ -114,10 +164,14 @@ class Dense(nn.Module):
       for axis in self.vocab_axes:
         x = bridging.copy_to_split(x, axis)
     elif self.tp > 1 and self.parallel == "column":
+      if x.shape[-1] != self.in_features:     # my block: gather it
+        x = bridging.split_to_replica(x, dim=-1, logical=self.in_features)
       x = bridging.copy_to_split(x)
     elif self.tp > 1 and self.parallel == "row":
       if x.shape[-1] == self.in_features:     # replicated: keep my block
-        x = bridging.replica_to_split(x, dim=-1)
+        pad = self.weight.shape[1] * self.tp - self.in_features
+        x = bridging.replica_to_split(F.pad(x, (0, pad)) if pad else x,
+                                      dim=-1)
       y = self._row_product(x.to(dtype), dtype)
       if self.bias is not None:
         y = y + self.bias.to(dtype)
@@ -202,15 +256,18 @@ class LayerNorm(nn.Module):
 
 class Embedding(nn.Module):
   """Token embedding ``[num_embeddings, features]`` with the tied head
-  :meth:`attend`; vocab-sharded with ``parallel="vocab"``."""
+  :meth:`attend`; vocab-sharded with ``parallel="vocab"`` (``"auto"``,
+  the default: under a ``split`` scope)."""
 
   def __init__(self, num_embeddings: int, features: int,
-               parallel: str = "none",
+               parallel: str = "auto",
                param_dtype: torch.dtype = torch.float32, device=None):
     super().__init__()
-    if parallel not in ("none", "vocab", "stage_vocab"):
-      raise ValueError(f"Embedding.parallel must be none/vocab/stage_vocab, "
-                       f"got {parallel!r}")
+    if parallel not in ("auto", "none", "vocab", "stage_vocab"):
+      raise ValueError(f"Embedding.parallel must be auto/none/vocab/"
+                       f"stage_vocab, got {parallel!r}")
+    if parallel == "auto":
+      parallel = _auto_mode("embedding")
     self.parallel = parallel
     self.tp = _model_axis_size() if parallel != "none" else 1
     self.num_embeddings = num_embeddings

@@ -119,53 +119,101 @@ class MutableTrainState(TrainState):
     return self
 
 
-def param_specs(model) -> Dict[str, tuple]:
+class LeafSpec(tuple):
+  """A leaf's spec (one entry a dim: None, an axis name, or a tuple of
+  axis names, outermost first) with what a checkpoint needs beside it.
+  ``logical_shape`` is the whole leaf's unpadded shape, the attestation
+  of the JAX package's ``PaddedPartitioned``: the zero rows or columns
+  past it are padding (None: the shards tile the leaf exactly).
+  ``groups`` maps a dim laid out as ``g`` groups, each split over the
+  dim's axes on its own, to ``g`` (a fused QKV's rows: q, k and v of the
+  same heads on a rank).  Equal to, and hashed as, the plain tuple."""
+
+  def __new__(cls, spec=(), logical_shape=None, groups=None):
+    self = super().__new__(cls, tuple(spec))
+    self.logical_shape = (None if logical_shape is None
+                          else tuple(int(n) for n in logical_shape))
+    self.groups = dict(groups or {})
+    return self
+
+  def __reduce__(self):
+    return (LeafSpec, (tuple(self), self.logical_shape, self.groups))
+
+  def stacked(self, axis: str, size: int) -> "LeafSpec":
+    """The spec of ``size`` of these leaves stacked on a new leading dim
+    split over ``axis`` (a pipelined model's stage rows)."""
+    return LeafSpec((axis,) + tuple(self),
+                    None if self.logical_shape is None
+                    else (size,) + self.logical_shape,
+                    {d + 1: g for d, g in self.groups.items()})
+
+
+def _dense_specs(mod, m: str) -> Dict[str, LeafSpec]:
+  logical = (mod.features, mod.in_features)
+  if mod.parallel == "column":
+    groups = {0: mod.out_groups} if mod.out_groups > 1 else {}
+    specs = {"weight": LeafSpec((m, None), logical, groups)}
+    if mod.bias is not None:
+      specs["bias"] = LeafSpec((m,), logical[:1], groups)
+    return specs
+  return {"weight": LeafSpec((None, m), logical)}
+
+
+def param_specs(model) -> Dict[str, LeafSpec]:
   """Each parameter's spec from the layers of ``model`` (an
-  ``nn.Module``): ``model`` on the split dim of the tensor-parallel
-  layers (column rows, row columns, vocab rows), the vocab axes on the
-  rows of a stage-resident table or head, ``expert`` (and ``model``) on
-  the expert weights of an MoE layer, ``stage`` on the leading dim of a
-  pipelined model's stacked leaves on a stage mesh, ``()`` (replicated)
-  otherwise."""
+  ``nn.Module``), with its logical shape (:class:`LeafSpec`): ``model``
+  on the split dim of the tensor-parallel layers (column rows, row
+  columns, vocab rows), the vocab axes on the rows of a stage-resident
+  table or head, ``expert`` (and ``model``) on the expert weights of an
+  MoE layer, ``stage`` on the leading dim of a pipelined model's stacked
+  leaves on a stage mesh; a replicated parameter has none."""
   from easyparallellibrary_tpu_torch.models.moe import MoEMLP
   from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding
-  specs: Dict[str, tuple] = {}
+  specs: Dict[str, LeafSpec] = {}
   if not isinstance(model, torch.nn.Module):
     return specs
   m = constants.MODEL_AXIS
   for prefix, mod in model.named_modules():
     name = f"{prefix}." if prefix else ""
-    stage_vocab = getattr(mod, "parallel", "") in ("stage_column",
-                                                   "stage_vocab")
-    if stage_vocab:
-      specs[name + "weight"] = (tuple(mod.vocab_axes), None)
+    parallel = getattr(mod, "parallel", "")
+    if parallel in ("stage_column", "stage_vocab"):
+      rows = (mod.features if parallel == "stage_column"
+              else mod.num_embeddings)
+      specs[name + "weight"] = LeafSpec(
+          (tuple(mod.vocab_axes), None), (rows, mod.weight.shape[1]))
     elif isinstance(mod, Dense) and mod.tp > 1:
-      if mod.parallel == "column":
-        specs[name + "weight"] = (m, None)
-        if mod.bias is not None:
-          specs[name + "bias"] = (m,)
-      else:
-        specs[name + "weight"] = (None, m)
+      for leaf, spec in _dense_specs(mod, m).items():
+        specs[name + leaf] = spec
     elif isinstance(mod, Embedding) and mod.tp > 1:
-      specs[name + "weight"] = (m, None)
+      specs[name + "weight"] = LeafSpec(
+          (m, None), (mod.num_embeddings, mod.weight.shape[1]))
     elif isinstance(mod, MoEMLP):
       for leaf, spec in mod.param_specs().items():
-        specs[name + leaf] = spec
-  if getattr(model, "stages", 1) > 1:
+        specs[name + leaf] = LeafSpec(spec)
+  stages = getattr(model, "stages", 1)
+  if stages > 1:
     # A pipelined model's stacked leaves: the stage row is this rank's.
     for name, p in model.named_parameters():
       if name.startswith("pipeline"):
-        specs[name] = (constants.STAGE_AXIS,) + tuple(
-            specs.get(name, (None,) * (p.dim() - 1)))
+        inner = specs.get(name, LeafSpec((None,) * (p.dim() - 1)))
+        specs[name] = inner.stacked(constants.STAGE_AXIS, stages)
   return specs
 
 
-def state_shardings(state, mesh) -> Dict[str, tuple]:
+def state_shardings(state, mesh=None) -> Dict[str, tuple]:
   """The spec of every parameter of ``state`` (``param_specs`` of its
-  ``apply_fn``; replicated ``()`` otherwise)."""
+  ``apply_fn``; replicated ``()`` otherwise), and of a ZeRO state's
+  optimizer entries under ``opt_state/<name>`` (``data`` on the owner
+  dim: ``runtime.zero.opt_state_specs``).  These are the layouts the
+  saver gathers and narrows by (``runtime.saver.state_tree``)."""
   del mesh
   specs = param_specs(state.apply_fn)
-  return {name: specs.get(name, ()) for name in state.params}
+  out = {name: specs.get(name, ()) for name in state.params}
+  zero = getattr(state, "zero", None)
+  if zero is not None:
+    from easyparallellibrary_tpu_torch.runtime.zero import opt_state_specs
+    out.update(opt_state_specs(state.params, out, zero.dims))
+  return out
 
 
 def create_sharded_train_state(init_fn: Callable[..., TrainState],

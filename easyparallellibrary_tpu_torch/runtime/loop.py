@@ -108,10 +108,13 @@ def fit(step_fn: Callable,
   ``(N * records_per_step) % shard_records`` records.  ``rng`` is a
   ``utils.prng`` key (default ``prng_key(0)``), folded with the step
   index each step.  ``device`` (default the GPU; ``"cpu"`` trains on
-  the CPU) must be where the state lives.  ``shardings`` is trivial on
-  one device.  Returns ``(state, last_metrics)``.
+  the CPU) must be where the state lives.  Checkpoints, the resume and
+  the rollback go by the state's layouts (``shardings``, default
+  ``parallel.api.state_shardings(state)``): under a process group every
+  rank saves and restores its blocks of the logical leaves.  Returns
+  ``(state, last_metrics)``.
   """
-  del shardings
+  from easyparallellibrary_tpu_torch.parallel.api import state_shardings
   _check_device(state, device)
   log = get_logger()
   config = Env.get().config
@@ -142,15 +145,19 @@ def fit(step_fn: Callable,
   # from there.
   ckpt_lrs: Dict[int, list] = {}
 
+  def _layouts():
+    return state_shardings(state) if shardings is None else shardings
+
   def _save(at_step: int):
-    saver.save_checkpoint(checkpoint_dir, saver.state_tree(state),
-                          step=at_step)
+    saver.save_checkpoint(checkpoint_dir,
+                          saver.state_tree(state, _layouts()), step=at_step)
     ckpt_lrs[at_step] = _lrs(state)
 
   if checkpoint_dir:
     try:
-      state, rstep = saver.restore_train_state(checkpoint_dir, state,
-                                               after_step=start_step)
+      state, rstep = saver.restore_train_state(
+          checkpoint_dir, state, after_step=start_step,
+          shardings=_layouts())
     except saver.NoValidCheckpointError as e:
       raise RuntimeError(
           f"refusing to start fresh: {checkpoint_dir!r} contains "
@@ -253,7 +260,8 @@ def fit(step_fn: Callable,
           "anomaly rollback requires checkpoint_dir; pass one to fit() "
           "or set resilience.max_bad_steps=0")
     try:
-      state, rstep = saver.restore_train_state(checkpoint_dir, state)
+      state, rstep = saver.restore_train_state(checkpoint_dir, state,
+                                               shardings=_layouts())
     except FileNotFoundError as e:
       raise RuntimeError(
           f"anomaly rollback at step {at_step + 1} failed: no valid "

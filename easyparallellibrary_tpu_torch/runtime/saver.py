@@ -32,16 +32,34 @@ Shards are written, checksummed, verified and read by a pool of host
 threads (``_IO_WORKERS``; numpy's zip writes, ``hashlib`` and file IO
 release the GIL), at most two shards per thread in flight, so host
 memory stays bounded while a multi-GB checkpoint moves at the host's
-rate rather than one core's.  Only process 0 (the ``torch.distributed``
-rank) writes; every process can restore.  The JAX package's orbax path
-is ``torch.distributed.checkpoint`` here (:func:`save_checkpoint_orbax`,
+rate rather than one core's.  The JAX package's orbax path is
+``torch.distributed.checkpoint`` here (:func:`save_checkpoint_orbax`,
 :func:`restore_checkpoint_orbax`): a format of its own, read only by
 itself.
+
+A sharded state.  A JAX array carries its sharding and the JAX saver
+gathers it (``process_allgather``); a torch tensor is only this rank's
+block, so the save takes each leaf's layout: ``shardings=`` (``{path:
+spec}`` in the tree's own layout), or leaves wrapped as :class:`Sharded`
+(:func:`state_tree` / :func:`params_tree` with the state's layouts,
+``parallel.api.state_shardings``).  Every rank calls the save; each
+sharded leaf is all-gathered over the axes of its spec (``model`` for
+the column, row and vocab layers, ``data`` on a ZeRO owner dim,
+``stage`` for stacked or stage-resident leaves, ``expert``), bucket by
+bucket (<= ``shard_mb`` of whole leaves), trimmed to its logical shape
+(``parallel.api.LeafSpec``: the pad past it is attested zeros), and only
+process 0 writes.  Under a process group a leaf without a layout is an
+error: it is never written as one rank's copy.  A restore with
+``shardings=`` reads each logical leaf on every rank, re-pads the
+attested pad with zeros and keeps this rank's block, so a checkpoint
+restores under any layout (:func:`_slice_to_shape`'s coverage rule is
+the JAX one).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import io
 import json
@@ -55,6 +73,7 @@ import numpy as np
 import torch
 
 from easyparallellibrary_tpu_torch import constants
+from easyparallellibrary_tpu_torch.communicators import collectives
 from easyparallellibrary_tpu_torch.observability import trace as trace_lib
 from easyparallellibrary_tpu_torch.utils.device import (
     process_count, process_index, resolve_device)
@@ -132,6 +151,12 @@ def _write_index(directory: str, index: Dict[str, Any]):
 
 def _is_leader() -> bool:
   return process_index() == 0
+
+
+# What the last save on this process did (``chip_smoke.py`` reads it):
+# seconds, bytes of leaves gathered over a mesh axis through host memory,
+# and the most bytes of shard arrays it held at once.
+last_save: Dict[str, float] = {}
 
 
 def params_fingerprint(index: Dict[str, Any]) -> str:
@@ -337,17 +362,175 @@ def _to_host(leaf) -> np.ndarray:
 def _from_host(value: np.ndarray, dtype_name: str) -> torch.Tensor:
   """A stored array as a CPU tensor; a ``V2`` leaf that the index names
   ``bfloat16`` is read back as those bits."""
+  # ``ascontiguousarray`` makes a 0-d array 1-d: keep the leaf's shape.
+  value = np.ascontiguousarray(value).reshape(value.shape)
   if dtype_name == _BF16 or value.dtype.kind == "V":
     if value.dtype.itemsize != 2:
       raise ValueError(f"cannot read a {value.dtype} leaf as {dtype_name}")
-    return torch.from_numpy(
-        np.ascontiguousarray(value).view(np.int16)).view(torch.bfloat16)
-  return torch.from_numpy(np.ascontiguousarray(value))
+    return torch.from_numpy(value.view(np.int16)).view(torch.bfloat16)
+  return torch.from_numpy(value)
 
 
 def _leaf_nbytes(leaf) -> int:
   from easyparallellibrary_tpu_torch.utils.pytree import leaf_bytes
   return leaf_bytes(leaf)
+
+
+# ------------------------------------------------------- leaf layouts --
+
+
+class Sharded:
+  """A leaf of a tree to save with its layout: ``value`` is this rank's
+  block and ``layout`` its spec (``parallel.api.LeafSpec``, or a plain
+  tuple for an exact tiling), both in the tree's layout.  ``()`` is a
+  replicated leaf."""
+
+  __slots__ = ("value", "layout")
+
+  def __init__(self, value, layout=()):
+    self.value = value
+    self.layout = _as_layout(layout)
+
+
+def _as_layout(spec):
+  from easyparallellibrary_tpu_torch.parallel.api import LeafSpec
+  if isinstance(spec, LeafSpec):
+    return spec
+  return LeafSpec(tuple(spec or ()))
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+  if entry is None:
+    return ()
+  return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _permuted(layout, perm):
+  """``layout`` of a leaf whose dims are permuted by ``perm`` (dim ``i``
+  of the result is dim ``perm[i]`` of the leaf)."""
+  from easyparallellibrary_tpu_torch.parallel.api import LeafSpec
+  layout = _as_layout(layout)
+  if perm is None or not layout:
+    return layout
+  spec = tuple(layout) + (None,) * (len(perm) - len(layout))
+  logical = layout.logical_shape
+  return LeafSpec([spec[i] for i in perm],
+                  None if logical is None else [logical[i] for i in perm],
+                  {perm.index(d): g for d, g in layout.groups.items()})
+
+
+def _shards(entry, mesh=None) -> Tuple[int, int]:
+  """``(n, i)``: the blocks a dim is cut into over its axes and this
+  rank's index among them (row-major, outermost axis first)."""
+  n, i = 1, 0
+  for axis in _axes_of(entry):
+    size = collectives.axis_size(axis, mesh)
+    n, i = n * size, i * size + collectives.axis_index(axis, mesh)
+  return n, i
+
+
+def _gather(value, layout, mesh=None) -> torch.Tensor:
+  """The whole leaf, on the host, from every rank's block of it: an
+  all-gather over each axis of each dim (innermost axis first, so a dim
+  split over ``(stage, model)`` comes out stage-major; a grouped dim
+  gathers inside each group), then trimmed to the logical shape.
+  Counts the bytes it gathers in ``last_save``."""
+  import torch.distributed as dist
+  t = value.detach() if isinstance(value, torch.Tensor) \
+      else torch.as_tensor(np.asarray(value))
+  cut = [(d, entry) for d, entry in enumerate(layout)
+         if _shards(entry, mesh)[0] > 1]
+  if cut:
+    bf16 = t.dtype == torch.bfloat16
+    if bf16:
+      t = t.view(torch.int16)
+    groups = [collectives.group_of(a, mesh) for _, e in cut
+              for a in _axes_of(e)]
+    if t.is_cuda and any(g is not None and dist.get_backend(g) == "gloo"
+                         for g in groups):
+      t = t.cpu()
+    for d, entry in cut:
+      g = layout.groups.get(d, 1)
+      for axis in reversed(_axes_of(entry)):
+        if g > 1:
+          t = collectives.all_gather(t.unflatten(d, (g, -1)), axis,
+                                     axis=d + 1, mesh=mesh).flatten(d, d + 1)
+        else:
+          t = collectives.all_gather(t, axis, axis=d, mesh=mesh)
+    t = t.cpu()
+    if bf16:
+      t = t.view(torch.bfloat16)
+    last_save["gathered_bytes"] = last_save.get("gathered_bytes", 0) + \
+        t.numel() * t.element_size()
+  logical = layout.logical_shape
+  if logical is not None and tuple(t.shape) != tuple(logical):
+    t = t[tuple(slice(0, n) for n in logical)]
+  return t
+
+
+def _whole_nbytes(value, layout, mesh=None) -> int:
+  """Bytes of the whole leaf a rank's block gathers into."""
+  n = 1
+  for entry in layout:
+    n *= _shards(entry, mesh)[0]
+  return _leaf_nbytes(value) * n
+
+
+def _narrow(value: np.ndarray, layout, mesh=None, local_shape=None,
+            offsets=None) -> np.ndarray:
+  """This rank's block of the stored leaf ``value`` by ``layout``: the
+  whole target (``local_shape`` times the blocks of each dim; without
+  it, ``value`` rounded up to an even tiling) is cut from ``value`` by
+  :func:`_slice_to_shape` (``offsets``; the attested pad past
+  ``layout.logical_shape`` re-padded with zeros), then this rank's
+  block of each split dim is kept (inside each group of a grouped
+  dim)."""
+  from easyparallellibrary_tpu_torch.ops.layers import _round_up
+  cuts = {d: _shards(entry, mesh) for d, entry in enumerate(layout)}
+  cuts = {d: ni for d, ni in cuts.items() if ni[0] > 1}
+  if local_shape is not None:
+    full = [s * cuts.get(d, (1, 0))[0] for d, s in enumerate(local_shape)]
+  else:
+    full = list(value.shape)
+    for d, (n, _) in cuts.items():
+      g = layout.groups.get(d, 1)
+      full[d] = g * _round_up(-(-full[d] // g), n)
+  if value.dtype.kind == "V":           # bf16 bits: pad and cut as int16
+    value = value.view(np.int16)
+  value = _slice_to_shape(value, tuple(full), offsets,
+                          logical_shape=layout.logical_shape)
+  for d, (n, i) in cuts.items():
+    g = layout.groups.get(d, 1)
+    shape = value.shape
+    grouped = value.reshape(shape[:d] + (g, shape[d] // g) + shape[d + 1:])
+    size = grouped.shape[d + 1] // n
+    grouped = grouped[(slice(None),) * (d + 1) + (slice(i * size,
+                                                          (i + 1) * size),)]
+    value = grouped.reshape(shape[:d] + (g * size,) + shape[d + 1:])
+  return value
+
+
+def _resolve_layouts(flat, shardings) -> List[Tuple[str, Any, Any]]:
+  """``[(path, value, layout)]`` of a flattened tree: a :class:`Sharded`
+  leaf's own layout, else ``shardings[path]``, else None (written as it
+  is), which under a process group is refused."""
+  out, missing = [], []
+  for path, leaf in flat:
+    if isinstance(leaf, Sharded):
+      out.append((path, leaf.value, leaf.layout))
+    elif shardings is not None and path in shardings:
+      out.append((path, leaf, _as_layout(shardings[path])))
+    else:
+      out.append((path, leaf, None))
+      missing.append(path)
+  if missing and process_count() > 1:
+    raise ValueError(
+        f"save under a process group of {process_count()} ranks: "
+        f"{len(missing)} leaves have no layout ({missing[:3]}); pass "
+        f"shardings= or a tree of Sharded leaves (state_tree(state, "
+        f"shardings)) so each leaf is gathered, never written as one "
+        f"rank's copy")
+  return out
 
 
 # -------------------------------------------------------------- save --
@@ -356,20 +539,32 @@ def _leaf_nbytes(leaf) -> int:
 def save_checkpoint(directory: str, tree, step: Optional[int] = None,
                     shard_mb: Optional[int] = None,
                     keep_last: Optional[int] = None,
-                    atomic: Optional[bool] = None) -> str:
+                    atomic: Optional[bool] = None,
+                    shardings: Optional[Dict[str, Any]] = None) -> str:
   """Write ``tree`` (nested dicts / lists / tuples of tensors or arrays)
   as checkpoint ``directory/step_N`` and return the committed path.
 
   Leaves are fetched and written bucket by bucket (<= ``shard_mb``,
-  default 50 MB), so host memory stays bounded.  With ``atomic``
-  (default ``resilience.atomic_checkpoints``) the checkpoint is staged
-  in ``step_N.tmp`` — per-shard sha256 in the index, everything fsynced
-  — and committed by one directory rename.  ``keep_last`` (default
-  ``resilience.keep_last``; 0 keeps all) prunes older checkpoints after
-  the commit.  A train state goes through :func:`state_tree` first.
+  default 50 MB, of whole leaves), so host memory stays bounded.  With
+  ``atomic`` (default ``resilience.atomic_checkpoints``) the checkpoint
+  is staged in ``step_N.tmp`` — per-shard sha256 in the index,
+  everything fsynced — and committed by one directory rename.
+  ``keep_last`` (default ``resilience.keep_last``; 0 keeps all) prunes
+  older checkpoints after the commit.  A train state goes through
+  :func:`state_tree` first.
+
+  Sharded leaves (module docstring): each :class:`Sharded` leaf, or each
+  path of ``shardings`` (``{path: spec}``), is gathered over its spec's
+  axes and stored at its logical shape.  Every rank must call this with
+  the same tree; process 0 writes, and the ranks meet at a barrier
+  before it returns.  Under a process group every leaf needs a layout.
   """
+  import time
+
   from easyparallellibrary_tpu_torch.env import Env
   from easyparallellibrary_tpu_torch.utils.retry import retry_call
+  t_start = time.perf_counter()
+  laid = _resolve_layouts(_sorted_leaves(tree), shardings)
   res = Env.get().config.resilience
   if atomic is None:
     atomic = res.atomic_checkpoints
@@ -377,6 +572,8 @@ def save_checkpoint(directory: str, tree, step: Optional[int] = None,
     keep_last = res.keep_last
   is_leader = _is_leader()
   limit = (shard_mb or constants.DEFAULT_SAVE_SHARD_MB) * 1024 * 1024
+  last_save.clear()
+  last_save.update(gathered_bytes=0, host_peak_bytes=0)
 
   step_num = 0 if step is None else int(step)
   final_dir = os.path.join(directory, _step_dir_name(step_num))
@@ -387,14 +584,13 @@ def save_checkpoint(directory: str, tree, step: Optional[int] = None,
       shutil.rmtree(write_dir)
     os.makedirs(write_dir)
 
-  flat = _sorted_leaves(tree)
   index: Dict[str, Any] = {"step": step, "format": 2, "leaves": {},
                            "shards": []}
-  bucket: List[Tuple[str, Any]] = []
+  bucket: List[Tuple[str, Any, Any]] = []
   bucket_bytes = 0
   shard_id = 0
   written: List[Tuple[str, Any]] = []     # (file, future), shard order
-  in_flight: collections.deque = collections.deque()
+  in_flight: collections.deque = collections.deque()  # (future, bytes)
 
   def flush(pool):
     nonlocal bucket, bucket_bytes, shard_id
@@ -402,19 +598,28 @@ def save_checkpoint(directory: str, tree, step: Optional[int] = None,
       return
     fname = f"shard_{shard_id:05d}.npz"
     arrays = {}
-    for path, leaf in bucket:
-      arrays[path] = _to_host(leaf)
+    for path, value, layout in bucket:
+      if layout is not None:
+        value = _gather(value, layout)   # every rank takes part
+      if not is_leader:
+        continue
+      arrays[path] = _to_host(value)
       index["leaves"][path] = {"shard": fname,
                                "shape": list(arrays[path].shape),
-                               "dtype": _dtype_name(leaf)}
+                               "dtype": _dtype_name(value)}
     if is_leader:
       while len(in_flight) >= 2 * _IO_WORKERS:   # bound host memory
-        in_flight.popleft().result()
+        in_flight.popleft()[0].result()
+      while in_flight and in_flight[0][0].done():
+        in_flight.popleft()
+      nbytes = sum(a.nbytes for a in arrays.values())
+      held = nbytes + sum(b for _, b in in_flight)
+      last_save["host_peak_bytes"] = max(last_save["host_peak_bytes"], held)
       future = pool.submit(retry_call, _write_shard,
                            os.path.join(write_dir, fname), arrays,
                            what=f"checkpoint shard write {fname}")
       written.append((fname, future))
-      in_flight.append(future)
+      in_flight.append((future, nbytes))
     shard_id += 1
     bucket, bucket_bytes = [], 0
 
@@ -422,11 +627,12 @@ def save_checkpoint(directory: str, tree, step: Optional[int] = None,
   with tracer.span("checkpoint/stage", cat="checkpoint",
                    track="checkpoint", args={"step": step_num}), \
       ThreadPoolExecutor(_IO_WORKERS) as pool:
-    for path, leaf in flat:
-      nbytes = _leaf_nbytes(leaf)
+    for path, value, layout in laid:
+      nbytes = (_leaf_nbytes(value) if layout is None
+                else _whole_nbytes(value, layout))
       if bucket and bucket_bytes + nbytes > limit:
         flush(pool)
-      bucket.append((path, leaf))
+      bucket.append((path, value, layout))
       bucket_bytes += nbytes
     flush(pool)
     for fname, future in written:
@@ -453,6 +659,7 @@ def save_checkpoint(directory: str, tree, step: Optional[int] = None,
   if process_count() > 1:
     import torch.distributed as dist
     dist.barrier()
+  last_save["seconds"] = time.perf_counter() - t_start
   return final_dir
 
 
@@ -472,14 +679,30 @@ def _apply_assign_map(path: str, assign_map: Optional[Dict[str, str]]
 
 
 def _slice_to_shape(value: np.ndarray, shape: Tuple[int, ...],
-                    offsets: Optional[Tuple[int, ...]] = None
+                    offsets: Optional[Tuple[int, ...]] = None,
+                    logical_shape: Optional[Tuple[int, ...]] = None
                     ) -> np.ndarray:
   """begin/size slicing at load: a stored value larger than the target
-  is cut to ``shape`` at ``offsets`` (default the origin)."""
+  is cut to ``shape`` at ``offsets`` (default the origin).  With
+  ``logical_shape`` (a target attesting that its region past that shape
+  is padding) a stored value of exactly the logical shape is zero-padded
+  up to the target; a stored value that does not cover the whole
+  logical region is refused, never zero-filled (JAX ``_slice_to_shape``)."""
   if tuple(value.shape) == tuple(shape):
     return value
   if len(value.shape) != len(shape):
     raise ValueError(f"rank mismatch restoring {value.shape} -> {shape}")
+  if logical_shape is not None and any(
+      v < s for v, s in zip(value.shape, shape)):
+    if tuple(value.shape) != tuple(logical_shape):
+      raise ValueError(
+          f"stored shape {tuple(value.shape)} does not match the target's "
+          f"attested logical shape {tuple(logical_shape)}; refusing to "
+          f"zero-pad into the logical region (padded target {tuple(shape)})")
+    value = np.pad(value, [(0, max(0, s - v))
+                           for v, s in zip(value.shape, shape)])
+    if tuple(value.shape) == tuple(shape):
+      return value
   offsets = offsets or (0,) * len(shape)
   if any(o + s > v for o, s, v in zip(offsets, shape, value.shape)):
     raise ValueError(
@@ -564,14 +787,20 @@ class _Reader:
                                       what=f"checkpoint shard read {shard}")
     return self._cache[shard][path]
 
-  def tensor(self, path: str, shape=None, offsets=None) -> torch.Tensor:
+  def tensor(self, path: str, shape=None, offsets=None,
+             layout=None) -> torch.Tensor:
+    """The leaf at ``path``: cut to ``shape`` (at ``offsets``), or, with
+    ``layout``, this rank's block of that shape (:func:`_narrow`)."""
     value = self.raw(path)
-    if shape is not None:
+    if layout is not None:
+      value = _narrow(value, layout, local_shape=shape, offsets=offsets)
+    elif shape is not None:
       value = _slice_to_shape(value, tuple(shape), offsets)
     return _from_host(value, str(self.index["leaves"][path].get("dtype")))
 
 
 def restore_checkpoint(directory: str, target=None,
+                       shardings: Optional[Dict[str, Any]] = None,
                        assign_map: Optional[Dict[str, str]] = None,
                        slice_offsets: Optional[Dict[str, Tuple[int, ...]]]
                        = None, device=None):
@@ -584,6 +813,10 @@ def restore_checkpoint(directory: str, target=None,
     (``slice_offsets`` by path), cast to its dtype and placed on
     ``device`` (default: each target leaf's device).  Without it, returns
     ``{path: tensor}`` on ``device`` (default the GPU).
+  * ``shardings``: ``{path: spec}`` (``parallel.api.LeafSpec``) in the
+    stored layout; each such leaf is this rank's block of the stored
+    logical leaf (the target leaf's shape is the block's), the attested
+    pad re-padded with zeros.
   * ``assign_map``: ``{regex: replacement}`` applied to the target's
     paths to find the checkpoint's names.
 
@@ -593,22 +826,24 @@ def restore_checkpoint(directory: str, target=None,
                                    cat="checkpoint", track="checkpoint"):
     for path in _walk_valid_checkpoints(directory):
       return _restore_from(path, target, assign_map, slice_offsets,
-                           device=device)
+                           device=device, shardings=shardings)
 
 
 def _restore_from(directory: str, target=None,
                   assign_map: Optional[Dict[str, str]] = None,
                   slice_offsets: Optional[Dict[str, Tuple[int, ...]]] = None,
-                  leaf_filter=None, device=None):
+                  leaf_filter=None, device=None, shardings=None):
   from easyparallellibrary_tpu_torch.utils.pytree import (
       tree_paths_and_leaves)
   reader = _Reader(directory)
+  layouts = {p: _as_layout(s) for p, s in (shardings or {}).items()}
   if target is None:
     dev = resolve_device(device)
     names = [p for p in reader.index["leaves"]
              if leaf_filter is None or leaf_filter(p)]
     reader.load(names)
-    return {p: reader.tensor(p).to(dev) for p in names}, reader.step
+    return {p: reader.tensor(p, layout=layouts.get(p)).to(dev)
+            for p in names}, reader.step
   reader.load(_apply_assign_map(p, assign_map)
               for p, _ in tree_paths_and_leaves(target))
   dev = None if device is None else resolve_device(device)
@@ -616,7 +851,8 @@ def _restore_from(directory: str, target=None,
 
   def load(path, leaf):
     value = reader.tensor(_apply_assign_map(path, assign_map),
-                          tuple(leaf.shape), offsets.get(path))
+                          tuple(leaf.shape), offsets.get(path),
+                          layout=layouts.get(path))
     return value.to(device=dev if dev is not None
                     else getattr(leaf, "device", "cpu"), dtype=leaf.dtype)
 
@@ -667,54 +903,69 @@ def _is_kernel(path: str) -> bool:
   return path.rsplit("/", 1)[-1] == "kernel"
 
 
+def _stored_perm(path: str, ndim: int) -> Optional[Tuple[int, ...]]:
+  """How a port leaf's dims map to the JAX layout's (dim ``i`` stored is
+  dim ``perm[i]`` of the port's): Dense kernels ``[out, in]`` ->
+  ``[in, out]`` (a pipelined model's stacked ``[S, out, in]`` -> ``[S,
+  in, out]``), Conv kernels ``[out, in, kh, kw]`` -> HWIO; None: as is."""
+  if not _is_kernel(path):
+    return None
+  return {2: (1, 0), 3: (0, 2, 1), 4: (2, 3, 1, 0)}.get(ndim)
+
+
 def _stored(path: str, t: torch.Tensor) -> torch.Tensor:
-  """A port leaf in the JAX layout: Dense kernels ``[out, in]`` ->
-  ``[in, out]``, Conv kernels ``[out, in, kh, kw]`` -> HWIO."""
+  """A port leaf in the JAX layout (a view)."""
+  perm = _stored_perm(path, t.dim())
   t = t.detach()
-  if _is_kernel(path) and t.dim() == 2:
-    return t.t()
-  if _is_kernel(path) and t.dim() == 4:
-    return t.permute(2, 3, 1, 0)
-  return t
+  return t if perm is None else t.permute(perm)
 
 
 def _stored_shape(path: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
   """The JAX layout's shape of a port leaf of ``shape``."""
-  if _is_kernel(path) and len(shape) == 2:
-    return shape[::-1]
-  if _is_kernel(path) and len(shape) == 4:
-    return (shape[2], shape[3], shape[1], shape[0])
-  return shape
+  perm = _stored_perm(path, len(shape))
+  return tuple(shape) if perm is None else tuple(shape[i] for i in perm)
 
 
 def _from_stored(path: str, value: torch.Tensor) -> torch.Tensor:
   """The inverse of :func:`_stored`."""
-  if _is_kernel(path) and value.dim() == 2:
-    return value.t()
-  if _is_kernel(path) and value.dim() == 4:
-    return value.permute(3, 2, 0, 1)
-  return value
+  perm = _stored_perm(path, value.dim())
+  return value if perm is None else value.permute(
+      tuple(int(i) for i in np.argsort(perm)))
 
 
-def model_state_tree(model_state: Dict[str, torch.Tensor]
-                     ) -> Dict[str, Any]:
+def _laid(path: str, value: torch.Tensor, layouts, key: str = ""):
+  """A port leaf as the saver takes it: in the JAX layout, wrapped as
+  :class:`Sharded` with ``layouts[key]`` (permuted alike; replicated
+  without a key) when ``layouts`` are given."""
+  stored = _stored(path, value)
+  if layouts is None:
+    return stored
+  return Sharded(stored, _permuted(layouts.get(key, ()) if key else (),
+                                   _stored_perm(path, value.dim())))
+
+
+def model_state_tree(model_state: Dict[str, torch.Tensor],
+                     shardings=None) -> Dict[str, Any]:
   """A :class:`~easyparallellibrary_tpu_torch.parallel.api.
   MutableTrainState`'s ``model_state`` as the JAX package holds it:
-  ``{"batch_stats": {jax_path: leaf}}``."""
+  ``{"batch_stats": {jax_path: leaf}}`` (replicated, or
+  ``shardings["model_state/<name>"]``, when ``shardings`` are given)."""
   from easyparallellibrary_tpu_torch.ops.adamw import jax_path
-  return {"batch_stats": {jax_path(n): t.detach()
-                          for n, t in model_state.items()}}
+  return {"batch_stats": {
+      jax_path(n): _laid(jax_path(n), t, shardings, f"model_state/{n}")
+      for n, t in model_state.items()}}
 
 
-def params_tree(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def params_tree(params: Dict[str, torch.Tensor], shardings=None
+                ) -> Dict[str, Any]:
   """The port's parameter dict as the JAX package's params tree:
-  ``{jax_path: leaf}`` with Dense kernels transposed (views)."""
+  ``{jax_path: leaf}`` with Dense kernels transposed (views).  With
+  ``shardings`` (``{name: spec}``, ``parallel.api.param_specs``) each
+  leaf is :class:`Sharded` by its spec, for a save under a process
+  group."""
   from easyparallellibrary_tpu_torch.ops.adamw import jax_path
-  out = {}
-  for name, p in params.items():
-    path = jax_path(name)
-    out[path] = _stored(path, p)
-  return out
+  return {jax_path(name): _laid(jax_path(name), p, shardings, name)
+          for name, p in params.items()}
 
 
 def _adam_state(opt: torch.optim.Optimizer, p: torch.Tensor):
@@ -724,37 +975,52 @@ def _adam_state(opt: torch.optim.Optimizer, p: torch.Tensor):
   return st
 
 
-def state_tree(state) -> Dict[str, Any]:
+def _owner(state, name: str) -> torch.Tensor:
+  """The tensor the optimizer steps for parameter ``name``: a ZeRO
+  state's owner slice, else the parameter."""
+  zero = getattr(state, "zero", None)
+  return zero.owners[name] if zero is not None else state.params[name]
+
+
+def state_tree(state, shardings=None) -> Dict[str, Any]:
   """What ``fit`` checkpoints, laid out as the JAX package's ``fit``
   writes it: ``{"params": ..., "opt_state": ({"count", "mu", "nu"},)}``
   — optax's Adam state; for an optimizer built through
   ``ops.adamw.inject_hyperparams``, ``inject_hyperparams``' state around
   it, the learning rate included.  Before the first step the moments
-  are zeros and the count 0, as ``tx.init`` makes them."""
+  are zeros and the count 0, as ``tx.init`` makes them.  A ZeRO state's
+  moments are its owner slices'.  With ``shardings`` (the state's
+  layouts, ``parallel.api.state_shardings``: the moments of a ZeRO
+  state under ``opt_state/<name>``) every leaf is :class:`Sharded`, so
+  :func:`save_checkpoint` gathers them under a process group."""
   from easyparallellibrary_tpu_torch.ops.adamw import jax_path
   opt = state.opt_state
+  zero = getattr(state, "zero", None) is not None
   mu, nu, count = {}, {}, None
-  for name, p in state.params.items():
+  for name in state.params:
     path = jax_path(name)
-    st = _adam_state(opt, p)
+    owner = _owner(state, name)
+    key = f"opt_state/{name}" if zero else name
+    st = _adam_state(opt, owner)
     if st is None:
-      zeros = torch.zeros_like(_stored(path, p))
-      mu[path], nu[path] = zeros, zeros
+      zeros = torch.zeros_like(owner)
+      mu[path] = nu[path] = _laid(path, zeros, shardings, key)
       continue
-    mu[path] = _stored(path, st["exp_avg"])
-    nu[path] = _stored(path, st["exp_avg_sq"])
+    mu[path] = _laid(path, st["exp_avg"], shardings, key)
+    nu[path] = _laid(path, st["exp_avg_sq"], shardings, key)
     if count is None:
       count = st["step"]
   if count is None:
     count = torch.zeros((), dtype=torch.int32)
-  count = torch.as_tensor(count).detach().reshape(()).to(torch.int32)
+  count = _laid("count", torch.as_tensor(count).detach().reshape(()).to(
+      torch.int32), shardings)
+  params = params_tree(state.params, shardings)
   adam = {"count": count, "mu": mu, "nu": nu}
   extra = {}
   if getattr(state, "model_state", None):
-    extra["model_state"] = model_state_tree(state.model_state)
+    extra["model_state"] = model_state_tree(state.model_state, shardings)
   if not getattr(opt, "inject_hyperparams", False):
-    return {"params": params_tree(state.params), "opt_state": (adam,),
-            **extra}
+    return {"params": params, "opt_state": (adam,), **extra}
   # optax.inject_hyperparams(optax.adamw)'s state: the hyperparameters
   # beside the inner chain's Adam state (its EmptyStates hold no leaf).
   group = opt.param_groups[0]
@@ -762,9 +1028,10 @@ def state_tree(state) -> Dict[str, Any]:
            "eps": group["eps"], "eps_root": 0.0,
            "learning_rate": group["lr"],
            "weight_decay": group["weight_decay"]}
-  hyper = {k: torch.as_tensor(float(v), dtype=torch.float32)
+  hyper = {k: _laid(k, torch.as_tensor(float(v), dtype=torch.float32),
+                    shardings)
            for k, v in hyper.items()}
-  return {"params": params_tree(state.params),
+  return {"params": params,
           "opt_state": {"count": count, "hyperparams": hyper,
                         "inner_state": (adam,)}, **extra}
 
@@ -791,17 +1058,25 @@ def _fill_adam_state(opt: torch.optim.Optimizer, p: torch.Tensor,
 
 
 def restore_train_state(directory: str, state, after_step: int = -1,
-                        assign_map: Optional[Dict[str, str]] = None):
+                        assign_map: Optional[Dict[str, str]] = None,
+                        shardings: Optional[Dict[str, Any]] = None):
   """Restore the newest VALID checkpoint under ``directory`` INTO the
   live ``state`` (parameters, both moments and every parameter's
   ``step``, written in place on the parameters' device; every group's
   learning rate too, from a checkpoint of an ``inject_hyperparams``
-  state) when its step is above ``after_step``; sets ``state.step``.  Returns ``(state,
-  step)``, ``step`` None when the chain is empty (FileNotFoundError and
-  :class:`NoValidCheckpointError` propagate as from
-  :func:`restore_checkpoint`).  A checkpoint at or below
-  ``after_step`` is validated but not read."""
+  state) when its step is above ``after_step``; sets ``state.step``.
+  Each leaf is this rank's block of the stored logical leaf by the
+  state's layouts (``shardings``, default ``parallel.api.
+  state_shardings(state)``; a ZeRO state's moments by ``opt_state/
+  <name>`` into its owner slices, which also take the restored
+  parameters' values).  Returns ``(state, step)``, ``step`` None when the
+  chain is empty (FileNotFoundError and :class:`NoValidCheckpointError`
+  propagate as from :func:`restore_checkpoint`).  A checkpoint at or
+  below ``after_step`` is validated but not read."""
   from easyparallellibrary_tpu_torch.ops.adamw import jax_path
+  from easyparallellibrary_tpu_torch.parallel.api import state_shardings
+  layouts = state_shardings(state) if shardings is None else shardings
+  zero = getattr(state, "zero", None)
   with trace_lib.get_tracer().span("checkpoint/restore",
                                    cat="checkpoint", track="checkpoint"):
     for path in _walk_valid_checkpoints(directory):
@@ -825,26 +1100,36 @@ def restore_train_state(directory: str, state, after_step: int = -1,
                                     f"{jax_path(name)}", assign_map)
                   for name in model_state)
 
-      def load(prefix, name, live):
+      def load(prefix, name, live, key):
         jpath = jax_path(name)
         ck = _apply_assign_map(f"{prefix}{jpath}", assign_map)
-        shape = _stored_shape(jpath, tuple(live.shape))
-        value = reader.tensor(ck, shape).to(live.device, live.dtype)
-        return _from_stored(jpath, value)
+        perm = _stored_perm(jpath, live.dim())
+        value = reader.tensor(ck, _stored_shape(jpath, tuple(live.shape)),
+                              layout=_permuted(layouts.get(key, ()), perm))
+        return _from_stored(jpath, value.to(live.device, live.dtype))
 
       for name, t in model_state.items():
         with torch.no_grad():
-          t.copy_(load("model_state/batch_stats/", name, t))
+          t.copy_(load("model_state/batch_stats/", name, t,
+                       f"model_state/{name}"))
 
       opt = state.opt_state
       for name, p in state.params.items():
         with torch.no_grad():
-          p.copy_(load("params/", name, p))
+          p.copy_(load("params/", name, p, name))
+        owner = _owner(state, name)
+        if owner is not p:
+          d, dp = zero.dims[name], zero.dp
+          block = p.shape[d] // dp
+          idx = int(collectives.axis_index(constants.DATA_AXIS))
+          with torch.no_grad():
+            owner.copy_(p.narrow(d, idx * block, block))
         if has_opt:
-          _fill_adam_state(opt, p, load(adam + "mu/", name, p),
-                           load(adam + "nu/", name, p), count)
+          key = f"opt_state/{name}" if zero is not None else name
+          _fill_adam_state(opt, owner, load(adam + "mu/", name, owner, key),
+                           load(adam + "nu/", name, owner, key), count)
         else:
-          opt.state.pop(p, None)
+          opt.state.pop(owner, None)
       if reader.has("opt_state/hyperparams/learning_rate"):
         lr = float(reader.raw("opt_state/hyperparams/learning_rate"))
         for group in opt.param_groups:
@@ -854,7 +1139,8 @@ def restore_train_state(directory: str, state, after_step: int = -1,
 
 
 def restore_params(directory: str, target=None, device=None,
-                   assign_map: Optional[Dict[str, str]] = None):
+                   assign_map: Optional[Dict[str, str]] = None,
+                   shardings: Optional[Dict[str, Any]] = None):
   """Params-only restore for serving: the newest VALID checkpoint's
   model parameters as the port's state dict (``{name: tensor}``, Dense
   kernels ``[out, in]``) on ``device`` (default the GPU).  Optimizer
@@ -863,13 +1149,17 @@ def restore_params(directory: str, target=None, device=None,
   Works on a train-state checkpoint (leaves under ``params/``, the
   layout of ``fit``) and on a bare params tree.  ``target`` (a port
   state dict) restricts the load to its names, slices to its shapes and
-  casts to its dtypes; explicit ``assign_map`` patterns win over the
-  automatic ``params/`` prefix and map JAX paths to full checkpoint
-  names.  Returns ``(params, step)``."""
+  casts to its dtypes; ``shardings`` (``{name: spec}``, ``parallel.api.
+  param_specs`` of the serving model) makes each such parameter this
+  rank's block of the stored logical leaf (a tensor-parallel engine's
+  slices of a checkpoint written at any layout).  Explicit
+  ``assign_map`` patterns win over the automatic ``params/`` prefix and
+  map JAX paths to full checkpoint names.  Returns ``(params, step)``."""
   from easyparallellibrary_tpu_torch.ops.adamw import jax_path
   from easyparallellibrary_tpu_torch.weights import _torch_name
   dev = resolve_device(device)
   prefix = "params/"
+  layouts = shardings or {}
   for path in _walk_valid_checkpoints(directory):
     reader = _Reader(path)
     prefixed = any(p.startswith(prefix) for p in reader.index["leaves"])
@@ -890,8 +1180,13 @@ def restore_params(directory: str, target=None, device=None,
                 for jpath, _, _ in wanted.values())
     out = {}
     for name, (jpath, shape, dtype) in wanted.items():
-      stored_shape = None if shape is None else _stored_shape(jpath, shape)
-      value = reader.tensor(_apply_assign_map(jpath, amap), stored_shape)
+      ck = _apply_assign_map(jpath, amap)
+      ndim = len(shape) if shape is not None else reader.raw(ck).ndim
+      perm = _stored_perm(jpath, ndim)
+      layout = layouts.get(name)
+      value = reader.tensor(
+          ck, None if shape is None else _stored_shape(jpath, shape),
+          layout=None if layout is None else _permuted(layout, perm))
       value = _from_stored(jpath, value).contiguous()
       out[name] = value.to(device=dev, dtype=dtype or value.dtype)
     return out, reader.step
@@ -901,45 +1196,61 @@ def restore_params(directory: str, target=None, device=None,
 # ----------------------------------------------------------------- orbax --
 #
 # The JAX package's second, optional path writes orbax checkpoints; the
-# port's counterpart is torch.distributed.checkpoint (DCP), in one process
-# with no process group.  The two formats are not each other's: the
-# native step_N format above is the one both packages read.
+# port's counterpart is torch.distributed.checkpoint (DCP).  The two
+# formats are not each other's: the native step_N format above is the one
+# both packages read.  DCP takes one tensor a key from every rank and
+# writes one copy of the keys it holds as replicated, so under a process
+# group each leaf is first gathered to its whole (the native path's
+# layouts): distinct shards never pass for copies.
 
 
 def _dcp_path(directory: str, step: int) -> str:
   return os.path.join(os.path.abspath(directory), f"step_{int(step)}")
 
 
-def save_checkpoint_orbax(directory: str, tree, step: int = 0) -> str:
+@contextlib.contextmanager
+def _dcp_quiet():
+  """DCP's warning that it runs in one process without a process group:
+  a design of this path, not a fault."""
+  import warnings
+  with warnings.catch_warnings():
+    warnings.filterwarnings("ignore", message=".*single process.*")
+    yield
+
+
+def save_checkpoint_orbax(directory: str, tree, step: int = 0,
+                          shardings: Optional[Dict[str, Any]] = None) -> str:
   """Save ``tree`` (nested dicts / lists / tuples of tensors or arrays)
   with DCP's file-system writer under ``directory/step_<step>``, one
   entry per leaf path (``"opt_state/0/mu/wte/embedding"``), and return
-  the path."""
-  import warnings
-
+  the path.  Under a process group every rank calls it and every leaf
+  needs a layout (``shardings`` or :class:`Sharded` leaves, as for
+  :func:`save_checkpoint`): it is stored whole, at its logical shape."""
   import torch.distributed.checkpoint as dcp
   path = _dcp_path(directory, step)
-  flat = {name: (leaf.detach() if isinstance(leaf, torch.Tensor)
-                 else torch.as_tensor(np.asarray(leaf)))
-          for name, leaf in _sorted_leaves(tree)}
+  flat = {}
+  for name, value, layout in _resolve_layouts(_sorted_leaves(tree),
+                                              shardings):
+    if layout is not None:
+      value = _gather(value, layout)
+    flat[name] = (value.detach() if isinstance(value, torch.Tensor)
+                  else torch.as_tensor(np.asarray(value)))
   with trace_lib.get_tracer().span("checkpoint/save_dcp", cat="checkpoint",
                                    track="checkpoint"):
-    with warnings.catch_warnings():
-      # One process without a process group is this path's design.
-      warnings.filterwarnings("ignore", message=".*single process.*")
+    with _dcp_quiet():
       dcp.save(flat, checkpoint_id=path)
   get_logger().info("saved DCP checkpoint: %s (%d leaves)", path, len(flat))
   return path
 
 
 def restore_checkpoint_orbax(directory: str, step: int, target=None,
-                             device=None):
+                             device=None,
+                             shardings: Optional[Dict[str, Any]] = None):
   """Read a :func:`save_checkpoint_orbax` checkpoint.  With ``target``
   (a tree of tensors) the result has its structure, each leaf in the
   target leaf's dtype on its device; without, ``{path: tensor}`` on
-  ``device`` (default the GPU)."""
-  import warnings
-
+  ``device`` (default the GPU).  ``shardings`` (``{path: spec}``): each
+  such leaf is this rank's block of the stored whole."""
   import torch.distributed.checkpoint as dcp
   path = _dcp_path(directory, step)
   if not os.path.isfile(os.path.join(path, ".metadata")):
@@ -952,12 +1263,23 @@ def restore_checkpoint_orbax(directory: str, step: int, target=None,
           for name, m in meta.items()}
   with trace_lib.get_tracer().span("checkpoint/restore_dcp",
                                    cat="checkpoint", track="checkpoint"):
-    with warnings.catch_warnings():
-      warnings.filterwarnings("ignore", message=".*single process.*")
+    with _dcp_quiet():
       dcp.load(flat, checkpoint_id=path)
+  layouts = {p: _as_layout(s) for p, s in (shardings or {}).items()}
+
+  def block(name, local_shape=None):
+    value = flat[name]
+    if name not in layouts:
+      return value
+    bf16 = value.dtype == torch.bfloat16
+    host = (value.view(torch.int16) if bf16 else value).numpy()
+    out = torch.from_numpy(np.ascontiguousarray(
+        _narrow(host, layouts[name], local_shape=local_shape)))
+    return out.view(torch.bfloat16) if bf16 else out
+
   if target is None:
     dev = resolve_device(device)
-    return {name: t.to(dev) for name, t in flat.items()}
+    return {name: block(name).to(dev) for name in flat}
 
   def walk(node, prefix):
     if isinstance(node, dict):
@@ -969,7 +1291,7 @@ def restore_checkpoint_orbax(directory: str, step: int, target=None,
     name = "/".join(str(p) for p in prefix)
     if name not in flat:
       raise KeyError(f"DCP checkpoint {path!r} has no leaf {name!r}")
-    value = flat[name]
+    value = block(name, tuple(node.shape))
     if tuple(value.shape) != tuple(node.shape):
       raise ValueError(f"leaf {name!r}: checkpoint shape "
                        f"{tuple(value.shape)}, target {tuple(node.shape)}")

@@ -120,13 +120,27 @@ def shard_opt_state(state, shardings, mesh, level: str):
   state.opt_state = state.tx.init(owners)
   state.zero = ZeroLayout(dims, owners, dp)
   shardings = dict(shardings)
+  shardings.update(opt_state_specs(state.params, shardings, dims))
+  return state, shardings
+
+
+def opt_state_specs(params: Dict[str, torch.Tensor], specs,
+                    dims: Dict[str, Optional[int]]):
+  """``{"opt_state/<name>": spec}``: each parameter's spec with ``data``
+  on its owner dim, and its logical shape (``parallel.api.LeafSpec``):
+  the layout of its optimizer entries, whose owner slices the saver
+  gathers over ``data``."""
+  from easyparallellibrary_tpu_torch.parallel.api import LeafSpec
+  out = {}
   for name, d in dims.items():
-    spec = list(shardings.get(name, ()) or ())
-    spec += [None] * (state.params[name].dim() - len(spec))
+    own = specs.get(name, ()) or ()
+    spec = list(own) + [None] * (params[name].dim() - len(own))
     if d is not None:
       spec[d] = constants.DATA_AXIS
-    shardings[f"opt_state/{name}"] = tuple(spec)
-  return state, shardings
+    out[f"opt_state/{name}"] = LeafSpec(
+        spec, getattr(own, "logical_shape", None), getattr(own, "groups",
+                                                           None))
+  return out
 
 
 def apply_sharded(state, reduce_method: str = "mean") -> None:

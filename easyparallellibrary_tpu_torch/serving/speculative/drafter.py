@@ -164,9 +164,11 @@ class DraftModelDrafter(Drafter):
     against ``model.cfg`` from the index alone, before any shard is
     read.  ``target`` (default: ``model``'s own parameters, shapes and
     dtypes) selects and shapes the leaves; they land on ``device``
-    (default the GPU)."""
+    (default the GPU).  With ``shardings`` (``parallel.api.param_specs``
+    of a tensor-parallel ``model``) each leaf is this rank's block of the
+    stored logical leaf; with only ``mesh``, the whole parameters load and
+    this rank keeps its slice at :meth:`bind`."""
     from easyparallellibrary_tpu_torch.runtime import saver
-    del shardings
     leaves, _ = saver.peek_leaf_shapes(directory)
     for path, shape in leaves.items():
       name = path[len("params/"):] if path.startswith("params/") else path
@@ -180,14 +182,14 @@ class DraftModelDrafter(Drafter):
             f"same tokenizer")
     if target is None:
       target = dict(model.named_parameters())
-      if mesh is not None:
+      if mesh is not None and shardings is None:
         # The checkpoint holds the whole parameters; this rank keeps its
         # slice at bind().
         from easyparallellibrary_tpu_torch.models.gpt import GPT
         target = dict(GPT(dataclasses.replace(
             model.cfg, tensor_parallel=False)).named_parameters())
     params, _ = saver.restore_params(directory, target=target,
-                                     device=device)
+                                     device=device, shardings=shardings)
     return cls(model, params, k=k, mesh=mesh)
 
   def bind(self, engine):

@@ -883,7 +883,9 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
   sequence-parallel runs at ``seq:world`` (``spec["sequence"]``,
   ``sp_workers.chip_moe_a2a`` / ``chip_sequence``); and phase 24's
   BERT pipeline and ResNet split head (``spec["p24"]``,
-  ``bert_workers.chip_phase24``)."""
+  ``bert_workers.chip_phase24``); phase 26's sharded checkpoints
+  (``spec["p26"]["runs"]``: ``ckpt_workers.train_resume``'s arguments,
+  one run a mesh)."""
   import gc
 
   from easyparallellibrary_tpu_torch.models.gpt import GPT
@@ -950,4 +952,16 @@ def chip_tp_suite(rank, world, backend: str, spec: dict,
       torch.cuda.empty_cache()
     out["p24"] = bert_workers.chip_phase24(rank, world, backend,
                                            spec["p24"], device)
+  if "p26" in spec:
+    import time
+
+    from easyparallellibrary_tpu_torch.testing import ckpt_workers
+    t0 = time.monotonic()
+    runs = []
+    for args in spec["p26"]["runs"]:
+      gc.collect()
+      if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+      runs.append(ckpt_workers.train_resume(rank, world, *args))
+    out["p26"] = {"runs": runs, "wall_s": time.monotonic() - t0}
   return out

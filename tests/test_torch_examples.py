@@ -49,10 +49,23 @@ def test_train_gpt_runs_prints_and_learns(capsys, tmp_path):
   assert len(got["generated"]) == 4
 
 
-def test_train_gpt_refuses_a_multi_rank_checkpoint():
-  from easyparallellibrary_tpu_torch.examples import train_gpt
-  with pytest.raises(SystemExit):
-    train_gpt._rank_main(GPT_TINY + ["--tp", "2", "--ckpt", "/nonexistent"])
+def test_train_gpt_refuses_a_multi_rank_checkpoint(capsys, tmp_path):
+  """``--ckpt`` of a multi-rank run is not refused: two tensor-parallel
+  gloo ranks save one checkpoint whose leaves have a one-rank run's
+  paths and logical shapes, and ``generate_gpt`` restores it."""
+  from easyparallellibrary_tpu_torch.examples import generate_gpt, train_gpt
+  from easyparallellibrary_tpu_torch.runtime import saver
+  root = str(tmp_path / "ck")
+  train_gpt.main(GPT_TINY + ["--tp", "2", "--batch", "4", "--steps", "2",
+                             "--ckpt", root])
+  shapes, step = saver.peek_leaf_shapes(root)
+  assert step == 2
+  assert shapes["wte/embedding"] == (64, 32)
+  assert shapes["block_0/attn/qkv/kernel"] == (32, 96)
+  assert shapes["block_0/mlp/wo/kernel"] == (128, 32)
+  generate_gpt.main(GPT_TINY + ["--max-new-tokens", "2",
+                                "--checkpoint-dir", root])
+  assert "restored checkpoint at step 2" in capsys.readouterr().out
   assert train_gpt.world_size(train_gpt._parser().parse_args(
       ["--tp", "2", "--pp", "2", "--seq", "ring", "--seq-size", "2",
        "--experts", "8"])) == 16

@@ -337,3 +337,73 @@ def test_engine_takes_donate_cache_and_ignores_it():
     outs.append(eng.run()["a"])
     eng.close()
   assert all(np.array_equal(o, outs[0]) for o in outs), outs
+
+
+# ------------------------------------------- the Config keys each reads --
+
+# Config keys the JAX package reads outside config.py that the port does
+# not read, each with its reason (ROADMAP.md Queue 3).
+CONFIG_KEYS_NOT_READ = {
+    "cluster.device_place_prefer_intra_node":
+        "orders a host's devices in the JAX mesh; the port runs one "
+        "device a process, ranks in the JAX device order",
+    "serving.donate_cache":
+        "buffer donation of the jitted step; the port donates nothing "
+        "(the engine takes the keyword and ignores it)",
+}
+
+
+def _config_keys():
+  from easyparallellibrary_tpu_torch.config import Config
+  return [(section,) + tuple(key.split("."))
+          for section, values in Config().to_dict().items()
+          for key in values]
+
+
+def _config_reads(root):
+  """``(attribute names read, string literals)`` in the code of a
+  package outside ``config.py`` and ``testing/`` (whose programs set
+  Config entries, not read them); comments and docstrings' prose are no
+  reads."""
+  import io
+  import tokenize
+  attrs, strings = set(), set()
+  for path in sorted(root.rglob("*.py")):
+    if path.name == "config.py" or path.relative_to(root).parts[0] == \
+        "testing":
+      continue
+    toks = list(tokenize.generate_tokens(io.StringIO(
+        path.read_text()).readline))
+    for prev, tok in zip(toks, toks[1:]):
+      if tok.type == tokenize.NAME and prev.string == ".":
+        attrs.add(tok.string)
+      elif tok.type == tokenize.STRING:
+        try:
+          value = ast.literal_eval(tok.string)
+        except (ValueError, SyntaxError):
+          continue
+        if isinstance(value, str):
+          strings.add(value)
+  return attrs, strings
+
+
+def _reads_key(reads, key) -> bool:
+  """A key is read by an attribute access of its last name
+  (``cfg.auto.tensor_split``, ``res.keep_last``) or by its dotted name
+  as a string."""
+  attrs, strings = reads
+  return (key[-1] in attrs or ".".join(key) in strings
+          or ".".join(key[1:]) in strings)
+
+
+def test_every_config_key_the_jax_package_reads_is_read_by_the_port():
+  """Each Config key the JAX package reads outside ``config.py`` is read
+  by the port too, or is named in ``CONFIG_KEYS_NOT_READ`` with its
+  reason (and each named key is still read by JAX and not by the
+  port)."""
+  jax_reads = _config_reads(ROOT / "easyparallellibrary_tpu")
+  port_reads = _config_reads(PORT)
+  unread = {".".join(k) for k in _config_keys()
+            if _reads_key(jax_reads, k) and not _reads_key(port_reads, k)}
+  assert unread == set(CONFIG_KEYS_NOT_READ), (
+      f"read by JAX, not by the port: {sorted(unread)}")
