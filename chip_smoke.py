@@ -9,7 +9,7 @@ GPT-350M (``easyparallellibrary_tpu_torch``) — the paged
 continuous-batching engine (plain, speculative, with the prefix cache),
 and the training step of ``bench.py`` — and holds every CUDA kernel of
 those paths against its plain PyTorch version.  The serving phases run
-12 of GPT-350M's 24 layers (``SERVE_LAYERS``; widths kept), training
+6 of GPT-350M's 24 layers (``SERVE_LAYERS``; widths kept), training
 phase 10 all 24:
 
 1. build the kernels from the checkout's sources (one ``nvcc`` per
@@ -117,12 +117,12 @@ phase 10 all 24:
     watchdog breach arming a ``torch.profiler`` trace of the next step
     that names the paged kernel; a short traced contiguous run;
 18. the training runtime around the step, bf16 at ``bench.py``'s
-    configuration cut to 12 of its 24 layers (``RT_LAYERS``): token
+    configuration cut to 6 of its 24 layers (``RT_LAYERS``): token
     records written and read back by the native
     ``RecordReader`` through ``DevicePrefetcher`` into ``fit(
     build_train_step(...))`` with the anomaly sentinel on — (a) 10 steps
-    with a ~2 GB checkpoint every 10 (tokens/s, MFU, save seconds, the
-    flash launches against 12 x steps); (b) a fresh state resuming at
+    with a ~1.3 GB checkpoint every 10 (tokens/s, MFU, save seconds, the
+    flash launches against 6 x steps); (b) a fresh state resuming at
     step 10 (restore seconds, restored state bit-equal to the live one,
     steps 11-20 against the uninterrupted run); (c) a two-step NaN
     window under ``set_sync_debug_mode("error")`` left bit-identical,
@@ -136,14 +136,14 @@ phase 10 all 24:
     no offload: the moments pinned on the host, the losses loss for
     loss and the final params and moments bit-equal, peak HBM and step
     ms both ways, the flash launches, a native
-    save/restore of the offloaded state bit-equal; (h) that 2.0 GB
+    save/restore of the offloaded state bit-equal; (h) that 1.3 GB
     state through ``torch.distributed.checkpoint``
     (``save_checkpoint_orbax``), restored bit-equal, its seconds beside
     the native saver's;
 19. the replicated fleet, GPT-350M bf16, paged (8 slots, chunk 128,
     block 16) under phase 5's staggered load: (a) a ``Router`` with one
     in-process replica token-equal to the bare engine (the kernel
-    libraries unchanged, tiled launches 24 x engine steps); (b) two
+    libraries unchanged, tiled launches SERVE_LAYERS x engine steps); (b) two
     in-process replicas with a ``ReplicaKiller`` mid-decode, in bf16
     (streams held to the gap rule) and fp32; (c) two process replicas
     spawned from ``testing.factories.gpt_350m`` on the card: a SIGKILL
@@ -172,7 +172,7 @@ lines.  ``--phases 20`` runs the latest slice's:
     real step planned at each level, non-shed streams by the gap rule,
     no kernel library loaded); (b) the golden chaos-heal episode
     (``tests/golden/sim_chaos_heal.json``) driven through a real fleet
-    of in-process replicas at GPT-350M's widths and 12 of its layers
+    of in-process replicas at GPT-350M's widths and 6 of its layers
     (``HEAL_LAYERS``, as (c)) as recorded, its actuation sequence
     and counters equal to the file's, then replayed by the simulator;
     (c) blue/green rollouts to a checkpoint of ``init_params(seed=1)``:
@@ -199,11 +199,11 @@ wall limit):
     beside them, their bounds and the library yardsticks; (b) GPT-350M
     bf16 on the paged engine at tp = 2 under phase 5's load, with the
     n-gram drafter and with the prefix cache: streams against the tp = 1
-    engine's by the gap rule, the tiled kernel's launches 24 x steps on
+    engine's by the gap rule, the tiled kernel's launches SERVE_LAYERS x steps on
     each rank, tokens/s, TTFT p50 and host ms a step beside tp = 1's;
-    (c) bench.py's training step at 12 of its layers at tp = 2, 2
+    (c) bench.py's training step at 6 of its layers at tp = 2, 2
     steps: losses against tp = 1 within one bf16 spacing, each rank's
-    flash launches 12 x steps per kernel, peak memory and step ms; (d) explicit DP = 2 with
+    flash launches 6 x steps per kernel, peak memory and step ms; (d) explicit DP = 2 with
     8 MB fusion buckets and ZeRO-1 at DP = 2 (4 layers) against one
     process, ZeRO-1's moment bytes half of DP's; (e) a row-parallel
     Dense through the overlap ring against ``overlap="off"``.  Every
@@ -323,6 +323,25 @@ rank group):
     (d) the paged engine at tp = 1 serving 8 staggered greedy requests
     from it, the streams against ``generate(use_cache=False)`` by the
     gap rule, K2's tiled launches at layers x steps, none warp or plain.
+
+``--phases 27`` runs K1's tile builds and the block table (in the whole
+run phases 8 and 10 already take the committed table's builds):
+
+27. (a) each kernel's builds in the library against
+    ``flash_attention.WGMMA_BUILDS``, each build's registers, spill bytes
+    and shared memory as the loaded binary reports them, and every build
+    of the forward, dK/dV and dQ, bf16 and fp16, D 64 and 128, causal and
+    not, at bench.py's rows (batch cut to 2), a ragged length and a key
+    length past the query length against the plain versions
+    (``FLASH_BF16_LIMIT``, ``FLASH_FP16_LIMIT``), ``by_tile`` counting
+    the build launched; (b) ``kernels.flash_autotune``'s sweep (nothing
+    written) at bench.py's shape (B 16, H 16, S 1024, D 64) and at S 8192,
+    D 128: each candidate's causal forward + backward beside SDPA's, each
+    build of each kernel alone; (c) bench.py's GPT-350M step (24 layers,
+    16 x 1024) with the committed block table against the default build:
+    every K1 launch on its arm's build (``by_tile``), the losses of 3
+    steps from the same weights within one bf16 spacing, step ms and MFU
+    in ABBA chains.
 """
 
 from __future__ import annotations
@@ -353,12 +372,13 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
 
 GPT_350M = dict(vocab_size=32768, num_layers=24, num_heads=16, d_model=1024,
                 d_ff=4096, max_seq_len=1024)
-# The serving phases (4-6, 12-17, 19-20, 21b) run GPT-350M's widths at 12
+# The serving phases (4-6, 12-17, 19-20, 21b) run GPT-350M's widths at 6
 # of its 24 layers (the script's time: a slow host read the whole script
-# at 1251 s at 24): the first 12 blocks of the seed-0 draw
-# (``depth_cut``) are the 12-layer draw's, bit for bit, so the
-# process children, the TP ranks and the references share weights.
-SERVE_LAYERS = 12
+# at 1251 s at 24 layers, and at 1320.7 s at 12 once phase 27 was added):
+# the first 6 blocks of the seed-0 draw (``depth_cut``) are the 6-layer
+# draw's, bit for bit, so the process children, the TP ranks and the
+# references share weights.
+SERVE_LAYERS = 6
 GPT_SERVE = dict(GPT_350M, num_layers=SERVE_LAYERS)
 NUM_SLOTS, PREFILL_CHUNK, BLOCK_SIZE = 8, 128, 16
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -434,9 +454,9 @@ O1_LAYERS = 12
 # only where the card's products are not deterministic run to run).
 RT_BATCH, RT_RECORDS, RT_STEPS, RT_RESUME_STEPS = 16, 1024, 10, 20
 RT_MAX_BAD, RT_DROPOUT, RT_RESUME_RTOL = 4, 0.1, 1e-3
-# Phases 18-18h run bench.py's widths at 12 of its 24 layers (the
-# script's time; a checkpoint of that state is 2.0 GB).
-RT_LAYERS = 12
+# Phases 18-18h run bench.py's widths at 6 of its 24 layers (the
+# script's time; a checkpoint of that state is about 1.3 GB).
+RT_LAYERS = 6
 
 
 def log(msg: str) -> None:
@@ -1568,11 +1588,16 @@ def train_bf16_bench(torch, fa, bench):
       f"ms, MFU {record['value']} of {d['peak_flops_denominator']:.3g} "
       f"FLOP/s, peak memory {d['peak_hbm_gb']} GiB, batch "
       f"{d['batch_size']}, loss {d['loss']}")
-  log(f"   flash launches {launches} over {steps} steps x {layers} layers; "
+  builds = {k: fa.flash_tile(k, bench.GPT_350M["max_seq_len"], 64,
+                              torch.bfloat16) for k in launches}
+  by_tile = _flash_by_tile(fa)
+  log(f"   flash launches {launches} over {steps} steps x {layers} layers, "
+      f"by (tile, stages) {by_tile} (the block table's builds {builds}); "
       f"plain-version calls {plain}")
   assert record["metric"] == "gpt350m_train_mfu" and record["value"] > 0
   assert np.isfinite(d["loss"])
   assert all(n == layers * steps for n in launches.values()), launches
+  assert by_tile == {k: {builds[k]: launches[k]} for k in launches}, by_tile
   assert plain == (0, 0, 0), plain
   return record, launches
 
@@ -3404,7 +3429,7 @@ def offload_training(torch, fa, bench):
 
 def dcp_checkpoint(torch, state, native_s):
   """Phase 18h: the offloaded state's whole tree (params, both moments,
-  the count: 2.0 GB at RT_LAYERS) through ``save_checkpoint_orbax`` /
+  the count: 1.3 GB at RT_LAYERS) through ``save_checkpoint_orbax`` /
   ``restore_checkpoint_orbax`` (``torch.distributed.checkpoint``, one
   process, no process group), restored bit-equal, its seconds beside the
   native saver's."""
@@ -3882,11 +3907,11 @@ HEAL_CONF = {
 # on) and new tokens, the canary's hold (seconds on the router's wall
 # clock).
 ROLL_REQUESTS, ROLL_NEW, ROLL_HOLD_S = 16, 16, 1.0
-# (b) and (c) run GPT-350M's widths at 12 of its 24 layers (the script's
-# time): the first 12 blocks of the seed-0 draw are the 12-layer draw's,
+# (b) and (c) run GPT-350M's widths at 6 of its 24 layers (the script's
+# time): the first 6 blocks of the seed-0 draw are the 6-layer draw's,
 # bit for bit, so the in-process replicas, the process children and the
 # references share their weights.
-HEAL_LAYERS = 12
+HEAL_LAYERS = 6
 
 
 def depth_cut(params, layers: int):
@@ -4675,9 +4700,9 @@ TP_SPAWN_DEADLINE_S, TP_PHASE_WALL_S = 600, 900
 # 21c: 2 steps (a step over gloo is ~10 s a rank): the first loss holds
 # the TP forward, the second the TP backward and one AdamW update.
 TP_TRAIN_BATCH, TP_TRAIN_STEPS = 16, 2
-# ... at 12 of GPT-350M's 24 layers (the script's time; the serving
-# weights' first 12 blocks).
-TP_TRAIN_LAYERS = 12
+# ... at the serving phases' depth (the script's time; the serving
+# weights' blocks).
+TP_TRAIN_LAYERS = SERVE_LAYERS
 # bf16 losses of two runs whose sums are taken in another order (the
 # row-parallel all-reduces, the vocab-parallel normaliser, a per-rank
 # batch): one bf16 spacing, 2^-8, relative.
@@ -6486,6 +6511,267 @@ def phase26_finish(torch, pa, ranks, spec, backend):
   return {"flash": launches, "paged": serving}
 
 
+# Phase 27: K1's tile builds and the block table.  27a holds every build
+# at the GPU tests' kind of shapes (bench.py's rows at batch 2, a ragged
+# length, a key length past the query length); 27b sweeps bench.py's
+# shape and one long one; 27c runs bench.py's step (24 layers, 16 x 1024)
+# with the committed table and with the default build, P27_CHAINS chains
+# of P27_CHAIN_STEPS steps each in ABBA turns, after P27_LOSS_STEPS steps
+# of each from the same weights whose losses agree to one bf16 spacing
+# (the arms sum the same products in other orders).
+P27_SHAPES = [("bench_b2", dict(B=2, H=16, S=1024, Skv=1024)),
+              ("ragged_s200", dict(B=2, H=3, S=200, Skv=200)),
+              ("skv_192_s_128", dict(B=1, H=2, S=128, Skv=192))]
+P27_SWEEP = [(1024, 64, 16, 16), (8192, 128, 1, 16)]
+P27_BATCH, P27_LOSS_STEPS, P27_CHAINS, P27_CHAIN_STEPS = 16, 3, 4, 5
+P27_LOSS_RTOL = 2.0 ** -8
+P27_WALL_S = 150
+
+
+def _flash_case_kv(torch, dtype, seed, B, H, S, Skv, D):
+  """q, dout ``[B, H, S, D]`` and k, v ``[B, H, Skv, D]`` from a seed."""
+  r = np.random.RandomState(seed)
+  return [torch.from_numpy(r.randn(B, H, n, D).astype(np.float32)).to(
+      "cuda", dtype) for n in (S, Skv, Skv, S)]
+
+
+def tile_builds_parity(torch, fa):
+  """27a: each kernel's builds in the library equal ``WGMMA_BUILDS``;
+  each build's registers, spill bytes and shared memory from the loaded
+  binary (none may spill but dK/dV's one build at D = 128); every build
+  of every kernel, bf16 and fp16, D 64 and 128, causal and not, at
+  ``P27_SHAPES`` against the plain versions (``FLASH_BF16_LIMIT`` /
+  ``FLASH_FP16_LIMIT``), ``by_tile`` counting the build launched.  Returns ``{(dtype, D, kernel, build):
+  info}`` and the largest normalized errors by kernel and dtype."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  wrappers = {"fwd": fa.flash_fwd_cuda, "dkv": fa.flash_bwd_dkv_cuda,
+              "dq": fa.flash_bwd_dq_cuda}
+  infos, worst = {}, {}
+  for dtype_name in ("bfloat16", "float16"):
+    dtype = getattr(torch, dtype_name)
+    for D in (64, 128):
+      for kernel in wrappers:
+        builds = fa.flash_builds(kernel, dtype, D)
+        assert builds == fa.kernel_builds(kernel, dtype, D), (
+            kernel, dtype_name, D, builds)
+        for build in builds:
+          info = fa.flash_build_info(kernel, dtype, D, *build)
+          infos[dtype_name, D, kernel, build] = info
+          log(f"   {kernel:3s} {dtype_name:8s} D={D:3d} tile {build[0]:3d} "
+              f"stages {build[1]}: {info['registers']} registers, "
+              f"{info['local_bytes']} local (spill) bytes, "
+              f"{info['smem_bytes']} B shared memory")
+  # dK/dV's one build at D = 128 has spilled since it was written (two
+  # 64-register accumulators under the 168 registers a 288-thread CTA may
+  # take); no other build may.
+  spilled = {k: v for k, v in infos.items() if v["local_bytes"]
+             and k[1:3] != (128, "dkv")}
+  assert not spilled, f"builds that spill: {spilled}"
+  for dtype_name in ("bfloat16", "float16"):
+    dtype = getattr(torch, dtype_name)
+    limits = FLASH_BF16_LIMIT if dtype_name == "bfloat16" else FLASH_FP16_LIMIT
+    for D in (64, 128):
+      for seed, (label, shape) in enumerate(P27_SHAPES):
+        for causal in (True, False):
+          q, k, v, dout = _flash_case_kv(torch, dtype, 300 + seed, D=D,
+                                         **shape)
+          want_out, want_lse = fa.flash_fwd_reference(q, k, v, causal)
+          delta = (dout.float() * want_out.float()).sum(-1)
+          want_dk, want_dv = fa.flash_bwd_dkv_reference(
+              q, k, v, dout, want_lse, delta, causal)
+          want_dq = fa.flash_bwd_dq_reference(q, k, v, dout, want_lse,
+                                              delta, causal)
+          readings = []
+          for kernel, fn in wrappers.items():
+            for build in fa.kernel_builds(kernel, dtype, D):
+              before = dict(fn.by_tile)
+              if kernel == "fwd":
+                out, lse = fn(q, k, v, causal, build=build)
+                got = [("out", out, want_out)]
+              elif kernel == "dkv":
+                dk, dv = fn(q, k, v, dout, want_lse, delta, causal,
+                            build=build)
+                got = [("dk", dk, want_dk), ("dv", dv, want_dv)]
+              else:
+                dq = fn(q, k, v, dout, want_lse, delta, causal, build=build)
+                got = [("dq", dq, want_dq)]
+              torch.cuda.synchronize()
+              before[build] = before.get(build, 0) + 1
+              assert fn.by_tile == before, (kernel, build, fn.by_tile)
+              if kernel == "fwd":
+                torch.testing.assert_close(lse, want_lse, rtol=2e-5,
+                                           atol=2e-6)
+              limit = limits["fwd" if kernel == "fwd" else "grad"]
+              for name, x, want in got:
+                assert x.dtype == dtype and bool(torch.isfinite(x).all())
+                rel_l2, max_rel = normalized_errors(x, want)
+                case = (f"{label} {dtype_name} D={D} causal={causal} "
+                        f"{name} build {build}")
+                assert (rel_l2 <= limit["rel_l2"]
+                        and max_rel <= limit["max_rel"]), (
+                            f"{case}: {rel_l2:.3e}, {max_rel:.3e} over "
+                            f"{limit}")
+                key = (kernel, dtype_name)
+                old = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(old[0], rel_l2), max(old[1], max_rel))
+                readings.append(f"{name}@{build[0]}x{build[1]} {rel_l2:.1e}")
+          log(f"   {label:13s} {dtype_name:8s} D={D:3d} causal={causal!s:5s}"
+              f" rel_l2: " + ", ".join(readings))
+  log("   largest (rel_l2, max_rel) by kernel and dtype: " + ", ".join(
+      f"{k[0]} {k[1]} ({v[0]:.2e}, {v[1]:.2e})" for k, v in worst.items()))
+  return infos, worst
+
+
+def tile_sweep(torch):
+  """27b: ``flash_autotune.sweep`` at ``P27_SWEEP`` (nothing written):
+  each candidate's causal forward + backward beside SDPA's, each build
+  of each kernel alone, each kernel's bound at the shape."""
+  from easyparallellibrary_tpu_torch.kernels import flash_autotune
+  rows = flash_autotune.sweep(P27_SWEEP)
+  for row in rows:
+    row["bound_ms"] = {k: v[0] for k, v in flash_bounds(
+        row["batch"], row["heads"], row["S"], row["D"], 2).items()}
+    log(f"   S={row['S']} D={row['D']} B={row['batch']}: bounds (ms) "
+        f"{row['bound_ms']}, their sum {sum(row['bound_ms'].values()):.4f}")
+    log(f"   S={row['S']} D={row['D']} B={row['batch']}: fwd+bwd ms "
+        + ", ".join(f"{c} {t:.4f}" for c, t in row["times_ms"].items())
+        + f"; SDPA {row['sdpa_ms']:.4f}; best {row['best']} "
+        f"({row['gain_vs_default']:.3f}x the default {row['default']})")
+    for kernel, times in row["kernel_ms"].items():
+      log(f"     {kernel:3s} alone: " + ", ".join(
+          f"{b} {t:.4f}" for b, t in times.items()))
+  return rows
+
+
+def _flash_by_tile(fa):
+  return {"fwd": dict(fa.flash_fwd_cuda.by_tile),
+          "dkv": dict(fa.flash_bwd_dkv_cuda.by_tile),
+          "dq": dict(fa.flash_bwd_dq_cuda.by_tile)}
+
+
+def table_step(torch, fa, bench):
+  """27c: bench.py's GPT-350M step (24 layers, ``pallas_flash``,
+  ``dots_flash``, bf16 over fp32 weights, 16 x 1024) with the committed
+  block table against the default build: two states from one draw of
+  ``init_params(seed=0)``; ``P27_LOSS_STEPS`` steps of each, every K1
+  launch on its arm's build (``by_tile``) and the losses within
+  ``P27_LOSS_RTOL``; then step ms and MFU in ABBA chains.  Without an
+  entry for the shape in the table, one more step under a set entry
+  shows ``by_tile`` following it."""
+  from easyparallellibrary_tpu_torch.models.gpt import gpt_flops_per_token
+  from easyparallellibrary_tpu_torch.weights import init_params
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg = bench.bench_config(torch.device("cuda"))[0]
+  layers, S, D = cfg.num_layers, cfg.max_seq_len, cfg.d_model // cfg.num_heads
+  key = (S, D, 2)
+  device = torch.cuda.get_device_name()
+  wants, depths = fa._read_block_table(fa._BLOCK_TABLE_PATH, device)
+  entry = (wants.get(key), depths.get(key))
+  table = {k: fa.flash_tile(k, S, D, torch.bfloat16) for k in
+           ("fwd", "dkv", "dq")}
+  if entry[0]:
+    assert table == {k: fa.tile_for_want(k, D, torch.bfloat16, *entry)
+                     for k in table}, (table, entry)
+  else:
+    assert all(b == fa.DEFAULT_BUILD for b in table.values()), table
+  log(f"   committed table ({device}): entry {entry} for {key}; the "
+      f"kernels' builds {table}")
+  params = init_params(cfg, seed=0, device="cuda")
+  arms = {}
+  for arm in ("table", "default"):
+    weights = {k: v.clone() for k, v in params.items()}
+    arms[arm] = bench.build_training(cfg, P27_BATCH, "cuda", params=weights)
+  del params
+
+  def use(arm):
+    if arm == "table" and entry[0]:
+      fa.set_block_want(*key, *entry)
+    else:
+      fa.set_block_want(*key, 0)
+
+  losses, by_tile = {}, {}
+  try:
+    for arm, (state, step, batch, rng, _) in arms.items():
+      use(arm)
+      fa.reset_counts()
+      losses[arm] = []
+      for _ in range(P27_LOSS_STEPS):
+        state, metrics = step(state, batch, rng)
+        losses[arm].append(metrics["loss"].item())
+      arms[arm] = (state, step, batch, rng)
+      by_tile[arm] = _flash_by_tile(fa)
+      want = table if arm == "table" else {k: fa.DEFAULT_BUILD
+                                           for k in table}
+      n = layers * P27_LOSS_STEPS
+      assert by_tile[arm] == {k: {want[k]: n} for k in want}, (arm,
+                                                                by_tile[arm])
+      log(f"   {arm:7s} losses {losses[arm]}; K1 launches by (tile, "
+          f"stages): {by_tile[arm]}")
+    np.testing.assert_allclose(losses["table"], losses["default"],
+                               rtol=P27_LOSS_RTOL)
+    times = {"table": [], "default": []}
+    for i in range(P27_CHAINS):
+      for arm in (("table", "default") if i % 2 == 0
+                  else ("default", "table")):
+        use(arm)
+        state, step, batch, rng = arms[arm]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(P27_CHAIN_STEPS):
+          state, metrics = step(state, batch, rng)
+        torch.cuda.synchronize()
+        times[arm].append((time.perf_counter() - t0) / P27_CHAIN_STEPS)
+        arms[arm] = (state, step, batch, rng)
+    forced = None
+    if not entry[0]:
+      fa.set_block_want(*key, 128, 3)
+      forced = {k: fa.tile_for_want(k, D, torch.bfloat16, 128, 3)
+                for k in table}
+      state, step, batch, rng = arms["table"]
+      fa.reset_counts()
+      step(state, batch, rng)
+      torch.cuda.synchronize()
+      got = _flash_by_tile(fa)
+      assert got == {k: {forced[k]: layers} for k in forced}, got
+      log(f"   a set entry (want 128, 3 stages): K1 launches {got}")
+  finally:
+    use("table")
+  del arms
+  gc.collect()
+  torch.cuda.empty_cache()
+  flops = gpt_flops_per_token(cfg, S) * P27_BATCH * S
+  out = {}
+  for arm, ts in times.items():
+    step_s = min(ts)
+    out[arm] = dict(step_ms=step_s * 1e3, mfu=flops / step_s /
+                    PEAK_OPS_PER_S["bfloat16"],
+                    chains_ms=[t * 1e3 for t in ts], losses=losses[arm],
+                    by_tile={k: {f"{b[0]}x{b[1]}": n for b, n in v.items()}
+                             for k, v in by_tile[arm].items()})
+    log(f"   {arm:7s} step {out[arm]['step_ms']:.2f} ms (best of "
+        f"{P27_CHAINS} chains of {P27_CHAIN_STEPS}; chains "
+        f"{[round(t * 1e3, 2) for t in ts]}), MFU {out[arm]['mfu']:.4f}")
+  log(f"   table / default step: "
+      f"{out['table']['step_ms'] / out['default']['step_ms']:.4f}")
+  out["entry"], out["forced"] = entry, forced
+  return out
+
+
+def tile_phase(torch, fa, bench):
+  t0 = time.monotonic()
+  with Phase("27a. K1's tile builds against their plain versions"):
+    infos, worst = tile_builds_parity(torch, fa)
+  with Phase("27b. the block sweep at bench.py's shape and S 8192, D 128"):
+    rows = tile_sweep(torch)
+  with Phase("27c. bench.py's GPT-350M step with the committed block table "
+             "against the default build"):
+    step = table_step(torch, fa, bench)
+  wall = time.monotonic() - t0
+  log(f"   27. wall {wall:.1f} s")
+  assert wall < P27_WALL_S, f"phase 27 took {wall:.0f} s"
+  return dict(infos=infos, worst=worst, rows=rows, step=step)
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -6755,6 +7041,10 @@ def main() -> int:
           record["detail"]["peak_hbm_gb"] if want(10) else "(not run)",
           tp if want(21) else None, tool_params)
     del tool_params
+  if want(27):
+    gc.collect()
+    torch.cuda.empty_cache()
+    p27 = tile_phase(torch, fa, bench)
   log(f"total {time.monotonic() - t_start:.1f} s")
   if only is not None:
     return 0
@@ -6788,35 +7078,61 @@ def main() -> int:
                 launches_offload_all=tool["offload_all"][k],
                 launches_sharded_checkpoint={
                     name: [rank[k] for rank in ranks]
-                    for name, ranks in p26["flash"].items()})
+                    for name, ranks in p26["flash"].items()},
+                launches_block_table_step={
+                    arm: p27["step"][arm]["by_tile"][k]
+                    for arm in ("table", "default")},
+                block_table_step={arm: {m: p27["step"][arm][m] for m in
+                                        ("step_ms", "mfu")}
+                                   for arm in ("table", "default")})
+
+  # The builds bench.py's shape takes (the block table's) and, by kernel,
+  # each build's ms alone at that shape (27b), registers and spills (27a).
+  bench_builds = {k: fa.flash_tile(k, FLASH_BENCH_SHAPE["S"], 64,
+                                   torch.bfloat16) for k in flash_errs}
+
+  def build_name(kernel, dtype_name):
+    tile, stages = bench_builds[kernel]
+    base = {"fwd": "flash_fwd", "dkv": "flash_bwd_dkv",
+            "dq": "flash_bwd_dq"}[kernel]
+    return (f"{base}_wgmma_kernel<{dtype_name}, 64, {tile}, {stages}>")
+
+  bench_row = next(r for r in p27["rows"]
+                   if (r["S"], r["D"]) == (FLASH_BENCH_SHAPE["S"], 64))
+
+  def tile_builds(kernel):
+    return {f"{b[0]}x{b[1]}": dict(
+        ms=bench_row["kernel_ms"][kernel].get(f"{b[0]}x{b[1]}"),
+        **p27["infos"]["bfloat16", 64, kernel, b])
+        for b in fa.WGMMA_BUILDS[kernel, 64]}
 
   flash_records = [
-      kernel_record("flash_attention_fwd",
-                    "flash_fwd_wgmma_kernel<__nv_bfloat16, 64>",
+      kernel_record("flash_attention_fwd", build_name("fwd", "__nv_bfloat16"),
                     flash_src, f"{flash_py}:89 and :241",
                     flash_launches["fwd"], flash_errs["fwd"],
                     flash_times["fwd"], flash_rel["fwd"],
                     FLASH_BF16_LIMIT["fwd"],
                     launches_fit=fit_launches["fwd"],
                     launches_offload=offload_launches["fwd"],
-                    **tp_flash("fwd")),
+                    tile_builds=tile_builds("fwd"), **tp_flash("fwd")),
       kernel_record("flash_attention_bwd_dkv",
-                    "flash_bwd_dkv_wgmma_kernel<__nv_bfloat16, 64>",
+                    build_name("dkv", "__nv_bfloat16"),
                     flash_src,
                     f"{flash_py}:133 and :363", flash_launches["dkv"],
                     flash_errs["dkv"], flash_times["dkv"],
                     flash_rel["dkv"], FLASH_BF16_LIMIT["grad"],
                     launches_fit=fit_launches["dkv"],
                     launches_offload=offload_launches["dkv"],
-                    **tp_flash("dkv")),
+                    tile_builds=tile_builds("dkv"), **tp_flash("dkv")),
       kernel_record("flash_attention_bwd_dq",
-                    "flash_bwd_dq_wgmma_kernel<__nv_bfloat16, 64>", flash_src, f"{flash_py}:172 and :404",
+                    build_name("dq", "__nv_bfloat16"), flash_src,
+                    f"{flash_py}:172 and :404",
                     flash_launches["dq"], flash_errs["dq"],
                     flash_times["dq"], flash_rel["dq"],
                     FLASH_BF16_LIMIT["grad"],
                     launches_fit=fit_launches["dq"],
                     launches_offload=offload_launches["dq"],
-                    **tp_flash("dq")),
+                    tile_builds=tile_builds("dq"), **tp_flash("dq")),
   ]
   paged_src = "easyparallellibrary_tpu_torch/kernels/csrc/paged_attention.cu"
   paged_replaces = "easyparallellibrary_tpu/kernels/paged_attention.py:119"
@@ -6844,13 +7160,11 @@ def main() -> int:
                     launches_o1_4_layers=fp16_flash_launches_4l[k],
                     o1_fp16_step=o1_full)
       for name, k, build, replaces in (
-          ("flash_attention_fwd_fp16", "fwd",
-           "flash_fwd_wgmma_kernel<__half, 64>", f"{flash_py}:89 and :241"),
+          ("flash_attention_fwd_fp16", "fwd", build_name("fwd", "__half"),
+           f"{flash_py}:89 and :241"),
           ("flash_attention_bwd_dkv_fp16", "dkv",
-           "flash_bwd_dkv_wgmma_kernel<__half, 64>",
-           f"{flash_py}:133 and :363"),
-          ("flash_attention_bwd_dq_fp16", "dq",
-           "flash_bwd_dq_wgmma_kernel<__half, 64>",
+           build_name("dkv", "__half"), f"{flash_py}:133 and :363"),
+          ("flash_attention_bwd_dq_fp16", "dq", build_name("dq", "__half"),
            f"{flash_py}:172 and :404"))]
 
   def tiled_16bit_record(name, build, launches, times, err, rel, limit,

@@ -14,8 +14,10 @@
 // The resident/streaming pairs exist only for the TPU's ~16 MB VMEM
 // budget; here one tiled kernel covers every length.  Which build runs
 // (wgmma_takes and wg::with_head_dim; epl_flash_route reports it):
-//   bf16, D in {64, 128}: forward, dK/dV and dQ on wgmma with TMA-fed,
-//     double-buffered tiles (namespace wg below);
+//   bf16, D in {64, 128}: forward, dK/dV and dQ on wgmma with TMA-fed
+//     tiles (namespace wg below), in the tile builds each_build lists:
+//     two inner tiles a kernel, a ring of 2 or 3 stages; the caller names
+//     the build (the Python side resolves it from the block table);
 //   fp16, D in {64, 128}: the same three wgmma kernels, instantiated
 //     for __half (the .f16.f16 form of the instruction, FLOAT16 tensor
 //     maps; fragments, descriptors and swizzle are bf16's);
@@ -54,7 +56,7 @@
 // effort on feeding the tensor cores:
 //   * wg (forward, dK/dV, dQ): a CTA is two consumer warpgroups and one
 //     producer warp.  The producer's TMA loads stream the K/V (forward,
-//     dQ) or Q/dO (dK/dV) tiles through a two-stage ring of
+//     dQ) or Q/dO (dK/dV) tiles through a ring of 2 or 3 stages of
 //     128-byte-swizzled shared memory, with mbarriers for "full" (TMA
 //     bytes landed) and "empty" (both consumers done), so the next tile's
 //     copy overlaps the current tile's products.  Products are warpgroup
@@ -628,6 +630,10 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 // 128-row block (query rows in the forward and dQ, key rows in dK/dV),
 // and one producer warp (threads 256-287) whose lane 0 issues the TMA
 // loads.  Shared-memory tiles are in the B128 layout of hopper.cuh.
+// Each kernel's inner tile (the forward's and dQ's KV tile of KT keys,
+// dK/dV's Q tile of QT rows) and the depth ST of its TMA ring are
+// template parameters: the builds.  A CTA's own rows stay kRows *
+// kConsumers.  `each_build` below lists the builds the dispatchers take.
 namespace wg {
 
 using namespace hopper;
@@ -636,13 +642,12 @@ constexpr int kRows = 64;  // a consumer warpgroup's rows: wgmma's M
 constexpr int kConsumers = 2;
 constexpr int kConsumerThreads = 128 * kConsumers;
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
-constexpr int kStages = 2;                       // depth of the TMA ring
 constexpr int kFwdQ = kRows * kConsumers;        // query rows a forward CTA
-constexpr int kFwdK = 64;                        // keys a forward KV tile
 constexpr int kBwdK = kRows * kConsumers;        // keys a dK/dV CTA
-constexpr int kBwdQ = 64;                        // query rows a dK/dV Q tile
 constexpr int kDqQ = kRows * kConsumers;         // query rows a dQ CTA
-constexpr int kDqK = 64;                         // keys a dQ KV tile
+// The dynamic shared memory a CTA may take on this card (227 KB).  The
+// launches allocate 1024 bytes beyond a layout, to align the swizzle.
+constexpr uint32_t kMaxSmem = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -729,48 +734,50 @@ __device__ __forceinline__ uint64_t mn_major(uint32_t base, int rows, int k) {
 
 // -------------------------------------------------------------- forward --
 // CTA: kFwdQ query rows of one (b, h).  The producer loads the Q block
-// once and the K/V tiles of kFwdK keys, up to the causal diagonal,
-// through the ring.  Per tile a consumer warpgroup forms S = Q K^T (64 x
-// 64, SS wgmma), updates the online softmax on the fragments, and adds
-// P V (RS wgmma, V MN-major).  64-key tiles keep the D = 64 build at
-// about 95 registers a thread, so two CTAs (four consumer warpgroups)
-// share an SM, which measured faster than one CTA with 128-key tiles
-// (about 157 registers); D = 128 holds twice the output accumulators and
-// runs one CTA an SM.
-template <int D>
+// once and the K/V tiles of KT keys, up to the causal diagonal, through
+// a ring of ST stages.  Per tile a consumer warpgroup forms S = Q K^T
+// (64 x KT, SS wgmma), updates the online softmax on the fragments, and
+// adds P V (RS wgmma, V MN-major).  64-key tiles keep the D = 64 build
+// at about 95 registers a thread, so two CTAs (four consumer warpgroups)
+// share an SM; a 128-key tile holds a 64-register S fragment beside O's
+// 32 and runs one CTA an SM, as D = 128 (twice the output accumulators)
+// does at every tile.
+template <int D, int KT, int ST>
 struct FwdLayout {
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + tile_bytes(kFwdQ, D);
-  static constexpr uint32_t kV = kK + kStages * tile_bytes(kFwdK, D);
-  static constexpr uint32_t kBar = kV + kStages * tile_bytes(kFwdK, D);
-  // Barriers: Q landed, then full[kStages], empty[kStages].
-  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr uint32_t kV = kK + ST * tile_bytes(KT, D);
+  static constexpr uint32_t kBar = kV + ST * tile_bytes(KT, D);
+  // Barriers: Q landed, then full[ST], empty[ST].
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * ST);
+  static constexpr bool kFits = kBytes + 1024 <= kMaxSmem;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+template <typename T, int D, int KT, int ST>
+__global__ void __launch_bounds__(kThreads, D == 64 && KT == 64 ? 2 : 1)
 flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                        __grid_constant__ const CUtensorMap k_map,
                        __grid_constant__ const CUtensorMap v_map,
                        T* __restrict__ o, float* __restrict__ lse, int S,
                        int Skv, int causal, float scale_log2) {
-  using L = FwdLayout<D>;
-  constexpr int kTile = tile_bytes(kFwdK, D);
+  using L = FwdLayout<D, KT, ST>;
+  static_assert(L::kFits, "the forward's tiles exceed a CTA's shared memory");
+  constexpr int kTile = tile_bytes(KT, D);
   extern __shared__ __align__(16) uint8_t wg_smem[];
   uint8_t* smem = align_1024(wg_smem);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* full = bar_q + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + ST;
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdQ;  // longest first
-  const int all_tiles = (Skv + kFwdK - 1) / kFwdK;
+  const int all_tiles = (Skv + KT - 1) / KT;
   const int n_tiles =
-      causal ? min(all_tiles, (min(q0 + kFwdQ, S) - 1) / kFwdK + 1)
+      causal ? min(all_tiles, (min(q0 + kFwdQ, S) - 1) / KT + 1)
              : all_tiles;
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, kConsumerThreads);
     }
@@ -783,13 +790,13 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
       mbar_arrive_expect_tx(bar_q, tile_bytes(kFwdQ, D));
       tma_load_tile<D>(smem + L::kQ, &q_map, bar_q, q0, bh, kFwdQ);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
+        const int s = t % ST;
+        mbar_wait(empty + s, ((t / ST) & 1) ^ 1);
         mbar_arrive_expect_tx(full + s, 2 * kTile);
         tma_load_tile<D>(smem + L::kK + s * kTile, &k_map, full + s,
-                         t * kFwdK, bh, kFwdK);
+                         t * KT, bh, KT);
         tma_load_tile<D>(smem + L::kV + s * kTile, &v_map, full + s,
-                         t * kFwdK, bh, kFwdK);
+                         t * KT, bh, KT);
       }
     }
     return;
@@ -812,22 +819,22 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 
   mbar_wait(bar_q, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kStages;
-    const int k0 = t * kFwdK;
+    const int s = t % ST;
+    const int k0 = t * KT;
     const uint32_t k_base = smem_addr(smem + L::kK + s * kTile);
     const uint32_t v_base = smem_addr(smem + L::kV + s * kTile);
-    mbar_wait(full + s, (t / kStages) & 1);
+    mbar_wait(full + s, (t / ST) & 1);
     if (causal && k0 > wg_row0 + kRows - 1) {  // every key is in the future
       mbar_arrive(empty + s);
       continue;
     }
 
-    float sc[kFwdK / 2];  // S = Q K^T, 64 rows x kFwdK keys
+    float sc[KT / 2];  // S = Q K^T, 64 rows x KT keys
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<T, kFwdK>(sc, k_major(q_base, kFwdQ, kk),
-                         k_major(k_base, kFwdK, kk), kk > 0);
+      wgmma_ss<T, KT>(sc, k_major(q_base, kFwdQ, kk),
+                         k_major(k_base, KT, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -835,9 +842,9 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 
     // Masked only where the tile crosses the key count or (causal) the
     // diagonal of this warpgroup's rows.
-    if (k0 + kFwdK > Skv || (causal && k0 + kFwdK - 1 > wg_row0)) {
+    if (k0 + KT > Skv || (causal && k0 + KT - 1 > wg_row0)) {
 #pragma unroll
-      for (int i = 0; i < kFwdK / 2; ++i) {
+      for (int i = 0; i < KT / 2; ++i) {
         const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
         if (col >= Skv) {
           sc[i] = -INFINITY;  // no such key: weight exactly 0
@@ -852,14 +859,14 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) & 1];
 
     // O += P V, p rounded to V's type in the A operand.
-    uint32_t pa[kFwdK / 16][4];
+    uint32_t pa[KT / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kFwdK / 16; ++kk) acc_to_a<T>(pa[kk], sc, kk);
+    for (int kk = 0; kk < KT / 16; ++kk) acc_to_a<T>(pa[kk], sc, kk);
     fence_operands(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kFwdK / 16; ++kk) {
-      wgmma_rs_mn<T, D>(acc, pa[kk], mn_major(v_base, kFwdK, kk), 1);
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      wgmma_rs_mn<T, D>(acc, pa[kk], mn_major(v_base, KT, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -889,25 +896,26 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 
 // ---------------------------------------------------------------- dK/dV --
 // CTA: kBwdK keys of one (b, h); K and V are loaded once.  The producer
-// streams the Q and dO tiles of kBwdQ rows from the causal diagonal on,
-// with their lse (times log2 e) and delta, through the ring.  Per tile a
-// consumer warpgroup forms S^T = K Q^T and dP^T = V dO^T (64 keys x 64
-// queries, SS wgmma), then P^T and dS^T on the fragments, then dV += P^T
-// dO and dK += dS^T Q (RS wgmma, dO and Q MN-major).
-template <int D>
+// streams the Q and dO tiles of QT rows from the causal diagonal on,
+// with their lse (times log2 e) and delta, through a ring of ST stages.
+// Per tile a consumer warpgroup forms S^T = K Q^T and dP^T = V dO^T (64
+// keys x QT queries, SS wgmma), then P^T and dS^T on the fragments, then
+// dV += P^T dO and dK += dS^T Q (RS wgmma, dO and Q MN-major).
+template <int D, int QT, int ST>
 struct DkvLayout {
   static constexpr uint32_t kK = 0;
   static constexpr uint32_t kV = kK + tile_bytes(kBwdK, D);
   static constexpr uint32_t kQ = kV + tile_bytes(kBwdK, D);
-  static constexpr uint32_t kO = kQ + kStages * tile_bytes(kBwdQ, D);  // dO
-  // Per stage: lse * log2 e, then delta, kBwdQ floats each.
-  static constexpr uint32_t kRowStats = kO + kStages * tile_bytes(kBwdQ, D);
-  static constexpr uint32_t kBar = kRowStats + kStages * 2 * kBwdQ * 4;
-  // Barriers: K/V landed, then full[kStages], empty[kStages].
-  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr uint32_t kO = kQ + ST * tile_bytes(QT, D);  // dO
+  // Per stage: lse * log2 e, then delta, QT floats each.
+  static constexpr uint32_t kRowStats = kO + ST * tile_bytes(QT, D);
+  static constexpr uint32_t kBar = kRowStats + ST * 2 * QT * 4;
+  // Barriers: K/V landed, then full[ST], empty[ST].
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * ST);
+  static constexpr bool kFits = kBytes + 1024 <= kMaxSmem;
 };
 
-template <typename T, int D>
+template <typename T, int D, int QT, int ST>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                            __grid_constant__ const CUtensorMap k_map,
@@ -918,23 +926,24 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                            T* __restrict__ dk, T* __restrict__ dv,
                            int S, int Skv, int causal, float scale,
                            float scale_log2) {
-  using L = DkvLayout<D>;
-  constexpr int kTile = tile_bytes(kBwdQ, D);
+  using L = DkvLayout<D, QT, ST>;
+  static_assert(L::kFits, "dK/dV's tiles exceed a CTA's shared memory");
+  constexpr int kTile = tile_bytes(QT, D);
   extern __shared__ __align__(16) uint8_t wg_smem[];
   uint8_t* smem = align_1024(wg_smem);
   float* stats = reinterpret_cast<float*>(smem + L::kRowStats);
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* full = bar_kv + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + ST;
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kBwdK;  // causal: the heaviest CTAs first
   // Causal: query rows below k0 see none of these keys.
-  const int first = causal ? (k0 / kBwdQ) * kBwdQ : 0;
-  const int n_q = first < S ? (S - first + kBwdQ - 1) / kBwdQ : 0;
+  const int first = causal ? (k0 / QT) * QT : 0;
+  const int n_q = first < S ? (S - first + QT - 1) / QT : 0;
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full + s, 32);  // every producer lane: it writes the stats
       mbar_init(empty + s, kConsumerThreads);
     }
@@ -950,23 +959,23 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
       tma_load_tile<D>(smem + L::kV, &v_map, bar_kv, k0, bh, kBwdK);
     }
     for (int i = 0; i < n_q; ++i) {
-      const int s = i % kStages;
-      const int q0 = first + i * kBwdQ;
-      mbar_wait(empty + s, ((i / kStages) & 1) ^ 1);
-      float* st = stats + s * 2 * kBwdQ;
-      for (int r = lane; r < kBwdQ; r += 32) {
+      const int s = i % ST;
+      const int q0 = first + i * QT;
+      mbar_wait(empty + s, ((i / ST) & 1) ^ 1);
+      float* st = stats + s * 2 * QT;
+      for (int r = lane; r < QT; r += 32) {
         const bool live = q0 + r < S;
         const size_t idx = static_cast<size_t>(bh) * S + q0 + r;
         // A row past S gets lse = +inf: its probabilities are exactly 0.
         st[r] = live ? lse[idx] * kLog2e : INFINITY;
-        st[kBwdQ + r] = live ? delta[idx] : 0.f;
+        st[QT + r] = live ? delta[idx] : 0.f;
       }
       if (lane == 0) {
         mbar_arrive_expect_tx(full + s, 2 * kTile);
         tma_load_tile<D>(smem + L::kQ + s * kTile, &q_map, full + s, q0, bh,
-                         kBwdQ);
+                         QT);
         tma_load_tile<D>(smem + L::kO + s * kTile, &do_map, full + s, q0, bh,
-                         kBwdQ);
+                         QT);
       } else {
         mbar_arrive(full + s);
       }
@@ -992,26 +1001,26 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 
   if (n_q > 0) mbar_wait(bar_kv, 0);
   for (int i = 0; i < n_q; ++i) {
-    const int s = i % kStages;
-    const int q0 = first + i * kBwdQ;
-    mbar_wait(full + s, (i / kStages) & 1);
-    if (causal && q0 + kBwdQ - 1 < key0) {  // every query precedes every key
+    const int s = i % ST;
+    const int q0 = first + i * QT;
+    mbar_wait(full + s, (i / ST) & 1);
+    if (causal && q0 + QT - 1 < key0) {  // every query precedes every key
       mbar_arrive(empty + s);
       continue;
     }
     const uint32_t q_base = smem_addr(smem + L::kQ + s * kTile);
     const uint32_t o_base = smem_addr(smem + L::kO + s * kTile);
-    const float* lse2 = stats + s * 2 * kBwdQ;
-    const float* dlt = lse2 + kBwdQ;
+    const float* lse2 = stats + s * 2 * QT;
+    const float* dlt = lse2 + QT;
 
-    float st[kBwdQ / 2], dpt[kBwdQ / 2];  // S^T and dP^T: keys x queries
+    float st[QT / 2], dpt[QT / 2];  // S^T and dP^T: keys x queries
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<T, kBwdQ>(st, k_major(k_base, kBwdK, kk),
-                         k_major(q_base, kBwdQ, kk), kk > 0);
-      wgmma_ss<T, kBwdQ>(dpt, k_major(v_base, kBwdK, kk),
-                         k_major(o_base, kBwdQ, kk), kk > 0);
+      wgmma_ss<T, QT>(st, k_major(k_base, kBwdK, kk),
+                         k_major(q_base, QT, kk), kk > 0);
+      wgmma_ss<T, QT>(dpt, k_major(v_base, kBwdK, kk),
+                         k_major(o_base, QT, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1022,7 +1031,7 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     // column is a query.  Only the diagonal tile is masked.
     const bool masked = causal && key0 + kRows - 1 > q0;
 #pragma unroll
-    for (int j = 0; j < kBwdQ / 8; ++j) {
+    for (int j = 0; j < QT / 8; ++j) {
       const int c = 8 * j + 2 * t4;
       const float2 lj = *reinterpret_cast<const float2*>(lse2 + c);
       const float2 dj = *reinterpret_cast<const float2*>(dlt + c);
@@ -1038,9 +1047,9 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 
     // dV += P^T dO (p rounded to dO's type), dK += dS^T Q (dS rounded to
     // Q's type), both roundings in the A operands.
-    uint32_t pa[kBwdQ / 16][4], da[kBwdQ / 16][4];
+    uint32_t pa[QT / 16][4], da[QT / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBwdQ / 16; ++kk) {
+    for (int kk = 0; kk < QT / 16; ++kk) {
       acc_to_a<T>(pa[kk], st, kk);
       acc_to_a<T>(da[kk], dpt, kk);
     }
@@ -1048,9 +1057,9 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     fence_operands(acc_k);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBwdQ / 16; ++kk) {
-      wgmma_rs_mn<T, D>(acc_v, pa[kk], mn_major(o_base, kBwdQ, kk), 1);
-      wgmma_rs_mn<T, D>(acc_k, da[kk], mn_major(q_base, kBwdQ, kk), 1);
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      wgmma_rs_mn<T, D>(acc_v, pa[kk], mn_major(o_base, QT, kk), 1);
+      wgmma_rs_mn<T, D>(acc_k, da[kk], mn_major(q_base, QT, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1078,25 +1087,27 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 // ------------------------------------------------------------------- dQ --
 // dK/dV's design with queries and keys swapped.  CTA: kDqQ query rows of
 // one (b, h); the producer loads the Q and dO blocks once and streams the
-// K/V tiles of kDqK keys, up to the causal diagonal, through the ring.
+// K/V tiles of KT keys, up to the causal diagonal, through a ring of ST
+// stages.
 // Each query row's lse (times log2 e) and delta are fixed for the CTA, so
 // a thread keeps its two rows' values in registers.  Per tile a consumer
-// warpgroup forms S = Q K^T and dP = dO V^T (64 queries x 64 keys, SS
-// wgmma), then P and dS = P (dP - delta) on the fragments, then dQ += dS K
+// warpgroup forms S = Q K^T and dP = dO V^T (64 queries x 64 keys at a
+// time, SS wgmma), then P and dS = P (dP - delta) on the fragments, then dQ += dS K
 // (RS wgmma, dS rounded to K's type in the A operand, K MN-major).  dQ is
 // scaled once at the end.
-template <int D>
+template <int D, int KT, int ST>
 struct DqLayout {
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kO = kQ + tile_bytes(kDqQ, D);  // dO
   static constexpr uint32_t kK = kO + tile_bytes(kDqQ, D);
-  static constexpr uint32_t kV = kK + kStages * tile_bytes(kDqK, D);
-  static constexpr uint32_t kBar = kV + kStages * tile_bytes(kDqK, D);
-  // Barriers: Q and dO landed, then full[kStages], empty[kStages].
-  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr uint32_t kV = kK + ST * tile_bytes(KT, D);
+  static constexpr uint32_t kBar = kV + ST * tile_bytes(KT, D);
+  // Barriers: Q and dO landed, then full[ST], empty[ST].
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * ST);
+  static constexpr bool kFits = kBytes + 1024 <= kMaxSmem;
 };
 
-template <typename T, int D>
+template <typename T, int D, int KT, int ST>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                           __grid_constant__ const CUtensorMap k_map,
@@ -1106,23 +1117,28 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                           const float* __restrict__ delta,
                           T* __restrict__ dq, int S, int Skv, int causal,
                           float scale, float scale_log2) {
-  using L = DqLayout<D>;
-  constexpr int kTile = tile_bytes(kDqK, D);
+  using L = DqLayout<D, KT, ST>;
+  static_assert(L::kFits, "dQ's tiles exceed a CTA's shared memory");
+  constexpr int kTile = tile_bytes(KT, D);
+  // Keys a product takes: a 128-key tile is taken in two 64-key halves,
+  // which keep the registers of the 64-key build (a 128-wide S and dP
+  // beside dQ's accumulator spill at the 168-register cap).
+  constexpr int kSub = KT < 64 ? KT : 64;
   extern __shared__ __align__(16) uint8_t wg_smem[];
   uint8_t* smem = align_1024(wg_smem);
   uint64_t* bar_qo = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* full = bar_qo + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + ST;
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqQ;  // longest first
-  const int all_tiles = (Skv + kDqK - 1) / kDqK;
+  const int all_tiles = (Skv + KT - 1) / KT;
   const int n_tiles =
-      causal ? min(all_tiles, (min(q0 + kDqQ, S) - 1) / kDqK + 1)
+      causal ? min(all_tiles, (min(q0 + kDqQ, S) - 1) / KT + 1)
              : all_tiles;
   if (threadIdx.x == 0) {
     mbar_init(bar_qo, 1);
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, kConsumerThreads);
     }
@@ -1136,13 +1152,13 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
       tma_load_tile<D>(smem + L::kQ, &q_map, bar_qo, q0, bh, kDqQ);
       tma_load_tile<D>(smem + L::kO, &do_map, bar_qo, q0, bh, kDqQ);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
+        const int s = t % ST;
+        mbar_wait(empty + s, ((t / ST) & 1) ^ 1);
         mbar_arrive_expect_tx(full + s, 2 * kTile);
         tma_load_tile<D>(smem + L::kK + s * kTile, &k_map, full + s,
-                         t * kDqK, bh, kDqK);
+                         t * KT, bh, KT);
         tma_load_tile<D>(smem + L::kV + s * kTile, &v_map, full + s,
-                         t * kDqK, bh, kDqK);
+                         t * KT, bh, KT);
       }
     }
     return;
@@ -1172,58 +1188,62 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 
   mbar_wait(bar_qo, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kStages;
-    const int k0 = t * kDqK;
-    mbar_wait(full + s, (t / kStages) & 1);
-    if (causal && k0 > wg_row0 + kRows - 1) {  // every key is in the future
-      mbar_arrive(empty + s);
-      continue;
-    }
-    const uint32_t k_base = smem_addr(smem + L::kK + s * kTile);
-    const uint32_t v_base = smem_addr(smem + L::kV + s * kTile);
-
-    float sc[kDqK / 2], dp[kDqK / 2];  // S and dP: queries x keys
-    wgmma_fence();
+    const int s = t % ST;
+    mbar_wait(full + s, (t / ST) & 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss<T, kDqK>(sc, k_major(q_base, kDqQ, kk),
-                        k_major(k_base, kDqK, kk), kk > 0);
-      wgmma_ss<T, kDqK>(dp, k_major(o_base, kDqQ, kk),
-                        k_major(v_base, kDqK, kk), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(sc);
-    fence_operands(dp);
+    for (int sub = 0; sub < KT / kSub; ++sub) {
+      const int k0 = t * KT + sub * kSub;
+      if (causal && k0 > wg_row0 + kRows - 1) continue;  // keys in the future
+      // The sub-tile's rows within each column block of the tile.
+      const uint32_t k_base =
+          smem_addr(smem + L::kK + s * kTile) + sub * kSub * 128;
+      const uint32_t v_base =
+          smem_addr(smem + L::kV + s * kTile) + sub * kSub * 128;
 
-    // dp becomes dS = P (dP - delta), P = 2^(S scale log2 e - lse log2 e);
-    // masked only where the tile crosses the key count or the diagonal.
-    const bool masked =
-        k0 + kDqK > Skv || (causal && k0 + kDqK - 1 > wg_row0);
+      float sc[kSub / 2], dp[kSub / 2];  // S and dP: queries x keys
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < kDqK / 2; ++i) {
-      const int h = (i / 2) & 1;
-      float p = exp2_ftz(fmaf(sc[i], scale_log2, -lse2[h]));
-      if (masked) {
-        const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
-        if (col >= Skv || (causal && col > row + 8 * h)) p = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<T, kSub>(sc, k_major(q_base, kDqQ, kk),
+                          k_major(k_base, KT, kk), kk > 0);
+        wgmma_ss<T, kSub>(dp, k_major(o_base, kDqQ, kk),
+                          k_major(v_base, KT, kk), kk > 0);
       }
-      dp[i] = p * (dp[i] - dlt[h]);
-    }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+      fence_operands(dp);
 
-    // dQ += dS K, dS rounded to K's type in the A operand.
-    uint32_t da[kDqK / 16][4];
+      // dp becomes dS = P (dP - delta), P = 2^(S scale log2 e - lse log2
+      // e); masked only where the keys cross the key count or the
+      // diagonal.
+      const bool masked =
+          k0 + kSub > Skv || (causal && k0 + kSub - 1 > wg_row0);
 #pragma unroll
-    for (int kk = 0; kk < kDqK / 16; ++kk) acc_to_a<T>(da[kk], dp, kk);
-    fence_operands(acc);
-    wgmma_fence();
+      for (int i = 0; i < kSub / 2; ++i) {
+        const int h = (i / 2) & 1;
+        float p = exp2_ftz(fmaf(sc[i], scale_log2, -lse2[h]));
+        if (masked) {
+          const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          if (col >= Skv || (causal && col > row + 8 * h)) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - dlt[h]);
+      }
+
+      // dQ += dS K, dS rounded to K's type in the A operand.
+      uint32_t da[kSub / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kDqK / 16; ++kk) {
-      wgmma_rs_mn<T, D>(acc, da[kk], mn_major(k_base, kDqK, kk), 1);
+      for (int kk = 0; kk < kSub / 16; ++kk) acc_to_a<T>(da[kk], dp, kk);
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk) {
+        wgmma_rs_mn<T, D>(acc, da[kk], mn_major(k_base, KT, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(acc);
     mbar_arrive(empty + s);
   }
 
@@ -1284,11 +1304,19 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // The three kernels, numbered as epl_flash_route takes them.
 enum FlashKernel { kFwdKernel = 0, kDkvKernel = 1, kDqKernel = 2 };
 
+// The CUDA-core builds' one tile: kInner rows, loaded synchronously (no
+// TMA ring: one stage).
+constexpr int kCoreTile = kInner;
+constexpr int kCoreStages = 1;
+
 // Which build takes a call: each kernel in element type T runs its
 // wgmma build when wgmma_takes<T>() (bf16 and fp16) and wg::with_head_dim
-// takes D (64 or 128).  Everything else runs the CUDA-core kernels.  The
-// dispatchers and epl_flash_route read these two gates alone.  A refused
-// tensor map or launch is returned, never retried on another build.
+// takes D (64 or 128); the caller names the tile and stages of that
+// build (each_build lists them).  Everything else runs the CUDA-core
+// kernels, whose tile is (kCoreTile, kCoreStages).  The dispatchers,
+// epl_flash_route and epl_flash_builds read these gates alone.  A tile or
+// stage depth that the build does not have, a refused tensor map or a
+// refused launch is returned, never retried on another build.
 template <typename T>
 constexpr bool wgmma_takes() {
   return hopper::is_wgmma_operand<T>();
@@ -1302,34 +1330,156 @@ int route(int kernel, int D) {
   return wgmma_takes<T>() && wg::with_head_dim(D, [](auto) {}) ? 1 : 0;
 }
 
+// A wgmma build: its kernel, its shared-memory layout (the same for both
+// 16-bit types) and the dynamic shared memory a launch allocates (1024
+// bytes more, to align the swizzle).
+template <int Kernel, typename T, int D, int Tile, int Stages>
+struct Build;
+
+template <typename T, int D, int KT, int ST>
+struct Build<kFwdKernel, T, D, KT, ST> {
+  using Layout = wg::FwdLayout<D, KT, ST>;
+  static constexpr size_t kSmem = Layout::kBytes + 1024;
+  static auto kernel() { return wg::flash_fwd_wgmma_kernel<T, D, KT, ST>; }
+};
+
+template <typename T, int D, int QT, int ST>
+struct Build<kDkvKernel, T, D, QT, ST> {
+  using Layout = wg::DkvLayout<D, QT, ST>;
+  static constexpr size_t kSmem = Layout::kBytes + 1024;
+  static auto kernel() { return wg::flash_bwd_dkv_wgmma_kernel<T, D, QT, ST>; }
+};
+
+template <typename T, int D, int KT, int ST>
+struct Build<kDqKernel, T, D, KT, ST> {
+  using Layout = wg::DqLayout<D, KT, ST>;
+  static constexpr size_t kSmem = Layout::kBytes + 1024;
+  static auto kernel() { return wg::flash_bwd_dq_wgmma_kernel<T, D, KT, ST>; }
+};
+
+// Builds ptxas spills: a CTA of kThreads (288) threads may take 168
+// registers a thread (the block counts in whole warpgroups: a launch
+// past that is refused), and dK/dV at D = 128 holds two 64-register
+// accumulators beside its scores.  Its (64, 2) build, the one it has had
+// since it was written, stays (the only wgmma dK/dV at that head dim);
+// the others spill as well and are not offered.
+template <int Kernel, int D, int Tile, int Stages>
+constexpr bool spills() {
+  return Kernel == kDkvKernel && D == 128 && (Tile != 64 || Stages != 2);
+}
+
+// Each kernel's two inner tiles.
+template <int Kernel>
+struct Tiles {  // the forward and dQ: KV tiles
+  static constexpr int kSmall = 64, kLarge = 128;
+};
+template <>
+struct Tiles<kDkvKernel> {  // dK/dV: Q tiles
+  static constexpr int kSmall = 32, kLarge = 64;
+};
+
+// Whether Kernel has the build (Tile, Stages) at head dim D: its layout
+// fits in the shared memory a CTA may take and ptxas does not spill it.
+template <int Kernel, int D, int Tile, int Stages>
+constexpr bool offered() {
+  return Build<Kernel, __nv_bfloat16, D, Tile, Stages>::Layout::kFits &&
+         !spills<Kernel, D, Tile, Stages>();
+}
+
+// Calls f(tile, stages), both compile-time constants, for every build of
+// Kernel at head dim D: each inner tile at ring depths 2 and 3, where
+// offered.
+template <int Kernel, int D, typename F>
+void each_build(F f) {
+  using std::integral_constant;
+  auto depths = [&](auto tile) {
+    constexpr int kTile = decltype(tile)::value;
+    if constexpr (offered<Kernel, D, kTile, 2>()) {
+      f(tile, integral_constant<int, 2>{});
+    }
+    if constexpr (offered<Kernel, D, kTile, 3>()) {
+      f(tile, integral_constant<int, 3>{});
+    }
+  };
+  depths(integral_constant<int, Tiles<Kernel>::kSmall>{});
+  depths(integral_constant<int, Tiles<Kernel>::kLarge>{});
+}
+
+// Calls f(tile, stages) for the build (tile, stages) of Kernel at D;
+// false (f not called) when there is no such build.
+template <int Kernel, int D, typename F>
+bool with_build(int tile, int stages, F f) {
+  bool found = false;
+  each_build<Kernel, D>([&](auto t, auto st) {
+    if (decltype(t)::value == tile && decltype(st)::value == stages) {
+      f(t, st);
+      found = true;
+    }
+  });
+  return found;
+}
+
+// Calls f(kernel) with the kernel number as a compile-time constant.
+template <typename F>
+bool with_kernel(int kernel, F f) {
+  using std::integral_constant;
+  switch (kernel) {
+    case kFwdKernel: f(integral_constant<int, kFwdKernel>{}); return true;
+    case kDkvKernel: f(integral_constant<int, kDkvKernel>{}); return true;
+    case kDqKernel: f(integral_constant<int, kDqKernel>{}); return true;
+    default: return false;
+  }
+}
+
+// Launches the wgmma build (Tile, Stages) of Kernel on a (blocks, BH)
+// grid with `args...` after its tensor maps.
+template <int Kernel, typename T, int D, int Tile, int Stages,
+          typename... Args>
+cudaError_t launch_wgmma(int blocks, int BH, cudaStream_t stream,
+                         const CUtensorMap* maps, Args... args) {
+  using B = Build<Kernel, T, D, Tile, Stages>;
+  auto kernel = B::kernel();
+  const size_t smem = B::kSmem;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks, BH);
+  if constexpr (Kernel == kFwdKernel) {
+    kernel<<<grid, wg::kThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                                 args...);
+  } else {
+    kernel<<<grid, wg::kThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                                 maps[3], args...);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v,
                          void* o, float* lse, int BH, int S, int Skv, int D,
-                         int causal, float scale, cudaStream_t stream) {
+                         int causal, int tile, int stages, float scale,
+                         cudaStream_t stream) {
   if constexpr (wgmma_takes<T>()) {
-    cudaError_t err = cudaSuccess;
+    cudaError_t err = cudaErrorInvalidValue;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
-          CUtensorMap q_map, k_map, v_map;
-          if (!hopper::encode_rows<T>(&q_map, q, BH, S, kD, wg::kFwdQ) ||
-              !hopper::encode_rows<T>(&k_map, k, BH, Skv, kD, wg::kFwdK) ||
-              !hopper::encode_rows<T>(&v_map, v, BH, Skv, kD, wg::kFwdK)) {
-            err = kTensorMapError;
-            return;
-          }
-          auto kernel = wg::flash_fwd_wgmma_kernel<T, kD>;
-          const size_t smem = wg::FwdLayout<kD>::kBytes + 1024;
-          err = allow_smem(kernel, smem);
-          if (err != cudaSuccess) return;
-          const dim3 grid((S + wg::kFwdQ - 1) / wg::kFwdQ, BH);
-          kernel<<<grid, wg::kThreads, smem, stream>>>(
-              q_map, k_map, v_map, static_cast<T*>(o), lse, S, Skv, causal,
-              scale * wg::kLog2e);
-          err = cudaGetLastError();
+          with_build<kFwdKernel, kD>(tile, stages, [&](auto t, auto st) {
+            constexpr int kT = decltype(t)::value;
+            CUtensorMap maps[3];
+            if (!hopper::encode_rows<T>(&maps[0], q, BH, S, kD, wg::kFwdQ) ||
+                !hopper::encode_rows<T>(&maps[1], k, BH, Skv, kD, kT) ||
+                !hopper::encode_rows<T>(&maps[2], v, BH, Skv, kD, kT)) {
+              err = kTensorMapError;
+              return;
+            }
+            err = launch_wgmma<kFwdKernel, T, kD, kT, decltype(st)::value>(
+                (S + wg::kFwdQ - 1) / wg::kFwdQ, BH, stream, maps,
+                static_cast<T*>(o), lse, S, Skv, causal, scale * wg::kLog2e);
+          });
         })) {
       return err;
     }
   }
+  if (tile != kCoreTile || stages != kCoreStages) return cudaErrorInvalidValue;
   return with_tiles(D, [&](auto nc, auto) {
     constexpr int BQ = 64;
     const size_t smem =
@@ -1350,35 +1500,34 @@ template <typename T>
 cudaError_t dkv_dispatch(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
                          const float* delta, void* dk, void* dv, int BH,
-                         int S, int Skv, int D, int causal, float scale,
-                         cudaStream_t stream) {
+                         int S, int Skv, int D, int causal, int tile,
+                         int stages, float scale, cudaStream_t stream) {
   if constexpr (wgmma_takes<T>()) {
-    cudaError_t err = cudaSuccess;
+    cudaError_t err = cudaErrorInvalidValue;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
-          CUtensorMap q_map, k_map, v_map, do_map;
-          if (!hopper::encode_rows<T>(&q_map, q, BH, S, kD, wg::kBwdQ) ||
-              !hopper::encode_rows<T>(&k_map, k, BH, Skv, kD, wg::kBwdK) ||
-              !hopper::encode_rows<T>(&v_map, v, BH, Skv, kD, wg::kBwdK) ||
-              !hopper::encode_rows<T>(&do_map, dout, BH, S, kD,
-                                      wg::kBwdQ)) {
-            err = kTensorMapError;
-            return;
-          }
-          auto kernel = wg::flash_bwd_dkv_wgmma_kernel<T, kD>;
-          const size_t smem = wg::DkvLayout<kD>::kBytes + 1024;
-          err = allow_smem(kernel, smem);
-          if (err != cudaSuccess) return;
-          const dim3 grid((Skv + wg::kBwdK - 1) / wg::kBwdK, BH);
-          kernel<<<grid, wg::kThreads, smem, stream>>>(
-              q_map, k_map, v_map, do_map, lse, delta, static_cast<T*>(dk),
-              static_cast<T*>(dv), S, Skv, causal, scale,
-              scale * wg::kLog2e);
-          err = cudaGetLastError();
+          with_build<kDkvKernel, kD>(tile, stages, [&](auto t, auto st) {
+            constexpr int kT = decltype(t)::value;
+            CUtensorMap maps[4];
+            if (!hopper::encode_rows<T>(&maps[0], q, BH, S, kD, kT) ||
+                !hopper::encode_rows<T>(&maps[1], k, BH, Skv, kD,
+                                        wg::kBwdK) ||
+                !hopper::encode_rows<T>(&maps[2], v, BH, Skv, kD,
+                                        wg::kBwdK) ||
+                !hopper::encode_rows<T>(&maps[3], dout, BH, S, kD, kT)) {
+              err = kTensorMapError;
+              return;
+            }
+            err = launch_wgmma<kDkvKernel, T, kD, kT, decltype(st)::value>(
+                (Skv + wg::kBwdK - 1) / wg::kBwdK, BH, stream, maps, lse,
+                delta, static_cast<T*>(dk), static_cast<T*>(dv), S, Skv,
+                causal, scale, scale * wg::kLog2e);
+          });
         })) {
       return err;
     }
   }
+  if (tile != kCoreTile || stages != kCoreStages) return cudaErrorInvalidValue;
   return with_tiles(D, [&](auto nc, auto rm) {
     constexpr int BKo = 16 * decltype(rm)::value;
     const size_t smem =
@@ -1401,33 +1550,33 @@ template <typename T>
 cudaError_t dq_dispatch(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, void* dq, int BH, int S, int Skv,
-                        int D, int causal, float scale, cudaStream_t stream) {
+                        int D, int causal, int tile, int stages, float scale,
+                        cudaStream_t stream) {
   if constexpr (wgmma_takes<T>()) {
-    cudaError_t err = cudaSuccess;
+    cudaError_t err = cudaErrorInvalidValue;
     if (wg::with_head_dim(D, [&](auto d) {
           constexpr int kD = decltype(d)::value;
-          CUtensorMap q_map, k_map, v_map, do_map;
-          if (!hopper::encode_rows<T>(&q_map, q, BH, S, kD, wg::kDqQ) ||
-              !hopper::encode_rows<T>(&k_map, k, BH, Skv, kD, wg::kDqK) ||
-              !hopper::encode_rows<T>(&v_map, v, BH, Skv, kD, wg::kDqK) ||
-              !hopper::encode_rows<T>(&do_map, dout, BH, S, kD,
-                                      wg::kDqQ)) {
-            err = kTensorMapError;
-            return;
-          }
-          auto kernel = wg::flash_bwd_dq_wgmma_kernel<T, kD>;
-          const size_t smem = wg::DqLayout<kD>::kBytes + 1024;
-          err = allow_smem(kernel, smem);
-          if (err != cudaSuccess) return;
-          const dim3 grid((S + wg::kDqQ - 1) / wg::kDqQ, BH);
-          kernel<<<grid, wg::kThreads, smem, stream>>>(
-              q_map, k_map, v_map, do_map, lse, delta, static_cast<T*>(dq),
-              S, Skv, causal, scale, scale * wg::kLog2e);
-          err = cudaGetLastError();
+          with_build<kDqKernel, kD>(tile, stages, [&](auto t, auto st) {
+            constexpr int kT = decltype(t)::value;
+            CUtensorMap maps[4];
+            if (!hopper::encode_rows<T>(&maps[0], q, BH, S, kD, wg::kDqQ) ||
+                !hopper::encode_rows<T>(&maps[1], k, BH, Skv, kD, kT) ||
+                !hopper::encode_rows<T>(&maps[2], v, BH, Skv, kD, kT) ||
+                !hopper::encode_rows<T>(&maps[3], dout, BH, S, kD,
+                                        wg::kDqQ)) {
+              err = kTensorMapError;
+              return;
+            }
+            err = launch_wgmma<kDqKernel, T, kD, kT, decltype(st)::value>(
+                (S + wg::kDqQ - 1) / wg::kDqQ, BH, stream, maps, lse, delta,
+                static_cast<T*>(dq), S, Skv, causal, scale,
+                scale * wg::kLog2e);
+          });
         })) {
       return err;
     }
   }
+  if (tile != kCoreTile || stages != kCoreStages) return cudaErrorInvalidValue;
   return with_tiles(D, [&](auto nc, auto rm) {
     constexpr int BQo = 16 * decltype(rm)::value;
     const size_t smem = sizeof(float) * ((2 * BQo + 2 * kInner) * (D + 1) +
@@ -1445,6 +1594,63 @@ cudaError_t dq_dispatch(const void* q, const void* k, const void* v,
   });
 }
 
+// The builds of `kernel` in T at head dim D, as (tile, stages) pairs into
+// out[0 .. 2 * cap); returns how many there are (the CUDA-core build's
+// one pair where the wgmma builds do not take the call), -1 for a kernel
+// there is not.
+template <typename T>
+int builds(int kernel, int D, int* out, int cap) {
+  const int r = route<T>(kernel, D);
+  if (r < 0) return -1;
+  int n = 0;
+  auto add = [&](int tile, int stages) {
+    if (n < cap) {
+      out[2 * n] = tile;
+      out[2 * n + 1] = stages;
+    }
+    ++n;
+  };
+  if (r == 0) {
+    add(kCoreTile, kCoreStages);
+    return n;
+  }
+  wg::with_head_dim(D, [&](auto d) {
+    with_kernel(kernel, [&](auto kn) {
+      each_build<decltype(kn)::value, decltype(d)::value>(
+          [&](auto t, auto st) {
+            add(decltype(t)::value, decltype(st)::value);
+          });
+    });
+  });
+  return n;
+}
+
+// Registers a thread, local-memory bytes a thread (spills and stack) and
+// dynamic shared memory of the wgmma build (tile, stages) of `kernel` in T
+// at D, as the loaded binary reports them (ptxas's numbers).
+template <typename T>
+cudaError_t build_info(int kernel, int D, int tile, int stages, int* info) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if constexpr (wgmma_takes<T>()) {
+    wg::with_head_dim(D, [&](auto d) {
+      constexpr int kD = decltype(d)::value;
+      with_kernel(kernel, [&](auto kn) {
+        constexpr int kK = decltype(kn)::value;
+        with_build<kK, kD>(tile, stages, [&](auto t, auto st) {
+          using B = Build<kK, T, kD, decltype(t)::value, decltype(st)::value>;
+          cudaFuncAttributes attr;
+          err = cudaFuncGetAttributes(&attr, B::kernel());
+          if (err != cudaSuccess) return;
+          info[0] = attr.numRegs;
+          info[1] = static_cast<int>(attr.localSizeBytes);
+          info[2] = static_cast<int>(B::kSmem);
+        });
+      });
+    });
+  }
+  return err;
+}
+
 bool bad_sizes(int BH, int S, int Skv, int D) {
   return BH <= 0 || BH > 65535 || S <= 0 || Skv <= 0 || D <= 0 || D > 256 ||
          D % 8 != 0;
@@ -1456,23 +1662,25 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/o [BH, S, D], k/v [BH, Skv, D],
 // lse [BH, S] fp32; all contiguous and 16-byte aligned; D a multiple of 8,
-// at most 256.
+// at most 256.  (tile, stages): the build, one of epl_flash_builds'.
 int epl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int BH, int S, int Skv, int D, int causal,
-                  int dtype, float scale, void* stream) {
+                  int tile, int stages, int dtype, float scale,
+                  void* stream) {
   if (bad_sizes(BH, S, Skv, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
-    return fwd_dispatch<float>(q, k, v, o, l, BH, S, Skv, D, causal, scale, s);
+    return fwd_dispatch<float>(q, k, v, o, l, BH, S, Skv, D, causal, tile,
+                               stages, scale, s);
   }
   if (dtype == 1) {
     return fwd_dispatch<__nv_bfloat16>(q, k, v, o, l, BH, S, Skv, D, causal,
-                                       scale, s);
+                                       tile, stages, scale, s);
   }
   if (dtype == 2) {
-    return fwd_dispatch<__half>(q, k, v, o, l, BH, S, Skv, D, causal, scale,
-                                s);
+    return fwd_dispatch<__half>(q, k, v, o, l, BH, S, Skv, D, causal, tile,
+                                stages, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1481,22 +1689,24 @@ int epl_flash_fwd(const void* q, const void* k, const void* v, void* o,
 int epl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int BH, int S, int Skv, int D,
-                      int causal, int dtype, float scale, void* stream) {
+                      int causal, int tile, int stages, int dtype,
+                      float scale, void* stream) {
   if (bad_sizes(BH, S, Skv, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 0) {
     return dkv_dispatch<float>(q, k, v, dout, l, dl, dk, dv, BH, S, Skv, D,
-                               causal, scale, s);
+                               causal, tile, stages, scale, s);
   }
   if (dtype == 1) {
     return dkv_dispatch<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, BH, S,
-                                       Skv, D, causal, scale, s);
+                                       Skv, D, causal, tile, stages, scale,
+                                       s);
   }
   if (dtype == 2) {
     return dkv_dispatch<__half>(q, k, v, dout, l, dl, dk, dv, BH, S, Skv, D,
-                                causal, scale, s);
+                                causal, tile, stages, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1505,22 +1715,23 @@ int epl_flash_bwd_dkv(const void* q, const void* k, const void* v,
 int epl_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int BH, int S, int Skv, int D, int causal,
-                     int dtype, float scale, void* stream) {
+                     int tile, int stages, int dtype, float scale,
+                     void* stream) {
   if (bad_sizes(BH, S, Skv, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 0) {
     return dq_dispatch<float>(q, k, v, dout, l, dl, dq, BH, S, Skv, D, causal,
-                              scale, s);
+                              tile, stages, scale, s);
   }
   if (dtype == 1) {
     return dq_dispatch<__nv_bfloat16>(q, k, v, dout, l, dl, dq, BH, S, Skv, D,
-                                      causal, scale, s);
+                                      causal, tile, stages, scale, s);
   }
   if (dtype == 2) {
     return dq_dispatch<__half>(q, k, v, dout, l, dl, dq, BH, S, Skv, D,
-                               causal, scale, s);
+                               causal, tile, stages, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1534,6 +1745,30 @@ int epl_flash_route(int kernel, int dtype, int D) {
     case 1: return route<__nv_bfloat16>(kernel, D);
     case 2: return route<__half>(kernel, D);
     default: return -1;
+  }
+}
+
+// The builds of kernel (as above) at dtype and head dim D: (tile, stages)
+// pairs into out[0 .. 2 * cap), the count returned (-1: no such kernel or
+// dtype).
+int epl_flash_builds(int kernel, int dtype, int D, int* out, int cap) {
+  switch (dtype) {
+    case 0: return builds<float>(kernel, D, out, cap);
+    case 1: return builds<__nv_bfloat16>(kernel, D, out, cap);
+    case 2: return builds<__half>(kernel, D, out, cap);
+    default: return -1;
+  }
+}
+
+// info[0..3) = registers a thread, local-memory (spill) bytes a thread and
+// dynamic shared memory of a wgmma build; cudaErrorInvalidValue for a
+// build there is not (the CUDA-core builds included).
+int epl_flash_build_info(int kernel, int dtype, int D, int tile, int stages,
+                         int* info) {
+  switch (dtype) {
+    case 1: return build_info<__nv_bfloat16>(kernel, D, tile, stages, info);
+    case 2: return build_info<__half>(kernel, D, tile, stages, info);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -165,7 +165,7 @@ __device__ __forceinline__ void fence_operands(float (&d)[K]) {
 // d[4j + 2h + e] is row 16w + g + 8h, column 8j + 2t + e).  scale_d = 0
 // overwrites D.
 //
-// wgmma_ss<T, 64>: A and B from shared memory, both K-major.
+// wgmma_ss<T, 32 | 64 | 128>: A and B from shared memory, both K-major.
 // wgmma_rs_mn<T, 64 | 128>: A from registers (the mma.sync m16n8k16 A
 // layout within each warp's 16 rows), B from shared memory MN-major.
 
@@ -176,65 +176,106 @@ __host__ __device__ constexpr bool is_wgmma_operand() {
          std::is_same<T, __half>::value;
 }
 
-#define HOPPER_D32                                                       \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
-      "+f"(d[31])
-#define HOPPER_D64_HI                                                     \
-  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),        \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
-      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),    \
-      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),    \
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),    \
-      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),    \
-      "+f"(d[62]), "+f"(d[63])
-#define HOPPER_REGS32                                                     \
-  "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
-  "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
-  "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
+#define HOPPER_D16 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+    "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+    "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+    "+f"(d[15])
+
+#define HOPPER_D32_HI \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+    "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+    "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+    "+f"(d[31])
+
+#define HOPPER_D64_HI \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+    "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+    "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+    "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+    "+f"(d[62]), "+f"(d[63])
+
+#define HOPPER_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15"
+
+#define HOPPER_REGS32_HI \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
   "%24, %25, %26, %27, %28, %29, %30, %31"
-#define HOPPER_REGS64_HI                                                  \
-  "%32, %33, %34, %35, %36, %37, %38, %39,"                               \
-  "%40, %41, %42, %43, %44, %45, %46, %47,"                               \
-  "%48, %49, %50, %51, %52, %53, %54, %55,"                               \
+
+#define HOPPER_REGS64_HI \
+  "%32, %33, %34, %35, %36, %37, %38, %39," \
+  "%40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55," \
   "%56, %57, %58, %59, %60, %61, %62, %63"
 
-// TY: the PTX operand type, "bf16" or "f16".
+// TY: the PTX operand type, "bf16" or "f16".  The scale-d predicate, A
+// and B follow the N / 2 accumulators.
+#define HOPPER_WGMMA_SS_32(TY)                                            \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"        \
+      HOPPER_REGS16 "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                    \
+      : HOPPER_D16                                                        \
+      : "l"(a), "l"(b), "r"(scale_d))
 #define HOPPER_WGMMA_SS_64(TY)                                            \
   asm volatile(                                                           \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
       "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
-      HOPPER_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                    \
-      : HOPPER_D32                                                        \
+      HOPPER_REGS16 "," HOPPER_REGS32_HI "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : HOPPER_D16, HOPPER_D32_HI                                         \
+      : "l"(a), "l"(b), "r"(scale_d))
+#define HOPPER_WGMMA_SS_128(TY)                                           \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
+      HOPPER_REGS16 "," HOPPER_REGS32_HI "," HOPPER_REGS64_HI             \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                  \
+      : HOPPER_D16, HOPPER_D32_HI, HOPPER_D64_HI                          \
       : "l"(a), "l"(b), "r"(scale_d))
 #define HOPPER_WGMMA_RS_64(TY)                                            \
   asm volatile(                                                           \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
       "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
-      HOPPER_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"      \
-      : HOPPER_D32                                                        \
+      HOPPER_REGS16 "," HOPPER_REGS32_HI                                  \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                    \
+      : HOPPER_D16, HOPPER_D32_HI                                         \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
 #define HOPPER_WGMMA_RS_128(TY)                                           \
   asm volatile(                                                           \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                        \
       "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
-      HOPPER_REGS32 "," HOPPER_REGS64_HI                                  \
+      HOPPER_REGS16 "," HOPPER_REGS32_HI "," HOPPER_REGS64_HI             \
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                    \
-      : HOPPER_D32, HOPPER_D64_HI                                         \
+      : HOPPER_D16, HOPPER_D32_HI, HOPPER_D64_HI                          \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
 
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  static_assert(is_wgmma_operand<T>() && N == 64, "no such wgmma_ss");
-  if constexpr (std::is_same<T, __half>::value) {
-    HOPPER_WGMMA_SS_64("f16");
+  static_assert(is_wgmma_operand<T>() && (N == 32 || N == 64 || N == 128),
+                "no such wgmma_ss");
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  if constexpr (N == 32) {
+    if constexpr (kHalf) {
+      HOPPER_WGMMA_SS_32("f16");
+    } else {
+      HOPPER_WGMMA_SS_32("bf16");
+    }
+  } else if constexpr (N == 64) {
+    if constexpr (kHalf) {
+      HOPPER_WGMMA_SS_64("f16");
+    } else {
+      HOPPER_WGMMA_SS_64("bf16");
+    }
   } else {
-    HOPPER_WGMMA_SS_64("bf16");
+    if constexpr (kHalf) {
+      HOPPER_WGMMA_SS_128("f16");
+    } else {
+      HOPPER_WGMMA_SS_128("bf16");
+    }
   }
 }
 
@@ -261,11 +302,15 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
 
 #undef HOPPER_WGMMA_RS_128
 #undef HOPPER_WGMMA_RS_64
+#undef HOPPER_WGMMA_SS_128
 #undef HOPPER_WGMMA_SS_64
+#undef HOPPER_WGMMA_SS_32
 #undef HOPPER_REGS64_HI
-#undef HOPPER_REGS32
+#undef HOPPER_REGS32_HI
+#undef HOPPER_REGS16
 #undef HOPPER_D64_HI
-#undef HOPPER_D32
+#undef HOPPER_D32_HI
+#undef HOPPER_D16
 
 // -------------------------------------------------------- tensor maps --
 

@@ -15,6 +15,19 @@ fp16.  fp32, and both 16-bit types at other head dims, run the
 CUDA-core build, which accumulates in fp32.
 ``flash_route`` says which build a call takes.
 
+Each wgmma kernel has tile builds: its inner tile (the forward's and
+dQ's KV tile, 64 or 128 keys; dK/dV's Q tile, 32 or 64 rows) and the
+depth of its TMA ring (2 or 3 stages) are template parameters
+(``WGMMA_BUILDS``; the library lists its own in ``flash_builds``, and
+``flash_build_info`` its registers and spills).  A
+call takes the build that ``flash_tile`` resolves from its ``(S, D,
+itemsize)`` through the block table: the port of the JAX package's
+autotune table (``set_block_want``, ``flash_block_table.json`` beside
+this module, written on the card by ``kernels/flash_autotune.py``).  A
+table entry applies only on the card whose name it records; a shape
+without one takes ``DEFAULT_BUILD``.  The CUDA-core kernels have one
+tile (``CUDA_CORE_BUILD``).
+
 Each of the three functions comes in three forms, kernel layout
 ``[B, H, S, D]`` (``lse`` and ``delta`` ``[B, H, S]`` fp32):
 
@@ -26,8 +39,10 @@ Each of the three functions comes in three forms, kernel layout
   Each counts its runs in ``.calls``.
 * ``flash_fwd_cuda`` / ``flash_bwd_dkv_cuda`` / ``flash_bwd_dq_cuda`` —
   wrappers of the kernels: they check device, dtype, shape, contiguity
-  and alignment, launch on the current stream, raise on a refused launch
-  and count launches in ``.launches``.
+  and alignment, launch on the current stream the build given or the one
+  ``flash_tile`` resolves, raise on a refused launch or a build there is
+  not, and count launches in ``.launches`` and, by ``(tile, stages)``,
+  in ``.by_tile``.
 * ``flash_fwd`` / ``flash_bwd_dkv`` / ``flash_bwd_dq`` — dispatchers: a
   CPU tensor goes to the plain version, a CUDA tensor to the kernel.  A
   CUDA tensor never reaches a plain version through them.
@@ -48,17 +63,20 @@ package.
 Public entry points keep the JAX package's contract: ``flash_attention``
 and ``flash_attention_lse`` on ``[B, S, H, D]``, with the block
 arguments validated as there (an explicit block must divide the
-sequence).  The kernels' own tile is theirs to choose, so ``block_q`` /
-``block_k`` keep only their validation meaning.  The TPU block autotune
-table (``set_block_want``) waits with ``benchmarks/flash_autotune.py`` for
-the port's benchmark (ROADMAP.md).
+sequence).  The kernels' own tile comes from the block table, so
+``block_q`` / ``block_k`` keep only their validation meaning; the table's
+``want`` for a shape is both the default block those arguments are
+validated against (``_default_block``, as in the JAX package) and the
+width the kernels' tiles are resolved from (``flash_tile``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import math
-from typing import Optional, Tuple
+import os
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -74,6 +92,25 @@ _MAX_BATCH_HEADS = 65535  # the kernels' grid y dimension
 # kernel, but the default block width the public functions validate
 # against still follows it (``_heuristic_want``).
 _RESIDENT_MAX_BYTES = 1024 * 1024
+
+# The wgmma kernels' builds, ``(tile, stages)`` by kernel and head dim, as
+# ``each_build`` in csrc/flash_attention.cu lists them (``flash_builds``
+# reads the library's own list on the card): each inner tile at ring
+# depths 2 and 3 where the layout fits in the 227 KB of shared memory a
+# CTA may take and ptxas does not spill.  dQ at D = 128 with 128-key
+# tiles fits two stages only (Q, dO and three stages of K and V would be
+# 256 KB); dK/dV at D = 128 spills at every build under the 168 registers
+# a 288-thread CTA may take, and keeps the one it has always had.
+WGMMA_BUILDS = {
+    ("fwd", 64): ((64, 2), (64, 3), (128, 2), (128, 3)),
+    ("fwd", 128): ((64, 2), (64, 3), (128, 2), (128, 3)),
+    ("dkv", 64): ((32, 2), (32, 3), (64, 2), (64, 3)),
+    ("dkv", 128): ((64, 2),),
+    ("dq", 64): ((64, 2), (64, 3), (128, 2), (128, 3)),
+    ("dq", 128): ((64, 2), (64, 3), (128, 2)),
+}
+DEFAULT_BUILD = (64, 2)    # a shape the block table does not name
+CUDA_CORE_BUILD = (64, 1)  # the CUDA-core kernels: one tile, no TMA ring
 
 
 def _scale(D: int) -> float:
@@ -151,10 +188,11 @@ def _library():
   lib = _build.load("flash_attention")
   if lib.epl_flash_fwd.argtypes is None:
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.epl_flash_fwd.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, p]
-    lib.epl_flash_bwd_dkv.argtypes = ([p] * 8 + [i] * 6
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.epl_flash_fwd.argtypes = [p] * 5 + [i] * 8 + [ctypes.c_float, p]
+    lib.epl_flash_bwd_dkv.argtypes = ([p] * 8 + [i] * 8
                                       + [ctypes.c_float, p])
-    lib.epl_flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_float, p]
+    lib.epl_flash_bwd_dq.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float, p]
     for fn in (lib.epl_flash_fwd, lib.epl_flash_bwd_dkv,
                lib.epl_flash_bwd_dq):
       fn.restype = ctypes.c_int
@@ -162,29 +200,94 @@ def _library():
     lib.epl_cuda_error_string.restype = ctypes.c_char_p
     lib.epl_flash_route.argtypes = [i, i, i]
     lib.epl_flash_route.restype = i
+    lib.epl_flash_builds.argtypes = [i, i, i, ints, i]
+    lib.epl_flash_builds.restype = i
+    lib.epl_flash_build_info.argtypes = [i] * 5 + [ints]
+    lib.epl_flash_build_info.restype = i
   return lib
 
 
 _ROUTE_KERNELS = {"fwd": 0, "dkv": 1, "dq": 2}
 
 
-def flash_route(kernel: str, dtype: torch.dtype, D: int) -> str:
-  """The build the dispatcher gives ``kernel`` (``"fwd"``, ``"dkv"`` or
-  ``"dq"``) in ``dtype`` at head dim ``D``: ``"wgmma"`` (the tensor-core
-  build) or ``"cuda_cores"``.  The library answers from the gates its
-  dispatchers read (``epl_flash_route``), so it is built at the first
-  call: on a machine with ``nvcc``."""
+def _kernel_and_dtype(fn, kernel, dtype):
   if kernel not in _ROUTE_KERNELS:
-    raise ValueError(f"flash_route: kernel {kernel!r} is not one of "
+    raise ValueError(f"{fn}: kernel {kernel!r} is not one of "
                      f"{sorted(_ROUTE_KERNELS)}")
   if dtype not in _DTYPE_CODES:
-    raise ValueError(f"flash_route: dtype {dtype} is not one of "
+    raise ValueError(f"{fn}: dtype {dtype} is not one of "
                      f"{list(_DTYPE_CODES)}")
-  code = _library().epl_flash_route(_ROUTE_KERNELS[kernel],
-                                    _DTYPE_CODES[dtype], int(D))
-  if code not in (0, 1):
-    raise RuntimeError(f"epl_flash_route({kernel}, {dtype}, {D}) = {code}")
-  return "wgmma" if code == 1 else "cuda_cores"
+  return _ROUTE_KERNELS[kernel], _DTYPE_CODES[dtype]
+
+
+def wgmma_takes(dtype: torch.dtype, D: int) -> bool:
+  """Whether the wgmma builds take a call in ``dtype`` at head dim ``D``
+  (the library's ``wgmma_takes`` and ``wg::with_head_dim``, which
+  ``flash_route`` reports on the card)."""
+  return dtype in (torch.bfloat16, torch.float16) and D in (64, 128)
+
+
+def kernel_builds(kernel: str, dtype: torch.dtype, D: int):
+  """The ``(tile, stages)`` builds ``kernel`` has in ``dtype`` at head dim
+  ``D``: ``WGMMA_BUILDS`` where the wgmma builds take the call, else the
+  CUDA-core build alone."""
+  _kernel_and_dtype("kernel_builds", kernel, dtype)
+  if wgmma_takes(dtype, D):
+    return WGMMA_BUILDS[kernel, D]
+  return (CUDA_CORE_BUILD,)
+
+
+def flash_builds(kernel: str, dtype: torch.dtype, D: int):
+  """The builds the library has for ``kernel`` in ``dtype`` at head dim
+  ``D``, as ``(tile, stages)`` pairs (``epl_flash_builds``; card only:
+  it builds the library)."""
+  code = _kernel_and_dtype("flash_builds", kernel, dtype)
+  out = (ctypes.c_int * 32)()
+  n = _library().epl_flash_builds(*code, int(D), out, 16)
+  if not 0 < n <= 16:
+    raise RuntimeError(f"epl_flash_builds({kernel}, {dtype}, {D}) = {n}")
+  return tuple((out[2 * j], out[2 * j + 1]) for j in range(n))
+
+
+def flash_build_info(kernel: str, dtype: torch.dtype, D: int, tile: int,
+                     stages: int) -> Dict[str, int]:
+  """Registers a thread, local-memory (spill) bytes a thread and dynamic
+  shared memory of a wgmma build, as the loaded binary reports them
+  (``epl_flash_build_info``; card only)."""
+  code = _kernel_and_dtype("flash_build_info", kernel, dtype)
+  info = (ctypes.c_int * 3)()
+  lib = _library()
+  err = lib.epl_flash_build_info(*code, int(D), int(tile), int(stages),
+                                 info)
+  if err != 0:
+    raise RuntimeError(
+        f"epl_flash_build_info({kernel}, {dtype}, {D}, {tile}, {stages}): "
+        f"cudaError {err} ({lib.epl_cuda_error_string(err).decode()})")
+  return {"registers": info[0], "local_bytes": info[1],
+          "smem_bytes": info[2]}
+
+
+def flash_route(kernel: str, dtype: torch.dtype, D: int,
+                S: Optional[int] = None):
+  """The build the dispatcher gives ``kernel`` (``"fwd"``, ``"dkv"`` or
+  ``"dq"``) in ``dtype`` at head dim ``D``: ``"wgmma"`` (the tensor-core
+  build) or ``"cuda_cores"``; given the sequence length ``S`` too,
+  ``(route, tile, stages)``, the tile that ``flash_tile`` resolves, held
+  against the library's own builds.  The library answers from the gates
+  its dispatchers read (``epl_flash_route``, ``epl_flash_builds``), so it
+  is built at the first call: on a machine with ``nvcc``."""
+  code = _kernel_and_dtype("flash_route", kernel, dtype)
+  route = _library().epl_flash_route(*code, int(D))
+  if route not in (0, 1):
+    raise RuntimeError(f"epl_flash_route({kernel}, {dtype}, {D}) = {route}")
+  name = "wgmma" if route == 1 else "cuda_cores"
+  if S is None:
+    return name
+  build = flash_tile(kernel, S, D, dtype)
+  if build not in flash_builds(kernel, dtype, D):
+    raise RuntimeError(f"flash_tile({kernel}, {S}, {D}, {dtype}) = {build} "
+                       f"is not a build of the library")
+  return (name,) + build
 
 
 def _check(name, q, k, v, dout=None, lse=None, delta=None):
@@ -237,55 +340,73 @@ def _launch(fn_name, lib, args, dtype, scale, device):
                        f"({lib.epl_cuda_error_string(err).decode()})")
 
 
-def flash_fwd_cuda(q, k, v, causal: bool):
-  """Forward kernel on the current stream: ``(out, lse)``."""
+def _build_of(kernel, q, build):
+  """The ``(tile, stages)`` a launch takes: ``build`` when given, else
+  the block table's (``flash_tile``)."""
+  if build is None:
+    return flash_tile(kernel, q.shape[2], q.shape[3], q.dtype)
+  return tuple(int(x) for x in build)
+
+
+def _counted(wrapper, build):
+  wrapper.launches += 1
+  wrapper.by_tile[build] = wrapper.by_tile.get(build, 0) + 1
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, build=None):
+  """Forward kernel on the current stream: ``(out, lse)``.  ``build``:
+  the ``(tile, stages)`` to launch (default: the block table's)."""
   _check("flash_fwd_cuda", q, k, v)
   lib = _library()
   B, H, S, D = q.shape
+  tile, stages = build = _build_of("fwd", q, build)
   out = torch.empty_like(q)
   lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
   _launch("epl_flash_fwd", lib,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           lse.data_ptr(), B * H, S, k.shape[2], D, int(causal)),
-          q.dtype, _scale(D), q.device)
-  flash_fwd_cuda.launches += 1
+           lse.data_ptr(), B * H, S, k.shape[2], D, int(causal), tile,
+           stages), q.dtype, _scale(D), q.device)
+  _counted(flash_fwd_cuda, build)
   return out, lse
 
 
-def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool):
-  """dK/dV kernel on the current stream: ``(dk, dv)``."""
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool, build=None):
+  """dK/dV kernel on the current stream: ``(dk, dv)``.  ``build``: as
+  the forward's."""
   _check("flash_bwd_dkv_cuda", q, k, v, dout, lse, delta)
   lib = _library()
   B, H, S, D = q.shape
+  tile, stages = build = _build_of("dkv", q, build)
   dk = torch.empty_like(k)
   dv = torch.empty_like(v)
   _launch("epl_flash_bwd_dkv", lib,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           B * H, S, k.shape[2], D, int(causal)),
+           B * H, S, k.shape[2], D, int(causal), tile, stages),
           q.dtype, _scale(D), q.device)
-  flash_bwd_dkv_cuda.launches += 1
+  _counted(flash_bwd_dkv_cuda, build)
   return dk, dv
 
 
-def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool):
-  """dQ kernel on the current stream."""
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, build=None):
+  """dQ kernel on the current stream.  ``build``: as the forward's."""
   _check("flash_bwd_dq_cuda", q, k, v, dout, lse, delta)
   lib = _library()
   B, H, S, D = q.shape
+  tile, stages = build = _build_of("dq", q, build)
   dq = torch.empty_like(q)
   _launch("epl_flash_bwd_dq", lib,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, S,
-           k.shape[2], D, int(causal)),
+           k.shape[2], D, int(causal), tile, stages),
           q.dtype, _scale(D), q.device)
-  flash_bwd_dq_cuda.launches += 1
+  _counted(flash_bwd_dq_cuda, build)
   return dq
 
 
-flash_fwd_cuda.launches = 0
-flash_bwd_dkv_cuda.launches = 0
-flash_bwd_dq_cuda.launches = 0
+for _wrapper in (flash_fwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda):
+  _wrapper.launches = 0
+  _wrapper.by_tile = {}
 
 
 # ---------------------------------------------------------- dispatchers --
@@ -322,6 +443,7 @@ def reset_counts():
   """Set every launch and call count of this module to 0."""
   for fn in (flash_fwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda):
     fn.launches = 0
+    fn.by_tile = {}
   for fn in (flash_fwd_reference, flash_bwd_dkv_reference,
              flash_bwd_dq_reference):
     fn.calls = 0
@@ -402,6 +524,110 @@ def _bwd_kernels(q, k, v, dout, lse, delta, causal, block_q, block_k):
   return dq, dk, dv
 
 
+# The block table: {(S, d, itemsize): want}, read lazily from
+# flash_block_table.json beside this module (written on the card by
+# kernels/flash_autotune.py; the JAX package's format, {"device": <card
+# name>, "entries": {"S:d:itemsize": want}}, where an entry may also be
+# {"want": want, "stages": depth}).  Entries apply to their exact shape
+# ONLY when the file's device is this process's card
+# (torch.cuda.get_device_name()): widths tuned on one card must not
+# reach another, nor a CPU run.  Lazy because it asks CUDA for the
+# card's name, which must not happen at import.  A stage depth an entry
+# carries is in _BLOCK_STAGES.
+_BLOCK_TABLE: Optional[dict] = None
+_BLOCK_STAGES: dict = {}
+_BLOCK_TABLE_PATH = os.path.join(os.path.dirname(os.path.abspath(
+    __file__)), "flash_block_table.json")
+
+
+def _device_kind() -> Optional[str]:
+  """The card's name as the table records it; None without a card."""
+  return torch.cuda.get_device_name() if torch.cuda.is_available() else None
+
+
+def _read_block_table(path: str, device: Optional[str]):
+  """``(wants, stages)`` of the table at ``path`` for ``device``: empty
+  when the file is missing, malformed or another device's (the table is
+  an optimisation, never a correctness dependency)."""
+  try:
+    with open(path) as f:
+      raw = json.load(f)
+  except (OSError, ValueError):
+    return {}, {}
+  entries = raw.get("entries") if isinstance(raw, dict) else None
+  if device is None or not isinstance(entries, dict) or raw.get(
+      "device") != device:
+    return {}, {}
+  wants, stages = {}, {}
+  try:
+    for key, value in entries.items():
+      shape = tuple(int(x) for x in key.split(":"))
+      if len(shape) != 3:
+        raise ValueError(key)
+      if isinstance(value, dict):
+        wants[shape] = int(value["want"])
+        if value.get("stages") is not None:
+          stages[shape] = int(value["stages"])
+      else:
+        wants[shape] = int(value)
+  except (AttributeError, KeyError, TypeError, ValueError):
+    return {}, {}
+  return wants, stages
+
+
+def _ensure_block_table() -> dict:
+  global _BLOCK_TABLE
+  if _BLOCK_TABLE is None:
+    wants, stages = _read_block_table(_BLOCK_TABLE_PATH, _device_kind())
+    _BLOCK_STAGES.clear()
+    _BLOCK_STAGES.update(stages)
+    _BLOCK_TABLE = wants
+  return _BLOCK_TABLE
+
+
+def set_block_want(S: int, d: int, itemsize: int, want: int,
+                   stages: Optional[int] = None) -> None:
+  """Programmatic block-table entry, and the TMA ring depth the kernels
+  take at this shape (default: the default build's).  ``want = 0``
+  leaves the shape to the defaults."""
+  key = (S, d, itemsize)
+  _ensure_block_table()[key] = int(want)
+  if stages is None:
+    _BLOCK_STAGES.pop(key, None)
+  else:
+    _BLOCK_STAGES[key] = int(stages)
+
+
+def tile_for_want(kernel: str, D: int, dtype: torch.dtype, want: int,
+                  stages: Optional[int] = None) -> Tuple[int, int]:
+  """The ``(tile, stages)`` build of ``kernel`` at head dim ``D`` in
+  ``dtype`` that a block width ``want`` names: the kernel's largest inner
+  tile <= ``want`` (its smallest when none is), at ring depth ``stages``
+  (default: the default build's) where that tile has it, else the
+  deepest below it.  The CUDA-core kernels have ``CUDA_CORE_BUILD``
+  alone."""
+  builds = kernel_builds(kernel, dtype, D)
+  if builds == (CUDA_CORE_BUILD,):
+    return CUDA_CORE_BUILD
+  tiles = sorted({t for t, _ in builds})
+  tile = max((t for t in tiles if t <= want), default=tiles[0])
+  depths = sorted(s for t, s in builds if t == tile)
+  wanted = DEFAULT_BUILD[1] if stages is None else stages
+  return tile, max((s for s in depths if s <= wanted), default=depths[0])
+
+
+def flash_tile(kernel: str, S: int, D: int,
+               dtype: torch.dtype) -> Tuple[int, int]:
+  """The ``(tile, stages)`` build ``kernel`` takes at sequence length
+  ``S`` and head dim ``D`` in ``dtype``: ``tile_for_want`` of the block
+  table's entry for ``(S, D, itemsize)`` and its ring depth; without an
+  entry ``DEFAULT_BUILD`` (``CUDA_CORE_BUILD`` on the CUDA-core
+  kernels)."""
+  key = (S, D, dtype.itemsize)
+  want = _ensure_block_table().get(key) or DEFAULT_BUILD[0]
+  return tile_for_want(kernel, D, dtype, want, _BLOCK_STAGES.get(key))
+
+
 def _heuristic_want(S: int, d: int, itemsize: int) -> int:
   """The untuned block-width default: 512 in the JAX package's resident
   regime, 1024 past it."""
@@ -412,9 +638,13 @@ def _default_block(S: int, want: int = 0, *, d: int,
                    itemsize: int = 2) -> int:
   """Largest block <= ``want`` that divides S (halving from ``want``,
   floor 8); S itself when shorter than ``want``; 0 when no such block
-  divides S (e.g. S = 515) — callers raise or take a non-kernel path."""
+  divides S (e.g. S = 515) — callers raise or take a non-kernel path.
+  Default ``want``: the block table's entry for ``(S, d, itemsize)``
+  when there is one, else ``_heuristic_want``."""
   if not want:
-    want = _heuristic_want(S, d, itemsize)
+    want = _ensure_block_table().get((S, d, itemsize))
+    if not want:
+      want = _heuristic_want(S, d, itemsize)
   if S <= want:
     return S
   b = want

@@ -72,6 +72,26 @@ class SiteInfo:
   n_out: int
   dtype_bytes: int
 
+  def expected_result_bytes(self) -> float:
+    """Result-tensor bytes of this site's fused collective (the gathered
+    ``[n m, k]`` input of an all-gather, the scattered ``[m / n, N]``
+    block of a reduce-scatter); wire bytes are derived from it."""
+    n = max(self.axis_n, 1)
+    if self.kind == "all_gather_matmul":
+      return float(n * self.m * self.k * self.dtype_bytes)
+    if self.kind == "matmul_reduce_scatter":
+      return float(self.m / n * self.n_out * self.dtype_bytes)
+    return float(self.m / n * self.k * self.dtype_bytes)
+
+  def wire_bytes_from_result(self, result_bytes: float) -> float:
+    """Ring wire bytes implied by a fused result of ``result_bytes``: an
+    all-gather moves (n - 1) / n of its gathered result past each rank, a
+    reduce-scatter n - 1 copies of its scattered block."""
+    n = max(self.axis_n, 1)
+    if self.kind == "all_gather_matmul":
+      return result_bytes * (n - 1) / n
+    return result_bytes * (n - 1)
+
 
 @dataclasses.dataclass
 class CostCard:

@@ -16,6 +16,7 @@ setup(
     package_data={"easyparallellibrary_tpu": ["lib/*.so"],
                   "easyparallellibrary_tpu_torch": ["kernels/csrc/*.cu",
                                                    "kernels/csrc/*.cuh",
+                                                   "kernels/flash_block_table.json",
                                                    "perf_budget.json",
                                                    "analysis/baseline.json"]},
     python_requires=">=3.10",

@@ -1714,3 +1714,103 @@ def test_parameter_offload_on_the_card_is_bit_equal(cuda, what):
   assert off_mem < plain_mem, (off_mem, plain_mem)
   for k, v in pp.items():
     assert torch.equal(v, op[k]), k
+
+
+# ------------------------------------------------ K1's tile builds (table)
+
+_BUILD_LIMITS = {torch.bfloat16: FLASH_BF16_LIMIT, torch.float16: FLASH_FP16_LIMIT}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_flash_library_lists_the_python_builds_and_none_spills(cuda, dtype,
+                                                               D):
+  """The library's builds of each kernel (``epl_flash_builds``) are
+  ``WGMMA_BUILDS``, ``flash_route`` with a length names the build
+  ``flash_tile`` resolves, and no build uses local memory (a spill) but
+  dK/dV's one build at D = 128, which has spilled since it was written
+  (the 168-register cap of a 288-thread CTA)."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  for kernel in ("fwd", "dkv", "dq"):
+    builds = fa.flash_builds(kernel, dtype, D)
+    assert builds == fa.WGMMA_BUILDS[kernel, D], (kernel, builds)
+    for build in builds:
+      info = fa.flash_build_info(kernel, dtype, D, *build)
+      assert info["registers"] <= 168, (kernel, build, info)
+      if (kernel, D) != ("dkv", 128):
+        assert info["local_bytes"] == 0, (kernel, build, info)
+      assert 0 < info["smem_bytes"] <= 232448, (kernel, build, info)
+    assert fa.flash_route(kernel, dtype, D, S=1024) == (
+        ("wgmma",) + fa.flash_tile(kernel, 1024, D, dtype))
+  assert fa.flash_builds("fwd", torch.float32, D) == (fa.CUDA_CORE_BUILD,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stages", [2, 3])
+@pytest.mark.parametrize("want", [32, 64, 128])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_flash_tile_builds_match_plain_versions(cuda, dtype, D, want,
+                                                stages):
+  """Each block-table ``want`` and ring depth takes every kernel to its
+  build (``tile_for_want``), counted in ``by_tile``, and the build's
+  outputs meet the plain versions' at the existing limits: a ragged
+  length, a key length past the query length, causal and not."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  torch.backends.cuda.matmul.allow_tf32 = False
+  limits = _BUILD_LIMITS[dtype]
+  builds = {k: fa.tile_for_want(k, D, dtype, want, stages)
+            for k in ("fwd", "dkv", "dq")}
+  for S, Skv in ((200, 200), (128, 192), (384, 384)):
+    fa.set_block_want(S, D, 2, want, stages)
+    try:
+      for causal in (True, False):
+        q, k, v, dout = _flash_case(cuda, dtype, 19, 2, 3, S, Skv, D)
+        fa.reset_counts()
+        out, lse = fa.flash_fwd(q, k, v, causal)
+        want_out, want_lse = fa.flash_fwd_reference(q, k, v, causal)
+        delta = (dout.float() * want_out.float()).sum(-1)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, want_lse, delta, causal)
+        dq = fa.flash_bwd_dq(q, k, v, dout, want_lse, delta, causal)
+        torch.cuda.synchronize()
+        assert (fa.flash_fwd_cuda.by_tile, fa.flash_bwd_dkv_cuda.by_tile,
+                fa.flash_bwd_dq_cuda.by_tile) == tuple(
+                    {builds[k]: 1} for k in ("fwd", "dkv", "dq"))
+        _assert_normalized_close(out, want_out, limits["fwd"], "out")
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-6)
+        want_dk, want_dv = fa.flash_bwd_dkv_reference(
+            q, k, v, dout, want_lse, delta, causal)
+        want_dq = fa.flash_bwd_dq_reference(q, k, v, dout, want_lse, delta,
+                                            causal)
+        for name, got, ref in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                               ("dv", dv, want_dv)):
+          _assert_normalized_close(got, ref, limits["grad"], name)
+    finally:
+      fa._BLOCK_TABLE.pop((S, D, 2), None)
+      fa._BLOCK_STAGES.pop((S, D, 2), None)
+
+
+@pytest.mark.gpu
+def test_flash_unknown_build_raises(cuda):
+  """A tile or ring depth a kernel does not have is refused by the
+  library (cudaErrorInvalidValue); nothing falls back."""
+  from easyparallellibrary_tpu_torch.kernels import flash_attention as fa
+  q, k, v, dout = _flash_case(cuda, torch.bfloat16, 3, 1, 2, 128, 128, 64)
+  for build in ((32, 2), (64, 4), (64, 1)):
+    with pytest.raises(RuntimeError, match="launch failed"):
+      fa.flash_fwd_cuda(q, k, v, True, build=build)
+  with pytest.raises(RuntimeError, match="launch failed"):
+    fa.flash_fwd_cuda(q.float(), k.float(), v.float(), True, build=(64, 2))
+  out, lse = fa.flash_fwd_cuda(q, k, v, True)
+  delta = (dout.float() * out.float()).sum(-1)
+  with pytest.raises(RuntimeError, match="launch failed"):
+    fa.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, True, build=(128, 2))
+  q128, k128, v128, do128 = _flash_case(cuda, torch.bfloat16, 3, 1, 2, 128,
+                                        128, 128)
+  out, lse = fa.flash_fwd_cuda(q128, k128, v128, True)
+  with pytest.raises(RuntimeError, match="launch failed"):
+    fa.flash_bwd_dq_cuda(q128, k128, v128, do128, lse, lse, True,
+                         build=(128, 3))

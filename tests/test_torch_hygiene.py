@@ -312,6 +312,170 @@ def test_deliberate_differences_are_current():
     assert name not in names | (exported or set()), dotted
 
 
+# ------------------------------------------------- the modules' surfaces --
+
+# Public top-level names and public class methods of a JAX module that
+# its namesake in the port leaves out on purpose, by module, each with
+# its reason (ROADMAP.md Queue 3).
+MODULE_DIFFERENCES = {
+    "communicators/overlap.py": {
+        "part_dtype": "jnp.result_type of the preallocated partials; "
+                      "torch.matmul takes one dtype and nothing is "
+                      "preallocated",
+    },
+    "kernels/paged_attention.py": {
+        "NEG_INF": "the Pallas kernel's mask and running-max start; the "
+                   "CUDA kernels hold their own, the plain version masks "
+                   "with -1e9 as the JAX reference does",
+        "default_paged_impl": "a process-wide backend rule; the port "
+                              "dispatches by the tensor's device",
+        "paged_attention_pallas": "the Pallas call; the port's is "
+                                  "paged_attention_cuda",
+    },
+    "observability/device.py": {
+        "specs_of": "PartitionSpecs of a jax.Array tree",
+    },
+    "observability/trace.py": {
+        "Tracer.xla_trace": "the port's Tracer.device_trace "
+                            "(torch.profiler)",
+    },
+    "ops/layers.py": {
+        "Dtype": "flax's dtype alias",
+        "PaddedPartitioned": "flax partitioning metadata",
+        "default_kernel_init": "a flax initializer",
+    },
+    "parallel/api.py": {
+        "batch_sharding": "a jax.sharding.NamedSharding",
+        "named_sharding": "a jax.sharding.NamedSharding",
+        "replicated_sharding": "a jax.sharding.NamedSharding",
+    },
+    "parallel/pipeline.py": {
+        "SCAN_THRESHOLD": "when lax.scan replaces the unrolled tick loop; "
+                          "the port's executor loops in Python",
+    },
+    "parallel/pipeline_smap.py": {
+        "MANUAL_AXES": "shard_map's manual axes",
+        "engine_meta_specs": "PartitionSpecs of the engine's tree",
+        "grad_mean_axes": "in parallel/api.py",
+        "grad_out_specs": "PartitionSpecs of the gradients",
+        "make_engine_tree_fns": "flax boxing of the stacked tree",
+        "rebox_grads": "flax boxing of the gradients",
+        "run_smap_engine": "the shard_map call; the port runs one "
+                           "executor a rank",
+        "seq_engine_axes": "models.gpt.split_axes",
+        "stage_stacked_specs": "PartitionSpecs of the stacked stages",
+        "uniform_stage_compute": "no uniform stage compute: seq and "
+                                 "expert peers walk the same table",
+        "zero1_grad_layout": "runtime/zero.py",
+    },
+    "parallel/planner.py": {
+        "DEFAULT_ICI_BYTES_PER_S": "the TPU ICI's rate; the port's is "
+                                   "DEFAULT_LINK_BYTES_PER_S (NVLink)",
+    },
+    "runtime/offload.py": {
+        "DEVICE_MEMORY_KIND": "a jax memory kind",
+    },
+    "sequence/ulysses.py": {
+        "SEQ_SHARDED": "a PartitionSpec",
+        "HEAD_SHARDED": "a PartitionSpec",
+    },
+    "serving/kv_cache.py": {
+        "kv_spec": "a PartitionSpec of the cache",
+    },
+    "utils/compat.py": {
+        "shard_map": "jax.experimental.shard_map's import shim",
+    },
+    "utils/pytree.py": {
+        "tree_map_with_path_str": "a jax.tree_util path walk",
+    },
+}
+
+
+def _surface(path):
+  """``(names, methods)`` of a source: the names its top level binds
+  (imports included), and the public methods of each class it defines,
+  those of bases defined in the same source included."""
+  tree = ast.parse(path.read_text(), filename=str(path))
+  classes = {n.name: n for n in tree.body if isinstance(n, ast.ClassDef)}
+
+  def methods(name, seen=()):
+    node = classes[name]
+    own = {b.name for b in node.body
+           if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    own |= {t.id for b in node.body if isinstance(b, ast.Assign)
+            for t in b.targets if isinstance(t, ast.Name)}
+    for base in node.bases:
+      if isinstance(base, ast.Name) and base.id in classes and \
+          base.id not in seen:
+        own |= methods(base.id, seen + (name,))
+    return own
+
+  return _top_level(path)[0], {c: methods(c) for c in classes}
+
+
+def _jax_defined(path):
+  """The public names a JAX source defines (not imports) and its public
+  classes' public methods, as ``Class.method``."""
+  tree = ast.parse(path.read_text(), filename=str(path))
+  names = set()
+  for node in tree.body:
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                         ast.ClassDef)):
+      names.add(node.name)
+    elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+      targets = node.targets if isinstance(node, ast.Assign) else [
+          node.target]
+      names |= {t.id for t in targets if isinstance(t, ast.Name)}
+  names = {n for n in names if not n.startswith("_")}
+  _, methods = _surface(path)
+  return names | {f"{c}.{m}" for c, ms in methods.items()
+                  if not c.startswith("_") for m in ms
+                  if not m.startswith("_")}
+
+
+def _jax_modules():
+  jax_root = ROOT / "easyparallellibrary_tpu"
+  return sorted(p.relative_to(jax_root).as_posix()
+                for p in jax_root.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_module_surface_matches_the_jax_module(module):
+  """Every public name a JAX module defines, and every public method of
+  its public classes, is bound by the port's namesake (a method where
+  the port defines that class), or is one of ``MODULE_DIFFERENCES``."""
+  jax_path = ROOT / "easyparallellibrary_tpu" / module
+  names, methods = _surface(PORT / module)
+  listed = MODULE_DIFFERENCES.get(module, {})
+  missing = []
+  for name in sorted(_jax_defined(jax_path)):
+    cls, _, method = name.rpartition(".")
+    if cls and cls in methods:
+      present = method in methods[cls]
+    elif cls:
+      present = cls in names    # bound by an import: its own module's pin
+    else:
+      present = name in names
+    if not present and name not in listed:
+      missing.append(name)
+  assert not missing, f"{module}: the port does not define {missing}"
+
+
+def test_module_differences_are_current():
+  """Each listed name is still defined by the JAX module and still
+  absent from the port's namesake."""
+  for module, names in MODULE_DIFFERENCES.items():
+    defined = _jax_defined(ROOT / "easyparallellibrary_tpu" / module)
+    port_names, port_methods = _surface(PORT / module)
+    for name in names:
+      assert name in defined, (module, name)
+      cls, _, method = name.rpartition(".")
+      if cls:
+        assert method not in port_methods.get(cls, set()), (module, name)
+      else:
+        assert name not in port_names, (module, name)
+
+
 def test_cluster_counts_one_device_per_process():
   """``Cluster.devices_per_process`` as JAX ``cluster.py`` has it: the
   port runs one device per process."""
