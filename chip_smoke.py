@@ -1199,6 +1199,18 @@ def _busy_us(intervals):
   return total
 
 
+def _device_events(torch, prof):
+  """``(name, start_us, end_us)`` of every event a profile ran on the
+  card: kernels, copies and sets, without the ``record_function``
+  ranges the program's spans mirror onto the device's timeline (a range
+  covers the gaps between its kernels)."""
+  return [(e.name, e.time_range.start, e.time_range.end)
+          for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.time_range.end > e.time_range.start
+          and not getattr(e, "is_user_annotation", False)]
+
+
 def step_breakdown(torch, eng, prompt_fn=None, paged=True):
   """Where a bf16 engine step's time goes: ``PROFILE_STEPS`` public
   ``step()`` calls under a full load of 16 requests (96 new tokens
@@ -1233,13 +1245,10 @@ def step_breakdown(torch, eng, prompt_fn=None, paged=True):
   outside_us = wall_us - (eng.stats.busy_time_s - busy0) * 1e6
   eng.run()
   kernels, intervals = {}, []
-  for e in prof.events():
-    start, end = e.time_range.start, e.time_range.end
-    if e.device_type != torch.autograd.DeviceType.CUDA or end <= start:
-      continue
+  for name, start, end in _device_events(torch, prof):
     intervals.append((start, end))
-    calls, us = kernels.get(e.name, (0, 0.0))
-    kernels[e.name] = (calls + 1, us + end - start)
+    calls, us = kernels.get(name, (0, 0.0))
+    kernels[name] = (calls + 1, us + end - start)
   busy_us = _busy_us(intervals)
   device_us = sum(us for _, us in kernels.values())
   # Both builds: paged_attention_tiled_kernel and paged_attention_kernel.
@@ -1622,13 +1631,10 @@ def train_step_breakdown(torch, bench, batch_size):
     wall_us = (time.perf_counter() - t0) * 1e6
   n = TRAIN_PROFILE_STEPS
   kernels, intervals = {}, []
-  for e in prof.events():
-    start, end = e.time_range.start, e.time_range.end
-    if e.device_type != torch.autograd.DeviceType.CUDA or end <= start:
-      continue
+  for name, start, end in _device_events(torch, prof):
     intervals.append((start, end))
-    calls, us = kernels.get(e.name, (0, 0.0))
-    kernels[e.name] = (calls + 1, us + end - start)
+    calls, us = kernels.get(name, (0, 0.0))
+    kernels[name] = (calls + 1, us + end - start)
   busy_us = _busy_us(intervals)
   device_us = sum(us for _, us in kernels.values())
   # Every build of each kernel: flash_*_wgmma_kernel (bf16) as well as

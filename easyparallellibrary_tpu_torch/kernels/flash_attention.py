@@ -82,6 +82,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from easyparallellibrary_tpu_torch.kernels import _cost
+from easyparallellibrary_tpu_torch.observability.trace import step_span
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -480,9 +481,10 @@ def _flash_backward(ctx, dout, dlse):
   # cotangent folds in here: ds = p*(dp - delta + dlse).
   q, k, v, out, lse = ctx.saved_tensors
   dout = dout.contiguous()
-  delta = (dout.float() * out.float()).sum(-1)
-  if dlse is not None:
-    delta = delta - dlse.float()
+  with step_span("train/flash_delta"):
+    delta = (dout.float() * out.float()).sum(-1)
+    if dlse is not None:
+      delta = delta - dlse.float()
   dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal)
   dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal)
   return dq, dk, dv, None

@@ -101,6 +101,7 @@ from easyparallellibrary_tpu_torch.kernels.flash_attention import (
     FLASH_FWD_OP, flash_attention)
 from easyparallellibrary_tpu_torch.kernels.paged_attention import (
     PagedTiles, paged_attention)
+from easyparallellibrary_tpu_torch.observability.trace import step_span
 from easyparallellibrary_tpu_torch.ops import bridging
 from easyparallellibrary_tpu_torch.ops.layers import Dense, Embedding, LayerNorm
 from easyparallellibrary_tpu_torch.ops.losses import (
@@ -605,9 +606,10 @@ def _remat_block(block: nn.Module, x, policy: str, dtype, drop_key=None,
     params = dict(block.named_parameters())
 
   def run(h):
-    return torch.func.functional_call(block, params, (h,),
-                                      {"dtype": dtype, "drop_key": drop_key,
-                                       "return_aux": True})
+    with step_span("train/remat"):
+      return torch.func.functional_call(block, params, (h,),
+                                        {"dtype": dtype, "drop_key": drop_key,
+                                         "return_aux": True})
 
   context = _remat_context(policy)
   if context is None:
@@ -936,10 +938,11 @@ def _chunked_tied_ce(model: GPT, params, hidden, targets):
   def chunk_loss(h, t, table):
     # Vocab-parallel: the table is this rank's block; the hidden state
     # enters the split region (its gradient sums over the ranks).
-    h = bridging.copy_to_split(h) if model.tp > 1 else h
-    logits = torch.matmul(h, table.to(h.dtype).t())
-    return distributed_sparse_softmax_cross_entropy_with_logits(
-        t, logits, z_loss=cfg.z_loss, vocab_size=cfg.vocab_size).sum()
+    with step_span("train/remat"):
+      h = bridging.copy_to_split(h) if model.tp > 1 else h
+      logits = torch.matmul(h, table.to(h.dtype).t())
+      return distributed_sparse_softmax_cross_entropy_with_logits(
+          t, logits, z_loss=cfg.z_loss, vocab_size=cfg.vocab_size).sum()
 
   total = torch.zeros((), dtype=torch.float32, device=hidden.device)
   for i in range(S // C):

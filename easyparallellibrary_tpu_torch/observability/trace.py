@@ -37,9 +37,9 @@ Design constraints, in order:
    window — exactly the window a post-mortem needs ("what happened
    between step 400 and the rollback at 412").
 3. **Cheap when off.**  A disabled tracer's ``span()`` returns a
-   module-level null context manager: one attribute read and no
-   allocation, so instrumentation can stay unconditionally in hot
-   loops.
+   module-level null context manager: one check that no
+   ``torch.profiler`` runs, one attribute read and no allocation, so
+   instrumentation can stay unconditionally in hot loops.
 4. **Leader-only export.**  Every process records (cheap), only
    process 0 (the ``torch.distributed`` rank, 0 without a process
    group) writes the JSON — the metrics writers' rule
@@ -58,11 +58,14 @@ file shows the whole fleet and a request flow arcs across process
 boundaries.
 
 The export is standard Chrome trace-event JSON: load it at
-``ui.perfetto.dev`` or ``chrome://tracing``.  Device-side timelines are
-attached with :meth:`Tracer.device_trace`, which brackets a
-``torch.profiler`` capture (CPU and CUDA activities, exported as a
-Chrome trace) with a host span so the two timelines correlate by wall
-clock.
+``ui.perfetto.dev`` or ``chrome://tracing``.  Device-side timelines come
+from ``torch.profiler``: while a profiler runs, every context-manager
+span (:meth:`Tracer.span`) also opens a
+``torch.autograd.profiler.record_function`` of its name, whether or not
+the tracer is enabled, so the program's spans sit in the profiler's own
+event stream, on its clock, around the kernels they launch.
+:meth:`Tracer.device_trace` brackets such a capture and writes it as a
+Chrome trace; the ring's own export stays on the tracer's clock.
 """
 
 from __future__ import annotations
@@ -74,6 +77,9 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+from torch._C._autograd import _profiler_enabled
 
 from easyparallellibrary_tpu_torch.utils.device import process_index
 from easyparallellibrary_tpu_torch.utils.logging import get_logger
@@ -90,7 +96,8 @@ _ENC = {"separators": (",", ":"), "default": str}
 
 
 class _NullSpan:
-  """No-op context manager returned by a disabled tracer's ``span()``."""
+  """No-op context manager returned by ``span()`` when it records
+  nothing and no profiler runs."""
   __slots__ = ()
 
   def __enter__(self):
@@ -104,27 +111,38 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-  """Live span handle: records E on exit (always, even on exceptions,
-  so an error escaping a phase still closes its span)."""
-  __slots__ = ("_tracer", "_name", "_cat", "_tid", "_args")
+  """Live span handle: records B on entry and E on exit (always, even on
+  exceptions, so an error escaping a phase still closes its span) when
+  ``tracer`` is given, and holds a ``record_function`` of the same name
+  open when ``mirror`` is set (a ``torch.profiler`` capture runs)."""
+  __slots__ = ("_tracer", "_name", "_cat", "_tid", "_args", "_range")
 
-  def __init__(self, tracer: "Tracer", name: str, cat: str, tid: int,
-               args: Optional[Dict[str, Any]] = None):
+  def __init__(self, tracer: Optional["Tracer"], name: str, cat: str,
+               tid: int, args: Optional[Dict[str, Any]] = None,
+               mirror: bool = False):
     self._tracer = tracer
     self._name = name
     self._cat = cat
     self._tid = tid
     self._args = args
+    self._range = torch.autograd.profiler.record_function(name) \
+        if mirror else None
 
   def __enter__(self):
     t = self._tracer
-    t._append("B", self._name, self._cat, t.now_us(), self._tid,
-              self._args)
+    if t is not None:
+      t._append("B", self._name, self._cat, t.now_us(), self._tid,
+                self._args)
+    if self._range is not None:
+      self._range.__enter__()
     return self
 
   def __exit__(self, *exc):
+    if self._range is not None:
+      self._range.__exit__(*exc)
     t = self._tracer
-    t._append("E", self._name, self._cat, t.now_us(), self._tid, None)
+    if t is not None:
+      t._append("E", self._name, self._cat, t.now_us(), self._tid, None)
     return False
 
 
@@ -134,13 +152,12 @@ class Tracer:
   ``sample_rate`` in (0, 1] drives deterministic sampling of the
   per-step train-loop phases: fit() makes ONE decision per step with
   :meth:`sample_tick` and gates all of that step's phase spans on it
-  (the ``record=`` argument), so a sampled step keeps its FULL phase
-  set — including phases only some steps reach (host sync on log
+  (the ``record=`` argument, and :meth:`sampled` for the phases inside
+  the train step, :func:`step_span`), so a sampled step keeps its FULL
+  phase set — including phases only some steps reach (host sync on log
   boundaries) — and a long run can keep per-step phases at, say, 1%
   without losing the request-lifecycle and checkpoint events that are
-  always recorded.  A bare ``span(..., sample=True)`` ticks an
-  accumulator keyed by its own span name, for standalone call sites
-  that sample one recurring span.
+  always recorded.
   """
 
   def __init__(self, *, enabled: bool = True, ring_capacity: int = 65536,
@@ -164,6 +181,9 @@ class Tracer:
     self._lock = threading.Lock()
     self._t0_ns = time.perf_counter_ns()
     self._sample_accs: Dict[str, float] = {}
+    # The current step's sampling decision, read by the spans inside the
+    # train step (step_span); True outside fit(): every step records.
+    self.step_record = True
     # Eviction accounting off the hot path: one int increment per
     # append; `dropped` is derived at read time.
     self._n_appended = 0
@@ -238,18 +258,29 @@ class Tracer:
     self._sample_accs[key] = acc - 1.0
     return True
 
+  @contextlib.contextmanager
+  def sampled(self, record: bool):
+    """Hold a step's sampling decision (:meth:`sample_tick`) while the
+    step runs, for the spans inside it (:func:`step_span`)."""
+    before, self.step_record = self.step_record, record
+    try:
+      yield
+    finally:
+      self.step_record = before
+
   def span(self, name: str, cat: str = "", track: Optional[str] = None,
-           sample: bool = False, args: Optional[Dict[str, Any]] = None,
-           record: bool = True):
-    """Context manager recording a B/E pair around the body.
-    ``record=False`` returns the null span — for call sites that made a
-    per-step sampling decision with :meth:`sample_tick` up front.  With
-    ``sample=True`` the span ticks its own name's accumulator instead."""
+           args: Optional[Dict[str, Any]] = None, record: bool = True):
+    """Context manager recording a B/E pair around the body when the
+    tracer is enabled and ``record`` holds (``record=False``: for call
+    sites that made a per-step sampling decision with
+    :meth:`sample_tick` up front).  While a ``torch.profiler`` capture
+    runs, the body also runs inside a ``record_function`` of ``name``,
+    recorded or not; otherwise a span that records nothing is the
+    shared null span."""
+    mirror = _profiler_enabled()
     if not self.enabled or not record:
-      return _NULL_SPAN
-    if sample and not self.sample_tick(name):
-      return _NULL_SPAN
-    return _Span(self, name, cat, self.track(track), args)
+      return _Span(None, name, cat, 0, mirror=True) if mirror else _NULL_SPAN
+    return _Span(self, name, cat, self.track(track), args, mirror)
 
   def span_at(self, name: str, t0_us: float, t1_us: float, cat: str = "",
               track: Optional[str] = None,
@@ -314,15 +345,15 @@ class Tracer:
 
   @contextlib.contextmanager
   def device_trace(self, log_dir: str, name: str = "device_trace"):
-    """Bracket a ``torch.profiler`` capture (CPU activities, and CUDA
-    activities where a card is present) with a host span, so the device
-    timeline (``<log_dir>/device_trace.json``, Chrome trace format) and
-    this tracer's host timeline correlate by wall clock.  Yields the
-    profiler.  The capture runs whether or not the tracer is enabled —
-    the span is recorded only when it is.  The profiler synchronises the
-    card and adds host work while it is active: arm it for one step, not
-    for a run."""
-    import torch
+    """Run a ``torch.profiler`` capture (CPU activities, and CUDA
+    activities where a card is present) and write it to
+    ``<log_dir>/device_trace.json`` (Chrome trace format).  The
+    program's context-manager spans opened inside it are in that file,
+    as ``record_function`` ranges on the profiler's clock around the
+    kernels they launch.  The ring gets one span ``name`` over the
+    capture, on the tracer's clock, when the tracer is enabled.  Yields
+    the profiler.  The profiler synchronises the card and adds host work
+    while it is active: arm it for one step, not for a run."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -564,6 +595,18 @@ def get_tracer() -> Tracer:
   """The ambient tracer (never None; a disabled singleton when nothing
   is configured)."""
   return _tracer if _tracer is not None else _DISABLED
+
+
+def step_span(name: str):
+  """A span of one of the train step's phases (``train/forward``,
+  ``train/backward``, ``train/optimizer``, ``train/remat``,
+  ``train/flash_delta``) on the ambient tracer's ``train`` track: in the
+  ring when the tracer is enabled and the step is sampled
+  (:meth:`Tracer.sampled`), in a running ``torch.profiler`` capture
+  either way."""
+  tracer = get_tracer()
+  return tracer.span(name, cat="train", track="train",
+                     record=tracer.step_record)
 
 
 def install(tracer: Optional[Tracer]) -> Optional[Tracer]:

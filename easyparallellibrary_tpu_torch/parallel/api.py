@@ -32,6 +32,7 @@ import torch
 from easyparallellibrary_tpu_torch import constants
 from easyparallellibrary_tpu_torch.communicators import collectives, fusion
 from easyparallellibrary_tpu_torch.env import Env
+from easyparallellibrary_tpu_torch.observability.trace import step_span
 
 
 class TrainState:
@@ -397,11 +398,14 @@ def make_train_step(loss_fn: Callable, *,
     from easyparallellibrary_tpu_torch.parallel.metrics import collect_merged
     for p in state.params.values():
       p.grad = None
-    loss, aux = loss_fn(state.params, batch, rng)
+    with step_span("train/forward"):
+      loss, aux = loss_fn(state.params, batch, rng)
     aux = {**(aux or {}), **collect_merged()}
-    loss.backward()
+    with step_span("train/backward"):
+      loss.backward()
     reduce_gradients(state.params, method, model=state.apply_fn)
-    state.apply_gradients()
+    with step_span("train/optimizer"):
+      state.apply_gradients()
     return state, {"loss": mean_loss(loss, state.apply_fn), **aux}
 
   return train_step

@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
+from easyparallellibrary_tpu_torch.observability.trace import step_span
 from easyparallellibrary_tpu_torch.utils import prng
 
 
@@ -28,11 +29,13 @@ def backward_fn(loss_fn: Callable,
   ``.grad``.  Returns the unweighted loss, detached, and ``aux``."""
 
   def grad_fn(params, batch, rng, weight: float = 1.0):
-    loss, aux = loss_fn(params, batch, rng)
+    with step_span("train/forward"):
+      loss, aux = loss_fn(params, batch, rng)
     scaled = loss * weight if weight != 1.0 else loss
     if loss_scale is not None:
       scaled = scaled * loss_scale.to(loss.dtype)
-    scaled.backward()
+    with step_span("train/backward"):
+      scaled.backward()
     return loss.detach(), dict(aux or {})
 
   return grad_fn

@@ -333,7 +333,7 @@ def fit(step_fn: Callable,
       ptrs = [p.data_ptr() for p in state.params.values()] if capture \
           else None
       with tracer.span("train/step_dispatch", cat="train", track="train",
-                       record=step_rec):
+                       record=step_rec), tracer.sampled(step_rec):
         state, metrics = step_fn(state, batch,
                                  prng.host_fold_in(rng, step_idx))
       if capture:

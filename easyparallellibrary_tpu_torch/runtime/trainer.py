@@ -24,6 +24,7 @@ from typing import Callable, Optional
 import torch
 
 from easyparallellibrary_tpu_torch.env import Env
+from easyparallellibrary_tpu_torch.observability.trace import step_span
 from easyparallellibrary_tpu_torch.parallel.api import (
     TrainState, mean_loss, reduce_gradients)
 from easyparallellibrary_tpu_torch.runtime import amp as amp_lib
@@ -101,7 +102,8 @@ def build_train_step(loss_fn: Optional[Callable] = None,
         raise ValueError("a guarded step (loss scale or anomaly sentinel) "
                          "does not compose with ZeRO")
       from easyparallellibrary_tpu_torch.runtime.zero import apply_sharded
-      apply_sharded(state, cfg.communication.gradients_reduce_method)
+      with step_span("train/optimizer"):
+        apply_sharded(state, cfg.communication.gradients_reduce_method)
       return state, {"loss": loss, **(aux or {})}
     # Over a data axis (and the model's split axes), the gradient mean
     # GSPMD inserts in the JAX step (a no-op on one rank); the loss
@@ -109,7 +111,8 @@ def build_train_step(loss_fn: Optional[Callable] = None,
     reduce_gradients(params, cfg.communication.gradients_reduce_method,
                      model=model)
     if not (scaled or sentinel_on):
-      apply_grad_group(state.opt_state, params, num_apply_group)
+      with step_span("train/optimizer"):
+        apply_grad_group(state.opt_state, params, num_apply_group)
       state.step = state.step + 1
       return state, {"loss": loss, **(aux or {})}
     if not _is_fused(state.opt_state):
@@ -123,8 +126,9 @@ def build_train_step(loss_fn: Optional[Callable] = None,
     grads_finite = resilience_lib.grads_nonfinite(grads, inv) == 0
     finite = grads_finite & resilience_lib.finite_check(loss) \
         if sentinel_on else grads_finite
-    apply_grad_group(state.opt_state, params, num_apply_group,
-                     found_inf=(~finite).to(torch.float32))
+    with step_span("train/optimizer"):
+      apply_grad_group(state.opt_state, params, num_apply_group,
+                       found_inf=(~finite).to(torch.float32))
     # A tensor plus the host count: no copy of the count to the device.
     state.step = finite.to(torch.int32) + state.step
     metrics = {"loss": loss, "grads_finite": finite.to(torch.float32)}

@@ -44,13 +44,17 @@ from easyparallellibrary_tpu.serving import (
 from easyparallellibrary_tpu.testing import chaos as jchaos
 from easyparallellibrary_tpu.utils import metrics_writer as jwriter
 from easyparallellibrary_tpu_torch.kernels import _build
+from easyparallellibrary_tpu_torch.models import bert as tbert
 from easyparallellibrary_tpu_torch.models import gpt as tgpt
 from easyparallellibrary_tpu_torch.observability import device as tdevice
 from easyparallellibrary_tpu_torch.observability import registry as tregistry
 from easyparallellibrary_tpu_torch.observability import report as treport
 from easyparallellibrary_tpu_torch.observability import slo as tslo
 from easyparallellibrary_tpu_torch.observability import trace as ttrace
+from easyparallellibrary_tpu_torch.ops import adamw as tadamw
+from easyparallellibrary_tpu_torch.parallel import api as tapi
 from easyparallellibrary_tpu_torch.profiler.serving import ServingStats
+from easyparallellibrary_tpu_torch.runtime import loop as tloop
 from easyparallellibrary_tpu_torch.serving import (
     ContinuousBatchingEngine, NgramDrafter, Request)
 from easyparallellibrary_tpu_torch.testing import chaos
@@ -617,21 +621,15 @@ def test_tracer_concurrent_recording_is_consistent():
   assert len(tids) == len(set(tids))
 
 
-def test_tracer_sampling_is_deterministic_and_keeps_whole_steps():
-  """``sample=True`` spans and per-step ``sample_tick`` decisions record
-  exactly what JAX's tracer records on the same sequence: every other
-  span at rate 0.5, and every 4th step's whole phase set at 0.25."""
-  recorded = {}
-  for impl, tracer in zip(("jax", "port"),
-                          _both_tracers(enabled=True, sample_rate=0.5)):
-    for _ in range(10):
-      with tracer.span("s", sample=True):
-        pass
-    recorded[impl] = [e["ts"] > 0 for e in tracer.events() if e["ph"] == "B"]
-  assert len(recorded["port"]) == len(recorded["jax"]) == 5
+@pytest.mark.parametrize("rate,want", [(0.5, {1, 3, 5, 7}), (0.25, {3, 7})])
+def test_tracer_sampling_is_deterministic_and_keeps_whole_steps(rate, want):
+  """Per-step ``sample_tick`` decisions, passed to every phase span as
+  ``record=``, record exactly what JAX's tracer records on the same
+  sequence: every other step's whole phase set at rate 0.5, every 4th
+  at 0.25, phases that only some steps reach included."""
   steps = {}
   for impl, tracer in zip(("jax", "port"),
-                          _both_tracers(enabled=True, sample_rate=0.25)):
+                          _both_tracers(enabled=True, sample_rate=rate)):
     kept = []
     for step in range(8):
       rec = tracer.sample_tick("train")
@@ -645,13 +643,14 @@ def test_tracer_sampling_is_deterministic_and_keeps_whole_steps():
           kept.append((step, phase))
     steps[impl] = kept
   assert steps["port"] == steps["jax"]
-  assert {s for s, _ in steps["port"]} == {3, 7}
+  assert {s for s, _ in steps["port"]} == want
+  assert len(steps["port"]) == sum(3 if s % 2 else 2 for s in want)
 
 
 def test_tracer_disabled_is_noop_and_null_span_shared():
   tracer = ttrace.Tracer(enabled=False, ring_capacity=8)
   s1 = tracer.span("a")
-  s2 = tracer.span("b", sample=True)
+  s2 = tracer.span("b", record=False)
   assert s1 is s2 is ttrace._NULL_SPAN
   with s1:
     tracer.instant("x")
@@ -679,6 +678,167 @@ def test_device_trace_brackets_a_torch_profiler_capture(tmp_path):
     torch.ones(2) + 1
   assert (tmp_path / "b" / "device_trace.json").exists()
   assert not list(off._events)
+
+
+# ------------------------------------------------- the train step's spans
+
+STEP_SPANS = {"train/forward", "train/backward", "train/optimizer",
+              "train/remat", "train/flash_delta"}
+
+
+def _tiny_step(family):
+  """A tiny train step with flash attention and remat on (GPT:
+  ``dots_flash`` and the chunked tied head; BERT: whole blocks), its
+  state and a batch, on the CPU."""
+  tepl.init(device="cpu")
+  gen = torch.Generator().manual_seed(0)
+  kw = dict(TINY, dtype=torch.float32, attn_impl="pallas_flash", remat=True)
+  if family == "gpt":
+    with tepl.replicate(1):
+      model = tgpt.GPT(tgpt.GPTConfig(**kw, remat_policy="dots_flash",
+                                      loss_chunk=8))
+    step = tapi.make_train_step(
+        lambda p, b, r: tgpt.gpt_loss(model, p, b, r))
+    batch = {"ids": torch.randint(0, TINY["vocab_size"], (2, 17),
+                                  generator=gen)}
+  else:
+    with tepl.replicate(1):
+      model = tbert.Bert(tbert.BertConfig(**kw))
+    step = tbert.make_bert_train_step(model)
+    ids = torch.randint(4, TINY["vocab_size"], (2, 16), generator=gen)
+    mask = torch.zeros(2, 16)
+    mask[:, ::4] = 1
+    batch = {"ids": ids, "labels": ids, "mask": mask}
+  mesh = tepl.current_plan().build_mesh()
+  params = {n: 0.02 * torch.randn(p.shape, generator=gen)
+            for n, p in model.named_parameters()}
+  state, shardings = tapi.create_sharded_train_state(
+      lambda: tapi.TrainState.create(apply_fn=model, params=params,
+                                     tx=tadamw.adamw(1e-3)), mesh)
+  return tapi.parallelize(step, mesh, shardings), state, batch
+
+
+def _refuse_step_ranges(monkeypatch):
+  """``record_function`` raises for the train step's span names (torch's
+  own optimizer opens one of its own on every step)."""
+  real = torch.autograd.profiler.record_function
+
+  def guarded(name, *args, **kwargs):
+    if name in STEP_SPANS:
+      raise AssertionError(f"record_function({name!r}) outside a profiler")
+    return real(name, *args, **kwargs)
+
+  monkeypatch.setattr(torch.autograd.profiler, "record_function", guarded)
+
+
+def _profiled_spans(fn):
+  """``[(start_us, end_us, name)]`` of the ``train/*`` ranges a CPU
+  ``torch.profiler`` capture of ``fn()`` holds, by start."""
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CPU]) as prof:
+    fn()
+  return sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events() if e.name.startswith("train/"))
+
+
+def _enclosing(spans, span):
+  start, end, _ = span
+  return {n for s, e, n in spans if s <= start and end <= e
+          and (s, e, n) != span}
+
+
+def test_span_mirrors_into_a_running_profiler_whatever_the_tracer():
+  """Off and with no profiler, ``span`` is the shared null span; under a
+  profiler every context-manager span is a ``record_function`` range,
+  sampled or not, and only an enabled tracer's sampled span reaches the
+  ring."""
+  for enabled in (False, True):
+    tracer = ttrace.Tracer(enabled=enabled)
+    assert (tracer.span("a") is ttrace._NULL_SPAN) is not enabled
+    assert tracer.span("a", record=False) is ttrace._NULL_SPAN
+
+    def body(tracer=tracer):
+      with tracer.span("train/forward", cat="train", track="train"):
+        torch.ones(2) + 1
+      with tracer.span("train/backward", record=False):
+        torch.ones(2) + 1
+
+    spans = _profiled_spans(body)
+    assert [n for _, _, n in spans] == ["train/forward", "train/backward"]
+    ring = [e["name"] for e in tracer.events() if e["ph"] == "B"]
+    assert ring == (["train/forward"] if enabled else [])
+
+
+@pytest.mark.parametrize("family", ["gpt", "bert"])
+def test_train_step_calls_no_record_function_with_nothing_on(family,
+                                                              monkeypatch):
+  step, state, batch = _tiny_step(family)
+  _refuse_step_ranges(monkeypatch)
+  state, metrics = step(state, batch, None)
+  assert torch.isfinite(metrics["loss"])
+  assert ttrace.get_tracer().pending == 0
+
+
+@pytest.mark.parametrize("family", ["gpt", "bert"])
+def test_train_step_spans_nest_in_a_profiler_capture(family):
+  """Under a CPU capture the step holds the five phases: forward,
+  backward and optimizer in turn, the remat body inside the forward (its
+  first run) and inside the backward (the recompute, through the
+  selective-checkpoint dispatch mode on GPT), K1's ``delta`` inside the
+  backward."""
+  step, state, batch = _tiny_step(family)
+  state, _ = step(state, batch, None)
+  spans = _profiled_spans(lambda: step(state, batch, None))
+  assert {n for _, _, n in spans} == STEP_SPANS
+  top = [n for s in spans if not _enclosing(spans, s) for n in s[2:]]
+  assert top == ["train/forward", "train/backward", "train/optimizer"]
+  remat = [_enclosing(spans, s) for s in spans if s[2] == "train/remat"]
+  assert {"train/forward"} in remat and {"train/backward"} in remat
+  assert all(len(o) == 1 for o in remat)
+  delta = [_enclosing(spans, s) for s in spans if s[2] == "train/flash_delta"]
+  assert len(delta) == TINY["num_layers"]
+  assert all(o == {"train/backward"} for o in delta)
+
+
+@pytest.mark.parametrize("family", ["gpt", "bert"])
+def test_train_step_spans_reach_an_enabled_tracer_alone(family, monkeypatch):
+  """With a tracer on and no profiler the phases nest in the ring's
+  ``train`` track (the export validates) and no ``record_function``
+  opens."""
+  step, state, batch = _tiny_step(family)
+  tracer = ttrace.install(ttrace.Tracer())
+  _refuse_step_ranges(monkeypatch)
+  step(state, batch, None)
+  events = ttrace.validate_trace(tracer.events())
+  names = [e["name"] for e in events if e.get("ph") == "B"]
+  assert set(names) == STEP_SPANS
+  assert names.count("train/flash_delta") == TINY["num_layers"]
+  assert {e["tid"] for e in events if e.get("ph") == "B"} == {
+      tracer.track("train")}
+
+
+def test_fit_keeps_the_step_spans_on_exactly_the_sampled_steps():
+  """At ``sample_rate`` 0.5, fit's every other step records its whole
+  phase set inside its ``train/step_dispatch`` and the other steps
+  record none."""
+  step, state, batch = _tiny_step("gpt")
+  tracer = ttrace.install(ttrace.Tracer(sample_rate=0.5))
+  tloop.fit(step, state, [batch] * 4, num_steps=4, log_every=0,
+            device="cpu")
+  events = ttrace.validate_trace(tracer.events())
+  dispatch, inside = [], []
+  for e in events:
+    if e.get("name") == "train/step_dispatch":
+      if e["ph"] == "B":
+        dispatch.append([e["ts"], None])
+      else:
+        dispatch[-1][1] = e["ts"]
+    elif e.get("ph") == "B" and e["name"] in STEP_SPANS:
+      inside.append((e["ts"], e["name"]))
+  assert len(dispatch) == 2
+  for start, end in dispatch:
+    assert {n for t, n in inside if start <= t <= end} == STEP_SPANS
+  assert all(any(a <= t <= b for a, b in dispatch) for t, _ in inside)
 
 
 VALIDATE_NEGATIVES = {
