@@ -342,6 +342,20 @@ run phases 8 and 10 already take the committed table's builds):
     every K1 launch on its arm's build (``by_tile``), the losses of 3
     steps from the same weights within one bf16 spacing, step ms and MFU
     in ABBA chains.
+
+``--phases 28`` runs K3, the LayerNorm kernels (in the whole run too):
+
+28. (a) the forward and backward kernels against the plain version at
+    the benchmark's rows, ``[65536, 1024]`` bf16 (y, dx, dgamma and
+    dbeta by the tolerances of ``tests/test_torch_layer_norm.py``, and
+    normalized errors); (b) each kernel's ms (CUDA events), the bytes
+    bound (x and y, or x, dy and dx, once over 3.35 TB/s), the plain
+    version's ms (the formula, and autograd's backward of it alone),
+    ``F.layer_norm``'s forward and backward as the library yardstick,
+    and each wrapper's host time per call; (c) bench.py's GPT-350M bf16
+    step (``dots_flash``) cut to 4 layers, 2 steps: K3's launches at
+    their count (two LayerNorms a block, twice forward with the
+    recompute, and ``ln_f``), no plain call on the card.
 """
 
 from __future__ import annotations
@@ -427,6 +441,10 @@ FLASH_SHAPES = [("training_b2", dict(B=2, H=16, S=1024, D=64)),
                 ("ragged_s200", dict(B=2, H=3, S=200, D=64)),
                 ("d128", dict(B=2, H=4, S=384, D=128))]
 FLASH_BENCH_SHAPE = dict(B=16, H=16, S=1024, D=64)
+# Phase 28: the benchmark cells' LayerNorm rows (64 x 1024 tokens, d_model
+# 1024) and the GPT step's cut.
+LN_BENCH_SHAPE = (65536, 1024)
+LN_STEP_LAYERS, LN_STEP_BATCH, LN_STEP_STEPS = 4, 8, 2
 TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH, TRAIN_FP32_STEPS = 4, 4, 3
 TRAIN_PROFILE_STEPS = 2
 BF16_GAP_STEPS = 8
@@ -6778,6 +6796,117 @@ def tile_phase(torch, fa, bench):
   return dict(infos=infos, worst=worst, rows=rows, step=step)
 
 
+def layer_norm_phase(torch, bench):
+  """Phase 28: K3 against its plain version and its times at the
+  benchmark's rows, then its launches on a GPT step."""
+  from easyparallellibrary_tpu_torch.kernels import layer_norm as ln
+  import torch.nn.functional as F
+  R, d = LN_BENCH_SHAPE
+  eps = 1e-6
+  r = np.random.RandomState(28)
+  dev = torch.device("cuda")
+
+  def draw(shape, scale=1.0, shift=0.0):
+    return torch.from_numpy((shift + scale * r.randn(*shape)).astype(
+        np.float32)).to(dev)
+
+  x = draw((R, d), shift=0.5).to(torch.bfloat16)
+  dy = draw((R, d)).to(torch.bfloat16)
+  w, b = draw((d,), 0.5, 1.0), draw((d,), 0.5)
+  with Phase("28a. K3 vs its plain version at [65536, 1024] bf16"):
+    ln.reset_counts()
+    y = ln.layer_norm_fwd_cuda(x, w, b, eps, torch.bfloat16)
+    grads = ln.layer_norm_bwd_cuda(x, w, dy, eps)
+    torch.cuda.synchronize()
+    want_y = ln.layer_norm_reference(x, w, b, eps, torch.bfloat16)
+    want = ln.layer_norm_bwd_reference(x, w, b, dy, eps)
+    # tests/test_torch_layer_norm.py's tolerances: one bf16 ulp (2^-7)
+    # and 4e-5 for outputs, 1e-4 for the fp32 column sums.
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=2.0 ** -7,
+                               atol=4e-5)
+    torch.testing.assert_close(grads[0].float(), want[0].float(),
+                               rtol=2.0 ** -7, atol=4e-5)
+    for got, ref in zip(grads[1:], want[1:]):
+      torch.testing.assert_close(got, ref, rtol=1e-4,
+                                 atol=1e-4 * ref.abs().max().item())
+    errs = {name: normalized_errors(g, h) for name, g, h in zip(
+        ("y", "dx", "dgamma", "dbeta"), (y,) + tuple(grads),
+        (want_y,) + tuple(want))}
+    for name, (rel, mx) in errs.items():
+      log(f"   {name:6s} rel l2 {rel:.3e}, max rel {mx:.3e}")
+    again = ln.layer_norm_bwd_cuda(x, w, dy, eps)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    log("   dx, dgamma, dbeta bit-equal on a second run")
+    del y, grads, again, want_y, want
+
+  with Phase("28b. K3 timing at [65536, 1024] bf16"):
+    n = R * d
+    bound = {"fwd": (4 * n + 8 * d) / HBM_BYTES_PER_S * 1e3,
+             "bwd": (6 * n + 12 * d) / HBM_BYTES_PER_S * 1e3}
+    args = [(x, w, b, dy), (x.clone(), w, b, dy.clone())]
+    xs = [a[0].clone().requires_grad_() for a in args]
+    ws = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+          for _ in args]
+    plain_graph = [ln._formula(xi, wi, bi, eps, torch.bfloat16)
+                   for xi, (wi, bi) in zip(xs, ws)]
+    wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    lib_graph = [F.layer_norm(xi, (d,), wl, bl, eps) for xi in xs]
+    times = {
+        "fwd": time_ms(torch, lambda x_, w_, b_, _: ln.layer_norm_fwd_cuda(
+            x_, w_, b_, eps, torch.bfloat16), args),
+        "bwd": time_ms(torch, lambda x_, w_, _, dy_: ln.layer_norm_bwd_cuda(
+            x_, w_, dy_, eps), args),
+        "plain_fwd": time_ms(torch, lambda x_, w_, b_, _: ln._formula(
+            x_, w_, b_, eps, torch.bfloat16), args),
+        "plain_bwd": time_ms(torch, lambda yi, xi, wb, dy_:
+                             torch.autograd.grad(yi, (xi,) + wb, dy_,
+                                                 retain_graph=True),
+                             [(yi, xi, wb, a[3]) for yi, xi, wb, a in
+                              zip(plain_graph, xs, ws, args)]),
+        "library_fwd": time_ms(torch, lambda x_, *_: F.layer_norm(
+            x_, (d,), wl, bl, eps), args),
+        "library_bwd": time_ms(torch, lambda yi, xi, dy_:
+                               torch.autograd.grad(yi, (xi,), dy_,
+                                                   retain_graph=True),
+                               [(yi, xi, a[3]) for yi, xi, a in
+                                zip(lib_graph, xs, args)]),
+    }
+    del plain_graph, lib_graph, xs, ws
+    small = draw((8, d)).to(torch.bfloat16)
+    host = {"fwd": host_us(torch, lambda: ln.layer_norm_fwd_cuda(
+        small, w, b, eps, torch.bfloat16), ()),
+            "bwd": host_us(torch, lambda: ln.layer_norm_bwd_cuda(
+                small, w, small, eps), ())}
+    for k in ("fwd", "bwd"):
+      log(f"   {k}: kernel {times[k]:.4f} ms, bound {bound[k]:.4f} ms "
+          f"(bytes; {100 * bound[k] / times[k]:.1f}% of it), plain "
+          f"{times['plain_' + k]:.4f} ms, F.layer_norm "
+          f"{times['library_' + k]:.4f} ms, host {host[k]:.1f} us a call")
+    del x, dy
+
+  with Phase("28c. K3 on bench.py's GPT-350M bf16 step, 4 layers"):
+    cfg = bench.bench_config(dev, num_layers=LN_STEP_LAYERS)[0]
+    state, step, batch, rng, _ = bench.build_training(cfg, LN_STEP_BATCH,
+                                                      "cuda")
+    ln.reset_counts()
+    for _ in range(LN_STEP_STEPS):
+      state, metrics = step(state, batch, rng)
+    torch.cuda.synchronize()
+    launches = {"fwd": ln.layer_norm_fwd_cuda.launches,
+                "bwd": ln.layer_norm_bwd_cuda.launches}
+    plain = (ln.layer_norm_reference.calls, ln.layer_norm_bwd_reference.calls)
+    want_launches = {"fwd": LN_STEP_STEPS * (4 * LN_STEP_LAYERS + 1),
+                     "bwd": LN_STEP_STEPS * (2 * LN_STEP_LAYERS + 1)}
+    log(f"   K3 launches {launches} over {LN_STEP_STEPS} steps "
+        f"(want {want_launches}); plain calls {plain}; loss "
+        f"{metrics['loss'].item():.4f}")
+    assert launches == want_launches and plain == (0, 0), (launches, plain)
+    assert np.isfinite(metrics["loss"].item())
+    del state, step
+  return dict(errs=errs, times=times, bound=bound, host_us=host,
+              launches=launches)
+
+
 def kernel_record(torch_name, build, source, replaces, launches, err, row,
                   rel, limit, dtype="bf16", **extra):
   return {**extra, "name": torch_name, "route": "cuda", "build": build,
@@ -7051,6 +7180,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p27 = tile_phase(torch, fa, bench)
+  if want(28):
+    gc.collect()
+    torch.cuda.empty_cache()
+    p28 = layer_norm_phase(torch, bench)
   log(f"total {time.monotonic() - t_start:.1f} s")
   if only is not None:
     return 0
@@ -7227,7 +7360,19 @@ def main() -> int:
       paged_record("paged_attention_warp",
                    "paged_attention_kernel<float, float, float, 1>",
                    warp_launches, "float32"),
-  ] + flash_records + fp16_flash + [fp16_paged, mixed_paged]}), flush=True)
+  ] + flash_records + fp16_flash + [fp16_paged, mixed_paged] + [
+      {"name": f"layer_norm_{k}", "route": "cuda",
+       "build": f"layer_norm_{k}_kernel<__nv_bfloat16, __nv_bfloat16>",
+       "source": "easyparallellibrary_tpu_torch/kernels/csrc/layer_norm.cu",
+       "replaces": "none (the eager LayerNorm formula)",
+       "launches": p28["launches"][k], "ms": p28["times"][k],
+       "plain_ms": p28["times"][f"plain_{k}"],
+       "bound_ms": p28["bound"][k], "bound_by": "bytes",
+       "library_ms": p28["times"][f"library_{k}"],
+       "host_us": p28["host_us"][k], "shape": list(LN_BENCH_SHAPE),
+       "rel_errs": {n: p28["errs"][n] for n in (
+           ("y",) if k == "fwd" else ("dx", "dgamma", "dbeta"))}}
+      for k in ("fwd", "bwd")]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

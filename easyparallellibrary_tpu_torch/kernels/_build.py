@@ -26,7 +26,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
-KERNELS = ("paged_attention", "flash_attention")
+KERNELS = ("paged_attention", "flash_attention", "layer_norm")
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"

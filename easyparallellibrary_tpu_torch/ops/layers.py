@@ -63,6 +63,7 @@ from torch import nn
 
 from easyparallellibrary_tpu_torch import constants
 from easyparallellibrary_tpu_torch.communicators import collectives
+from easyparallellibrary_tpu_torch.kernels.layer_norm import layer_norm
 from easyparallellibrary_tpu_torch.ops import bridging
 
 
@@ -230,7 +231,9 @@ def _row_overlap_matmul(x, w, num_chunks: int):
 class LayerNorm(nn.Module):
   """flax ``nn.LayerNorm``: epsilon 1e-6, fp32 statistics with the fast
   variance ``E[x^2] - E[x]^2`` clipped at 0, scale and bias applied in
-  fp32, the result cast to ``dtype``."""
+  fp32, the result cast to ``dtype``.  One custom op,
+  ``epl_torch::layer_norm`` (``kernels/layer_norm.py``): K3's kernels on
+  the card, the formula on the CPU."""
 
   def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
                param_dtype: torch.dtype = torch.float32,
@@ -244,14 +247,8 @@ class LayerNorm(nn.Module):
                                          device=device))
 
   def forward(self, x, dtype: Optional[torch.dtype] = None):
-    stat_dtype = torch.promote_types(x.dtype, torch.float32)
-    xf = x.to(stat_dtype)
-    mean = xf.mean(-1, keepdim=True)
-    mean2 = (xf * xf).mean(-1, keepdim=True)
-    var = torch.clamp(mean2 - mean * mean, min=0.0)
-    mul = torch.rsqrt(var + self.epsilon) * self.weight
-    y = (xf - mean) * mul + self.bias
-    return y.to(dtype or self.dtype or x.dtype)
+    return layer_norm(x, self.weight, self.bias, self.epsilon,
+                      dtype or self.dtype or x.dtype)
 
 
 class Embedding(nn.Module):
